@@ -1,0 +1,78 @@
+"""Carry key material and era inputs into the port from numpy arrays.
+
+This system runs no model: its "weights" are the TPKE key material and each
+era's ciphertexts and decryption shares. The JAX package serializes them
+with its own `bls12381.g1_to_bytes` (96 bytes, affine x || y, all-zero for
+infinity), `g2_to_bytes` (192 bytes) and `fr_to_bytes` (32 bytes, big
+endian); these functions read those encodings from uint8 arrays and return
+the port's objects, with the same on-curve and subgroup checks.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+
+from .crypto import bls12381 as bls
+from .crypto.tpke import (
+    EncryptedShare,
+    PartiallyDecryptedShare,
+    TpkePrivateKey,
+    TpkePublicKey,
+    TpkeVerificationKey,
+)
+
+
+def _rows(a, width: int) -> List[bytes]:
+    a = np.asarray(a, dtype=np.uint8)
+    if a.ndim != 2 or a.shape[1] != width:
+        raise ValueError(f"expected a uint8 (n, {width}) array, got {a.shape}")
+    return [row.tobytes() for row in a]
+
+
+def _one(a, width: int) -> bytes:
+    return _rows(np.asarray(a, dtype=np.uint8).reshape(1, -1), width)[0]
+
+
+def tpke_keys_from_numpy(y, t: int, y_i, x_i):
+    """Serialized TPKE keys -> (TpkePublicKey, [TpkeVerificationKey],
+    [TpkePrivateKey]).
+
+    y: uint8 (96,) master key Y; t: threshold degree; y_i: uint8 (n, 96)
+    verification keys; x_i: uint8 (n, 32) private shares, validator i's at
+    row i."""
+    pub = TpkePublicKey(bls.g1_from_bytes(_one(y, bls.G1_BYTES)), t)
+    vks = [
+        TpkeVerificationKey(bls.g1_from_bytes(b))
+        for b in _rows(y_i, bls.G1_BYTES)
+    ]
+    privs = [
+        TpkePrivateKey(bls.fr_from_bytes(b), i)
+        for i, b in enumerate(_rows(x_i, bls.FR_BYTES))
+    ]
+    if len(vks) != len(privs):
+        raise ValueError("y_i and x_i must have one row per validator")
+    return pub, vks, privs
+
+
+def encrypted_share_from_numpy(u, v, w, share_id: int) -> EncryptedShare:
+    """u: uint8 (96,), v: uint8 (m,) padded message, w: uint8 (192,)."""
+    return EncryptedShare(
+        u=bls.g1_from_bytes(_one(u, bls.G1_BYTES)),
+        v=np.asarray(v, dtype=np.uint8).tobytes(),
+        w=bls.g2_from_bytes(_one(w, bls.G2_BYTES)),
+        share_id=share_id,
+    )
+
+
+def decrypted_shares_from_numpy(
+    ui, decryptor_ids: Sequence[int], share_id: int
+) -> List[PartiallyDecryptedShare]:
+    """ui: uint8 (k, 96) share points; decryptor_ids: k validator ids."""
+    pts = [bls.g1_from_bytes(b) for b in _rows(ui, bls.G1_BYTES)]
+    if len(pts) != len(decryptor_ids):
+        raise ValueError("one decryptor id per share row")
+    return [
+        PartiallyDecryptedShare(ui=p, decryptor_id=int(d), share_id=share_id)
+        for p, d in zip(pts, decryptor_ids)
+    ]

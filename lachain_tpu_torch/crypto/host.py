@@ -1,0 +1,56 @@
+"""Host crypto ops of the port: the pure-Python oracle behind a backend API.
+
+The subset of `lachain_tpu/crypto/provider.py` that the TPKE era path uses:
+pairings and hash-to-curve stay on the host, as they do in the JAX package,
+and the era pipeline's Z==0 escape and its `HostEraPipeline` oracle run the
+host MSM. `batch_bisect_verify` is the shared RLC bisection loop.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+from . import bls12381 as bls
+
+
+class HostBackend:
+    """Group ops, pairings and hashing on the host (pure Python)."""
+
+    def g1_msm(self, points: Sequence[tuple], scalars: Sequence[int]) -> tuple:
+        acc = bls.G1_INF
+        for pt, s in zip(points, scalars):
+            acc = bls.g1_add(acc, bls.g1_mul(pt, s))
+        return acc
+
+    def g1_mul(self, point: tuple, scalar: int) -> tuple:
+        return bls.g1_mul(point, scalar)
+
+    def g2_mul(self, point: tuple, scalar: int) -> tuple:
+        return bls.g2_mul(point, scalar)
+
+    def pairing_check(self, pairs: Sequence[Tuple[tuple, tuple]]) -> bool:
+        """Prod e(Pi, Qi) == 1 with one shared final exponentiation."""
+        return bls.fp12_eq_one(bls.multi_pairing(pairs))
+
+    def hash_to_g2(self, msg: bytes, domain: bytes = b"LTPU-G2") -> tuple:
+        return bls.hash_to_g2(msg, domain)
+
+
+def batch_bisect_verify(group_ok, n: int) -> List[bool]:
+    """Per-item validity from a probabilistic subset check `group_ok(idx)`:
+    one check when everything is valid, O(log n) checks per invalid item."""
+    results = [False] * n
+
+    def solve(idx):
+        if group_ok(idx):
+            for i in idx:
+                results[i] = True
+            return
+        if len(idx) == 1:
+            return
+        mid = len(idx) // 2
+        solve(idx[:mid])
+        solve(idx[mid:])
+
+    if n:
+        solve(list(range(n)))
+    return results

@@ -1,0 +1,333 @@
+"""G1 era engine: the kernel wrappers and pg1's composite programs.
+
+The port of `lachain_tpu/ops/pg1.py`. Four wrappers front the CUDA kernels
+of `csrc/g1.cu` (`fp_mul`, `g1_dbl`, `g1_add`, `msm_scan`); the composites
+above them (`build_table`, `msm_windowed`, `tree_reduce_k`, `era_kernel`,
+`era_kernel_fused`) are plain tensor code over those wrappers.
+
+Every wrapper dispatches on the device its tensors lie on, and on nothing
+else: on `cuda` it launches its kernel (or raises), on `cpu` it runs the
+plain version in `ops/g1_ref.py`. The two devices keep points in different
+layouts, each the natural one for its arithmetic:
+  * cuda: int32 rows holding 12 x 32-bit Montgomery limbs per coordinate,
+    a point is (36, n);
+  * cpu:  int64 rows holding pg1's 44 x 10-bit signed plain limbs, a point
+    is (132, n), so the CPU tests compare with pg1 limb for limb.
+`g1_pack` / `g1_unpack` / `fp_encode` / `fp_decode` convert oracle ints to
+and from either layout; the composites only ever slice a point into thirds.
+
+`LAUNCHES` counts the kernel launches of each wrapper (CUDA only), so a run
+can show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..crypto import bls12381 as bls
+from . import _build, g1_ref, glv
+from .glv import TABLE
+
+NL = 12  # 32-bit Montgomery limbs per coordinate on the card
+_MONT_R = 1 << 384
+_R2 = _MONT_R * _MONT_R % bls.P  # x * R^2 / R = x R: into Montgomery form
+
+LAUNCHES = {"fp_mul": 0, "g1_dbl": 0, "g1_add": 0, "g1_msm_scan": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# the four kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _on_cpu(*ts) -> bool:
+    """True when every tensor is on the CPU, False when all are on one CUDA
+    device; raises on anything else."""
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return False
+
+
+def _cpu_layout(device) -> bool:
+    """True where points use g1_ref's limbs (the CPU), False for the
+    card's Montgomery words."""
+    return torch.device(device).type == "cpu"
+
+
+def _check(name: str, t, shape) -> None:
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fp_mul(x, y):
+    """(R, n) x (R, n) -> (R, n) field product x*y mod p
+    (replaces pg1 `_mul_kernel`)."""
+    if _on_cpu(x, y):
+        return g1_ref.fp_mul(x, y)
+    n = x.shape[-1]
+    _check("fp_mul x", x, (NL, n))
+    _check("fp_mul y", y, (NL, n))
+    out = torch.empty_like(x)
+    rc = _build.library().lt_g1_fp_mul(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), n, _stream(x)
+    )
+    _launched("fp_mul", rc)
+    return out
+
+
+def g1_dbl(p):
+    """(3R, n) -> (3R, n) Jacobian doubling (replaces pg1 `_dbl_kernel`)."""
+    if _on_cpu(p):
+        return g1_ref.dbl(p)
+    n = p.shape[-1]
+    _check("g1_dbl p", p, (3 * NL, n))
+    out = torch.empty_like(p)
+    rc = _build.library().lt_g1_dbl(p.data_ptr(), out.data_ptr(), n, _stream(p))
+    _launched("g1_dbl", rc)
+    return out
+
+
+def g1_add(p, q):
+    """(3R, n) x (3R, n) -> (3R, n) incomplete Jacobian add, p != +-q, both
+    finite (replaces pg1 `_add_kernel`)."""
+    if _on_cpu(p, q):
+        return g1_ref.add_incomplete(p, q)
+    n = p.shape[-1]
+    _check("g1_add p", p, (3 * NL, n))
+    _check("g1_add q", q, (3 * NL, n))
+    out = torch.empty_like(p)
+    rc = _build.library().lt_g1_add(
+        p.data_ptr(), q.data_ptr(), out.data_ptr(), n, _stream(p)
+    )
+    _launched("g1_add", rc)
+    return out
+
+
+def msm_scan(table, digits):
+    """table (16, 3R, n), digits (W, n) int32 in [0, 16), MSB-first ->
+    ((3R, n) accumulators, (n,) bool infinity flags)
+    (replaces pg1 `_msm_kernel` / `_msm_scan`)."""
+    if _on_cpu(table, digits):
+        return g1_ref.msm_scan(table, digits)
+    n = table.shape[-1]
+    nwin = digits.shape[0]
+    if nwin < 1:
+        raise ValueError("msm_scan: need at least one window")
+    _check("msm_scan table", table, (TABLE, 3 * NL, n))
+    _check("msm_scan digits", digits, (nwin, n))
+    lo, hi = torch.aminmax(digits)
+    if lo.item() < 0 or hi.item() >= TABLE:  # the kernel indexes table[d]
+        raise ValueError("msm_scan: digits must lie in [0, 16)")
+    acc = torch.empty((3 * NL, n), dtype=torch.int32, device=table.device)
+    flags = torch.empty((n,), dtype=torch.bool, device=table.device)
+    rc = _build.library().lt_g1_msm_scan(
+        table.data_ptr(), digits.data_ptr(), acc.data_ptr(), flags.data_ptr(),
+        n, nwin, _stream(table),
+    )
+    _launched("g1_msm_scan", rc)
+    return acc, flags
+
+
+# ---------------------------------------------------------------------------
+# marshal: oracle ints <-> the device's layout
+# ---------------------------------------------------------------------------
+
+
+def _words(vals: Sequence[int]) -> np.ndarray:
+    """ints in [0, 2^384) -> (12, n) uint32 little-endian words."""
+    buf = b"".join(int(v).to_bytes(4 * NL, "little") for v in vals)
+    return np.frombuffer(buf, dtype="<u4").reshape(len(vals), NL).T.copy()
+
+
+def _from_words(a) -> list:
+    """(12, n) uint32 words -> ints."""
+    raw = np.ascontiguousarray(np.asarray(a, dtype="<u4").T).tobytes()
+    w = 4 * NL
+    return [
+        int.from_bytes(raw[i * w : (i + 1) * w], "little")
+        for i in range(len(raw) // w)
+    ]
+
+
+_COLS: dict = {}
+
+
+def _const_col(value: int, device) -> torch.Tensor:
+    """A field constant as one (R, 1) column in the device's layout."""
+    device = torch.device(device)
+    key = (value, device)
+    hit = _COLS.get(key)
+    if hit is None:
+        if _cpu_layout(device):
+            hit = torch.from_numpy(g1_ref.ints_to_limbs([value]))
+        else:
+            words = _words([value * _MONT_R % bls.P]).view(np.int32)
+            hit = torch.from_numpy(words).to(device)
+        _COLS[key] = hit
+    return hit
+
+
+def _mont_apply(t, factor: int):
+    """Multiply every coordinate of a (12c, n) CUDA array by the raw word
+    constant `factor` in one fp_mul launch: R^2 mod p converts into
+    Montgomery form, 1 converts out."""
+    c, n = t.shape[0] // NL, t.shape[-1]
+    flat = t.view(c, NL, n).permute(1, 0, 2).reshape(NL, c * n)
+    k = torch.from_numpy(_words([factor]).view(np.int32)).to(t.device)
+    out = fp_mul(flat, k.expand(NL, c * n).contiguous())
+    return out.view(NL, c, n).permute(1, 0, 2).reshape(c * NL, n)
+
+
+def fp_encode(vals: Sequence[int], device="cuda") -> torch.Tensor:
+    """Field ints in [0, p) -> (R, n) in the device's layout."""
+    if _cpu_layout(device):
+        return torch.from_numpy(g1_ref.ints_to_limbs(vals))
+    words = torch.from_numpy(_words(vals).view(np.int32)).to(device)
+    return _mont_apply(words, _R2)
+
+
+def fp_decode(t) -> list:
+    """(R, n) in the device's layout -> canonical field ints."""
+    if _cpu_layout(t.device):
+        return g1_ref.limbs_to_ints(t.numpy())
+    plain = _mont_apply(t.contiguous(), 1)
+    return _from_words(plain.cpu().numpy().view(np.uint32))
+
+
+def g1_pack(points, device="cuda") -> torch.Tensor:
+    """Oracle Jacobian tuples -> (3R, n) points on `device`. Infinity maps
+    to (0, 1, 0); callers carry it in flags (pg1.g1_pack)."""
+    xs = [p[0] if p[2] != 0 else 0 for p in points]
+    ys = [p[1] if p[2] != 0 else 1 for p in points]
+    zs = [p[2] for p in points]
+    return fp_encode(xs + ys + zs, device).view(-1, 3, len(points)).permute(
+        1, 0, 2
+    ).reshape(-1, len(points))
+
+
+def g1_coords(arr) -> list:
+    """(3R, n) points -> the 3n canonical coordinate ints X... | Y... | Z...
+    (no infinity mapping)."""
+    r, n = arr.shape[0] // 3, arr.shape[-1]
+    return fp_decode(arr.reshape(3, r, n).permute(1, 0, 2).reshape(r, 3 * n))
+
+
+def g1_unpack(arr, flags=None) -> list:
+    """(3R, n) points (+ optional (n,) flags) -> oracle Jacobian tuples;
+    a flagged lane or Z == 0 is infinity."""
+    n = arr.shape[-1]
+    coords = g1_coords(arr)
+    fl = (
+        np.zeros(n, bool) if flags is None
+        else np.asarray(torch.as_tensor(flags).cpu(), dtype=bool)
+    )
+    out = []
+    for i in range(n):
+        x, y, z = coords[i], coords[n + i], coords[2 * n + i]
+        out.append(bls.G1_INF if fl[i] or z == 0 else (x, y, z))
+    return out
+
+
+def digits_col(scalars: Sequence[int], nwindows: int, device="cuda"):
+    """ints -> (nwindows, n) int32 MSB-first 4-bit digits on `device`."""
+    return torch.from_numpy(glv.digits_col(scalars, nwindows)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# composites (pg1.py:447-524)
+# ---------------------------------------------------------------------------
+
+
+def build_table(lanes):
+    """(3R, n) -> (16, 3R, n): entry k = k*P (entry 0 zero and never
+    selected). 1 doubling + 13 chained adds, one launch each."""
+    two = g1_dbl(lanes)
+    rows = [torch.zeros_like(lanes), lanes, two]
+    cur = two
+    for _ in range(TABLE - 3):
+        cur = g1_add(cur, lanes)
+        rows.append(cur)
+    return torch.stack(rows, dim=0)
+
+
+def msm_windowed(lanes, digits):
+    """Per-lane windowed scalar multiply: lanes (3R, n), digits (W, n)
+    MSB-first -> ((3R, n) accumulators, (n,) infinity flags)."""
+    return msm_scan(build_table(lanes), digits)
+
+
+def tree_reduce_k(acc, flags, k: int):
+    """Sum groups of k adjacent lanes (k a power of two), infinity carried
+    in flags: acc (3R, n), flags (n,) -> (3R, n/k), (n/k,)."""
+    assert k & (k - 1) == 0
+    while k > 1:
+        a, b = acc[:, 0::2].contiguous(), acc[:, 1::2].contiguous()
+        fa, fb = flags[0::2], flags[1::2]
+        r = g1_add(a, b)
+        acc = torch.where(fb, a, torch.where(fa, b, r))
+        flags = fa & fb
+        k //= 2
+    return acc, flags
+
+
+def era_kernel(u, y, rlc16, lag1, lag2, k: int):
+    """u, y: (3R, S*K) share points / verification keys; rlc16 (16, S*K);
+    lag1, lag2 (32, S*K) GLV halves; k = K (a power of two).
+
+    Two passes, as pg1.era_kernel (:488-510): a 16-window RLC pass over the
+    lanes [u | y] with digits [rlc16 | rlc16], and a 32-window GLV pass over
+    [u | phi(u)] with [lag1 | lag2], phi(u) = (beta*X, Y, Z). Returns
+    (rlc_pts (3R, 2S), rlc_flags, lag_pts (3R, 2S), lag_flags): per-slot
+    u_agg | y_agg, then comb1 | comb2."""
+    n = u.shape[-1]
+    r = u.shape[0] // 3
+    beta = _const_col(glv.BETA, u.device).expand(r, n).contiguous()
+    phi_x = fp_mul(u[:r].contiguous(), beta)
+    phi_u = torch.cat([phi_x, u[r:]], dim=0)
+
+    lanes_rlc = torch.cat([u, y], dim=1)
+    dig_rlc = torch.cat([rlc16, rlc16], dim=1)
+    lanes_lag = torch.cat([u, phi_u], dim=1)
+    dig_lag = torch.cat([lag1, lag2], dim=1)
+
+    acc_r, fl_r = msm_windowed(lanes_rlc, dig_rlc)
+    acc_l, fl_l = msm_windowed(lanes_lag, dig_lag)
+    out_r, ofl_r = tree_reduce_k(acc_r, fl_r, k)
+    out_l, ofl_l = tree_reduce_k(acc_l, fl_l, k)
+    return out_r, ofl_r, out_l, ofl_l
+
+
+def era_kernel_fused(u, y, rlc16, lag1, lag2, k: int):
+    """era_kernel with every output in ONE (3R + 1, 4S) array, the last row
+    carrying the infinity flags (pg1.py:516-524): one device->host copy."""
+    out_r, ofl_r, out_l, ofl_l = era_kernel(u, y, rlc16, lag1, lag2, k)
+    pts = torch.cat([out_r, out_l], dim=1)
+    flags = torch.cat([ofl_r, ofl_l]).to(pts.dtype)[None, :]
+    return torch.cat([pts, flags], dim=0)

@@ -1,0 +1,68 @@
+"""The port stands alone and never hides a missing card.
+
+* In a fresh interpreter, importing every module of `lachain_tpu_torch`
+  must bring in neither JAX nor any module of the JAX package.
+* Asking for the card where there is none raises: `GpuBackend()`,
+  `GpuEraPipeline()` and the kernel build have no CPU fallback.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from lachain_tpu_torch.crypto.gpu_backend import GpuBackend
+from lachain_tpu_torch.ops import _build
+from lachain_tpu_torch.ops.verify import GpuEraPipeline
+
+pytestmark = pytest.mark.kernel
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import lachain_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    lachain_tpu_torch.__path__, "lachain_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "lachain_tpu" or m.startswith("lachain_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_nothing_of_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=_ROOT, capture_output=True,
+        text=True, check=True, timeout=120,
+    ).stdout.split("\n")[0]
+    count, bad = out.split(" ", 1)
+    assert int(count) >= 10  # every module of the slice was imported
+    assert bad == "[]"
+
+
+def _require_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card refusal is moot")
+
+
+def test_gpu_backend_without_card_raises():
+    _require_no_card()
+    with pytest.raises(RuntimeError):
+        GpuBackend()
+    with pytest.raises(RuntimeError):
+        GpuEraPipeline()
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda _path: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.library()
