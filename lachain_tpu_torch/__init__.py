@@ -1,8 +1,13 @@
 """lachain_tpu_torch: the PyTorch/CUDA port of lachain_tpu's device crypto.
 
-Slice 1 carries the TPKE era verify+combine path: the BLS12-381 G1 kernels
-(csrc/g1.cu, bound in ops/g1.py), the era pipeline (ops/verify.py) and
-`crypto.gpu_backend.GpuBackend`. The package imports torch and numpy and
-nothing of JAX or of lachain_tpu. Its entry points run on the card unless
-the caller passes device="cpu".
+Two era paths run on the card through `crypto.gpu_backend.GpuBackend`:
+  * the TPKE era verify+combine (`tpke_era_verify_combine`): the BLS12-381
+    G1 kernels of csrc/g1.cu, bound in ops/g1.py, under GpuEraPipeline;
+  * the common coin (`crypto.threshold_sig.era_verify_combine` over
+    `ts_era_verify_combine`): the G2 kernels of csrc/g2.cu, bound in
+    ops/g2.py, under TsGpuEraPipeline, with the key aggregate on the G1
+    kernels.
+`GpuBackend.g1_msm` / `g2_msm` run single MSMs on the same kernels. The
+package imports torch and numpy and nothing of JAX or of lachain_tpu. Its
+entry points run on the card unless the caller passes device="cpu".
 """

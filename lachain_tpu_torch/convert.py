@@ -1,7 +1,8 @@
 """Carry key material and era inputs into the port from numpy arrays.
 
-This system runs no model: its "weights" are the TPKE key material and each
-era's ciphertexts and decryption shares. The JAX package serializes them
+This system runs no model: its "weights" are the TPKE and threshold-
+signature key material and each era's ciphertexts, decryption shares and
+coin signature shares. The JAX package serializes them
 with its own `bls12381.g1_to_bytes` (96 bytes, affine x || y, all-zero for
 infinity), `g2_to_bytes` (192 bytes) and `fr_to_bytes` (32 bytes, big
 endian); these functions read those encodings from uint8 arrays and return
@@ -14,6 +15,12 @@ from typing import List, Sequence
 import numpy as np
 
 from .crypto import bls12381 as bls
+from .crypto.threshold_sig import (
+    PartialSignature,
+    TsPrivateKeyShare,
+    TsPublicKey,
+    TsPublicKeySet,
+)
 from .crypto.tpke import (
     EncryptedShare,
     PartiallyDecryptedShare,
@@ -75,4 +82,34 @@ def decrypted_shares_from_numpy(
     return [
         PartiallyDecryptedShare(ui=p, decryptor_id=int(d), share_id=share_id)
         for p, d in zip(pts, decryptor_ids)
+    ]
+
+
+def ts_keys_from_numpy(y_i, t: int, x_i):
+    """Serialized threshold-signature keys -> (TsPublicKeySet,
+    [TsPrivateKeyShare]).
+
+    y_i: uint8 (n, 96) per-validator public keys; t: threshold degree;
+    x_i: uint8 (n, 32) private shares, validator i's at row i. The shared
+    key is interpolated from the first t+1 keys, as the JAX package does."""
+    keys = [TsPublicKey(bls.g1_from_bytes(b)) for b in _rows(y_i, bls.G1_BYTES)]
+    shares = [
+        TsPrivateKeyShare(bls.fr_from_bytes(b), i)
+        for i, b in enumerate(_rows(x_i, bls.FR_BYTES))
+    ]
+    if len(keys) != len(shares):
+        raise ValueError("y_i and x_i must have one row per validator")
+    return TsPublicKeySet(keys, t), shares
+
+
+def partial_signatures_from_numpy(
+    sigma, signer_ids: Sequence[int]
+) -> List[PartialSignature]:
+    """sigma: uint8 (k, 192) signature shares (G2); signer_ids: k ids."""
+    pts = [bls.g2_from_bytes(b) for b in _rows(sigma, bls.G2_BYTES)]
+    if len(pts) != len(signer_ids):
+        raise ValueError("one signer id per signature row")
+    return [
+        PartialSignature(sigma=p, signer_id=int(i))
+        for p, i in zip(pts, signer_ids)
     ]

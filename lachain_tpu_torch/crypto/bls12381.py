@@ -1,12 +1,12 @@
 """BLS12-381 pairing-friendly curve — pure-Python host oracle of the port.
 
 The port's own copy of the subset of `lachain_tpu/crypto/bls12381.py` that
-the TPKE era verify+combine path needs: Fp..Fp12 arithmetic, the G1/G2
+the TPKE and coin era paths need: Fp..Fp12 arithmetic, the G1/G2
 Jacobian group law, the optimal ate pairing (`miller_loop`,
 `final_exponentiation`, `multi_pairing`), `hash_to_g2`, G1/G2/Fr
-serialization and the Fr polynomial helpers. Every function is
-bit-identical to the JAX package's, so a ciphertext made there decrypts
-here (tests/test_torch_era.py holds the two against each other).
+serialization, the Fr polynomial helpers and G1/G2 interpolation. Every
+function is bit-identical to the JAX package's, so a ciphertext made there
+decrypts here (tests/test_torch_era.py holds the two against each other).
 
 Design notes
 ------------
@@ -782,6 +782,24 @@ def _lagrange_cached(xs: tuple, at: int) -> tuple:
             den = den * ((xs[i] - xs[j]) % R) % R
         coeffs.append(num * pow(den, -1, R) % R)
     return tuple(coeffs)
+
+
+def g1_interpolate(xs: Sequence[int], pts: Sequence[tuple], at: int = 0):
+    """Interpolate G1 points at `at` (the shared key of a TS key set)."""
+    cs = fr_lagrange_coeffs(xs, at)
+    acc = G1_INF
+    for c, pt in zip(cs, pts):
+        acc = g1_add(acc, g1_mul(pt, c))
+    return acc
+
+
+def g2_interpolate(xs: Sequence[int], pts: Sequence[tuple], at: int = 0):
+    """Interpolate G2 points (the threshold-signature combine shape)."""
+    cs = fr_lagrange_coeffs(xs, at)
+    acc = G2_INF
+    for c, pt in zip(cs, pts):
+        acc = g2_add(acc, g2_mul(pt, c))
+    return acc
 
 
 # ---------------------------------------------------------------------------

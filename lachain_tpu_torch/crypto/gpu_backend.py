@@ -1,16 +1,22 @@
-"""GPU crypto backend: the era's TPKE verify+combine on the card.
+"""GPU crypto backend: the era's threshold crypto and the MSMs on the card.
 
-The port of `lachain_tpu/crypto/tpu_backend.py`'s TPKE half.
-`tpke_era_verify_combine` masks absent lanes, pads the slot axis to a power
-of two with fully-masked dummy slots, runs the era pipeline
-(ops/verify.GpuEraPipeline), then folds every slot into ONE grand
-multi-pairing (2 pairs per slot) and bisects on failure: each slot's
-equality is randomized by its own RLC coefficients, so a pairing product
-over any subset is a sound batch check for that subset.
+The port of `lachain_tpu/crypto/tpu_backend.py`. Two era-tick batch ops
+share one engine (`_era_batch`, the port of `_dispatch_era_batch`,
+tpu_backend.py:396-485): mask absent lanes, pad the slot axis to a power of
+two with fully-masked dummy slots, run the era pipeline, then fold every
+slot into ONE grand multi-pairing (2 pairs per slot) and bisect on failure.
+Each slot's equality is randomized by its own RLC coefficients, so a
+pairing product over any subset is a sound batch check for that subset.
+  * `tpke_era_verify_combine`: TPKE decryption shares (G1), GpuEraPipeline;
+  * `ts_era_verify_combine`: common-coin signature shares (G2),
+    TsGpuEraPipeline.
+`g1_msm` / `g2_msm` run on the card through `g1.msm_reduce` /
+`g2.msm2_reduce` (tpu_backend.py:207-267).
 
-Every era batch runs on the pipeline's device; there is no lane threshold
-that routes work elsewhere. Pairings and hash-to-curve stay on the host
-backend, whose ops this class exposes by name.
+Every batch runs on the pipeline's device; there is no lane threshold that
+routes work elsewhere. Pairings, hash-to-curve and single scalar
+multiplications stay on the host backend, whose ops this class exposes by
+name.
 """
 from __future__ import annotations
 
@@ -20,7 +26,30 @@ from typing import List, Optional, Sequence, Tuple
 
 from . import bls12381 as bls
 from .host import HostBackend, batch_bisect_verify
-from ..ops.verify import GpuEraPipeline, _pow2_at_least
+from ..ops import g1, g2
+from ..ops.glv import W256
+from ..ops.verify import (
+    ESCAPES,
+    GpuEraPipeline,
+    TsGpuEraPipeline,
+    _pow2_at_least,
+)
+
+
+@dataclass
+class CoinJob:
+    """One common coin's pending share verification+combination work.
+
+    sigma_by_signer: length-K row of partial-signature points (G2); None
+        where validator j's share has not arrived (that lane is masked out).
+    lagrange_row:    length-K row of Lagrange-at-0 coefficients; nonzero
+        exactly on the t+1 shares chosen for the combination.
+    h:               H_G2(msg), the hashed coin id being signed.
+    """
+
+    sigma_by_signer: List[Optional[tuple]]
+    lagrange_row: List[int]
+    h: tuple
 
 
 @dataclass
@@ -42,14 +71,16 @@ class EraSlotJob:
 
 
 class GpuBackend:
-    """Era-shaped TPKE batch crypto on the card, host ops delegated.
+    """Era-shaped batch crypto and MSMs on the card, host ops delegated.
 
     `GpuBackend()` asks for the card and raises where there is none;
     `device="cpu"` runs the kernels' plain versions (tests)."""
 
     def __init__(self, device="cuda", host_backend=None):
         self._host = host_backend or HostBackend()
+        # the pipelines' escapes to the host MSM use the host backend
         self._pipeline = GpuEraPipeline(self._host, device)
+        self._ts_pipeline = TsGpuEraPipeline(self._host, device)
         self.device = self._pipeline.device
         self._y_cache: dict = {}
         # wall seconds of the last era: the pipeline's phases + `pairing_s`
@@ -62,70 +93,147 @@ class GpuBackend:
     def g2_mul(self, point: tuple, scalar: int) -> tuple:
         return self._host.g2_mul(point, scalar)
 
-    def g1_msm(self, points, scalars) -> tuple:
-        return self._host.g1_msm(points, scalars)
-
     def pairing_check(self, pairs) -> bool:
         return self._host.pairing_check(pairs)
 
     def hash_to_g2(self, msg: bytes, domain: bytes = b"LTPU-G2") -> tuple:
         return self._host.hash_to_g2(msg, domain)
 
-    # -- the era-tick batch op ---------------------------------------------
-    def _stable_y_points(self, vks) -> list:
-        """One stable y-point list per verification-key list, so the
-        pipeline's device copy of the keys is reused across eras (keyed by
-        identity with a strong reference)."""
-        key = id(vks)
+    # -- MSMs on the card ----------------------------------------------------
+    def g1_msm(self, points, scalars) -> tuple:
+        return self._device_msm(points, scalars, group2=False)
+
+    def g2_msm(self, points, scalars) -> tuple:
+        return self._device_msm(points, scalars, group2=True)
+
+    def _device_msm(self, points, scalars, group2: bool) -> tuple:
+        """sum s_i P_i as one windowed MSM (64 windows of the scalar mod r)
+        and one tree reduce over n padded to a power of two with infinity.
+
+        An infinity input gets scalar 0: its packed form (0, 1, 0) is no
+        group element the incomplete formulas can add. A sum that comes back
+        as infinity while a lane is live is recomputed by the host MSM and
+        counted in `ESCAPES`: equal partial sums (a repeated input) collide
+        in the incomplete add and give Z = 0, like the era pipelines'
+        combine lanes. The JAX route (tpu_backend.py:231-267) returns that
+        infinity as it is."""
+        inf, is_inf = (
+            (bls.G2_INF, bls.g2_is_inf) if group2 else (bls.G1_INF, bls.g1_is_inf)
+        )
+        n = len(points)
+        if len(scalars) != n:
+            raise ValueError("one scalar per point")
+        n_pad = _pow2_at_least(n)
+        pts = list(points) + [inf] * (n_pad - n)
+        ss = [0 if is_inf(p) else s % bls.R for p, s in zip(points, scalars)]
+        ss += [0] * (n_pad - n)
+        dev = self.device
+        digits = g1.digits_col(ss, W256, dev)
+        cpu = dev.type == "cpu"
+        if group2:
+            fused = g2.msm2_reduce(g2.g2_pack(pts, dev), digits, n_pad)
+            rows, flags = g1.fetch(fused)
+            out = g2.g2_unpack_host(rows, flags, cpu)[0]
+        else:
+            fused = g1.msm_reduce(g1.g1_pack(pts, dev), digits, n_pad)
+            rows, flags = g1.fetch(fused)
+            out = g1.g1_unpack_host(rows, flags, cpu)[0]
+        if is_inf(out) and any(ss):
+            name = "g2_msm" if group2 else "g1_msm"
+            ESCAPES[name] += 1
+            out = getattr(self._host, name)(points, scalars)
+        return out
+
+    # -- the era-tick batch ops ----------------------------------------------
+    def _stable_y_points(self, vks, attr: str) -> list:
+        """One stable y-point list per key list, so the pipelines' device
+        copy of the keys is reused across eras (keyed by identity with a
+        strong reference). attr: "y_i" for TPKE verification keys, "y" for
+        TS public keys."""
+        key = (id(vks), attr)
         hit = self._y_cache.get(key)
         if hit is not None and hit[0] is vks:
             return hit[1]
-        y_points = [vk.y_i for vk in vks]
+        y_points = [getattr(vk, attr) for vk in vks]
         if len(self._y_cache) >= 8:
             self._y_cache.pop(next(iter(self._y_cache)))
         self._y_cache[key] = (vks, y_points)
         return y_points
 
-    def tpke_era_verify_combine(
-        self, jobs: Sequence[EraSlotJob], verification_keys, rng
+    def _era_batch(
+        self, jobs, rows, lags, y_points, inf_point, pipeline, pairs_for, rng,
     ) -> List[Tuple[bool, Optional[tuple]]]:
-        """Verify + combine every pending slot in one pipeline run.
-
-        Returns per-job (all_shares_valid, combined_point); `combined` is
-        U^x for the slot (feed it to tpke.decrypt_with_combined). A slot
-        whose shares fail the grand check is isolated by bisection and
-        reports (False, None)."""
-        if not jobs:
-            return []
-        y_points = self._stable_y_points(verification_keys)
+        """The engine both era ops share. `pairs_for(job, agg)` yields the
+        two pairing pairs of one slot's verification equality."""
         s = len(jobs)
+        if s == 0:
+            return []
         k = len(y_points)
         slots, masks = [], []
-        for job in jobs:
-            row, lag = job.u_by_validator, job.lagrange_row
+        for row, lag in zip(rows, lags):
             if len(row) != k or len(lag) != k:
                 raise ValueError(f"era job rows must have length {k}")
             masks.append([p is not None for p in row])
             slots.append(
-                ([p if p is not None else bls.G1_INF for p in row], list(lag))
+                ([p if p is not None else inf_point for p in row], list(lag))
             )
         for _ in range(_pow2_at_least(s) - s):
-            slots.append(([bls.G1_INF] * k, [0] * k))
+            slots.append(([inf_point] * k, [0] * k))
             masks.append([False] * k)
-        aggs, _rlc = self._pipeline.run_era(slots, y_points, rng, masks=masks)
+        aggs, _rlc = pipeline.run_era(slots, y_points, rng, masks=masks)
 
         def group_ok(idx: List[int]) -> bool:
             pairs = []
             for i in idx:
-                pairs.append((aggs[i][0], jobs[i].h))
-                pairs.append((bls.g1_neg(aggs[i][1]), jobs[i].w))
+                pairs.extend(pairs_for(jobs[i], aggs[i]))
             return self._host.pairing_check(pairs)
 
         t0 = time.perf_counter()
         ok_flags = batch_bisect_verify(group_ok, s)
         self.last_timings = dict(
-            self._pipeline.last_timings, pairing_s=time.perf_counter() - t0
+            pipeline.last_timings, pairing_s=time.perf_counter() - t0
         )
         return [
             (ok, aggs[i][2] if ok else None) for i, ok in enumerate(ok_flags)
         ]
+
+    def tpke_era_verify_combine(
+        self, jobs: Sequence[EraSlotJob], verification_keys, rng
+    ) -> List[Tuple[bool, Optional[tuple]]]:
+        """Verify + combine every pending TPKE slot in one pipeline run.
+
+        Returns per-job (all_shares_valid, combined_point); `combined` is
+        U^x for the slot (feed it to tpke.decrypt_with_combined). A slot
+        whose shares fail the grand check is isolated by bisection and
+        reports (False, None). The check per slot is
+        e(u_agg, H) == e(y_agg, W)."""
+        return self._era_batch(
+            jobs,
+            [j.u_by_validator for j in jobs],
+            [j.lagrange_row for j in jobs],
+            self._stable_y_points(verification_keys, "y_i"),
+            bls.G1_INF,
+            self._pipeline,
+            lambda job, agg: [(agg[0], job.h), (bls.g1_neg(agg[1]), job.w)],
+            rng,
+        )
+
+    def ts_era_verify_combine(
+        self, jobs: Sequence[CoinJob], ts_public_keys, rng
+    ) -> List[Tuple[bool, Optional[tuple]]]:
+        """Verify + combine every pending common coin in one pipeline run.
+
+        `ts_public_keys` is the per-validator TS key list (TsPublicKey, G1).
+        Returns per-coin (all_shares_valid, combined_sigma), with the same
+        grand multi-pairing and bisection as `tpke_era_verify_combine`; the
+        check per coin is e(g1, sig_agg) == e(y_agg, H(coin id))."""
+        return self._era_batch(
+            jobs,
+            [j.sigma_by_signer for j in jobs],
+            [j.lagrange_row for j in jobs],
+            self._stable_y_points(ts_public_keys, "y"),
+            bls.G2_INF,
+            self._ts_pipeline,
+            lambda job, agg: [(bls.G1_GEN, agg[0]), (bls.g1_neg(agg[1]), job.h)],
+            rng,
+        )

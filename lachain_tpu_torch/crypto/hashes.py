@@ -1,7 +1,14 @@
-"""The XOF keystream of the TPKE pad (copy of `lachain_tpu/crypto/hashes.py:xof`)."""
+"""Hash primitives of the port: the TPKE pad's XOF and Keccak-256.
+
+Copies of `lachain_tpu/crypto/hashes.py:xof` and of its pure-Python
+Keccak-256 sponge (the legacy pre-NIST padding; hashlib ships only NIST
+SHA-3). The coin bit `threshold_sig.Signature.parity` is the low bit of
+keccak256 of the serialized signature, so it must equal the JAX package's.
+"""
 from __future__ import annotations
 
 import hashlib
+from typing import List
 
 
 def xof(domain: bytes, data: bytes, nbytes: int) -> bytes:
@@ -9,3 +16,70 @@ def xof(domain: bytes, data: bytes, nbytes: int) -> bytes:
     h = hashlib.shake_256()
     h.update(len(domain).to_bytes(1, "big") + domain + data)
     return h.digest(nbytes)
+
+
+_KECCAK_ROUNDS = 24
+_RC = [
+    0x0000000000000001, 0x0000000000008082, 0x800000000000808A,
+    0x8000000080008000, 0x000000000000808B, 0x0000000080000001,
+    0x8000000080008081, 0x8000000000008009, 0x000000000000008A,
+    0x0000000000000088, 0x0000000080008009, 0x000000008000000A,
+    0x000000008000808B, 0x800000000000008B, 0x8000000000008089,
+    0x8000000000008003, 0x8000000000008002, 0x8000000000000080,
+    0x000000000000800A, 0x800000008000000A, 0x8000000080008081,
+    0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
+]
+_ROT = [
+    [0, 36, 3, 41, 18],
+    [1, 44, 10, 45, 2],
+    [62, 6, 43, 15, 61],
+    [28, 55, 25, 21, 56],
+    [27, 20, 39, 8, 14],
+]
+_MASK = (1 << 64) - 1
+
+
+def _rol(v: int, s: int) -> int:
+    return ((v << s) | (v >> (64 - s))) & _MASK
+
+
+def _keccak_f(a: List[List[int]]) -> None:
+    for rnd in range(_KECCAK_ROUNDS):
+        # theta
+        c = [a[x][0] ^ a[x][1] ^ a[x][2] ^ a[x][3] ^ a[x][4] for x in range(5)]
+        d = [c[(x - 1) % 5] ^ _rol(c[(x + 1) % 5], 1) for x in range(5)]
+        for x in range(5):
+            for y in range(5):
+                a[x][y] ^= d[x]
+        # rho + pi
+        b = [[0] * 5 for _ in range(5)]
+        for x in range(5):
+            for y in range(5):
+                b[y][(2 * x + 3 * y) % 5] = _rol(a[x][y], _ROT[x][y])
+        # chi
+        for x in range(5):
+            for y in range(5):
+                a[x][y] = b[x][y] ^ ((~b[(x + 1) % 5][y]) & b[(x + 2) % 5][y])
+        # iota
+        a[0][0] ^= _RC[rnd]
+
+
+def keccak256(data: bytes) -> bytes:
+    """Keccak-256 with legacy 0x01 padding (Ethereum-style), not SHA3-256."""
+    rate = 136
+    state = [[0] * 5 for _ in range(5)]
+    padded = bytearray(data)
+    padded.append(0x01)
+    while len(padded) % rate:
+        padded.append(0x00)
+    padded[-1] |= 0x80
+    for off in range(0, len(padded), rate):
+        block = padded[off : off + rate]
+        for i in range(rate // 8):
+            lane = int.from_bytes(block[i * 8 : i * 8 + 8], "little")
+            state[i % 5][i // 5] ^= lane
+        _keccak_f(state)
+    out = bytearray()
+    for i in range(4):  # 32 bytes = 4 lanes
+        out += state[i % 5][i // 5].to_bytes(8, "little")
+    return bytes(out)

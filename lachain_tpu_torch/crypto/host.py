@@ -1,9 +1,10 @@
 """Host crypto ops of the port: the pure-Python oracle behind a backend API.
 
-The subset of `lachain_tpu/crypto/provider.py` that the TPKE era path uses:
-pairings and hash-to-curve stay on the host, as they do in the JAX package,
-and the era pipeline's Z==0 escape and its `HostEraPipeline` oracle run the
-host MSM. `batch_bisect_verify` is the shared RLC bisection loop.
+The subset of `lachain_tpu/crypto/provider.py` that the TPKE and coin era
+paths use: pairings and hash-to-curve stay on the host, as they do in the
+JAX package, and the era pipelines' escapes to the host MSM and their host
+oracles run the G1 and G2 MSMs here. `batch_bisect_verify` is the shared RLC
+bisection loop; `select_distinct` picks the shares of a combine.
 """
 from __future__ import annotations
 
@@ -19,6 +20,12 @@ class HostBackend:
         acc = bls.G1_INF
         for pt, s in zip(points, scalars):
             acc = bls.g1_add(acc, bls.g1_mul(pt, s))
+        return acc
+
+    def g2_msm(self, points: Sequence[tuple], scalars: Sequence[int]) -> tuple:
+        acc = bls.G2_INF
+        for pt, s in zip(points, scalars):
+            acc = bls.g2_add(acc, bls.g2_mul(pt, s))
         return acc
 
     def g1_mul(self, point: tuple, scalar: int) -> tuple:
@@ -54,3 +61,23 @@ def batch_bisect_verify(group_ok, n: int) -> List[bool]:
     if n:
         solve(list(range(n)))
     return results
+
+
+def select_distinct(shares, key, count: int):
+    """First `count` shares with distinct `key(share)`, or None if impossible.
+
+    Used before Lagrange combination: duplicates are skipped (not an error)
+    so a caller holding [id0, id0, id1, id2] can still combine t+1 = 3
+    distinct shares.
+    """
+    seen = set()
+    out = []
+    for s in shares:
+        k = key(s)
+        if k in seen:
+            continue
+        seen.add(k)
+        out.append(s)
+        if len(out) == count:
+            return out
+    return None

@@ -8,11 +8,10 @@
 //
 // Representation. pg1's 44 x 10-bit signed limbs, its f32 MXU residue fold
 // and its 256-lane VMEM tiles are TPU artifacts. Here a field element is 12
-// x 32-bit limbs in Montgomery form (R = 2^384), always canonical in [0, p);
-// a point is 36 rows X | Y | Z. Arrays are lane-minor: limb i of lane l sits
-// at row i, column l, so a warp's loads of one limb coalesce. The host
-// converts into and out of Montgomery form with lt_g1_fp_mul by R^2 mod p
-// and by 1 (lachain_tpu_torch/ops/g1.py).
+// x 32-bit limbs in Montgomery form (R = 2^384), always canonical in [0, p)
+// (fp.cuh, shared with g2.cu); a point is 36 rows X | Y | Z, lane-minor.
+// The host converts into and out of Montgomery form with lt_g1_fp_mul by
+// R^2 mod p and by 1 (lachain_tpu_torch/ops/g1.py).
 //
 // Multiply: CIOS Montgomery on uint64 accumulators, 2*12*12 + 12 word
 // products. The group law uses pg1's formulas (pg1._g1_dbl_val,
@@ -31,123 +30,17 @@
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is non-zero.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "fp.cuh"
 
 namespace {
 
-constexpr int NL = 12;       // 32-bit limbs per Fp element
 constexpr int PR = 3 * NL;   // rows per point: X | Y | Z
 constexpr int WINDOW = 4;
 constexpr int THREADS = 64;  // n = 8192 lanes -> 128 blocks over 132 SMs
 
-__constant__ uint32_t kP[NL] = {
-    0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu,
-    0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u,
-    0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
-constexpr uint32_t kPInv = 0xfffcfffdu;  // -p^-1 mod 2^32
-
-struct Fp {
-  uint32_t v[NL];
-};
-
 struct Pt {
   Fp x, y, z;
 };
-
-__device__ __forceinline__ Fp fp_zero() {
-  Fp r;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) r.v[i] = 0u;
-  return r;
-}
-
-// a - p when a >= p; requires a < 2p.
-__device__ __forceinline__ Fp reduce_once(const Fp& a) {
-  Fp t;
-  uint32_t borrow = 0u;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    const uint64_t d = (uint64_t)a.v[i] - kP[i] - borrow;
-    t.v[i] = (uint32_t)d;
-    borrow = (uint32_t)(d >> 63);
-  }
-  Fp r;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) r.v[i] = borrow ? a.v[i] : t.v[i];
-  return r;
-}
-
-// a + b < 2p < 2^382: no carry leaves the top limb.
-__device__ __forceinline__ Fp fp_add(const Fp& a, const Fp& b) {
-  Fp s;
-  uint64_t c = 0;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    c += (uint64_t)a.v[i] + b.v[i];
-    s.v[i] = (uint32_t)c;
-    c >>= 32;
-  }
-  return reduce_once(s);
-}
-
-__device__ __forceinline__ Fp fp_sub(const Fp& a, const Fp& b) {
-  Fp d;
-  uint32_t borrow = 0u;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    const uint64_t t = (uint64_t)a.v[i] - b.v[i] - borrow;
-    d.v[i] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-  const uint32_t mask = 0u - borrow;  // a < b: add p back
-  uint64_t c = 0;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    c += (uint64_t)d.v[i] + (kP[i] & mask);
-    d.v[i] = (uint32_t)c;
-    c >>= 32;
-  }
-  return d;
-}
-
-// CIOS Montgomery product a*b/R mod p for a, b < p; the result is < 2p
-// before the final subtraction since 4p < R.
-__device__ __forceinline__ Fp mont_mul(const Fp& a, const Fp& b) {
-  uint32_t t[NL + 2];
-#pragma unroll
-  for (int i = 0; i < NL + 2; ++i) t[i] = 0u;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) {
-      c += (uint64_t)a.v[j] * b.v[i] + t[j];
-      t[j] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[NL];
-    t[NL] = (uint32_t)c;
-    t[NL + 1] = (uint32_t)(c >> 32);
-    const uint32_t m = t[0] * kPInv;
-    c = ((uint64_t)m * kP[0] + t[0]) >> 32;
-#pragma unroll
-    for (int j = 1; j < NL; ++j) {
-      c += (uint64_t)m * kP[j] + t[j];
-      t[j - 1] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[NL];
-    t[NL - 1] = (uint32_t)c;
-    t[NL] = t[NL + 1] + (uint32_t)(c >> 32);
-  }
-  Fp r;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) r.v[i] = t[i];
-  return reduce_once(r);
-}
-
-__device__ __forceinline__ Fp fp_sqr(const Fp& a) { return mont_mul(a, a); }
 
 // The two group-law functions stay out of line: with every product inlined
 // into every kernel, nvcc 12.9's device front end (cicc) crashes with a
@@ -195,20 +88,6 @@ __device__ __noinline__ Pt g1_add(const Pt& p, const Pt& q) {
   const Fp Z3 = mont_mul(mont_mul(p.z, q.z), H);
   r.z = fp_add(Z3, Z3);
   return r;
-}
-
-__device__ __forceinline__ Fp load_fp(const uint32_t* __restrict__ a,
-                                      int row0, int n, int lane) {
-  Fp r;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) r.v[i] = a[(size_t)(row0 + i) * n + lane];
-  return r;
-}
-
-__device__ __forceinline__ void store_fp(uint32_t* __restrict__ a, int row0,
-                                         int n, int lane, const Fp& v) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) a[(size_t)(row0 + i) * n + lane] = v.v[i];
 }
 
 __device__ __forceinline__ Pt load_pt(const uint32_t* __restrict__ a, int n,

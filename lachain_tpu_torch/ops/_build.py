@@ -1,11 +1,13 @@
 """Build and bind the port's CUDA kernels (plain C interface + ctypes).
 
-`library()` compiles `csrc/g1.cu` with nvcc for sm_90a into
-`lachain_tpu_torch/_build/` (listed in .gitignore), under a name keyed by a
-hash of the sources and flags, and loads it. The first call in a fresh
-checkout therefore builds; later calls in the same checkout reuse the
-library. There is no fallback: without nvcc, or on a failed build, it
-raises.
+`library()` compiles `csrc/g1.cu` and `csrc/g2.cu` (both include
+`csrc/fp.cuh`) with nvcc for sm_90a, one nvcc process per source, all
+started together, links them into one shared library in
+`lachain_tpu_torch/_build/` (listed in .gitignore) under a name keyed by a
+hash of the sources, the header and the flags, and loads it. The first
+call in a fresh checkout therefore builds; later calls in the same
+checkout reuse the library. There is no fallback: without nvcc, or on a
+failed build, it raises.
 """
 from __future__ import annotations
 
@@ -21,10 +23,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("g1.cu",)
+SOURCES = ("g1.cu", "g2.cu")
+HEADERS = ("fp.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _LIB = None
@@ -40,7 +43,16 @@ _SIGNATURES = {
     "lt_g1_add": [_P, _P, _P, _I, _P],
     "lt_g1_msm_scan": [_P, _P, _P, _P, _I, _I, _P],
     "lt_g1_kernel_attrs": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "lt_g2_dbl": [_P, _P, _I, _P],
+    "lt_g2_add": [_P, _P, _P, _I, _P],
+    "lt_g2_msm_scan": [_P, _P, _P, _P, _I, _I, _P],
+    "lt_g2_kernel_attrs": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
 }
+# (attrs entry, kernel names in its index order)
+_ATTRS = (
+    ("lt_g1_kernel_attrs", ("fp_mul", "g1_dbl", "g1_add", "g1_msm_scan")),
+    ("lt_g2_kernel_attrs", ("g2_dbl", "g2_add", "g2_msm_scan")),
+)
 
 
 def _nvcc() -> str:
@@ -55,31 +67,49 @@ def _nvcc() -> str:
 
 def _target() -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"liblt_g1_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"liblt_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise with the output of any that
+    fails."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for c in cmds
+    ]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} -> {proc.returncode}:\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
 def _build(target: Path) -> None:
     global build_seconds
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp] + [str(CSRC / s) for s in SOURCES]
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    objs = [work / (Path(s).stem + ".o") for s in SOURCES]
+    tmp = work / "lib.so"
     try:
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)
+        ])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
         build_seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
         os.replace(tmp, target)  # atomic: a concurrent loader never sees half
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def library():
@@ -103,10 +133,14 @@ def kernel_attrs() -> dict:
     library."""
     lib = library()
     out = {}
-    for i, name in enumerate(("fp_mul", "g1_dbl", "g1_add", "g1_msm_scan")):
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        rc = lib.lt_g1_kernel_attrs(i, ctypes.byref(regs), ctypes.byref(local))
-        if rc != 0:
-            raise RuntimeError(f"cudaFuncGetAttributes({name}) failed: {rc}")
-        out[name] = (regs.value, local.value)
+    for entry, names in _ATTRS:
+        fn = getattr(lib, entry)
+        for i, name in enumerate(names):
+            regs, local = ctypes.c_int(), ctypes.c_int()
+            rc = fn(i, ctypes.byref(regs), ctypes.byref(local))
+            if rc != 0:
+                raise RuntimeError(
+                    f"cudaFuncGetAttributes({name}) failed: {rc}"
+                )
+            out[name] = (regs.value, local.value)
     return out

@@ -3,7 +3,8 @@
 The port of `lachain_tpu/ops/pg1.py`. Four wrappers front the CUDA kernels
 of `csrc/g1.cu` (`fp_mul`, `g1_dbl`, `g1_add`, `msm_scan`); the composites
 above them (`build_table`, `msm_windowed`, `tree_reduce_k`, `era_kernel`,
-`era_kernel_fused`) are plain tensor code over those wrappers.
+`era_kernel_fused`, `msm_reduce`) are plain tensor code over those
+wrappers.
 
 Every wrapper dispatches on the device its tensors lie on, and on nothing
 else: on `cuda` it launches its kernel (or raises), on `cpu` it runs the
@@ -13,8 +14,11 @@ layouts, each the natural one for its arithmetic:
     a point is (36, n);
   * cpu:  int64 rows holding pg1's 44 x 10-bit signed plain limbs, a point
     is (132, n), so the CPU tests compare with pg1 limb for limb.
-`g1_pack` / `g1_unpack` / `fp_encode` / `fp_decode` convert oracle ints to
-and from either layout; the composites only ever slice a point into thirds.
+`g1_pack` / `fp_encode` convert oracle ints into either layout; `fetch`
+brings a fused output buffer (flag row last) to the host in one copy, and
+`g1_unpack_host` reads oracle tuples from it. `g1_coords` / `fp_decode`
+read exact coordinates back. The composites only ever slice a point into
+thirds.
 
 `LAUNCHES` counts the kernel launches of each wrapper (CUDA only), so a run
 can show that its path went through the kernels.
@@ -199,10 +203,11 @@ def _mont_apply(t, factor: int):
     constant `factor` in one fp_mul launch: R^2 mod p converts into
     Montgomery form, 1 converts out."""
     c, n = t.shape[0] // NL, t.shape[-1]
-    flat = t.view(c, NL, n).permute(1, 0, 2).reshape(NL, c * n)
+    # reshape after permute may return a strided view (n == 1): copy
+    flat = t.view(c, NL, n).permute(1, 0, 2).reshape(NL, c * n).contiguous()
     k = torch.from_numpy(_words([factor]).view(np.int32)).to(t.device)
     out = fp_mul(flat, k.expand(NL, c * n).contiguous())
-    return out.view(NL, c, n).permute(1, 0, 2).reshape(c * NL, n)
+    return out.view(NL, c, n).permute(1, 0, 2).reshape(c * NL, n).contiguous()
 
 
 def fp_encode(vals: Sequence[int], device="cuda") -> torch.Tensor:
@@ -229,7 +234,7 @@ def g1_pack(points, device="cuda") -> torch.Tensor:
     zs = [p[2] for p in points]
     return fp_encode(xs + ys + zs, device).view(-1, 3, len(points)).permute(
         1, 0, 2
-    ).reshape(-1, len(points))
+    ).reshape(-1, len(points)).contiguous()
 
 
 def g1_coords(arr) -> list:
@@ -239,20 +244,40 @@ def g1_coords(arr) -> list:
     return fp_decode(arr.reshape(3, r, n).permute(1, 0, 2).reshape(r, 3 * n))
 
 
-def g1_unpack(arr, flags=None) -> list:
-    """(3R, n) points (+ optional (n,) flags) -> oracle Jacobian tuples;
-    a flagged lane or Z == 0 is infinity."""
-    n = arr.shape[-1]
-    coords = g1_coords(arr)
-    fl = (
-        np.zeros(n, bool) if flags is None
-        else np.asarray(torch.as_tensor(flags).cpu(), dtype=bool)
-    )
+def _g1_points(coords, n: int, fl) -> list:
     out = []
     for i in range(n):
         x, y, z = coords[i], coords[n + i], coords[2 * n + i]
         out.append(bls.G1_INF if fl[i] or z == 0 else (x, y, z))
     return out
+
+
+def fetch(fused):
+    """A fused (rows + 1, m) buffer, flag row last -> (numpy (rows, m) point
+    rows, numpy (m,) bool flags) in ONE device->host copy. On the card the
+    point rows leave Montgomery form on the device first, so they hold plain
+    field words; decode them with `decode_host`."""
+    if _cpu_layout(fused.device):
+        a = fused.numpy()
+    else:
+        plain = _mont_apply(fused[:-1].contiguous(), 1)
+        a = torch.cat([plain, fused[-1:]], dim=0).cpu().numpy()
+    return a[:-1], a[-1] != 0
+
+
+def decode_host(rows, cpu_layout: bool) -> list:
+    """(R, m) numpy rows from `fetch` -> m canonical field ints."""
+    if cpu_layout:
+        return g1_ref.limbs_to_ints(rows)
+    return _from_words(np.ascontiguousarray(rows).view(np.uint32))
+
+
+def g1_unpack_host(rows, flags, cpu_layout: bool) -> list:
+    """(3R, m) numpy point rows + (m,) flags from `fetch` -> oracle
+    Jacobian tuples; a flagged lane or Z == 0 is infinity."""
+    r, m = rows.shape[0] // 3, rows.shape[-1]
+    by_coord = rows.reshape(3, r, m).transpose(1, 0, 2).reshape(r, 3 * m)
+    return _g1_points(decode_host(by_coord, cpu_layout), m, flags)
 
 
 def digits_col(scalars: Sequence[int], nwindows: int, device="cuda"):
@@ -331,3 +356,12 @@ def era_kernel_fused(u, y, rlc16, lag1, lag2, k: int):
     pts = torch.cat([out_r, out_l], dim=1)
     flags = torch.cat([ofl_r, ofl_l]).to(pts.dtype)[None, :]
     return torch.cat([pts, flags], dim=0)
+
+
+def msm_reduce(lanes, digits, k: int):
+    """Windowed MSM + tree reduce over groups of k lanes (pg1.msm_reduce,
+    :560): lanes (3R, n), digits (W, n) -> (3R + 1, n/k), the flag row
+    last."""
+    acc, fl = msm_windowed(lanes, digits)
+    out, ofl = tree_reduce_k(acc, fl, k)
+    return torch.cat([out, ofl.to(out.dtype)[None, :]], dim=0)

@@ -185,8 +185,9 @@ def _select_entry(table, d):
     return torch.where(d == 0, torch.zeros_like(e), e)
 
 
-def msm_scan(table, digits):
-    """table (16, 132, n), digits (W, n) MSB-first -> ((132, n) acc,
+def scan(table, digits, dbl_fn, add_fn):
+    """The windowed scan of pg1 `_msm_kernel` / pg2 `_msm2_kernel` over any
+    point layout: table (16, R, n), digits (W, n) MSB-first -> ((R, n) acc,
     (n,) bool infinity flags). Window 0 selects table[d]; each later window
     does 4 doublings and a flag-merged add. A digit 0 keeps the accumulator
     and keeps the flag set, so an all-zero lane stays flagged."""
@@ -200,11 +201,17 @@ def msm_scan(table, digits):
             acc, flag = entry, keep
             continue
         for _ in range(WINDOW):
-            acc = dbl(acc)
-        added = add_incomplete(acc, entry)
+            acc = dbl_fn(acc)
+        added = add_fn(acc, entry)
         acc = torch.where(keep, acc, torch.where(flag, entry, added))
         flag = flag & keep
     return acc, flag
+
+
+def msm_scan(table, digits):
+    """table (16, 132, n), digits (W, n) MSB-first -> ((132, n) acc,
+    (n,) bool infinity flags) (pg1 `_msm_kernel`)."""
+    return scan(table, digits, dbl, add_incomplete)
 
 
 # ---------------------------------------------------------------------------

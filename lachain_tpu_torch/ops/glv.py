@@ -19,6 +19,7 @@ WINDOW = 4
 TABLE = 1 << WINDOW  # 16 entries: 0..15 * P
 W64 = 64 // WINDOW  # 16 windows: 64-bit verifier RLC coefficients
 W128 = 128 // WINDOW  # 32 windows: one GLV half
+W256 = 256 // WINDOW  # 64 windows: a full scalar mod r (no GLV in G2)
 
 _Z = 0xD201000000010000  # |z| for BLS12-381 (z itself is negative)
 LAMBDA = (_Z * _Z - 1) % bls.R  # ~2^127.6, the small cube root of unity

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card (skipped where there is none).
 
-Each kernel against its plain version (ops/g1_ref.py) on the same values,
-exact equality of coordinates mod p and of flags; the era pipeline and the
-backend on the card against the host oracle. CUDA kernels have no CPU mode:
+Each kernel against its plain version (ops/g1_ref.py, ops/g2_ref.py) on the
+same values, exact equality of coordinates mod p and of flags; the era
+pipelines, the backend and its MSM routes on the card against the host
+oracle. CUDA kernels have no CPU mode:
 on a machine without a card these tests skip, and `python3 chip_smoke.py`
 runs the same checks at the N=64 era's shapes on the card.
 """
@@ -14,10 +15,16 @@ import pytest
 import torch
 
 from lachain_tpu_torch.crypto import bls12381 as bls
-from lachain_tpu_torch.crypto import tpke
+from lachain_tpu_torch.crypto import threshold_sig, tpke
 from lachain_tpu_torch.crypto.gpu_backend import EraSlotJob, GpuBackend
-from lachain_tpu_torch.ops import g1, g1_ref, glv
-from lachain_tpu_torch.ops.verify import GpuEraPipeline, HostEraPipeline
+from lachain_tpu_torch.crypto.host import HostBackend
+from lachain_tpu_torch.ops import g1, g1_ref, g2, g2_ref, glv
+from lachain_tpu_torch.ops.verify import (
+    GpuEraPipeline,
+    HostEraPipeline,
+    TsGpuEraPipeline,
+    TsHostEraPipeline,
+)
 
 pytestmark = [pytest.mark.cuda, pytest.mark.kernel]
 
@@ -119,3 +126,83 @@ def test_backend_on_card_isolates_poisoned_slot(card):
     assert [ok for ok, _ in res] == [True, True, False]
     for s in (0, 1):
         assert tpke.decrypt_with_combined(cts[s], res[s][1]) == msgs[s]
+
+
+def _g2_points(rng, n):
+    p = bls.g2_mul(bls.G2_GEN, rng.randrange(1, bls.R))
+    step = bls.g2_mul(bls.G2_GEN, rng.randrange(1, bls.R))
+    out = []
+    for _ in range(n):
+        out.append(p)
+        p = bls.g2_add(p, step)
+    return out
+
+
+def _ref2(points, dev):
+    return torch.from_numpy(g2_ref.points_to_limbs(points)).to(dev)
+
+
+def _unpack(arr, flags=None) -> list:
+    """Decode as the pipelines do: one fused buffer (flag row last) through
+    `g1.fetch`, then `g2.g2_unpack_host`."""
+    if flags is None:
+        flags = torch.zeros(arr.shape[-1], dtype=torch.bool)
+    rows, fl = g1.fetch(torch.cat([arr, flags.to(arr)[None, :]]))
+    return g2.g2_unpack_host(rows, fl, arr.device.type == "cpu")
+
+
+def test_g2_kernels_equal_plain_versions(card):
+    rng = random.Random(0xC0DB)
+    n = 128
+    ps, qs = _g2_points(rng, n), _g2_points(rng, n)
+    kp, kq = g2.g2_pack(ps, card), g2.g2_pack(qs, card)
+    rp, rq = _ref2(ps, card), _ref2(qs, card)
+    assert g2.g2_coords(g2.g2_dbl(kp)) == g2.g2_coords(g2_ref.dbl(rp).cpu())
+    assert g2.g2_coords(g2.g2_add(kp, kq)) == g2.g2_coords(
+        g2_ref.add_incomplete(rp, rq).cpu()
+    )
+    table = g2.build_table2(kp)
+    rtable = [torch.zeros_like(rp), rp, g2_ref.dbl(rp)]
+    for _ in range(glv.TABLE - 3):
+        rtable.append(g2_ref.add_incomplete(rtable[-1], rp))
+    scalars = [rng.randrange(1 << 64) for _ in range(n)]
+    scalars[0] = 0
+    scalars[1] = 3
+    digits = g1.digits_col(scalars, 16, card)
+    acc, fl = g2.msm2_scan(table, digits)
+    racc, rfl = g2_ref.msm_scan(torch.stack(rtable), digits)
+    assert g2.g2_coords(acc) == g2.g2_coords(racc.cpu())
+    assert torch.equal(fl.cpu(), rfl.cpu()) and bool(fl[0]) and not bool(fl[1])
+    got = _unpack(acc, fl)
+    assert bls.g2_eq(got[2], bls.g2_mul(ps[2], scalars[2]))
+
+
+def test_coin_pipeline_and_msm_routes_on_card(card):
+    dealer = threshold_sig.TsTrustedKeyGen(5, 1, SeededRng(61))
+    host = HostBackend()
+    coins = []
+    for c in range(3):
+        msg = b"coin %d" % c
+        sig = [dealer.private_key_share(i).sign(msg, host).sigma for i in range(5)]
+        lag = [0] * 5
+        for i, v in zip((0, 1), bls.fr_lagrange_coeffs([1, 2], at=0)):
+            lag[i] = v
+        coins.append((sig, lag))
+    y_points = [k.y for k in dealer.pub_key_set.keys]
+    g2.reset_launches()
+    got, got_rlc = TsGpuEraPipeline(device=card).run_era(coins, y_points, SeededRng(2))
+    assert all(v > 0 for v in g2.LAUNCHES.values())
+    want, want_rlc = TsHostEraPipeline().run_era(coins, y_points, SeededRng(2))
+    assert got_rlc == want_rlc
+    for g, w in zip(got, want):
+        assert bls.g2_eq(g[0], w[0]) and bls.g1_eq(g[1], w[1])
+        assert bls.g2_eq(g[2], w[2])
+
+    backend = GpuBackend()
+    rng = random.Random(5)
+    pts = [bls.g2_mul(bls.G2_GEN, rng.randrange(1, bls.R)) for _ in range(4)]
+    scalars = [bls.R - 1, 0, rng.randrange(bls.R), 9]
+    assert bls.g2_eq(backend.g2_msm(pts, scalars), host.g2_msm(pts, scalars))
+    g1_pts = _points(rng, 5)
+    assert bls.g1_eq(backend.g1_msm(g1_pts, scalars + [1]),
+                     host.g1_msm(g1_pts, scalars + [1]))

@@ -4,7 +4,9 @@
   oracle `lachain_tpu.ops.verify.HostEraPipeline`, on JAX-dealt eras at
   (n, f) = (5, 1) and (7, 2), with partly masked slots and an all-absent
   dummy slot: the rlc lists must be identical and the (u_agg, y_agg,
-  combined) points equal.
+  combined) points equal, with no combine recomputed on the host; a slot
+  whose combine lanes collide is recomputed there and counted in
+  `verify.ESCAPES`.
 * `GpuBackend(device="cpu").tpke_era_verify_combine` against the JAX
   package's `TpuBackend(host_backend=PythonBackend())` at (5, 1), with the
   keys and the era carried across by `lachain_tpu_torch.convert` and one
@@ -16,6 +18,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from lachain_tpu.crypto import bls12381 as jbls
 from lachain_tpu.crypto import tpke as jtpke
@@ -27,9 +30,14 @@ from lachain_tpu_torch import convert
 from lachain_tpu_torch.crypto import bls12381 as bls
 from lachain_tpu_torch.crypto import tpke
 from lachain_tpu_torch.crypto.gpu_backend import EraSlotJob, GpuBackend
+from lachain_tpu_torch.ops import verify
 from lachain_tpu_torch.ops.verify import GpuEraPipeline
 
 pytestmark = pytest.mark.kernel
+
+# tiny tensors: one intra-op thread each keeps parallel test workers from
+# oversubscribing the cores
+torch.set_num_threads(1)
 
 
 class SeededRng:
@@ -74,9 +82,11 @@ def test_pipeline_vs_jax_host_pipeline(n, f):
     slots.append(([jbls.G1_INF] * n, [0] * n))  # all-absent dummy slot
     masks.append([False] * n)
 
+    verify.reset_escapes()
     got, got_rlc = GpuEraPipeline(device="cpu").run_era(
         slots, y_points, SeededRng(5), masks=masks
     )
+    assert verify.ESCAPES["tpke_combine"] == 0  # every combine from the kernels
     want, want_rlc = JaxHostEraPipeline(PythonBackend()).run_era(
         slots, y_points, SeededRng(5), masks=masks
     )
@@ -91,6 +101,28 @@ def test_pipeline_vs_jax_host_pipeline(n, f):
             tpke.EncryptedShare(era[s][0].u, era[s][0].v, era[s][0].w, s),
             got[s][2],
         ) == era[s][2]
+
+
+def test_pipeline_combine_collision_is_counted():
+    """Two equal shares under equal Lagrange coefficients: both GLV halves
+    of the combine collide in the incomplete add (Z = 0), the pipeline
+    recomputes that slot's combine with the host MSM, as the pg1 pipelines
+    do, and counts it in `ESCAPES`. The result equals the JAX host
+    pipeline's."""
+    rng = random.Random(0xE5D)
+    p = jbls.g1_mul(jbls.G1_GEN, rng.randrange(1, jbls.R))
+    c = rng.randrange(1, jbls.R)
+    y_points = [jbls.g1_mul(jbls.G1_GEN, rng.randrange(1, jbls.R)) for _ in range(2)]
+    slots = [([p, p], [c, c])]
+    verify.reset_escapes()
+    got, got_rlc = GpuEraPipeline(device="cpu").run_era(slots, y_points, SeededRng(6))
+    assert verify.ESCAPES == dict(dict.fromkeys(verify.ESCAPES, 0), tpke_combine=1)
+    want, want_rlc = JaxHostEraPipeline(PythonBackend()).run_era(
+        slots, y_points, SeededRng(6)
+    )
+    assert got_rlc == want_rlc
+    assert bls.g1_eq(got[0][2], jbls.g1_mul(p, 2 * c))
+    assert all(bls.g1_eq(a, b) for a, b in zip(got[0], want[0]))
 
 
 def _to_port(dealer, era):

@@ -21,6 +21,10 @@ from lachain_tpu_torch.ops import g1
 
 pytestmark = pytest.mark.kernel
 
+# tiny tensors: one intra-op thread each keeps parallel test workers from
+# oversubscribing the cores
+torch.set_num_threads(1)
+
 
 def _pts(rng, n):
     return [jbls.g1_mul(jbls.G1_GEN, rng.randrange(1, jbls.R)) for _ in range(n)]

@@ -25,6 +25,10 @@ from lachain_tpu_torch.ops import g1, g1_ref, glv
 
 pytestmark = pytest.mark.kernel
 
+# tiny tensors: one intra-op thread each keeps parallel test workers from
+# oversubscribing the cores
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def rng():
@@ -37,6 +41,15 @@ def _limbs(vals) -> np.ndarray:
 
 def _random_points(rng, n):
     return [bls.g1_mul(bls.G1_GEN, rng.randrange(1, bls.R)) for _ in range(n)]
+
+
+def _unpack(arr, flags=None) -> list:
+    """Decode as the pipelines do: one fused buffer (flag row last) through
+    `g1.fetch`, then `g1.g1_unpack_host`."""
+    if flags is None:
+        flags = torch.zeros(arr.shape[-1], dtype=torch.bool)
+    rows, fl = g1.fetch(torch.cat([arr, flags.to(arr)[None, :]]))
+    return g1.g1_unpack_host(rows, fl, arr.device.type == "cpu")
 
 
 def test_limb_marshal_matches_pg1(rng):
@@ -82,8 +95,8 @@ def test_dbl_add_vs_pg1(rng):
     got_a = g1_ref.add_incomplete(tp, tq)
     assert (got_d.numpy() == want_d).all()
     assert (got_a.numpy() == want_a).all()
-    d_pts = g1.g1_unpack(got_d)
-    a_pts = g1.g1_unpack(got_a)
+    d_pts = _unpack(got_d)
+    a_pts = _unpack(got_a)
     for i in range(n):
         assert jbls.g1_eq(d_pts[i], jbls.g1_dbl(pts[i]))
         assert jbls.g1_eq(a_pts[i], jbls.g1_add(pts[i], qts[i]))

@@ -2,8 +2,10 @@
 
 * In a fresh interpreter, importing every module of `lachain_tpu_torch`
   must bring in neither JAX nor any module of the JAX package.
-* Asking for the card where there is none raises: `GpuBackend()`,
-  `GpuEraPipeline()` and the kernel build have no CPU fallback.
+* Asking for the card where there is none raises: `GpuBackend()` (and so
+  its `tpke_era_verify_combine` and `ts_era_verify_combine`),
+  `GpuEraPipeline()`, `TsGpuEraPipeline()` and the kernel build have no CPU
+  fallback.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 
 from lachain_tpu_torch.crypto.gpu_backend import GpuBackend
 from lachain_tpu_torch.ops import _build
-from lachain_tpu_torch.ops.verify import GpuEraPipeline
+from lachain_tpu_torch.ops.verify import GpuEraPipeline, TsGpuEraPipeline
 
 pytestmark = pytest.mark.kernel
 
@@ -42,8 +44,27 @@ def test_port_imports_nothing_of_jax():
         text=True, check=True, timeout=120,
     ).stdout.split("\n")[0]
     count, bad = out.split(" ", 1)
-    assert int(count) >= 10  # every module of the slice was imported
+    assert int(count) >= 17  # every module of the package was imported
     assert bad == "[]"
+
+
+_HOST_ONLY = """
+import sys
+import lachain_tpu_torch.crypto.threshold_sig
+import lachain_tpu_torch.crypto.tpke
+print(sorted(m for m in sys.modules if m == "torch"
+             or m.startswith("lachain_tpu_torch.ops")))
+"""
+
+
+def test_protocol_modules_load_no_torch():
+    """A host-only user of the protocol modules never loads torch or the
+    kernel build: the card backend is imported only where it is used."""
+    out = subprocess.run(
+        [sys.executable, "-c", _HOST_ONLY], cwd=_ROOT, capture_output=True,
+        text=True, check=True, timeout=120,
+    ).stdout.strip()
+    assert out == "[]"
 
 
 def _require_no_card():
@@ -57,6 +78,14 @@ def test_gpu_backend_without_card_raises():
         GpuBackend()
     with pytest.raises(RuntimeError):
         GpuEraPipeline()
+
+
+def test_coin_path_without_card_raises():
+    _require_no_card()
+    with pytest.raises(RuntimeError):
+        TsGpuEraPipeline()
+    with pytest.raises(RuntimeError):
+        GpuBackend().ts_era_verify_combine([], [], None)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -23,6 +23,10 @@ from lachain_tpu_torch.ops import g1
 
 pytestmark = pytest.mark.kernel
 
+# tiny tensors: one intra-op thread each keeps parallel test workers from
+# oversubscribing the cores
+torch.set_num_threads(1)
+
 
 def _pts(rng, n):
     return [jbls.g1_mul(jbls.G1_GEN, rng.randrange(1, jbls.R)) for _ in range(n)]
@@ -30,6 +34,15 @@ def _pts(rng, n):
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a).astype(np.int64))
+
+
+def _unpack(arr, flags=None) -> list:
+    """Decode as the pipelines do: one fused buffer (flag row last) through
+    `g1.fetch`, then `g1.g1_unpack_host`."""
+    if flags is None:
+        flags = torch.zeros(arr.shape[-1], dtype=torch.bool)
+    rows, fl = g1.fetch(torch.cat([arr, flags.to(arr)[None, :]]))
+    return g1.g1_unpack_host(rows, fl, arr.device.type == "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +63,7 @@ def test_msm_windowed_vs_pg1(msm_case):
     acc, flags = g1.msm_windowed(g1.g1_pack(pts, "cpu"), torch.from_numpy(dig))
     assert (acc.numpy() == want_acc).all()
     assert (flags.numpy() == want_flags).all()
-    got = g1.g1_unpack(acc, flags)
+    got = _unpack(acc, flags)
     for i, (p, s) in enumerate(zip(pts, scalars)):
         assert jbls.g1_eq(got[i], jbls.g1_mul(p, s)), i
     assert bool(flags[3]) and not bool(flags[7])
@@ -84,7 +97,7 @@ def test_tree_reduce_k_vs_pg1(reduce_case):
     acc, fl = g1.tree_reduce_k(g1.g1_pack(pts, "cpu"), torch.from_numpy(flags), 4)
     assert (acc.numpy() == want_acc).all()
     assert (fl.numpy() == want_fl).all()
-    got = g1.g1_unpack(acc, fl)
+    got = _unpack(acc, fl)
     for grp in range(4):
         want = jbls.G1_INF
         for i in range(4 * grp, 4 * grp + 4):
