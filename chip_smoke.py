@@ -4,13 +4,15 @@
     python3 chip_smoke.py [--seed S]
 
 Phases, each of which must pass (any failure exits non-zero):
-  1. build   the CUDA kernels of lachain_tpu_torch/csrc/ (g1.cu and g2.cu,
-             nvcc, sm_90a), with each kernel's registers and local bytes;
-  2. kernels hold each of the seven kernels against its plain PyTorch
-             version (ops/g1_ref.py, ops/g2_ref.py) on the card, on seeded
-             inputs at the main paths' shapes (8192 lanes; the G2 scan with
-             64 windows): exact equality of coordinates mod p and flags;
-  3. main    two paths, each with the kernel launch counts set to 0 just
+  1. build   the CUDA kernels of lachain_tpu_torch/csrc/ (g1.cu, g2.cu and
+             secp.cu, one nvcc each, in parallel, sm_90a), with each
+             kernel's registers and local bytes;
+  2. kernels hold each of the twelve kernels against its plain PyTorch
+             version (ops/g1_ref.py, ops/g2_ref.py, ops/secp_ref.py) on the
+             card, on seeded inputs at the main paths' shapes (8192 lanes;
+             the G2 and secp scans with 64 windows; the secp square root
+             at 16384 lanes): exact equality of coordinates mod p and flags;
+  3. main    three paths, each with the kernel launch counts set to 0 just
              before its one counted call and read just after:
              the N=64 TPKE era (64 ACS slots x 64 decryption shares) through
              GpuBackend(device="cuda").tpke_era_verify_combine: every slot
@@ -21,13 +23,21 @@ Phases, each of which must pass (any failure exits non-zero):
              every signature must verify under the shared key with the host
              combine's parity, a poisoned share must isolate exactly its
              coin, 4 coins are held against TsHostEraPipeline, and one device
-             g1_msm and one g2_msm at n=100 against the host MSM. Around each
-             counted era and the MSMs, no result may have been recomputed on
-             the host (ops/verify.ESCAPES), and the MSMs must launch the
-             kernels;
+             g1_msm and one g2_msm at n=100 against the host MSM;
+             pool-ingest ECDSA recovery of 10,000 signatures from 64 senders
+             (32 of them malformed) through
+             ecdsa.recover_hash_batch(..., device="cuda"): every valid
+             signature must recover its sender's key, every malformed one
+             and 64 valid ones must equal ecdsa.recover_hash, the launches
+             must be exactly one square root and, per 4096-signature chunk,
+             1 doubling, 14 adds and 1 scan; a crafted u1*R == u2*G
+             signature, in a call of its own, must be answered by the host
+             oracle exactly once. Around each counted call and the MSMs, no
+             result may have been recomputed on the host
+             (ops/verify.ESCAPES), and each path must launch its kernels;
   4. times   per-kernel times from CUDA events, the plain versions' times,
-             each kernel's bound, the warm per-era phase times of both paths
-             and a torch.profiler split of each device phase by kernel.
+             each kernel's bound, the warm phase times of every path and a
+             torch.profiler split of each device phase by kernel.
 The last three lines of standard output are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}.
 
@@ -53,11 +63,23 @@ PEAK_OPS_PER_S = 67e12
 OPS_PER_FIELD_MUL = 2 * (2 * 12 * 12 + 12)
 MULS_DBL, MULS_ADD = 7, 16  # field products per doubling / incomplete add
 MULS_DBL2, MULS_ADD2 = 16, 44  # the same over Fp2 (G2), in Fp products
+# one 8 x 32-bit secp256k1 Montgomery product: 2*8*8 + 8 word products; a
+# secp doubling / add is 7 / 16 of them like G1's
+OPS_PER_SECP_MUL = 2 * (2 * 8 * 8 + 8)
 
 N_VALIDATORS = 64
 KERNEL_LANES = 8192  # S*K*2 msm lanes of the N=64 eras
+SQRT_LANES = 16384  # the 10,000-signature batch padded to a power of two
+N_SIGNATURES = 10000
+N_SENDERS = 64
 KERNEL_NAMES = ("fp_mul_kernel", "dbl_kernel", "add_kernel", "msm_scan_kernel",
-                "g2_dbl_kernel", "g2_add_kernel", "g2_msm_scan_kernel")
+                "g2_dbl_kernel", "g2_add_kernel", "g2_msm_scan_kernel",
+                "secp_fp_mul_kernel", "secp_dbl_kernel", "secp_add_kernel",
+                "secp_msm_scan_kernel", "secp_sqrt_kernel")
+G1_KERNELS = ("fp_mul", "g1_dbl", "g1_add", "g1_msm_scan")
+G2_KERNELS = ("g2_dbl", "g2_add", "g2_msm_scan")
+SECP_KERNELS = ("secp_fp_mul", "secp_dbl", "secp_add", "secp_msm_scan",
+                "secp_sqrt")
 
 
 class SeededRng:
@@ -259,6 +281,7 @@ def check_kernels(seed: int, dev):
         bound=bound(nbytes, muls * OPS_PER_FIELD_MUL),
     )
     report.update(check_g2_kernels(rng, dev))
+    report.update(check_secp_kernels(rng, dev))
     for name, r in report.items():
         report_line(name, r)
     bad = [name for name, r in report.items() if not r["ok"]]
@@ -346,6 +369,142 @@ def check_g2_kernels(rng: random.Random, dev):
     return report
 
 
+def secp_point_run(n: int, rng: random.Random, ecdsa):
+    """n distinct affine secp256k1 points P0 + i*S (chained host adds)."""
+    p = ecdsa._mul(ecdsa.G, rng.randrange(1, ecdsa.N))
+    step = ecdsa._mul(ecdsa.G, rng.randrange(1, ecdsa.N))
+    out = []
+    for _ in range(n):
+        out.append(p)
+        p = ecdsa._add(p, step)
+    return out
+
+
+def check_secp_kernels(rng: random.Random, dev):
+    """The five secp256k1 kernels against secp_ref at the recover path's
+    shapes: 8192 lanes (one 4096-signature chunk), the scan with 64 windows
+    of random digits, the square root at 16384 lanes."""
+    import torch
+
+    from lachain_tpu_torch.crypto import ecdsa
+    from lachain_tpu_torch.ops import glv, secp, secp_ref
+
+    n = KERNEL_LANES
+    P = ecdsa.P
+    report = {}
+
+    def ref_fe(vals):
+        return torch.from_numpy(secp_ref.ints_to_limbs(vals)).to(dev)
+
+    def ref_pts(points):
+        return torch.from_numpy(secp_ref.points_to_limbs(points)).to(dev)
+
+    def affine(c, i):
+        zi = pow(c[2 * n + i], -1, P)
+        return (c[i] * zi * zi % P, c[n + i] * zi * zi * zi % P)
+
+    # (8) secp_fp_mul, with 0, 1, p-1 and 2^256 mod p among the operands
+    edge = [0, 1, P - 1, (1 << 256) % P]
+    xs = edge + [rng.randrange(P) for _ in range(n - len(edge))]
+    ys = list(reversed(edge)) + [rng.randrange(P) for _ in range(n - len(edge))]
+    kx, ky = secp.fe_encode(xs, dev), secp.fe_encode(ys, dev)
+    rx, ry = ref_fe(xs), ref_fe(ys)
+    got = secp.fe_decode(secp.secp_fp_mul(kx, ky))
+    want = secp_ref.limbs_to_ints(secp_ref.fp_mul(rx, ry).cpu().numpy())
+    check(want == [x * y % P for x, y in zip(xs, ys)], "secp_ref.fp_mul wrong")
+    report["secp_fp_mul"] = dict(
+        lanes=n, ok=got == want, max_abs_err=max_err(got, want),
+        ms=cuda_ms(lambda: secp.secp_fp_mul(kx, ky), 200),
+        plain_ms=cuda_ms(lambda: secp_ref.fp_mul(rx, ry), 5),
+        bound=bound(3 * 32 * n, n * OPS_PER_SECP_MUL),
+    )
+
+    # (9) secp_dbl on n affine points; (10) secp_add on the doubled points
+    # (Z != 1) and n more, lane 7 holding p == q (Z = 0 on both sides)
+    ps = secp_point_run(n, rng, ecdsa)
+    qs = secp_point_run(n, rng, ecdsa)
+    qs[7] = ecdsa._add(ps[7], ps[7])
+    kp, kq = secp.pt_pack(ps, dev), secp.pt_pack(qs, dev)
+    rp, rq = ref_pts(ps), ref_pts(qs)
+    kd, rd = secp.secp_dbl(kp), secp_ref.dbl(rp)
+    got, want = secp.pt_coords(kd), secp_ref.coords(rd.cpu())
+    for i in range(0, n, 997):
+        check(affine(want, i) == ecdsa._add(ps[i], ps[i]), "secp_ref.dbl wrong")
+    report["secp_dbl"] = dict(
+        lanes=n, ok=got == want, max_abs_err=max_err(got, want),
+        ms=cuda_ms(lambda: secp.secp_dbl(kp), 100),
+        plain_ms=cuda_ms(lambda: secp_ref.dbl(rp), 3),
+        bound=bound(2 * 96 * n, n * MULS_DBL * OPS_PER_SECP_MUL),
+    )
+    got = secp.pt_coords(secp.secp_add(kd, kq))
+    want = secp_ref.coords(secp_ref.add_incomplete(rd, rq).cpu())
+    check(want[2 * n + 7] == 0, "secp_ref.add: p == q must give Z = 0")
+    for i in range(1, n, 997):
+        check(affine(want, i) == ecdsa._add(ecdsa._add(ps[i], ps[i]), qs[i]),
+              "secp_ref.add wrong")
+    report["secp_add"] = dict(
+        lanes=n, ok=got == want, max_abs_err=max_err(got, want),
+        ms=cuda_ms(lambda: secp.secp_add(kd, kq), 100),
+        plain_ms=cuda_ms(lambda: secp_ref.add_incomplete(rd, rq), 3),
+        bound=bound(3 * 96 * n, n * MULS_ADD * OPS_PER_SECP_MUL),
+    )
+
+    # (11) secp_msm_scan: 64 windows over a host-built table k*P; every 61st
+    # lane has all-zero digits and must come back flagged
+    nwin = glv.W256
+    table_pts = [[None] * n, ps]
+    for _ in range(glv.TABLE - 2):
+        table_pts.append([ecdsa._add(a, b) for a, b in zip(table_pts[-1], ps)])
+    ktab = torch.stack([secp.pt_pack(row, dev) for row in table_pts])
+    rtab = torch.stack([ref_pts(row) for row in table_pts])
+    del table_pts
+    scalars = [rng.randrange(1 << 256) for _ in range(n)]
+    for i in range(0, n, 61):
+        scalars[i] = 0
+    scalars[1] = 5  # leading zero windows, then one nonzero digit
+    digits = secp.digits_col(scalars, dev)
+    acc, fl = secp.msm_scan(ktab, digits)
+    (racc, rfl), plain_ms = cuda_ms_once(lambda: secp_ref.msm_scan(rtab, digits))
+    got, want = secp.pt_coords(acc), secp_ref.coords(racc.cpu())
+    flags_ok = bool(torch.equal(fl.cpu(), rfl.cpu()))
+    check(bool(rfl[0]) and not bool(rfl[1]), "zero-digit lane flags wrong")
+    for i in (1, 2, 3, n // 2):
+        check(affine(want, i) == ecdsa._mul(ps[i], scalars[i]), "secp_ref.msm wrong")
+    del racc, rtab
+    muls = scan_products(digits, MULS_DBL, MULS_ADD)
+    nbytes = ktab.numel() * 4 + digits.numel() * 4 + 96 * n + n
+    report["secp_msm_scan"] = dict(
+        lanes=n, windows=nwin, ok=got == want and flags_ok,
+        max_abs_err=max_err(got, want),
+        ms=cuda_ms(lambda: secp.msm_scan(ktab, digits), 5),
+        plain_ms=plain_ms,
+        bound=bound(nbytes, muls * OPS_PER_SECP_MUL),
+    )
+
+    # (12) secp_sqrt at 16384 lanes: random x (about half non-residues),
+    # G's x among them
+    m = SQRT_LANES
+    xs = [ecdsa.GX] + [rng.randrange(P) for _ in range(m - 1)]
+    kx, rx = secp.fe_encode(xs, dev), ref_fe(xs)
+    got = secp.fe_decode(secp.sqrt(kx))
+    want, plain_ms = cuda_ms_once(lambda: secp_ref.sqrt(rx))
+    want = secp_ref.limbs_to_ints(want.cpu().numpy())
+    check(want[0] in (ecdsa.GY, P - ecdsa.GY), "secp_ref.sqrt wrong at G")
+    for i in range(1, m, 4099):
+        check(want[i] == pow((xs[i] ** 3 + 7) % P, (P + 1) // 4, P),
+              "secp_ref.sqrt wrong")
+    # x^2, x^3, then one square per exponent bit below the top one and one
+    # product per set bit among them
+    muls = 2 + len(secp_ref.SQRT_STEPS) + sum(secp_ref.SQRT_STEPS)
+    report["secp_sqrt"] = dict(
+        lanes=m, ok=got == want, max_abs_err=max_err(got, want),
+        ms=cuda_ms(lambda: secp.sqrt(kx), 20),
+        plain_ms=plain_ms,
+        bound=bound(2 * 32 * m, m * muls * OPS_PER_SECP_MUL),
+    )
+    return report
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the N=64 era through GpuBackend
 # ---------------------------------------------------------------------------
@@ -378,18 +537,28 @@ def make_era(n: int, seed: int):
 
 def profile_device(run) -> dict:
     """{kernel: [device ms, launches]} of one call of run() from
-    torch.profiler; device work that is not one of the seven kernels
-    (copies, cat, where) is summed under "torch"."""
+    torch.profiler; device work that is not one of the twelve kernels
+    (copies, cat, where) is summed under "torch". A trace loses the first
+    device activities of its session (a trace of the recover path lacked
+    its first three launches), so run() goes once under the profiler's
+    warm-up step, whose events are dropped, and once under its active
+    step, which is what is summed. The step's own span ("ProfilerStep*")
+    covers the whole call and is left out."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
     out: dict = {}
-    for e in prof.key_averages():
+    for e in traced[0]:
         t = getattr(e, "self_device_time_total", 0) or 0
-        if t <= 0:
+        if t <= 0 or e.key.startswith("ProfilerStep"):
             continue
         name = next((k for k in KERNEL_NAMES if f"::{k}(" in e.key), "torch")
         acc = out.setdefault(name, [0.0, 0])
@@ -400,17 +569,18 @@ def profile_device(run) -> dict:
 
 def reset_counts() -> None:
     """Set every kernel's launch count and every host recompute count to 0."""
-    from lachain_tpu_torch.ops import g1, g2, verify
+    from lachain_tpu_torch.ops import g1, g2, secp, verify
 
     g1.reset_launches()
     g2.reset_launches()
+    secp.reset_launches()
     verify.reset_escapes()
 
 
 def read_launches() -> dict:
-    from lachain_tpu_torch.ops import g1, g2
+    from lachain_tpu_torch.ops import g1, g2, secp
 
-    return dict(g1.LAUNCHES, **g2.LAUNCHES)
+    return dict(g1.LAUNCHES, **g2.LAUNCHES, **secp.LAUNCHES)
 
 
 def check_no_escapes(label: str) -> None:
@@ -424,10 +594,10 @@ def check_no_escapes(label: str) -> None:
 
 
 def warm_summary(label: str, warm) -> None:
+    """The phases of the warm run with the least wall time, in ms."""
     best = min(warm, key=lambda w: w["wall_s"])
-    log(f"{label} warm (best of {len(warm)}): pack {best['pack_s'] * 1e3:.2f} ms, "
-        f"device {best['device_s'] * 1e3:.2f} ms, fetch {best['fetch_s'] * 1e3:.2f} ms, "
-        f"host pairing {best['pairing_s']:.3f} s, wall {best['wall_s']:.3f} s")
+    phases = ", ".join(f"{k[:-2]} {v * 1e3:.2f} ms" for k, v in best.items())
+    log(f"{label} warm (best of {len(warm)}): {phases}")
 
 
 def profile_phase(label: str, pipeline, run) -> dict:
@@ -648,6 +818,167 @@ def run_coin_path(seed: int, backend, dev):
     return launches, warm
 
 
+# ---------------------------------------------------------------------------
+# phase 3: pool-ingest ECDSA recovery through ecdsa.recover_hash_batch
+# ---------------------------------------------------------------------------
+
+MALFORMED = ("flip_s", "r_zero", "r_above_n", "v_four", "non_residue",
+             "z_zero", "short_sig", "short_hash")
+
+
+def make_signatures(n: int, senders: int, rng: random.Random):
+    """n signatures by `senders` seeded keys over random hashes, with the
+    signer's own s, v and low-s rule (ecdsa._signature) and nonces that step
+    by one: R_{i+1} = R_i + G, one affine add each instead of a scalar
+    multiplication per signature. Every signature has its own R and z."""
+    from lachain_tpu_torch.crypto import ecdsa
+
+    privs = [rng.randrange(1, ecdsa.N).to_bytes(32, "big") for _ in range(senders)]
+    pubs = [ecdsa.public_key_bytes(p) for p in privs]
+    k = rng.randrange(1, ecdsa.N - n)
+    rp = ecdsa._mul(ecdsa.G, k)
+    hashes, sigs, owner = [], [], []
+    for i in range(n):
+        h = rng.randbytes(32)
+        sig = ecdsa._signature(int.from_bytes(privs[i % senders], "big"),
+                               int.from_bytes(h, "big") % ecdsa.N, k, rp)
+        check(sig is not None, "r or s came out 0")
+        hashes.append(h)
+        sigs.append(sig)
+        owner.append(i % senders)
+        k += 1
+        rp = ecdsa._add(rp, ecdsa.G)
+    return pubs, hashes, sigs, owner
+
+
+def malform(kind: str, h: bytes, sig: bytes, rng: random.Random):
+    """One (hash, signature) of a malformed kind from a valid pair."""
+    from lachain_tpu_torch.crypto import ecdsa
+
+    if kind == "flip_s":  # still well-formed: recovers another key
+        b = bytearray(sig)
+        b[40] ^= 0xFF
+        return h, bytes(b)
+    if kind == "r_zero":
+        return h, bytes(32) + sig[32:]
+    if kind == "r_above_n":
+        return h, (ecdsa.N + rng.randrange(1, 1 << 64)).to_bytes(32, "big") + sig[32:]
+    if kind == "v_four":
+        return h, sig[:64] + bytes([4])
+    if kind == "non_residue":  # x^3 + 7 has no square root: the y^2 check
+        r = rng.randrange(1, ecdsa.N)
+        while pow((r**3 + 7) % ecdsa.P, (ecdsa.P - 1) // 2, ecdsa.P) != ecdsa.P - 1:
+            r += 1
+        return h, r.to_bytes(32, "big") + sig[32:]
+    if kind == "z_zero":  # u2 = 0: the G lane's digits are all zero
+        return bytes(32), sig
+    if kind == "short_sig":
+        return h, sig[:64]
+    return h[:31], sig  # short_hash
+
+
+def degenerate_signature():
+    """u1*R == u2*G (tests/test_psecp.py:107-123): R = kG, s = (N-z)/k, so
+    the recover kernel's pairwise add meets p == q and gives Z = 0."""
+    from lachain_tpu_torch.crypto import ecdsa
+
+    k, z = 0x1234567, 0x55AA
+    rp = ecdsa._mul(ecdsa.G, k)
+    s = (ecdsa.N - z) * pow(k, -1, ecdsa.N) % ecdsa.N
+    return (z.to_bytes(32, "big"),
+            rp[0].to_bytes(32, "big") + s.to_bytes(32, "big") + bytes([rp[1] & 1]))
+
+
+def run_ecdsa_path(seed: int, dev):
+    from lachain_tpu_torch.crypto import ecdsa
+    from lachain_tpu_torch.ops import secp, verify
+    from lachain_tpu_torch.ops.secp import GpuEcdsaRecover
+
+    rng = random.Random(seed + 200)
+    n = N_SIGNATURES
+    t0 = time.perf_counter()
+    pubs, hashes, sigs, owner = make_signatures(n, N_SENDERS, rng)
+    bad = {}
+    for j, i in enumerate(rng.sample(range(n), 4 * len(MALFORMED))):
+        kind = MALFORMED[j % len(MALFORMED)]
+        hashes[i], sigs[i] = malform(kind, hashes[i], sigs[i], rng)
+        bad[i] = kind
+    log(f"ecdsa host setup ({N_SENDERS} keys, {n} signatures, {len(bad)} "
+        f"malformed): {time.perf_counter() - t0:.1f} s")
+
+    # the launches one chunked call must make: one square root over the
+    # padded batch; per chunk of 4096 signatures 1 doubling, 13 table adds,
+    # 1 scan and 1 pairwise add; conversions into and out of Montgomery
+    # form around the square root and around each chunk. The signatures
+    # that reach the scans: the valid ones, flip_s and z_zero.
+    n_jobs = sum(1 for i in range(n) if bad.get(i, "flip_s") in ("flip_s", "z_zero"))
+    chunks = -(-n_jobs // GpuEcdsaRecover.CHUNK)
+    want_launches = dict.fromkeys(read_launches(), 0)
+    want_launches.update(secp_sqrt=1, secp_dbl=chunks, secp_add=14 * chunks,
+                         secp_msm_scan=chunks, secp_fp_mul=2 + 2 * chunks)
+
+    # the main-path run whose launches are counted
+    reset_counts()
+    t0 = time.perf_counter()
+    got = ecdsa.recover_hash_batch(hashes, sigs, device="cuda")
+    cold_s = time.perf_counter() - t0
+    launches = read_launches()
+    check_no_escapes("ecdsa recover")
+    check(chunks == 3, f"expected 3 chunks of the 10,000-signature batch, got {chunks}")
+    check(launches == want_launches,
+          f"ecdsa launches {launches} != expected {want_launches}")
+    for i in range(n):
+        if i not in bad:
+            check(got[i] == pubs[owner[i]], f"signature {i} recovered the wrong key")
+    t0 = time.perf_counter()
+    for i, kind in bad.items():
+        check(got[i] == ecdsa.recover_hash(hashes[i], sigs[i]),
+              f"malformed {kind} at {i} differs from recover_hash")
+    sample = rng.sample([i for i in range(n) if i not in bad], 64)
+    for i in sample:
+        check(got[i] == ecdsa.recover_hash(hashes[i], sigs[i]),
+              f"signature {i} differs from recover_hash")
+    kinds = {k: sum(1 for v in bad.values() if v == k) for k in MALFORMED}
+    log(f"ecdsa recover of {n}: every valid signature gave its sender's key, "
+        f"{len(bad)} malformed ({kinds}) and 64 valid equal recover_hash "
+        f"({time.perf_counter() - t0:.1f} s); {n_jobs} on the card in {chunks} "
+        f"chunks; cold {cold_s:.3f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+    # the crafted collision, in a call of its own: one answer from the oracle
+    dh, ds = degenerate_signature()
+    reset_counts()
+    one = ecdsa.recover_hash_batch([dh], [ds], device="cuda")
+    check(verify.ESCAPES == dict(dict.fromkeys(verify.ESCAPES, 0), ecdsa_recover=1),
+          f"collision: escapes {verify.ESCAPES}")
+    check(one == [ecdsa.recover_hash(dh, ds)] and one[0] is not None,
+          "collision answer differs from recover_hash")
+    log(f"crafted u1*R == u2*G signature: answered by the host oracle once "
+        f"(ESCAPES {verify.ESCAPES}), equal to recover_hash")
+
+    # warm runs of the card path on the regular entries (what
+    # recover_hash_batch hands GpuEcdsaRecover), with their phase split
+    regular = [i for i in range(n) if len(hashes[i]) == 32 and len(sigs[i]) == 65]
+    rh, rs = [hashes[i] for i in regular], [sigs[i] for i in regular]
+    rec = GpuEcdsaRecover(dev)
+    warm = []
+    for r in range(2):
+        out = rec.recover_batch(rh, rs)
+        check(out == [got[i] for i in regular], "warm recover differs")
+        warm.append(dict(rec.last_timings))
+        log(f"ecdsa warm {r}: {rec.last_timings}")
+    by_kernel = profile_device(lambda: rec.recover_batch(rh, rs))
+    busy = sum(v[0] for v in by_kernel.values())
+    t = rec.last_timings
+    seen = {k: by_kernel.get(f"{k}_kernel", [0, 0])[1] for k in SECP_KERNELS}
+    log(f"ecdsa recover by kernel (torch.profiler, ms, launches): {by_kernel}; "
+        f"busy {busy:.3f} ms of sqrt {t['sqrt_s'] * 1e3:.3f} ms + device "
+        f"{t['device_s'] * 1e3:.3f} ms (profiled wall {t['wall_s']:.3f} s); "
+        f"launches traced {seen}, counted in the main-path call "
+        f"{ {k: launches[k] for k in SECP_KERNELS} }")
+    return launches, warm
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -677,19 +1008,21 @@ def main() -> int:
     paths = {
         "tpke_era": run_tpke_path(args.seed, backend, dev),
         "coin_era": run_coin_path(args.seed, backend, dev),
+        "ecdsa_recover": run_ecdsa_path(args.seed, dev),
     }
     needs = {
-        "tpke_era": ("fp_mul", "g1_dbl", "g1_add", "g1_msm_scan"),
-        "coin_era": tuple(report),
+        "tpke_era": G1_KERNELS,
+        "coin_era": G1_KERNELS + G2_KERNELS,
+        "ecdsa_recover": SECP_KERNELS,
     }
     for path, (launches, warm) in paths.items():
         missing = [k for k in needs[path] if launches[k] == 0]
         check(not missing, f"{path} never launched: {missing}")
         warm_summary(path, warm)
 
-    sources = {"fp_mul": "g1", "g1_dbl": "g1", "g1_add": "g1",
-               "g1_msm_scan": "g1", "g2_dbl": "g2", "g2_add": "g2",
-               "g2_msm_scan": "g2"}
+    sources = dict(
+        {k: "g1" for k in G1_KERNELS}, **{k: "g2" for k in G2_KERNELS},
+        **{k: "secp" for k in SECP_KERNELS})
     replaces = {
         "fp_mul": "lachain_tpu/ops/pg1.py:262",
         "g1_dbl": "lachain_tpu/ops/pg1.py:253",
@@ -698,6 +1031,12 @@ def main() -> int:
         "g2_dbl": "lachain_tpu/ops/pg2.py:218",
         "g2_add": "lachain_tpu/ops/pg2.py:222",
         "g2_msm_scan": "lachain_tpu/ops/pg2.py:272",
+        # psecp has no launch of its own for the field product: its _mul
+        "secp_fp_mul": "lachain_tpu/ops/psecp.py:121",
+        "secp_dbl": "lachain_tpu/ops/psecp.py:235",
+        "secp_add": "lachain_tpu/ops/psecp.py:239",
+        "secp_msm_scan": "lachain_tpu/ops/psecp.py:285",
+        "secp_sqrt": "lachain_tpu/ops/psecp.py:380",
     }
     kernels = [
         {

@@ -7,7 +7,9 @@ Two era paths run on the card through `crypto.gpu_backend.GpuBackend`:
     `ts_era_verify_combine`): the G2 kernels of csrc/g2.cu, bound in
     ops/g2.py, under TsGpuEraPipeline, with the key aggregate on the G1
     kernels.
-`GpuBackend.g1_msm` / `g2_msm` run single MSMs on the same kernels. The
+`GpuBackend.g1_msm` / `g2_msm` run single MSMs on the same kernels.
+Pool-ingest ECDSA recovery runs `crypto.ecdsa.recover_hash_batch` over
+`ops.secp.GpuEcdsaRecover` and the secp256k1 kernels of csrc/secp.cu. The
 package imports torch and numpy and nothing of JAX or of lachain_tpu. Its
 entry points run on the card unless the caller passes device="cpu".
 """

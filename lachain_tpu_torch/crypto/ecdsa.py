@@ -1,0 +1,210 @@
+"""secp256k1 ECDSA of the port: signing, recovery, and batched recovery on
+the card.
+
+The port's copy of `lachain_tpu/crypto/ecdsa.py`: the domain parameters and
+affine curve law (:26-64), `public_key_point` / `public_key_bytes` (pure
+Python), `decompress_public_key`, `address_from_public_key`, the RFC 6979
+nonce, the pure-Python signer (`_sign_hash_py`, :198) and recovery
+(`recover_hash`, the reference's `_recover_hash_py`, :416). The port has no
+native library, so these are the only host paths.
+
+`recover_hash_batch` (:357) sends every entry of regular length to the card
+(ops/secp.GpuEcdsaRecover): there is no batch-size threshold, and an error
+on the card propagates instead of falling back to the host. Entries of
+irregular length take `recover_hash`, as in the JAX package.
+
+Signing is not constant-time (branchy double-and-add over the nonce), as
+in the reference: devnet grade; recovery takes only public inputs.
+"""
+from __future__ import annotations
+
+import hashlib
+import hmac
+from typing import List, Optional, Sequence, Tuple
+
+from .hashes import keccak256
+
+# secp256k1 domain parameters
+P = 2**256 - 2**32 - 977
+N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
+GX = 0x79BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798
+GY = 0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8
+G = (GX, GY)
+
+
+def _inv(a: int, m: int) -> int:
+    return pow(a, -1, m)
+
+
+def _add(p: Optional[Tuple[int, int]], q: Optional[Tuple[int, int]]):
+    if p is None:
+        return q
+    if q is None:
+        return p
+    x1, y1 = p
+    x2, y2 = q
+    if x1 == x2:
+        if (y1 + y2) % P == 0:
+            return None
+        lam = (3 * x1 * x1) * _inv(2 * y1, P) % P
+    else:
+        lam = (y2 - y1) * _inv(x2 - x1, P) % P
+    x3 = (lam * lam - x1 - x2) % P
+    y3 = (lam * (x1 - x3) - y1) % P
+    return (x3, y3)
+
+
+def _mul(p: Optional[Tuple[int, int]], k: int):
+    k %= N
+    result = None
+    addend = p
+    while k:
+        if k & 1:
+            result = _add(result, addend)
+        addend = _add(addend, addend)
+        k >>= 1
+    return result
+
+
+def _compress(pt: Tuple[int, int]) -> bytes:
+    return bytes([0x02 | (pt[1] & 1)]) + pt[0].to_bytes(32, "big")
+
+
+def public_key_point(priv: bytes) -> Tuple[int, int]:
+    return _mul(G, int.from_bytes(priv, "big"))
+
+
+def public_key_bytes(priv: bytes) -> bytes:
+    """Compressed SEC1 encoding (33 bytes)."""
+    return _compress(public_key_point(priv))
+
+
+def decompress_public_key(pub: bytes) -> Tuple[int, int]:
+    # ValueError (not assert): malformed keys come from untrusted input
+    if len(pub) != 33 or pub[0] not in (2, 3):
+        raise ValueError("pubkey must be 33 bytes with 02/03 prefix")
+    x = int.from_bytes(pub[1:], "big")
+    if x >= P:
+        raise ValueError("pubkey x out of range")
+    y2 = (pow(x, 3, P) + 7) % P
+    y = pow(y2, (P + 1) // 4, P)
+    if y * y % P != y2:
+        raise ValueError("pubkey not on curve")
+    if (y & 1) != (pub[0] & 1):
+        y = P - y
+    return (x, y)
+
+
+def address_from_public_key(pub: bytes) -> bytes:
+    """20-byte Ethereum-style address: keccak256(uncompressed_xy)[12:]."""
+    x, y = decompress_public_key(pub) if len(pub) == 33 else (
+        int.from_bytes(pub[1:33], "big"),
+        int.from_bytes(pub[33:], "big"),
+    )
+    raw = x.to_bytes(32, "big") + y.to_bytes(32, "big")
+    return keccak256(raw)[12:]
+
+
+def _rfc6979_k(priv: bytes, msg_hash: bytes) -> int:
+    """Deterministic nonce per RFC 6979 (HMAC-SHA256)."""
+    holder = b"\x01" * 32
+    key = b"\x00" * 32
+    key = hmac.new(key, holder + b"\x00" + priv + msg_hash, hashlib.sha256).digest()
+    holder = hmac.new(key, holder, hashlib.sha256).digest()
+    key = hmac.new(key, holder + b"\x01" + priv + msg_hash, hashlib.sha256).digest()
+    holder = hmac.new(key, holder, hashlib.sha256).digest()
+    while True:
+        holder = hmac.new(key, holder, hashlib.sha256).digest()
+        k = int.from_bytes(holder, "big")
+        if 1 <= k < N:
+            return k
+        key = hmac.new(key, holder + b"\x00", hashlib.sha256).digest()
+        holder = hmac.new(key, holder, hashlib.sha256).digest()
+
+
+def _signature(d: int, z: int, k: int, pt: Tuple[int, int]) -> Optional[bytes]:
+    """r || s || v for secret d, hash scalar z and nonce k with pt = k*G;
+    None when r or s is 0. Low-s normalization flips the parity bit."""
+    r = pt[0] % N
+    if r == 0:
+        return None
+    s = _inv(k, N) * (z + r * d) % N
+    if s == 0:
+        return None
+    v = (pt[1] & 1) | (2 if pt[0] >= N else 0)
+    if s > N // 2:
+        s = N - s
+        v ^= 1
+    return r.to_bytes(32, "big") + s.to_bytes(32, "big") + bytes([v])
+
+
+def _sign_hash_py(priv: bytes, msg_hash: bytes) -> bytes:
+    """65-byte recoverable signature r(32) || s(32) || v(1), low-s
+    enforced, RFC 6979 nonce."""
+    if len(msg_hash) != 32 or len(priv) != 32:
+        raise ValueError("msg_hash and priv must be 32 bytes")
+    z = int.from_bytes(msg_hash, "big") % N
+    d = int.from_bytes(priv, "big")
+    extra = b""
+    while True:
+        # r == 0 / s == 0 are ~2^-256 events; retry with a tweaked nonce
+        # stream while keeping z bound to the ORIGINAL message hash.
+        k = _rfc6979_k(priv, hashlib.sha256(msg_hash + extra).digest() if extra else msg_hash)
+        sig = _signature(d, z, k, _mul(G, k))
+        if sig is not None:
+            return sig
+        extra += b"\x00"
+
+
+def recover_hash(msg_hash: bytes, sig: bytes) -> Optional[bytes]:
+    """Recover the compressed public key from a 65-byte signature, or None
+    (the reference's `_recover_hash_py`)."""
+    if len(sig) != 65:
+        return None
+    r = int.from_bytes(sig[:32], "big")
+    s = int.from_bytes(sig[32:64], "big")
+    v = sig[64]
+    if not (1 <= r < N and 1 <= s < N) or v > 3:
+        return None
+    x = r + (N if v & 2 else 0)
+    if x >= P:
+        return None
+    y2 = (pow(x, 3, P) + 7) % P
+    y = pow(y2, (P + 1) // 4, P)
+    if y * y % P != y2:
+        return None
+    if (y & 1) != (v & 1):
+        y = P - y
+    rp = (x, y)
+    z = int.from_bytes(msg_hash, "big") % N
+    rinv = _inv(r, N)
+    q = _mul(_add(_mul(rp, s), _mul(G, N - z)), rinv)
+    if q is None:
+        return None
+    return _compress(q)
+
+
+def recover_hash_batch(
+    hashes: Sequence[bytes], sigs: Sequence[bytes], device="cuda"
+) -> List[Optional[bytes]]:
+    """Recover many signatures at once: the pool-ingest path. Every entry
+    with a 32-byte hash and a 65-byte signature runs through
+    `GpuEcdsaRecover` on `device` (the card unless the caller passes
+    "cpu"); the others take `recover_hash`. Same results as `recover_hash`
+    on every entry."""
+    from ..ops.secp import GpuEcdsaRecover
+
+    n = len(hashes)
+    if n != len(sigs):
+        raise ValueError("hashes/sigs length mismatch")
+    rec = GpuEcdsaRecover(device)  # raises where the card is missing
+    regular = [i for i in range(n) if len(hashes[i]) == 32 and len(sigs[i]) == 65]
+    out: List[Optional[bytes]] = [None] * n
+    got = rec.recover_batch([hashes[i] for i in regular], [sigs[i] for i in regular])
+    for pos, i in enumerate(regular):
+        out[i] = got[pos]
+    regular_set = set(regular)
+    for i in range(n):
+        if i not in regular_set:
+            out[i] = recover_hash(hashes[i], sigs[i])
+    return out

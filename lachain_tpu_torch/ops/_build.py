@@ -1,7 +1,7 @@
 """Build and bind the port's CUDA kernels (plain C interface + ctypes).
 
-`library()` compiles `csrc/g1.cu` and `csrc/g2.cu` (both include
-`csrc/fp.cuh`) with nvcc for sm_90a, one nvcc process per source, all
+`library()` compiles `csrc/g1.cu`, `csrc/g2.cu` (both include
+`csrc/fp.cuh`) and `csrc/secp.cu` (its own field code) with nvcc for sm_90a, one nvcc process per source, all
 started together, links them into one shared library in
 `lachain_tpu_torch/_build/` (listed in .gitignore) under a name keyed by a
 hash of the sources, the header and the flags, and loads it. The first
@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("g1.cu", "g2.cu")
+SOURCES = ("g1.cu", "g2.cu", "secp.cu")
 HEADERS = ("fp.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,11 +47,19 @@ _SIGNATURES = {
     "lt_g2_add": [_P, _P, _P, _I, _P],
     "lt_g2_msm_scan": [_P, _P, _P, _P, _I, _I, _P],
     "lt_g2_kernel_attrs": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "lt_secp_fp_mul": [_P, _P, _P, _I, _P],
+    "lt_secp_dbl": [_P, _P, _I, _P],
+    "lt_secp_add": [_P, _P, _P, _I, _P],
+    "lt_secp_msm_scan": [_P, _P, _P, _P, _I, _I, _P],
+    "lt_secp_sqrt": [_P, _P, _I, _P],
+    "lt_secp_kernel_attrs": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
 }
 # (attrs entry, kernel names in its index order)
 _ATTRS = (
     ("lt_g1_kernel_attrs", ("fp_mul", "g1_dbl", "g1_add", "g1_msm_scan")),
     ("lt_g2_kernel_attrs", ("g2_dbl", "g2_add", "g2_msm_scan")),
+    ("lt_secp_kernel_attrs", ("secp_fp_mul", "secp_dbl", "secp_add",
+                              "secp_msm_scan", "secp_sqrt")),
 )
 
 

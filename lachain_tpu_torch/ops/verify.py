@@ -20,8 +20,9 @@ the port's own oracles.
 
 `ESCAPES` counts each recompute on the host of a result the card returned
 as infinity (an incomplete-add collision): the pipelines' combines here,
-the device MSM routes in crypto/gpu_backend.py. A run can then show that
-its answers came from the card.
+the device MSM routes in crypto/gpu_backend.py, and the degenerate Q of
+a batched ECDSA recovery (ops/secp.GpuEcdsaRecover). A run can then show
+that its answers came from the card.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ from ..crypto.host import HostBackend
 from . import g1, g2
 from .glv import W64, W128, W256, glv_split
 
-ESCAPES = {"tpke_combine": 0, "ts_combine": 0, "g1_msm": 0, "g2_msm": 0}
+ESCAPES = {"tpke_combine": 0, "ts_combine": 0, "g1_msm": 0, "g2_msm": 0,
+           "ecdsa_recover": 0}
 
 
 def reset_escapes() -> None:

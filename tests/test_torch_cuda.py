@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card (skipped where there is none).
 
-Each kernel against its plain version (ops/g1_ref.py, ops/g2_ref.py) on the
-same values, exact equality of coordinates mod p and of flags; the era
-pipelines, the backend and its MSM routes on the card against the host
-oracle. CUDA kernels have no CPU mode:
+Each kernel against its plain version (ops/g1_ref.py, ops/g2_ref.py,
+ops/secp_ref.py) on the same values, exact equality of coordinates mod p
+and of flags; the era pipelines, the backend and its MSM routes, and the
+batched ECDSA recovery on the card against the host oracles. CUDA kernels have no CPU mode:
 on a machine without a card these tests skip, and `python3 chip_smoke.py`
 runs the same checks at the N=64 era's shapes on the card.
 """
@@ -15,10 +15,10 @@ import pytest
 import torch
 
 from lachain_tpu_torch.crypto import bls12381 as bls
-from lachain_tpu_torch.crypto import threshold_sig, tpke
+from lachain_tpu_torch.crypto import ecdsa, threshold_sig, tpke
 from lachain_tpu_torch.crypto.gpu_backend import EraSlotJob, GpuBackend
 from lachain_tpu_torch.crypto.host import HostBackend
-from lachain_tpu_torch.ops import g1, g1_ref, g2, g2_ref, glv
+from lachain_tpu_torch.ops import g1, g1_ref, g2, g2_ref, glv, secp, secp_ref, verify
 from lachain_tpu_torch.ops.verify import (
     GpuEraPipeline,
     HostEraPipeline,
@@ -206,3 +206,61 @@ def test_coin_pipeline_and_msm_routes_on_card(card):
     g1_pts = _points(rng, 5)
     assert bls.g1_eq(backend.g1_msm(g1_pts, scalars + [1]),
                      host.g1_msm(g1_pts, scalars + [1]))
+
+
+def _secp_points(rng, n):
+    return [ecdsa._mul(ecdsa.G, rng.randrange(1, ecdsa.N)) for _ in range(n)]
+
+
+def test_secp_kernels_equal_plain_versions(card):
+    rng = random.Random(0xC0DC)
+    n = 256
+    P = ecdsa.P
+    xs = [0, 1, P - 1] + [rng.randrange(P) for _ in range(n - 3)]
+    ys = [rng.randrange(P) for _ in range(n)]
+    kx = secp.fe_encode(xs, card)
+    got = secp.fe_decode(secp.secp_fp_mul(kx, secp.fe_encode(ys, card)))
+    assert got == [x * y % P for x, y in zip(xs, ys)]
+    rx = torch.from_numpy(secp_ref.ints_to_limbs(xs)).to(card)
+    assert secp.fe_decode(secp.sqrt(kx)) == secp_ref.limbs_to_ints(
+        secp_ref.sqrt(rx).cpu().numpy())
+
+    ps, qs = _secp_points(rng, n), _secp_points(rng, n)
+    qs[0] = ps[0]  # p == q: Z = 0 on both sides
+    kp, kq = secp.pt_pack(ps, card), secp.pt_pack(qs, card)
+    rp = torch.from_numpy(secp_ref.points_to_limbs(ps)).to(card)
+    rq = torch.from_numpy(secp_ref.points_to_limbs(qs)).to(card)
+    assert secp.pt_coords(secp.secp_dbl(kp)) == secp_ref.coords(secp_ref.dbl(rp).cpu())
+    added = secp.pt_coords(secp.secp_add(kp, kq))
+    assert added == secp_ref.coords(secp_ref.add_incomplete(rp, rq).cpu())
+    assert added[2 * n] == 0
+
+    table, rtable = secp.build_table(kp), [torch.zeros_like(rp), rp, secp_ref.dbl(rp)]
+    for _ in range(glv.TABLE - 3):
+        rtable.append(secp_ref.add_incomplete(rtable[-1], rp))
+    scalars = [rng.randrange(1 << 64) for _ in range(n)]
+    scalars[0], scalars[1] = 0, 3
+    digits = g1.digits_col(scalars, 16, card)
+    acc, fl = secp.msm_scan(table, digits)
+    racc, rfl = secp_ref.msm_scan(torch.stack(rtable), digits)
+    assert secp.pt_coords(acc) == secp_ref.coords(racc.cpu())
+    assert torch.equal(fl.cpu(), rfl.cpu()) and bool(fl[0]) and not bool(fl[1])
+
+
+def test_ecdsa_recover_batch_on_card(card):
+    rng = random.Random(0xC0DD)
+    privs = [rng.randrange(1, ecdsa.N).to_bytes(32, "big") for _ in range(4)]
+    hashes = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(8)]
+    sigs = [ecdsa._sign_hash_py(privs[i % 4], h) for i, h in enumerate(hashes)]
+    sigs[5] = sigs[5][:64] + bytes([4])  # v = 4: invalid
+    k, z = 0x1234567, 0x55AA  # u1*R == u2*G: the pairwise add degenerates
+    rp = ecdsa._mul(ecdsa.G, k)
+    s = (ecdsa.N - z) * pow(k, -1, ecdsa.N) % ecdsa.N
+    hashes.append(z.to_bytes(32, "big"))
+    sigs.append(rp[0].to_bytes(32, "big") + s.to_bytes(32, "big") + bytes([rp[1] & 1]))
+    verify.reset_escapes()
+    secp.reset_launches()
+    got = ecdsa.recover_hash_batch(hashes, sigs)
+    assert got == [ecdsa.recover_hash(h, s) for h, s in zip(hashes, sigs)]
+    assert verify.ESCAPES["ecdsa_recover"] == 1
+    assert all(v > 0 for v in secp.LAUNCHES.values())

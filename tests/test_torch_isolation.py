@@ -4,8 +4,8 @@
   must bring in neither JAX nor any module of the JAX package.
 * Asking for the card where there is none raises: `GpuBackend()` (and so
   its `tpke_era_verify_combine` and `ts_era_verify_combine`),
-  `GpuEraPipeline()`, `TsGpuEraPipeline()` and the kernel build have no CPU
-  fallback.
+  `GpuEraPipeline()`, `TsGpuEraPipeline()`, `GpuEcdsaRecover()`,
+  `ecdsa.recover_hash_batch` and the kernel build have no CPU fallback.
 """
 from __future__ import annotations
 
@@ -16,8 +16,10 @@ import sys
 import pytest
 import torch
 
+from lachain_tpu_torch.crypto import ecdsa
 from lachain_tpu_torch.crypto.gpu_backend import GpuBackend
 from lachain_tpu_torch.ops import _build
+from lachain_tpu_torch.ops.secp import GpuEcdsaRecover
 from lachain_tpu_torch.ops.verify import GpuEraPipeline, TsGpuEraPipeline
 
 pytestmark = pytest.mark.kernel
@@ -44,12 +46,13 @@ def test_port_imports_nothing_of_jax():
         text=True, check=True, timeout=120,
     ).stdout.split("\n")[0]
     count, bad = out.split(" ", 1)
-    assert int(count) >= 17  # every module of the package was imported
+    assert int(count) >= 20  # every module of the package was imported
     assert bad == "[]"
 
 
 _HOST_ONLY = """
 import sys
+import lachain_tpu_torch.crypto.ecdsa
 import lachain_tpu_torch.crypto.threshold_sig
 import lachain_tpu_torch.crypto.tpke
 print(sorted(m for m in sys.modules if m == "torch"
@@ -86,6 +89,18 @@ def test_coin_path_without_card_raises():
         TsGpuEraPipeline()
     with pytest.raises(RuntimeError):
         GpuBackend().ts_era_verify_combine([], [], None)
+
+
+def test_ecdsa_path_without_card_raises():
+    _require_no_card()
+    with pytest.raises(RuntimeError):
+        GpuEcdsaRecover()
+    h = bytes(32)
+    sig = bytes(64) + b"\x00"
+    with pytest.raises(RuntimeError):
+        ecdsa.recover_hash_batch([h], [sig])
+    with pytest.raises(RuntimeError):
+        ecdsa.recover_hash_batch([], [])
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
