@@ -6,18 +6,27 @@
 Phases, each of which must pass (any failure exits non-zero):
   1. build   the CUDA kernels of lachain_tpu_torch/csrc/ (g1.cu, g2.cu and
              secp.cu, one nvcc each, in parallel, sm_90a), with each
-             kernel's registers and local bytes;
+             kernel's registers, local bytes, threads per lane and block;
   2. kernels hold each of the twelve kernels against its plain PyTorch
              version (ops/g1_ref.py, ops/g2_ref.py, ops/secp_ref.py) on the
              card, on seeded inputs at the main paths' shapes (8192 lanes;
              the G2 and secp scans with 64 windows; the secp square root
-             at 16384 lanes): exact equality of coordinates mod p and flags;
+             at 16384 lanes): exact equality of coordinates mod p and flags.
+             The G1 and G2 scans run twice: at the main path's digit layout
+             (the TPKE era's joined scan, 32 windows x 16,384 lanes; the
+             coin era's scan, 48 leading zero windows on its RLC half and
+             22 live lanes of 64) and at a random-digit kernel check (32 /
+             64 windows of random digits x 8192 lanes). Every kernel's
+             numbers in the kernels JSON are those of its kernel check, the
+             shape the earlier slices reported; each scan's entry also
+             holds a `main` object, its numbers at the main path's layout;
   3. main    three paths, each with the kernel launch counts set to 0 just
              before its one counted call and read just after:
              the N=64 TPKE era (64 ACS slots x 64 decryption shares) through
              GpuBackend(device="cuda").tpke_era_verify_combine: every slot
-             must verify and decrypt, a poisoned share must isolate exactly
-             its slot, 4 slots are held against the port's HostEraPipeline;
+             must verify and decrypt, with exactly 1 G1 scan, 1 doubling and
+             19 adds; a poisoned share must isolate exactly its slot, 4
+             slots are held against the port's HostEraPipeline;
              the N=64 coin era (64 coins x 64 signers, 22 live shares each)
              through threshold_sig.era_verify_combine on the same backend:
              every signature must verify under the shared key with the host
@@ -37,7 +46,9 @@ Phases, each of which must pass (any failure exits non-zero):
              (ops/verify.ESCAPES), and each path must launch its kernels;
   4. times   per-kernel times from CUDA events, the plain versions' times,
              each kernel's bound, the warm phase times of every path and a
-             torch.profiler split of each device phase by kernel.
+             torch.profiler split of each device phase by kernel, whose
+             traced scan, doubling and add launches must equal the counted
+             ones.
 The last three lines of standard output are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}.
 
@@ -48,6 +59,7 @@ from __future__ import annotations
 import argparse
 import json
 import random
+import re
 import subprocess
 import sys
 import time
@@ -77,6 +89,15 @@ KERNEL_NAMES = ("fp_mul_kernel", "dbl_kernel", "add_kernel", "msm_scan_kernel",
                 "secp_fp_mul_kernel", "secp_dbl_kernel", "secp_add_kernel",
                 "secp_msm_scan_kernel", "secp_sqrt_kernel")
 G1_KERNELS = ("fp_mul", "g1_dbl", "g1_add", "g1_msm_scan")
+# the wrapper's kernel name -> the CUDA kernel's
+KERNEL_OF = {"fp_mul": "fp_mul_kernel", "g1_dbl": "dbl_kernel",
+             "g1_add": "add_kernel", "g1_msm_scan": "msm_scan_kernel"}
+KERNEL_OF.update({k: f"{k}_kernel" for k in ("g2_dbl", "g2_add", "g2_msm_scan",
+                                              "secp_fp_mul", "secp_dbl", "secp_add",
+                                              "secp_msm_scan", "secp_sqrt")})
+# the TPKE era's counted call: one table build over the joined lanes (1
+# doubling, 13 adds), one scan, a tree reduce of log2(64) = 6 adds
+TPKE_LAUNCHES = {"g1_msm_scan": 1, "g1_dbl": 1, "g1_add": 19}
 G2_KERNELS = ("g2_dbl", "g2_add", "g2_msm_scan")
 SECP_KERNELS = ("secp_fp_mul", "secp_dbl", "secp_add", "secp_msm_scan",
                 "secp_sqrt")
@@ -180,10 +201,37 @@ def scan_products(digits, mul_dbl: int, mul_add: int) -> int:
 
 
 def report_line(name: str, r: dict) -> None:
-    log(f"kernel {name}: lanes={r['lanes']} ok={r['ok']} "
-        f"max_abs_err={r['max_abs_err']} ms={r['ms']:.4f} "
-        f"plain_ms={r['plain_ms']:.3f} bound_ms={r['bound'][0]:.5f} "
-        f"({r['bound'][1]})")
+    for label, x in (("", r), (" main", r.get("main"))):
+        if x is None:
+            continue
+        shape = f"lanes={x['lanes']}" + (f" windows={x['windows']}" if "windows" in x else "")
+        log(f"kernel {name}{label}: {x.get('layout', '')} {shape} ok={x['ok']} "
+            f"max_abs_err={x['max_abs_err']} ms={x['ms']:.4f} "
+            f"plain_ms={x['plain_ms']:.3f} bound_ms={x['bound'][0]:.5f} "
+            f"({x['bound'][1]})")
+
+
+def scan_entry(kernel, plain, coords, ktab, rtab, digits, muls_dbl, muls_add,
+               point_bytes, layout: str, reps: int) -> dict:
+    """One scan (`kernel`, its `plain` version, the `coords` reader) on the
+    same table and digits: exactness, CUDA-event times of both, and the
+    bound of the work these digits need."""
+    import torch
+
+    acc, fl = kernel(ktab, digits)
+    (racc, rfl), plain_ms = cuda_ms_once(lambda: plain(rtab, digits))
+    got, want = coords(acc), coords(racc.cpu())
+    flags_ok = bool(torch.equal(fl.cpu(), rfl.cpu()))
+    n = ktab.shape[-1]
+    muls = scan_products(digits, muls_dbl, muls_add)
+    nbytes = ktab.numel() * 4 + digits.numel() * 4 + point_bytes * n + n
+    return dict(
+        layout=layout, lanes=n, windows=int(digits.shape[0]),
+        ok=got == want and flags_ok, max_abs_err=max_err(got, want),
+        ms=cuda_ms(lambda: kernel(ktab, digits), reps), plain_ms=plain_ms,
+        bound=bound(nbytes, muls * OPS_PER_FIELD_MUL), want=want, flags=rfl.cpu(),
+    )
+
 
 
 # ---------------------------------------------------------------------------
@@ -249,8 +297,22 @@ def check_kernels(seed: int, dev):
         bound=bound(3 * 144 * n, n * MULS_ADD * OPS_PER_FIELD_MUL),
     )
 
-    # (4) msm_scan: 32 windows over a host-built table k*P; every 61st lane
-    # has all-zero digits and must come back flagged
+    # (4) msm_scan at the TPKE era's joined layout: 32 windows x 16,384
+    # lanes [u | y | u | phi(u)], digits [rlc32 | rlc32 | lag1 | lag2]
+    # (g1.tpke_digits), tables built by the card's and the plain group law
+    # from the same points
+    scan = (g1.msm_scan, g1_ref.msm_scan, g1.g1_coords)
+    kp2, rp2 = torch.cat([kp, kq], dim=1), torch.cat([rp, rq], dim=1)
+    rtab = [torch.zeros_like(rp2), rp2, g1_ref.dbl(rp2)]
+    for _ in range(glv.TABLE - 3):
+        rtab.append(g1_ref.add_incomplete(rtab[-1], rp2))
+    main = scan_entry(*scan, g1.build_table(kp2), torch.stack(rtab),
+                      g1.tpke_digits(rng, slots=n // 128).to(dev), MULS_DBL,
+                      MULS_ADD, 144, "tpke joined", 10)
+    del rtab
+
+    # and the random-digit kernel check: 32 windows over a host-built table
+    # k*P; every 61st lane has all-zero digits and must come back flagged
     nwin = glv.W128
     table_pts = [[bls.G1_INF] * n, ps]
     for _ in range(glv.TABLE - 2):
@@ -262,24 +324,15 @@ def check_kernels(seed: int, dev):
         scalars[i] = 0
     scalars[1] = 5  # leading zero windows, then one nonzero digit
     digits = g1.digits_col(scalars, nwin, dev)
-    acc, fl = g1.msm_scan(ktab, digits)
-    racc, rfl = g1_ref.msm_scan(rtab, digits)
-    got = g1.g1_coords(acc)
-    want = g1.g1_coords(racc.cpu())
-    flags_ok = bool(torch.equal(fl.cpu(), rfl.cpu()))
+    chk = scan_entry(*scan, ktab, rtab, digits, MULS_DBL, MULS_ADD, 144,
+                     "random", 5)
+    want, rfl = chk.pop("want"), chk.pop("flags")
+    main.pop("want"), main.pop("flags")
     check(bool(rfl[0]) and not bool(rfl[1]), "zero-digit lane flags wrong")
     for i in (1, 2, 3, n // 2):
         pt = (want[i], want[n + i], want[2 * n + i])
         check(bls.g1_eq(pt, bls.g1_mul(ps[i], scalars[i])), "g1_ref.msm wrong")
-    muls = scan_products(digits, MULS_DBL, MULS_ADD)
-    nbytes = ktab.numel() * 4 + digits.numel() * 4 + 144 * n + n
-    report["g1_msm_scan"] = dict(
-        lanes=n, windows=nwin, ok=got == want and flags_ok,
-        max_abs_err=max_err(got, want),
-        ms=cuda_ms(lambda: g1.msm_scan(ktab, digits), 5),
-        plain_ms=cuda_ms(lambda: g1_ref.msm_scan(rtab, digits), 1),
-        bound=bound(nbytes, muls * OPS_PER_FIELD_MUL),
-    )
+    report["g1_msm_scan"] = dict(chk, ok=main["ok"] and chk["ok"], main=main)
     report.update(check_g2_kernels(rng, dev))
     report.update(check_secp_kernels(rng, dev))
     for name, r in report.items():
@@ -291,7 +344,7 @@ def check_kernels(seed: int, dev):
 
 def check_g2_kernels(rng: random.Random, dev):
     """The three G2 kernels against g2_ref at 8192 lanes; the scan with 64
-    windows of random digits (the coin era's Lagrange pass)."""
+    windows at the coin era's layout and at random digits."""
     import torch
 
     from lachain_tpu_torch.crypto import bls12381 as bls
@@ -333,8 +386,12 @@ def check_g2_kernels(rng: random.Random, dev):
         bound=bound(3 * 288 * n, n * MULS_ADD2 * OPS_PER_FIELD_MUL),
     )
 
-    # (7) g2_msm_scan: 64 windows over a host-built table k*P; every 61st
-    # lane has all-zero digits and must come back flagged
+    # (7) g2_msm_scan over a host-built table k*P: at the coin era's layout
+    # (g2.coin_digits: [rlc64 | lag64], 48 leading zero windows on
+    # the RLC half, 22 live lanes of each 64 on both halves), then at the
+    # random-digit kernel check (64 windows of random digits; every 61st lane
+    # all zero and flagged)
+    scan = (g2.msm2_scan, g2_ref.msm_scan, g2.g2_coords)
     nwin = 64
     table_pts = [[bls.G2_INF] * n, ps]
     for _ in range(glv.TABLE - 2):
@@ -342,30 +399,24 @@ def check_g2_kernels(rng: random.Random, dev):
     ktab = torch.stack([g2.g2_pack(row, dev) for row in table_pts])
     rtab = torch.stack([ref_pts(row) for row in table_pts])
     del table_pts
+    coin = g2.coin_digits(rng, coins=n // 128).to(dev)
+    main = scan_entry(*scan, ktab, rtab, coin, MULS_DBL2, MULS_ADD2, 288,
+                      "coin", 5)
+    main.pop("want"), main.pop("flags")
     scalars = [rng.randrange(1 << 256) for _ in range(n)]
     for i in range(0, n, 61):
         scalars[i] = 0
     scalars[1] = 5  # leading zero windows, then one nonzero digit
     digits = torch.from_numpy(glv.digits_col(scalars, nwin)).to(dev)
-    acc, fl = g2.msm2_scan(ktab, digits)
-    (racc, rfl), plain_ms = cuda_ms_once(lambda: g2_ref.msm_scan(rtab, digits))
-    got = g2.g2_coords(acc)
-    want = g2.g2_coords(racc.cpu())
-    flags_ok = bool(torch.equal(fl.cpu(), rfl.cpu()))
+    chk = scan_entry(*scan, ktab, rtab, digits, MULS_DBL2, MULS_ADD2, 288,
+                     "random", 3)
+    want, rfl = chk.pop("want"), chk.pop("flags")
     check(bool(rfl[0]) and not bool(rfl[1]), "zero-digit lane flags wrong")
     for i in (1, 2, n // 2):
         check(bls.g2_eq(lanes_of(want, i), bls.g2_mul(ps[i], scalars[i])),
               "g2_ref.msm wrong")
-    del racc, rtab
-    muls = scan_products(digits, MULS_DBL2, MULS_ADD2)
-    nbytes = ktab.numel() * 4 + digits.numel() * 4 + 288 * n + n
-    report["g2_msm_scan"] = dict(
-        lanes=n, windows=nwin, ok=got == want and flags_ok,
-        max_abs_err=max_err(got, want),
-        ms=cuda_ms(lambda: g2.msm2_scan(ktab, digits), 3),
-        plain_ms=plain_ms,
-        bound=bound(nbytes, muls * OPS_PER_FIELD_MUL),
-    )
+    del rtab
+    report["g2_msm_scan"] = dict(chk, ok=main["ok"] and chk["ok"], main=main)
     return report
 
 
@@ -560,11 +611,28 @@ def profile_device(run) -> dict:
         t = getattr(e, "self_device_time_total", 0) or 0
         if t <= 0 or e.key.startswith("ProfilerStep"):
             continue
-        name = next((k for k in KERNEL_NAMES if f"::{k}(" in e.key), "torch")
+        name = kernel_of(e.key)
         acc = out.setdefault(name, [0.0, 0])
         acc[0] += t / 1e3
         acc[1] += e.count
     return out
+
+
+def kernel_of(key: str) -> str:
+    """The kernel of a profiler key, templated or not
+    ("(anonymous namespace)::msm_scan_kernel<4>(...)" -> "msm_scan_kernel"),
+    or "torch" for device work that is none of the twelve."""
+    m = re.search(r"::(\w+)[<(]", key)
+    return m[1] if m and m[1] in KERNEL_NAMES else "torch"
+
+
+def check_traced(label: str, by_kernel: dict, launches: dict, names) -> None:
+    """Fail unless the profiled run traced as many launches of each of
+    `names` as the counted main-path run made."""
+    traced = {k: by_kernel.get(KERNEL_OF[k], [0, 0])[1] for k in names}
+    counted = {k: launches[k] for k in names}
+    check(traced == counted, f"{label}: traced launches {traced} != counted {counted}")
+    log(f"{label}: traced launches equal the counted ones {counted}")
 
 
 def reset_counts() -> None:
@@ -641,6 +709,8 @@ def run_tpke_path(seed: int, backend, dev):
     launches = read_launches()
     check_no_escapes("tpke era")
     check_all(res)
+    got = {k: launches[k] for k in TPKE_LAUNCHES}
+    check(got == TPKE_LAUNCHES, f"tpke era launches {got} != {TPKE_LAUNCHES}")
     log(f"era N={n}: {n} slots verified and decrypted; cold {cold_s:.3f} s; "
         f"launches {launches}; phases {backend.last_timings}")
 
@@ -670,8 +740,9 @@ def run_tpke_path(seed: int, backend, dev):
     y_points = [vk.y_i for vk in vks]
     slots = [(list(j.u_by_validator), list(j.lagrange_row)) for j in jobs]
     pipeline = GpuEraPipeline(device=dev)
-    profile_phase("era", pipeline,
-                  lambda: pipeline.run_era(slots, y_points, SeededRng(seed + 4)))
+    by_kernel = profile_phase("era", pipeline, lambda: pipeline.run_era(
+        slots, y_points, SeededRng(seed + 4)))
+    check_traced("era", by_kernel, launches, ("g1_msm_scan", "g1_dbl", "g1_add"))
 
     # 4 slots against the host oracle pipeline, same seeded rng
     slots = slots[:4]
@@ -782,8 +853,11 @@ def run_coin_path(seed: int, backend, dev):
     masks = [[i in chosen for i in range(n)] for _ in coins]
     y_points = [k.y for k in key_set.keys]
     pipeline = TsGpuEraPipeline(device=dev)
-    profile_phase("coin era", pipeline, lambda: pipeline.run_era(
+    by_kernel = profile_phase("coin era", pipeline, lambda: pipeline.run_era(
         rows, y_points, SeededRng(seed + 14), masks=masks))
+    check_traced("coin era", by_kernel, launches,
+                 ("g1_msm_scan", "g1_dbl", "g1_add", "g2_msm_scan", "g2_dbl",
+                  "g2_add"))
 
     # 4 coins against the host oracle pipeline, same seeded rng
     dev_out, dev_rlc = TsGpuEraPipeline(device=dev).run_era(
@@ -970,7 +1044,7 @@ def run_ecdsa_path(seed: int, dev):
     by_kernel = profile_device(lambda: rec.recover_batch(rh, rs))
     busy = sum(v[0] for v in by_kernel.values())
     t = rec.last_timings
-    seen = {k: by_kernel.get(f"{k}_kernel", [0, 0])[1] for k in SECP_KERNELS}
+    seen = {k: by_kernel.get(KERNEL_OF[k], [0, 0])[1] for k in SECP_KERNELS}
     log(f"ecdsa recover by kernel (torch.profiler, ms, launches): {by_kernel}; "
         f"busy {busy:.3f} ms of sqrt {t['sqrt_s'] * 1e3:.3f} ms + device "
         f"{t['device_s'] * 1e3:.3f} ms (profiled wall {t['wall_s']:.3f} s); "
@@ -1001,7 +1075,10 @@ def main() -> int:
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds})")
-    log(f"kernel attrs (regs, local bytes): {_build.kernel_attrs()}")
+    attrs = _build.kernel_attrs()
+    log("kernel attrs (registers, local bytes, threads per lane, block): "
+        + ", ".join(f"{k} {a['regs']}/{a['local_bytes']}/{a['threads_per_lane']}/{a['block']}"
+                    for k, a in attrs.items()))
 
     report = check_kernels(args.seed, dev)
     backend = GpuBackend(device="cuda")
@@ -1038,20 +1115,28 @@ def main() -> int:
         "secp_msm_scan": "lachain_tpu/ops/psecp.py:285",
         "secp_sqrt": "lachain_tpu/ops/psecp.py:380",
     }
-    kernels = [
-        {
+    def numbers(r: dict) -> dict:
+        return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                "bound_by": r["bound"][1]}
+
+    kernels = []
+    for k, r in report.items():
+        entry = {
             "name": k, "route": "cuda",
             "source": f"lachain_tpu_torch/csrc/{sources[k]}.cu",
             "replaces": replaces[k],
             "launches": sum(launches[k] for launches, _ in paths.values()),
             "launches_by_path": {p: v[0][k] for p, v in paths.items()},
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": None, "lanes": r["lanes"],
-            "pass": r["ok"],
+            **numbers(r), "library_ms": None, "lanes": r["lanes"],
+            "pass": r["ok"], **attrs[k],
         }
-        for k, r in report.items()
-    ]
+        if "main" in r:  # the scans: the kernel check above, the main path below
+            m = r["main"]
+            entry.update(layout=r["layout"], windows=r["windows"],
+                         main=dict(numbers(m), layout=m["layout"],
+                                   lanes=m["lanes"], windows=m["windows"]))
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -20,24 +20,52 @@
 //
 // Bound: integer multiply-adds, ~600 per Fp product; a 64-window scan needs
 // up to 63 * (4 * 16 + 44) products per lane. Bytes are small beside them:
-// the scan reads one 288-byte table entry per lane per nonzero digit. Design:
-// one thread per lane; the scan keeps its accumulator and flag in registers
-// across all windows in one launch and reads table[d] from device memory.
-// While a lane's flag is set its accumulator is the zero point, which the
-// doublings leave as it is, so the scan skips them: the output is the one
-// the plain version gives, and a lane of leading zero windows (the coin
-// era's RLC half, its masked Lagrange lanes) costs no products.
+// the scan reads one 288-byte table entry per lane per nonzero digit.
+//
+// g2_dbl and g2_add: one thread per lane on fp.cuh's field (uint64 CIOS).
+// The scan: SCAN_T threads per lane on fp_coop.cuh's group field (carry-save
+// column products, PTX carry chains for the carries, ballots between the
+// threads), the group law inlined and the Fp2 products out of line; all
+// windows in one launch with the accumulator and flag in registers,
+// table[d] read from device memory after the doublings. The coin era's
+// scan is latency-bound: on its Lagrange half only 22 of each coin's 64
+// lanes are live and run all 64 windows, so the time a lane takes, not the
+// card's throughput, sets the launch's time. While a lane's flag is set its
+// accumulator is the zero point, which the doublings leave as it is: a warp
+// whose lanes are all flagged skips them (lanes_any keeps the control flow
+// uniform across the warp, so the shuffles run with the full warp's mask),
+// and a lane of leading zero windows (the coin era's RLC half, its masked
+// Lagrange lanes) costs no products.
+//
+// T sweep (python3 -m lachain_tpu_torch.scan_sweep; one NVIDIA H100 80GB
+// HBM3 at 700 W, PERF.md), ms for the random-digit check (64 windows x
+// 8192 lanes) / the coin era's layout (48 leading zero windows on the RLC
+// half, 22 live lanes of 64):
+//   T = 1: 12.29-12.30 / 11.92-11.95 (255 registers, 864 B spilled);
+//   T = 2: 7.42-7.46 / 7.39-7.54 (248); T = 4: 8.86-8.94 / 7.21-7.22 (106)
+//   <- SCAN_T, for the coin layout (the main path)
+//   the sweep's variants at T = 4: the group's own shuffle mask and
+//   divergent groups 38.3-38.4 / 35.3; the Fp2 products inlined 9.01-9.04
+//   / 8.77-8.79 (248 registers); the entry loaded before the doublings
+//   9.13-9.16 / 7.26-7.27;
+//   the one-thread uint64 scan this replaced: 17.19-17.20 / 14.93-14.94.
 //
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is non-zero.
 
-#include "fp.cuh"
+#include "fp_coop.cuh"
+
+#ifndef LT_G2_SCAN_T  // the sweep builds T = 1 and 2 beside the shipped 4
+#define LT_G2_SCAN_T 4
+#endif
 
 namespace {
 
 constexpr int ROWS2 = 6 * NL;  // rows of a point: six Fp components
 constexpr int WINDOW = 4;
 constexpr int THREADS = 64;  // n = 8192 lanes -> 128 blocks over 132 SMs
+constexpr int SCAN_T = LT_G2_SCAN_T;  // threads per lane in the scan
+constexpr int SCAN_BLOCK = 64;        // threads per block of the scan
 
 struct Fp2 {
   Fp c0, c1;
@@ -138,18 +166,6 @@ __device__ __forceinline__ void store_pt2(uint32_t* __restrict__ a, int n,
   store_fp(a, 5 * NL, n, lane, p.z.c1);
 }
 
-// table (16, 72, n): entry d of lane `lane`; digit 0 selects the zero point
-// (pg1._select_entry, which pg2 reuses: entry 0 never contributes).
-__device__ __forceinline__ Pt2 select_entry2(
-    const uint32_t* __restrict__ table, int d, int n, int lane) {
-  if (d == 0) {
-    Pt2 z;
-    z.x.c0 = z.x.c1 = z.y.c0 = z.y.c1 = z.z.c0 = z.z.c1 = fp_zero();
-    return z;
-  }
-  return load_pt2(table + (size_t)d * ROWS2 * n, n, lane);
-}
-
 __global__ void __launch_bounds__(THREADS)
     g2_dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
                   int n) {
@@ -168,35 +184,177 @@ __global__ void __launch_bounds__(THREADS)
             g2_add(load_pt2(p, n, lane), load_pt2(q, n, lane)));
 }
 
+// ---------------------------------------------------------------------------
+// the scan: one lane on a group of T threads (fp_coop.cuh)
+// ---------------------------------------------------------------------------
+
+template <int T>
+struct Fp2G {
+  FpG<T> c0, c1;
+};
+
+template <int T>
+struct Pt2G {
+  Fp2G<T> x, y, z;
+};
+
+template <int T>
+__device__ __forceinline__ Fp2G<T> fp2g_add(const Group<T>& g,
+                                            const Fp2G<T>& a,
+                                            const Fp2G<T>& b) {
+  return {fpg_add(g, a.c0, b.c0), fpg_add(g, a.c1, b.c1)};
+}
+
+template <int T>
+__device__ __forceinline__ Fp2G<T> fp2g_sub(const Group<T>& g,
+                                            const Fp2G<T>& a,
+                                            const Fp2G<T>& b) {
+  return {fpg_sub(g, a.c0, b.c0), fpg_sub(g, a.c1, b.c1)};
+}
+
+template <int T>
+__device__ __forceinline__ Fp2G<T> fp2g_dbl(const Group<T>& g,
+                                            const Fp2G<T>& a) {
+  return fp2g_add(g, a, a);
+}
+
+// The scan's Fp2 products stay out of line by measurement: inlined, the
+// scan took 248 registers and ran 22% slower on the coin layout (the T
+// sweep's fp2inline variant).
+
+// fp2_mul on the group field (Karatsuba, 3 products).
+template <int T>
+__device__ __noinline__ Fp2G<T> fp2g_mul(const Group<T>& g, const Fp2G<T>& x,
+                                         const Fp2G<T>& y) {
+  const FpG<T> ad = fpg_mul(g, x.c0, y.c0);
+  const FpG<T> be = fpg_mul(g, x.c1, y.c1);
+  const FpG<T> k =
+      fpg_mul(g, fpg_add(g, x.c0, x.c1), fpg_add(g, y.c0, y.c1));
+  return {fpg_sub(g, ad, be), fpg_sub(g, fpg_sub(g, k, ad), be)};
+}
+
+// fp2_sqr on the group field (2 products).
+template <int T>
+__device__ __noinline__ Fp2G<T> fp2g_sqr(const Group<T>& g, const Fp2G<T>& x) {
+  const FpG<T> re =
+      fpg_mul(g, fpg_add(g, x.c0, x.c1), fpg_sub(g, x.c0, x.c1));
+  const FpG<T> ab = fpg_mul(g, x.c0, x.c1);
+  return {re, fpg_add(g, ab, ab)};
+}
+
+// g2_dbl on the group field, operation for operation.
+template <int T>
+__device__ __forceinline__ Pt2G<T> g2_dbl_g(const Group<T>& g,
+                                            const Pt2G<T>& p) {
+  const Fp2G<T> A = fp2g_sqr(g, p.x);
+  const Fp2G<T> B = fp2g_sqr(g, p.y);
+  const Fp2G<T> C = fp2g_sqr(g, B);
+  Fp2G<T> D =
+      fp2g_sub(g, fp2g_sub(g, fp2g_sqr(g, fp2g_add(g, p.x, B)), A), C);
+  D = fp2g_dbl(g, D);
+  const Fp2G<T> E = fp2g_add(g, fp2g_dbl(g, A), A);
+  const Fp2G<T> F = fp2g_sqr(g, E);
+  Pt2G<T> r;
+  r.x = fp2g_sub(g, F, fp2g_dbl(g, D));
+  const Fp2G<T> C8 = fp2g_dbl(g, fp2g_dbl(g, fp2g_dbl(g, C)));
+  r.y = fp2g_sub(g, fp2g_mul(g, E, fp2g_sub(g, D, r.x)), C8);
+  r.z = fp2g_dbl(g, fp2g_mul(g, p.y, p.z));
+  return r;
+}
+
+// g2_add on the group field, operation for operation.
+template <int T>
+__device__ __forceinline__ Pt2G<T> g2_add_g(const Group<T>& g,
+                                            const Pt2G<T>& p,
+                                            const Pt2G<T>& q) {
+  const Fp2G<T> Z1Z1 = fp2g_sqr(g, p.z);
+  const Fp2G<T> Z2Z2 = fp2g_sqr(g, q.z);
+  const Fp2G<T> U1 = fp2g_mul(g, p.x, Z2Z2);
+  const Fp2G<T> U2 = fp2g_mul(g, q.x, Z1Z1);
+  const Fp2G<T> S1 = fp2g_mul(g, fp2g_mul(g, p.y, q.z), Z2Z2);
+  const Fp2G<T> S2 = fp2g_mul(g, fp2g_mul(g, q.y, p.z), Z1Z1);
+  const Fp2G<T> H = fp2g_sub(g, U2, U1);
+  const Fp2G<T> Rr = fp2g_sub(g, S2, S1);
+  const Fp2G<T> I = fp2g_sqr(g, fp2g_dbl(g, H));
+  const Fp2G<T> J = fp2g_mul(g, H, I);
+  const Fp2G<T> Rr2 = fp2g_dbl(g, Rr);
+  const Fp2G<T> V = fp2g_mul(g, U1, I);
+  Pt2G<T> r;
+  r.x = fp2g_sub(g, fp2g_sub(g, fp2g_sqr(g, Rr2), J), fp2g_dbl(g, V));
+  const Fp2G<T> S1J = fp2g_mul(g, S1, J);
+  r.y = fp2g_sub(g, fp2g_mul(g, Rr2, fp2g_sub(g, V, r.x)), fp2g_dbl(g, S1J));
+  r.z = fp2g_dbl(g, fp2g_mul(g, fp2g_mul(g, p.z, q.z), H));
+  return r;
+}
+
+// table (16, 72, n): this thread's words of entry d; digit 0 selects the
+// zero point (pg1._select_entry, which pg2 reuses: entry 0 never
+// contributes).
+template <int T>
+__device__ __forceinline__ Pt2G<T> select_entry2_g(
+    const Group<T>& g, const uint32_t* __restrict__ table, int d, int n,
+    int lane) {
+  Pt2G<T> r;
+  if (d == 0) {
+    r.x.c0 = r.x.c1 = r.y.c0 = r.y.c1 = r.z.c0 = r.z.c1 = fpg_zero<T>();
+    return r;
+  }
+  const uint32_t* e = table + (size_t)d * ROWS2 * n;
+  r.x.c0 = load_fpg(g, e, 0 * NL, n, lane);
+  r.x.c1 = load_fpg(g, e, 1 * NL, n, lane);
+  r.y.c0 = load_fpg(g, e, 2 * NL, n, lane);
+  r.y.c1 = load_fpg(g, e, 3 * NL, n, lane);
+  r.z.c0 = load_fpg(g, e, 4 * NL, n, lane);
+  r.z.c1 = load_fpg(g, e, 5 * NL, n, lane);
+  return r;
+}
+
 // pg2._msm2_kernel semantics, all W windows in one launch: window 0 selects
 // table[d]; each later window doubles 4 times, then a digit 0 keeps the
 // accumulator (and keeps the flag set), a flagged accumulator takes the
-// entry, and otherwise the entry is added. Digits must lie in [0, 16).
-__global__ void __launch_bounds__(THREADS)
+// entry, and otherwise the entry is added. Digits must lie in [0, 16). A
+// group past n reads no digit (digit 0: its flag stays set, it does no
+// work) and stores nothing, but stays alive.
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
     g2_msm_scan_kernel(const uint32_t* __restrict__ table,
                        const int32_t* __restrict__ digits,
                        uint32_t* __restrict__ acc_out,
                        uint8_t* __restrict__ flag_out, int n, int nwin) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  int d = digits[lane];
-  Pt2 acc = select_entry2(table, d, n, lane);
+  const Group<T> g = make_group<T>();
+  const int lane = (int)((blockIdx.x * (unsigned)SCAN_BLOCK + threadIdx.x) / T);
+  const bool live = lane < n;
+  const int col = live ? lane : 0;
+  int d = live ? digits[col] : 0;
+  Pt2G<T> acc = select_entry2_g(g, table, d, n, col);
   bool flag = d == 0;
+  int next = live && nwin > 1 ? digits[(size_t)n + col] : 0;
 #pragma unroll 1
   for (int w = 1; w < nwin; ++w) {
-    d = digits[(size_t)w * n + lane];
-    if (!flag) {  // a flagged accumulator is the zero point: dbl keeps it
+    d = next;
+    if (live && w + 1 < nwin) next = digits[(size_t)(w + 1) * n + col];
+    if (lanes_any(g, !flag)) {  // a flagged accumulator is the zero point
 #pragma unroll 1
-      for (int k = 0; k < WINDOW; ++k) acc = g2_dbl(acc);
+      for (int k = 0; k < WINDOW; ++k) acc = g2_dbl_g(g, acc);
     }
-    if (d != 0) {
-      const Pt2 entry = select_entry2(table, d, n, lane);
-      acc = flag ? entry : g2_add(acc, entry);
-      flag = false;
+    const Pt2G<T> entry = select_entry2_g(g, table, d, n, col);
+    const bool add = d != 0 && !flag;
+    if (lanes_any(g, add)) {
+      const Pt2G<T> sum = g2_add_g(g, acc, entry);
+      if (add) acc = sum;
     }
+    if (d != 0 && flag) acc = entry;
+    flag = flag && d == 0;
   }
-  store_pt2(acc_out, n, lane, acc);
-  flag_out[lane] = flag ? 1 : 0;
+  if (live) {
+    store_fpg(g, acc_out, 0 * NL, n, col, acc.x.c0);
+    store_fpg(g, acc_out, 1 * NL, n, col, acc.x.c1);
+    store_fpg(g, acc_out, 2 * NL, n, col, acc.y.c0);
+    store_fpg(g, acc_out, 3 * NL, n, col, acc.y.c1);
+    store_fpg(g, acc_out, 4 * NL, n, col, acc.z.c0);
+    store_fpg(g, acc_out, 5 * NL, n, col, acc.z.c1);
+    if (g.rank == 0) flag_out[lane] = flag ? 1 : 0;
+  }
 }
 
 inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
@@ -224,25 +382,32 @@ int lt_g2_add(const void* p, const void* q, void* out, int n, void* stream) {
 int lt_g2_msm_scan(const void* table, const void* digits, void* acc,
                    void* flags, int n, int nwin, void* stream) {
   if (n > 0 && nwin > 0) {
-    g2_msm_scan_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)table, (const int32_t*)digits, (uint32_t*)acc,
-        (uint8_t*)flags, n, nwin);
+    const int blocks =
+        (int)(((long long)n * SCAN_T + SCAN_BLOCK - 1) / SCAN_BLOCK);
+    g2_msm_scan_kernel<SCAN_T>
+        <<<blocks, SCAN_BLOCK, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)table, (const int32_t*)digits, (uint32_t*)acc,
+            (uint8_t*)flags, n, nwin);
   }
   return (int)cudaGetLastError();
 }
 
-// Registers per thread and local (spill) bytes of kernel `which`
-// (0 dbl, 1 add, 2 msm_scan), for the chip report.
-int lt_g2_kernel_attrs(int which, int* regs, int* local_bytes) {
+// Registers per thread, local (spill) bytes, threads per lane and threads
+// per block of kernel `which` (0 dbl, 1 add, 2 msm_scan), for the chip
+// report.
+int lt_g2_kernel_attrs(int which, int* regs, int* local_bytes,
+                       int* threads_per_lane, int* block) {
   const void* fns[3] = {(const void*)g2_dbl_kernel,
                         (const void*)g2_add_kernel,
-                        (const void*)g2_msm_scan_kernel};
+                        (const void*)g2_msm_scan_kernel<SCAN_T>};
   if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
+  *threads_per_lane = which == 2 ? SCAN_T : 1;
+  *block = which == 2 ? SCAN_BLOCK : THREADS;
   return 0;
 }
 

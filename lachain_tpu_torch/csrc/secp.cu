@@ -394,9 +394,11 @@ int lt_secp_sqrt(const void* x, void* out, int n, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Registers per thread and local (spill) bytes of kernel `which`
-// (0 fp_mul, 1 dbl, 2 add, 3 msm_scan, 4 sqrt), for the chip report.
-int lt_secp_kernel_attrs(int which, int* regs, int* local_bytes) {
+// Registers per thread, local (spill) bytes, threads per lane and threads
+// per block of kernel `which` (0 fp_mul, 1 dbl, 2 add, 3 msm_scan, 4 sqrt),
+// for the chip report.
+int lt_secp_kernel_attrs(int which, int* regs, int* local_bytes,
+                         int* threads_per_lane, int* block) {
   const void* fns[5] = {(const void*)secp_fp_mul_kernel,
                         (const void*)secp_dbl_kernel,
                         (const void*)secp_add_kernel,
@@ -408,6 +410,8 @@ int lt_secp_kernel_attrs(int which, int* regs, int* local_bytes) {
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
+  *threads_per_lane = 1;
+  *block = THREADS;
   return 0;
 }
 

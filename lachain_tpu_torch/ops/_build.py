@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels (plain C interface + ctypes).
 
 `library()` compiles `csrc/g1.cu`, `csrc/g2.cu` (both include
-`csrc/fp.cuh`) and `csrc/secp.cu` (its own field code) with nvcc for sm_90a, one nvcc process per source, all
-started together, links them into one shared library in
+`csrc/fp.cuh` and, for their scans, `csrc/fp_coop.cuh`) and `csrc/secp.cu`
+(its own field code) with nvcc for sm_90a, one nvcc process per source,
+all started together, links them into one shared library in
 `lachain_tpu_torch/_build/` (listed in .gitignore) under a name keyed by a
 hash of the sources, the header and the flags, and loads it. The first
 call in a fresh checkout therefore builds; later calls in the same
@@ -24,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("g1.cu", "g2.cu", "secp.cu")
-HEADERS = ("fp.cuh",)
+HEADERS = ("fp.cuh", "fp_coop.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -42,17 +43,17 @@ _SIGNATURES = {
     "lt_g1_dbl": [_P, _P, _I, _P],
     "lt_g1_add": [_P, _P, _P, _I, _P],
     "lt_g1_msm_scan": [_P, _P, _P, _P, _I, _I, _P],
-    "lt_g1_kernel_attrs": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "lt_g1_kernel_attrs": [_I] + [ctypes.POINTER(_I)] * 4,
     "lt_g2_dbl": [_P, _P, _I, _P],
     "lt_g2_add": [_P, _P, _P, _I, _P],
     "lt_g2_msm_scan": [_P, _P, _P, _P, _I, _I, _P],
-    "lt_g2_kernel_attrs": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "lt_g2_kernel_attrs": [_I] + [ctypes.POINTER(_I)] * 4,
     "lt_secp_fp_mul": [_P, _P, _P, _I, _P],
     "lt_secp_dbl": [_P, _P, _I, _P],
     "lt_secp_add": [_P, _P, _P, _I, _P],
     "lt_secp_msm_scan": [_P, _P, _P, _P, _I, _I, _P],
     "lt_secp_sqrt": [_P, _P, _I, _P],
-    "lt_secp_kernel_attrs": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "lt_secp_kernel_attrs": [_I] + [ctypes.POINTER(_I)] * 4,
 }
 # (attrs entry, kernel names in its index order)
 _ATTRS = (
@@ -136,19 +137,23 @@ def library():
     return _LIB
 
 
+ATTR_KEYS = ("regs", "local_bytes", "threads_per_lane", "block")
+
+
 def kernel_attrs() -> dict:
-    """{kernel: (registers per thread, local spill bytes)} from the loaded
-    library."""
+    """{kernel: {regs, local_bytes, threads_per_lane, block}} from the
+    loaded library: registers per thread, local (spill) bytes, threads per
+    lane and threads per block, as compiled."""
     lib = library()
     out = {}
     for entry, names in _ATTRS:
         fn = getattr(lib, entry)
         for i, name in enumerate(names):
-            regs, local = ctypes.c_int(), ctypes.c_int()
-            rc = fn(i, ctypes.byref(regs), ctypes.byref(local))
+            vals = [ctypes.c_int() for _ in ATTR_KEYS]
+            rc = fn(i, *map(ctypes.byref, vals))
             if rc != 0:
                 raise RuntimeError(
                     f"cudaFuncGetAttributes({name}) failed: {rc}"
                 )
-            out[name] = (regs.value, local.value)
+            out[name] = dict(zip(ATTR_KEYS, (v.value for v in vals)))
     return out

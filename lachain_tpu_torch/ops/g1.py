@@ -322,31 +322,65 @@ def tree_reduce_k(acc, flags, k: int):
     return acc, flags
 
 
+def lead_zeros(digits, nwin: int):
+    """(W, n) MSB-first digits -> (nwin, n): the same scalars behind
+    nwin - W leading zero windows (the flag stays set through them)."""
+    pad = nwin - digits.shape[0]
+    if pad == 0:
+        return digits
+    zeros = torch.zeros((pad, digits.shape[1]), dtype=digits.dtype,
+                        device=digits.device)
+    return torch.cat([zeros, digits], dim=0)
+
+
+def era_digits(rlc16, lag1, lag2):
+    """The joined scan's digits [rlc | rlc | lag1 | lag2] (era_kernel), each
+    part behind leading zero windows up to the longest."""
+    nwin = max(rlc16.shape[0], lag1.shape[0], lag2.shape[0])
+    rlc = lead_zeros(rlc16, nwin)
+    return torch.cat(
+        [rlc, rlc, lead_zeros(lag1, nwin), lead_zeros(lag2, nwin)], dim=1)
+
+
+def tpke_digits(rng, slots: int = 64, k: int = 64, live: int = 22):
+    """era_digits of seeded scalars, for timing the scan at the TPKE era's
+    layout: a 64-bit RLC coefficient on every lane, and the GLV halves of
+    a Lagrange coefficient on the first `live` lanes of each slot of k (the
+    N=64 era: 64 slots x 64 shares, t + 1 = 22 combined). rng: a
+    random.Random. -> (32, 4 * slots * k) int32 on the CPU."""
+    n = slots * k
+    rlc = [rng.randrange(1, 1 << 64) for _ in range(n)]
+    lag = [rng.randrange(1, bls.R) if i % k < live else 0 for i in range(n)]
+    halves = [glv.glv_split(v) for v in lag]
+    return era_digits(digits_col(rlc, glv.W64, "cpu"),
+                      digits_col([h[0] for h in halves], glv.W128, "cpu"),
+                      digits_col([h[1] for h in halves], glv.W128, "cpu"))
+
+
 def era_kernel(u, y, rlc16, lag1, lag2, k: int):
     """u, y: (3R, S*K) share points / verification keys; rlc16 (16, S*K);
     lag1, lag2 (32, S*K) GLV halves; k = K (a power of two).
 
-    Two passes, as pg1.era_kernel (:488-510): a 16-window RLC pass over the
-    lanes [u | y] with digits [rlc16 | rlc16], and a 32-window GLV pass over
-    [u | phi(u)] with [lag1 | lag2], phi(u) = (beta*X, Y, Z). Returns
-    (rlc_pts (3R, 2S), rlc_flags, lag_pts (3R, 2S), lag_flags): per-slot
-    u_agg | y_agg, then comb1 | comb2."""
+    pg1.era_kernel (:488-510) runs two passes, a 16-window RLC pass over
+    [u | y] with digits [rlc16 | rlc16] and a 32-window GLV pass over
+    [u | phi(u)] with [lag1 | lag2], phi(u) = (beta*X, Y, Z). Here they are
+    one table build, one scan and one tree reduce over the joined lanes
+    [u | y | u | phi(u)], the RLC digits behind leading zero windows (the
+    idiom of ops/g2.py ts_era_kernel); groups of K never straddle two
+    quarters, so the outputs are pg1's. Returns (rlc_pts (3R, 2S),
+    rlc_flags, lag_pts (3R, 2S), lag_flags): per-slot u_agg | y_agg, then
+    comb1 | comb2."""
     n = u.shape[-1]
     r = u.shape[0] // 3
     beta = _const_col(glv.BETA, u.device).expand(r, n).contiguous()
     phi_x = fp_mul(u[:r].contiguous(), beta)
     phi_u = torch.cat([phi_x, u[r:]], dim=0)
 
-    lanes_rlc = torch.cat([u, y], dim=1)
-    dig_rlc = torch.cat([rlc16, rlc16], dim=1)
-    lanes_lag = torch.cat([u, phi_u], dim=1)
-    dig_lag = torch.cat([lag1, lag2], dim=1)
-
-    acc_r, fl_r = msm_windowed(lanes_rlc, dig_rlc)
-    acc_l, fl_l = msm_windowed(lanes_lag, dig_lag)
-    out_r, ofl_r = tree_reduce_k(acc_r, fl_r, k)
-    out_l, ofl_l = tree_reduce_k(acc_l, fl_l, k)
-    return out_r, ofl_r, out_l, ofl_l
+    lanes = torch.cat([u, y, u, phi_u], dim=1)
+    acc, fl = msm_windowed(lanes, era_digits(rlc16, lag1, lag2))
+    out, ofl = tree_reduce_k(acc, fl, k)
+    s2 = out.shape[-1] // 2
+    return out[:, :s2], ofl[:s2], out[:, s2:], ofl[s2:]
 
 
 def era_kernel_fused(u, y, rlc16, lag1, lag2, k: int):

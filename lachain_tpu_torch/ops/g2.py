@@ -27,7 +27,7 @@ from typing import Sequence
 import torch
 
 from ..crypto import bls12381 as bls
-from . import _build, g1, g2_ref
+from . import _build, g1, g2_ref, glv
 from .g1 import NL, _check, _cpu_layout, _on_cpu, _stream
 from .g1_ref import NLIMBS
 from .glv import TABLE
@@ -201,6 +201,25 @@ def tree_reduce2_k(acc, flags, k: int):
     return acc, flags
 
 
+def ts_era_digits(rlc16, lag64):
+    """The coin era's scan digits [rlc64 | lag64] (ts_era_kernel): rlc16
+    behind leading zero windows up to lag64's."""
+    return torch.cat([g1.lead_zeros(rlc16, lag64.shape[0]), lag64], dim=1)
+
+
+def coin_digits(rng, coins: int = 64, k: int = 64, live: int = 22):
+    """ts_era_digits of seeded scalars, for timing the scan at the coin
+    era's layout: a 64-bit RLC coefficient and a Lagrange coefficient on
+    the first `live` lanes of each coin of k, the other lanes masked (zero
+    digits; the N=64 era: 64 coins x 64 signers, t + 1 = 22 live). rng: a
+    random.Random. -> (64, 2 * coins * k) int32 on the CPU."""
+    n = coins * k
+    rlc = [rng.randrange(1, 1 << 64) if i % k < live else 0 for i in range(n)]
+    lag = [rng.randrange(1, bls.R) if i % k < live else 0 for i in range(n)]
+    return ts_era_digits(g1.digits_col(rlc, glv.W64, "cpu"),
+                         g1.digits_col(lag, glv.W256, "cpu"))
+
+
 def ts_era_kernel(sig, y, rlc16, lag64, k: int):
     """The coin era on the device (pg2.ts_era_kernel, :391-435).
 
@@ -218,14 +237,9 @@ def ts_era_kernel(sig, y, rlc16, lag64, k: int):
       cols [2S, 3S): per-coin key RLC aggregates (G1 in rows [0, 3R), the
                      other rows zero)."""
     n = sig.shape[-1]
-    rlc64 = torch.cat([
-        torch.zeros((lag64.shape[0] - rlc16.shape[0], n), dtype=rlc16.dtype,
-                    device=rlc16.device),
-        rlc16,
-    ], dim=0)
     table = build_table2(sig)
     acc, fl = msm2_scan(torch.cat([table, table], dim=-1),
-                        torch.cat([rlc64, lag64], dim=1))
+                        ts_era_digits(rlc16, lag64))
     acc_y, fl_y = g1.msm_windowed(y, rlc16)
     out_r, ofl_r = tree_reduce2_k(acc[:, :n], fl[:n], k)
     out_l, ofl_l = tree_reduce2_k(acc[:, n:], fl[n:], k)

@@ -86,6 +86,41 @@ def test_kernels_equal_plain_versions(card):
     assert torch.equal(fl.cpu(), rfl.cpu()) and bool(fl[0])
 
 
+def _scan_case(rng, n, nwin, run, add, mul, inf):
+    """Host table rows k*P and scalars for a scan at n lanes. Lane i % 4 is
+    0: a random scalar; 1: zero (flagged to the end, beside unflagged lanes
+    of the same warp); 2: a short scalar behind leading zero windows; 3: a
+    collision, table[2] = 16*P and digits [.., 0, 1, 2], so the add after
+    the doublings meets acc == entry and gives Z = 0."""
+    pts = run(rng, n)
+    table = [[inf] * n, pts]
+    for _ in range(glv.TABLE - 2):
+        table.append([add(a, b) for a, b in zip(table[-1], pts)])
+    scalars = []
+    for i in range(n):
+        kind = i % 4
+        if kind == 3:
+            table[2][i] = mul(pts[i], 16)
+        scalars.append((rng.randrange(1, 1 << (4 * nwin)), 0,
+                        rng.randrange(16, 256), 0x12)[kind])
+    return table, scalars
+
+
+@pytest.mark.parametrize("n", [1, 3, 33, 256])
+def test_g1_scan_lanes_and_collisions(card, n):
+    rng = random.Random(0x5CA1 + n)
+    table, scalars = _scan_case(rng, n, 8, _points, bls.g1_add, bls.g1_mul,
+                                bls.G1_INF)
+    digits = g1.digits_col(scalars, 8, card)
+    acc, fl = g1.msm_scan(torch.stack([g1.g1_pack(r, card) for r in table]), digits)
+    racc, rfl = g1_ref.msm_scan(torch.stack([_ref(r, card) for r in table]), digits)
+    want = g1.g1_coords(racc.cpu())
+    assert g1.g1_coords(acc) == want
+    assert torch.equal(fl.cpu(), rfl.cpu())
+    assert fl.cpu().tolist() == [i % 4 == 1 for i in range(n)]
+    assert all(want[2 * n + i] == 0 for i in range(3, n, 4))
+
+
 def _era(n, f, slots, seed):
     dealer = tpke.TpkeTrustedKeyGen(n, f, SeededRng(seed))
     lag = [0] * n
@@ -175,6 +210,36 @@ def test_g2_kernels_equal_plain_versions(card):
     assert torch.equal(fl.cpu(), rfl.cpu()) and bool(fl[0]) and not bool(fl[1])
     got = _unpack(acc, fl)
     assert bls.g2_eq(got[2], bls.g2_mul(ps[2], scalars[2]))
+
+
+@pytest.mark.parametrize("n", [1, 3, 33, 256])
+def test_g2_scan_lanes_and_collisions(card, n):
+    rng = random.Random(0x5CA2 + n)
+    table, scalars = _scan_case(rng, n, 8, _g2_points, bls.g2_add, bls.g2_mul,
+                                bls.G2_INF)
+    digits = g1.digits_col(scalars, 8, card)
+    acc, fl = g2.msm2_scan(torch.stack([g2.g2_pack(r, card) for r in table]), digits)
+    racc, rfl = g2_ref.msm_scan(torch.stack([_ref2(r, card) for r in table]), digits)
+    want = g2.g2_coords(racc.cpu())
+    assert g2.g2_coords(acc) == want
+    assert torch.equal(fl.cpu(), rfl.cpu())
+    assert fl.cpu().tolist() == [i % 4 == 1 for i in range(n)]
+    assert all(want[4 * n + i] == 0 and want[5 * n + i] == 0 for i in range(3, n, 4))
+
+
+def test_tpke_era_launches_one_scan(card):
+    """The joined era kernel: one table build (1 dbl + 13 adds), one scan and
+    one tree reduce (log2 K adds) per era."""
+    dealer, jobs, _, _ = _era(5, 1, 3, seed=47)
+    y_points = [vk.y_i for vk in dealer.verification_keys]
+    slots = [(list(j.u_by_validator), list(j.lagrange_row)) for j in jobs]
+    g1.reset_launches()
+    got, _ = GpuEraPipeline(device=card).run_era(slots, y_points, SeededRng(4))
+    assert (g1.LAUNCHES["g1_msm_scan"], g1.LAUNCHES["g1_dbl"],
+            g1.LAUNCHES["g1_add"]) == (1, 1, 13 + 3)  # K = 5 -> 8 lanes a slot
+    want, _ = HostEraPipeline().run_era(slots, y_points, SeededRng(4))
+    for g_slot, w_slot in zip(got, want):
+        assert all(bls.g1_eq(a, b) for a, b in zip(g_slot, w_slot))
 
 
 def test_coin_pipeline_and_msm_routes_on_card(card):

@@ -181,9 +181,10 @@ ptxas info    : Used 240 registers, used 0 barriers, 288 bytes cumulative stack 
 
 
 def test_inline_probe_reads_ptxas_report():
-    """The card-side probe of inlined Fp2 products reads each kernel's
-    registers, frame and spills, and its callees' spills, from ptxas -v."""
-    from lachain_tpu_torch.inline_probe import parse_ptxas
+    """The card-side variant builder (whose fp2inline variants probe inlined
+    Fp2 products) reads each kernel's registers, frame and spills, and its
+    callees' spills, from ptxas -v."""
+    from lachain_tpu_torch.scan_sweep import parse_ptxas
 
     assert parse_ptxas(_PTXAS) == {
         "g2_msm_scan_kernel": {
