@@ -7,19 +7,22 @@ Phases, each of which must pass (any failure exits non-zero):
   1. build   the CUDA kernels of lachain_tpu_torch/csrc/ (g1.cu, g2.cu and
              secp.cu, one nvcc each, in parallel, sm_90a), with each
              kernel's registers, local bytes, threads per lane and block;
-  2. kernels hold each of the twelve kernels against its plain PyTorch
+  2. kernels hold each of the thirteen kernels against its plain PyTorch
              version (ops/g1_ref.py, ops/g2_ref.py, ops/secp_ref.py) on the
              card, on seeded inputs at the main paths' shapes (8192 lanes;
-             the G2 and secp scans with 64 windows; the secp square root
-             at 16384 lanes): exact equality of coordinates mod p and flags.
-             The G1 and G2 scans run twice: at the main path's digit layout
-             (the TPKE era's joined scan, 32 windows x 16,384 lanes; the
-             coin era's scan, 48 leading zero windows on its RLC half and
-             22 live lanes of 64) and at a random-digit kernel check (32 /
-             64 windows of random digits x 8192 lanes). Every kernel's
-             numbers in the kernels JSON are those of its kernel check, the
-             shape the earlier slices reported; each scan's entry also
-             holds a `main` object, its numbers at the main path's layout;
+             the G2 and secp scans with 64 windows; the G2 table build at
+             the coin era's 4096 signature lanes, 22 live of each 64 and
+             the others infinity; the secp square root at 16384 lanes):
+             exact equality of coordinates mod p and flags. The three scans
+             run twice: at the main path's layout (the TPKE era's joined
+             scan, 32 windows x 16,384 lanes; the coin era's scan, 48
+             leading zero windows on its RLC half and 22 live lanes of 64;
+             one 4096-signature recovery chunk, [R_i, G] interleaved) and at
+             a random-digit kernel check (32 / 64 windows of random digits x
+             8192 lanes). Every kernel's numbers in the kernels JSON are
+             those of its kernel check, the shape the earlier slices
+             reported; each scan's entry also holds a `main` object, its
+             numbers at the main path's layout;
   3. main    three paths, each with the kernel launch counts set to 0 just
              before its one counted call and read just after:
              the N=64 TPKE era (64 ACS slots x 64 decryption shares) through
@@ -30,9 +33,11 @@ Phases, each of which must pass (any failure exits non-zero):
              the N=64 coin era (64 coins x 64 signers, 22 live shares each)
              through threshold_sig.era_verify_combine on the same backend:
              every signature must verify under the shared key with the host
-             combine's parity, a poisoned share must isolate exactly its
-             coin, 4 coins are held against TsHostEraPipeline, and one device
-             g1_msm and one g2_msm at n=100 against the host MSM;
+             combine's parity, with exactly 1 G2 table build, 1 G2 scan, 12
+             G2 adds and no G2 doubling (and the key RLC's 1 G1 scan, 1
+             doubling and 19 adds), a poisoned share must isolate exactly
+             its coin, 4 coins are held against TsHostEraPipeline, and one
+             device g1_msm and one g2_msm at n=100 against the host MSM;
              pool-ingest ECDSA recovery of 10,000 signatures from 64 senders
              (32 of them malformed) through
              ecdsa.recover_hash_batch(..., device="cuda"): every valid
@@ -45,10 +50,11 @@ Phases, each of which must pass (any failure exits non-zero):
              result may have been recomputed on the host
              (ops/verify.ESCAPES), and each path must launch its kernels;
   4. times   per-kernel times from CUDA events, the plain versions' times,
-             each kernel's bound, the warm phase times of every path and a
-             torch.profiler split of each device phase by kernel, whose
-             traced scan, doubling and add launches must equal the counted
-             ones.
+             each kernel's bound (and, beside it, the bound at the card's
+             measured integer multiply-add rate), the warm phase times of
+             every path and a torch.profiler split of each device phase by
+             kernel, whose traced scan, table, doubling and add launches
+             must equal the counted ones.
 The last three lines of standard output are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}.
 
@@ -71,21 +77,30 @@ import time
 # the bound from this peak is a floor.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# the card's sustained 32x32->64-bit multiply-add rate as mad.wide.u32,
+# measured by `python3 -m lachain_tpu_torch.scan_sweep --int-rate` (NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md): the kernels' operations bound at it
+INT_MADS_PER_S = 15.35e12
 # one 12 x 32-bit Montgomery product (CIOS): 2*12*12 + 12 word products
 OPS_PER_FIELD_MUL = 2 * (2 * 12 * 12 + 12)
 MULS_DBL, MULS_ADD = 7, 16  # field products per doubling / incomplete add
 MULS_DBL2, MULS_ADD2 = 16, 44  # the same over Fp2 (G2), in Fp products
+# the G2 table build: 1 doubling and 13 adds per lane
+MULS_TABLE2 = MULS_DBL2 + 13 * MULS_ADD2
 # one 8 x 32-bit secp256k1 Montgomery product: 2*8*8 + 8 word products; a
 # secp doubling / add is 7 / 16 of them like G1's
 OPS_PER_SECP_MUL = 2 * (2 * 8 * 8 + 8)
 
 N_VALIDATORS = 64
 KERNEL_LANES = 8192  # S*K*2 msm lanes of the N=64 eras
+COIN_LANES = 4096  # the coin era's signature lanes: 64 coins x 64 signers
+LIVE = 22  # t + 1 of the N=64 eras: the combined shares of a coin
 SQRT_LANES = 16384  # the 10,000-signature batch padded to a power of two
 N_SIGNATURES = 10000
 N_SENDERS = 64
 KERNEL_NAMES = ("fp_mul_kernel", "dbl_kernel", "add_kernel", "msm_scan_kernel",
                 "g2_dbl_kernel", "g2_add_kernel", "g2_msm_scan_kernel",
+                "g2_table_kernel",
                 "secp_fp_mul_kernel", "secp_dbl_kernel", "secp_add_kernel",
                 "secp_msm_scan_kernel", "secp_sqrt_kernel")
 G1_KERNELS = ("fp_mul", "g1_dbl", "g1_add", "g1_msm_scan")
@@ -93,12 +108,18 @@ G1_KERNELS = ("fp_mul", "g1_dbl", "g1_add", "g1_msm_scan")
 KERNEL_OF = {"fp_mul": "fp_mul_kernel", "g1_dbl": "dbl_kernel",
              "g1_add": "add_kernel", "g1_msm_scan": "msm_scan_kernel"}
 KERNEL_OF.update({k: f"{k}_kernel" for k in ("g2_dbl", "g2_add", "g2_msm_scan",
+                                              "g2_table",
                                               "secp_fp_mul", "secp_dbl", "secp_add",
                                               "secp_msm_scan", "secp_sqrt")})
 # the TPKE era's counted call: one table build over the joined lanes (1
 # doubling, 13 adds), one scan, a tree reduce of log2(64) = 6 adds
 TPKE_LAUNCHES = {"g1_msm_scan": 1, "g1_dbl": 1, "g1_add": 19}
-G2_KERNELS = ("g2_dbl", "g2_add", "g2_msm_scan")
+# the coin era's counted call: one G2 table build (one launch) and one
+# G2 scan over [table | table], two G2 tree reduces of 6 adds; the key RLC
+# as one G1 table build, scan and tree reduce
+COIN_LAUNCHES = dict(TPKE_LAUNCHES, g2_table=1, g2_msm_scan=1, g2_add=12,
+                     g2_dbl=0)
+G2_KERNELS = ("g2_dbl", "g2_add", "g2_table", "g2_msm_scan")
 SECP_KERNELS = ("secp_fp_mul", "secp_dbl", "secp_add", "secp_msm_scan",
                 "secp_sqrt")
 
@@ -155,9 +176,15 @@ def cuda_ms_once(fn):
 
 
 def bound(nbytes: int, nops: int):
+    """(ms, "bytes" or "operations", ms at the integer multiply-add rate):
+    the larger of the bytes over the memory rate and the operations over
+    the float32 peak, and the same with the operations (2 per word
+    product) over the measured INT_MADS_PER_S."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / PEAK_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_int = max(t_bytes, nops / 2 / INT_MADS_PER_S * 1e3)
+    return ((t_bytes, "bytes", t_int) if t_bytes >= t_ops
+            else (t_ops, "operations", t_int))
 
 
 def point_run(n: int, rng: random.Random, bls):
@@ -208,11 +235,12 @@ def report_line(name: str, r: dict) -> None:
         log(f"kernel {name}{label}: {x.get('layout', '')} {shape} ok={x['ok']} "
             f"max_abs_err={x['max_abs_err']} ms={x['ms']:.4f} "
             f"plain_ms={x['plain_ms']:.3f} bound_ms={x['bound'][0]:.5f} "
-            f"({x['bound'][1]})")
+            f"({x['bound'][1]}; {x['bound'][2]:.5f} at the integer rate)")
 
 
 def scan_entry(kernel, plain, coords, ktab, rtab, digits, muls_dbl, muls_add,
-               point_bytes, layout: str, reps: int) -> dict:
+               point_bytes, layout: str, reps: int,
+               ops_per_mul: int = OPS_PER_FIELD_MUL) -> dict:
     """One scan (`kernel`, its `plain` version, the `coords` reader) on the
     same table and digits: exactness, CUDA-event times of both, and the
     bound of the work these digits need."""
@@ -229,7 +257,7 @@ def scan_entry(kernel, plain, coords, ktab, rtab, digits, muls_dbl, muls_add,
         layout=layout, lanes=n, windows=int(digits.shape[0]),
         ok=got == want and flags_ok, max_abs_err=max_err(got, want),
         ms=cuda_ms(lambda: kernel(ktab, digits), reps), plain_ms=plain_ms,
-        bound=bound(nbytes, muls * OPS_PER_FIELD_MUL), want=want, flags=rfl.cpu(),
+        bound=bound(nbytes, muls * ops_per_mul), want=want, flags=rfl.cpu(),
     )
 
 
@@ -343,8 +371,9 @@ def check_kernels(seed: int, dev):
 
 
 def check_g2_kernels(rng: random.Random, dev):
-    """The three G2 kernels against g2_ref at 8192 lanes; the scan with 64
-    windows at the coin era's layout and at random digits."""
+    """The four G2 kernels against g2_ref: g2_dbl and g2_add at 8192 lanes,
+    the table build at the coin era's 4096 signature lanes, the scan with
+    64 windows at the coin era's layout and at random digits."""
     import torch
 
     from lachain_tpu_torch.crypto import bls12381 as bls
@@ -356,18 +385,17 @@ def check_g2_kernels(rng: random.Random, dev):
     def ref_pts(points):
         return torch.from_numpy(g2_ref.points_to_limbs(points)).to(dev)
 
-    def lanes_of(coords, i):
-        return tuple((coords[j * n + i], coords[(j + 1) * n + i]) for j in (0, 2, 4))
-
-    # (5) g2_dbl and (6) g2_add on n Jacobian points (Z != 1)
+    # (5) g2_dbl and (6) g2_add on n Jacobian points (Z != 1), lane 7 of the
+    # add holding p == q (Z = 0 on both sides)
     ps = point_run2(n, rng, bls)
     qs = point_run2(n, rng, bls)
+    qs[7] = ps[7]
     kp, kq = g2.g2_pack(ps, dev), g2.g2_pack(qs, dev)
     rp, rq = ref_pts(ps), ref_pts(qs)
     got = g2.g2_coords(g2.g2_dbl(kp))
     want = g2.g2_coords(g2_ref.dbl(rp).cpu())
     for i in range(0, n, 997):
-        check(bls.g2_eq(lanes_of(want, i), bls.g2_dbl(ps[i])), "g2_ref.dbl wrong")
+        check(bls.g2_eq(g2_lane(want, i, n), bls.g2_dbl(ps[i])), "g2_ref.dbl wrong")
     report["g2_dbl"] = dict(
         lanes=n, ok=got == want, max_abs_err=max_err(got, want),
         ms=cuda_ms(lambda: g2.g2_dbl(kp), 50),
@@ -376,14 +404,39 @@ def check_g2_kernels(rng: random.Random, dev):
     )
     got = g2.g2_coords(g2.g2_add(kp, kq))
     want = g2.g2_coords(g2_ref.add_incomplete(rp, rq).cpu())
+    check(want[4 * n + 7] == want[5 * n + 7] == 0, "g2_ref.add: p == q must give Z = 0")
     for i in range(0, n, 997):
-        check(bls.g2_eq(lanes_of(want, i), bls.g2_add(ps[i], qs[i])),
+        check(bls.g2_eq(g2_lane(want, i, n), bls.g2_add(ps[i], qs[i])),
               "g2_ref.add wrong")
     report["g2_add"] = dict(
         lanes=n, ok=got == want, max_abs_err=max_err(got, want),
         ms=cuda_ms(lambda: g2.g2_add(kp, kq), 50),
         plain_ms=cuda_ms(lambda: g2_ref.add_incomplete(rp, rq), 3),
         bound=bound(3 * 288 * n, n * MULS_ADD2 * OPS_PER_FIELD_MUL),
+    )
+
+    # (13) the G2 table build at the coin era's signature lanes: 64 coins x
+    # 64 signers, the first 22 of each coin live and the others infinity
+    # (0, 1, 0), whose Z = 0 every entry keeps; against the plain chain of
+    # one doubling and 13 adds
+    m = COIN_LANES
+    lanes = g2.coin_lanes(rng, coins=m // 64, live=LIVE)
+    kl, rl = g2.g2_pack(lanes, dev), ref_pts(lanes)
+    ktab = g2.build_table2(kl)
+    rtab, plain_ms = cuda_ms_once(lambda: g2_ref.build_table(rl))
+    got = [g2.g2_coords(ktab[k]) for k in range(glv.TABLE)]
+    want = [g2.g2_coords(rtab[k].cpu()) for k in range(glv.TABLE)]
+    for k in (1, 2, 3, 15):
+        check(bls.g2_eq(g2_lane(want[k], 0, m), bls.g2_mul(lanes[0], k)),
+              "g2_ref.build_table wrong")
+        check(want[k][4 * m + LIVE] == want[k][5 * m + LIVE] == 0,
+              "g2_ref.build_table: an infinity lane must keep Z = 0")
+    del rtab
+    report["g2_table"] = dict(
+        lanes=m, ok=got == want,
+        max_abs_err=max(max_err(a, b) for a, b in zip(got, want)),
+        ms=cuda_ms(lambda: g2.build_table2(kl), 10), plain_ms=plain_ms,
+        bound=bound((1 + glv.TABLE) * 288 * m, m * MULS_TABLE2 * OPS_PER_FIELD_MUL),
     )
 
     # (7) g2_msm_scan over a host-built table k*P: at the coin era's layout
@@ -413,11 +466,16 @@ def check_g2_kernels(rng: random.Random, dev):
     want, rfl = chk.pop("want"), chk.pop("flags")
     check(bool(rfl[0]) and not bool(rfl[1]), "zero-digit lane flags wrong")
     for i in (1, 2, n // 2):
-        check(bls.g2_eq(lanes_of(want, i), bls.g2_mul(ps[i], scalars[i])),
+        check(bls.g2_eq(g2_lane(want, i, n), bls.g2_mul(ps[i], scalars[i])),
               "g2_ref.msm wrong")
     del rtab
     report["g2_msm_scan"] = dict(chk, ok=main["ok"] and chk["ok"], main=main)
     return report
+
+
+def g2_lane(coords, i: int, n: int):
+    """Lane i of g2_coords over n lanes -> an oracle G2 Jacobian tuple."""
+    return tuple((coords[j * n + i], coords[(j + 1) * n + i]) for j in (0, 2, 4))
 
 
 def secp_point_run(n: int, rng: random.Random, ecdsa):
@@ -514,23 +572,29 @@ def check_secp_kernels(rng: random.Random, dev):
         scalars[i] = 0
     scalars[1] = 5  # leading zero windows, then one nonzero digit
     digits = secp.digits_col(scalars, dev)
-    acc, fl = secp.msm_scan(ktab, digits)
-    (racc, rfl), plain_ms = cuda_ms_once(lambda: secp_ref.msm_scan(rtab, digits))
-    got, want = secp.pt_coords(acc), secp_ref.coords(racc.cpu())
-    flags_ok = bool(torch.equal(fl.cpu(), rfl.cpu()))
+    scan = (secp.msm_scan, secp_ref.msm_scan, secp.pt_coords)
+    chk = scan_entry(*scan, ktab, rtab, digits, MULS_DBL, MULS_ADD, 96,
+                     "random", 5, OPS_PER_SECP_MUL)
+    want, rfl = chk.pop("want"), chk.pop("flags")
     check(bool(rfl[0]) and not bool(rfl[1]), "zero-digit lane flags wrong")
     for i in (1, 2, 3, n // 2):
         check(affine(want, i) == ecdsa._mul(ps[i], scalars[i]), "secp_ref.msm wrong")
-    del racc, rtab
-    muls = scan_products(digits, MULS_DBL, MULS_ADD)
-    nbytes = ktab.numel() * 4 + digits.numel() * 4 + 96 * n + n
-    report["secp_msm_scan"] = dict(
-        lanes=n, windows=nwin, ok=got == want and flags_ok,
-        max_abs_err=max_err(got, want),
-        ms=cuda_ms(lambda: secp.msm_scan(ktab, digits), 5),
-        plain_ms=plain_ms,
-        bound=bound(nbytes, muls * OPS_PER_SECP_MUL),
-    )
+    del rtab
+
+    # and at the recovery's layout: one 4096-signature chunk, [R_i, G]
+    # interleaved with full-width u1, u2 (secp.recover_layout), the tables
+    # built by the card's and the plain group law from the same points
+    pts, rdigits = secp.recover_layout(rng, n // 2)
+    kl, rl = secp.pt_pack(pts, dev), ref_pts(pts)
+    rtab = [torch.zeros_like(rl), rl, secp_ref.dbl(rl)]
+    for _ in range(glv.TABLE - 3):
+        rtab.append(secp_ref.add_incomplete(rtab[-1], rl))
+    main = scan_entry(*scan, secp.build_table(kl), torch.stack(rtab),
+                      rdigits.to(dev), MULS_DBL, MULS_ADD, 96, "recover", 5,
+                      OPS_PER_SECP_MUL)
+    main.pop("want"), main.pop("flags")
+    del rtab
+    report["secp_msm_scan"] = dict(chk, ok=main["ok"] and chk["ok"], main=main)
 
     # (12) secp_sqrt at 16384 lanes: random x (about half non-residues),
     # G's x among them
@@ -588,7 +652,7 @@ def make_era(n: int, seed: int):
 
 def profile_device(run) -> dict:
     """{kernel: [device ms, launches]} of one call of run() from
-    torch.profiler; device work that is not one of the twelve kernels
+    torch.profiler; device work that is not one of the thirteen kernels
     (copies, cat, where) is summed under "torch". A trace loses the first
     device activities of its session (a trace of the recover path lacked
     its first three launches), so run() goes once under the profiler's
@@ -621,7 +685,7 @@ def profile_device(run) -> dict:
 def kernel_of(key: str) -> str:
     """The kernel of a profiler key, templated or not
     ("(anonymous namespace)::msm_scan_kernel<4>(...)" -> "msm_scan_kernel"),
-    or "torch" for device work that is none of the twelve."""
+    or "torch" for device work that is none of the thirteen."""
     m = re.search(r"::(\w+)[<(]", key)
     return m[1] if m and m[1] in KERNEL_NAMES else "torch"
 
@@ -814,6 +878,8 @@ def run_coin_path(seed: int, backend, dev):
     launches = read_launches()
     check_no_escapes("coin era")
     check_all(res)
+    got = {k: launches[k] for k in COIN_LAUNCHES}
+    check(got == COIN_LAUNCHES, f"coin era launches {got} != {COIN_LAUNCHES}")
     t0 = time.perf_counter()
     for (msg, _), sig in zip(coins, res):
         check(key_set.shared.verify(msg, sig, host), "signature fails shared key")
@@ -855,9 +921,7 @@ def run_coin_path(seed: int, backend, dev):
     pipeline = TsGpuEraPipeline(device=dev)
     by_kernel = profile_phase("coin era", pipeline, lambda: pipeline.run_era(
         rows, y_points, SeededRng(seed + 14), masks=masks))
-    check_traced("coin era", by_kernel, launches,
-                 ("g1_msm_scan", "g1_dbl", "g1_add", "g2_msm_scan", "g2_dbl",
-                  "g2_add"))
+    check_traced("coin era", by_kernel, launches, tuple(COIN_LAUNCHES))
 
     # 4 coins against the host oracle pipeline, same seeded rng
     dev_out, dev_rlc = TsGpuEraPipeline(device=dev).run_era(
@@ -882,7 +946,7 @@ def run_coin_path(seed: int, backend, dev):
     dev_s = time.perf_counter() - t0
     msm_launches = read_launches()
     check_no_escapes("device MSMs")
-    idle = [k for k in ("g1_dbl", "g1_add", "g1_msm_scan", "g2_dbl", "g2_add",
+    idle = [k for k in ("g1_dbl", "g1_add", "g1_msm_scan", "g2_table", "g2_add",
                         "g2_msm_scan") if msm_launches[k] == 0]
     check(not idle, f"device MSMs never launched: {idle}")
     check(bls.g2_eq(got2, host.g2_msm(g2_pts, scalars)), "device g2_msm != host")
@@ -1087,9 +1151,9 @@ def main() -> int:
         "coin_era": run_coin_path(args.seed, backend, dev),
         "ecdsa_recover": run_ecdsa_path(args.seed, dev),
     }
-    needs = {
+    needs = {  # g2_dbl serves no main path since the table build is one launch
         "tpke_era": G1_KERNELS,
-        "coin_era": G1_KERNELS + G2_KERNELS,
+        "coin_era": G1_KERNELS + ("g2_add", "g2_table", "g2_msm_scan"),
         "ecdsa_recover": SECP_KERNELS,
     }
     for path, (launches, warm) in paths.items():
@@ -1107,6 +1171,9 @@ def main() -> int:
         "g1_msm_scan": "lachain_tpu/ops/pg1.py:355",
         "g2_dbl": "lachain_tpu/ops/pg2.py:218",
         "g2_add": "lachain_tpu/ops/pg2.py:222",
+        # build_table2's chain of _add2_kernel launches (and one
+        # _dbl2_kernel), pg2.py:356, in one launch
+        "g2_table": "lachain_tpu/ops/pg2.py:222",
         "g2_msm_scan": "lachain_tpu/ops/pg2.py:272",
         # psecp has no launch of its own for the field product: its _mul
         "secp_fp_mul": "lachain_tpu/ops/psecp.py:121",
@@ -1118,7 +1185,7 @@ def main() -> int:
     def numbers(r: dict) -> dict:
         return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                "bound_by": r["bound"][1]}
+                "bound_by": r["bound"][1], "int_bound_ms": r["bound"][2]}
 
     kernels = []
     for k, r in report.items():

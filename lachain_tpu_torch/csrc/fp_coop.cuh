@@ -1,372 +1,39 @@
-// The BLS12-381 base field Fp on a group of T threads per lane, for the two
-// window scans (g1.cu msm_scan_kernel, g2.cu g2_msm_scan_kernel).
+// The BLS12-381 base field Fp on a group of T threads per lane, for the
+// group-field kernels of g1.cu (msm_scan_kernel) and g2.cu
+// (g2_msm_scan_kernel, g2_add_kernel, g2_table_kernel): coop.cuh's field
+// code over fp.cuh's p, with the names those files use.
 //
-// Why. A scan lane is a long serial chain of Montgomery products, and at
-// the era's 8192 lanes one thread per lane leaves the card almost empty
-// (256 warps on 528 schedulers): each dependent instruction waits its full
-// latency. Splitting a lane's 12 words over T threads (W = 12 / T words
-// each) cuts the chain per thread and puts T times the warps on the card.
-// The values are the same: every operation here returns the canonical
-// residue in [0, p), as fp.cuh's one-thread code does, so a scan's output
-// is word for word the one of fp.cuh's arithmetic.
-//
-// Layout. The T threads of a group are adjacent lanes of one warp (T
-// divides 32); rank r holds words [rW, rW + W) of each element, and of p.
-// Groups are whole: a kernel keeps a group past n alive to the end and
-// masks its stores, it never returns early from some of its threads.
-// Shuffles and ballots take Group::mask, the full warp: the scans keep the
-// warp's control flow uniform (lanes_any: a warp doubles when any of its
-// lanes must, and a flagged lane's zero accumulator doubles to itself), so
-// every collective finds its whole warp converged. (With each group's own
-// lanes as the mask and groups of one warp diverging on their flags, every
-// collective was wrapped in WARPSYNC, BSSY/BSYNC and ENDCOLLECTIVE and the
-// scans ran about 4x slower, PERF.md.)
-//
-// Product: CIOS across the group (after CGBN's threads-per-instance and
-// sppark's Montgomery code) over carry-save columns. (A first version kept
-// CGBN's PTX carry chains along each thread's words, mad.lo.cc/madc.hi.cc:
-// every step then waited on a chain of about 2W + 4 dependent carries, and
-// the G1 scan ran 5.70 ms at T = 4 against 5.30 at T = 1 and 5.43 for the
-// one-thread uint64 scan it replaced; the columns took it to 1.41 ms, see
-// PERF.md.) Thread r keeps its W columns as 64-bit sums t[j] < 2^33 - 1. Step i: b_i is broadcast from its
-// owner; u[j] = t[j] + a_j * b_i (one mad.wide.u32 each, < 2^64); m =
-// lo(u[0]) * -p^-1 on rank 0, broadcast; v[j] = lo(u[j]) + hi(u[j-1]) +
-// m * p_j (< 2^64), where column 0 takes hi(u[W-1]) of the thread below
-// (shuffle up); then every column moves one down: t[j] = lo(v[j+1]) +
-// hi(v[j]) (< 2^33 - 1), the top column taking lo(v[0]) of the thread
-// above (shuffle down) or, on the top thread, its own hi(u[W-1]). No carry
-// ripples along the words inside a step, so a step's dependent path is a
-// few instructions and a shuffle, not a chain of 2W carries. After 12
-// steps one PTX carry chain per thread turns the columns into words and
-// one ballot resolution settles the carries between threads; the sum is
-// < 2p < 2^383, so none leaves the group. The bounds are tight (the
-// largest values are reached by p - 1 operands) and were checked by a
-// word-level model against Python ints, edge operands included, before
-// the first build. The conditional subtraction of p is a group-wide
-// subtraction whose final borrow picks the result.
-//
-// Carry resolution (add, sub, the product's end): each thread adds or
-// subtracts its words locally with a PTX carry chain, then two ballots
-// give every thread the group's generate bits G (carry out) and propagate
-// bits P (its words are all ones for an add, all zeros for a subtraction,
-// so a carry in would pass through). The carry into rank r is bit r of
-// ((G | P) + G) ^ P, and bit T of (G | P) + G is the carry out of the
-// group.
-//
-// T = 1 is the same code with no shuffle and no ballot.
+// 2p < 2^383, so no sum of the field code carries out of the group
+// (BlsFp::top_carry is false and the carry word is never read).
 
 #pragma once
 
+#include "coop.cuh"
 #include "fp.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// PTX carry chains: CC.CF carries from one call to the next
-// ---------------------------------------------------------------------------
-
-// Each step of a chain is its own asm volatile statement, as in CGBN, and
-// the carry flag passes from one statement to the next with ordinary code
-// (the word extracts of fpg_mul's settle) between them. The inline-PTX
-// rules do not promise that the flag survives between statements; nvcc
-// 12.9 keeps it (the scans are exact against their plain versions on the
-// card, tests/test_torch_cuda.py). After a compiler update, run those tests
-// before anything else: a broken chain builds without an error.
-
-__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-// ---------------------------------------------------------------------------
-// the group
-// ---------------------------------------------------------------------------
+struct BlsFp {
+  static constexpr int words = NL;
+  static constexpr uint32_t pinv = kPInv;
+  static constexpr bool top_carry = false;
+  static __device__ __forceinline__ uint32_t p_word(int i) { return kP[i]; }
+};
 
 template <int T>
-struct Group {
-  static_assert(T == 1 || T == 2 || T == 4, "T threads per lane: 1, 2 or 4");
-  static constexpr int W = NL / T;  // words per thread
-  static constexpr uint32_t mask = 0xffffffffu;  // every collective's lanes
-  int shift;                        // warp lane of rank 0
-  int rank;                         // this thread's words: [rank*W, rank*W+W)
-  uint32_t p[W];                    // this thread's words of p
-};
+using Group = CoopGroup<BlsFp, T>;
+
+template <int T>
+using FpG = CoopFp<BlsFp, T>;
 
 template <int T>
 __device__ __forceinline__ Group<T> make_group() {
-  Group<T> g;
-  const int wl = (int)(threadIdx.x & 31u);
-  g.rank = wl & (T - 1);
-  g.shift = wl - g.rank;
-  // p's words by rank, each read at a constant index (the same address on
-  // every thread: a divergent index would serialize the constant cache)
-#pragma unroll
-  for (int j = 0; j < Group<T>::W; ++j) {
-    uint32_t v = kP[j];
-#pragma unroll
-    for (int r = 1; r < T; ++r) v = g.rank == r ? kP[r * Group<T>::W + j] : v;
-    g.p[j] = v;
-  }
-  return g;
+  return make_coop_group<BlsFp, T>();
 }
-
-// Whether any lane of the warp needs `pred`: the warp decides as one, so
-// its collectives stay converged.
-template <int T>
-__device__ __forceinline__ bool lanes_any(const Group<T>& g, bool pred) {
-  return __any_sync(g.mask, pred);
-}
-
-template <int T>
-struct FpG {
-  uint32_t v[NL / T];
-};
 
 template <int T>
 __device__ __forceinline__ FpG<T> fpg_zero() {
-  FpG<T> r;
-#pragma unroll
-  for (int j = 0; j < NL / T; ++j) r.v[j] = 0u;
-  return r;
-}
-
-// rows [row0, row0 + 12) of a lane-minor array: this thread's W words
-template <int T>
-__device__ __forceinline__ FpG<T> load_fpg(const Group<T>& g,
-                                           const uint32_t* __restrict__ a,
-                                           int row0, int n, int lane) {
-  FpG<T> r;
-#pragma unroll
-  for (int j = 0; j < NL / T; ++j)
-    r.v[j] = a[(size_t)(row0 + g.rank * (NL / T) + j) * n + lane];
-  return r;
-}
-
-template <int T>
-__device__ __forceinline__ void store_fpg(const Group<T>& g,
-                                          uint32_t* __restrict__ a, int row0,
-                                          int n, int lane, const FpG<T>& v) {
-#pragma unroll
-  for (int j = 0; j < NL / T; ++j)
-    a[(size_t)(row0 + g.rank * (NL / T) + j) * n + lane] = v.v[j];
-}
-
-// ---------------------------------------------------------------------------
-// carries across the group
-// ---------------------------------------------------------------------------
-
-template <int W>
-__device__ __forceinline__ bool all_ones(const uint32_t (&s)[W]) {
-  uint32_t x = s[0];
-#pragma unroll
-  for (int j = 1; j < W; ++j) x &= s[j];
-  return x == 0xffffffffu;
-}
-
-template <int W>
-__device__ __forceinline__ bool all_zero(const uint32_t (&s)[W]) {
-  uint32_t x = s[0];
-#pragma unroll
-  for (int j = 1; j < W; ++j) x |= s[j];
-  return x == 0u;
-}
-
-// The carry into this thread from the generate bit `gen` and propagate bit
-// `prop` of every thread of the group; `top` gets the carry out of the
-// group's top thread.
-template <int T>
-__device__ __forceinline__ uint32_t group_carry(const Group<T>& g,
-                                                uint32_t gen, bool prop,
-                                                uint32_t& top) {
-  const uint32_t all = (1u << T) - 1u;
-  const uint32_t G = (__ballot_sync(g.mask, gen != 0u) >> g.shift) & all;
-  const uint32_t P = (__ballot_sync(g.mask, prop) >> g.shift) & all;
-  const uint32_t S = (G | P) + G;
-  top = (S >> T) & 1u;
-  return ((S ^ P) >> g.rank) & 1u;
-}
-
-// s += (carry in) after a local add whose carry out was `gen`; returns the
-// carry out of the group.
-template <int T>
-__device__ __forceinline__ uint32_t settle_add(const Group<T>& g,
-                                               uint32_t (&s)[NL / T],
-                                               uint32_t gen) {
-  if constexpr (T == 1) {
-    return gen;
-  } else {
-    uint32_t top;
-    const uint32_t c = group_carry(g, gen, all_ones(s), top);
-    s[0] = add_cc(s[0], c);
-#pragma unroll
-    for (int j = 1; j < NL / T; ++j) s[j] = addc_cc(s[j], 0u);
-    return top;
-  }
-}
-
-// s -= (borrow in) after a local subtraction whose borrow out was `gen`;
-// returns the borrow out of the group.
-template <int T>
-__device__ __forceinline__ uint32_t settle_sub(const Group<T>& g,
-                                               uint32_t (&s)[NL / T],
-                                               uint32_t gen) {
-  if constexpr (T == 1) {
-    return gen;
-  } else {
-    uint32_t top;
-    const uint32_t b = group_carry(g, gen, all_zero(s), top);
-    s[0] = sub_cc(s[0], b);
-#pragma unroll
-    for (int j = 1; j < NL / T; ++j) s[j] = subc_cc(s[j], 0u);
-    return top;
-  }
-}
-
-// s = a + b over this thread's words; returns the carry out (0 or 1)
-template <int W>
-__device__ __forceinline__ uint32_t add_words(uint32_t (&s)[W],
-                                              const uint32_t (&a)[W],
-                                              const uint32_t (&b)[W]) {
-  s[0] = add_cc(a[0], b[0]);
-#pragma unroll
-  for (int j = 1; j < W; ++j) s[j] = addc_cc(a[j], b[j]);
-  return addc(0u, 0u);
-}
-
-// s = a - b over this thread's words; returns the borrow out (0 or 1)
-template <int W>
-__device__ __forceinline__ uint32_t sub_words(uint32_t (&s)[W],
-                                              const uint32_t (&a)[W],
-                                              const uint32_t (&b)[W]) {
-  s[0] = sub_cc(a[0], b[0]);
-#pragma unroll
-  for (int j = 1; j < W; ++j) s[j] = subc_cc(a[j], b[j]);
-  return subc(0u, 0u) & 1u;
-}
-
-// ---------------------------------------------------------------------------
-// the field
-// ---------------------------------------------------------------------------
-
-// s - p when s >= p; requires s < 2p.
-template <int T>
-__device__ __forceinline__ FpG<T> reduce_once_g(const Group<T>& g,
-                                                const FpG<T>& s) {
-  FpG<T> d;
-  const uint32_t borrow = settle_sub(g, d.v, sub_words(d.v, s.v, g.p));
-  FpG<T> r;
-#pragma unroll
-  for (int j = 0; j < NL / T; ++j) r.v[j] = borrow ? s.v[j] : d.v[j];
-  return r;
-}
-
-// a + b < 2p < 2^382: no carry leaves the group.
-template <int T>
-__device__ __forceinline__ FpG<T> fpg_add(const Group<T>& g, const FpG<T>& a,
-                                          const FpG<T>& b) {
-  FpG<T> s;
-  settle_add(g, s.v, add_words(s.v, a.v, b.v));
-  return reduce_once_g(g, s);
-}
-
-template <int T>
-__device__ __forceinline__ FpG<T> fpg_sub(const Group<T>& g, const FpG<T>& a,
-                                          const FpG<T>& b) {
-  FpG<T> d;
-  const uint32_t mask = 0u - settle_sub(g, d.v, sub_words(d.v, a.v, b.v));
-  uint32_t pm[NL / T];  // a < b: add p back
-#pragma unroll
-  for (int j = 0; j < NL / T; ++j) pm[j] = g.p[j] & mask;
-  settle_add(g, d.v, add_words(d.v, d.v, pm));
-  return d;
-}
-
-// Montgomery product a*b/R mod p for a, b < p (canonical result), CIOS over
-// carry-save columns: t[j] (64 bits) holds column j's pending sum, below
-// 2^33 - 1, so each word product is one mad.wide.u32 into its own column
-// and no carry ripples along the words inside a step (see the header).
-template <int T>
-__device__ __forceinline__ FpG<T> fpg_mul(const Group<T>& g, const FpG<T>& a,
-                                          const FpG<T>& b) {
-  constexpr int W = NL / T;
-  uint64_t t[W];
-#pragma unroll
-  for (int j = 0; j < W; ++j) t[j] = 0u;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    uint32_t bi = b.v[i % W];
-    if constexpr (T > 1) bi = __shfl_sync(g.mask, bi, i / W, T);
-    uint64_t u[W];  // < 2^64: t[j] < 2^33 - 1, a_j * b_i <= 2^64 - 2^33 + 1
-#pragma unroll
-    for (int j = 0; j < W; ++j) u[j] = t[j] + (uint64_t)a.v[j] * bi;
-    uint32_t m = (uint32_t)u[0] * kPInv;
-    const uint32_t c1 = (uint32_t)(u[W - 1] >> 32);  // to the next thread
-    uint32_t cin = 0u;
-    if constexpr (T > 1) {
-      m = __shfl_sync(g.mask, m, 0, T);
-      cin = __shfl_up_sync(g.mask, c1, 1, T);
-      if (g.rank == 0) cin = 0u;
-    }
-    uint64_t v[W];  // < 2^64 likewise; column 0 of rank 0 is now 0 mod 2^32
-    v[0] = (uint64_t)(uint32_t)u[0] + cin + (uint64_t)m * g.p[0];
-#pragma unroll
-    for (int j = 1; j < W; ++j)
-      v[j] = (uint64_t)(uint32_t)u[j] + (u[j - 1] >> 32) + (uint64_t)m * g.p[j];
-    // one column down: the top column takes the next thread's column 0, or
-    // on the top thread its own carry c1
-    uint32_t recv = c1;
-    if constexpr (T > 1) {
-      recv = __shfl_down_sync(g.mask, (uint32_t)v[0], 1, T);
-      if (g.rank == T - 1) recv = c1;
-    }
-#pragma unroll
-    for (int j = 0; j + 1 < W; ++j)
-      t[j] = (uint64_t)(uint32_t)v[j + 1] + (v[j] >> 32);
-    t[W - 1] = (uint64_t)recv + (v[W - 1] >> 32);
-  }
-  // settle the columns into words: word j = lo(t[j]) + hi(t[j-1]) + carry
-  uint32_t cin = 0u;
-  if constexpr (T > 1) {
-    cin = __shfl_up_sync(g.mask, (uint32_t)(t[W - 1] >> 32), 1, T);
-    if (g.rank == 0) cin = 0u;
-  }
-  FpG<T> r;
-  r.v[0] = add_cc((uint32_t)t[0], cin);
-#pragma unroll
-  for (int j = 1; j < W; ++j)
-    r.v[j] = addc_cc((uint32_t)t[j], (uint32_t)(t[j - 1] >> 32));
-  settle_add(g, r.v, addc(0u, 0u));  // no carry leaves: the sum is < 2p
-  return reduce_once_g(g, r);
-}
-
-template <int T>
-__device__ __forceinline__ FpG<T> fpg_sqr(const Group<T>& g, const FpG<T>& a) {
-  return fpg_mul(g, a, a);
+  return coop_zero<BlsFp, T>();
 }
 
 }  // namespace

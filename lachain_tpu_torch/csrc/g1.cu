@@ -243,9 +243,8 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
                     uint32_t* __restrict__ acc_out,
                     uint8_t* __restrict__ flag_out, int n, int nwin) {
   const Group<T> g = make_group<T>();
-  const int lane = (int)((blockIdx.x * (unsigned)SCAN_BLOCK + threadIdx.x) / T);
-  const bool live = lane < n;
-  const int col = live ? lane : 0;
+  bool live;
+  const int col = group_lane<T, SCAN_BLOCK>(n, live);
   int d = live ? digits[col] : 0;
   PtG<T> acc = select_entry_g(g, table, d, n, col);
   bool flag = d == 0;
@@ -271,7 +270,7 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
     store_fpg(g, acc_out, 0, n, col, acc.x);
     store_fpg(g, acc_out, NL, n, col, acc.y);
     store_fpg(g, acc_out, 2 * NL, n, col, acc.z);
-    if (g.rank == 0) flag_out[lane] = flag ? 1 : 0;
+    if (g.rank == 0) flag_out[col] = flag ? 1 : 0;
   }
 }
 
@@ -309,9 +308,8 @@ int lt_g1_add(const void* p, const void* q, void* out, int n, void* stream) {
 int lt_g1_msm_scan(const void* table, const void* digits, void* acc,
                    void* flags, int n, int nwin, void* stream) {
   if (n > 0 && nwin > 0) {
-    const int blocks =
-        (int)(((long long)n * SCAN_T + SCAN_BLOCK - 1) / SCAN_BLOCK);
-    msm_scan_kernel<SCAN_T><<<blocks, SCAN_BLOCK, 0, (cudaStream_t)stream>>>(
+    msm_scan_kernel<SCAN_T><<<group_blocks<SCAN_T, SCAN_BLOCK>(n), SCAN_BLOCK,
+                              0, (cudaStream_t)stream>>>(
         (const uint32_t*)table, (const int32_t*)digits, (uint32_t*)acc,
         (uint8_t*)flags, n, nwin);
   }

@@ -3,6 +3,8 @@
 //
 //   lt_g2_dbl       <- pg2._dbl2_kernel  (pl_dbl2,    pg2.py:218/:228)
 //   lt_g2_add       <- pg2._add2_kernel  (pl_add2,    pg2.py:222/:250)
+//   lt_g2_table     <- pg2._add2_kernel and _dbl2_kernel as build_table2
+//                      chains them (pg2.py:356): the whole table, one launch
 //   lt_g2_msm_scan  <- pg2._msm2_kernel  (_msm2_scan, pg2.py:272/:322)
 //
 // Representation. Fp2 = Fp[i]/(i^2 + 1) over fp.cuh's field (12 x 32-bit
@@ -19,14 +21,25 @@
 // fires on the same coins. A doubling is 16 Fp products, an add 44.
 //
 // Bound: integer multiply-adds, ~600 per Fp product; a 64-window scan needs
-// up to 63 * (4 * 16 + 44) products per lane. Bytes are small beside them:
-// the scan reads one 288-byte table entry per lane per nonzero digit.
+// up to 63 * (4 * 16 + 44) products per lane, the table build 16 + 13 * 44.
+// Bytes are small beside them: the scan reads one 288-byte table entry per
+// lane per nonzero digit, the table build writes 16.
 //
-// g2_dbl and g2_add: one thread per lane on fp.cuh's field (uint64 CIOS).
-// The scan: SCAN_T threads per lane on fp_coop.cuh's group field (carry-save
-// column products, PTX carry chains for the carries, ballots between the
-// threads), the group law inlined and the Fp2 products out of line; all
-// windows in one launch with the accumulator and flag in registers,
+// g2_dbl: one thread per lane on fp.cuh's field (uint64 CIOS); since the
+// table build is one launch it serves no main path.
+// The group-field kernels (the scan, g2_add and the table build): SCAN_T
+// threads per lane on fp_coop.cuh's group field (carry-save column
+// products, PTX carry chains for the carries, ballots between the
+// threads), the group law inlined and the Fp2 products out of line.
+// g2_add serves the tree reductions (the coin era's 12 launches, 2048 down
+// to 32 lanes); one thread per lane, a launch of 4096 lanes was one lane's
+// latency through 44 Fp products (0.094 ms). The table kernel builds
+// build_table2's 16 entries in one launch: entry 0 zero, 1 the lane's
+// point, 2 its doubling, 3..15 thirteen chained adds of the point, in
+// pg2's order (a table in log depth would reach other Jacobian
+// coordinates and break word-for-word identity), each entry stored as it
+// is made. The scan: all windows in one launch with the accumulator and
+// flag in registers,
 // table[d] read from device memory after the doublings. The coin era's
 // scan is latency-bound: on its Lagrange half only 22 of each coin's 64
 // lanes are live and run all 64 windows, so the time a lane takes, not the
@@ -49,6 +62,11 @@
 //   / 8.77-8.79 (248 registers); the entry loaded before the doublings
 //   9.13-9.16 / 7.26-7.27;
 //   the one-thread uint64 scan this replaced: 17.19-17.20 / 14.93-14.94.
+// The same T serves g2_add (8192 lanes) and the table build (the coin
+// era's 4096 lanes), ms (PERF.md): T = 1 0.0777-0.0781 / 0.978-0.994
+// (230 / 248 registers); T = 2 0.0527-0.0529 / 0.683-0.687 (142 / 148);
+// T = 4 0.0452-0.0455 / 0.461-0.468 (72 / 74); the one-thread add and the
+// 14-launch chain they replaced 0.0940-0.0951 / 1.263-1.268.
 //
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is non-zero.
@@ -63,9 +81,12 @@ namespace {
 
 constexpr int ROWS2 = 6 * NL;  // rows of a point: six Fp components
 constexpr int WINDOW = 4;
+constexpr int TABLE = 16;    // table entries: 4-bit windows
 constexpr int THREADS = 64;  // n = 8192 lanes -> 128 blocks over 132 SMs
-constexpr int SCAN_T = LT_G2_SCAN_T;  // threads per lane in the scan
-constexpr int SCAN_BLOCK = 64;        // threads per block of the scan
+// threads per lane, and per block, of the group-field kernels: the scan,
+// g2_add and the table build
+constexpr int SCAN_T = LT_G2_SCAN_T;
+constexpr int SCAN_BLOCK = 64;
 
 struct Fp2 {
   Fp c0, c1;
@@ -85,9 +106,10 @@ __device__ __forceinline__ Fp2 fp2_sub(const Fp2& a, const Fp2& b) {
 
 __device__ __forceinline__ Fp2 fp2_dbl(const Fp2& a) { return fp2_add(a, a); }
 
-// The products stay out of line, like the group law below: a G2 add holds
-// 44 Montgomery products, and inlining all of them into one function is
-// what crashed nvcc 12.9's device front end (cicc) on the G1 source.
+// The products stay out of line, like the doubling below: inlined, every
+// one-thread G2 kernel ran slower (PERF.md; the sweep's fp2inline_1t
+// variant), and inlining every uint64 product into one function is what
+// crashed nvcc 12.9's device front end (cicc) on the G1 source.
 
 // pg2._fp2_mul: (a + bi)(d + ei) = (ad - be) + ((a+b)(d+e) - ad - be) i.
 __device__ __noinline__ Fp2 fp2_mul(const Fp2& x, const Fp2& y) {
@@ -121,29 +143,6 @@ __device__ __noinline__ Pt2 g2_dbl(const Pt2& p) {
   return r;
 }
 
-// pg2._g2_add_val: incomplete Jacobian add, p != +-q, both finite
-// (44 products).
-__device__ __noinline__ Pt2 g2_add(const Pt2& p, const Pt2& q) {
-  const Fp2 Z1Z1 = fp2_sqr(p.z);
-  const Fp2 Z2Z2 = fp2_sqr(q.z);
-  const Fp2 U1 = fp2_mul(p.x, Z2Z2);
-  const Fp2 U2 = fp2_mul(q.x, Z1Z1);
-  const Fp2 S1 = fp2_mul(fp2_mul(p.y, q.z), Z2Z2);
-  const Fp2 S2 = fp2_mul(fp2_mul(q.y, p.z), Z1Z1);
-  const Fp2 H = fp2_sub(U2, U1);
-  const Fp2 Rr = fp2_sub(S2, S1);
-  const Fp2 I = fp2_sqr(fp2_dbl(H));
-  const Fp2 J = fp2_mul(H, I);
-  const Fp2 Rr2 = fp2_dbl(Rr);
-  const Fp2 V = fp2_mul(U1, I);
-  Pt2 r;
-  r.x = fp2_sub(fp2_sub(fp2_sqr(Rr2), J), fp2_dbl(V));
-  const Fp2 S1J = fp2_mul(S1, J);
-  r.y = fp2_sub(fp2_mul(Rr2, fp2_sub(V, r.x)), fp2_dbl(S1J));
-  r.z = fp2_dbl(fp2_mul(fp2_mul(p.z, q.z), H));
-  return r;
-}
-
 __device__ __forceinline__ Pt2 load_pt2(const uint32_t* __restrict__ a,
                                         int n, int lane) {
   Pt2 r;
@@ -174,18 +173,8 @@ __global__ void __launch_bounds__(THREADS)
   store_pt2(out, n, lane, g2_dbl(load_pt2(p, n, lane)));
 }
 
-__global__ void __launch_bounds__(THREADS)
-    g2_add_kernel(const uint32_t* __restrict__ p,
-                  const uint32_t* __restrict__ q, uint32_t* __restrict__ out,
-                  int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  store_pt2(out, n, lane,
-            g2_add(load_pt2(p, n, lane), load_pt2(q, n, lane)));
-}
-
 // ---------------------------------------------------------------------------
-// the scan: one lane on a group of T threads (fp_coop.cuh)
+// the group-field kernels: one lane on a group of T threads (fp_coop.cuh)
 // ---------------------------------------------------------------------------
 
 template <int T>
@@ -242,7 +231,7 @@ __device__ __noinline__ Fp2G<T> fp2g_sqr(const Group<T>& g, const Fp2G<T>& x) {
   return {re, fpg_add(g, ab, ab)};
 }
 
-// g2_dbl on the group field, operation for operation.
+// g2_dbl on the group field, operation for operation (16 products).
 template <int T>
 __device__ __forceinline__ Pt2G<T> g2_dbl_g(const Group<T>& g,
                                             const Pt2G<T>& p) {
@@ -262,7 +251,8 @@ __device__ __forceinline__ Pt2G<T> g2_dbl_g(const Group<T>& g,
   return r;
 }
 
-// g2_add on the group field, operation for operation.
+// pg2._g2_add_val on the group field: incomplete Jacobian add, p != +-q,
+// both finite (44 products), operation for operation.
 template <int T>
 __device__ __forceinline__ Pt2G<T> g2_add_g(const Group<T>& g,
                                             const Pt2G<T>& p,
@@ -287,6 +277,33 @@ __device__ __forceinline__ Pt2G<T> g2_add_g(const Group<T>& g,
   return r;
 }
 
+// a (72, n) point array: this thread's words of lane `lane`
+template <int T>
+__device__ __forceinline__ Pt2G<T> load_pt2_g(const Group<T>& g,
+                                              const uint32_t* __restrict__ a,
+                                              int n, int lane) {
+  Pt2G<T> r;
+  r.x.c0 = load_fpg(g, a, 0 * NL, n, lane);
+  r.x.c1 = load_fpg(g, a, 1 * NL, n, lane);
+  r.y.c0 = load_fpg(g, a, 2 * NL, n, lane);
+  r.y.c1 = load_fpg(g, a, 3 * NL, n, lane);
+  r.z.c0 = load_fpg(g, a, 4 * NL, n, lane);
+  r.z.c1 = load_fpg(g, a, 5 * NL, n, lane);
+  return r;
+}
+
+template <int T>
+__device__ __forceinline__ void store_pt2_g(const Group<T>& g,
+                                            uint32_t* __restrict__ a, int n,
+                                            int lane, const Pt2G<T>& p) {
+  store_fpg(g, a, 0 * NL, n, lane, p.x.c0);
+  store_fpg(g, a, 1 * NL, n, lane, p.x.c1);
+  store_fpg(g, a, 2 * NL, n, lane, p.y.c0);
+  store_fpg(g, a, 3 * NL, n, lane, p.y.c1);
+  store_fpg(g, a, 4 * NL, n, lane, p.z.c0);
+  store_fpg(g, a, 5 * NL, n, lane, p.z.c1);
+}
+
 // table (16, 72, n): this thread's words of entry d; digit 0 selects the
 // zero point (pg1._select_entry, which pg2 reuses: entry 0 never
 // contributes).
@@ -299,14 +316,51 @@ __device__ __forceinline__ Pt2G<T> select_entry2_g(
     r.x.c0 = r.x.c1 = r.y.c0 = r.y.c1 = r.z.c0 = r.z.c1 = fpg_zero<T>();
     return r;
   }
-  const uint32_t* e = table + (size_t)d * ROWS2 * n;
-  r.x.c0 = load_fpg(g, e, 0 * NL, n, lane);
-  r.x.c1 = load_fpg(g, e, 1 * NL, n, lane);
-  r.y.c0 = load_fpg(g, e, 2 * NL, n, lane);
-  r.y.c1 = load_fpg(g, e, 3 * NL, n, lane);
-  r.z.c0 = load_fpg(g, e, 4 * NL, n, lane);
-  r.z.c1 = load_fpg(g, e, 5 * NL, n, lane);
-  return r;
+  return load_pt2_g(g, table + (size_t)d * ROWS2 * n, n, lane);
+}
+
+// pg2._add2_kernel on the group field: out = p + q (incomplete).
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    g2_add_kernel(const uint32_t* __restrict__ p,
+                  const uint32_t* __restrict__ q, uint32_t* __restrict__ out,
+                  int n) {
+  const Group<T> g = make_group<T>();
+  bool live;
+  const int col = group_lane<T, SCAN_BLOCK>(n, live);
+  const Pt2G<T> r =
+      g2_add_g(g, load_pt2_g(g, p, n, col), load_pt2_g(g, q, n, col));
+  if (live) store_pt2_g(g, out, n, col, r);
+}
+
+// pg2.build_table2 in one launch: table (16, 72, n), entry k = k * P of
+// the lane's point P, made by pg2's chain (entry 2 a doubling, then 13
+// adds of P), so every entry is word for word the chain of g2_dbl and
+// g2_add launches (an infinity lane (0, 1, 0) keeps Z = 0 all along, as
+// there). Entry 0 is zero.
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    g2_table_kernel(const uint32_t* __restrict__ lanes,
+                    uint32_t* __restrict__ table, int n) {
+  const Group<T> g = make_group<T>();
+  bool live;
+  const int col = group_lane<T, SCAN_BLOCK>(n, live);
+  const Pt2G<T> p = load_pt2_g(g, lanes, n, col);
+  const size_t entry = (size_t)ROWS2 * n;
+  if (live) {
+    Pt2G<T> zero;
+    zero.x.c0 = zero.x.c1 = zero.y.c0 = zero.y.c1 = zero.z.c0 = zero.z.c1 =
+        fpg_zero<T>();
+    store_pt2_g(g, table, n, col, zero);
+    store_pt2_g(g, table + entry, n, col, p);
+  }
+  Pt2G<T> cur = g2_dbl_g(g, p);
+  if (live) store_pt2_g(g, table + 2 * entry, n, col, cur);
+#pragma unroll 1
+  for (int k = 3; k < TABLE; ++k) {
+    cur = g2_add_g(g, cur, p);
+    if (live) store_pt2_g(g, table + k * entry, n, col, cur);
+  }
 }
 
 // pg2._msm2_kernel semantics, all W windows in one launch: window 0 selects
@@ -322,9 +376,8 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
                        uint32_t* __restrict__ acc_out,
                        uint8_t* __restrict__ flag_out, int n, int nwin) {
   const Group<T> g = make_group<T>();
-  const int lane = (int)((blockIdx.x * (unsigned)SCAN_BLOCK + threadIdx.x) / T);
-  const bool live = lane < n;
-  const int col = live ? lane : 0;
+  bool live;
+  const int col = group_lane<T, SCAN_BLOCK>(n, live);
   int d = live ? digits[col] : 0;
   Pt2G<T> acc = select_entry2_g(g, table, d, n, col);
   bool flag = d == 0;
@@ -347,13 +400,8 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
     flag = flag && d == 0;
   }
   if (live) {
-    store_fpg(g, acc_out, 0 * NL, n, col, acc.x.c0);
-    store_fpg(g, acc_out, 1 * NL, n, col, acc.x.c1);
-    store_fpg(g, acc_out, 2 * NL, n, col, acc.y.c0);
-    store_fpg(g, acc_out, 3 * NL, n, col, acc.y.c1);
-    store_fpg(g, acc_out, 4 * NL, n, col, acc.z.c0);
-    store_fpg(g, acc_out, 5 * NL, n, col, acc.z.c1);
-    if (g.rank == 0) flag_out[lane] = flag ? 1 : 0;
+    store_pt2_g(g, acc_out, n, col, acc);
+    if (g.rank == 0) flag_out[col] = flag ? 1 : 0;
   }
 }
 
@@ -373,8 +421,20 @@ int lt_g2_dbl(const void* p, void* out, int n, void* stream) {
 
 int lt_g2_add(const void* p, const void* q, void* out, int n, void* stream) {
   if (n > 0) {
-    g2_add_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
+    g2_add_kernel<SCAN_T>
+        <<<group_blocks<SCAN_T, SCAN_BLOCK>(n), SCAN_BLOCK, 0,
+           (cudaStream_t)stream>>>(
+            (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+int lt_g2_table(const void* lanes, void* table, int n, void* stream) {
+  if (n > 0) {
+    g2_table_kernel<SCAN_T>
+        <<<group_blocks<SCAN_T, SCAN_BLOCK>(n), SCAN_BLOCK, 0,
+           (cudaStream_t)stream>>>(
+            (const uint32_t*)lanes, (uint32_t*)table, n);
   }
   return (int)cudaGetLastError();
 }
@@ -382,10 +442,9 @@ int lt_g2_add(const void* p, const void* q, void* out, int n, void* stream) {
 int lt_g2_msm_scan(const void* table, const void* digits, void* acc,
                    void* flags, int n, int nwin, void* stream) {
   if (n > 0 && nwin > 0) {
-    const int blocks =
-        (int)(((long long)n * SCAN_T + SCAN_BLOCK - 1) / SCAN_BLOCK);
     g2_msm_scan_kernel<SCAN_T>
-        <<<blocks, SCAN_BLOCK, 0, (cudaStream_t)stream>>>(
+        <<<group_blocks<SCAN_T, SCAN_BLOCK>(n), SCAN_BLOCK, 0,
+           (cudaStream_t)stream>>>(
             (const uint32_t*)table, (const int32_t*)digits, (uint32_t*)acc,
             (uint8_t*)flags, n, nwin);
   }
@@ -393,21 +452,22 @@ int lt_g2_msm_scan(const void* table, const void* digits, void* acc,
 }
 
 // Registers per thread, local (spill) bytes, threads per lane and threads
-// per block of kernel `which` (0 dbl, 1 add, 2 msm_scan), for the chip
-// report.
+// per block of kernel `which` (0 dbl, 1 add, 2 msm_scan, 3 table), for the
+// chip report.
 int lt_g2_kernel_attrs(int which, int* regs, int* local_bytes,
                        int* threads_per_lane, int* block) {
-  const void* fns[3] = {(const void*)g2_dbl_kernel,
-                        (const void*)g2_add_kernel,
-                        (const void*)g2_msm_scan_kernel<SCAN_T>};
-  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
+  const void* fns[4] = {(const void*)g2_dbl_kernel,
+                        (const void*)g2_add_kernel<SCAN_T>,
+                        (const void*)g2_msm_scan_kernel<SCAN_T>,
+                        (const void*)g2_table_kernel<SCAN_T>};
+  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
-  *threads_per_lane = which == 2 ? SCAN_T : 1;
-  *block = which == 2 ? SCAN_BLOCK : THREADS;
+  *threads_per_lane = which == 0 ? 1 : SCAN_T;
+  *block = which == 0 ? THREADS : SCAN_BLOCK;
   return 0;
 }
 

@@ -1,11 +1,12 @@
 """Build and bind the port's CUDA kernels (plain C interface + ctypes).
 
 `library()` compiles `csrc/g1.cu`, `csrc/g2.cu` (both include
-`csrc/fp.cuh` and, for their scans, `csrc/fp_coop.cuh`) and `csrc/secp.cu`
-(its own field code) with nvcc for sm_90a, one nvcc process per source,
-all started together, links them into one shared library in
+`csrc/fp.cuh` and, for their group-field kernels, `csrc/fp_coop.cuh` over
+`csrc/coop.cuh`) and `csrc/secp.cu` (its own one-thread field code, and
+`csrc/coop.cuh` for its scan) with nvcc for sm_90a, one nvcc process per
+source, all started together, links them into one shared library in
 `lachain_tpu_torch/_build/` (listed in .gitignore) under a name keyed by a
-hash of the sources, the header and the flags, and loads it. The first
+hash of the sources, the headers and the flags, and loads it. The first
 call in a fresh checkout therefore builds; later calls in the same
 checkout reuse the library. There is no fallback: without nvcc, or on a
 failed build, it raises.
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("g1.cu", "g2.cu", "secp.cu")
-HEADERS = ("fp.cuh", "fp_coop.cuh")
+HEADERS = ("fp.cuh", "fp_coop.cuh", "coop.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -46,6 +47,7 @@ _SIGNATURES = {
     "lt_g1_kernel_attrs": [_I] + [ctypes.POINTER(_I)] * 4,
     "lt_g2_dbl": [_P, _P, _I, _P],
     "lt_g2_add": [_P, _P, _P, _I, _P],
+    "lt_g2_table": [_P, _P, _I, _P],
     "lt_g2_msm_scan": [_P, _P, _P, _P, _I, _I, _P],
     "lt_g2_kernel_attrs": [_I] + [ctypes.POINTER(_I)] * 4,
     "lt_secp_fp_mul": [_P, _P, _P, _I, _P],
@@ -58,7 +60,7 @@ _SIGNATURES = {
 # (attrs entry, kernel names in its index order)
 _ATTRS = (
     ("lt_g1_kernel_attrs", ("fp_mul", "g1_dbl", "g1_add", "g1_msm_scan")),
-    ("lt_g2_kernel_attrs", ("g2_dbl", "g2_add", "g2_msm_scan")),
+    ("lt_g2_kernel_attrs", ("g2_dbl", "g2_add", "g2_msm_scan", "g2_table")),
     ("lt_secp_kernel_attrs", ("secp_fp_mul", "secp_dbl", "secp_add",
                               "secp_msm_scan", "secp_sqrt")),
 )

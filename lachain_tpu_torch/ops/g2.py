@@ -1,8 +1,8 @@
 """G2 coin-era engine: the kernel wrappers and pg2's composite programs.
 
-The port of `lachain_tpu/ops/pg2.py`. Three wrappers front the CUDA kernels
-of `csrc/g2.cu` (`g2_dbl`, `g2_add`, `msm2_scan`); the composites above them
-(`build_table2`, `msm2_windowed`, `tree_reduce2_k`, `ts_era_kernel`,
+The port of `lachain_tpu/ops/pg2.py`. Four wrappers front the CUDA kernels
+of `csrc/g2.cu` (`g2_dbl`, `g2_add`, `build_table2`, `msm2_scan`); the
+composites above them (`msm2_windowed`, `tree_reduce2_k`, `ts_era_kernel`,
 `msm2_reduce`) are plain tensor code over those wrappers and, for the key
 aggregate of the coin era, over the G1 composites of `ops/g1.py`.
 
@@ -34,7 +34,7 @@ from .glv import TABLE
 
 ROWS2 = 6 * NL  # rows of a point on the card
 
-LAUNCHES = {"g2_dbl": 0, "g2_add": 0, "g2_msm_scan": 0}
+LAUNCHES = {"g2_dbl": 0, "g2_add": 0, "g2_table": 0, "g2_msm_scan": 0}
 
 
 def reset_launches() -> None:
@@ -54,7 +54,7 @@ def _slots(cpu_layout: bool):
 
 
 # ---------------------------------------------------------------------------
-# the three kernel wrappers
+# the four kernel wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -84,6 +84,23 @@ def g2_add(p, q):
     )
     _launched("g2_add", rc)
     return out
+
+
+def build_table2(lanes):
+    """Points (72, n) -> (16, 72, n): entry k = k*P, entry 0 zero and never
+    selected, in one launch (replaces pg2 `build_table2`, :356: its one
+    `_dbl2_kernel` and 13 chained `_add2_kernel` launches, whose values it
+    gives word for word)."""
+    if _on_cpu(lanes):
+        return g2_ref.build_table(lanes)
+    n = lanes.shape[-1]
+    _check("build_table2 lanes", lanes, (ROWS2, n))
+    table = torch.empty((TABLE, ROWS2, n), dtype=torch.int32, device=lanes.device)
+    rc = _build.library().lt_g2_table(
+        lanes.data_ptr(), table.data_ptr(), n, _stream(lanes)
+    )
+    _launched("g2_table", rc)
+    return table
 
 
 def msm2_scan(table, digits):
@@ -169,18 +186,6 @@ def g2_unpack_host(rows, flags, cpu_layout: bool) -> list:
 # ---------------------------------------------------------------------------
 
 
-def build_table2(lanes):
-    """Points (P, n) -> (16, P, n): entry k = k*P (entry 0 zero and never
-    selected). 1 doubling + 13 chained adds, one launch each."""
-    two = g2_dbl(lanes)
-    rows = [torch.zeros_like(lanes), lanes, two]
-    cur = two
-    for _ in range(TABLE - 3):
-        cur = g2_add(cur, lanes)
-        rows.append(cur)
-    return torch.stack(rows, dim=0)
-
-
 def msm2_windowed(lanes, digits):
     """Per-lane windowed G2 scalar multiply: lanes (P, n), digits (W, n)
     MSB-first -> ((P, n) accumulators, (n,) infinity flags)."""
@@ -218,6 +223,23 @@ def coin_digits(rng, coins: int = 64, k: int = 64, live: int = 22):
     lag = [rng.randrange(1, bls.R) if i % k < live else 0 for i in range(n)]
     return ts_era_digits(g1.digits_col(rlc, glv.W64, "cpu"),
                          g1.digits_col(lag, glv.W256, "cpu"))
+
+
+def coin_lanes(rng, coins: int = 64, k: int = 64, live: int = 22) -> list:
+    """Oracle G2 points at the coin era's signature lanes, for timing the
+    table build at its layout: distinct points P0 + i*S on the first `live`
+    lanes of each coin of k, infinity on the others (masked signers).
+    rng: a random.Random."""
+    p = bls.g2_mul(bls.G2_GEN, rng.randrange(1, bls.R))
+    step = bls.g2_mul(bls.G2_GEN, rng.randrange(1, bls.R))
+    out = []
+    for i in range(coins * k):
+        if i % k < live:
+            out.append(p)
+            p = bls.g2_add(p, step)
+        else:
+            out.append(bls.G2_INF)
+    return out
 
 
 def ts_era_kernel(sig, y, rlc16, lag64, k: int):

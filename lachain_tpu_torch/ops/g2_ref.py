@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the three G2 kernels, in pg2's own arithmetic.
+"""Plain PyTorch versions of the four G2 kernels, in pg2's own arithmetic.
 
-`dbl`, `add_incomplete` and `msm_scan` carry the math of
-`lachain_tpu/ops/pg2.py:85-200` and `_msm2_kernel` (:272) into int64
+`dbl`, `add_incomplete`, `build_table` and `msm_scan` carry the math of
+`lachain_tpu/ops/pg2.py:85-200`, `build_table2` (:356) and `_msm2_kernel`
+(:272) into int64
 tensors over g1_ref's field steps (`_conv`, `_fold`, `_add`, `_sub`,
 `_mul_small`): an Fp2 component is 44 signed 10-bit limbs in a 48-row slot
 (rows 44..47 zero), a point is (288, n) = X.c0 | X.c1 | Y.c0 | Y.c1 | Z.c0 |
@@ -25,6 +26,7 @@ import torch
 from ..crypto import bls12381 as bls
 from . import g1_ref
 from .g1_ref import NLIMBS, _add, _conv, _fold, _mul_small, _sub
+from .glv import TABLE
 
 COMP_ROWS = 48  # one Fp2 component per 48-row slot, as pg2 (pg2.py:71)
 POINT2_ROWS = 6 * COMP_ROWS  # 288
@@ -125,6 +127,18 @@ def add_incomplete(p, q):
     Z3 = _fp2_mul(_fp2_mul(Z1, Z2), H)
     Z3 = _fp2_add(Z3, Z3)
     return _join(X3, Y3, Z3)
+
+
+def build_table(lanes):
+    """(288, n) -> (16, 288, n): entry k = k*P, entry 0 zero and never
+    selected (pg2.build_table2, :356: one doubling, then 13 chained adds)."""
+    two = dbl(lanes)
+    rows = [torch.zeros_like(lanes), lanes, two]
+    cur = two
+    for _ in range(TABLE - 3):
+        cur = add_incomplete(cur, lanes)
+        rows.append(cur)
+    return torch.stack(rows, dim=0)
 
 
 def msm_scan(table, digits):

@@ -270,6 +270,37 @@ def build_table(lanes):
     return torch.stack(rows, dim=0)
 
 
+def chunk_lanes(jobs, m_pad: int):
+    """[(R_i, u1_i, u2_i)] -> recover_kernel's lanes and scalars:
+    interleaved [R_0, G, R_1, G, ...] affine points and [u1_0, u2_0, u1_1,
+    u2_1, ...], padded with (G, 0) pairs to m_pad signatures."""
+    g_aff = (ecdsa.GX, ecdsa.GY)
+    pts: list = []
+    scalars: list = []
+    for r_pt, u1, u2 in jobs:
+        pts.extend([r_pt, g_aff])
+        scalars.extend([u1, u2])
+    for _ in range(m_pad - len(jobs)):
+        pts.extend([g_aff, g_aff])
+        scalars.extend([0, 0])
+    return pts, scalars
+
+
+def recover_layout(rng, signatures: int = 4096):
+    """chunk_lanes of seeded signatures, for timing the scan at the
+    recovery's layout: distinct R_i (R_0 + i*S, chained affine adds) and
+    u1, u2 uniform in [1, N). rng: a random.Random. -> (2n affine points,
+    (64, 2n) int32 digits on the CPU)."""
+    r = ecdsa._mul(ecdsa.G, rng.randrange(1, ecdsa.N))
+    step = ecdsa._mul(ecdsa.G, rng.randrange(1, ecdsa.N))
+    jobs = []
+    for _ in range(signatures):
+        jobs.append((r, rng.randrange(1, ecdsa.N), rng.randrange(1, ecdsa.N)))
+        r = ecdsa._add(r, step)
+    pts, scalars = chunk_lanes(jobs, signatures)
+    return pts, digits_col(scalars, "cpu")
+
+
 def recover_kernel(lanes, digits):
     """lanes (3R, 2n) interleaved [R_0, G, R_1, G, ...]; digits (W, 2n)
     interleaved [u1_0, u2_0, u1_1, u2_1, ...]. Returns one fused (3R + 1, n)
@@ -374,16 +405,7 @@ class GpuEcdsaRecover:
     def _run_chunk(self, jobs, hashes, sigs, out, tm) -> None:
         t0 = time.perf_counter()
         m = len(jobs)
-        m_pad = _pow2_at_least(m)
-        g_aff = (ecdsa.GX, ecdsa.GY)
-        pts: list = []
-        u_digits: list = []
-        for _idx, r_pt, u1, u2 in jobs:
-            pts.extend([r_pt, g_aff])
-            u_digits.extend([u1, u2])
-        for _ in range(m_pad - m):
-            pts.extend([g_aff, g_aff])
-            u_digits.extend([0, 0])
+        pts, u_digits = chunk_lanes([j[1:] for j in jobs], _pow2_at_least(m))
         lanes = pt_pack(pts, self.device)
         digits = digits_col(u_digits, self.device)
         t1 = time.perf_counter()

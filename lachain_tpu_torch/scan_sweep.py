@@ -1,41 +1,48 @@
-"""Variants of the BLS kernels built beside the shipped ones, on one card.
+"""Variants of the group-field kernels built beside the shipped ones, on one
+card.
 
     python3 -m lachain_tpu_torch.scan_sweep [--seed S] [--baseline DIR]
                                             [--int-rate] [--out FILE]
 
-`csrc/g1.cu` and `csrc/g2.cu` run their scans with SCAN_T threads per lane,
-a compile-time constant (`LT_G1_SCAN_T`, `LT_G2_SCAN_T`) over the group
-field of `csrc/fp_coop.cuh`. This script builds each scan at the other
+`csrc/g1.cu`, `csrc/g2.cu` and `csrc/secp.cu` run their scans (and g2.cu
+its add and table build) with SCAN_T threads per lane, a compile-time
+constant (`LT_G1_SCAN_T`, `LT_G2_SCAN_T`, `LT_SECP_SCAN_T`) over the group
+field of `csrc/coop.cuh`. This script builds each source at the other
 values of T in {1, 2, 4}, and at the shipped T with one design choice of
 the shipped source undone in a copy of it (`VARIANTS`: text edits, each of
 which must find its text):
   * groupmask   each group's own lanes as the collectives' mask and groups
-                that diverge on their flags (fp_coop.cuh);
+                that diverge on their flags (coop.cuh);
   * prefetch    the window's table entry loaded before the doublings;
-  * fp2inline   the scan's Fp2 products inlined (g2.cu);
-  * fp2inline_1t  the one-thread Fp2 products inlined, into g2_dbl / g2_add
-                (g2.cu).
+  * fp2inline   the group-field Fp2 products inlined (g2.cu);
+  * fp2inline_1t  the one-thread Fp2 products inlined, into g2_dbl (g2.cu).
 All nvcc processes start together, with `-Xptxas -v`; the report holds
 each build's seconds and, per kernel, the registers, stack frame and
 spills ptxas reports, its callees' too, or the compiler's failure.
 
 Every library's kernels then run on the same seeded inputs, and each
 output must equal the shipped library's word for word. They are timed
-with CUDA events in the order forward, then reversed:
+with CUDA events in ROUNDS rounds whose order alternates forward and
+reversed, so that each library runs before and after each other one:
   * the G1 scan at `check` (32 windows x 8192 lanes of random 128-bit
     digits, every 61st lane zero: chip_smoke.py's kernel check) and at
     `tpke`, the N=64 TPKE era's joined scan (`g1.tpke_digits`, 32 windows x
     16,384 lanes);
   * the G2 scan at `check` (64 windows x 8192 lanes of random 256-bit
     digits) and at `coin`, the N=64 coin era's scan (`g2.coin_digits`);
-  * the one-thread kernels of the same source (fp_mul, g1_dbl, g1_add;
-    g2_dbl, g2_add) at 8192 lanes.
+    the G2 table build at the coin era's 4096 signature lanes
+    (`g2.coin_lanes`: 22 live lanes of each 64, the others infinity);
+  * the secp scan at `check` (64 windows x 8192 lanes of random 256-bit
+    digits) and at `recover`, one 4096-signature chunk of the recovery
+    (`secp.recover_layout`: [R_i, G] interleaved, full-width u1, u2);
+  * the other kernels of the same source (fp_mul, g1_dbl, g1_add; g2_dbl,
+    g2_add; secp_dbl, secp_add) at 8192 lanes.
 
-`--baseline DIR` also builds DIR's `lachain_tpu_torch/csrc/g1.cu` and
-`g2.cu` as they are (an unpacked earlier commit, e.g. `git archive
-<commit> | tar -x -C _scratch/base`) and times it in the same rounds; its
-TPKE layout runs as the two launches of the design before the joined scan
-(16 windows over [u | y], 32 over [u | phi(u)]).
+`--baseline DIR` also builds DIR's `lachain_tpu_torch/csrc/g1.cu`, `g2.cu`
+and `secp.cu` as they are (an unpacked earlier commit, e.g. `git archive
+<commit> | tar -x -C _scratch/base`) and times them in the same rounds;
+where it lacks an entry of this tree (`lt_g2_table`) it builds the G2
+table by the chain of one g2_dbl and 13 g2_add launches.
 
 `--int-rate` also builds a probe kernel and measures the card's sustained
 32x32->64-bit multiply-add rate, as `mad.wide.u32` (what fp_coop.cuh's
@@ -63,20 +70,25 @@ from pathlib import Path
 import torch
 
 from .crypto import bls12381 as bls
-from .ops import _build, g1, g2, glv
+from .crypto import ecdsa
+from .ops import _build, g1, g2, glv, secp
 
 LANES = 8192
+ROUNDS = 10  # timing rounds, their order alternating
+SCANS = ("g1", "g2", "secp")  # the sources, each with its group-field scan
+# the main path's layout of each scan, beside the random-digit `check`
+MAIN_LAYOUT = {"g1": "tpke", "g2": "coin", "secp": "recover"}
 
 # label -> (scans, {file: [(shipped text, variant text)]})
 VARIANTS = {
-    "groupmask": (("g1", "g2"), {"fp_coop.cuh": [
+    "groupmask": (SCANS, {"coop.cuh": [
         ("static constexpr uint32_t mask = 0xffffffffu;  // every collective's lanes",
          "uint32_t mask;  // the group's own lanes"),
         ("  g.shift = wl - g.rank;\n",
          "  g.shift = wl - g.rank;\n  g.mask = ((1u << T) - 1u) << g.shift;\n"),
         ("  return __any_sync(g.mask, pred);", "  return pred;"),
     ]}),
-    "prefetch": (("g1", "g2"), {f"{s}.cu": [(
+    "prefetch": (SCANS, {f"{s}.cu": [(
         f"""    if (lanes_any(g, !flag)) {{  // a flagged accumulator is the zero point
 #pragma unroll 1
       for (int k = 0; k < WINDOW; ++k) acc = {s}_dbl_g(g, acc);
@@ -89,7 +101,8 @@ VARIANTS = {
       for (int k = 0; k < WINDOW; ++k) acc = {s}_dbl_g(g, acc);
     }}
 """)] for s, pt, sel in (("g1", "PtG", "select_entry_g"),
-                         ("g2", "Pt2G", "select_entry2_g"))}),
+                         ("g2", "Pt2G", "select_entry2_g"),
+                         ("secp", "PtG", "select_entry_g"))}),
     "fp2inline": (("g2",), {"g2.cu": [
         (f"__device__ __noinline__ Fp2G<T> fp2g_{op}(",
          f"__device__ __forceinline__ Fp2G<T> fp2g_{op}(") for op in ("mul", "sqr")
@@ -101,10 +114,12 @@ VARIANTS = {
 }
 
 # kernels first, longest names first: "dbl_kernel" is inside "g2_dbl_kernel"
-_NAMES = ("g2_msm_scan_kernel", "msm_scan_kernel", "g2_dbl_kernel",
+_NAMES = ("secp_msm_scan_kernel", "g2_msm_scan_kernel", "msm_scan_kernel",
+          "g2_table_kernel", "secp_fp_mul_kernel", "secp_dbl_kernel",
+          "secp_add_kernel", "secp_sqrt_kernel", "g2_dbl_kernel",
           "g2_add_kernel", "fp_mul_kernel", "dbl_kernel", "add_kernel",
-          "g2_dbl", "g2_add", "g1_dbl", "g1_add", "fp2g_mul", "fp2g_sqr",
-          "fp2_mul", "fp2_sqr")
+          "secp_dbl", "secp_add", "g2_dbl", "g2_add", "g1_dbl", "g1_add",
+          "fp2g_mul", "fp2g_sqr", "fp2_mul", "fp2_sqr")
 
 
 def _short(mangled: str):
@@ -114,7 +129,7 @@ def _short(mangled: str):
 def parse_ptxas(text: str) -> dict:
     """ptxas -v output -> {kernel: {regs, stack, spill_stores, spill_loads,
     callees: {function: [stack, spill_stores, spill_loads]}}} for the
-    kernels of g1.cu / g2.cu, templated or not."""
+    kernels of g1.cu / g2.cu / secp.cu, templated or not."""
     out, entry = {}, None
     lines = text.splitlines()
     for i, line in enumerate(lines):
@@ -139,12 +154,17 @@ def parse_ptxas(text: str) -> dict:
     return out
 
 
+def scan_of(label: str) -> str:
+    """The source of a library label ("secp_T2" -> "secp")."""
+    return label.split("_")[0]
+
+
 def variant_sources(work: Path, shipped_t: dict, baseline) -> dict:
     """{label: (source, include dir, -D defines)}: each scan at the other
     values of T, each VARIANTS edit at the shipped T in its own copy of
     csrc/, and the baseline's sources."""
     out = {}
-    for scan in ("g1", "g2"):
+    for scan in SCANS:
         macro = f"LT_{scan.upper()}_SCAN_T"
         for t in (1, 2, 4):
             if t != shipped_t[scan]:
@@ -166,7 +186,7 @@ def variant_sources(work: Path, shipped_t: dict, baseline) -> dict:
             out[label] = (src / f"{scan}.cu", src, [])
     if baseline is not None:
         csrc = Path(baseline) / "lachain_tpu_torch" / "csrc"
-        for scan in ("g1", "g2"):
+        for scan in SCANS:
             out[f"{scan}_baseline"] = (csrc / f"{scan}.cu", csrc, [])
     return out
 
@@ -196,7 +216,8 @@ def build_variants(work: Path, sources: dict) -> dict:
         else:
             lib = ctypes.CDLL(str(work / f"{label}.so"))
             for name, args in _build._SIGNATURES.items():
-                if name.startswith(f"lt_{label[:2]}_"):
+                # a baseline may lack an entry of this tree (lt_g2_table)
+                if name.startswith(f"lt_{scan_of(label)}_") and hasattr(lib, name):
                     getattr(lib, name).argtypes = args
                     getattr(lib, name).restype = ctypes.c_int
             rec["lib"] = lib
@@ -218,17 +239,9 @@ def random_digits(rng: random.Random, n: int, nwin: int):
     return glv.digits_col(scalars, nwin)
 
 
-def tpke_digits_split(digits):
-    """The joined TPKE digits as the two scans of the design before it:
-    (16 windows over [u | y], 32 windows over [u | phi(u)])."""
-    half = digits.shape[1] // 2
-    rlc16 = digits[digits.shape[0] - glv.W64:, :half]
-    return rlc16.contiguous(), digits[:, half:].contiguous()
-
-
-def _run(n: int, rng: random.Random, mul, add, gen) -> list:
+def _run(n: int, rng: random.Random, mul, add, gen, order=bls.R) -> list:
     """n distinct points P0 + i*S (chained host adds)."""
-    p, step = mul(gen, rng.randrange(1, bls.R)), mul(gen, rng.randrange(1, bls.R))
+    p, step = mul(gen, rng.randrange(1, order)), mul(gen, rng.randrange(1, order))
     out = []
     for _ in range(n):
         out.append(p)
@@ -242,19 +255,24 @@ def make_inputs(seed: int, dev) -> dict:
     pts1 = g1.g1_pack(_run(2 * LANES, rng, bls.g1_mul, bls.g1_add, bls.G1_GEN), dev)
     pts2 = g2.g2_pack(_run(2 * LANES, rng, bls.g2_mul, bls.g2_add, bls.G2_GEN), dev)
     tab1, tab2 = g1.build_table(pts1), g2.build_table2(pts2[:, :LANES].contiguous())
+    pts3 = secp.pt_pack(_run(2 * LANES, rng, ecdsa._mul, ecdsa._add, ecdsa.G,
+                             ecdsa.N), dev)
+    rec_pts, rec_digits = secp.recover_layout(rng)
     on = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
-    tpke = g1.tpke_digits(rng)
-    rlc16, lag32 = tpke_digits_split(tpke)
     return {
         "g1": {"check": (tab1[..., :LANES].contiguous(),
                          on(random_digits(rng, LANES, glv.W128))),
-               "tpke": (tab1, on(tpke)),
-               "tpke_split": ((tab1[..., :LANES].contiguous(), on(rlc16)),
-                              (tab1[..., LANES:].contiguous(), on(lag32))),
+               "tpke": (tab1, on(g1.tpke_digits(rng))),
                "points": (pts1[:, :LANES].contiguous(), pts1[:, LANES:].contiguous())},
         "g2": {"check": (tab2, on(random_digits(rng, LANES, glv.W256))),
                "coin": (tab2, on(g2.coin_digits(rng))),
+               "table_lanes": g2.g2_pack(g2.coin_lanes(rng), dev),
                "points": (pts2[:, :LANES].contiguous(), pts2[:, LANES:].contiguous())},
+        "secp": {"check": (secp.build_table(pts3[:, :LANES].contiguous()),
+                           on(random_digits(rng, LANES, glv.W256))),
+                 "recover": (secp.build_table(secp.pt_pack(rec_pts, dev)),
+                             on(rec_digits)),
+                 "points": (pts3[:, :LANES].contiguous(), pts3[:, LANES:].contiguous())},
     }
 
 
@@ -267,30 +285,50 @@ def _scan(lib, scan: str, table, digits):
     n, nwin = table.shape[-1], digits.shape[0]
     acc = torch.empty(table.shape[1:], dtype=torch.int32, device=table.device)
     flags = torch.empty((n,), dtype=torch.bool, device=table.device)
-    fn = lib.lt_g1_msm_scan if scan == "g1" else lib.lt_g2_msm_scan
+    fn = getattr(lib, f"lt_{scan}_msm_scan")
     stream = g1._stream(table)
     return (lambda: _check(fn(table.data_ptr(), digits.data_ptr(), acc.data_ptr(),
                               flags.data_ptr(), n, nwin, stream)), (acc, flags))
 
 
-def launchers(lib, scan: str, inputs: dict, split_tpke: bool) -> dict:
-    """{kernel: ([launch()], outputs or None)} of one library's kernels of
-    `scan`'s source on the shared inputs."""
+def _table_chain(lib, lanes, table) -> list:
+    """The G2 table as the design before g2_table built it: one g2_dbl and
+    13 chained g2_add launches, into `table`'s entries (entry 0 zeroed)."""
+    n, stream = lanes.shape[-1], g1._stream(lanes)
+    table[0].zero_()
+    table[1].copy_(lanes)
+    ptr = [table[k].data_ptr() for k in range(glv.TABLE)]
+    return [lambda: _check(lib.lt_g2_dbl(lanes.data_ptr(), ptr[2], n, stream))] + [
+        (lambda k=k: _check(lib.lt_g2_add(ptr[k - 1], lanes.data_ptr(), ptr[k],
+                                          n, stream)))
+        for k in range(3, glv.TABLE)]
+
+
+def launchers(lib, scan: str, inputs: dict) -> dict:
+    """{kernel: ([launch()], outputs)} of one library's kernels of `scan`'s
+    source on the shared inputs; a library without `lt_g2_table` (an
+    earlier tree) builds the G2 table by its chain of launches."""
     inp = inputs[scan]
     p, q = inp["points"]
     n, stream = p.shape[-1], g1._stream(p)
     out = {}
-    for layout in ("check", "tpke" if scan == "g1" else "coin"):
-        if layout == "tpke" and split_tpke:
-            out["scan_tpke"] = ([_scan(lib, scan, *a)[0] for a in inp["tpke_split"]],
-                                None)
-            continue
+    for layout in ("check", MAIN_LAYOUT[scan]):
         launch, outs = _scan(lib, scan, *inp[layout])
         out[f"scan_{layout}"] = ([launch], outs)
     if scan == "g1":
         x, y, o1 = p[:12].contiguous(), q[:12].contiguous(), torch.empty_like(p[:12])
         out["fp_mul"] = ([lambda: _check(lib.lt_g1_fp_mul(
             x.data_ptr(), y.data_ptr(), o1.data_ptr(), n, stream))], (o1,))
+    if scan == "g2":
+        lanes = inp["table_lanes"]
+        m = lanes.shape[-1]
+        table = torch.empty((glv.TABLE,) + tuple(lanes.shape), dtype=torch.int32,
+                            device=lanes.device)
+        if hasattr(lib, "lt_g2_table"):
+            out["g2_table"] = ([lambda: _check(lib.lt_g2_table(
+                lanes.data_ptr(), table.data_ptr(), m, stream))], (table,))
+        else:
+            out["g2_table"] = (_table_chain(lib, lanes, table), (table,))
     od, oa = torch.empty_like(p), torch.empty_like(p)
     out[f"{scan}_dbl"] = ([lambda: _check(getattr(lib, f"lt_{scan}_dbl")(
         p.data_ptr(), od.data_ptr(), n, stream))], (od,))
@@ -408,8 +446,7 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
     shipped = _build.library()
     attrs = _build.kernel_attrs()
-    shipped_t = {"g1": attrs["g1_msm_scan"]["threads_per_lane"],
-                 "g2": attrs["g2_msm_scan"]["threads_per_lane"]}
+    shipped_t = {s: attrs[f"{s}_msm_scan"]["threads_per_lane"] for s in SCANS}
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
     try:
@@ -419,9 +456,9 @@ def main() -> int:
               f"{ {k: ('ok' if 'lib' in v else 'FAILED', v['nvcc_s']) for k, v in built.items()} }",
               flush=True)
         inputs = make_inputs(args.seed, dev)
-        libs = {f"{s}_shipped": shipped for s in ("g1", "g2")}
+        libs = {f"{s}_shipped": shipped for s in SCANS}
         libs.update((k, v["lib"]) for k, v in built.items() if "lib" in v)
-        runs = {label: launchers(lib, label[:2], inputs, label.endswith("baseline"))
+        runs = {label: launchers(lib, scan_of(label), inputs)
                 for label, lib in libs.items()}
         for kernels in runs.values():
             for launches, _ in kernels.values():
@@ -430,17 +467,17 @@ def main() -> int:
         torch.cuda.synchronize()
         equal = {
             f"{label}/{k}": all(torch.equal(a, b) for a, b in
-                                zip(outs, runs[f"{label[:2]}_shipped"][k][1]))
+                                zip(outs, runs[f"{scan_of(label)}_shipped"][k][1]))
             for label, kernels in runs.items() if not label.endswith("shipped")
-            for k, (_, outs) in kernels.items() if outs is not None
+            for k, (_, outs) in kernels.items()
         }
-        reps = {"g1": 10, "g2": 5}
+        reps = {"g1": 10, "g2": 5, "secp": 10}
         ms: dict = {}
         order = [(label, k, launches) for label, kernels in runs.items()
                  for k, (launches, _) in kernels.items()]
-        for rnd in (order, order[::-1]):
-            for label, k, launches in rnd:
-                r = reps[label[:2]] if k.startswith("scan") else 100
+        for i in range(ROUNDS):
+            for label, k, launches in (order if i % 2 == 0 else order[::-1]):
+                r = reps[scan_of(label)] if k.startswith(("scan", "g2_table")) else 100
                 ms.setdefault(f"{label}/{k}", []).append(
                     round(sum(cuda_ms(fn, r) for fn in launches), 5))
         report = {

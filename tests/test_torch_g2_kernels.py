@@ -97,6 +97,25 @@ def test_add_collision_gives_z_zero(rng):
     assert (got.numpy() == want).all()
 
 
+def test_build_table2_vs_pg2(rng):
+    """build_table2 on CPU tensors (the plain chain of one doubling and 13
+    adds that the card's one launch must equal) gives pg2.build_table2 limb
+    for limb, an infinity lane (0, 1, 0) included: it keeps Z = 0 in every
+    entry, as the incomplete chain does on the TPU."""
+    pts = _g2_points(rng, 3) + [bls.G2_INF]
+    lanes = pg2.g2_pack(pts)
+    want = np.asarray(pg2.build_table2(jnp.asarray(lanes)))
+    g2.reset_launches()
+    got = g2.build_table2(_t(lanes))
+    assert got.shape == (16, 288, 4)
+    assert (got.numpy() == want).all()
+    assert all(v == 0 for v in g2.LAUNCHES.values())
+    for k in range(1, 16):
+        coords = g2.g2_coords(got[k])
+        assert coords[16 + 3] == coords[20 + 3] == 0  # Z.c0, Z.c1 of lane 3
+        assert bls.g2_eq(_unpack(got[k])[0], bls.g2_mul(pts[0], k))
+
+
 def test_tree_reduce2_k_vs_pg2(rng):
     n = 8
     pts = _g2_points(rng, n)

@@ -1,13 +1,15 @@
 """The main paths' scan layouts and the scan tools' readers, on the CPU.
 
-`g1.tpke_digits` and `g2.coin_digits` make the digit layouts at which
-chip_smoke.py and `lachain_tpu_torch/scan_sweep.py` time the two scans (the
-TPKE era's joined G1 scan, the coin era's G2 scan), through the same
-functions the composites lay out their digits with (ops/g1.py era_digits,
-ops/g2.py ts_era_digits). Also: the sweep's variants of the shipped
-sources, its reader of `ptxas -v` for templated kernels, and
-chip_smoke.py's mapping of profiler keys to kernels (a templated kernel
-demangles with `<T>`).
+`g1.tpke_digits`, `g2.coin_digits` and `secp.recover_layout` make the
+layouts at which chip_smoke.py and `lachain_tpu_torch/scan_sweep.py` time
+the three scans (the TPKE era's joined G1 scan, the coin era's G2 scan, a
+4096-signature recovery chunk), through the same functions the composites
+lay out their digits and lanes with (ops/g1.py era_digits, ops/g2.py
+ts_era_digits, ops/secp.py chunk_lanes); `g2.coin_lanes` the coin era's
+signature lanes for the G2 table build. Also: the sweep's variants
+of the shipped sources, its reader of `ptxas -v` for templated kernels,
+and chip_smoke.py's mapping of profiler keys to kernels (a templated
+kernel demangles with `<T>`).
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ import torch
 
 import chip_smoke
 from lachain_tpu_torch import scan_sweep
-from lachain_tpu_torch.ops import g1, g2, glv
+from lachain_tpu_torch.crypto import bls12381 as bls
+from lachain_tpu_torch.crypto import ecdsa
+from lachain_tpu_torch.ops import g1, g2, glv, secp
 
 pytestmark = pytest.mark.kernel
 
@@ -49,10 +53,9 @@ def test_tpke_digits_are_the_joined_era_layout():
         live = i % 64 < LIVE
         assert (lag1[i] + lag2[i] * glv.LAMBDA > 0) == live
     # the era kernel's own padding of the same digits
-    rlc16, lag32 = (t.numpy() for t in scan_sweep.tpke_digits_split(torch.from_numpy(d)))
-    assert rlc16.shape == (16, 2 * n) and lag32.shape == (32, 2 * n)
-    joined = torch.cat([g1.lead_zeros(torch.from_numpy(rlc16[:, :n]), 32)] * 2
-                       + [torch.from_numpy(lag32)], dim=1)
+    rlc16 = torch.from_numpy(np.ascontiguousarray(d[16:, :n]))
+    joined = torch.cat([g1.lead_zeros(rlc16, 32)] * 2
+                       + [torch.from_numpy(d[:, 2 * n :])], dim=1)
     assert (joined.numpy() == d).all()
 
 
@@ -67,6 +70,27 @@ def test_coin_digits_mask_the_same_lanes_on_both_halves():
         live = i % 64 < LIVE
         assert (rlc[i] > 0) == live and (lag[i] > 0) == live
         assert rlc[i] < 1 << 64
+
+
+def test_recover_layout_interleaves_r_and_g():
+    """One recovery chunk as GpuEcdsaRecover lays it out (chunk_lanes):
+    lanes [R_0, G, R_1, G, ...] with distinct R_i, digits [u1_0, u2_0, ...]
+    of full-width scalars; chunk_lanes pads with (G, 0) pairs."""
+    pts, d = secp.recover_layout(random.Random(6), signatures=5)
+    g = (ecdsa.GX, ecdsa.GY)
+    assert len(pts) == 10 and pts[1::2] == [g] * 5 and len(set(pts[0::2])) == 5
+    assert d.shape == (glv.W256, 10) and d.dtype == torch.int32
+    assert all(0 < u < ecdsa.N for u in _scalars(d.numpy()))
+    lanes, scalars = secp.chunk_lanes([(pts[0], 3, 4)], 2)
+    assert lanes == [pts[0], g, g, g] and scalars == [3, 4, 0, 0]
+
+
+def test_coin_lanes_mask_the_same_signers():
+    lanes = g2.coin_lanes(random.Random(7), coins=2, k=8, live=3)
+    assert len(lanes) == 16
+    for i, p in enumerate(lanes):
+        assert bls.g2_is_inf(p) == (i % 8 >= 3)
+    assert len({p for p in lanes if not bls.g2_is_inf(p)}) == 6
 
 
 def test_random_digits_have_zero_and_short_lanes():
@@ -85,6 +109,14 @@ ptxas info    : Compiling entry function '_ZN37_GLOBAL__N__5_g1_cu10dbl_kernelEP
 ptxas info    : Function properties for _ZN37_GLOBAL__N__5_g1_cu10dbl_kernelEPKjPji
     288 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 162 registers, used 0 barriers, 288 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN37_GLOBAL__N__7_secp_cu20secp_msm_scan_kernelILi4EEEvPKjPKiPjPhii' for 'sm_90a'
+ptxas info    : Function properties for _ZN37_GLOBAL__N__7_secp_cu20secp_msm_scan_kernelILi4EEEvPKjPKiPjPhii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN37_GLOBAL__N__5_g2_cu15g2_table_kernelILi4EEEvPKjPji' for 'sm_90a'
+ptxas info    : Function properties for _ZN37_GLOBAL__N__5_g2_cu15g2_table_kernelILi4EEEvPKjPji
+    480 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 104 registers, used 0 barriers, 480 bytes cumulative stack size
 """
 
 
@@ -94,6 +126,10 @@ def test_sweep_reads_templated_ptxas_report():
                             "spill_loads": 0, "callees": {}},
         "dbl_kernel": {"regs": 162, "stack": 288, "spill_stores": 0,
                        "spill_loads": 0, "callees": {}},
+        "secp_msm_scan_kernel": {"regs": 72, "stack": 0, "spill_stores": 0,
+                                 "spill_loads": 0, "callees": {}},
+        "g2_table_kernel": {"regs": 104, "stack": 480, "spill_stores": 0,
+                            "spill_loads": 0, "callees": {}},
     }
 
 
@@ -102,12 +138,14 @@ def test_sweep_variants_edit_copies_of_the_shipped_sources(tmp_path):
     only in the variant's own copy, and each scan is swept at the other
     values of T."""
     shipped = {f: (scan_sweep._build.CSRC / f).read_text()
-               for f in ("g1.cu", "g2.cu", "fp_coop.cuh")}
-    srcs = scan_sweep.variant_sources(tmp_path, {"g1": 4, "g2": 4}, None)
+               for f in ("g1.cu", "g2.cu", "secp.cu", "coop.cuh")}
+    srcs = scan_sweep.variant_sources(tmp_path, {"g1": 4, "g2": 4, "secp": 4}, None)
     assert sorted(srcs) == [
         "g1_T1", "g1_T2", "g1_groupmask", "g1_prefetch", "g2_T1", "g2_T2",
-        "g2_fp2inline", "g2_fp2inline_1t", "g2_groupmask", "g2_prefetch"]
+        "g2_fp2inline", "g2_fp2inline_1t", "g2_groupmask", "g2_prefetch",
+        "secp_T1", "secp_T2", "secp_groupmask", "secp_prefetch"]
     assert srcs["g2_T1"][2] == ["-DLT_G2_SCAN_T=1"]
+    assert srcs["secp_T2"][2] == ["-DLT_SECP_SCAN_T=2"]
     for name, (scans, edits) in scan_sweep.VARIANTS.items():
         for scan in scans:
             src, inc, defs = srcs[f"{scan}_{name}"]
@@ -128,6 +166,12 @@ def test_sweep_variants_edit_copies_of_the_shipped_sources(tmp_path):
      "int)", "dbl_kernel"),
     ("(anonymous namespace)::secp_msm_scan_kernel(unsigned int const*)",
      "secp_msm_scan_kernel"),
+    ("(anonymous namespace)::secp_msm_scan_kernel<4>(unsigned int const*)",
+     "secp_msm_scan_kernel"),
+    ("(anonymous namespace)::g2_table_kernel<4>(unsigned int const*, "
+     "unsigned int*, int)", "g2_table_kernel"),
+    ("(anonymous namespace)::g2_add_kernel<4>(unsigned int const*)",
+     "g2_add_kernel"),
     ("void at::native::elementwise_kernel<128, 2>(int, int)", "torch"),
     ("Memcpy DtoH (Device -> Pinned)", "torch"),
 ])
