@@ -50,11 +50,10 @@ Phases, each of which must pass (any failure exits non-zero):
              result may have been recomputed on the host
              (ops/verify.ESCAPES), and each path must launch its kernels;
   4. times   per-kernel times from CUDA events, the plain versions' times,
-             each kernel's bound (and, beside it, the bound at the card's
-             measured integer multiply-add rate), the warm phase times of
-             every path and a torch.profiler split of each device phase by
-             kernel, whose traced scan, table, doubling and add launches
-             must equal the counted ones.
+             each kernel's bound, the warm phase times of every path and a
+             torch.profiler split of each device phase by kernel, whose
+             traced scan, table, doubling and add launches must equal the
+             counted ones.
 The last three lines of standard output are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}.
 
@@ -77,10 +76,6 @@ import time
 # the bound from this peak is a floor.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-# the card's sustained 32x32->64-bit multiply-add rate as mad.wide.u32,
-# measured by `python3 -m lachain_tpu_torch.scan_sweep --int-rate` (NVIDIA
-# H100 80GB HBM3, 700 W; PERF.md): the kernels' operations bound at it
-INT_MADS_PER_S = 15.35e12
 # one 12 x 32-bit Montgomery product (CIOS): 2*12*12 + 12 word products
 OPS_PER_FIELD_MUL = 2 * (2 * 12 * 12 + 12)
 MULS_DBL, MULS_ADD = 7, 16  # field products per doubling / incomplete add
@@ -176,15 +171,9 @@ def cuda_ms_once(fn):
 
 
 def bound(nbytes: int, nops: int):
-    """(ms, "bytes" or "operations", ms at the integer multiply-add rate):
-    the larger of the bytes over the memory rate and the operations over
-    the float32 peak, and the same with the operations (2 per word
-    product) over the measured INT_MADS_PER_S."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / PEAK_OPS_PER_S * 1e3
-    t_int = max(t_bytes, nops / 2 / INT_MADS_PER_S * 1e3)
-    return ((t_bytes, "bytes", t_int) if t_bytes >= t_ops
-            else (t_ops, "operations", t_int))
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def point_run(n: int, rng: random.Random, bls):
@@ -235,7 +224,7 @@ def report_line(name: str, r: dict) -> None:
         log(f"kernel {name}{label}: {x.get('layout', '')} {shape} ok={x['ok']} "
             f"max_abs_err={x['max_abs_err']} ms={x['ms']:.4f} "
             f"plain_ms={x['plain_ms']:.3f} bound_ms={x['bound'][0]:.5f} "
-            f"({x['bound'][1]}; {x['bound'][2]:.5f} at the integer rate)")
+            f"({x['bound'][1]})")
 
 
 def scan_entry(kernel, plain, coords, ktab, rtab, digits, muls_dbl, muls_add,
@@ -1185,7 +1174,7 @@ def main() -> int:
     def numbers(r: dict) -> dict:
         return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                "bound_by": r["bound"][1], "int_bound_ms": r["bound"][2]}
+                "bound_by": r["bound"][1]}
 
     kernels = []
     for k, r in report.items():

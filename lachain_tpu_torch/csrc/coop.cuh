@@ -7,7 +7,7 @@
 //                 carry out of the element's words (secp256k1; not BLS12-381,
 //                 whose 2p < 2^383)
 //   F::p_word(i)  word i of p, read from the including file's constant bank
-// fp_coop.cuh instantiates it for BLS12-381 (BlsFp), secp.cu for secp256k1
+// fp.cuh instantiates it for BLS12-381 (BlsFp), secp.cu for secp256k1
 // (SecpFp).
 //
 // Why. A scan lane is a long serial chain of Montgomery products, and at

@@ -23,6 +23,16 @@ __constant__ uint32_t kP[NL] = {
     0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
 constexpr uint32_t kPInv = 0xfffcfffdu;  // -p^-1 mod 2^32
 
+// The field traits of coop.cuh's group field (g1.cu's scan; g2.cu's scan,
+// add and table build). 2p < 2^383, so no sum carries out of the group and
+// the carry word is never read.
+struct BlsFp {
+  static constexpr int words = NL;
+  static constexpr uint32_t pinv = kPInv;
+  static constexpr bool top_carry = false;
+  static __device__ __forceinline__ uint32_t p_word(int i) { return kP[i]; }
+};
+
 struct Fp {
   uint32_t v[NL];
 };

@@ -24,9 +24,9 @@
 // 16-entry table (2304 B/lane) once per lane per window at most.
 //
 // fp_mul, dbl and add: one thread per lane on fp.cuh's field (uint64 CIOS).
-// The scan: SCAN_T threads per lane on fp_coop.cuh's group field (carry-save
-// column products, PTX carry chains for the carries, ballots between the
-// threads), the group law inlined, all windows in one launch with the
+// The scan: SCAN_T threads per lane on coop.cuh's group field over fp.cuh's
+// p (BlsFp: carry-save column products, PTX carry chains for the carries,
+// ballots between the threads), the group law inlined, all windows in one launch with the
 // accumulator and flag in registers, table[d] read from device memory (L2
 // holds the 37.7 MB table of the TPKE era's 16,384 lanes) after the
 // doublings. The control flow is uniform across each warp (lanes_any), so
@@ -45,7 +45,8 @@
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is non-zero.
 
-#include "fp_coop.cuh"
+#include "coop.cuh"
+#include "fp.cuh"
 
 #ifndef LT_G1_SCAN_T  // the sweep builds T = 1 and 2 beside the shipped 4
 #define LT_G1_SCAN_T 4
@@ -154,8 +155,14 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// the scan: one lane on a group of T threads (fp_coop.cuh)
+// the scan: one lane on a group of T threads (coop.cuh)
 // ---------------------------------------------------------------------------
+
+template <int T>
+using Group = CoopGroup<BlsFp, T>;
+
+template <int T>
+using FpG = CoopFp<BlsFp, T>;
 
 template <int T>
 struct PtG {
@@ -217,7 +224,7 @@ __device__ __forceinline__ PtG<T> select_entry_g(
     int lane) {
   PtG<T> r;
   if (d == 0) {
-    r.x = r.y = r.z = fpg_zero<T>();
+    r.x = r.y = r.z = coop_zero<BlsFp, T>();
     return r;
   }
   const uint32_t* e = table + (size_t)d * PR * n;
@@ -242,7 +249,7 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
                     const int32_t* __restrict__ digits,
                     uint32_t* __restrict__ acc_out,
                     uint8_t* __restrict__ flag_out, int n, int nwin) {
-  const Group<T> g = make_group<T>();
+  const Group<T> g = make_coop_group<BlsFp, T>();
   bool live;
   const int col = group_lane<T, SCAN_BLOCK>(n, live);
   int d = live ? digits[col] : 0;

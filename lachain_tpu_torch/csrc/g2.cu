@@ -28,9 +28,9 @@
 // g2_dbl: one thread per lane on fp.cuh's field (uint64 CIOS); since the
 // table build is one launch it serves no main path.
 // The group-field kernels (the scan, g2_add and the table build): SCAN_T
-// threads per lane on fp_coop.cuh's group field (carry-save column
-// products, PTX carry chains for the carries, ballots between the
-// threads), the group law inlined and the Fp2 products out of line.
+// threads per lane on coop.cuh's group field over fp.cuh's p (BlsFp:
+// carry-save column products, PTX carry chains for the carries, ballots
+// between the threads), the group law inlined and the Fp2 products out of line.
 // g2_add serves the tree reductions (the coin era's 12 launches, 2048 down
 // to 32 lanes); one thread per lane, a launch of 4096 lanes was one lane's
 // latency through 44 Fp products (0.094 ms). The table kernel builds
@@ -71,7 +71,8 @@
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is non-zero.
 
-#include "fp_coop.cuh"
+#include "coop.cuh"
+#include "fp.cuh"
 
 #ifndef LT_G2_SCAN_T  // the sweep builds T = 1 and 2 beside the shipped 4
 #define LT_G2_SCAN_T 4
@@ -107,9 +108,9 @@ __device__ __forceinline__ Fp2 fp2_sub(const Fp2& a, const Fp2& b) {
 __device__ __forceinline__ Fp2 fp2_dbl(const Fp2& a) { return fp2_add(a, a); }
 
 // The products stay out of line, like the doubling below: inlined, every
-// one-thread G2 kernel ran slower (PERF.md; the sweep's fp2inline_1t
-// variant), and inlining every uint64 product into one function is what
-// crashed nvcc 12.9's device front end (cicc) on the G1 source.
+// one-thread G2 kernel ran slower (PERF.md, PRs 2 and 5), and inlining
+// every uint64 product into one function is what crashed nvcc 12.9's
+// device front end (cicc) on the G1 source.
 
 // pg2._fp2_mul: (a + bi)(d + ei) = (ad - be) + ((a+b)(d+e) - ad - be) i.
 __device__ __noinline__ Fp2 fp2_mul(const Fp2& x, const Fp2& y) {
@@ -174,8 +175,14 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// the group-field kernels: one lane on a group of T threads (fp_coop.cuh)
+// the group-field kernels: one lane on a group of T threads (coop.cuh)
 // ---------------------------------------------------------------------------
+
+template <int T>
+using Group = CoopGroup<BlsFp, T>;
+
+template <int T>
+using FpG = CoopFp<BlsFp, T>;
 
 template <int T>
 struct Fp2G {
@@ -313,7 +320,7 @@ __device__ __forceinline__ Pt2G<T> select_entry2_g(
     int lane) {
   Pt2G<T> r;
   if (d == 0) {
-    r.x.c0 = r.x.c1 = r.y.c0 = r.y.c1 = r.z.c0 = r.z.c1 = fpg_zero<T>();
+    r.x.c0 = r.x.c1 = r.y.c0 = r.y.c1 = r.z.c0 = r.z.c1 = coop_zero<BlsFp, T>();
     return r;
   }
   return load_pt2_g(g, table + (size_t)d * ROWS2 * n, n, lane);
@@ -325,7 +332,7 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
     g2_add_kernel(const uint32_t* __restrict__ p,
                   const uint32_t* __restrict__ q, uint32_t* __restrict__ out,
                   int n) {
-  const Group<T> g = make_group<T>();
+  const Group<T> g = make_coop_group<BlsFp, T>();
   bool live;
   const int col = group_lane<T, SCAN_BLOCK>(n, live);
   const Pt2G<T> r =
@@ -342,7 +349,7 @@ template <int T>
 __global__ void __launch_bounds__(SCAN_BLOCK)
     g2_table_kernel(const uint32_t* __restrict__ lanes,
                     uint32_t* __restrict__ table, int n) {
-  const Group<T> g = make_group<T>();
+  const Group<T> g = make_coop_group<BlsFp, T>();
   bool live;
   const int col = group_lane<T, SCAN_BLOCK>(n, live);
   const Pt2G<T> p = load_pt2_g(g, lanes, n, col);
@@ -350,7 +357,7 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
   if (live) {
     Pt2G<T> zero;
     zero.x.c0 = zero.x.c1 = zero.y.c0 = zero.y.c1 = zero.z.c0 = zero.z.c1 =
-        fpg_zero<T>();
+        coop_zero<BlsFp, T>();
     store_pt2_g(g, table, n, col, zero);
     store_pt2_g(g, table + entry, n, col, p);
   }
@@ -375,7 +382,7 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
                        const int32_t* __restrict__ digits,
                        uint32_t* __restrict__ acc_out,
                        uint8_t* __restrict__ flag_out, int n, int nwin) {
-  const Group<T> g = make_group<T>();
+  const Group<T> g = make_coop_group<BlsFp, T>();
   bool live;
   const int col = group_lane<T, SCAN_BLOCK>(n, live);
   int d = live ? digits[col] : 0;

@@ -1,8 +1,8 @@
 """Build and bind the port's CUDA kernels (plain C interface + ctypes).
 
 `library()` compiles `csrc/g1.cu`, `csrc/g2.cu` (both include
-`csrc/fp.cuh` and, for their group-field kernels, `csrc/fp_coop.cuh` over
-`csrc/coop.cuh`) and `csrc/secp.cu` (its own one-thread field code, and
+`csrc/fp.cuh` and, for their group-field kernels, `csrc/coop.cuh` over
+fp.cuh's BlsFp) and `csrc/secp.cu` (its own one-thread field code, and
 `csrc/coop.cuh` for its scan) with nvcc for sm_90a, one nvcc process per
 source, all started together, links them into one shared library in
 `lachain_tpu_torch/_build/` (listed in .gitignore) under a name keyed by a
@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("g1.cu", "g2.cu", "secp.cu")
-HEADERS = ("fp.cuh", "fp_coop.cuh", "coop.cuh")
+HEADERS = ("fp.cuh", "coop.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",

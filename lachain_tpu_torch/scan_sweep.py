@@ -14,8 +14,7 @@ which must find its text):
   * groupmask   each group's own lanes as the collectives' mask and groups
                 that diverge on their flags (coop.cuh);
   * prefetch    the window's table entry loaded before the doublings;
-  * fp2inline   the group-field Fp2 products inlined (g2.cu);
-  * fp2inline_1t  the one-thread Fp2 products inlined, into g2_dbl (g2.cu).
+  * fp2inline   the group-field Fp2 products inlined (g2.cu).
 All nvcc processes start together, with `-Xptxas -v`; the report holds
 each build's seconds and, per kernel, the registers, stack frame and
 spills ptxas reports, its callees' too, or the compiler's failure.
@@ -45,7 +44,7 @@ where it lacks an entry of this tree (`lt_g2_table`) it builds the G2
 table by the chain of one g2_dbl and 13 g2_add launches.
 
 `--int-rate` also builds a probe kernel and measures the card's sustained
-32x32->64-bit multiply-add rate, as `mad.wide.u32` (what fp_coop.cuh's
+32x32->64-bit multiply-add rate, as `mad.wide.u32` (what coop.cuh's
 column products run) and as the pair `mad.lo.cc.u32` + `madc.hi.u32` (a
 product along a carry chain).
 
@@ -106,10 +105,6 @@ VARIANTS = {
     "fp2inline": (("g2",), {"g2.cu": [
         (f"__device__ __noinline__ Fp2G<T> fp2g_{op}(",
          f"__device__ __forceinline__ Fp2G<T> fp2g_{op}(") for op in ("mul", "sqr")
-    ]}),
-    "fp2inline_1t": (("g2",), {"g2.cu": [
-        (f"__device__ __noinline__ Fp2 fp2_{op}(",
-         f"__device__ __forceinline__ Fp2 fp2_{op}(") for op in ("mul", "sqr")
     ]}),
 }
 

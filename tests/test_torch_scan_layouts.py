@@ -142,7 +142,7 @@ def test_sweep_variants_edit_copies_of_the_shipped_sources(tmp_path):
     srcs = scan_sweep.variant_sources(tmp_path, {"g1": 4, "g2": 4, "secp": 4}, None)
     assert sorted(srcs) == [
         "g1_T1", "g1_T2", "g1_groupmask", "g1_prefetch", "g2_T1", "g2_T2",
-        "g2_fp2inline", "g2_fp2inline_1t", "g2_groupmask", "g2_prefetch",
+        "g2_fp2inline", "g2_groupmask", "g2_prefetch",
         "secp_T1", "secp_T2", "secp_groupmask", "secp_prefetch"]
     assert srcs["g2_T1"][2] == ["-DLT_G2_SCAN_T=1"]
     assert srcs["secp_T2"][2] == ["-DLT_SECP_SCAN_T=2"]
