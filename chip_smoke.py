@@ -7,18 +7,23 @@ Phases, each of which must pass (any failure exits non-zero):
   1. build   the CUDA kernels of lachain_tpu_torch/csrc/ (g1.cu, g2.cu and
              secp.cu, one nvcc each, in parallel, sm_90a), with each
              kernel's registers, local bytes, threads per lane and block;
-  2. kernels hold each of the thirteen kernels against its plain PyTorch
+  2. kernels hold each of the fifteen kernels against its plain PyTorch
              version (ops/g1_ref.py, ops/g2_ref.py, ops/secp_ref.py) on the
-             card, on seeded inputs at the main paths' shapes (8192 lanes;
-             the G2 and secp scans with 64 windows; the G2 table build at
-             the coin era's 4096 signature lanes, 22 live of each 64 and
-             the others infinity; the secp square root at 16384 lanes):
-             exact equality of coordinates mod p and flags. The three scans
-             run twice: at the main path's layout (the TPKE era's joined
-             scan, 32 windows x 16,384 lanes; the coin era's scan, 48
-             leading zero windows on its RLC half and 22 live lanes of 64;
-             one 4096-signature recovery chunk, [R_i, G] interleaved) and at
-             a random-digit kernel check (32 / 64 windows of random digits x
+             card, on seeded inputs at the main paths' shapes (8192 lanes,
+             the adds with a p == q lane; the G2 and secp scans with 64
+             windows; the three table builds at their main path's lanes:
+             the TPKE era's 16,384 joined lanes [u | y | u | phi(u)], the
+             coin era's 4096 signature lanes, 22 live of each 64 and the
+             others infinity, and one 4096-signature recovery chunk's 8192
+             lanes [R_i, G], each table's entries 1, 2, 3 and 15 also held
+             against the host's scalar multiples; the secp square root at
+             16384 lanes): exact equality of coordinates mod p and flags.
+             The three scans run twice: at the main path's layout (the TPKE
+             era's joined scan, 32 windows x 16,384 lanes; the coin era's
+             scan, 48 leading zero windows on its RLC half and 22 live
+             lanes of 64; one 4096-signature recovery chunk, [R_i, G]
+             interleaved), over the tables built there, and at a
+             random-digit kernel check (32 / 64 windows of random digits x
              8192 lanes). Every kernel's numbers in the kernels JSON are
              those of its kernel check, the shape the earlier slices
              reported; each scan's entry also holds a `main` object, its
@@ -27,15 +32,16 @@ Phases, each of which must pass (any failure exits non-zero):
              before its one counted call and read just after:
              the N=64 TPKE era (64 ACS slots x 64 decryption shares) through
              GpuBackend(device="cuda").tpke_era_verify_combine: every slot
-             must verify and decrypt, with exactly 1 G1 scan, 1 doubling and
-             19 adds; a poisoned share must isolate exactly its slot, 4
-             slots are held against the port's HostEraPipeline;
+             must verify and decrypt, with exactly 1 G1 table build, 1 G1
+             scan, 6 tree adds and no doubling; a poisoned share must
+             isolate exactly its slot, 4 slots are held against the port's
+             HostEraPipeline;
              the N=64 coin era (64 coins x 64 signers, 22 live shares each)
              through threshold_sig.era_verify_combine on the same backend:
              every signature must verify under the shared key with the host
              combine's parity, with exactly 1 G2 table build, 1 G2 scan, 12
-             G2 adds and no G2 doubling (and the key RLC's 1 G1 scan, 1
-             doubling and 19 adds), a poisoned share must isolate exactly
+             G2 adds and no G2 doubling (and the key RLC's 1 G1 table
+             build, 1 G1 scan and 6 adds), a poisoned share must isolate exactly
              its coin, 4 coins are held against TsHostEraPipeline, and one
              device g1_msm and one g2_msm at n=100 against the host MSM;
              pool-ingest ECDSA recovery of 10,000 signatures from 64 senders
@@ -44,7 +50,8 @@ Phases, each of which must pass (any failure exits non-zero):
              signature must recover its sender's key, every malformed one
              and 64 valid ones must equal ecdsa.recover_hash, the launches
              must be exactly one square root and, per 4096-signature chunk,
-             1 doubling, 14 adds and 1 scan; a crafted u1*R == u2*G
+             1 table build, 1 scan and 1 pair add (no doubling); a crafted
+             u1*R == u2*G
              signature, in a call of its own, must be answered by the host
              oracle exactly once. Around each counted call and the MSMs, no
              result may have been recomputed on the host
@@ -52,8 +59,8 @@ Phases, each of which must pass (any failure exits non-zero):
   4. times   per-kernel times from CUDA events, the plain versions' times,
              each kernel's bound, the warm phase times of every path and a
              torch.profiler split of each device phase by kernel, whose
-             traced scan, table, doubling and add launches must equal the
-             counted ones.
+             traced launches of each path's kernels must equal the counted
+             ones.
 The last three lines of standard output are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}.
 
@@ -80,8 +87,12 @@ PEAK_OPS_PER_S = 67e12
 OPS_PER_FIELD_MUL = 2 * (2 * 12 * 12 + 12)
 MULS_DBL, MULS_ADD = 7, 16  # field products per doubling / incomplete add
 MULS_DBL2, MULS_ADD2 = 16, 44  # the same over Fp2 (G2), in Fp products
-# the G2 table build: 1 doubling and 13 adds per lane
-MULS_TABLE2 = MULS_DBL2 + 13 * MULS_ADD2
+# of an add's products, those that read only q: q.z^2 and q.z^3
+MULS_ZPOW, MULS_ZPOW2 = 2, 5
+# the table builds: per lane 1 doubling and 13 adds of the lane's point,
+# whose z powers are made once
+MULS_TABLE = MULS_DBL + MULS_ZPOW + 13 * (MULS_ADD - MULS_ZPOW)  # G1, secp: 191
+MULS_TABLE2 = MULS_DBL2 + MULS_ZPOW2 + 13 * (MULS_ADD2 - MULS_ZPOW2)  # 528
 # one 8 x 32-bit secp256k1 Montgomery product: 2*8*8 + 8 word products; a
 # secp doubling / add is 7 / 16 of them like G1's
 OPS_PER_SECP_MUL = 2 * (2 * 8 * 8 + 8)
@@ -94,29 +105,34 @@ SQRT_LANES = 16384  # the 10,000-signature batch padded to a power of two
 N_SIGNATURES = 10000
 N_SENDERS = 64
 KERNEL_NAMES = ("fp_mul_kernel", "dbl_kernel", "add_kernel", "msm_scan_kernel",
+                "g1_table_kernel",
                 "g2_dbl_kernel", "g2_add_kernel", "g2_msm_scan_kernel",
                 "g2_table_kernel",
                 "secp_fp_mul_kernel", "secp_dbl_kernel", "secp_add_kernel",
-                "secp_msm_scan_kernel", "secp_sqrt_kernel")
-G1_KERNELS = ("fp_mul", "g1_dbl", "g1_add", "g1_msm_scan")
+                "secp_msm_scan_kernel", "secp_sqrt_kernel", "secp_table_kernel")
+G1_KERNELS = ("fp_mul", "g1_dbl", "g1_add", "g1_table", "g1_msm_scan")
 # the wrapper's kernel name -> the CUDA kernel's
 KERNEL_OF = {"fp_mul": "fp_mul_kernel", "g1_dbl": "dbl_kernel",
              "g1_add": "add_kernel", "g1_msm_scan": "msm_scan_kernel"}
-KERNEL_OF.update({k: f"{k}_kernel" for k in ("g2_dbl", "g2_add", "g2_msm_scan",
-                                              "g2_table",
+KERNEL_OF.update({k: f"{k}_kernel" for k in ("g1_table", "g2_dbl", "g2_add",
+                                              "g2_msm_scan", "g2_table",
                                               "secp_fp_mul", "secp_dbl", "secp_add",
-                                              "secp_msm_scan", "secp_sqrt")})
-# the TPKE era's counted call: one table build over the joined lanes (1
-# doubling, 13 adds), one scan, a tree reduce of log2(64) = 6 adds
-TPKE_LAUNCHES = {"g1_msm_scan": 1, "g1_dbl": 1, "g1_add": 19}
+                                              "secp_table", "secp_msm_scan",
+                                              "secp_sqrt")})
+# the TPKE era's counted call: one table build over the joined lanes (one
+# launch), one scan, a tree reduce of log2(64) = 6 adds
+TPKE_LAUNCHES = {"g1_msm_scan": 1, "g1_table": 1, "g1_dbl": 0, "g1_add": 6}
 # the coin era's counted call: one G2 table build (one launch) and one
 # G2 scan over [table | table], two G2 tree reduces of 6 adds; the key RLC
 # as one G1 table build, scan and tree reduce
 COIN_LAUNCHES = dict(TPKE_LAUNCHES, g2_table=1, g2_msm_scan=1, g2_add=12,
                      g2_dbl=0)
 G2_KERNELS = ("g2_dbl", "g2_add", "g2_table", "g2_msm_scan")
-SECP_KERNELS = ("secp_fp_mul", "secp_dbl", "secp_add", "secp_msm_scan",
-                "secp_sqrt")
+SECP_KERNELS = ("secp_fp_mul", "secp_dbl", "secp_add", "secp_table",
+                "secp_msm_scan", "secp_sqrt")
+# the one-thread doublings serve no main path since each table build is
+# one launch
+NO_PATH = ("g1_dbl", "g2_dbl", "secp_dbl")
 
 
 class SeededRng:
@@ -174,28 +190,6 @@ def bound(nbytes: int, nops: int):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / PEAK_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def point_run(n: int, rng: random.Random, bls):
-    """n distinct points P0 + i*S in Jacobian form (chained host adds)."""
-    p = bls.g1_mul(bls.G1_GEN, rng.randrange(1, bls.R))
-    step = bls.g1_mul(bls.G1_GEN, rng.randrange(1, bls.R))
-    out = []
-    for _ in range(n):
-        out.append(p)
-        p = bls.g1_add(p, step)
-    return out
-
-
-def point_run2(n: int, rng: random.Random, bls):
-    """n distinct G2 points P0 + i*S in Jacobian form (chained host adds)."""
-    p = bls.g2_mul(bls.G2_GEN, rng.randrange(1, bls.R))
-    step = bls.g2_mul(bls.G2_GEN, rng.randrange(1, bls.R))
-    out = []
-    for _ in range(n):
-        out.append(p)
-        p = bls.g2_add(p, step)
-    return out
 
 
 def max_err(a, b) -> float:
@@ -286,9 +280,11 @@ def check_kernels(seed: int, dev):
         bound=bound(3 * 48 * n, n * OPS_PER_FIELD_MUL),
     )
 
-    # (2) g1_dbl and (3) g1_add on n Jacobian points (Z != 1)
-    ps = point_run(n, rng, bls)
-    qs = point_run(n, rng, bls)
+    # (2) g1_dbl and (3) g1_add on n Jacobian points (Z != 1), lane 7 of the
+    # add holding p == q (Z = 0 on both sides)
+    ps = glv.point_run(rng, n)
+    qs = glv.point_run(rng, n)
+    qs[7] = ps[7]
     kp, kq = g1.g1_pack(ps, dev), g1.g1_pack(qs, dev)
     rp, rq = ref_pts(ps), ref_pts(qs)
     got = g1.g1_coords(g1.g1_dbl(kp))
@@ -304,6 +300,7 @@ def check_kernels(seed: int, dev):
     )
     got = g1.g1_coords(g1.g1_add(kp, kq))
     want = g1.g1_coords(g1_ref.add_incomplete(rp, rq).cpu())
+    check(want[2 * n + 7] == 0, "g1_ref.add: p == q must give Z = 0")
     for i in range(0, n, 997):
         pt = (want[i], want[n + i], want[2 * n + i])
         check(bls.g1_eq(pt, bls.g1_add(ps[i], qs[i])), "g1_ref.add wrong")
@@ -314,18 +311,35 @@ def check_kernels(seed: int, dev):
         bound=bound(3 * 144 * n, n * MULS_ADD * OPS_PER_FIELD_MUL),
     )
 
+    # (14) the table build at the TPKE era's joined lanes [u | y | u |
+    # phi(u)] (g1.tpke_lanes, 16,384 lanes), against the plain chain of
+    # one doubling and 13 adds
+    lanes = g1.tpke_lanes(rng, slots=n // 128)
+    m = len(lanes)
+    kl, rl = g1.g1_pack(lanes, dev), ref_pts(lanes)
+    ktab = g1.build_table(kl)
+    rtab, plain_ms = cuda_ms_once(lambda: g1_ref.build_table(rl))
+    got = [g1.g1_coords(ktab[k]) for k in range(glv.TABLE)]
+    want = [g1.g1_coords(rtab[k].cpu()) for k in range(glv.TABLE)]
+    for k in (1, 2, 3, 15):
+        for i in (0, m // 4, m - 1):  # a u, a y and a phi(u) lane
+            pt = (want[k][i], want[k][m + i], want[k][2 * m + i])
+            check(bls.g1_eq(pt, bls.g1_mul(lanes[i], k)),
+                  "g1_ref.build_table wrong")
+    report["g1_table"] = dict(
+        lanes=m, ok=got == want,
+        max_abs_err=max(max_err(a, b) for a, b in zip(got, want)),
+        ms=cuda_ms(lambda: g1.build_table(kl), 10), plain_ms=plain_ms,
+        bound=bound((1 + glv.TABLE) * 144 * m, m * MULS_TABLE * OPS_PER_FIELD_MUL),
+    )
+    del got, want
+
     # (4) msm_scan at the TPKE era's joined layout: 32 windows x 16,384
-    # lanes [u | y | u | phi(u)], digits [rlc32 | rlc32 | lag1 | lag2]
-    # (g1.tpke_digits), tables built by the card's and the plain group law
-    # from the same points
+    # lanes, digits [rlc32 | rlc32 | lag1 | lag2] (g1.tpke_digits), over
+    # the tables the card and the plain chain just built from those lanes
     scan = (g1.msm_scan, g1_ref.msm_scan, g1.g1_coords)
-    kp2, rp2 = torch.cat([kp, kq], dim=1), torch.cat([rp, rq], dim=1)
-    rtab = [torch.zeros_like(rp2), rp2, g1_ref.dbl(rp2)]
-    for _ in range(glv.TABLE - 3):
-        rtab.append(g1_ref.add_incomplete(rtab[-1], rp2))
-    main = scan_entry(*scan, g1.build_table(kp2), torch.stack(rtab),
-                      g1.tpke_digits(rng, slots=n // 128).to(dev), MULS_DBL,
-                      MULS_ADD, 144, "tpke joined", 10)
+    main = scan_entry(*scan, ktab, rtab, g1.tpke_digits(rng, slots=n // 128).to(dev),
+                      MULS_DBL, MULS_ADD, 144, "tpke joined", 10)
     del rtab
 
     # and the random-digit kernel check: 32 windows over a host-built table
@@ -376,8 +390,8 @@ def check_g2_kernels(rng: random.Random, dev):
 
     # (5) g2_dbl and (6) g2_add on n Jacobian points (Z != 1), lane 7 of the
     # add holding p == q (Z = 0 on both sides)
-    ps = point_run2(n, rng, bls)
-    qs = point_run2(n, rng, bls)
+    ps = glv.point_run(rng, n, bls.g2_mul, bls.g2_add, bls.G2_GEN)
+    qs = glv.point_run(rng, n, bls.g2_mul, bls.g2_add, bls.G2_GEN)
     qs[7] = ps[7]
     kp, kq = g2.g2_pack(ps, dev), g2.g2_pack(qs, dev)
     rp, rq = ref_pts(ps), ref_pts(qs)
@@ -467,21 +481,11 @@ def g2_lane(coords, i: int, n: int):
     return tuple((coords[j * n + i], coords[(j + 1) * n + i]) for j in (0, 2, 4))
 
 
-def secp_point_run(n: int, rng: random.Random, ecdsa):
-    """n distinct affine secp256k1 points P0 + i*S (chained host adds)."""
-    p = ecdsa._mul(ecdsa.G, rng.randrange(1, ecdsa.N))
-    step = ecdsa._mul(ecdsa.G, rng.randrange(1, ecdsa.N))
-    out = []
-    for _ in range(n):
-        out.append(p)
-        p = ecdsa._add(p, step)
-    return out
-
-
 def check_secp_kernels(rng: random.Random, dev):
-    """The five secp256k1 kernels against secp_ref at the recover path's
-    shapes: 8192 lanes (one 4096-signature chunk), the scan with 64 windows
-    of random digits, the square root at 16384 lanes."""
+    """The six secp256k1 kernels against secp_ref at the recover path's
+    shapes: 8192 lanes (one 4096-signature chunk), the table build at a
+    chunk's [R_i, G] lanes, the scan with 64 windows of random digits and at
+    the chunk's layout, the square root at 16384 lanes."""
     import torch
 
     from lachain_tpu_torch.crypto import ecdsa
@@ -519,8 +523,9 @@ def check_secp_kernels(rng: random.Random, dev):
 
     # (9) secp_dbl on n affine points; (10) secp_add on the doubled points
     # (Z != 1) and n more, lane 7 holding p == q (Z = 0 on both sides)
-    ps = secp_point_run(n, rng, ecdsa)
-    qs = secp_point_run(n, rng, ecdsa)
+    secp_run = (ecdsa._mul, ecdsa._add, ecdsa.G, ecdsa.N)
+    ps = glv.point_run(rng, n, *secp_run)
+    qs = glv.point_run(rng, n, *secp_run)
     qs[7] = ecdsa._add(ps[7], ps[7])
     kp, kq = secp.pt_pack(ps, dev), secp.pt_pack(qs, dev)
     rp, rq = ref_pts(ps), ref_pts(qs)
@@ -570,17 +575,31 @@ def check_secp_kernels(rng: random.Random, dev):
         check(affine(want, i) == ecdsa._mul(ps[i], scalars[i]), "secp_ref.msm wrong")
     del rtab
 
-    # and at the recovery's layout: one 4096-signature chunk, [R_i, G]
-    # interleaved with full-width u1, u2 (secp.recover_layout), the tables
-    # built by the card's and the plain group law from the same points
+    # (15) the table build at the recovery's layout: one 4096-signature
+    # chunk, [R_i, G] interleaved (secp.recover_layout, 8192 affine lanes),
+    # against the plain chain of one doubling and 13 adds
     pts, rdigits = secp.recover_layout(rng, n // 2)
     kl, rl = secp.pt_pack(pts, dev), ref_pts(pts)
-    rtab = [torch.zeros_like(rl), rl, secp_ref.dbl(rl)]
-    for _ in range(glv.TABLE - 3):
-        rtab.append(secp_ref.add_incomplete(rtab[-1], rl))
-    main = scan_entry(*scan, secp.build_table(kl), torch.stack(rtab),
-                      rdigits.to(dev), MULS_DBL, MULS_ADD, 96, "recover", 5,
-                      OPS_PER_SECP_MUL)
+    ktab = secp.build_table(kl)
+    rtab, plain_ms = cuda_ms_once(lambda: secp_ref.build_table(rl))
+    got = [secp.pt_coords(ktab[k]) for k in range(glv.TABLE)]
+    want = [secp_ref.coords(rtab[k].cpu()) for k in range(glv.TABLE)]
+    for k in (1, 2, 3, 15):
+        for i in (0, 1, n - 2):  # R_0, G, R_4095
+            check(affine(want[k], i) == ecdsa._mul(pts[i], k),
+                  "secp_ref.build_table wrong")
+    report["secp_table"] = dict(
+        lanes=n, ok=got == want,
+        max_abs_err=max(max_err(a, b) for a, b in zip(got, want)),
+        ms=cuda_ms(lambda: secp.build_table(kl), 20), plain_ms=plain_ms,
+        bound=bound((1 + glv.TABLE) * 96 * n, n * MULS_TABLE * OPS_PER_SECP_MUL),
+    )
+    del got, want
+
+    # and the scan at the recovery's layout: the chunk's full-width u1, u2
+    # over the tables the card and the plain chain just built
+    main = scan_entry(*scan, ktab, rtab, rdigits.to(dev), MULS_DBL, MULS_ADD,
+                      96, "recover", 5, OPS_PER_SECP_MUL)
     main.pop("want"), main.pop("flags")
     del rtab
     report["secp_msm_scan"] = dict(chk, ok=main["ok"] and chk["ok"], main=main)
@@ -641,7 +660,7 @@ def make_era(n: int, seed: int):
 
 def profile_device(run) -> dict:
     """{kernel: [device ms, launches]} of one call of run() from
-    torch.profiler; device work that is not one of the thirteen kernels
+    torch.profiler; device work that is not one of the fifteen kernels
     (copies, cat, where) is summed under "torch". A trace loses the first
     device activities of its session (a trace of the recover path lacked
     its first three launches), so run() goes once under the profiler's
@@ -674,7 +693,7 @@ def profile_device(run) -> dict:
 def kernel_of(key: str) -> str:
     """The kernel of a profiler key, templated or not
     ("(anonymous namespace)::msm_scan_kernel<4>(...)" -> "msm_scan_kernel"),
-    or "torch" for device work that is none of the thirteen."""
+    or "torch" for device work that is none of the fifteen."""
     m = re.search(r"::(\w+)[<(]", key)
     return m[1] if m and m[1] in KERNEL_NAMES else "torch"
 
@@ -795,7 +814,7 @@ def run_tpke_path(seed: int, backend, dev):
     pipeline = GpuEraPipeline(device=dev)
     by_kernel = profile_phase("era", pipeline, lambda: pipeline.run_era(
         slots, y_points, SeededRng(seed + 4)))
-    check_traced("era", by_kernel, launches, ("g1_msm_scan", "g1_dbl", "g1_add"))
+    check_traced("era", by_kernel, launches, tuple(TPKE_LAUNCHES))
 
     # 4 slots against the host oracle pipeline, same seeded rng
     slots = slots[:4]
@@ -935,7 +954,7 @@ def run_coin_path(seed: int, backend, dev):
     dev_s = time.perf_counter() - t0
     msm_launches = read_launches()
     check_no_escapes("device MSMs")
-    idle = [k for k in ("g1_dbl", "g1_add", "g1_msm_scan", "g2_table", "g2_add",
+    idle = [k for k in ("g1_table", "g1_add", "g1_msm_scan", "g2_table", "g2_add",
                         "g2_msm_scan") if msm_launches[k] == 0]
     check(not idle, f"device MSMs never launched: {idle}")
     check(bls.g2_eq(got2, host.g2_msm(g2_pts, scalars)), "device g2_msm != host")
@@ -1034,14 +1053,14 @@ def run_ecdsa_path(seed: int, dev):
         f"malformed): {time.perf_counter() - t0:.1f} s")
 
     # the launches one chunked call must make: one square root over the
-    # padded batch; per chunk of 4096 signatures 1 doubling, 13 table adds,
-    # 1 scan and 1 pairwise add; conversions into and out of Montgomery
-    # form around the square root and around each chunk. The signatures
-    # that reach the scans: the valid ones, flip_s and z_zero.
+    # padded batch; per chunk of 4096 signatures 1 table build, 1 scan and
+    # 1 pairwise add; conversions into and out of Montgomery form around
+    # the square root and around each chunk. The signatures that reach the
+    # scans: the valid ones, flip_s and z_zero.
     n_jobs = sum(1 for i in range(n) if bad.get(i, "flip_s") in ("flip_s", "z_zero"))
     chunks = -(-n_jobs // GpuEcdsaRecover.CHUNK)
     want_launches = dict.fromkeys(read_launches(), 0)
-    want_launches.update(secp_sqrt=1, secp_dbl=chunks, secp_add=14 * chunks,
+    want_launches.update(secp_sqrt=1, secp_table=chunks, secp_add=chunks,
                          secp_msm_scan=chunks, secp_fp_mul=2 + 2 * chunks)
 
     # the main-path run whose launches are counted
@@ -1097,12 +1116,11 @@ def run_ecdsa_path(seed: int, dev):
     by_kernel = profile_device(lambda: rec.recover_batch(rh, rs))
     busy = sum(v[0] for v in by_kernel.values())
     t = rec.last_timings
-    seen = {k: by_kernel.get(KERNEL_OF[k], [0, 0])[1] for k in SECP_KERNELS}
     log(f"ecdsa recover by kernel (torch.profiler, ms, launches): {by_kernel}; "
         f"busy {busy:.3f} ms of sqrt {t['sqrt_s'] * 1e3:.3f} ms + device "
-        f"{t['device_s'] * 1e3:.3f} ms (profiled wall {t['wall_s']:.3f} s); "
-        f"launches traced {seen}, counted in the main-path call "
-        f"{ {k: launches[k] for k in SECP_KERNELS} }")
+        f"{t['device_s'] * 1e3:.3f} ms (profiled wall {t['wall_s']:.3f} s)")
+    # the regular entries reach the card as the main-path call's did
+    check_traced("ecdsa recover", by_kernel, launches, SECP_KERNELS)
     return launches, warm
 
 
@@ -1140,10 +1158,11 @@ def main() -> int:
         "coin_era": run_coin_path(args.seed, backend, dev),
         "ecdsa_recover": run_ecdsa_path(args.seed, dev),
     }
-    needs = {  # g2_dbl serves no main path since the table build is one launch
-        "tpke_era": G1_KERNELS,
-        "coin_era": G1_KERNELS + ("g2_add", "g2_table", "g2_msm_scan"),
-        "ecdsa_recover": SECP_KERNELS,
+    g1_path = tuple(k for k in G1_KERNELS if k not in NO_PATH)
+    needs = {
+        "tpke_era": g1_path,
+        "coin_era": g1_path + ("g2_add", "g2_table", "g2_msm_scan"),
+        "ecdsa_recover": tuple(k for k in SECP_KERNELS if k not in NO_PATH),
     }
     for path, (launches, warm) in paths.items():
         missing = [k for k in needs[path] if launches[k] == 0]
@@ -1157,6 +1176,9 @@ def main() -> int:
         "fp_mul": "lachain_tpu/ops/pg1.py:262",
         "g1_dbl": "lachain_tpu/ops/pg1.py:253",
         "g1_add": "lachain_tpu/ops/pg1.py:257",
+        # build_table's chain of _add_kernel launches (and one
+        # _dbl_kernel), pg1.py:447, in one launch
+        "g1_table": "lachain_tpu/ops/pg1.py:257",
         "g1_msm_scan": "lachain_tpu/ops/pg1.py:355",
         "g2_dbl": "lachain_tpu/ops/pg2.py:218",
         "g2_add": "lachain_tpu/ops/pg2.py:222",
@@ -1168,6 +1190,9 @@ def main() -> int:
         "secp_fp_mul": "lachain_tpu/ops/psecp.py:121",
         "secp_dbl": "lachain_tpu/ops/psecp.py:235",
         "secp_add": "lachain_tpu/ops/psecp.py:239",
+        # build_table's chain of _add_kernel launches (and one
+        # _dbl_kernel), psecp.py:364, in one launch
+        "secp_table": "lachain_tpu/ops/psecp.py:239",
         "secp_msm_scan": "lachain_tpu/ops/psecp.py:285",
         "secp_sqrt": "lachain_tpu/ops/psecp.py:380",
     }

@@ -1,5 +1,6 @@
 // A prime field on a group of T threads per lane, for the window scans and
-// the group-field kernels of g1.cu, g2.cu and secp.cu. The field is a
+// the group-field kernels of g1.cu, g2.cu and secp.cu, with the points and
+// the table chain those kernels share. The field is a
 // template parameter F, a traits type:
 //   F::words      32-bit words per element (12 for BLS12-381, 8 for secp256k1)
 //   F::pinv       -p^-1 mod 2^32
@@ -183,14 +184,6 @@ template <class F, int T>
 struct CoopFp {
   uint32_t v[F::words / T];
 };
-
-template <class F, int T>
-__device__ __forceinline__ CoopFp<F, T> coop_zero() {
-  CoopFp<F, T> r;
-#pragma unroll
-  for (int j = 0; j < F::words / T; ++j) r.v[j] = 0u;
-  return r;
-}
 
 // rows [row0, row0 + words) of a lane-minor array: this thread's W words
 template <class F, int T>
@@ -424,6 +417,88 @@ template <class F, int T>
 __device__ __forceinline__ CoopFp<F, T> fpg_sqr(const CoopGroup<F, T>& g,
                                                 const CoopFp<F, T>& a) {
   return fpg_mul(g, a, a);
+}
+
+// ---------------------------------------------------------------------------
+// points, and the window table's chain
+// ---------------------------------------------------------------------------
+
+// A Jacobian point over F (G1, secp256k1): rows X | Y | Z of a lane-minor
+// array, F::words rows each.
+template <class F, int T>
+struct CoopPt {
+  CoopFp<F, T> x, y, z;
+};
+
+// a (3 words, n) point array: this thread's words of lane `lane`
+template <class F, int T>
+__device__ __forceinline__ CoopPt<F, T> load_pt_g(
+    const CoopGroup<F, T>& g, const uint32_t* __restrict__ a, int n,
+    int lane) {
+  CoopPt<F, T> r;
+  r.x = load_fpg(g, a, 0, n, lane);
+  r.y = load_fpg(g, a, F::words, n, lane);
+  r.z = load_fpg(g, a, 2 * F::words, n, lane);
+  return r;
+}
+
+template <class F, int T>
+__device__ __forceinline__ void store_pt_g(const CoopGroup<F, T>& g,
+                                           uint32_t* __restrict__ a, int n,
+                                           int lane, const CoopPt<F, T>& p) {
+  store_fpg(g, a, 0, n, lane, p.x);
+  store_fpg(g, a, F::words, n, lane, p.y);
+  store_fpg(g, a, 2 * F::words, n, lane, p.z);
+}
+
+// table (16, 3 words, n): this thread's words of entry d; digit 0 selects
+// the zero point, as pg1._select_entry (which psecp uses) does: entry 0
+// never contributes.
+template <class F, int T>
+__device__ __forceinline__ CoopPt<F, T> select_entry_g(
+    const CoopGroup<F, T>& g, const uint32_t* __restrict__ table, int d,
+    int n, int lane) {
+  if (d == 0) return CoopPt<F, T>{};
+  return load_pt_g(g, table + (size_t)d * 3 * F::words * n, n, lane);
+}
+
+// z^2 and z^3 of the point q of an incomplete add p + q, the two products
+// of the add that read only q: a chain that adds one q makes them once.
+template <class E>
+struct ZPow {
+  E zz, zzz;
+};
+
+template <class F, int T>
+__device__ __forceinline__ ZPow<CoopFp<F, T>> z_pow_g(
+    const CoopGroup<F, T>& g, const CoopFp<F, T>& z) {
+  const CoopFp<F, T> zz = fpg_sqr(g, z);
+  return {zz, fpg_mul(g, z, zz)};
+}
+
+// The window table of a lane's point p, entry k = k * p: entry 0 the zero
+// point, 1 p, 2 dbl(p), then k = (k - 1) * p + p for k = 3 .. ENTRIES - 1
+// by add(cur), the incomplete add of p (with p's ZPow made once). This is
+// the chain of the TPU package's build_table (one doubling launch, then
+// chained add launches), so every entry is word for word what that chain
+// gives, and an infinity lane (0, 1, 0) keeps Z = 0 all along, as there (a
+// table in log depth would reach other Jacobian coordinates). store(k, pt)
+// writes entry k; only a live lane stores, and a group past n computes on
+// to the end (its adds' collectives take the full warp).
+template <int ENTRIES, class Pt, class Dbl, class Add, class Store>
+__device__ __forceinline__ void chain_table(const Pt& p, bool live, Dbl dbl,
+                                            Add add, Store store) {
+  if (live) {
+    store(0, Pt{});
+    store(1, p);
+  }
+  Pt cur = dbl(p);
+  if (live) store(2, cur);
+#pragma unroll 1
+  for (int k = 3; k < ENTRIES; ++k) {
+    cur = add(cur);
+    if (live) store(k, cur);
+  }
 }
 
 }  // namespace

@@ -16,12 +16,15 @@
 // Arithmetic: fp2_mul is Karatsuba (3 Montgomery products), fp2_sqr is
 // (a+b)(a-b) and 2ab (2 products). The group law uses pg2's formulas
 // (pg2._g2_dbl_val, pg2._g2_add_val, pg2.py:154-200) operation for
-// operation, so a collision p = +-q in an incomplete add gives Z = 0 exactly
+// operation (the group-field add groups one product otherwise, to the same
+// values), so a collision p = +-q in an incomplete add gives Z = 0 exactly
 // where the TPU kernel does, and the coin pipeline's escape to the host MSM
 // fires on the same coins. A doubling is 16 Fp products, an add 44.
 //
 // Bound: integer multiply-adds, ~600 per Fp product; a 64-window scan needs
-// up to 63 * (4 * 16 + 44) products per lane, the table build 16 + 13 * 44.
+// up to 63 * (4 * 16 + 44) products per lane, the table build
+// 16 + 5 + 13 * 39 = 528 (its 13 adds of one point make that point's z^2
+// and z^3 once).
 // Bytes are small beside them: the scan reads one 288-byte table entry per
 // lane per nonzero digit, the table build writes 16.
 //
@@ -63,10 +66,11 @@
 //   9.13-9.16 / 7.26-7.27;
 //   the one-thread uint64 scan this replaced: 17.19-17.20 / 14.93-14.94.
 // The same T serves g2_add (8192 lanes) and the table build (the coin
-// era's 4096 lanes), ms (PERF.md): T = 1 0.0777-0.0781 / 0.978-0.994
-// (230 / 248 registers); T = 2 0.0527-0.0529 / 0.683-0.687 (142 / 148);
-// T = 4 0.0452-0.0455 / 0.461-0.468 (72 / 74); the one-thread add and the
-// 14-launch chain they replaced 0.0940-0.0951 / 1.263-1.268.
+// era's 4096 lanes), medians of 10 rounds in ms (PERF.md, the table with
+// its point's z powers made once): T = 1 0.0788 / 0.898 (230 / 254
+// registers, the table 16 B spilled); T = 2 0.0544 / 0.547 (150 / 184);
+// T = 4 0.0464 / 0.408 (72 / 96); the one-thread add and the 14-launch
+// chain they replaced 0.0940-0.0951 / 1.263-1.268.
 //
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is non-zero.
@@ -258,17 +262,29 @@ __device__ __forceinline__ Pt2G<T> g2_dbl_g(const Group<T>& g,
   return r;
 }
 
+// q.z^2 and q.z^3 for g2_add_g (5 products; coop.cuh's ZPow)
+template <int T>
+__device__ __forceinline__ ZPow<Fp2G<T>> z_pow2_g(const Group<T>& g,
+                                                  const Fp2G<T>& z) {
+  const Fp2G<T> zz = fp2g_sqr(g, z);
+  return {zz, fp2g_mul(g, z, zz)};
+}
+
 // pg2._g2_add_val on the group field: incomplete Jacobian add, p != +-q,
-// both finite (44 products), operation for operation.
+// both finite, operation for operation but one. qz is q's ZPow: 39
+// products here and 5 in qz, pg2's 44. S1 = Y1 * Z2^3 is grouped
+// Y1 * (Z2 * Z2Z2) where pg2 has (Y1 * Z2) * Z2Z2: every Fp2 product is
+// exact with canonical components, so the values are the same.
 template <int T>
 __device__ __forceinline__ Pt2G<T> g2_add_g(const Group<T>& g,
                                             const Pt2G<T>& p,
-                                            const Pt2G<T>& q) {
+                                            const Pt2G<T>& q,
+                                            const ZPow<Fp2G<T>>& qz) {
   const Fp2G<T> Z1Z1 = fp2g_sqr(g, p.z);
-  const Fp2G<T> Z2Z2 = fp2g_sqr(g, q.z);
+  const Fp2G<T> Z2Z2 = qz.zz;
   const Fp2G<T> U1 = fp2g_mul(g, p.x, Z2Z2);
   const Fp2G<T> U2 = fp2g_mul(g, q.x, Z1Z1);
-  const Fp2G<T> S1 = fp2g_mul(g, fp2g_mul(g, p.y, q.z), Z2Z2);
+  const Fp2G<T> S1 = fp2g_mul(g, p.y, qz.zzz);
   const Fp2G<T> S2 = fp2g_mul(g, fp2g_mul(g, q.y, p.z), Z1Z1);
   const Fp2G<T> H = fp2g_sub(g, U2, U1);
   const Fp2G<T> Rr = fp2g_sub(g, S2, S1);
@@ -282,6 +298,14 @@ __device__ __forceinline__ Pt2G<T> g2_add_g(const Group<T>& g,
   r.y = fp2g_sub(g, fp2g_mul(g, Rr2, fp2g_sub(g, V, r.x)), fp2g_dbl(g, S1J));
   r.z = fp2g_dbl(g, fp2g_mul(g, fp2g_mul(g, p.z, q.z), H));
   return r;
+}
+
+// the add of any p and q (44 products)
+template <int T>
+__device__ __forceinline__ Pt2G<T> g2_add_g(const Group<T>& g,
+                                            const Pt2G<T>& p,
+                                            const Pt2G<T>& q) {
+  return g2_add_g(g, p, q, z_pow2_g(g, q.z));
 }
 
 // a (72, n) point array: this thread's words of lane `lane`
@@ -318,11 +342,7 @@ template <int T>
 __device__ __forceinline__ Pt2G<T> select_entry2_g(
     const Group<T>& g, const uint32_t* __restrict__ table, int d, int n,
     int lane) {
-  Pt2G<T> r;
-  if (d == 0) {
-    r.x.c0 = r.x.c1 = r.y.c0 = r.y.c1 = r.z.c0 = r.z.c1 = coop_zero<BlsFp, T>();
-    return r;
-  }
+  if (d == 0) return Pt2G<T>{};
   return load_pt2_g(g, table + (size_t)d * ROWS2 * n, n, lane);
 }
 
@@ -340,11 +360,9 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
   if (live) store_pt2_g(g, out, n, col, r);
 }
 
-// pg2.build_table2 in one launch: table (16, 72, n), entry k = k * P of
-// the lane's point P, made by pg2's chain (entry 2 a doubling, then 13
-// adds of P), so every entry is word for word the chain of g2_dbl and
-// g2_add launches (an infinity lane (0, 1, 0) keeps Z = 0 all along, as
-// there). Entry 0 is zero.
+// pg2.build_table2 in one launch: table (16, 72, n), pg2's chain of one
+// doubling and 13 adds of the lane's point (coop.cuh chain_table), word for
+// word the chain of g2_dbl and g2_add launches.
 template <int T>
 __global__ void __launch_bounds__(SCAN_BLOCK)
     g2_table_kernel(const uint32_t* __restrict__ lanes,
@@ -353,21 +371,13 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
   bool live;
   const int col = group_lane<T, SCAN_BLOCK>(n, live);
   const Pt2G<T> p = load_pt2_g(g, lanes, n, col);
-  const size_t entry = (size_t)ROWS2 * n;
-  if (live) {
-    Pt2G<T> zero;
-    zero.x.c0 = zero.x.c1 = zero.y.c0 = zero.y.c1 = zero.z.c0 = zero.z.c1 =
-        coop_zero<BlsFp, T>();
-    store_pt2_g(g, table, n, col, zero);
-    store_pt2_g(g, table + entry, n, col, p);
-  }
-  Pt2G<T> cur = g2_dbl_g(g, p);
-  if (live) store_pt2_g(g, table + 2 * entry, n, col, cur);
-#pragma unroll 1
-  for (int k = 3; k < TABLE; ++k) {
-    cur = g2_add_g(g, cur, p);
-    if (live) store_pt2_g(g, table + k * entry, n, col, cur);
-  }
+  const ZPow<Fp2G<T>> pz = z_pow2_g(g, p.z);
+  chain_table<TABLE>(
+      p, live, [&](const Pt2G<T>& q) { return g2_dbl_g(g, q); },
+      [&](const Pt2G<T>& q) { return g2_add_g(g, q, p, pz); },
+      [&](int k, const Pt2G<T>& q) {
+        store_pt2_g(g, table + (size_t)k * ROWS2 * n, n, col, q);
+      });
 }
 
 // pg2._msm2_kernel semantics, all W windows in one launch: window 0 selects

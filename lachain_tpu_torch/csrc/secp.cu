@@ -4,6 +4,8 @@
 //
 //   lt_secp_dbl       <- psecp._dbl_kernel  (pl_dbl,    psecp.py:235/:243)
 //   lt_secp_add       <- psecp._add_kernel  (pl_add,    psecp.py:239/:264)
+//   lt_secp_table     <- psecp._add_kernel and _dbl_kernel as build_table
+//                        chains them (psecp.py:364): the table, one launch
 //   lt_secp_msm_scan  <- psecp._msm_kernel  (_msm_scan, psecp.py:285/:331)
 //   lt_secp_sqrt      <- psecp.sqrt_kernel  (plain XLA, psecp.py:380)
 //   lt_secp_fp_mul    the field product (psecp._mul, :121); the host wrapper
@@ -25,25 +27,33 @@
 //
 // Multiply: CIOS Montgomery, 2*8*8 + 8 word products. The group law uses
 // psecp's formulas (psecp._pt_dbl_val, psecp._pt_add_val, :158-194)
-// operation for operation, so a collision p = +-q in an incomplete add
+// operation for operation (the group-field add groups one product
+// otherwise, to the same values), so a collision p = +-q in an incomplete add
 // gives Z = 0 exactly where the TPU kernel does, and the recover path's
 // escape to the host oracle fires on the same signatures. A doubling is 7
 // products, an add 16.
 //
 // Bound: integer multiply-adds (a 64-window scan needs up to
-// 63 * (4 * 7 + 16) field products per lane, the square root 501). Bytes
-// are small beside them: the scan reads one 96-byte table entry per lane
-// per nonzero digit.
+// 63 * (4 * 7 + 16) field products per lane, the square root 501, the
+// table build 7 + 2 + 13 * 14 = 191: its 13 adds of one point make that
+// point's z^2 and z^3 once). Bytes are small beside them: the scan
+// reads one 96-byte table entry per lane per nonzero digit.
 //
-// fp_mul, dbl, add and sqrt: one thread per lane on this file's uint64
-// field. The square root walks the static exponent's bits with a branch
-// that is uniform across the warp and computes only the product its bit
-// selects (psecp computes both and selects; the values are the same).
+// fp_mul, dbl and sqrt: one thread per lane on this file's uint64 field;
+// since the table build is one launch, dbl serves no main path. The square
+// root walks the static exponent's bits with a branch that is uniform
+// across the warp and computes only the product its bit selects (psecp
+// computes both and selects; the values are the same).
 //
-// The scan: SCAN_T threads per lane on coop.cuh's group field over
-// secp256k1 (SecpFp: carry-save column products, PTX carry chains, ballots
-// between the threads, the carry word past 256 bits folded into the top
-// thread's carry out), the group law inlined, all windows in one launch
+// The group-field kernels (the scan, add and the table build): SCAN_T
+// threads per lane on coop.cuh's group field over secp256k1 (SecpFp:
+// carry-save column products, PTX carry chains, ballots between the
+// threads, the carry word past 256 bits folded into the top thread's carry
+// out), the group law inlined. add serves recover_kernel's pair add (one
+// launch a chunk); the table kernel builds build_table's 16 entries in one
+// launch in psecp's order (entry 2 a doubling, 3..15 thirteen chained adds
+// of the point), each entry stored as it is made; both branch only around
+// their stores. The scan: all windows in one launch
 // with the accumulator and flag in registers, table[d] read from device
 // memory after the doublings. The recovery's lanes are nearly all live
 // (interleaved [R_i, G] with full 256-bit digits u1, u2), so more warps on
@@ -65,6 +75,15 @@
 //   divergent groups 10.36-10.38 / 10.19-10.20; the entry loaded before
 //   the doublings 1.624-1.674 / 1.635-1.699;
 //   the one-thread uint64 scan this replaced: 3.81-3.84 / 3.81-3.84.
+// The same T serves add and the table build, medians of 10 rounds in ms
+// (PERF.md): add at 8192 lanes / at a chunk's pair add (4096
+// lanes); the table at a chunk's 8192 lanes:
+//   T = 1: 0.0138 / 0.0137, 0.158 (96 / 142 registers, the add 12 B
+//   spilled);
+//   T = 2: 0.0108 / 0.0109, 0.120 (78 / 80);
+//   T = 4: 0.0103 / 0.0089, 0.112 (56 / 54)  <- SCAN_T
+//   the one-thread add and the 14-launch chain they replaced: 0.0248 /
+//   0.0246, 0.341.
 //
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is non-zero.
@@ -83,9 +102,10 @@ namespace {
 constexpr int NL = 8;        // 32-bit limbs per field element
 constexpr int PR = 3 * NL;   // rows per point: X | Y | Z
 constexpr int WINDOW = 4;
+constexpr int TABLE = 16;    // entries k*P, k in [0, 16)
 constexpr int THREADS = 64;  // n = 8192 lanes -> 128 blocks over 132 SMs
-constexpr int SCAN_T = LT_SECP_SCAN_T;  // threads per lane in the scan
-constexpr int SCAN_BLOCK = 64;          // threads per block of the scan
+constexpr int SCAN_T = LT_SECP_SCAN_T;  // threads per lane (group field)
+constexpr int SCAN_BLOCK = 64;          // their threads per block
 
 __constant__ uint32_t kP[NL] = {
     0xfffffc2fu, 0xfffffffeu, 0xffffffffu, 0xffffffffu,
@@ -245,30 +265,6 @@ __device__ __noinline__ Pt secp_dbl(const Pt& p) {
   return r;
 }
 
-// psecp._pt_add_val: incomplete Jacobian add, p != +-q, both finite
-// (16 products).
-__device__ __noinline__ Pt secp_add(const Pt& p, const Pt& q) {
-  const Fe Z1Z1 = fe_sqr(p.z);
-  const Fe Z2Z2 = fe_sqr(q.z);
-  const Fe U1 = mont_mul(p.x, Z2Z2);
-  const Fe U2 = mont_mul(q.x, Z1Z1);
-  const Fe S1 = mont_mul(mont_mul(p.y, q.z), Z2Z2);
-  const Fe S2 = mont_mul(mont_mul(q.y, p.z), Z1Z1);
-  const Fe H = fe_sub(U2, U1);
-  const Fe Rr = fe_sub(S2, S1);
-  const Fe I = fe_sqr(fe_add(H, H));
-  const Fe J = mont_mul(H, I);
-  const Fe Rr2 = fe_add(Rr, Rr);
-  const Fe V = mont_mul(U1, I);
-  Pt r;
-  r.x = fe_sub(fe_sub(fe_sqr(Rr2), J), fe_add(V, V));
-  const Fe S1J = mont_mul(S1, J);
-  r.y = fe_sub(mont_mul(Rr2, fe_sub(V, r.x)), fe_add(S1J, S1J));
-  const Fe Z3 = mont_mul(mont_mul(p.z, q.z), H);
-  r.z = fe_add(Z3, Z3);
-  return r;
-}
-
 __device__ __forceinline__ Pt load_pt(const uint32_t* __restrict__ a, int n,
                                       int lane) {
   Pt r;
@@ -301,15 +297,6 @@ __global__ void __launch_bounds__(THREADS)
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   store_pt(out, n, lane, secp_dbl(load_pt(p, n, lane)));
-}
-
-__global__ void __launch_bounds__(THREADS)
-    secp_add_kernel(const uint32_t* __restrict__ p,
-                    const uint32_t* __restrict__ q, uint32_t* __restrict__ out,
-                    int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  store_pt(out, n, lane, secp_add(load_pt(p, n, lane), load_pt(q, n, lane)));
 }
 
 // psecp.sqrt_kernel: y = (x^3 + 7)^((p+1)/4) per lane, Montgomery in and
@@ -353,9 +340,7 @@ template <int T>
 using FeG = CoopFp<SecpFp, T>;
 
 template <int T>
-struct PtG {
-  FeG<T> x, y, z;
-};
+using PtG = CoopPt<SecpFp, T>;
 
 // secp_dbl on the group field, operation for operation.
 template <int T>
@@ -379,16 +364,20 @@ __device__ __forceinline__ PtG<T> secp_dbl_g(const SecpGroup<T>& g,
   return r;
 }
 
-// secp_add on the group field, operation for operation.
+// psecp._pt_add_val on the group field: incomplete Jacobian add, p != +-q,
+// both finite; p = +-q gives Z = 0, as there. qz is q's ZPow (coop.cuh):
+// 14 products here and 2 in qz, psecp's 16. S1 = Y1 * Z2^3 is grouped
+// Y1 * (Z2 * Z2Z2) where psecp has (Y1 * Z2) * Z2Z2: every product is the
+// canonical residue, so the values are the same.
 template <int T>
 __device__ __forceinline__ PtG<T> secp_add_g(const SecpGroup<T>& g,
-                                             const PtG<T>& p,
-                                             const PtG<T>& q) {
+                                             const PtG<T>& p, const PtG<T>& q,
+                                             const ZPow<FeG<T>>& qz) {
   const FeG<T> Z1Z1 = fpg_sqr(g, p.z);
-  const FeG<T> Z2Z2 = fpg_sqr(g, q.z);
+  const FeG<T> Z2Z2 = qz.zz;
   const FeG<T> U1 = fpg_mul(g, p.x, Z2Z2);
   const FeG<T> U2 = fpg_mul(g, q.x, Z1Z1);
-  const FeG<T> S1 = fpg_mul(g, fpg_mul(g, p.y, q.z), Z2Z2);
+  const FeG<T> S1 = fpg_mul(g, p.y, qz.zzz);
   const FeG<T> S2 = fpg_mul(g, fpg_mul(g, q.y, p.z), Z1Z1);
   const FeG<T> H = fpg_sub(g, U2, U1);
   const FeG<T> Rr = fpg_sub(g, S2, S1);
@@ -405,23 +394,47 @@ __device__ __forceinline__ PtG<T> secp_add_g(const SecpGroup<T>& g,
   return r;
 }
 
-// table (16, 24, n): this thread's words of entry d; digit 0 selects the
-// zero point, as pg1._select_entry (which psecp uses) does: entry 0 never
-// contributes.
+// the add of any p and q (16 products)
 template <int T>
-__device__ __forceinline__ PtG<T> select_entry_g(
-    const SecpGroup<T>& g, const uint32_t* __restrict__ table, int d, int n,
-    int lane) {
-  PtG<T> r;
-  if (d == 0) {
-    r.x = r.y = r.z = coop_zero<SecpFp, T>();
-    return r;
-  }
-  const uint32_t* e = table + (size_t)d * PR * n;
-  r.x = load_fpg(g, e, 0, n, lane);
-  r.y = load_fpg(g, e, NL, n, lane);
-  r.z = load_fpg(g, e, 2 * NL, n, lane);
-  return r;
+__device__ __forceinline__ PtG<T> secp_add_g(const SecpGroup<T>& g,
+                                             const PtG<T>& p,
+                                             const PtG<T>& q) {
+  return secp_add_g(g, p, q, z_pow_g(g, q.z));
+}
+
+// psecp._add_kernel on the group field: out = p + q (incomplete). A group
+// past n adds lane 0's points and stores nothing.
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    secp_add_kernel(const uint32_t* __restrict__ p,
+                    const uint32_t* __restrict__ q, uint32_t* __restrict__ out,
+                    int n) {
+  const SecpGroup<T> g = make_coop_group<SecpFp, T>();
+  bool live;
+  const int col = group_lane<T, SCAN_BLOCK>(n, live);
+  const PtG<T> r =
+      secp_add_g(g, load_pt_g(g, p, n, col), load_pt_g(g, q, n, col));
+  if (live) store_pt_g(g, out, n, col, r);
+}
+
+// psecp.build_table in one launch: table (16, 24, n), psecp's chain of one
+// doubling and 13 adds of the lane's point (coop.cuh chain_table), word for
+// word the chain of secp_dbl_kernel and secp_add_kernel launches.
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    secp_table_kernel(const uint32_t* __restrict__ lanes,
+                      uint32_t* __restrict__ table, int n) {
+  const SecpGroup<T> g = make_coop_group<SecpFp, T>();
+  bool live;
+  const int col = group_lane<T, SCAN_BLOCK>(n, live);
+  const PtG<T> p = load_pt_g(g, lanes, n, col);
+  const ZPow<FeG<T>> pz = z_pow_g(g, p.z);
+  chain_table<TABLE>(
+      p, live, [&](const PtG<T>& q) { return secp_dbl_g(g, q); },
+      [&](const PtG<T>& q) { return secp_add_g(g, q, p, pz); },
+      [&](int k, const PtG<T>& q) {
+        store_pt_g(g, table + (size_t)k * PR * n, n, col, q);
+      });
 }
 
 // psecp._msm_kernel semantics (pg1's), all W windows in one launch: window
@@ -461,9 +474,7 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
     flag = flag && d == 0;
   }
   if (live) {
-    store_fpg(g, acc_out, 0, n, col, acc.x);
-    store_fpg(g, acc_out, NL, n, col, acc.y);
-    store_fpg(g, acc_out, 2 * NL, n, col, acc.z);
+    store_pt_g(g, acc_out, n, col, acc);
     if (g.rank == 0) flag_out[col] = flag ? 1 : 0;
   }
 }
@@ -494,8 +505,20 @@ int lt_secp_dbl(const void* p, void* out, int n, void* stream) {
 int lt_secp_add(const void* p, const void* q, void* out, int n,
                 void* stream) {
   if (n > 0) {
-    secp_add_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
+    secp_add_kernel<SCAN_T>
+        <<<group_blocks<SCAN_T, SCAN_BLOCK>(n), SCAN_BLOCK, 0,
+           (cudaStream_t)stream>>>(
+            (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+int lt_secp_table(const void* lanes, void* table, int n, void* stream) {
+  if (n > 0) {
+    secp_table_kernel<SCAN_T>
+        <<<group_blocks<SCAN_T, SCAN_BLOCK>(n), SCAN_BLOCK, 0,
+           (cudaStream_t)stream>>>((const uint32_t*)lanes, (uint32_t*)table,
+                                   n);
   }
   return (int)cudaGetLastError();
 }
@@ -521,23 +544,25 @@ int lt_secp_sqrt(const void* x, void* out, int n, void* stream) {
 }
 
 // Registers per thread, local (spill) bytes, threads per lane and threads
-// per block of kernel `which` (0 fp_mul, 1 dbl, 2 add, 3 msm_scan, 4 sqrt),
-// for the chip report.
+// per block of kernel `which` (0 fp_mul, 1 dbl, 2 add, 3 msm_scan, 4 sqrt,
+// 5 table), for the chip report.
 int lt_secp_kernel_attrs(int which, int* regs, int* local_bytes,
                          int* threads_per_lane, int* block) {
-  const void* fns[5] = {(const void*)secp_fp_mul_kernel,
+  const void* fns[6] = {(const void*)secp_fp_mul_kernel,
                         (const void*)secp_dbl_kernel,
-                        (const void*)secp_add_kernel,
+                        (const void*)secp_add_kernel<SCAN_T>,
                         (const void*)secp_msm_scan_kernel<SCAN_T>,
-                        (const void*)secp_sqrt_kernel};
-  if (which < 0 || which > 4) return (int)cudaErrorInvalidValue;
+                        (const void*)secp_sqrt_kernel,
+                        (const void*)secp_table_kernel<SCAN_T>};
+  if (which < 0 || which > 5) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
   if (err != cudaSuccess) return (int)err;
+  const bool group = which == 2 || which == 3 || which == 5;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
-  *threads_per_lane = which == 3 ? SCAN_T : 1;
-  *block = which == 3 ? SCAN_BLOCK : THREADS;
+  *threads_per_lane = group ? SCAN_T : 1;
+  *block = group ? SCAN_BLOCK : THREADS;
   return 0;
 }
 

@@ -3,10 +3,11 @@
 `library()` compiles `csrc/g1.cu`, `csrc/g2.cu` (both include
 `csrc/fp.cuh` and, for their group-field kernels, `csrc/coop.cuh` over
 fp.cuh's BlsFp) and `csrc/secp.cu` (its own one-thread field code, and
-`csrc/coop.cuh` for its scan) with nvcc for sm_90a, one nvcc process per
-source, all started together, links them into one shared library in
-`lachain_tpu_torch/_build/` (listed in .gitignore) under a name keyed by a
-hash of the sources, the headers and the flags, and loads it. The first
+`csrc/coop.cuh` for its group-field kernels) with nvcc for sm_90a, one
+nvcc process per source, all started together, links them into one
+shared library in `lachain_tpu_torch/_build/` (listed in .gitignore)
+under a name keyed by a hash of the sources, the headers and the flags,
+and loads it. The first
 call in a fresh checkout therefore builds; later calls in the same
 checkout reuse the library. There is no fallback: without nvcc, or on a
 failed build, it raises.
@@ -43,6 +44,7 @@ _SIGNATURES = {
     "lt_g1_fp_mul": [_P, _P, _P, _I, _P],
     "lt_g1_dbl": [_P, _P, _I, _P],
     "lt_g1_add": [_P, _P, _P, _I, _P],
+    "lt_g1_table": [_P, _P, _I, _P],
     "lt_g1_msm_scan": [_P, _P, _P, _P, _I, _I, _P],
     "lt_g1_kernel_attrs": [_I] + [ctypes.POINTER(_I)] * 4,
     "lt_g2_dbl": [_P, _P, _I, _P],
@@ -53,16 +55,18 @@ _SIGNATURES = {
     "lt_secp_fp_mul": [_P, _P, _P, _I, _P],
     "lt_secp_dbl": [_P, _P, _I, _P],
     "lt_secp_add": [_P, _P, _P, _I, _P],
+    "lt_secp_table": [_P, _P, _I, _P],
     "lt_secp_msm_scan": [_P, _P, _P, _P, _I, _I, _P],
     "lt_secp_sqrt": [_P, _P, _I, _P],
     "lt_secp_kernel_attrs": [_I] + [ctypes.POINTER(_I)] * 4,
 }
 # (attrs entry, kernel names in its index order)
 _ATTRS = (
-    ("lt_g1_kernel_attrs", ("fp_mul", "g1_dbl", "g1_add", "g1_msm_scan")),
+    ("lt_g1_kernel_attrs", ("fp_mul", "g1_dbl", "g1_add", "g1_msm_scan",
+                            "g1_table")),
     ("lt_g2_kernel_attrs", ("g2_dbl", "g2_add", "g2_msm_scan", "g2_table")),
     ("lt_secp_kernel_attrs", ("secp_fp_mul", "secp_dbl", "secp_add",
-                              "secp_msm_scan", "secp_sqrt")),
+                              "secp_msm_scan", "secp_sqrt", "secp_table")),
 )
 
 

@@ -1,8 +1,8 @@
 """G1 era engine: the kernel wrappers and pg1's composite programs.
 
-The port of `lachain_tpu/ops/pg1.py`. Four wrappers front the CUDA kernels
-of `csrc/g1.cu` (`fp_mul`, `g1_dbl`, `g1_add`, `msm_scan`); the composites
-above them (`build_table`, `msm_windowed`, `tree_reduce_k`, `era_kernel`,
+The port of `lachain_tpu/ops/pg1.py`. Five wrappers front the CUDA kernels
+of `csrc/g1.cu` (`fp_mul`, `g1_dbl`, `g1_add`, `build_table`, `msm_scan`);
+the composites above them (`msm_windowed`, `tree_reduce_k`, `era_kernel`,
 `era_kernel_fused`, `msm_reduce`) are plain tensor code over those
 wrappers.
 
@@ -38,7 +38,8 @@ NL = 12  # 32-bit Montgomery limbs per coordinate on the card
 _MONT_R = 1 << 384
 _R2 = _MONT_R * _MONT_R % bls.P  # x * R^2 / R = x R: into Montgomery form
 
-LAUNCHES = {"fp_mul": 0, "g1_dbl": 0, "g1_add": 0, "g1_msm_scan": 0}
+LAUNCHES = {"fp_mul": 0, "g1_dbl": 0, "g1_add": 0, "g1_table": 0,
+            "g1_msm_scan": 0}
 
 
 def reset_launches() -> None:
@@ -47,7 +48,7 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------------------
-# the four kernel wrappers
+# the five kernel wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -132,6 +133,23 @@ def g1_add(p, q):
     )
     _launched("g1_add", rc)
     return out
+
+
+def build_table(lanes):
+    """Points (3R, n) -> (16, 3R, n): entry k = k*P, entry 0 zero and never
+    selected, in one launch (replaces pg1 `build_table`, :447: its one
+    `_dbl_kernel` and 13 chained `_add_kernel` launches, whose values it
+    gives word for word)."""
+    if _on_cpu(lanes):
+        return g1_ref.build_table(lanes)
+    n = lanes.shape[-1]
+    _check("build_table lanes", lanes, (3 * NL, n))
+    table = torch.empty((TABLE, 3 * NL, n), dtype=torch.int32, device=lanes.device)
+    rc = _build.library().lt_g1_table(
+        lanes.data_ptr(), table.data_ptr(), n, _stream(lanes)
+    )
+    _launched("g1_table", rc)
+    return table
 
 
 def msm_scan(table, digits):
@@ -286,20 +304,8 @@ def digits_col(scalars: Sequence[int], nwindows: int, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# composites (pg1.py:447-524)
+# composites (pg1.py:460-560)
 # ---------------------------------------------------------------------------
-
-
-def build_table(lanes):
-    """(3R, n) -> (16, 3R, n): entry k = k*P (entry 0 zero and never
-    selected). 1 doubling + 13 chained adds, one launch each."""
-    two = g1_dbl(lanes)
-    rows = [torch.zeros_like(lanes), lanes, two]
-    cur = two
-    for _ in range(TABLE - 3):
-        cur = g1_add(cur, lanes)
-        rows.append(cur)
-    return torch.stack(rows, dim=0)
 
 
 def msm_windowed(lanes, digits):
@@ -355,6 +361,18 @@ def tpke_digits(rng, slots: int = 64, k: int = 64, live: int = 22):
     return era_digits(digits_col(rlc, glv.W64, "cpu"),
                       digits_col([h[0] for h in halves], glv.W128, "cpu"),
                       digits_col([h[1] for h in halves], glv.W128, "cpu"))
+
+
+def tpke_lanes(rng, slots: int = 64, k: int = 64) -> list:
+    """Oracle points at the TPKE era's joined lanes [u | y | u | phi(u)]
+    (era_kernel), for timing the table build at its layout: distinct share
+    points u on the slots x k share lanes, k distinct keys y tiled once per
+    slot, phi(u) = (beta*X, Y, Z) (the N=64 era: 16,384 lanes). rng: a
+    random.Random."""
+    u = glv.point_run(rng, slots * k)
+    y = glv.point_run(rng, k) * slots
+    phi = [(glv.BETA * x % bls.P, py, z) for x, py, z in u]
+    return u + y + u + phi
 
 
 def era_kernel(u, y, rlc16, lag1, lag2, k: int):

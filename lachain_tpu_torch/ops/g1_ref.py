@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the four G1 kernels, in pg1's own arithmetic.
+"""Plain PyTorch versions of the five G1 kernels, in pg1's own arithmetic.
 
-`fp_mul`, `dbl`, `add_incomplete` and `msm_scan` carry the math of
-`lachain_tpu/ops/pg1.py:110-220` and `_msm_kernel` (:355) into int64
-tensors: a field element is 44 signed 10-bit limbs (plain, not Montgomery),
-a point is (132, n) = X | Y | Z limb rows, lane-last. Because the steps are
+`fp_mul`, `dbl`, `add_incomplete`, `build_table` and `msm_scan` carry the
+math of `lachain_tpu/ops/pg1.py:110-220`, `build_table` (:447) and
+`_msm_kernel` (:355) into int64 tensors: a field element is 44 signed
+10-bit limbs (plain, not Montgomery), a point is (132, n) = X | Y | Z limb
+rows, lane-last. Because the steps are
 pg1's step for step, the outputs equal pg1's limb for limb
 (tests/test_torch_g1_kernels.py, tests/test_torch_msm.py).
 
@@ -169,6 +170,25 @@ def add_incomplete(p, q):
     Z3 = _mul(_mul(Z1, Z2), H)
     Z3 = _add(Z3, Z3)
     return torch.cat([X3, Y3, Z3], dim=0)
+
+
+def chain_table(lanes, dbl_fn, add_fn):
+    """The table chain of pg1 `build_table` (:447), pg2 `build_table2` and
+    psecp `build_table` over any point layout: (R, n) -> (16, R, n), entry
+    k = k*P, entry 0 zero and never selected; one doubling, then 13 chained
+    adds of P."""
+    two = dbl_fn(lanes)
+    rows = [torch.zeros_like(lanes), lanes, two]
+    cur = two
+    for _ in range(TABLE - 3):
+        cur = add_fn(cur, lanes)
+        rows.append(cur)
+    return torch.stack(rows, dim=0)
+
+
+def build_table(lanes):
+    """(132, n) -> (16, 132, n) (pg1 `build_table`, :447)."""
+    return chain_table(lanes, dbl, add_incomplete)
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,6 @@ import torch
 from ..crypto import bls12381 as bls
 from . import g1_ref
 from .g1_ref import NLIMBS, _add, _conv, _fold, _mul_small, _sub
-from .glv import TABLE
 
 COMP_ROWS = 48  # one Fp2 component per 48-row slot, as pg2 (pg2.py:71)
 POINT2_ROWS = 6 * COMP_ROWS  # 288
@@ -132,13 +131,7 @@ def add_incomplete(p, q):
 def build_table(lanes):
     """(288, n) -> (16, 288, n): entry k = k*P, entry 0 zero and never
     selected (pg2.build_table2, :356: one doubling, then 13 chained adds)."""
-    two = dbl(lanes)
-    rows = [torch.zeros_like(lanes), lanes, two]
-    cur = two
-    for _ in range(TABLE - 3):
-        cur = add_incomplete(cur, lanes)
-        rows.append(cur)
-    return torch.stack(rows, dim=0)
+    return g1_ref.chain_table(lanes, dbl, add_incomplete)
 
 
 def msm_scan(table, digits):

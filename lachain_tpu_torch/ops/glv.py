@@ -56,6 +56,20 @@ def glv_split(k: int) -> Tuple[int, int]:
     return k1, k2
 
 
+def point_run(rng, n: int, mul=bls.g1_mul, add=bls.g1_add, gen=bls.G1_GEN,
+               order: int = bls.R) -> list:
+    """n distinct oracle points P0 + i*S (chained host adds), P0 and S seeded
+    multiples of gen, for timing and checking the kernels: G1 by default,
+    or any curve given its oracle's mul, add, generator and group order.
+    rng: a random.Random."""
+    p, step = mul(gen, rng.randrange(1, order)), mul(gen, rng.randrange(1, order))
+    out = []
+    for _ in range(n):
+        out.append(p)
+        p = add(p, step)
+    return out
+
+
 def digits_col(scalars: Sequence[int], nwindows: int) -> np.ndarray:
     """ints -> (nwindows, n) int32 MSB-first 4-bit digits, lane-last
     (pg1.digits_col over msm.scalars_to_digits)."""

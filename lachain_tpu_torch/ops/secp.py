@@ -1,10 +1,10 @@
 """secp256k1 recovery engine: the kernel wrappers, psecp's composites and
 `GpuEcdsaRecover`.
 
-The port of `lachain_tpu/ops/psecp.py`. Five wrappers front the CUDA
+The port of `lachain_tpu/ops/psecp.py`. Six wrappers front the CUDA
 kernels of `csrc/secp.cu` (`secp_fp_mul`, `secp_dbl`, `secp_add`,
-`msm_scan`, `sqrt`); the composites above them (`build_table`,
-`recover_kernel`) are plain tensor code over those wrappers, and
+`build_table`, `msm_scan`, `sqrt`); the composite above them
+(`recover_kernel`) is plain tensor code over those wrappers, and
 `GpuEcdsaRecover` (psecp `TpuEcdsaRecover`, :508-634) keeps psecp's host
 work around them: validation, r^-1 by Montgomery's trick, the y^2 check
 and parity flip, 4096-signature chunks and the batch affine conversion.
@@ -46,7 +46,7 @@ _MONT_R = 1 << 256
 _R2 = _MONT_R * _MONT_R % P  # x * R^2 / R = x R: into Montgomery form
 
 LAUNCHES = {"secp_fp_mul": 0, "secp_dbl": 0, "secp_add": 0,
-            "secp_msm_scan": 0, "secp_sqrt": 0}
+            "secp_table": 0, "secp_msm_scan": 0, "secp_sqrt": 0}
 
 
 def reset_launches() -> None:
@@ -61,7 +61,7 @@ def _launched(name: str, rc: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the five kernel wrappers
+# the six kernel wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -106,6 +106,23 @@ def secp_add(p, q):
     )
     _launched("secp_add", rc)
     return out
+
+
+def build_table(lanes):
+    """Points (3R, n) -> (16, 3R, n): entry k = k*P, entry 0 zero and never
+    selected, in one launch (replaces psecp `build_table`, :364: its one
+    `_dbl_kernel` and 13 chained `_add_kernel` launches, whose values it
+    gives word for word)."""
+    if _on_cpu(lanes):
+        return secp_ref.build_table(lanes)
+    n = lanes.shape[-1]
+    _check("build_table lanes", lanes, (ROWS, n))
+    table = torch.empty((TABLE, ROWS, n), dtype=torch.int32, device=lanes.device)
+    rc = _build.library().lt_secp_table(
+        lanes.data_ptr(), table.data_ptr(), n, _stream(lanes)
+    )
+    _launched("secp_table", rc)
+    return table
 
 
 def msm_scan(table, digits):
@@ -254,20 +271,8 @@ def pt_unpack_host(rows, flags, cpu_layout: bool) -> list:
 
 
 # ---------------------------------------------------------------------------
-# composites (psecp.py:364-438)
+# composites (psecp.py:420-438)
 # ---------------------------------------------------------------------------
-
-
-def build_table(lanes):
-    """(3R, n) -> (16, 3R, n): entry k = k*P (entry 0 zero and never
-    selected). 1 doubling + 13 chained adds, one launch each."""
-    two = secp_dbl(lanes)
-    rows = [torch.zeros_like(lanes), lanes, two]
-    cur = two
-    for _ in range(TABLE - 3):
-        cur = secp_add(cur, lanes)
-        rows.append(cur)
-    return torch.stack(rows, dim=0)
 
 
 def chunk_lanes(jobs, m_pad: int):

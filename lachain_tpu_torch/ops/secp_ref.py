@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the secp256k1 kernels, in psecp's own arithmetic.
 
-`fp_mul`, `dbl`, `add_incomplete`, `msm_scan` and `sqrt` carry the math of
-`lachain_tpu/ops/psecp.py` (field helpers :85-138, group law :158-194,
-`_msm_kernel` :285 / `_msm_emulate` :311, `sqrt_kernel` :380) into int64
+`fp_mul`, `dbl`, `add_incomplete`, `build_table`, `msm_scan` and `sqrt`
+carry the math of `lachain_tpu/ops/psecp.py` (field helpers :85-138,
+group law :158-194, `build_table` :364, `_msm_kernel` :285 /
+`_msm_emulate` :311, `sqrt_kernel` :380) into int64
 tensors: a field element is 26 signed 10-bit limbs (plain, not Montgomery),
 a point is (96, n) = X | Y | Z in 32-row slots (26 limbs, 6 zero rows),
 lane-last. The steps are psecp's step for step, so the outputs equal
@@ -188,6 +189,13 @@ def add_incomplete(p, q):
     Z3 = _mul(_mul(Z1, Z2), H)
     Z3 = _add(Z3, Z3)
     return _join(X3, Y3, Z3)
+
+
+def build_table(lanes):
+    """(96, n) -> (16, 96, n): entry k = k*P, entry 0 zero and never
+    selected (psecp `build_table`, :364: one doubling, then 13 chained
+    adds)."""
+    return g1_ref.chain_table(lanes, dbl, add_incomplete)
 
 
 def msm_scan(table, digits):

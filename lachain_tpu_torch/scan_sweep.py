@@ -1,13 +1,13 @@
 """Variants of the group-field kernels built beside the shipped ones, on one
 card.
 
-    python3 -m lachain_tpu_torch.scan_sweep [--seed S] [--baseline DIR]
+    python3 -m lachain_tpu_torch.scan_sweep [--seed S] [--baseline DIR ...]
                                             [--int-rate] [--out FILE]
 
-`csrc/g1.cu`, `csrc/g2.cu` and `csrc/secp.cu` run their scans (and g2.cu
-its add and table build) with SCAN_T threads per lane, a compile-time
-constant (`LT_G1_SCAN_T`, `LT_G2_SCAN_T`, `LT_SECP_SCAN_T`) over the group
-field of `csrc/coop.cuh`. This script builds each source at the other
+`csrc/g1.cu`, `csrc/g2.cu` and `csrc/secp.cu` run their scans, adds and
+table builds with SCAN_T threads per lane, a compile-time constant
+(`LT_G1_SCAN_T`, `LT_G2_SCAN_T`, `LT_SECP_SCAN_T`) over the group field of
+`csrc/coop.cuh`. This script builds each source at the other
 values of T in {1, 2, 4}, and at the shipped T with one design choice of
 the shipped source undone in a copy of it (`VARIANTS`: text edits, each of
 which must find its text):
@@ -26,22 +26,29 @@ reversed, so that each library runs before and after each other one:
   * the G1 scan at `check` (32 windows x 8192 lanes of random 128-bit
     digits, every 61st lane zero: chip_smoke.py's kernel check) and at
     `tpke`, the N=64 TPKE era's joined scan (`g1.tpke_digits`, 32 windows x
-    16,384 lanes);
+    16,384 lanes); the G1 table build at 8192 lanes, at the TPKE era's
+    16,384 joined lanes (`g1.tpke_lanes`) and at the coin era's 4096 key
+    lanes (64 keys tiled per coin); g1_add at 8192 lanes and at 256, the
+    TPKE era's last tree pass;
   * the G2 scan at `check` (64 windows x 8192 lanes of random 256-bit
     digits) and at `coin`, the N=64 coin era's scan (`g2.coin_digits`);
     the G2 table build at the coin era's 4096 signature lanes
     (`g2.coin_lanes`: 22 live lanes of each 64, the others infinity);
   * the secp scan at `check` (64 windows x 8192 lanes of random 256-bit
     digits) and at `recover`, one 4096-signature chunk of the recovery
-    (`secp.recover_layout`: [R_i, G] interleaved, full-width u1, u2);
-  * the other kernels of the same source (fp_mul, g1_dbl, g1_add; g2_dbl,
-    g2_add; secp_dbl, secp_add) at 8192 lanes.
+    (`secp.recover_layout`: [R_i, G] interleaved, full-width u1, u2); the
+    secp table build at that chunk's 8192 lanes; secp_add at 8192 lanes
+    and at 4096, the chunk's pair add;
+  * the other kernels of the same source (fp_mul, g1_dbl; g2_dbl, g2_add;
+    secp_dbl) at 8192 lanes.
 
 `--baseline DIR` also builds DIR's `lachain_tpu_torch/csrc/g1.cu`, `g2.cu`
 and `secp.cu` as they are (an unpacked earlier commit, e.g. `git archive
-<commit> | tar -x -C _scratch/base`) and times them in the same rounds;
-where it lacks an entry of this tree (`lt_g2_table`) it builds the G2
-table by the chain of one g2_dbl and 13 g2_add launches.
+<commit> | tar -x -C _scratch/base`) and times them in the same rounds,
+labelled `<source>_baseline_<DIR's name>`; it may be given more than once;
+where it lacks a table entry of this tree (`lt_g1_table`, `lt_g2_table`,
+`lt_secp_table`) it builds the table by the chain of one doubling and 13
+add launches.
 
 `--int-rate` also builds a probe kernel and measures the card's sustained
 32x32->64-bit multiply-add rate, as `mad.wide.u32` (what coop.cuh's
@@ -50,7 +57,8 @@ product along a carry chain).
 
 Needs a CUDA card and nvcc; builds into `lachain_tpu_torch/_build/` and
 removes what it built. The last line of standard output is one JSON
-object; `--out` also writes it to a file. Exits 1 when a variant's output
+object, each timing's rounds under `ms` and their medians under
+`median_ms`; `--out` also writes it to a file. Exits 1 when a variant's output
 differs from the shipped library's.
 """
 from __future__ import annotations
@@ -61,6 +69,7 @@ import json
 import random
 import re
 import shutil
+import statistics
 import subprocess
 import tempfile
 import time
@@ -110,7 +119,8 @@ VARIANTS = {
 
 # kernels first, longest names first: "dbl_kernel" is inside "g2_dbl_kernel"
 _NAMES = ("secp_msm_scan_kernel", "g2_msm_scan_kernel", "msm_scan_kernel",
-          "g2_table_kernel", "secp_fp_mul_kernel", "secp_dbl_kernel",
+          "secp_table_kernel", "g2_table_kernel", "g1_table_kernel",
+          "secp_fp_mul_kernel", "secp_dbl_kernel",
           "secp_add_kernel", "secp_sqrt_kernel", "g2_dbl_kernel",
           "g2_add_kernel", "fp_mul_kernel", "dbl_kernel", "add_kernel",
           "secp_dbl", "secp_add", "g2_dbl", "g2_add", "g1_dbl", "g1_add",
@@ -154,10 +164,10 @@ def scan_of(label: str) -> str:
     return label.split("_")[0]
 
 
-def variant_sources(work: Path, shipped_t: dict, baseline) -> dict:
+def variant_sources(work: Path, shipped_t: dict, baselines=()) -> dict:
     """{label: (source, include dir, -D defines)}: each scan at the other
     values of T, each VARIANTS edit at the shipped T in its own copy of
-    csrc/, and the baseline's sources."""
+    csrc/, and each baseline checkout's sources."""
     out = {}
     for scan in SCANS:
         macro = f"LT_{scan.upper()}_SCAN_T"
@@ -179,10 +189,10 @@ def variant_sources(work: Path, shipped_t: dict, baseline) -> dict:
                     text = text.replace(old, new)
                 path.write_text(text)
             out[label] = (src / f"{scan}.cu", src, [])
-    if baseline is not None:
-        csrc = Path(baseline) / "lachain_tpu_torch" / "csrc"
+    for base in baselines:
+        csrc = Path(base) / "lachain_tpu_torch" / "csrc"
         for scan in SCANS:
-            out[f"{scan}_baseline"] = (csrc / f"{scan}.cu", csrc, [])
+            out[f"{scan}_baseline_{Path(base).name}"] = (csrc / f"{scan}.cu", csrc, [])
     return out
 
 
@@ -211,7 +221,7 @@ def build_variants(work: Path, sources: dict) -> dict:
         else:
             lib = ctypes.CDLL(str(work / f"{label}.so"))
             for name, args in _build._SIGNATURES.items():
-                # a baseline may lack an entry of this tree (lt_g2_table)
+                # a baseline may lack an entry of this tree (a table build)
                 if name.startswith(f"lt_{scan_of(label)}_") and hasattr(lib, name):
                     getattr(lib, name).argtypes = args
                     getattr(lib, name).restype = ctypes.c_int
@@ -234,40 +244,40 @@ def random_digits(rng: random.Random, n: int, nwin: int):
     return glv.digits_col(scalars, nwin)
 
 
-def _run(n: int, rng: random.Random, mul, add, gen, order=bls.R) -> list:
-    """n distinct points P0 + i*S (chained host adds)."""
-    p, step = mul(gen, rng.randrange(1, order)), mul(gen, rng.randrange(1, order))
-    out = []
-    for _ in range(n):
-        out.append(p)
-        p = add(p, step)
-    return out
-
-
 def make_inputs(seed: int, dev) -> dict:
     """Seeded points, tables and digits on the card."""
     rng = random.Random(seed)
-    pts1 = g1.g1_pack(_run(2 * LANES, rng, bls.g1_mul, bls.g1_add, bls.G1_GEN), dev)
-    pts2 = g2.g2_pack(_run(2 * LANES, rng, bls.g2_mul, bls.g2_add, bls.G2_GEN), dev)
-    tab1, tab2 = g1.build_table(pts1), g2.build_table2(pts2[:, :LANES].contiguous())
-    pts3 = secp.pt_pack(_run(2 * LANES, rng, ecdsa._mul, ecdsa._add, ecdsa.G,
-                             ecdsa.N), dev)
+    pts1 = g1.g1_pack(glv.point_run(rng, 2 * LANES), dev)
+    pts2 = g2.g2_pack(glv.point_run(rng, 2 * LANES, bls.g2_mul, bls.g2_add,
+                                    bls.G2_GEN), dev)
+    tpke = g1.g1_pack(g1.tpke_lanes(rng), dev)
+    keys = glv.point_run(rng, 64)
+    tab1, tab2 = g1.build_table(tpke), g2.build_table2(pts2[:, :LANES].contiguous())
+    pts3 = secp.pt_pack(glv.point_run(rng, 2 * LANES, ecdsa._mul, ecdsa._add,
+                                      ecdsa.G, ecdsa.N), dev)
     rec_pts, rec_digits = secp.recover_layout(rng)
+    rec = secp.pt_pack(rec_pts, dev)
     on = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+    half = lambda t, m: t[:, :m].contiguous()  # noqa: E731
+    p1, q1 = half(pts1, LANES), pts1[:, LANES:].contiguous()
+    p3, q3 = half(pts3, LANES), pts3[:, LANES:].contiguous()
     return {
-        "g1": {"check": (tab1[..., :LANES].contiguous(),
-                         on(random_digits(rng, LANES, glv.W128))),
+        "g1": {"check": (g1.build_table(p1), on(random_digits(rng, LANES, glv.W128))),
                "tpke": (tab1, on(g1.tpke_digits(rng))),
-               "points": (pts1[:, :LANES].contiguous(), pts1[:, LANES:].contiguous())},
+               "tables": {"check": p1, "tpke": tpke,
+                          "coin": g1.g1_pack(keys * 64, dev)},
+               "adds": {"check": (p1, q1), "tree": (half(p1, 256), half(q1, 256))},
+               "points": (p1, q1)},
         "g2": {"check": (tab2, on(random_digits(rng, LANES, glv.W256))),
                "coin": (tab2, on(g2.coin_digits(rng))),
-               "table_lanes": g2.g2_pack(g2.coin_lanes(rng), dev),
+               "tables": {"coin": g2.g2_pack(g2.coin_lanes(rng), dev)},
                "points": (pts2[:, :LANES].contiguous(), pts2[:, LANES:].contiguous())},
-        "secp": {"check": (secp.build_table(pts3[:, :LANES].contiguous()),
-                           on(random_digits(rng, LANES, glv.W256))),
-                 "recover": (secp.build_table(secp.pt_pack(rec_pts, dev)),
-                             on(rec_digits)),
-                 "points": (pts3[:, :LANES].contiguous(), pts3[:, LANES:].contiguous())},
+        "secp": {"check": (secp.build_table(p3), on(random_digits(rng, LANES, glv.W256))),
+                 "recover": (secp.build_table(rec), on(rec_digits)),
+                 "tables": {"recover": rec},
+                 "adds": {"check": (p3, q3),
+                          "pair": (half(p3, LANES // 2), half(q3, LANES // 2))},
+                 "points": (p3, q3)},
     }
 
 
@@ -286,23 +296,43 @@ def _scan(lib, scan: str, table, digits):
                               flags.data_ptr(), n, nwin, stream)), (acc, flags))
 
 
-def _table_chain(lib, lanes, table) -> list:
-    """The G2 table as the design before g2_table built it: one g2_dbl and
-    13 chained g2_add launches, into `table`'s entries (entry 0 zeroed)."""
+def _table_chain(lib, scan: str, lanes, table) -> list:
+    """A table as the design before `lt_<scan>_table` built it: one
+    doubling and 13 chained add launches, into `table`'s entries (entry 0
+    zeroed)."""
     n, stream = lanes.shape[-1], g1._stream(lanes)
+    dbl, add = getattr(lib, f"lt_{scan}_dbl"), getattr(lib, f"lt_{scan}_add")
     table[0].zero_()
     table[1].copy_(lanes)
     ptr = [table[k].data_ptr() for k in range(glv.TABLE)]
-    return [lambda: _check(lib.lt_g2_dbl(lanes.data_ptr(), ptr[2], n, stream))] + [
-        (lambda k=k: _check(lib.lt_g2_add(ptr[k - 1], lanes.data_ptr(), ptr[k],
-                                          n, stream)))
+    return [lambda: _check(dbl(lanes.data_ptr(), ptr[2], n, stream))] + [
+        (lambda k=k: _check(add(ptr[k - 1], lanes.data_ptr(), ptr[k], n, stream)))
         for k in range(3, glv.TABLE)]
+
+
+def _table(lib, scan: str, lanes):
+    """([launch()], (table,)) of `scan`'s table build over `lanes`: one
+    launch, or the chain where the library has no table entry."""
+    m, stream = lanes.shape[-1], g1._stream(lanes)
+    table = torch.empty((glv.TABLE,) + tuple(lanes.shape), dtype=torch.int32,
+                        device=lanes.device)
+    fn = getattr(lib, f"lt_{scan}_table", None)
+    if fn is None:
+        return _table_chain(lib, scan, lanes, table), (table,)
+    return [lambda: _check(fn(lanes.data_ptr(), table.data_ptr(), m, stream))], (table,)
+
+
+def _add(lib, scan: str, p, q):
+    out, n, stream = torch.empty_like(p), p.shape[-1], g1._stream(p)
+    fn = getattr(lib, f"lt_{scan}_add")
+    return [lambda: _check(fn(p.data_ptr(), q.data_ptr(), out.data_ptr(), n,
+                              stream))], (out,)
 
 
 def launchers(lib, scan: str, inputs: dict) -> dict:
     """{kernel: ([launch()], outputs)} of one library's kernels of `scan`'s
-    source on the shared inputs; a library without `lt_g2_table` (an
-    earlier tree) builds the G2 table by its chain of launches."""
+    source on the shared inputs; a library without a table entry (an
+    earlier tree) builds the table by its chain of launches."""
     inp = inputs[scan]
     p, q = inp["points"]
     n, stream = p.shape[-1], g1._stream(p)
@@ -310,25 +340,18 @@ def launchers(lib, scan: str, inputs: dict) -> dict:
     for layout in ("check", MAIN_LAYOUT[scan]):
         launch, outs = _scan(lib, scan, *inp[layout])
         out[f"scan_{layout}"] = ([launch], outs)
+    for layout, lanes in inp["tables"].items():
+        out[f"{scan}_table_{layout}"] = _table(lib, scan, lanes)
+    adds = inp.get("adds", {"": (p, q)})
+    for layout, (a, b) in adds.items():
+        out[f"{scan}_add" + (f"_{layout}" if layout else "")] = _add(lib, scan, a, b)
     if scan == "g1":
         x, y, o1 = p[:12].contiguous(), q[:12].contiguous(), torch.empty_like(p[:12])
         out["fp_mul"] = ([lambda: _check(lib.lt_g1_fp_mul(
             x.data_ptr(), y.data_ptr(), o1.data_ptr(), n, stream))], (o1,))
-    if scan == "g2":
-        lanes = inp["table_lanes"]
-        m = lanes.shape[-1]
-        table = torch.empty((glv.TABLE,) + tuple(lanes.shape), dtype=torch.int32,
-                            device=lanes.device)
-        if hasattr(lib, "lt_g2_table"):
-            out["g2_table"] = ([lambda: _check(lib.lt_g2_table(
-                lanes.data_ptr(), table.data_ptr(), m, stream))], (table,))
-        else:
-            out["g2_table"] = (_table_chain(lib, lanes, table), (table,))
-    od, oa = torch.empty_like(p), torch.empty_like(p)
+    od = torch.empty_like(p)
     out[f"{scan}_dbl"] = ([lambda: _check(getattr(lib, f"lt_{scan}_dbl")(
         p.data_ptr(), od.data_ptr(), n, stream))], (od,))
-    out[f"{scan}_add"] = ([lambda: _check(getattr(lib, f"lt_{scan}_add")(
-        p.data_ptr(), q.data_ptr(), oa.data_ptr(), n, stream))], (oa,))
     return out
 
 
@@ -427,8 +450,9 @@ def int_rate(work: Path, dev) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--baseline", default=None,
-                    help="root of an earlier checkout to time beside this one")
+    ap.add_argument("--baseline", action="append", default=[],
+                    help="root of an earlier checkout to time beside this one"
+                         " (repeatable)")
     ap.add_argument("--int-rate", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -472,7 +496,7 @@ def main() -> int:
                  for k, (launches, _) in kernels.items()]
         for i in range(ROUNDS):
             for label, k, launches in (order if i % 2 == 0 else order[::-1]):
-                r = reps[scan_of(label)] if k.startswith(("scan", "g2_table")) else 100
+                r = reps[scan_of(label)] if k.startswith("scan") or "_table" in k else 100
                 ms.setdefault(f"{label}/{k}", []).append(
                     round(sum(cuda_ms(fn, r) for fn in launches), 5))
         report = {
@@ -481,6 +505,7 @@ def main() -> int:
             "build": {k: {kk: vv for kk, vv in v.items() if kk != "lib"}
                       for k, v in built.items()},
             "equal_to_shipped": equal, "ms": ms,
+            "median_ms": {k: statistics.median(v) for k, v in ms.items()},
         }
         if args.int_rate:
             report["int_rate_per_s"] = int_rate(work, dev)

@@ -157,7 +157,9 @@ def test_backend_on_card_isolates_poisoned_slot(card):
     res = GpuBackend().tpke_era_verify_combine(
         jobs, dealer.verification_keys, SeededRng(3)
     )
-    assert all(v > 0 for v in g1.LAUNCHES.values())
+    # the table build is one launch: no doubling of its own
+    assert g1.LAUNCHES["g1_dbl"] == 0
+    assert all(v > 0 for k, v in g1.LAUNCHES.items() if k != "g1_dbl")
     assert [ok for ok, _ in res] == [True, True, False]
     for s in (0, 1):
         assert tpke.decrypt_with_combined(cts[s], res[s][1]) == msgs[s]
@@ -228,15 +230,15 @@ def test_g2_scan_lanes_and_collisions(card, n):
 
 
 def test_tpke_era_launches_one_scan(card):
-    """The joined era kernel: one table build (1 dbl + 13 adds), one scan and
-    one tree reduce (log2 K adds) per era."""
+    """The joined era kernel: one table build (one launch), one scan and one
+    tree reduce (log2 K adds) per era, no doubling."""
     dealer, jobs, _, _ = _era(5, 1, 3, seed=47)
     y_points = [vk.y_i for vk in dealer.verification_keys]
     slots = [(list(j.u_by_validator), list(j.lagrange_row)) for j in jobs]
     g1.reset_launches()
     got, _ = GpuEraPipeline(device=card).run_era(slots, y_points, SeededRng(4))
-    assert (g1.LAUNCHES["g1_msm_scan"], g1.LAUNCHES["g1_dbl"],
-            g1.LAUNCHES["g1_add"]) == (1, 1, 13 + 3)  # K = 5 -> 8 lanes a slot
+    assert (g1.LAUNCHES["g1_msm_scan"], g1.LAUNCHES["g1_table"],
+            g1.LAUNCHES["g1_dbl"], g1.LAUNCHES["g1_add"]) == (1, 1, 0, 3)  # K = 5 -> 8 lanes a slot
     want, _ = HostEraPipeline().run_era(slots, y_points, SeededRng(4))
     for g_slot, w_slot in zip(got, want):
         assert all(bls.g1_eq(a, b) for a, b in zip(g_slot, w_slot))
@@ -330,18 +332,13 @@ def test_ecdsa_recover_batch_on_card(card):
     got = ecdsa.recover_hash_batch(hashes, sigs)
     assert got == [ecdsa.recover_hash(h, s) for h, s in zip(hashes, sigs)]
     assert verify.ESCAPES["ecdsa_recover"] == 1
-    assert all(v > 0 for v in secp.LAUNCHES.values())
+    assert secp.LAUNCHES["secp_dbl"] == 0  # the table build is one launch
+    assert all(v > 0 for k, v in secp.LAUNCHES.items() if k != "secp_dbl")
 
 
 def _secp_run(rng, n):
     """n distinct affine points R0 + i*S (chained affine adds)."""
-    p = ecdsa._mul(ecdsa.G, rng.randrange(1, ecdsa.N))
-    step = ecdsa._mul(ecdsa.G, rng.randrange(1, ecdsa.N))
-    out = []
-    for _ in range(n):
-        out.append(p)
-        p = ecdsa._add(p, step)
-    return out
+    return glv.point_run(rng, n, ecdsa._mul, ecdsa._add, ecdsa.G, ecdsa.N)
 
 
 def _secp_scan(card, table, scalars, nwin):
@@ -419,7 +416,8 @@ def test_g2_add_on_group_field_with_collisions(card, n):
 def test_coin_path_launch_counts(card):
     """The N=64 coin layout (64 signer lanes a coin, 22 live): one G2 table
     build, one G2 scan, 2 x 6 tree adds and no G2 doubling; the key RLC
-    one G1 table build, scan and tree reduce."""
+    one G1 table build (one launch), scan and tree reduce (6 adds), no G1
+    doubling."""
     rng = random.Random(0xC017)
     k, live = 64, 22
     y_points = [bls.g1_mul(bls.G1_GEN, rng.randrange(1, bls.R)) for _ in range(k)]
@@ -435,8 +433,8 @@ def test_coin_path_launch_counts(card):
     got, _ = TsGpuEraPipeline(device=card).run_era(coins, y_points, SeededRng(7),
                                                    masks=masks)
     assert g2.LAUNCHES == {"g2_dbl": 0, "g2_add": 12, "g2_table": 1, "g2_msm_scan": 1}
-    assert (g1.LAUNCHES["g1_msm_scan"], g1.LAUNCHES["g1_dbl"],
-            g1.LAUNCHES["g1_add"]) == (1, 1, 19)
+    assert (g1.LAUNCHES["g1_msm_scan"], g1.LAUNCHES["g1_table"],
+            g1.LAUNCHES["g1_dbl"], g1.LAUNCHES["g1_add"]) == (1, 1, 0, 6)
     want, _ = TsHostEraPipeline().run_era(coins, y_points, SeededRng(7), masks=masks)
     for g, w in zip(got, want):
         assert bls.g2_eq(g[0], w[0]) and bls.g1_eq(g[1], w[1])
@@ -445,8 +443,8 @@ def test_coin_path_launch_counts(card):
 
 def test_recover_path_launch_counts(card):
     """10,000 signatures (three 4096-signature chunks): one square root and
-    per chunk 1 doubling, 14 adds and 1 scan, 8 Montgomery conversions;
-    every sender recovered."""
+    per chunk 1 table build, 1 scan and 1 pair add (no doubling), 8
+    Montgomery conversions; every sender recovered."""
     import chip_smoke
 
     pubs, hashes, sigs, owner = chip_smoke.make_signatures(
@@ -454,7 +452,80 @@ def test_recover_path_launch_counts(card):
     secp.reset_launches()
     verify.reset_escapes()
     got = ecdsa.recover_hash_batch(hashes, sigs, device="cuda")
-    assert secp.LAUNCHES == {"secp_fp_mul": 8, "secp_dbl": 3, "secp_add": 42,
-                             "secp_msm_scan": 3, "secp_sqrt": 1}
+    assert secp.LAUNCHES == {"secp_fp_mul": 8, "secp_dbl": 0, "secp_add": 3,
+                             "secp_table": 3, "secp_msm_scan": 3, "secp_sqrt": 1}
     assert not any(verify.ESCAPES.values())
     assert got == [pubs[o] for o in owner]
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 8192])
+def test_g1_table_over_random_and_infinity_lanes(card, n):
+    """g1.build_table in one launch equals the plain chain (one doubling, 13
+    adds) entry for entry, infinity lanes (0, 1, 0) keeping Z = 0; lane
+    counts on both sides of a 64-thread block's 16 lanes."""
+    rng = random.Random(0x7AB1 + n)
+    live = iter(_points(rng, n))
+    lanes = [bls.G1_INF if i % 3 == 1 else next(live) for i in range(n)]
+    g1.reset_launches()
+    table = g1.build_table(g1.g1_pack(lanes, card))
+    assert g1.LAUNCHES == dict(g1.LAUNCHES, g1_table=1, g1_dbl=0, g1_add=0)
+    rtable = g1_ref.build_table(_ref(lanes, card))
+    for k in range(glv.TABLE):
+        want = g1.g1_coords(rtable[k].cpu())
+        assert g1.g1_coords(table[k]) == want
+        assert all(want[2 * n + i] == 0 for i in range(1, n, 3))
+    x, y, z = (g1.g1_coords(table[5])[j * n] for j in range(3))
+    assert bls.g1_eq((x, y, z), bls.g1_mul(lanes[0], 5))
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 8192])
+def test_secp_table_over_random_and_infinity_lanes(card, n):
+    """secp.build_table in one launch equals the plain chain entry for
+    entry, infinity lanes (0, 1, 0) keeping Z = 0."""
+    rng = random.Random(0x7AB2 + n)
+    live = iter(_secp_run(rng, n))
+    lanes = [None if i % 3 == 1 else next(live) for i in range(n)]
+    secp.reset_launches()
+    table = secp.build_table(secp.pt_pack(lanes, card))
+    assert secp.LAUNCHES == dict(secp.LAUNCHES, secp_table=1, secp_dbl=0,
+                                 secp_add=0)
+    rtable = secp_ref.build_table(
+        torch.from_numpy(secp_ref.points_to_limbs(lanes)).to(card))
+    for k in range(glv.TABLE):
+        want = secp_ref.coords(rtable[k].cpu())
+        assert secp.pt_coords(table[k]) == want
+        assert all(want[2 * n + i] == 0 for i in range(1, n, 3))
+    x, y, z = (secp.pt_coords(table[5])[j * n] for j in range(3))
+    zi = pow(z, -1, ecdsa.P)
+    assert (x * zi * zi % ecdsa.P, y * zi ** 3 % ecdsa.P) == ecdsa._mul(lanes[0], 5)
+
+
+@pytest.mark.parametrize("n", [1, 5, 8192])
+def test_g1_add_on_group_field_with_collisions(card, n):
+    """g1_add (4 threads a lane) against the plain add; lane 0 holds p == q
+    and lane 1 p == -q: Z = 0 on both sides."""
+    rng = random.Random(0xADD1 + n)
+    ps, qs = _points(rng, n), _points(rng, n)
+    qs[0] = ps[0]
+    if n > 1:
+        qs[1] = bls.g1_neg(ps[1])
+    got = g1.g1_coords(g1.g1_add(g1.g1_pack(ps, card), g1.g1_pack(qs, card)))
+    want = g1.g1_coords(g1_ref.add_incomplete(_ref(ps, card), _ref(qs, card)).cpu())
+    assert got == want
+    assert [want[2 * n + i] == 0 for i in range(min(n, 3))] == [True, True, False][:n]
+
+
+@pytest.mark.parametrize("n", [1, 5, 8192])
+def test_secp_add_on_group_field_with_collisions(card, n):
+    """secp_add (4 threads a lane) against the plain add; lane 0 holds
+    p == q and lane 1 p == -q: Z = 0 on both sides."""
+    rng = random.Random(0xADD3 + n)
+    ps, qs = _secp_run(rng, n), _secp_run(rng, n)
+    qs[0] = ps[0]
+    if n > 1:
+        qs[1] = (ps[1][0], ecdsa.P - ps[1][1])
+    ref = lambda pts: torch.from_numpy(secp_ref.points_to_limbs(pts)).to(card)  # noqa: E731
+    got = secp.pt_coords(secp.secp_add(secp.pt_pack(ps, card), secp.pt_pack(qs, card)))
+    want = secp_ref.coords(secp_ref.add_incomplete(ref(ps), ref(qs)).cpu())
+    assert got == want
+    assert [want[2 * n + i] == 0 for i in range(min(n, 3))] == [True, True, False][:n]

@@ -139,7 +139,7 @@ def test_sweep_variants_edit_copies_of_the_shipped_sources(tmp_path):
     values of T."""
     shipped = {f: (scan_sweep._build.CSRC / f).read_text()
                for f in ("g1.cu", "g2.cu", "secp.cu", "coop.cuh")}
-    srcs = scan_sweep.variant_sources(tmp_path, {"g1": 4, "g2": 4, "secp": 4}, None)
+    srcs = scan_sweep.variant_sources(tmp_path, {"g1": 4, "g2": 4, "secp": 4})
     assert sorted(srcs) == [
         "g1_T1", "g1_T2", "g1_groupmask", "g1_prefetch", "g2_T1", "g2_T2",
         "g2_fp2inline", "g2_groupmask", "g2_prefetch",
@@ -157,6 +157,38 @@ def test_sweep_variants_edit_copies_of_the_shipped_sources(tmp_path):
     assert {f: (scan_sweep._build.CSRC / f).read_text() for f in shipped} == shipped
 
 
+_PTXAS_TABLES = """\
+ptxas info    : Compiling entry function '_ZN37_GLOBAL__N__5_g1_cu15g1_table_kernelILi4EEEvPKjPji' for 'sm_90a'
+ptxas info    : Function properties for _ZN37_GLOBAL__N__5_g1_cu15g1_table_kernelILi4EEEvPKjPji
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN37_GLOBAL__N__5_g1_cu10add_kernelILi4EEEvPKjS2_Pji' for 'sm_90a'
+ptxas info    : Function properties for _ZN37_GLOBAL__N__5_g1_cu10add_kernelILi4EEEvPKjS2_Pji
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 78 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN37_GLOBAL__N__7_secp_cu17secp_table_kernelILi2EEEvPKjPji' for 'sm_90a'
+ptxas info    : Function properties for _ZN37_GLOBAL__N__7_secp_cu17secp_table_kernelILi2EEEvPKjPji
+    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 96 registers, used 0 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN37_GLOBAL__N__7_secp_cu15secp_add_kernelILi4EEEvPKjS2_Pji' for 'sm_90a'
+ptxas info    : Function properties for _ZN37_GLOBAL__N__7_secp_cu15secp_add_kernelILi4EEEvPKjS2_Pji
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 0 barriers
+"""
+
+
+def test_sweep_reads_table_and_add_kernels():
+    """The table builds and the group-field adds by their own names: a
+    name inside another ("add_kernel" in "secp_add_kernel") is not taken
+    for it."""
+    got = scan_sweep.parse_ptxas(_PTXAS_TABLES)
+    assert sorted(got) == ["add_kernel", "g1_table_kernel", "secp_add_kernel",
+                           "secp_table_kernel"]
+    assert got["secp_table_kernel"] == {"regs": 96, "stack": 8, "spill_stores": 8,
+                                        "spill_loads": 4, "callees": {}}
+    assert got["add_kernel"]["regs"] == 78 and got["g1_table_kernel"]["regs"] == 80
+
+
 @pytest.mark.parametrize("key, kernel", [
     ("(anonymous namespace)::msm_scan_kernel<4>(unsigned int const*, int "
      "const*, unsigned int*, unsigned char*, int, int)", "msm_scan_kernel"),
@@ -172,6 +204,14 @@ def test_sweep_variants_edit_copies_of_the_shipped_sources(tmp_path):
      "unsigned int*, int)", "g2_table_kernel"),
     ("(anonymous namespace)::g2_add_kernel<4>(unsigned int const*)",
      "g2_add_kernel"),
+    ("(anonymous namespace)::g1_table_kernel<4>(unsigned int const*, "
+     "unsigned int*, int)", "g1_table_kernel"),
+    ("(anonymous namespace)::secp_table_kernel<4>(unsigned int const*, "
+     "unsigned int*, int)", "secp_table_kernel"),
+    ("(anonymous namespace)::add_kernel<4>(unsigned int const*, unsigned "
+     "int const*, unsigned int*, int)", "add_kernel"),
+    ("(anonymous namespace)::secp_add_kernel<4>(unsigned int const*)",
+     "secp_add_kernel"),
     ("void at::native::elementwise_kernel<128, 2>(int, int)", "torch"),
     ("Memcpy DtoH (Device -> Pinned)", "torch"),
 ])
