@@ -7,7 +7,7 @@ Phases, each of which must pass (any failure exits non-zero):
   1. build   the CUDA kernels of lachain_tpu_torch/csrc/ (g1.cu, g2.cu and
              secp.cu, one nvcc each, in parallel, sm_90a), with each
              kernel's registers, local bytes, threads per lane and block;
-  2. kernels hold each of the fifteen kernels against its plain PyTorch
+  2. kernels hold each of the sixteen kernels against its plain PyTorch
              version (ops/g1_ref.py, ops/g2_ref.py, ops/secp_ref.py) on the
              card, on seeded inputs at the main paths' shapes (8192 lanes,
              the adds with a p == q lane; the G2 and secp scans with 64
@@ -16,8 +16,11 @@ Phases, each of which must pass (any failure exits non-zero):
              coin era's 4096 signature lanes, 22 live of each 64 and the
              others infinity, and one 4096-signature recovery chunk's 8192
              lanes [R_i, G], each table's entries 1, 2, 3 and 15 also held
-             against the host's scalar multiples; the secp square root at
-             16384 lanes): exact equality of coordinates mod p and flags.
+             against the host's scalar multiples; the secp square root on
+             plain words at 16384 lanes and at the recovery's 9,980; the
+             Montgomery conversions out of and into form on a (25, 8192)
+             buffer with a flag row): exact equality of coordinates mod p
+             and flags (of the conversions, words bit for bit).
              The three scans run twice: at the main path's layout (the TPKE
              era's joined scan, 32 windows x 16,384 lanes; the coin era's
              scan, 48 leading zero windows on its RLC half and 22 live
@@ -26,8 +29,8 @@ Phases, each of which must pass (any failure exits non-zero):
              random-digit kernel check (32 / 64 windows of random digits x
              8192 lanes). Every kernel's numbers in the kernels JSON are
              those of its kernel check, the shape the earlier slices
-             reported; each scan's entry also holds a `main` object, its
-             numbers at the main path's layout;
+             reported; each scan's entry and the square root's also hold a
+             `main` object, their numbers at the main path's layout;
   3. main    three paths, each with the kernel launch counts set to 0 just
              before its one counted call and read just after:
              the N=64 TPKE era (64 ACS slots x 64 decryption shares) through
@@ -49,8 +52,10 @@ Phases, each of which must pass (any failure exits non-zero):
              ecdsa.recover_hash_batch(..., device="cuda"): every valid
              signature must recover its sender's key, every malformed one
              and 64 valid ones must equal ecdsa.recover_hash, the launches
-             must be exactly one square root and, per 4096-signature chunk,
-             1 table build, 1 scan and 1 pair add (no doubling); a crafted
+             must be exactly one square root over the 9,980 x values that
+             pass validation and, per 4096-signature chunk, 1 table build, 1
+             scan, 1 pair add and 2 Montgomery conversions (no doubling, no
+             secp_fp_mul); a crafted
              u1*R == u2*G
              signature, in a call of its own, must be answered by the host
              oracle exactly once. Around each counted call and the MSMs, no
@@ -96,12 +101,23 @@ MULS_TABLE2 = MULS_DBL2 + MULS_ZPOW2 + 13 * (MULS_ADD2 - MULS_ZPOW2)  # 528
 # one 8 x 32-bit secp256k1 Montgomery product: 2*8*8 + 8 word products; a
 # secp doubling / add is 7 / 16 of them like G1's
 OPS_PER_SECP_MUL = 2 * (2 * 8 * 8 + 8)
+# one secp256k1 squaring needs 8*9/2 distinct a_i*a_j and the reduction's
+# 8*8 + 8 (the kernels run it as a product, so their time pays 136)
+OPS_PER_SECP_SQR = 2 * (8 * 9 // 2 + 8 * 8 + 8)
+# word products of one conversion of a coordinate: the reduction out of
+# Montgomery form, 8 steps of m and m * p (the product into form, 136, is
+# timed beside it)
+MONT_WORD_PRODUCTS = 8 * (8 + 1)
 
 N_VALIDATORS = 64
 KERNEL_LANES = 8192  # S*K*2 msm lanes of the N=64 eras
 COIN_LANES = 4096  # the coin era's signature lanes: 64 coins x 64 signers
 LIVE = 22  # t + 1 of the N=64 eras: the combined shares of a coin
-SQRT_LANES = 16384  # the 10,000-signature batch padded to a power of two
+SQRT_LANES = 16384  # the square root's kernel check of the earlier slices
+# the x values of the 10,000-signature batch that pass validation (the
+# 9,976 signatures that reach the scans and the 4 non-residue x): the
+# recovery's square root runs exactly these lanes
+RECOVER_SQRT_LANES = 9980
 N_SIGNATURES = 10000
 N_SENDERS = 64
 KERNEL_NAMES = ("fp_mul_kernel", "dbl_kernel", "add_kernel", "msm_scan_kernel",
@@ -109,7 +125,8 @@ KERNEL_NAMES = ("fp_mul_kernel", "dbl_kernel", "add_kernel", "msm_scan_kernel",
                 "g2_dbl_kernel", "g2_add_kernel", "g2_msm_scan_kernel",
                 "g2_table_kernel",
                 "secp_fp_mul_kernel", "secp_dbl_kernel", "secp_add_kernel",
-                "secp_msm_scan_kernel", "secp_sqrt_kernel", "secp_table_kernel")
+                "secp_msm_scan_kernel", "secp_sqrt_kernel", "secp_table_kernel",
+                "secp_mont_kernel")
 G1_KERNELS = ("fp_mul", "g1_dbl", "g1_add", "g1_table", "g1_msm_scan")
 # the wrapper's kernel name -> the CUDA kernel's
 KERNEL_OF = {"fp_mul": "fp_mul_kernel", "g1_dbl": "dbl_kernel",
@@ -118,7 +135,7 @@ KERNEL_OF.update({k: f"{k}_kernel" for k in ("g1_table", "g2_dbl", "g2_add",
                                               "g2_msm_scan", "g2_table",
                                               "secp_fp_mul", "secp_dbl", "secp_add",
                                               "secp_table", "secp_msm_scan",
-                                              "secp_sqrt")})
+                                              "secp_sqrt", "secp_mont")})
 # the TPKE era's counted call: one table build over the joined lanes (one
 # launch), one scan, a tree reduce of log2(64) = 6 adds
 TPKE_LAUNCHES = {"g1_msm_scan": 1, "g1_table": 1, "g1_dbl": 0, "g1_add": 6}
@@ -129,10 +146,10 @@ COIN_LAUNCHES = dict(TPKE_LAUNCHES, g2_table=1, g2_msm_scan=1, g2_add=12,
                      g2_dbl=0)
 G2_KERNELS = ("g2_dbl", "g2_add", "g2_table", "g2_msm_scan")
 SECP_KERNELS = ("secp_fp_mul", "secp_dbl", "secp_add", "secp_table",
-                "secp_msm_scan", "secp_sqrt")
+                "secp_msm_scan", "secp_sqrt", "secp_mont")
 # the one-thread doublings serve no main path since each table build is
-# one launch
-NO_PATH = ("g1_dbl", "g2_dbl", "secp_dbl")
+# one launch, secp_fp_mul none since the conversions are secp_mont
+NO_PATH = ("g1_dbl", "g2_dbl", "secp_dbl", "secp_fp_mul")
 
 
 class SeededRng:
@@ -482,10 +499,12 @@ def g2_lane(coords, i: int, n: int):
 
 
 def check_secp_kernels(rng: random.Random, dev):
-    """The six secp256k1 kernels against secp_ref at the recover path's
+    """The seven secp256k1 kernels against secp_ref at the recover path's
     shapes: 8192 lanes (one 4096-signature chunk), the table build at a
     chunk's [R_i, G] lanes, the scan with 64 windows of random digits and at
-    the chunk's layout, the square root at 16384 lanes."""
+    the chunk's layout, the square root at 16384 lanes and at the
+    recovery's 9,980, the Montgomery conversions on a chunk's fused
+    buffer."""
     import torch
 
     from lachain_tpu_torch.crypto import ecdsa
@@ -604,28 +623,87 @@ def check_secp_kernels(rng: random.Random, dev):
     del rtab
     report["secp_msm_scan"] = dict(chk, ok=main["ok"] and chk["ok"], main=main)
 
-    # (12) secp_sqrt at 16384 lanes: random x (about half non-residues),
-    # G's x among them
-    m = SQRT_LANES
-    xs = [ecdsa.GX] + [rng.randrange(P) for _ in range(m - 1)]
-    kx, rx = secp.fe_encode(xs, dev), ref_fe(xs)
-    got = secp.fe_decode(secp.sqrt(kx))
+    # (12) secp_sqrt on plain words at 16384 lanes and at the recovery's
+    # 9,980 (no padding): random x (about half non-residues), 0, 1, p - 1
+    # and G's x among them, every lane against the plain version
+    sqrt_runs = {layout: sqrt_entry(rng, dev, m, layout)
+                 for layout, m in (("check", SQRT_LANES), ("recover", RECOVER_SQRT_LANES))}
+    report["secp_sqrt"] = dict(sqrt_runs["check"], main=sqrt_runs["recover"],
+                               ok=all(r["ok"] for r in sqrt_runs.values()))
+
+    # (16) secp_mont on a (25, 8192) buffer (a chunk's fused layout)
+    report["secp_mont"] = mont_entry(rng, dev, n)
+    return report
+
+
+def mont_entry(rng: random.Random, dev, n: int) -> dict:
+    """secp_mont on a (25, n) buffer, 3 coordinates of random words (0, 1
+    and p - 1 among them) and a flag row, out of Montgomery form and into
+    it, each against the plain version bit for bit and against Python ints,
+    the flag row copied; both directions timed, the bound by bytes."""
+    import numpy as np
+    import torch
+
+    from lachain_tpu_torch.crypto import ecdsa
+    from lachain_tpu_torch.ops import secp, secp_ref
+
+    P, r = ecdsa.P, 1 << 256
+    vals = [0, 1, P - 1] + [rng.randrange(P) for _ in range(3 * n - 3)]
+    words = np.concatenate([secp._words(vals[c * n : (c + 1) * n]) for c in range(3)])
+    flags = np.array([rng.randrange(2) for _ in range(n)], np.int32)[None]
+    buf = torch.from_numpy(np.concatenate([words.view(np.int32), flags])).to(dev)
+    runs = {}
+    for into, want in ((False, [v * pow(r, -1, P) % P for v in vals]),
+                       (True, [v * r % P for v in vals])):
+        out = secp.mont_convert(buf, into)
+        plain, plain_ms = cuda_ms_once(
+            lambda into=into: secp_ref.mont_mul_words(buf, secp._R2 if into else 1))
+        got = secp._download_words(out[:-1])
+        runs[into] = dict(
+            ok=torch.equal(out, plain) and got == want and torch.equal(out[-1], buf[-1]),
+            max_abs_err=max_err(got, want), plain_ms=plain_ms,
+            ms=cuda_ms(lambda into=into: secp.mont_convert(buf, into), 200))
+    out_, in_ = runs[False], runs[True]
+    return dict(
+        lanes=n, rows=int(buf.shape[0]), ok=out_["ok"] and in_["ok"],
+        max_abs_err=max(out_["max_abs_err"], in_["max_abs_err"]),
+        ms=out_["ms"], plain_ms=out_["plain_ms"],
+        into_ms=in_["ms"], into_plain_ms=in_["plain_ms"],
+        bound=bound(2 * buf.numel() * 4, 3 * n * MONT_WORD_PRODUCTS * 2),
+    )
+
+
+def sqrt_entry(rng: random.Random, dev, m: int, layout: str) -> dict:
+    """The card's sqrt on m lanes of plain words against secp_ref.sqrt on
+    every lane, both timed, with its bound a lane: the product into
+    Montgomery form, y2's squaring and product, SQRT_CHAIN's squarings and
+    products (each squaring at its own cost), the reduction out of form."""
+    import torch
+
+    from lachain_tpu_torch.crypto import ecdsa
+    from lachain_tpu_torch.ops import secp, secp_ref
+
+    P = ecdsa.P
+    non_residue = next(x for x in range(2, 100)
+                       if pow((x ** 3 + 7) % P, (P - 1) // 2, P) == P - 1)
+    xs = [ecdsa.GX, 0, 1, P - 1, non_residue] + [rng.randrange(P) for _ in range(m - 5)]
+    kx = secp._upload_words(secp._words(xs), dev)
+    rx = torch.from_numpy(secp_ref.ints_to_limbs(xs)).to(dev)
+    got = secp._download_words(secp.sqrt(kx))
     want, plain_ms = cuda_ms_once(lambda: secp_ref.sqrt(rx))
     want = secp_ref.limbs_to_ints(want.cpu().numpy())
     check(want[0] in (ecdsa.GY, P - ecdsa.GY), "secp_ref.sqrt wrong at G")
     for i in range(1, m, 4099):
         check(want[i] == pow((xs[i] ** 3 + 7) % P, (P + 1) // 4, P),
               "secp_ref.sqrt wrong")
-    # x^2, x^3, then one square per exponent bit below the top one and one
-    # product per set bit among them
-    muls = 2 + len(secp_ref.SQRT_STEPS) + sum(secp_ref.SQRT_STEPS)
-    report["secp_sqrt"] = dict(
-        lanes=m, ok=got == want, max_abs_err=max_err(got, want),
-        ms=cuda_ms(lambda: secp.sqrt(kx), 20),
-        plain_ms=plain_ms,
-        bound=bound(2 * 32 * m, m * muls * OPS_PER_SECP_MUL),
+    sqrs = 1 + sum(s for s, _ in secp.SQRT_CHAIN)
+    muls = 2 + sum(k is not None for _, k in secp.SQRT_CHAIN)
+    ops = sqrs * OPS_PER_SECP_SQR + muls * OPS_PER_SECP_MUL + 2 * MONT_WORD_PRODUCTS
+    return dict(
+        layout=layout, lanes=m, ok=got == want, max_abs_err=max_err(got, want),
+        ms=cuda_ms(lambda: secp.sqrt(kx), 20), plain_ms=plain_ms,
+        bound=bound(2 * 32 * m, m * ops),
     )
-    return report
 
 
 # ---------------------------------------------------------------------------
@@ -660,7 +738,7 @@ def make_era(n: int, seed: int):
 
 def profile_device(run) -> dict:
     """{kernel: [device ms, launches]} of one call of run() from
-    torch.profiler; device work that is not one of the fifteen kernels
+    torch.profiler; device work that is not one of the sixteen kernels
     (copies, cat, where) is summed under "torch". A trace loses the first
     device activities of its session (a trace of the recover path lacked
     its first three launches), so run() goes once under the profiler's
@@ -693,7 +771,7 @@ def profile_device(run) -> dict:
 def kernel_of(key: str) -> str:
     """The kernel of a profiler key, templated or not
     ("(anonymous namespace)::msm_scan_kernel<4>(...)" -> "msm_scan_kernel"),
-    or "torch" for device work that is none of the fifteen."""
+    or "torch" for device work that is none of the sixteen."""
     m = re.search(r"::(\w+)[<(]", key)
     return m[1] if m and m[1] in KERNEL_NAMES else "torch"
 
@@ -1053,15 +1131,19 @@ def run_ecdsa_path(seed: int, dev):
         f"malformed): {time.perf_counter() - t0:.1f} s")
 
     # the launches one chunked call must make: one square root over the
-    # padded batch; per chunk of 4096 signatures 1 table build, 1 scan and
-    # 1 pairwise add; conversions into and out of Montgomery form around
-    # the square root and around each chunk. The signatures that reach the
-    # scans: the valid ones, flip_s and z_zero.
+    # x values that pass validation (plain words in and out, no
+    # conversion launch around it); per chunk of 4096 signatures 1
+    # conversion into Montgomery form (the pack), 1 table build, 1 scan, 1
+    # pairwise add and 1 conversion out of it (the fetch). The signatures
+    # that reach the scans: the valid ones, flip_s and z_zero.
+    m = sum(GpuEcdsaRecover._validate(h, s) is not None for h, s in zip(hashes, sigs))
+    check(m == RECOVER_SQRT_LANES,
+          f"{m} x values reach the square root, not {RECOVER_SQRT_LANES}")
     n_jobs = sum(1 for i in range(n) if bad.get(i, "flip_s") in ("flip_s", "z_zero"))
     chunks = -(-n_jobs // GpuEcdsaRecover.CHUNK)
     want_launches = dict.fromkeys(read_launches(), 0)
     want_launches.update(secp_sqrt=1, secp_table=chunks, secp_add=chunks,
-                         secp_msm_scan=chunks, secp_fp_mul=2 + 2 * chunks)
+                         secp_msm_scan=chunks, secp_mont=2 * chunks)
 
     # the main-path run whose launches are counted
     reset_counts()
@@ -1188,6 +1270,8 @@ def main() -> int:
         "g2_msm_scan": "lachain_tpu/ops/pg2.py:272",
         # psecp has no launch of its own for the field product: its _mul
         "secp_fp_mul": "lachain_tpu/ops/psecp.py:121",
+        # the port's own Montgomery representation: psecp has none
+        "secp_mont": "none: the port's own Montgomery form (psecp has none)",
         "secp_dbl": "lachain_tpu/ops/psecp.py:235",
         "secp_add": "lachain_tpu/ops/psecp.py:239",
         # build_table's chain of _add_kernel launches (and one
@@ -1212,11 +1296,12 @@ def main() -> int:
             **numbers(r), "library_ms": None, "lanes": r["lanes"],
             "pass": r["ok"], **attrs[k],
         }
-        if "main" in r:  # the scans: the kernel check above, the main path below
+        if "main" in r:  # the kernel check above, the main path's layout below
             m = r["main"]
-            entry.update(layout=r["layout"], windows=r["windows"],
-                         main=dict(numbers(m), layout=m["layout"],
-                                   lanes=m["lanes"], windows=m["windows"]))
+            shape = ("layout", "lanes", "windows")
+            entry.update({k: r[k] for k in shape[::2] if k in r},
+                         main=dict(numbers(m), **{k: m[k] for k in shape if k in m}))
+        entry.update({k: r[k] for k in ("rows", "into_ms", "into_plain_ms") if k in r})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

@@ -60,9 +60,12 @@
 // carry into a thread of the group: carries move up only. The bounds are
 // tight (p - 1 operands reach them) and are checked, edge operands
 // included, by a word-level model of this code against Python ints for
-// both primes at T = 1, 2 and 4 (tests/test_torch_coop_model.py). The
-// conditional subtraction of p is a group-wide subtraction whose final
-// borrow, and for secp256k1 the carry word, picks the result.
+// both primes at T = 1, 2 and 4, and for secp256k1 at T = 8 (one word a
+// thread; tests/test_torch_coop_model.py). The conditional subtraction of
+// p is a group-wide subtraction whose final borrow, and for secp256k1 the
+// carry word, picks the result. The Montgomery reduction (fpg_redc, out of
+// Montgomery form) is the same steps with no word products: the columns
+// start as the operand's words.
 //
 // Carry resolution (add, sub, the product's end): each thread adds or
 // subtracts its words locally with a PTX carry chain, then two ballots
@@ -72,7 +75,8 @@
 // ((G | P) + G) ^ P, and bit T of (G | P) + G is the carry out of the
 // group.
 //
-// T = 1 is the same code with no shuffle and no ballot.
+// T = 1 is the same code with no shuffle and no ballot. T = 8 serves
+// secp256k1 only (BLS12-381's 12 words do not split 8 ways).
 
 #pragma once
 
@@ -129,7 +133,8 @@ __device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
 
 template <class F, int T>
 struct CoopGroup {
-  static_assert(T == 1 || T == 2 || T == 4, "T threads per lane: 1, 2 or 4");
+  static_assert(T == 1 || T == 2 || T == 4 || T == 8,
+                "T threads per lane: 1, 2, 4 or 8");
   static_assert(F::words % T == 0, "T must divide the words");
   static constexpr int W = F::words / T;  // words per thread
   static constexpr uint32_t mask = 0xffffffffu;  // every collective's lanes
@@ -138,6 +143,19 @@ struct CoopGroup {
   uint32_t p[W];                    // this thread's words of p
 };
 
+// Word j of rank `rank`'s share of a constant of the including file's
+// bank, word(i) its word i. Every word is read at a constant index (the
+// same address on every thread: a divergent index would serialize the
+// constant cache) and the rank's is selected.
+template <class F, int T, class Word>
+__device__ __forceinline__ uint32_t rank_word(int rank, int j, Word word) {
+  constexpr int W = F::words / T;
+  uint32_t v = word(j);
+#pragma unroll
+  for (int r = 1; r < T; ++r) v = rank == r ? word(r * W + j) : v;
+  return v;
+}
+
 template <class F, int T>
 __device__ __forceinline__ CoopGroup<F, T> make_coop_group() {
   constexpr int W = CoopGroup<F, T>::W;
@@ -145,15 +163,9 @@ __device__ __forceinline__ CoopGroup<F, T> make_coop_group() {
   const int wl = (int)(threadIdx.x & 31u);
   g.rank = wl & (T - 1);
   g.shift = wl - g.rank;
-  // p's words by rank, each read at a constant index (the same address on
-  // every thread: a divergent index would serialize the constant cache)
 #pragma unroll
-  for (int j = 0; j < W; ++j) {
-    uint32_t v = F::p_word(j);
-#pragma unroll
-    for (int r = 1; r < T; ++r) v = g.rank == r ? F::p_word(r * W + j) : v;
-    g.p[j] = v;
-  }
+  for (int j = 0; j < W; ++j)
+    g.p[j] = rank_word<F, T>(g.rank, j, [](int i) { return F::p_word(i); });
   return g;
 }
 
@@ -184,6 +196,17 @@ template <class F, int T>
 struct CoopFp {
   uint32_t v[F::words / T];
 };
+
+// a field constant of the including file's bank, word(i) its word i: this
+// thread's W words
+template <class F, int T, class Word>
+__device__ __forceinline__ CoopFp<F, T> fpg_const(const CoopGroup<F, T>& g,
+                                                  Word word) {
+  CoopFp<F, T> r;
+#pragma unroll
+  for (int j = 0; j < F::words / T; ++j) r.v[j] = rank_word<F, T>(g.rank, j, word);
+  return r;
+}
 
 // rows [row0, row0 + words) of a lane-minor array: this thread's W words
 template <class F, int T>
@@ -348,6 +371,68 @@ __device__ __forceinline__ CoopFp<F, T> fpg_sub(const CoopGroup<F, T>& g,
   return d;
 }
 
+// One CIOS step over the carry-save columns t (64 bits each, below 2^33 - 1),
+// given the step's columns u: t plus the word products a_j * b_i in a
+// product, t itself in a reduction. m = lo(u[0]) * -p^-1 on rank 0,
+// broadcast; m * p joins the columns and every column moves one down. u may
+// be t: every read of u comes before the first write of t.
+template <class F, int T>
+__device__ __forceinline__ void cios_step(const CoopGroup<F, T>& g,
+                                          uint64_t (&t)[F::words / T],
+                                          const uint64_t (&u)[F::words / T]) {
+  constexpr int W = F::words / T;
+  uint32_t m = (uint32_t)u[0] * F::pinv;
+  const uint32_t c1 = (uint32_t)(u[W - 1] >> 32);  // to the next thread
+  uint32_t cin = 0u;
+  if constexpr (T > 1) {
+    m = __shfl_sync(g.mask, m, 0, T);
+    cin = __shfl_up_sync(g.mask, c1, 1, T);
+    if (g.rank == 0) cin = 0u;
+  }
+  uint64_t v[W];  // < 2^64 likewise; column 0 of rank 0 is now 0 mod 2^32
+  v[0] = (uint64_t)(uint32_t)u[0] + cin + (uint64_t)m * g.p[0];
+#pragma unroll
+  for (int j = 1; j < W; ++j)
+    v[j] = (uint64_t)(uint32_t)u[j] + (u[j - 1] >> 32) + (uint64_t)m * g.p[j];
+  // one column down: the top column takes the next thread's column 0, or
+  // on the top thread its own carry c1
+  uint32_t recv = c1;
+  if constexpr (T > 1) {
+    recv = __shfl_down_sync(g.mask, (uint32_t)v[0], 1, T);
+    if (g.rank == T - 1) recv = c1;
+  }
+#pragma unroll
+  for (int j = 0; j + 1 < W; ++j)
+    t[j] = (uint64_t)(uint32_t)v[j + 1] + (v[j] >> 32);
+  t[W - 1] = (uint64_t)recv + (v[W - 1] >> 32);
+}
+
+// The columns after the last CIOS step, a value below 2p, settled into
+// words (word j = lo(t[j]) + hi(t[j-1]) + carry) and reduced below p.
+template <class F, int T>
+__device__ __forceinline__ CoopFp<F, T> cios_settle(
+    const CoopGroup<F, T>& g, const uint64_t (&t)[F::words / T]) {
+  constexpr int W = F::words / T;
+  uint32_t cin = 0u;
+  if constexpr (T > 1) {
+    cin = __shfl_up_sync(g.mask, (uint32_t)(t[W - 1] >> 32), 1, T);
+    if (g.rank == 0) cin = 0u;
+  }
+  CoopFp<F, T> r;
+  r.v[0] = add_cc((uint32_t)t[0], cin);
+#pragma unroll
+  for (int j = 1; j < W; ++j)
+    r.v[j] = addc_cc((uint32_t)t[j], (uint32_t)(t[j - 1] >> 32));
+  uint32_t gen = addc(0u, 0u);
+  if constexpr (F::top_carry) {
+    // the top column's high bit is above the top word: fold it into the
+    // top thread's carry out (at most one of the two is set, see the header)
+    if (g.rank == T - 1) gen |= (uint32_t)(t[W - 1] >> 32);
+  }
+  const uint32_t top = settle_add(g, r.v, gen);
+  return reduce_once_g(g, r, top);
+}
+
 // Montgomery product a*b/R mod p for a, b < p (canonical result), CIOS over
 // carry-save columns: t[j] (64 bits) holds column j's pending sum, below
 // 2^33 - 1, so each word product is one mad.wide.u32 into its own column
@@ -367,50 +452,26 @@ __device__ __forceinline__ CoopFp<F, T> fpg_mul(const CoopGroup<F, T>& g,
     uint64_t u[W];  // < 2^64: t[j] < 2^33 - 1, a_j * b_i <= 2^64 - 2^33 + 1
 #pragma unroll
     for (int j = 0; j < W; ++j) u[j] = t[j] + (uint64_t)a.v[j] * bi;
-    uint32_t m = (uint32_t)u[0] * F::pinv;
-    const uint32_t c1 = (uint32_t)(u[W - 1] >> 32);  // to the next thread
-    uint32_t cin = 0u;
-    if constexpr (T > 1) {
-      m = __shfl_sync(g.mask, m, 0, T);
-      cin = __shfl_up_sync(g.mask, c1, 1, T);
-      if (g.rank == 0) cin = 0u;
-    }
-    uint64_t v[W];  // < 2^64 likewise; column 0 of rank 0 is now 0 mod 2^32
-    v[0] = (uint64_t)(uint32_t)u[0] + cin + (uint64_t)m * g.p[0];
-#pragma unroll
-    for (int j = 1; j < W; ++j)
-      v[j] = (uint64_t)(uint32_t)u[j] + (u[j - 1] >> 32) + (uint64_t)m * g.p[j];
-    // one column down: the top column takes the next thread's column 0, or
-    // on the top thread its own carry c1
-    uint32_t recv = c1;
-    if constexpr (T > 1) {
-      recv = __shfl_down_sync(g.mask, (uint32_t)v[0], 1, T);
-      if (g.rank == T - 1) recv = c1;
-    }
-#pragma unroll
-    for (int j = 0; j + 1 < W; ++j)
-      t[j] = (uint64_t)(uint32_t)v[j + 1] + (v[j] >> 32);
-    t[W - 1] = (uint64_t)recv + (v[W - 1] >> 32);
+    cios_step(g, t, u);
   }
-  // settle the columns into words: word j = lo(t[j]) + hi(t[j-1]) + carry
-  uint32_t cin = 0u;
-  if constexpr (T > 1) {
-    cin = __shfl_up_sync(g.mask, (uint32_t)(t[W - 1] >> 32), 1, T);
-    if (g.rank == 0) cin = 0u;
-  }
-  CoopFp<F, T> r;
-  r.v[0] = add_cc((uint32_t)t[0], cin);
+  return cios_settle(g, t);
+}
+
+// Montgomery reduction a/R mod p (canonical) of any a < 2^(32 words): the
+// product by 1 without its word products. The columns start as a's words
+// and each of the `words` steps only adds m * p: words * (words + 1) word
+// products (72 for secp256k1) against the product's 2 words^2 + words
+// (136). The value stays below (a + R p) / R < 2p.
+template <class F, int T>
+__device__ __forceinline__ CoopFp<F, T> fpg_redc(const CoopGroup<F, T>& g,
+                                                 const CoopFp<F, T>& a) {
+  constexpr int W = F::words / T;
+  uint64_t t[W];
 #pragma unroll
-  for (int j = 1; j < W; ++j)
-    r.v[j] = addc_cc((uint32_t)t[j], (uint32_t)(t[j - 1] >> 32));
-  uint32_t gen = addc(0u, 0u);
-  if constexpr (F::top_carry) {
-    // the top column's high bit is above the top word: fold it into the
-    // top thread's carry out (at most one of the two is set, see the header)
-    if (g.rank == T - 1) gen |= (uint32_t)(t[W - 1] >> 32);
-  }
-  const uint32_t top = settle_add(g, r.v, gen);
-  return reduce_once_g(g, r, top);
+  for (int j = 0; j < W; ++j) t[j] = a.v[j];
+#pragma unroll
+  for (int i = 0; i < F::words; ++i) cios_step(g, t, t);
+  return cios_settle(g, t);
 }
 
 template <class F, int T>

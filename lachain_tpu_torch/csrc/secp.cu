@@ -7,9 +7,12 @@
 //   lt_secp_table     <- psecp._add_kernel and _dbl_kernel as build_table
 //                        chains them (psecp.py:364): the table, one launch
 //   lt_secp_msm_scan  <- psecp._msm_kernel  (_msm_scan, psecp.py:285/:331)
-//   lt_secp_sqrt      <- psecp.sqrt_kernel  (plain XLA, psecp.py:380)
-//   lt_secp_fp_mul    the field product (psecp._mul, :121); the host wrapper
-//                     converts into and out of Montgomery form with it
+//   lt_secp_sqrt      <- psecp.sqrt_kernel  (plain XLA, psecp.py:380), plain
+//                        words in and out
+//   lt_secp_fp_mul    the field product (psecp._mul, :121)
+//   lt_secp_mont      this port's own: every element of a buffer into or
+//                     out of Montgomery form, in one launch (psecp has no
+//                     Montgomery form)
 //
 // Representation. psecp's 26 x 10-bit signed limbs, its f32 MXU residue
 // fold and its 32-row component slots are TPU artifacts. Here a field
@@ -34,19 +37,27 @@
 // products, an add 16.
 //
 // Bound: integer multiply-adds (a 64-window scan needs up to
-// 63 * (4 * 7 + 16) field products per lane, the square root 501, the
-// table build 7 + 2 + 13 * 14 = 191: its 13 adds of one point make that
-// point's z^2 and z^3 once). Bytes are small beside them: the scan
-// reads one 96-byte table entry per lane per nonzero digit.
+// 63 * (4 * 7 + 16) field products per lane, the table build 7 + 2 + 13 *
+// 14 = 191: its 13 adds of one point make that point's z^2 and z^3 once;
+// these count a squaring as a product. The square root needs 254
+// squarings at 108 word products, 15 products at 136 and one reduction
+// at 72: 29,544 word products a lane). Bytes are small beside them: the scan
+// reads one 96-byte table entry per lane per nonzero digit. The
+// Montgomery conversions are bound by their bytes (32 in and out a
+// coordinate against 136 or 72 word products).
 //
-// fp_mul, dbl and sqrt: one thread per lane on this file's uint64 field;
-// since the table build is one launch, dbl serves no main path. The square
-// root walks the static exponent's bits with a branch that is uniform
-// across the warp and computes only the product its bit selects (psecp
-// computes both and selects; the values are the same).
+// fp_mul and dbl: one thread per lane on this file's uint64 field; since
+// the table build is one launch, dbl serves no main path, and since the
+// conversions are secp_mont, neither does fp_mul.
 //
-// The group-field kernels (the scan, add and the table build): SCAN_T
-// threads per lane on coop.cuh's group field over secp256k1 (SecpFp:
+// The square root: where psecp walks the exponent's bits (501 products a
+// lane), sqrt runs libsecp256k1's addition chain for (p+1)/4 (268), on the
+// group field, and converts into and out of Montgomery form itself: a pure
+// product chain, no branch on data, so every warp stays converged. Its
+// lanes are the batch's, with no padding to a power of two.
+//
+// The group-field kernels (the scan, add, the table build, sqrt, mont):
+// SCAN_T threads per lane on coop.cuh's group field over secp256k1 (SecpFp:
 // carry-save column products, PTX carry chains, ballots between the
 // threads, the carry word past 256 bits folded into the top thread's carry
 // out), the group law inlined. add serves recover_kernel's pair add (one
@@ -84,6 +95,20 @@
 //   T = 4: 0.0103 / 0.0089, 0.112 (56 / 54)  <- SCAN_T
 //   the one-thread add and the 14-launch chain they replaced: 0.0248 /
 //   0.0246, 0.341.
+// The same T serves the square root and the conversions, medians of 10
+// rounds in ms: sqrt at the 16,384-lane check / the recovery's 9,980
+// lanes; secp_mont into form on a chunk's (24, 8192) pack / out of it on
+// a (25, 8192) buffer with its flag row:
+//   T = 1: 0.168 / 0.167, 0.0046 / 0.0044 (88 / 50 registers);
+//   T = 2: 0.192 / 0.187, 0.0043 / 0.0042 (52 / 38);
+//   T = 4: 0.211 / 0.166, 0.0043 / 0.0044 (38 / 28)  <- SCAN_T
+//   T = 8: 0.309 / 0.203, 0.0049 / 0.0050 (26 / 26);
+//   the one-thread bit walk and the secp_fp_mul conversions they
+//   replaced (permute copies, an uploaded constant): 0.362 / 0.361,
+//   0.089 / 0.093.
+// At 16,384 lanes T = 1 wins (the card is full, and the group field's
+// shuffles and ballots cost issue slots); at the recovery's 9,980 one
+// thread a lane leaves the schedulers short of warps and T = 4 ties it.
 //
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is non-zero.
@@ -114,12 +139,9 @@ constexpr uint32_t kPInv = 0xd2253531u;  // -p^-1 mod 2^32
 // 7 in Montgomery form: 7 * 2^256 mod p
 __constant__ uint32_t kSevenR[NL] = {0x00001ab7u, 0x00000007u, 0u, 0u,
                                      0u, 0u, 0u, 0u};
-// the square-root exponent (p + 1) / 4, little-endian words; its top set
-// bit is bit 253
-__constant__ uint32_t kSqrtExp[NL] = {
-    0xbfffff0cu, 0xffffffffu, 0xffffffffu, 0xffffffffu,
-    0xffffffffu, 0xffffffffu, 0xffffffffu, 0x3fffffffu};
-constexpr int kSqrtTopBit = 253;
+// R^2 mod p = 2^512 mod p: a product by it converts into Montgomery form
+__constant__ uint32_t kR2[NL] = {0x000e90a1u, 0x000007a2u, 0x00000001u, 0u,
+                                 0u, 0u, 0u, 0u};
 
 struct Fe {
   uint32_t v[NL];
@@ -299,27 +321,6 @@ __global__ void __launch_bounds__(THREADS)
   store_pt(out, n, lane, secp_dbl(load_pt(p, n, lane)));
 }
 
-// psecp.sqrt_kernel: y = (x^3 + 7)^((p+1)/4) per lane, Montgomery in and
-// out. Square-and-multiply from y2 (the exponent's top bit), MSB first.
-__global__ void __launch_bounds__(THREADS)
-    secp_sqrt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-                     int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const Fe xv = load_fe(x, 0, n, lane);
-  Fe seven;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) seven.v[i] = kSevenR[i];
-  const Fe y2 = fe_add(mont_mul(fe_sqr(xv), xv), seven);
-  Fe acc = y2;
-#pragma unroll 1
-  for (int i = kSqrtTopBit - 1; i >= 0; --i) {
-    acc = fe_sqr(acc);
-    if ((kSqrtExp[i >> 5] >> (i & 31)) & 1u) acc = mont_mul(acc, y2);
-  }
-  store_fe(out, 0, n, lane, acc);
-}
-
 // ---------------------------------------------------------------------------
 // the scan: one lane on a group of T threads (coop.cuh over secp256k1)
 // ---------------------------------------------------------------------------
@@ -479,6 +480,84 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
   }
 }
 
+// a^(2^k): k squarings
+template <int T>
+__device__ __forceinline__ FeG<T> sqr_n(const SecpGroup<T>& g, FeG<T> a,
+                                        int k) {
+#pragma unroll 1
+  for (int i = 0; i < k; ++i) a = fpg_sqr(g, a);
+  return a;
+}
+
+// y2^((p+1)/4) by libsecp256k1's addition chain for that exponent
+// (secp256k1_fe_sqrt in its field_impl.h): 253 squarings and 13 products,
+// in the steps of ops/secp.py's SQRT_CHAIN. x_k = y2^(2^k - 1); the x_k
+// that later steps multiply by stay in registers.
+template <int T>
+__device__ __forceinline__ FeG<T> sqrt_chain(const SecpGroup<T>& g,
+                                             const FeG<T>& y2) {
+  const FeG<T> x2 = fpg_mul(g, fpg_sqr(g, y2), y2);
+  const FeG<T> x3 = fpg_mul(g, fpg_sqr(g, x2), y2);
+  const FeG<T> x6 = fpg_mul(g, sqr_n(g, x3, 3), x3);
+  const FeG<T> x9 = fpg_mul(g, sqr_n(g, x6, 3), x3);
+  const FeG<T> x11 = fpg_mul(g, sqr_n(g, x9, 2), x2);
+  const FeG<T> x22 = fpg_mul(g, sqr_n(g, x11, 11), x11);
+  const FeG<T> x44 = fpg_mul(g, sqr_n(g, x22, 22), x22);
+  const FeG<T> x88 = fpg_mul(g, sqr_n(g, x44, 44), x44);
+  const FeG<T> x176 = fpg_mul(g, sqr_n(g, x88, 88), x88);
+  const FeG<T> x220 = fpg_mul(g, sqr_n(g, x176, 44), x44);
+  const FeG<T> x223 = fpg_mul(g, sqr_n(g, x220, 3), x3);
+  FeG<T> t = fpg_mul(g, sqr_n(g, x223, 23), x22);
+  t = fpg_mul(g, sqr_n(g, t, 6), x2);
+  return sqr_n(g, t, 2);
+}
+
+template <int T>
+__device__ __forceinline__ FeG<T> r2_g(const SecpGroup<T>& g) {
+  return fpg_const(g, [](int i) { return kR2[i]; });
+}
+
+// psecp.sqrt_kernel: y = (x^3 + 7)^((p+1)/4) per lane, x (8, n) plain
+// words in, y (8, n) plain words out. Into Montgomery form by one product
+// with R^2, y2 = x^2 * x + 7R, the chain, out of form by one reduction: 270
+// steps a lane (254 of them squarings, run as products), no branch on data. A group past n computes lane 0's and
+// stores nothing.
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    secp_sqrt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                     int n) {
+  const SecpGroup<T> g = make_coop_group<SecpFp, T>();
+  bool live;
+  const int col = group_lane<T, SCAN_BLOCK>(n, live);
+  const FeG<T> xm = fpg_mul(g, load_fpg(g, x, 0, n, col), r2_g(g));
+  const FeG<T> y2 = fpg_add(g, fpg_mul(g, fpg_sqr(g, xm), xm),
+                            fpg_const(g, [](int i) { return kSevenR[i]; }));
+  const FeG<T> y = fpg_redc(g, sqrt_chain(g, y2));
+  if (live) store_fpg(g, out, 0, n, col, y);
+}
+
+// Montgomery form of every element of a (8 coords [+ 1], n) buffer, in
+// one launch: element c * n + j is coordinate c's words at rows 8c .. 8c +
+// 7, lane j, read as the buffer lies. into: x * R mod p, one product by R^2
+// from the constant bank; otherwise x / R mod p, one reduction. A trailing
+// flag row (flag_row) is copied as it is.
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    secp_mont_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                     int coords, int n, bool flag_row, bool into) {
+  const SecpGroup<T> g = make_coop_group<SecpFp, T>();
+  bool live;
+  const int e = group_lane<T, SCAN_BLOCK>(coords * n, live);
+  const int c = e / n, col = e - c * n;
+  const FeG<T> a = load_fpg(g, x, c * NL, n, col);
+  const FeG<T> r = into ? fpg_mul(g, a, r2_g(g)) : fpg_redc(g, a);
+  if (live) {
+    store_fpg(g, out, c * NL, n, col, r);
+    const size_t flags = (size_t)coords * NL * n + col;
+    if (flag_row && c == 0 && g.rank == 0) out[flags] = x[flags];
+  }
+}
+
 inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
 
 }  // namespace
@@ -537,28 +616,43 @@ int lt_secp_msm_scan(const void* table, const void* digits, void* acc,
 
 int lt_secp_sqrt(const void* x, void* out, int n, void* stream) {
   if (n > 0) {
-    secp_sqrt_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)x, (uint32_t*)out, n);
+    secp_sqrt_kernel<SCAN_T>
+        <<<group_blocks<SCAN_T, SCAN_BLOCK>(n), SCAN_BLOCK, 0,
+           (cudaStream_t)stream>>>((const uint32_t*)x, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// rows = 8 * coords, or 8 * coords + 1 with a trailing flag row
+int lt_secp_mont(const void* x, void* out, int rows, int n, int into,
+                 void* stream) {
+  const int coords = rows / NL;
+  if (coords > 0 && n > 0) {
+    secp_mont_kernel<SCAN_T>
+        <<<group_blocks<SCAN_T, SCAN_BLOCK>(coords * n), SCAN_BLOCK, 0,
+           (cudaStream_t)stream>>>((const uint32_t*)x, (uint32_t*)out, coords,
+                                   n, rows > coords * NL, into != 0);
   }
   return (int)cudaGetLastError();
 }
 
 // Registers per thread, local (spill) bytes, threads per lane and threads
 // per block of kernel `which` (0 fp_mul, 1 dbl, 2 add, 3 msm_scan, 4 sqrt,
-// 5 table), for the chip report.
+// 5 table, 6 mont), for the chip report.
 int lt_secp_kernel_attrs(int which, int* regs, int* local_bytes,
                          int* threads_per_lane, int* block) {
-  const void* fns[6] = {(const void*)secp_fp_mul_kernel,
+  const void* fns[7] = {(const void*)secp_fp_mul_kernel,
                         (const void*)secp_dbl_kernel,
                         (const void*)secp_add_kernel<SCAN_T>,
                         (const void*)secp_msm_scan_kernel<SCAN_T>,
-                        (const void*)secp_sqrt_kernel,
-                        (const void*)secp_table_kernel<SCAN_T>};
-  if (which < 0 || which > 5) return (int)cudaErrorInvalidValue;
+                        (const void*)secp_sqrt_kernel<SCAN_T>,
+                        (const void*)secp_table_kernel<SCAN_T>,
+                        (const void*)secp_mont_kernel<SCAN_T>};
+  if (which < 0 || which > 6) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
   if (err != cudaSuccess) return (int)err;
-  const bool group = which == 2 || which == 3 || which == 5;
+  const bool group = which >= 2;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   *threads_per_lane = group ? SCAN_T : 1;

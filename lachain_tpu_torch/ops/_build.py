@@ -58,6 +58,7 @@ _SIGNATURES = {
     "lt_secp_table": [_P, _P, _I, _P],
     "lt_secp_msm_scan": [_P, _P, _P, _P, _I, _I, _P],
     "lt_secp_sqrt": [_P, _P, _I, _P],
+    "lt_secp_mont": [_P, _P, _I, _I, _I, _P],
     "lt_secp_kernel_attrs": [_I] + [ctypes.POINTER(_I)] * 4,
 }
 # (attrs entry, kernel names in its index order)
@@ -66,7 +67,8 @@ _ATTRS = (
                             "g1_table")),
     ("lt_g2_kernel_attrs", ("g2_dbl", "g2_add", "g2_msm_scan", "g2_table")),
     ("lt_secp_kernel_attrs", ("secp_fp_mul", "secp_dbl", "secp_add",
-                              "secp_msm_scan", "secp_sqrt", "secp_table")),
+                              "secp_msm_scan", "secp_sqrt", "secp_table",
+                              "secp_mont")),
 )
 
 

@@ -1,10 +1,10 @@
 """secp256k1 recovery engine: the kernel wrappers, psecp's composites and
 `GpuEcdsaRecover`.
 
-The port of `lachain_tpu/ops/psecp.py`. Six wrappers front the CUDA
+The port of `lachain_tpu/ops/psecp.py`. Seven wrappers front the CUDA
 kernels of `csrc/secp.cu` (`secp_fp_mul`, `secp_dbl`, `secp_add`,
-`build_table`, `msm_scan`, `sqrt`); the composite above them
-(`recover_kernel`) is plain tensor code over those wrappers, and
+`build_table`, `msm_scan`, `sqrt`, `mont_convert`); the composite above
+them (`recover_kernel`) is plain tensor code over those wrappers, and
 `GpuEcdsaRecover` (psecp `TpuEcdsaRecover`, :508-634) keeps psecp's host
 work around them: validation, r^-1 by Montgomery's trick, the y^2 check
 and parity flip, 4096-signature chunks and the batch affine conversion.
@@ -14,13 +14,16 @@ else: on `cuda` it launches its kernel (or raises), on `cpu` it runs the
 plain version in `ops/secp_ref.py`. Layouts, each the natural one for its
 arithmetic:
   * cuda: int32 rows holding 8 x 32-bit Montgomery limbs per coordinate,
-    a point is (24, n);
+    a point is (24, n); `sqrt` alone takes and gives plain words (8, n)
+    (`_words`), converting into and out of Montgomery form on the card;
   * cpu:  int64 rows holding psecp's 26 x 10-bit signed plain limbs in
     32-row slots, a point is (96, n), so the CPU tests compare with psecp
-    limb for limb.
-`fe_encode` / `fe_decode` and `pt_pack` convert ints into either layout;
-`fetch` brings a fused output buffer (flag row last) to the host in one
-copy and `pt_unpack_host` reads Jacobian ints from it.
+    limb for limb. `mont_convert`, the card's own conversion, works on the
+    card's word layout on either device.
+`fe_encode` / `fe_decode` and `pt_pack` convert ints into either layout
+(on the card one `mont_convert` launch each); `fetch` brings a fused
+output buffer (flag row last) to the host in one copy and
+`pt_unpack_host` reads Jacobian ints from it.
 
 `LAUNCHES` counts the kernel launches of each wrapper (CUDA only), so a run
 can show that its path went through the kernels.
@@ -42,11 +45,21 @@ from .verify import ESCAPES, _pow2_at_least, resolve_device
 NL = 8  # 32-bit Montgomery limbs per coordinate on the card
 ROWS = 3 * NL  # rows of a point on the card
 P = ecdsa.P
-_MONT_R = 1 << 256
-_R2 = _MONT_R * _MONT_R % P  # x * R^2 / R = x R: into Montgomery form
+_R2 = (1 << 512) % P  # x * R^2 / R = x R (R = 2^256): into Montgomery form
+
+# libsecp256k1's addition chain for the square root's exponent (p + 1) / 4
+# (secp256k1_fe_sqrt in its field_impl.h), the steps the card's `sqrt`
+# runs: step (s, k) squares the running value s times, then multiplies it
+# by x_k = y2^(2^k - 1), a value the chain made before (k None: no
+# product). From x_1 = y2 the steps make x2, x3, x6, x9, x11, x22, x44,
+# x88, x176, x220, x223, then three more: 253 squarings, 13 products.
+SQRT_CHAIN = ((1, 1), (1, 1), (3, 3), (3, 3), (2, 2), (11, 11), (22, 22),
+              (44, 44), (88, 88), (44, 44), (3, 3), (23, 22), (6, 2),
+              (2, None))
 
 LAUNCHES = {"secp_fp_mul": 0, "secp_dbl": 0, "secp_add": 0,
-            "secp_table": 0, "secp_msm_scan": 0, "secp_sqrt": 0}
+            "secp_table": 0, "secp_msm_scan": 0, "secp_sqrt": 0,
+            "secp_mont": 0}
 
 
 def reset_launches() -> None:
@@ -61,7 +74,7 @@ def _launched(name: str, rc: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the six kernel wrappers
+# the seven kernel wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -151,9 +164,14 @@ def msm_scan(table, digits):
 
 
 def sqrt(x):
-    """(R, n) x -> (R, n) (x^3 + 7)^((p+1)/4), the candidate y of each x
-    (replaces psecp `sqrt_kernel`, plain XLA there). Non-residues give
-    values the caller's y^2 check rejects."""
+    """x -> (x^3 + 7)^((p+1)/4), the candidate y of each x (replaces psecp
+    `sqrt_kernel`, plain XLA there). Non-residues give values the caller's
+    y^2 check rejects. On the card x is (8, n) int32 PLAIN words (`_words`,
+    not Montgomery form) and so is y: the kernel converts into and out of
+    Montgomery form itself and runs SQRT_CHAIN: 253 squarings and 13
+    products a lane, 270 steps with y2's two and the conversions. On the
+    CPU x and y are psecp's (26, n) limbs through `secp_ref.sqrt`, psecp's
+    square-and-multiply step for step."""
     if _on_cpu(x):
         return secp_ref.sqrt(x)
     n = x.shape[-1]
@@ -161,6 +179,28 @@ def sqrt(x):
     out = torch.empty_like(x)
     rc = _build.library().lt_secp_sqrt(x.data_ptr(), out.data_ptr(), n, _stream(x))
     _launched("secp_sqrt", rc)
+    return out
+
+
+def mont_convert(t, into: bool):
+    """(8c, n) or (8c + 1, n) int32 words -> the same shape: every
+    coordinate (rows 8c' .. 8c' + 7, lane-minor, as the card's buffers lie)
+    into Montgomery form, x R mod p (`into`), or out of it, x / R mod p; a
+    trailing flag row is copied as it is. One launch reads the buffer as it
+    lies: no permute, no copy, no uploaded constant (this port's own
+    representation; psecp has no Montgomery form). A CPU tensor in the same
+    layout takes the plain version."""
+    if t.dim() != 2 or t.shape[0] < NL or t.shape[0] % NL > 1:
+        raise ValueError(f"mont_convert: expected (8c [+ 1], n) rows, got {tuple(t.shape)}")
+    if _on_cpu(t):
+        return secp_ref.mont_mul_words(t, _R2 if into else 1)
+    rows, n = t.shape
+    _check("mont_convert t", t, (rows, n))
+    out = torch.empty_like(t)
+    rc = _build.library().lt_secp_mont(
+        t.data_ptr(), out.data_ptr(), rows, n, int(into), _stream(t)
+    )
+    _launched("secp_mont", rc)
     return out
 
 
@@ -176,8 +216,11 @@ def _words(vals: Sequence[int]) -> np.ndarray:
 
 
 def _from_words(a) -> list:
-    """(8, n) uint32 words -> ints."""
-    raw = np.ascontiguousarray(np.asarray(a, dtype="<u4").T).tobytes()
+    """(8c, n) uint32 words -> the c * n ints, coordinate by coordinate:
+    c0's n lanes, then c1's, ..."""
+    a = np.asarray(a, dtype="<u4")
+    c, n = a.shape[0] // NL, a.shape[-1]
+    raw = np.ascontiguousarray(a.reshape(c, NL, n).transpose(0, 2, 1)).tobytes()
     w = 4 * NL
     return [
         int.from_bytes(raw[i * w : (i + 1) * w], "little")
@@ -185,32 +228,27 @@ def _from_words(a) -> list:
     ]
 
 
-def _mont_apply(t, factor: int):
-    """Multiply every coordinate of a (8c, n) CUDA array by the raw word
-    constant `factor` in one secp_fp_mul launch: R^2 mod p converts into
-    Montgomery form, 1 converts out."""
-    c, n = t.shape[0] // NL, t.shape[-1]
-    # reshape after permute may return a strided view (n == 1): copy
-    flat = t.view(c, NL, n).permute(1, 0, 2).reshape(NL, c * n).contiguous()
-    k = torch.from_numpy(_words([factor]).view(np.int32)).to(t.device)
-    out = secp_fp_mul(flat, k.expand(NL, c * n).contiguous())
-    return out.view(NL, c, n).permute(1, 0, 2).reshape(c * NL, n).contiguous()
+def _upload_words(words: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(words.view(np.int32)).to(device)
+
+
+def _download_words(t) -> list:
+    """(8c, n) plain words on the card -> the c * n ints (`_from_words`)."""
+    return _from_words(t.cpu().numpy().view(np.uint32))
 
 
 def fe_encode(vals: Sequence[int], device="cuda") -> torch.Tensor:
     """Field ints in [0, p) -> (R, n) in the device's layout."""
     if _cpu_layout(device):
         return torch.from_numpy(secp_ref.ints_to_limbs(vals))
-    words = torch.from_numpy(_words(vals).view(np.int32)).to(device)
-    return _mont_apply(words, _R2)
+    return mont_convert(_upload_words(_words(vals), device), into=True)
 
 
 def fe_decode(t) -> list:
     """(R, n) in the device's layout -> canonical field ints."""
     if _cpu_layout(t.device):
         return secp_ref.limbs_to_ints(t.numpy())
-    plain = _mont_apply(t.contiguous(), 1)
-    return _from_words(plain.cpu().numpy().view(np.uint32))
+    return _download_words(mont_convert(t.contiguous(), into=False))
 
 
 def pt_pack(points: Sequence[Optional[Tuple[int, int]]], device="cuda"):
@@ -223,7 +261,7 @@ def pt_pack(points: Sequence[Optional[Tuple[int, int]]], device="cuda"):
     ys = [p[1] if p else 1 for p in points]
     zs = [0 if p is None else 1 for p in points]
     words = np.concatenate([_words(xs), _words(ys), _words(zs)], axis=0)
-    return _mont_apply(torch.from_numpy(words.view(np.int32)).to(device), _R2)
+    return mont_convert(_upload_words(words, device), into=True)
 
 
 def pt_coords(arr) -> list:
@@ -231,8 +269,7 @@ def pt_coords(arr) -> list:
     X... | Y... | Z... (no infinity mapping)."""
     if _cpu_layout(arr.device):
         return secp_ref.coords(arr.numpy())
-    n = arr.shape[-1]
-    return fe_decode(arr.reshape(3, NL, n).permute(1, 0, 2).reshape(NL, 3 * n))
+    return fe_decode(arr)
 
 
 def digits_col(scalars: Sequence[int], device="cuda") -> torch.Tensor:
@@ -244,13 +281,12 @@ def digits_col(scalars: Sequence[int], device="cuda") -> torch.Tensor:
 def fetch(fused):
     """A fused (rows + 1, m) buffer, flag row last -> (numpy (rows, m) point
     rows, numpy (m,) bool flags) in ONE device->host copy. On the card the
-    point rows leave Montgomery form on the device first, so they hold plain
-    field words."""
+    point rows leave Montgomery form on the device first (one `mont_convert`
+    launch, which copies the flag row), so they hold plain field words."""
     if _cpu_layout(fused.device):
         a = fused.numpy()
     else:
-        plain = _mont_apply(fused[:-1].contiguous(), 1)
-        a = torch.cat([plain, fused[-1:]], dim=0).cpu().numpy()
+        a = mont_convert(fused, into=False).cpu().numpy()
     return a[:-1], a[-1] != 0
 
 
@@ -261,8 +297,7 @@ def pt_unpack_host(rows, flags, cpu_layout: bool) -> list:
     if cpu_layout:
         cs = secp_ref.coords(rows)
     else:
-        by_coord = rows.reshape(3, NL, m).transpose(1, 0, 2).reshape(NL, 3 * m)
-        cs = _from_words(np.ascontiguousarray(by_coord).view(np.uint32))
+        cs = _from_words(rows.view(np.uint32))
     out = []
     for i in range(m):
         x, y, z = cs[i], cs[m + i], cs[2 * m + i]
@@ -351,7 +386,7 @@ class GpuEcdsaRecover:
 
     `last_timings` holds the wall seconds of the last call's phases:
     `host_s` (validation, r^-1, the y^2 check and parity, u1/u2), `sqrt_s`
-    (upload, square-root launch, download), `pack_s` (marshal + upload of
+    (marshal, upload, square-root launch, download), `pack_s` (marshal + upload of
     every chunk), `device_s` (every chunk's launches, to a synchronised
     end), `fetch_s` (download + unpack), `affine_s` (batch affine and
     encoding, oracle answers for degenerate Q), `wall_s`."""
@@ -401,11 +436,13 @@ class GpuEcdsaRecover:
         return out
 
     def _sqrts(self, xs: List[int]) -> List[int]:
-        """Candidate y of every x: one launch over the batch padded to a
-        power of two (psecp.py:532-542)."""
-        m = len(xs)
-        lanes = fe_encode(xs + [1] * (_pow2_at_least(m) - m), self.device)
-        return fe_decode(sqrt(lanes))[:m]
+        """Candidate y of every x: one launch over exactly the batch's
+        lanes (psecp.py:532-542 pads them to a power of two, so that XLA
+        compiles few shapes; the kernel takes any n). On the card plain
+        words go up and come back: `sqrt` converts on the device."""
+        if self.device.type == "cpu":
+            return fe_decode(sqrt(fe_encode(xs, "cpu")))
+        return _download_words(sqrt(_upload_words(_words(xs), self.device)))
 
     def _run_chunk(self, jobs, hashes, sigs, out, tm) -> None:
         t0 = time.perf_counter()

@@ -8,7 +8,8 @@ card.
 table builds with SCAN_T threads per lane, a compile-time constant
 (`LT_G1_SCAN_T`, `LT_G2_SCAN_T`, `LT_SECP_SCAN_T`) over the group field of
 `csrc/coop.cuh`. This script builds each source at the other
-values of T in {1, 2, 4}, and at the shipped T with one design choice of
+values of T in {1, 2, 4} (secp.cu also at 8, one word a thread: BLS12-381's
+12 words do not split 8 ways), and at the shipped T with one design choice of
 the shipped source undone in a copy of it (`VARIANTS`: text edits, each of
 which must find its text):
   * groupmask   each group's own lanes as the collectives' mask and groups
@@ -38,7 +39,10 @@ reversed, so that each library runs before and after each other one:
     digits) and at `recover`, one 4096-signature chunk of the recovery
     (`secp.recover_layout`: [R_i, G] interleaved, full-width u1, u2); the
     secp table build at that chunk's 8192 lanes; secp_add at 8192 lanes
-    and at 4096, the chunk's pair add;
+    and at 4096, the chunk's pair add; the square root at chip_smoke.py's
+    16,384-lane check and at the 10,000-signature recovery's 9,980 lanes;
+    the Montgomery conversions of a chunk, into form on the pack's (24,
+    8192) words and out of it on a (25, 8192) buffer with a flag row;
   * the other kernels of the same source (fp_mul, g1_dbl; g2_dbl, g2_add;
     secp_dbl) at 8192 lanes.
 
@@ -46,9 +50,13 @@ reversed, so that each library runs before and after each other one:
 and `secp.cu` as they are (an unpacked earlier commit, e.g. `git archive
 <commit> | tar -x -C _scratch/base`) and times them in the same rounds,
 labelled `<source>_baseline_<DIR's name>`; it may be given more than once;
-where it lacks a table entry of this tree (`lt_g1_table`, `lt_g2_table`,
-`lt_secp_table`) it builds the table by the chain of one doubling and 13
-add launches.
+it must have this tree's table entries (`lt_g1_table`, `lt_g2_table`,
+`lt_secp_table`); where it lacks `lt_secp_mont`, its square root takes and
+gives Montgomery words (its output is converted before the comparison)
+and its conversions run the path `secp_mont` replaced (`_mont_apply`: a
+permute copy, the factor uploaded and expanded over every lane, one
+`secp_fp_mul` launch, a permute copy back; `torch.cat` with the flag
+row).
 
 `--int-rate` also builds a probe kernel and measures the card's sustained
 32x32->64-bit multiply-add rate, as `mad.wide.u32` (what coop.cuh's
@@ -75,6 +83,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .crypto import bls12381 as bls
@@ -84,6 +93,9 @@ from .ops import _build, g1, g2, glv, secp
 LANES = 8192
 ROUNDS = 10  # timing rounds, their order alternating
 SCANS = ("g1", "g2", "secp")  # the sources, each with its group-field scan
+# the values of T each source is built at (T must divide the field's words)
+T_VALUES = {"g1": (1, 2, 4), "g2": (1, 2, 4), "secp": (1, 2, 4, 8)}
+SQRT_LANES = {"check": 16384, "recover": 9980}
 # the main path's layout of each scan, beside the random-digit `check`
 MAIN_LAYOUT = {"g1": "tpke", "g2": "coin", "secp": "recover"}
 
@@ -120,6 +132,7 @@ VARIANTS = {
 # kernels first, longest names first: "dbl_kernel" is inside "g2_dbl_kernel"
 _NAMES = ("secp_msm_scan_kernel", "g2_msm_scan_kernel", "msm_scan_kernel",
           "secp_table_kernel", "g2_table_kernel", "g1_table_kernel",
+          "secp_mont_kernel",
           "secp_fp_mul_kernel", "secp_dbl_kernel",
           "secp_add_kernel", "secp_sqrt_kernel", "g2_dbl_kernel",
           "g2_add_kernel", "fp_mul_kernel", "dbl_kernel", "add_kernel",
@@ -171,7 +184,7 @@ def variant_sources(work: Path, shipped_t: dict, baselines=()) -> dict:
     out = {}
     for scan in SCANS:
         macro = f"LT_{scan.upper()}_SCAN_T"
-        for t in (1, 2, 4):
+        for t in T_VALUES[scan]:
             if t != shipped_t[scan]:
                 out[f"{scan}_T{t}"] = (_build.CSRC / f"{scan}.cu", _build.CSRC,
                                        [f"-D{macro}={t}"])
@@ -221,7 +234,7 @@ def build_variants(work: Path, sources: dict) -> dict:
         else:
             lib = ctypes.CDLL(str(work / f"{label}.so"))
             for name, args in _build._SIGNATURES.items():
-                # a baseline may lack an entry of this tree (a table build)
+                # a baseline may lack an entry of this tree (secp_mont)
                 if name.startswith(f"lt_{scan_of(label)}_") and hasattr(lib, name):
                     getattr(lib, name).argtypes = args
                     getattr(lib, name).restype = ctypes.c_int
@@ -257,6 +270,11 @@ def make_inputs(seed: int, dev) -> dict:
                                       ecdsa.G, ecdsa.N), dev)
     rec_pts, rec_digits = secp.recover_layout(rng)
     rec = secp.pt_pack(rec_pts, dev)
+    sqrt_x = {k: [0, 1, ecdsa.P - 1, ecdsa.GX][:m]
+              + [rng.randrange(ecdsa.P) for _ in range(m - 4)]
+              for k, m in SQRT_LANES.items()}
+    sqrt_in = {k: secp._upload_words(secp._words(x), dev) for k, x in sqrt_x.items()}
+    flag = torch.randint(0, 2, (1, LANES), dtype=torch.int32, device=dev)
     on = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
     half = lambda t, m: t[:, :m].contiguous()  # noqa: E731
     p1, q1 = half(pts1, LANES), pts1[:, LANES:].contiguous()
@@ -277,6 +295,12 @@ def make_inputs(seed: int, dev) -> dict:
                  "tables": {"recover": rec},
                  "adds": {"check": (p3, q3),
                           "pair": (half(p3, LANES // 2), half(q3, LANES // 2))},
+                 # plain words, and the Montgomery form an earlier tree's
+                 # square root takes
+                 "sqrt": {k: (x, secp.mont_convert(x, into=True))
+                          for k, x in sqrt_in.items()},
+                 "mont": {"into": secp.mont_convert(rec, into=False),
+                          "out": torch.cat([rec, flag])},
                  "points": (p3, q3)},
     }
 
@@ -296,29 +320,12 @@ def _scan(lib, scan: str, table, digits):
                               flags.data_ptr(), n, nwin, stream)), (acc, flags))
 
 
-def _table_chain(lib, scan: str, lanes, table) -> list:
-    """A table as the design before `lt_<scan>_table` built it: one
-    doubling and 13 chained add launches, into `table`'s entries (entry 0
-    zeroed)."""
-    n, stream = lanes.shape[-1], g1._stream(lanes)
-    dbl, add = getattr(lib, f"lt_{scan}_dbl"), getattr(lib, f"lt_{scan}_add")
-    table[0].zero_()
-    table[1].copy_(lanes)
-    ptr = [table[k].data_ptr() for k in range(glv.TABLE)]
-    return [lambda: _check(dbl(lanes.data_ptr(), ptr[2], n, stream))] + [
-        (lambda k=k: _check(add(ptr[k - 1], lanes.data_ptr(), ptr[k], n, stream)))
-        for k in range(3, glv.TABLE)]
-
-
 def _table(lib, scan: str, lanes):
-    """([launch()], (table,)) of `scan`'s table build over `lanes`: one
-    launch, or the chain where the library has no table entry."""
+    """([launch()], (table,)) of `scan`'s table build over `lanes`."""
     m, stream = lanes.shape[-1], g1._stream(lanes)
     table = torch.empty((glv.TABLE,) + tuple(lanes.shape), dtype=torch.int32,
                         device=lanes.device)
-    fn = getattr(lib, f"lt_{scan}_table", None)
-    if fn is None:
-        return _table_chain(lib, scan, lanes, table), (table,)
+    fn = getattr(lib, f"lt_{scan}_table")
     return [lambda: _check(fn(lanes.data_ptr(), table.data_ptr(), m, stream))], (table,)
 
 
@@ -329,10 +336,58 @@ def _add(lib, scan: str, p, q):
                               stream))], (out,)
 
 
+def _sqrt(lib, plain, mont):
+    """([launch()], outputs) of the square root on plain words; a library
+    without `lt_secp_mont` (an earlier tree) takes and gives Montgomery
+    words, and its outputs are a function that converts them."""
+    x = plain if hasattr(lib, "lt_secp_mont") else mont
+    out, n, stream = torch.empty_like(x), x.shape[-1], g1._stream(x)
+    launch = [lambda: _check(lib.lt_secp_sqrt(x.data_ptr(), out.data_ptr(), n, stream))]
+    if x is plain:
+        return launch, (out,)
+    return launch, lambda: (secp.mont_convert(out, into=False),)
+
+
+def _mont_apply(lib, t, into: bool):
+    """The conversion before `secp_mont`, through `lib`'s secp_fp_mul: a
+    permute copy of the coordinates, the factor (R^2 mod p or 1) uploaded
+    and expanded over every lane, one launch, a permute copy back, and a
+    `torch.cat` with a flag row -> (launch(), out holder)."""
+    rows, n = t.shape
+    c = rows // secp.NL
+    holder = []
+
+    def run():
+        flat = t[: c * secp.NL].view(c, secp.NL, n).permute(1, 0, 2)
+        flat = flat.reshape(secp.NL, c * n).contiguous()
+        factor = secp._R2 if into else 1
+        k = torch.from_numpy(secp._words([factor]).view(np.int32)).to(t.device)
+        k = k.expand(secp.NL, c * n).contiguous()
+        prod = torch.empty_like(flat)
+        _check(lib.lt_secp_fp_mul(flat.data_ptr(), k.data_ptr(), prod.data_ptr(),
+                                  c * n, g1._stream(t)))
+        out = prod.view(secp.NL, c, n).permute(1, 0, 2).reshape(c * secp.NL, n)
+        if rows > c * secp.NL:
+            out = torch.cat([out, t[c * secp.NL :]], dim=0)
+        holder[:] = [out.contiguous()]
+    return run, holder
+
+
+def _mont(lib, t, into: bool):
+    """([launch()], outputs) of one conversion of `t`: one `lt_secp_mont`
+    launch, or an earlier tree's `_mont_apply` path."""
+    if not hasattr(lib, "lt_secp_mont"):
+        run, holder = _mont_apply(lib, t, into)
+        return [run], lambda: tuple(holder)
+    out, stream = torch.empty_like(t), g1._stream(t)
+    return [lambda: _check(lib.lt_secp_mont(t.data_ptr(), out.data_ptr(), t.shape[0],
+                                            t.shape[1], int(into), stream))], (out,)
+
+
 def launchers(lib, scan: str, inputs: dict) -> dict:
     """{kernel: ([launch()], outputs)} of one library's kernels of `scan`'s
-    source on the shared inputs; a library without a table entry (an
-    earlier tree) builds the table by its chain of launches."""
+    source on the shared inputs. Outputs are tensors, or a function that
+    gives them after the launches."""
     inp = inputs[scan]
     p, q = inp["points"]
     n, stream = p.shape[-1], g1._stream(p)
@@ -345,6 +400,10 @@ def launchers(lib, scan: str, inputs: dict) -> dict:
     adds = inp.get("adds", {"": (p, q)})
     for layout, (a, b) in adds.items():
         out[f"{scan}_add" + (f"_{layout}" if layout else "")] = _add(lib, scan, a, b)
+    for layout, (plain, mont) in inp.get("sqrt", {}).items():
+        out[f"sqrt_{layout}"] = _sqrt(lib, plain, mont)
+    for direction, t in inp.get("mont", {}).items():
+        out[f"mont_{direction}"] = _mont(lib, t, direction == "into")
     if scan == "g1":
         x, y, o1 = p[:12].contiguous(), q[:12].contiguous(), torch.empty_like(p[:12])
         out["fp_mul"] = ([lambda: _check(lib.lt_g1_fp_mul(
@@ -484,9 +543,12 @@ def main() -> int:
                 for fn in launches:
                     fn()
         torch.cuda.synchronize()
+        def tensors(outs):
+            return outs() if callable(outs) else outs
+
         equal = {
-            f"{label}/{k}": all(torch.equal(a, b) for a, b in
-                                zip(outs, runs[f"{scan_of(label)}_shipped"][k][1]))
+            f"{label}/{k}": all(torch.equal(a, b) for a, b in zip(
+                tensors(outs), tensors(runs[f"{scan_of(label)}_shipped"][k][1])))
             for label, kernels in runs.items() if not label.endswith("shipped")
             for k, (_, outs) in kernels.items()
         }
@@ -496,7 +558,8 @@ def main() -> int:
                  for k, (launches, _) in kernels.items()]
         for i in range(ROUNDS):
             for label, k, launches in (order if i % 2 == 0 else order[::-1]):
-                r = reps[scan_of(label)] if k.startswith("scan") or "_table" in k else 100
+                long = k.startswith(("scan", "sqrt")) or "_table" in k
+                r = reps[scan_of(label)] if long else 100
                 ms.setdefault(f"{label}/{k}", []).append(
                     round(sum(cuda_ms(fn, r) for fn in launches), 5))
         report = {

@@ -4,12 +4,14 @@ The CUDA field code runs only on the card, and a wrong carry bound there
 builds without an error and is wrong on rare operands. This file models it
 thread by thread, word by word, at T = 1, 2 and 4 threads per lane, for
 both of the port's primes (BLS12-381, 12 words; secp256k1, 8 words, whose
-p fills its top word): the carry-save CIOS steps of `fpg_mul` with their
-shuffles, the settle of the columns into words, the ballot carry
+p fills its top word), and for secp256k1 at T = 8 (one word a thread): the
+carry-save CIOS steps of `fpg_mul` (`cios_step`) with their shuffles, the
+settle of the columns into words (`cios_settle`), the ballot carry
 resolution of `group_carry` / `settle_add` / `settle_sub` (generate and
 propagate bits), the top carry that `F::top_carry` folds into the top
 thread's generate bit, and the conditional subtraction of `reduce_once_g`;
-`fpg_add` and `fpg_sub` likewise. It asserts every bound the header
+`fpg_redc` (the same steps with no word products), `fpg_add` and
+`fpg_sub` likewise. It asserts every bound the header
 states (u and v below 2^64, each column below 2^33 - 1, the carry word 0
 or 1 and zero for BLS12-381, no thread both generating and propagating)
 and the canonical result, on edge operands (0, 1, p - 1, words all ones)
@@ -123,42 +125,72 @@ class Field:
         self._settle(s, gens, +1)  # the carry out is dropped
         return s
 
-    def mul(self, a: list, b: list) -> list:
+    def _step(self, u: list, held: int):
+        """cios_step on the step's columns u, which hold the value `held`
+        (the columns plus a * b_i in a product, the columns alone in a
+        reduction) -> (the new columns, the value they hold)."""
         t, w = self.t, self.w
         pw = self.split(self.p)
+        assert all(x < 1 << 64 for ws in u for x in ws)
+        assert sum(x << (32 * k) for k, x in enumerate(x for ws in u for x in ws)) == held
+        m = ((u[0][0] & M32) * self.pinv) & M32  # rank 0's, broadcast
+        c1 = [u[r][w - 1] >> 32 for r in range(t)]
+        cin = [0] + c1[:-1]  # shuffle up; rank 0 takes 0
+        v = []
+        for r in range(t):
+            vr = [(u[r][0] & M32) + cin[r] + m * pw[r][0]]
+            for j in range(1, w):
+                vr.append((u[r][j] & M32) + (u[r][j - 1] >> 32) + m * pw[r][j])
+            v.append(vr)
+        assert all(x < 1 << 64 for vr in v for x in vr)
+        assert v[0][0] & M32 == 0  # m clears column 0
+        recv = [v[r + 1][0] & M32 for r in range(t - 1)] + [c1[t - 1]]
+        cols = [[0] * w for _ in range(t)]
+        for r in range(t):
+            for j in range(w - 1):
+                cols[r][j] = (v[r][j + 1] & M32) + (v[r][j] >> 32)
+            cols[r][w - 1] = recv[r] + (v[r][w - 1] >> 32)
+        flat = [x for cs in cols for x in cs]
+        assert max(flat) < COLUMN_BOUND
+        self.max_column = max(self.max_column, max(flat))
+        # the columns hold (held + m * p) / 2^32, below 2p
+        assert (held + m * self.p) % (1 << 32) == 0
+        value = sum(x << (32 * k) for k, x in enumerate(flat))
+        assert value == (held + m * self.p) >> 32 and value < 2 * self.p
+        return cols, value
+
+    def mul(self, a: list, b: list) -> list:
+        t, w = self.t, self.w
         cols = [[0] * w for _ in range(t)]
         value = 0
         a_int, b_int = self.join(a), self.join(b)
         for i in range(self.words):
             bi = b[i // w][i % w]  # the shuffle from rank i / W
             u = [[cols[r][j] + a[r][j] * bi for j in range(w)] for r in range(t)]
-            assert all(x < 1 << 64 for ws in u for x in ws)
-            m = ((u[0][0] & M32) * self.pinv) & M32  # rank 0's, broadcast
-            c1 = [u[r][w - 1] >> 32 for r in range(t)]
-            cin = [0] + c1[:-1]  # shuffle up; rank 0 takes 0
-            v = []
-            for r in range(t):
-                vr = [(u[r][0] & M32) + cin[r] + m * pw[r][0]]
-                for j in range(1, w):
-                    vr.append((u[r][j] & M32) + (u[r][j - 1] >> 32) + m * pw[r][j])
-                v.append(vr)
-            assert all(x < 1 << 64 for vr in v for x in vr)
-            assert v[0][0] & M32 == 0  # m clears column 0
-            recv = [v[r + 1][0] & M32 for r in range(t - 1)] + [c1[t - 1]]
-            for r in range(t):
-                for j in range(w - 1):
-                    cols[r][j] = (v[r][j + 1] & M32) + (v[r][j] >> 32)
-                cols[r][w - 1] = recv[r] + (v[r][w - 1] >> 32)
-            flat = [x for cs in cols for x in cs]
-            assert max(flat) < COLUMN_BOUND
-            self.max_column = max(self.max_column, max(flat))
-            # the columns hold (value + a * b_i + m * p) / 2^32, below 2p
-            want = (value + a_int * bi + m * self.p) >> 32
-            assert (value + a_int * bi + m * self.p) % (1 << 32) == 0
-            value = sum(x << (32 * k) for k, x in enumerate(flat))
-            assert value == want and value < 2 * self.p
-        # the settle: word j = lo(t[j]) + hi(t[j-1]) + carry, one chain a
-        # thread; hi of a thread's top column goes to the next thread
+            cols, value = self._step(u, value + a_int * bi)
+        out = self._settle_columns(cols, value)
+        r_inv = pow(1 << (32 * self.words), -1, self.p)
+        assert self.join(out) == a_int * b_int * r_inv % self.p
+        return out
+
+    def redc(self, a: list) -> list:
+        """fpg_redc: the columns start as a's words, each step adds m * p
+        alone."""
+        cols = [list(ws) for ws in a]
+        value = a_int = self.join(a)
+        for _ in range(self.words):
+            cols, value = self._step(cols, value)
+        out = self._settle_columns(cols, value)
+        r_inv = pow(1 << (32 * self.words), -1, self.p)
+        assert self.join(out) == a_int * r_inv % self.p
+        return out
+
+    def _settle_columns(self, cols: list, value: int) -> list:
+        """cios_settle: the columns, which hold `value` < 2p, into words,
+        then reduce_once."""
+        t, w = self.t, self.w
+        # word j = lo(t[j]) + hi(t[j-1]) + carry, one chain a thread; hi
+        # of a thread's top column goes to the next thread
         full = 1 << (32 * w)
         cin = [0] + [cols[r][w - 1] >> 32 for r in range(t - 1)]
         words, gens = [], []
@@ -178,10 +210,7 @@ class Field:
             assert hi_top == 0, "a BLS12-381 column carried out of the group"
         top = self._settle(words, gens, +1)
         assert self.join(words) + (top << (32 * self.words)) == value
-        out = self.reduce_once(words, top)
-        r_inv = pow(1 << (32 * self.words), -1, self.p)
-        assert self.join(out) == a_int * b_int * r_inv % self.p
-        return out
+        return self.reduce_once(words, top)
 
 
 def _operands(name: str, seed: int) -> list:
@@ -196,8 +225,13 @@ def _operands(name: str, seed: int) -> list:
     return sorted(edge) + [rng.randrange(p) for _ in range(24)]
 
 
-@pytest.mark.parametrize("t", [1, 2, 4])
-@pytest.mark.parametrize("name", sorted(FIELDS))
+# (field, T): both primes at 1, 2 and 4 threads a lane, secp256k1 also at
+# 8 (one word a thread; BLS12-381's 12 words do not split 8 ways)
+CASES = [(name, t) for name in sorted(FIELDS) for t in (1, 2, 4)]
+CASES.append(("secp256k1", 8))
+
+
+@pytest.mark.parametrize("name, t", CASES)
 def test_product_model(name, t):
     f = Field(name, t)
     ops = _operands(name, seed=0xC0 + t)
@@ -211,8 +245,7 @@ def test_product_model(name, t):
         assert f.max_column == COLUMN_BOUND - 1
 
 
-@pytest.mark.parametrize("t", [1, 2, 4])
-@pytest.mark.parametrize("name", sorted(FIELDS))
+@pytest.mark.parametrize("name, t", CASES)
 def test_add_sub_model(name, t):
     f = Field(name, t)
     p = f.p
@@ -225,7 +258,18 @@ def test_add_sub_model(name, t):
             assert f.join(d) == (x - y) % p
 
 
-@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("name, t", CASES)
+def test_reduction_model(name, t):
+    """fpg_redc, out of Montgomery form: a / R mod p for every a below
+    2^(32 words), a >= p included (the card's plain words are any 256-bit
+    value)."""
+    f = Field(name, t)
+    top = (1 << (32 * f.words)) - 1
+    for x in _operands(name, seed=0x5ED + t) + [top, top - 1, f.p, f.p + 1]:
+        f.redc(f.split(x))
+
+
+@pytest.mark.parametrize("t", [2, 4, 8])
 def test_secp_sums_carry_out_of_the_group(t):
     """The case secp256k1 adds to the BLS field: a + b and the product's
     last step reach 2^256, so the carry word must reach the subtraction."""

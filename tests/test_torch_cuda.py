@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -291,7 +292,8 @@ def test_secp_kernels_equal_plain_versions(card):
     got = secp.fe_decode(secp.secp_fp_mul(kx, secp.fe_encode(ys, card)))
     assert got == [x * y % P for x, y in zip(xs, ys)]
     rx = torch.from_numpy(secp_ref.ints_to_limbs(xs)).to(card)
-    assert secp.fe_decode(secp.sqrt(kx)) == secp_ref.limbs_to_ints(
+    plain = secp._upload_words(secp._words(xs), card)  # sqrt takes plain words
+    assert secp._download_words(secp.sqrt(plain)) == secp_ref.limbs_to_ints(
         secp_ref.sqrt(rx).cpu().numpy())
 
     ps, qs = _secp_points(rng, n), _secp_points(rng, n)
@@ -332,8 +334,10 @@ def test_ecdsa_recover_batch_on_card(card):
     got = ecdsa.recover_hash_batch(hashes, sigs)
     assert got == [ecdsa.recover_hash(h, s) for h, s in zip(hashes, sigs)]
     assert verify.ESCAPES["ecdsa_recover"] == 1
-    assert secp.LAUNCHES["secp_dbl"] == 0  # the table build is one launch
-    assert all(v > 0 for k, v in secp.LAUNCHES.items() if k != "secp_dbl")
+    # the table build is one launch, the conversions are secp_mont
+    off_path = ("secp_dbl", "secp_fp_mul")
+    assert all(secp.LAUNCHES[k] == 0 for k in off_path)
+    assert all(v > 0 for k, v in secp.LAUNCHES.items() if k not in off_path)
 
 
 def _secp_run(rng, n):
@@ -443,8 +447,9 @@ def test_coin_path_launch_counts(card):
 
 def test_recover_path_launch_counts(card):
     """10,000 signatures (three 4096-signature chunks): one square root and
-    per chunk 1 table build, 1 scan and 1 pair add (no doubling), 8
-    Montgomery conversions; every sender recovered."""
+    per chunk 1 table build, 1 scan, 1 pair add and 2 Montgomery
+    conversions (secp_mont; no doubling, no secp_fp_mul); every sender
+    recovered."""
     import chip_smoke
 
     pubs, hashes, sigs, owner = chip_smoke.make_signatures(
@@ -452,8 +457,9 @@ def test_recover_path_launch_counts(card):
     secp.reset_launches()
     verify.reset_escapes()
     got = ecdsa.recover_hash_batch(hashes, sigs, device="cuda")
-    assert secp.LAUNCHES == {"secp_fp_mul": 8, "secp_dbl": 0, "secp_add": 3,
-                             "secp_table": 3, "secp_msm_scan": 3, "secp_sqrt": 1}
+    assert secp.LAUNCHES == {"secp_fp_mul": 0, "secp_dbl": 0, "secp_add": 3,
+                             "secp_table": 3, "secp_msm_scan": 3, "secp_sqrt": 1,
+                             "secp_mont": 6}
     assert not any(verify.ESCAPES.values())
     assert got == [pubs[o] for o in owner]
 
@@ -529,3 +535,90 @@ def test_secp_add_on_group_field_with_collisions(card, n):
     want = secp_ref.coords(secp_ref.add_incomplete(ref(ps), ref(qs)).cpu())
     assert got == want
     assert [want[2 * n + i] == 0 for i in range(min(n, 3))] == [True, True, False][:n]
+
+
+def _sqrt_xs(rng, n):
+    """n x values: G's x, 0, 1, p - 1 and a non-residue first, then random
+    (about half of them non-residues)."""
+    P = ecdsa.P
+    nr = next(x for x in range(2, 100) if pow((x**3 + 7) % P, (P - 1) // 2, P) == P - 1)
+    return ([ecdsa.GX, 0, 1, P - 1, nr] + [rng.randrange(P) for _ in range(n)])[:n]
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 9980, 16384])
+def test_sqrt_on_plain_words(card, n):
+    """The group-field square root (the addition chain, its own
+    conversions) on plain words equals the plain version mod p on every
+    lane, at lane counts that are not a multiple of the block's groups and
+    at the recovery's 9,980."""
+    xs = _sqrt_xs(random.Random(0x5021 + n), n)
+    secp.reset_launches()
+    got = secp._download_words(secp.sqrt(secp._upload_words(secp._words(xs), card)))
+    assert secp.LAUNCHES == dict(dict.fromkeys(secp.LAUNCHES, 0), secp_sqrt=1)
+    rx = torch.from_numpy(secp_ref.ints_to_limbs(xs)).to(card)
+    assert got == secp_ref.limbs_to_ints(secp_ref.sqrt(rx).cpu().numpy())
+    P = ecdsa.P
+    assert got[:4] == [pow((x**3 + 7) % P, (P + 1) // 4, P) for x in xs[:4]]
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 8191])
+def test_mont_convert_on_card(card, n):
+    """secp_mont into and out of Montgomery form equals Python ints (x R
+    mod p and back) and the plain version word for word, with 0, 1 and p
+    - 1 among the values, and copies a flag row bit for bit."""
+    P, r = ecdsa.P, 1 << 256
+    rng = random.Random(0x5024 + n)
+    vals = ([0, 1, P - 1] + [rng.randrange(P) for _ in range(3 * n)])[: 3 * n]
+    words = np.concatenate([secp._words(vals[c * n : (c + 1) * n]) for c in range(3)])
+    flags = np.array([rng.randrange(-(1 << 31), 1 << 31) for _ in range(n)], np.int32)
+    buf = torch.from_numpy(np.concatenate([words.view(np.int32), flags[None]])).to(card)
+    secp.reset_launches()
+    into = secp.mont_convert(buf, into=True)
+    assert secp._download_words(into[:-1]) == [v * r % P for v in vals]
+    assert torch.equal(into[-1], buf[-1])
+    assert torch.equal(into, secp_ref.mont_mul_words(buf, secp._R2))
+    back = secp.mont_convert(into, into=False)
+    assert torch.equal(back, buf)
+    assert torch.equal(back, secp_ref.mont_mul_words(into, 1))
+    one = secp.mont_convert(buf[: secp.NL].contiguous(), into=False)
+    assert secp._download_words(one) == [v * pow(r, -1, P) % P for v in vals[:n]]
+    assert secp.LAUNCHES == dict(dict.fromkeys(secp.LAUNCHES, 0), secp_mont=3)
+
+
+def test_secp_sqrt_and_mont_attrs(card):
+    """The new kernels' registers, local bytes, threads per lane and block
+    read through lt_secp_kernel_attrs."""
+    from lachain_tpu_torch.ops import _build
+
+    attrs = _build.kernel_attrs()
+    scan_t = attrs["secp_msm_scan"]["threads_per_lane"]
+    for name in ("secp_sqrt", "secp_mont"):
+        a = attrs[name]
+        assert a["regs"] > 0 and a["local_bytes"] >= 0
+        assert a["threads_per_lane"] == scan_t and a["block"] == 64
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 4097])
+def test_recover_batch_unpadded_on_card(card, n, monkeypatch):
+    """n valid signatures (4097: a full chunk and one more): the square
+    root launches over exactly n lanes, every signer's key comes back, and
+    a sample equals recover_hash."""
+    import chip_smoke
+
+    pubs, hashes, sigs, owner = chip_smoke.make_signatures(n, 8, random.Random(0x5022 + n))
+    lanes = []
+    real = secp.sqrt
+
+    def counted(x):
+        lanes.append(x.shape[-1])
+        return real(x)
+
+    monkeypatch.setattr(secp, "sqrt", counted)
+    secp.reset_launches()
+    got = secp.GpuEcdsaRecover(card).recover_batch(hashes, sigs)
+    chunks = -(-n // secp.GpuEcdsaRecover.CHUNK)
+    assert lanes == [n]
+    assert secp.LAUNCHES["secp_sqrt"] == 1 and secp.LAUNCHES["secp_mont"] == 2 * chunks
+    assert got == [pubs[o] for o in owner]
+    for i in random.Random(n).sample(range(n), min(n, 16)):
+        assert got[i] == ecdsa.recover_hash(hashes[i], sigs[i])

@@ -143,9 +143,10 @@ def test_sweep_variants_edit_copies_of_the_shipped_sources(tmp_path):
     assert sorted(srcs) == [
         "g1_T1", "g1_T2", "g1_groupmask", "g1_prefetch", "g2_T1", "g2_T2",
         "g2_fp2inline", "g2_groupmask", "g2_prefetch",
-        "secp_T1", "secp_T2", "secp_groupmask", "secp_prefetch"]
+        "secp_T1", "secp_T2", "secp_T8", "secp_groupmask", "secp_prefetch"]
     assert srcs["g2_T1"][2] == ["-DLT_G2_SCAN_T=1"]
     assert srcs["secp_T2"][2] == ["-DLT_SECP_SCAN_T=2"]
+    assert srcs["secp_T8"][2] == ["-DLT_SECP_SCAN_T=8"]
     for name, (scans, edits) in scan_sweep.VARIANTS.items():
         for scan in scans:
             src, inc, defs = srcs[f"{scan}_{name}"]
@@ -189,6 +190,26 @@ def test_sweep_reads_table_and_add_kernels():
     assert got["add_kernel"]["regs"] == 78 and got["g1_table_kernel"]["regs"] == 80
 
 
+_PTXAS_SQRT = """\
+ptxas info    : Compiling entry function '_ZN37_GLOBAL__N__7_secp_cu16secp_sqrt_kernelILi4EEEvPKjPji' for 'sm_90a'
+ptxas info    : Function properties for _ZN37_GLOBAL__N__7_secp_cu16secp_sqrt_kernelILi4EEEvPKjPji
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN37_GLOBAL__N__7_secp_cu16secp_mont_kernelILi4EEEvPKjPjiibb' for 'sm_90a'
+ptxas info    : Function properties for _ZN37_GLOBAL__N__7_secp_cu16secp_mont_kernelILi4EEEvPKjPjiibb
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+"""
+
+
+def test_sweep_reads_sqrt_and_mont_kernels():
+    """The group-field square root and the conversion kernel by their own
+    names, so the sweep reports their registers at every T."""
+    got = scan_sweep.parse_ptxas(_PTXAS_SQRT)
+    assert sorted(got) == ["secp_mont_kernel", "secp_sqrt_kernel"]
+    assert got["secp_sqrt_kernel"]["regs"] == 64 and got["secp_mont_kernel"]["regs"] == 40
+
+
 @pytest.mark.parametrize("key, kernel", [
     ("(anonymous namespace)::msm_scan_kernel<4>(unsigned int const*, int "
      "const*, unsigned int*, unsigned char*, int, int)", "msm_scan_kernel"),
@@ -212,6 +233,10 @@ def test_sweep_reads_table_and_add_kernels():
      "int const*, unsigned int*, int)", "add_kernel"),
     ("(anonymous namespace)::secp_add_kernel<4>(unsigned int const*)",
      "secp_add_kernel"),
+    ("(anonymous namespace)::secp_sqrt_kernel<4>(unsigned int const*, "
+     "unsigned int*, int)", "secp_sqrt_kernel"),
+    ("(anonymous namespace)::secp_mont_kernel<4>(unsigned int const*, "
+     "unsigned int*, int, int, bool, bool)", "secp_mont_kernel"),
     ("void at::native::elementwise_kernel<128, 2>(int, int)", "torch"),
     ("Memcpy DtoH (Device -> Pinned)", "torch"),
 ])
