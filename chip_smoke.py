@@ -6,8 +6,10 @@
 Phases, each of which must pass (any failure exits non-zero):
   1. build   the CUDA kernels of lachain_tpu_torch/csrc/ (g1.cu, g2.cu and
              secp.cu, one nvcc each, in parallel, sm_90a), with each
-             kernel's registers, local bytes, threads per lane and block;
-  2. kernels hold each of the sixteen kernels against its plain PyTorch
+             kernel's registers, local bytes, threads per lane and block,
+             and the host pairing library of lachain_tpu_torch/crypto/native/
+             (g++, GpuBackend's host backend);
+  2. kernels hold each of the seventeen kernels against its plain PyTorch
              version (ops/g1_ref.py, ops/g2_ref.py, ops/secp_ref.py) on the
              card, on seeded inputs at the main paths' shapes (8192 lanes,
              the adds with a p == q lane; the G2 and secp scans with 64
@@ -18,9 +20,12 @@ Phases, each of which must pass (any failure exits non-zero):
              lanes [R_i, G], each table's entries 1, 2, 3 and 15 also held
              against the host's scalar multiples; the secp square root on
              plain words at 16384 lanes and at the recovery's 9,980; the
-             Montgomery conversions out of and into form on a (25, 8192)
-             buffer with a flag row): exact equality of coordinates mod p
-             and flags (of the conversions, words bit for bit).
+             secp Montgomery conversions out of and into form on a (25,
+             8192) buffer with a flag row, the G1 ones (g1_mont) out of
+             form, into it and by beta on a (37, 8192) buffer with a flag
+             row and into form on the coin era's (72, 4096) G2 pack): exact
+             equality of coordinates mod p and flags (of the conversions,
+             words bit for bit, and Python ints).
              The three scans run twice: at the main path's layout (the TPKE
              era's joined scan, 32 windows x 16,384 lanes; the coin era's
              scan, 48 leading zero windows on its RLC half and 22 live
@@ -36,15 +41,18 @@ Phases, each of which must pass (any failure exits non-zero):
              the N=64 TPKE era (64 ACS slots x 64 decryption shares) through
              GpuBackend(device="cuda").tpke_era_verify_combine: every slot
              must verify and decrypt, with exactly 1 G1 table build, 1 G1
-             scan, 6 tree adds and no doubling; a poisoned share must
-             isolate exactly its slot, 4 slots are held against the port's
-             HostEraPipeline;
+             scan, 6 tree adds, 4 G1 conversions (g1_mont), no doubling and
+             no fp_mul; a poisoned share must isolate exactly its slot, 4
+             slots are held against the port's HostEraPipeline, and the
+             host backend's pairing (the native library) must equal the
+             pure-Python HostBackend's on the era's grand-check pairs and
+             on the same pairs with one slot poisoned;
              the N=64 coin era (64 coins x 64 signers, 22 live shares each)
              through threshold_sig.era_verify_combine on the same backend:
              every signature must verify under the shared key with the host
              combine's parity, with exactly 1 G2 table build, 1 G2 scan, 12
              G2 adds and no G2 doubling (and the key RLC's 1 G1 table
-             build, 1 G1 scan and 6 adds), a poisoned share must isolate exactly
+             build, 1 G1 scan and 6 adds; 3 g1_mont), a poisoned share must isolate exactly
              its coin, 4 coins are held against TsHostEraPipeline, and one
              device g1_msm and one g2_msm at n=100 against the host MSM;
              pool-ingest ECDSA recovery of 10,000 signatures from 64 senders
@@ -62,7 +70,8 @@ Phases, each of which must pass (any failure exits non-zero):
              result may have been recomputed on the host
              (ops/verify.ESCAPES), and each path must launch its kernels;
   4. times   per-kernel times from CUDA events, the plain versions' times,
-             each kernel's bound, the warm phase times of every path and a
+             each kernel's bound, the warm phase times of every path (the
+             eras' `pairing_s` with the host backend's name) and a
              torch.profiler split of each device phase by kernel, whose
              traced launches of each path's kernels must equal the counted
              ones.
@@ -108,6 +117,8 @@ OPS_PER_SECP_SQR = 2 * (8 * 9 // 2 + 8 * 8 + 8)
 # Montgomery form, 8 steps of m and m * p (the product into form, 136, is
 # timed beside it)
 MONT_WORD_PRODUCTS = 8 * (8 + 1)
+# the same over BLS12-381's 12 words (g1_mont)
+G1_MONT_WORD_PRODUCTS = 12 * (12 + 1)
 
 N_VALIDATORS = 64
 KERNEL_LANES = 8192  # S*K*2 msm lanes of the N=64 eras
@@ -121,35 +132,41 @@ RECOVER_SQRT_LANES = 9980
 N_SIGNATURES = 10000
 N_SENDERS = 64
 KERNEL_NAMES = ("fp_mul_kernel", "dbl_kernel", "add_kernel", "msm_scan_kernel",
-                "g1_table_kernel",
+                "g1_table_kernel", "g1_mont_kernel",
                 "g2_dbl_kernel", "g2_add_kernel", "g2_msm_scan_kernel",
                 "g2_table_kernel",
                 "secp_fp_mul_kernel", "secp_dbl_kernel", "secp_add_kernel",
                 "secp_msm_scan_kernel", "secp_sqrt_kernel", "secp_table_kernel",
                 "secp_mont_kernel")
-G1_KERNELS = ("fp_mul", "g1_dbl", "g1_add", "g1_table", "g1_msm_scan")
+G1_KERNELS = ("fp_mul", "g1_dbl", "g1_add", "g1_table", "g1_msm_scan", "g1_mont")
 # the wrapper's kernel name -> the CUDA kernel's
 KERNEL_OF = {"fp_mul": "fp_mul_kernel", "g1_dbl": "dbl_kernel",
              "g1_add": "add_kernel", "g1_msm_scan": "msm_scan_kernel"}
-KERNEL_OF.update({k: f"{k}_kernel" for k in ("g1_table", "g2_dbl", "g2_add",
+KERNEL_OF.update({k: f"{k}_kernel" for k in ("g1_table", "g1_mont", "g2_dbl", "g2_add",
                                               "g2_msm_scan", "g2_table",
                                               "secp_fp_mul", "secp_dbl", "secp_add",
                                               "secp_table", "secp_msm_scan",
                                               "secp_sqrt", "secp_mont")})
 # the TPKE era's counted call: one table build over the joined lanes (one
-# launch), one scan, a tree reduce of log2(64) = 6 adds
-TPKE_LAUNCHES = {"g1_msm_scan": 1, "g1_table": 1, "g1_dbl": 0, "g1_add": 6}
+# launch), one scan, a tree reduce of log2(64) = 6 adds; 4 G1 conversions
+# (g1_mont: the share pack into Montgomery form, the key pack of the
+# backend's first era, phi's product by beta, the fetch out of form), no
+# fp_mul
+TPKE_LAUNCHES = {"g1_msm_scan": 1, "g1_table": 1, "g1_dbl": 0, "g1_add": 6,
+                 "g1_mont": 4, "fp_mul": 0}
 # the coin era's counted call: one G2 table build (one launch) and one
 # G2 scan over [table | table], two G2 tree reduces of 6 adds; the key RLC
-# as one G1 table build, scan and tree reduce
+# as one G1 table build, scan and tree reduce; 3 g1_mont (the G2 signature
+# pack, the key pack of the first coin era, the fetch)
 COIN_LAUNCHES = dict(TPKE_LAUNCHES, g2_table=1, g2_msm_scan=1, g2_add=12,
-                     g2_dbl=0)
+                     g2_dbl=0, g1_mont=3)
 G2_KERNELS = ("g2_dbl", "g2_add", "g2_table", "g2_msm_scan")
 SECP_KERNELS = ("secp_fp_mul", "secp_dbl", "secp_add", "secp_table",
                 "secp_msm_scan", "secp_sqrt", "secp_mont")
 # the one-thread doublings serve no main path since each table build is
-# one launch, secp_fp_mul none since the conversions are secp_mont
-NO_PATH = ("g1_dbl", "g2_dbl", "secp_dbl", "secp_fp_mul")
+# one launch, secp_fp_mul none since the conversions are secp_mont, fp_mul
+# none since the G1 conversions and phi's product by beta are g1_mont
+NO_PATH = ("g1_dbl", "g2_dbl", "secp_dbl", "secp_fp_mul", "fp_mul")
 
 
 class SeededRng:
@@ -381,6 +398,10 @@ def check_kernels(seed: int, dev):
         pt = (want[i], want[n + i], want[2 * n + i])
         check(bls.g1_eq(pt, bls.g1_mul(ps[i], scalars[i])), "g1_ref.msm wrong")
     report["g1_msm_scan"] = dict(chk, ok=main["ok"] and chk["ok"], main=main)
+
+    # (17) g1_mont on a (37, 8192) buffer with a flag row (the fetch's
+    # layout), and into form on the coin era's (72, 4096) G2 pack
+    report["g1_mont"] = g1_mont_entry(rng, dev, n)
     report.update(check_g2_kernels(rng, dev))
     report.update(check_secp_kernels(rng, dev))
     for name, r in report.items():
@@ -673,6 +694,65 @@ def mont_entry(rng: random.Random, dev, n: int) -> dict:
     )
 
 
+def g1_mont_entry(rng: random.Random, dev, n: int) -> dict:
+    """g1_mont on a (37, n) buffer, 3 coordinates of random words (0, 1 and
+    p - 1 among them) and a flag row, out of Montgomery form, into it and
+    by beta (the first coordinate), each against the plain version bit for
+    bit and against Python ints, the flag row copied; and into form at the
+    main path's largest conversion, the coin era's (72, n / 2) G2 signature
+    pack. Each timed, the bound by bytes."""
+    import numpy as np
+    import torch
+
+    from lachain_tpu_torch.crypto import bls12381 as bls
+    from lachain_tpu_torch.ops import g1, g1_ref, glv
+
+    P, r = bls.P, 1 << 384
+
+    def buffer(coords: int, lanes: int, flag_row: bool):
+        vals = [0, 1, P - 1] + [rng.randrange(P) for _ in range(coords * lanes - 3)]
+        rows = [g1._words(vals[c * lanes : (c + 1) * lanes]).view(np.int32)
+                for c in range(coords)]
+        if flag_row:
+            rows.append(np.array([rng.randrange(2) for _ in range(lanes)], np.int32)[None])
+        return vals, torch.from_numpy(np.concatenate(rows)).to(dev)
+
+    def ints(t):
+        return g1._from_words(t.cpu().numpy().view(np.uint32))
+
+    def run(buf, vals, op, factor, want):
+        out = g1._mont(buf, op)
+        plain, plain_ms = cuda_ms_once(lambda: g1_ref.mont_mul_words(buf, factor))
+        coords = buf.shape[0] // g1.NL * g1.NL
+        got = ints(out[:coords])
+        return dict(
+            ok=torch.equal(out, plain) and got == want
+            and torch.equal(out[coords:], buf[coords:]),
+            max_abs_err=max_err(got, want), plain_ms=plain_ms,
+            ms=cuda_ms(lambda: g1._mont(buf, op), 200),
+            bound=bound(2 * buf.numel() * 4,
+                        coords // g1.NL * buf.shape[1] * 2
+                        * (G1_MONT_WORD_PRODUCTS if op == g1._MONT_OUT
+                           else OPS_PER_FIELD_MUL // 2)))
+
+    vals, buf = buffer(3, n, True)
+    out_ = run(buf, vals, g1._MONT_OUT, 1, [v * pow(r, -1, P) % P for v in vals])
+    in_ = run(buf, vals, g1._MONT_INTO, g1._R2, [v * r % P for v in vals])
+    x = buf[: g1.NL].contiguous()
+    beta = run(x, vals[:n], g1._MONT_BETA, g1._BETA_R,
+               [glv.BETA * v % P for v in vals[:n]])  # x beta R / R
+    vals2, buf2 = buffer(6, n // 2, False)
+    main = run(buf2, vals2, g1._MONT_INTO, g1._R2, [v * r % P for v in vals2])
+    runs = (out_, in_, beta, main)
+    return dict(
+        lanes=n, rows=int(buf.shape[0]), ok=all(x["ok"] for x in runs),
+        max_abs_err=max(x["max_abs_err"] for x in runs),
+        ms=out_["ms"], plain_ms=out_["plain_ms"], bound=out_["bound"],
+        into_ms=in_["ms"], into_plain_ms=in_["plain_ms"], beta_ms=beta["ms"],
+        main=dict(main, layout="coin G2 pack, into form", lanes=n // 2),
+    )
+
+
 def sqrt_entry(rng: random.Random, dev, m: int, layout: str) -> dict:
     """The card's sqrt on m lanes of plain words against secp_ref.sqrt on
     every lane, both timed, with its bound a lane: the product into
@@ -738,7 +818,7 @@ def make_era(n: int, seed: int):
 
 def profile_device(run) -> dict:
     """{kernel: [device ms, launches]} of one call of run() from
-    torch.profiler; device work that is not one of the sixteen kernels
+    torch.profiler; device work that is not one of the seventeen kernels
     (copies, cat, where) is summed under "torch". A trace loses the first
     device activities of its session (a trace of the recover path lacked
     its first three launches), so run() goes once under the profiler's
@@ -771,7 +851,7 @@ def profile_device(run) -> dict:
 def kernel_of(key: str) -> str:
     """The kernel of a profiler key, templated or not
     ("(anonymous namespace)::msm_scan_kernel<4>(...)" -> "msm_scan_kernel"),
-    or "torch" for device work that is none of the sixteen."""
+    or "torch" for device work that is none of the seventeen."""
     m = re.search(r"::(\w+)[<(]", key)
     return m[1] if m and m[1] in KERNEL_NAMES else "torch"
 
@@ -818,14 +898,23 @@ def warm_summary(label: str, warm) -> None:
     log(f"{label} warm (best of {len(warm)}): {phases}")
 
 
-def profile_phase(label: str, pipeline, run) -> dict:
-    """Warm the pipeline, then split one device phase by kernel."""
+def profile_phase(label: str, new_pipeline, run_era) -> dict:
+    """Warm up, then split one era call by kernel. Each call runs
+    run_era(pipeline) on a fresh new_pipeline(), so that, like the counted
+    call (the backend's first era), it packs the keys: its launches are the
+    counted call's."""
+    last = []
+
+    def run():
+        last[:] = [new_pipeline()]
+        run_era(last[0])
+
     run()
     by_kernel = profile_device(run)
     busy = sum(v[0] for v in by_kernel.values())
     log(f"{label} device phase by kernel (torch.profiler, ms, launches): "
         f"{by_kernel}; busy {busy:.3f} ms of device phase "
-        f"{pipeline.last_timings['device_s'] * 1e3:.3f} ms")
+        f"{last[0].last_timings['device_s'] * 1e3:.3f} ms")
     return by_kernel
 
 
@@ -871,7 +960,9 @@ def run_tpke_path(seed: int, backend, dev):
         wall = time.perf_counter() - t0
         check_all(res)
         warm.append(dict(backend.last_timings, wall_s=wall))
-        log(f"era warm {r}: wall {wall:.4f} s, phases {backend.last_timings}")
+        log(f"era warm {r}: wall {wall:.4f} s, pairing_s "
+            f"{backend.last_timings['pairing_s']:.4f} s on the {backend.host_name} "
+            f"host backend, phases {backend.last_timings}")
 
     # one poisoned share (a chosen lane) must isolate exactly its slot
     bad_slot = n // 4 + 1
@@ -889,10 +980,11 @@ def run_tpke_path(seed: int, backend, dev):
     # device time by kernel over one warm device phase (all 64 slots)
     y_points = [vk.y_i for vk in vks]
     slots = [(list(j.u_by_validator), list(j.lagrange_row)) for j in jobs]
-    pipeline = GpuEraPipeline(device=dev)
-    by_kernel = profile_phase("era", pipeline, lambda: pipeline.run_era(
+    by_kernel = profile_phase("era", lambda: GpuEraPipeline(device=dev), lambda p: p.run_era(
         slots, y_points, SeededRng(seed + 4)))
     check_traced("era", by_kernel, launches, tuple(TPKE_LAUNCHES))
+    check_host_pairing(backend, jobs, GpuEraPipeline(device=dev).run_era(
+        slots, y_points, SeededRng(seed + 6))[0], bad_slot)
 
     # 4 slots against the host oracle pipeline, same seeded rng
     slots = slots[:4]
@@ -906,6 +998,35 @@ def run_tpke_path(seed: int, backend, dev):
             check(bls.g1_eq(x, y), f"slot {s} aggregate differs from host")
     log("4 slots equal to HostEraPipeline (u_agg, y_agg, combined, rlc)")
     return launches, warm
+
+
+def check_host_pairing(backend, jobs, aggs, bad_slot: int) -> None:
+    """The backend's host pairing (the native library) against the
+    pure-Python HostBackend on the TPKE era's own grand check, the 2 pairs
+    e(u_agg, H), e(-y_agg, W) of every slot (GpuBackend._era_batch), and on
+    the same pairs with slot `bad_slot`'s u_agg moved: both must hold the
+    first and refuse the second. Both timed on the host clock."""
+    from lachain_tpu_torch.crypto import bls12381 as bls
+    from lachain_tpu_torch.crypto.host import HostBackend
+
+    pairs = [pair for job, agg in zip(jobs, aggs)
+             for pair in ((agg[0], job.h), (bls.g1_neg(agg[1]), job.w))]
+    poisoned = list(pairs)
+    p, q = pairs[2 * bad_slot]
+    poisoned[2 * bad_slot] = (bls.g1_add(p, bls.G1_GEN), q)
+    python = HostBackend()
+    for label, ps, want in (("grand check", pairs, True),
+                            ("poisoned grand check", poisoned, False)):
+        t0 = time.perf_counter()
+        got = backend.pairing_check(ps)
+        t1 = time.perf_counter()
+        oracle = python.pairing_check(ps)
+        t2 = time.perf_counter()
+        check(got is want and oracle is want,
+              f"{label}: {backend.host_name} {got}, python {oracle}, want {want}")
+        log(f"host pairing, {label} of {len(ps)} pairs: {backend.host_name} "
+            f"{got} in {t1 - t0:.4f} s, python HostBackend {oracle} in "
+            f"{t2 - t1:.4f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -981,7 +1102,9 @@ def run_coin_path(seed: int, backend, dev):
         wall = time.perf_counter() - t0
         check_all(res)
         warm.append(dict(backend.last_timings, wall_s=wall))
-        log(f"coin era warm {r}: wall {wall:.4f} s, phases {backend.last_timings}")
+        log(f"coin era warm {r}: wall {wall:.4f} s, pairing_s "
+            f"{backend.last_timings['pairing_s']:.4f} s on the {backend.host_name} "
+            f"host backend, phases {backend.last_timings}")
 
     # one poisoned chosen share must isolate exactly its coin
     bad_coin = n // 4 + 1
@@ -1004,9 +1127,9 @@ def run_coin_path(seed: int, backend, dev):
             for _, shares in coins]
     masks = [[i in chosen for i in range(n)] for _ in coins]
     y_points = [k.y for k in key_set.keys]
-    pipeline = TsGpuEraPipeline(device=dev)
-    by_kernel = profile_phase("coin era", pipeline, lambda: pipeline.run_era(
-        rows, y_points, SeededRng(seed + 14), masks=masks))
+    by_kernel = profile_phase("coin era", lambda: TsGpuEraPipeline(device=dev),
+                              lambda p: p.run_era(rows, y_points, SeededRng(seed + 14),
+                                                  masks=masks))
     check_traced("coin era", by_kernel, launches, tuple(COIN_LAUNCHES))
 
     # 4 coins against the host oracle pipeline, same seeded rng
@@ -1228,6 +1351,9 @@ def main() -> int:
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds})")
+    t0 = time.perf_counter()
+    host_lib = _build.host_library()
+    log(f"host library: {host_lib._name} ({time.perf_counter() - t0:.1f} s)")
     attrs = _build.kernel_attrs()
     log("kernel attrs (registers, local bytes, threads per lane, block): "
         + ", ".join(f"{k} {a['regs']}/{a['local_bytes']}/{a['threads_per_lane']}/{a['block']}"
@@ -1272,6 +1398,10 @@ def main() -> int:
         "secp_fp_mul": "lachain_tpu/ops/psecp.py:121",
         # the port's own Montgomery representation: psecp has none
         "secp_mont": "none: the port's own Montgomery form (psecp has none)",
+        # the port's own conversions (pg1 has no Montgomery form), and on
+        # the TPKE era the product by beta of phi(u) that pg1's era_kernel
+        # launches as _mul_kernel (pl_fp_mul)
+        "g1_mont": "lachain_tpu/ops/pg1.py:262",
         "secp_dbl": "lachain_tpu/ops/psecp.py:235",
         "secp_add": "lachain_tpu/ops/psecp.py:239",
         # build_table's chain of _add_kernel launches (and one
@@ -1301,7 +1431,8 @@ def main() -> int:
             shape = ("layout", "lanes", "windows")
             entry.update({k: r[k] for k in shape[::2] if k in r},
                          main=dict(numbers(m), **{k: m[k] for k in shape if k in m}))
-        entry.update({k: r[k] for k in ("rows", "into_ms", "into_plain_ms") if k in r})
+        entry.update({k: r[k] for k in ("rows", "into_ms", "into_plain_ms", "beta_ms")
+                      if k in r})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

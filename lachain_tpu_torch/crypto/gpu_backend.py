@@ -16,7 +16,9 @@ pairing product over any subset is a sound batch check for that subset.
 Every batch runs on the pipeline's device; there is no lane threshold that
 routes work elsewhere. Pairings, hash-to-curve and single scalar
 multiplications stay on the host backend, whose ops this class exposes by
-name.
+name: by default the native library (`native_backend.NativeBackend`, as
+the JAX package's TpuBackend picks it, tpu_backend.py:109-116); pure
+Python only where the caller passes `host_backend=HostBackend()`.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 from . import bls12381 as bls
-from .host import HostBackend, batch_bisect_verify
+from .host import batch_bisect_verify
+from .native_backend import NativeBackend
 from ..ops import g1, g2
 from ..ops.glv import W256
 from ..ops.verify import (
@@ -33,6 +36,7 @@ from ..ops.verify import (
     GpuEraPipeline,
     TsGpuEraPipeline,
     _pow2_at_least,
+    resolve_device,
 )
 
 
@@ -74,19 +78,25 @@ class GpuBackend:
     """Era-shaped batch crypto and MSMs on the card, host ops delegated.
 
     `GpuBackend()` asks for the card and raises where there is none;
-    `device="cpu"` runs the kernels' plain versions (tests)."""
+    `device="cpu"` runs the kernels' plain versions (tests). The host ops
+    run on `host_backend`, the native library when it is None."""
 
     def __init__(self, device="cuda", host_backend=None):
-        self._host = host_backend or HostBackend()
+        self.device = resolve_device(device)
+        self._host = host_backend or NativeBackend()
         # the pipelines' escapes to the host MSM use the host backend
-        self._pipeline = GpuEraPipeline(self._host, device)
-        self._ts_pipeline = TsGpuEraPipeline(self._host, device)
-        self.device = self._pipeline.device
+        self._pipeline = GpuEraPipeline(self._host, self.device)
+        self._ts_pipeline = TsGpuEraPipeline(self._host, self.device)
         self._y_cache: dict = {}
         # wall seconds of the last era: the pipeline's phases + `pairing_s`
         self.last_timings: dict = {}
 
     # -- host ops ------------------------------------------------------------
+    @property
+    def host_name(self) -> str:
+        """The host backend's name ("native" or "python")."""
+        return self._host.name
+
     def g1_mul(self, point: tuple, scalar: int) -> tuple:
         return self._host.g1_mul(point, scalar)
 

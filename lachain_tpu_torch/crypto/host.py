@@ -14,7 +14,10 @@ from . import bls12381 as bls
 
 
 class HostBackend:
-    """Group ops, pairings and hashing on the host (pure Python)."""
+    """Group ops, pairings and hashing on the host (pure Python): the
+    oracle of the port's host pipelines and of its native backend."""
+
+    name = "python"
 
     def g1_msm(self, points: Sequence[tuple], scalars: Sequence[int]) -> tuple:
         acc = bls.G1_INF

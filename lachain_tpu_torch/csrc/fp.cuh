@@ -22,6 +22,11 @@ __constant__ uint32_t kP[NL] = {
     0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u,
     0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
 constexpr uint32_t kPInv = 0xfffcfffdu;  // -p^-1 mod 2^32
+// R^2 mod p, R = 2^384: a product by it converts into Montgomery form
+__constant__ uint32_t kR2[NL] = {
+    0x1c341746u, 0xf4df1f34u, 0x09d104f1u, 0x0a76e6a6u,
+    0x4c95b6d5u, 0x8de5476cu, 0x939d83c0u, 0x67eb88a9u,
+    0xb519952du, 0x9a793e85u, 0x92cae3aau, 0x11988fe5u};
 
 // The field traits of coop.cuh's group field (g1.cu's scan; g2.cu's scan,
 // add and table build). 2p < 2^383, so no sum carries out of the group and

@@ -7,13 +7,17 @@
 //   lt_g1_table     <- pg1._add_kernel and _dbl_kernel as build_table
 //                      chains them (pg1.py:447): the whole table, one launch
 //   lt_g1_msm_scan  <- pg1._msm_kernel   (_msm_scan, pg1.py:355/:412)
+//   lt_g1_mont      this port's own: every coordinate of a buffer into or
+//                   out of Montgomery form, or times beta (phi's X), in one
+//                   launch (pg1 has no Montgomery form)
 //
 // Representation. pg1's 44 x 10-bit signed limbs, its f32 MXU residue fold
 // and its 256-lane VMEM tiles are TPU artifacts. Here a field element is 12
 // x 32-bit limbs in Montgomery form (R = 2^384), always canonical in [0, p)
 // (fp.cuh, shared with g2.cu); a point is 36 rows X | Y | Z, lane-minor.
-// The host converts into and out of Montgomery form with lt_g1_fp_mul by
-// R^2 mod p and by 1 (lachain_tpu_torch/ops/g1.py).
+// The host converts into and out of Montgomery form with lt_g1_mont, one
+// launch a buffer read as it lies (lachain_tpu_torch/ops/g1.py mont_convert;
+// G2's (72, n) buffers too).
 //
 // Multiply: CIOS Montgomery, 2*12*12 + 12 word products. The group law uses
 // pg1's formulas (pg1._g1_dbl_val, pg1._g1_add_val, pg1.py:181-220)
@@ -29,8 +33,9 @@
 // B/lane) once per lane per window at most, the table build writes it.
 //
 // fp_mul and dbl: one thread per lane on fp.cuh's field (uint64 CIOS); since
-// the table build is one launch, dbl serves no main path.
-// The group-field kernels (the scan, add and the table build): SCAN_T
+// the table build is one launch, dbl serves no main path, and since the
+// conversions and phi's product by beta are g1_mont, fp_mul serves none.
+// The group-field kernels (the scan, add, the table build and mont): SCAN_T
 // threads per lane on coop.cuh's group field over fp.cuh's p (BlsFp:
 // carry-save column products, PTX carry chains for the carries, ballots
 // between the threads), the group law inlined. add serves the tree
@@ -67,6 +72,13 @@
 //   the one-thread add and the 14-launch chain they replaced: 0.0562 /
 //   0.0534, 0.776 / 0.762.
 //
+// mont: one Fp product a coordinate (into form: by R^2 mod p; phi's X: by
+// beta R mod p, both from the constant bank) or one reduction (out of form,
+// 156 word products at 12 words), so the bound is its bytes, 2 x 48 a
+// coordinate: one launch over the buffer as it lies replaced a permute copy,
+// an uploaded constant expanded over every lane, one fp_mul launch and a
+// permute copy back (and a torch.cat with the flag row in a fetch).
+//
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is non-zero.
 
@@ -85,6 +97,16 @@ constexpr int TABLE = 16;   // entries k*P, k in [0, 16)
 constexpr int THREADS = 64;  // n = 8192 lanes -> 128 blocks over 132 SMs
 constexpr int SCAN_T = LT_G1_SCAN_T;  // threads per lane (group field)
 constexpr int SCAN_BLOCK = 64;        // their threads per block
+
+// beta R mod p: a product by it multiplies a Montgomery word by beta, the
+// cube root of unity of phi(x, y) = (beta x, y) (ops/glv.py BETA)
+__constant__ uint32_t kBetaR[NL] = {
+    0x8671f071u, 0xcd03c9e4u, 0x1fcda5d2u, 0x5dab2246u,
+    0xd3851b95u, 0x587042afu, 0x01bacb9eu, 0x8eb60ebeu,
+    0x83d050d2u, 0x03f97d6eu, 0x54638741u, 0x18f02065u};
+
+// lt_g1_mont's op: out of Montgomery form, into it, times beta
+enum MontOp { kMontOut = 0, kMontInto = 1, kMontBeta = 2 };
 
 struct Pt {
   Fp x, y, z;
@@ -300,6 +322,38 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
   }
 }
 
+// Every coordinate of a (12 coords [+ 1], n) buffer in one launch:
+// element c * n + j is coordinate c's words at rows 12c .. 12c + 11, lane
+// j, read as the buffer lies. kMontInto: x R mod p, one product by R^2;
+// kMontBeta: x beta, one product by beta R (both from the constant bank);
+// kMontOut: x / R mod p, one reduction, canonical for any 384-bit x. A
+// trailing flag row (flag_row) is copied as it is. op is the same for the
+// whole launch, so every collective takes the full warp.
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    g1_mont_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                   int coords, int n, bool flag_row, int op) {
+  const Group<T> g = make_coop_group<BlsFp, T>();
+  bool live;
+  const int e = group_lane<T, SCAN_BLOCK>(coords * n, live);
+  const int c = e / n, col = e - c * n;
+  const FpG<T> a = load_fpg(g, x, c * NL, n, col);
+  FpG<T> r;
+  if (op == kMontOut) {
+    r = fpg_redc(g, a);
+  } else {
+    const bool into = op == kMontInto;
+    r = fpg_mul(g, a, fpg_const(g, [into](int i) {
+                  return into ? kR2[i] : kBetaR[i];
+                }));
+  }
+  if (live) {
+    store_fpg(g, out, c * NL, n, col, r);
+    const size_t flags = (size_t)coords * NL * n + col;
+    if (flag_row && c == 0 && g.rank == 0) out[flags] = x[flags];
+  }
+}
+
 inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
 
 }  // namespace
@@ -353,16 +407,32 @@ int lt_g1_msm_scan(const void* table, const void* digits, void* acc,
   return (int)cudaGetLastError();
 }
 
+// rows = 12 * coords, or 12 * coords + 1 with a trailing flag row; op a
+// MontOp
+int lt_g1_mont(const void* x, void* out, int rows, int n, int op,
+               void* stream) {
+  const int coords = rows / NL;
+  if (op < kMontOut || op > kMontBeta) return (int)cudaErrorInvalidValue;
+  if (coords > 0 && n > 0) {
+    g1_mont_kernel<SCAN_T>
+        <<<group_blocks<SCAN_T, SCAN_BLOCK>(coords * n), SCAN_BLOCK, 0,
+           (cudaStream_t)stream>>>((const uint32_t*)x, (uint32_t*)out, coords,
+                                   n, rows > coords * NL, op);
+  }
+  return (int)cudaGetLastError();
+}
+
 // Registers per thread, local (spill) bytes, threads per lane and threads
 // per block of kernel `which` (0 fp_mul, 1 dbl, 2 add, 3 msm_scan, 4
-// table), for the chip report.
+// table, 5 mont), for the chip report.
 int lt_g1_kernel_attrs(int which, int* regs, int* local_bytes,
                        int* threads_per_lane, int* block) {
-  const void* fns[5] = {(const void*)fp_mul_kernel, (const void*)dbl_kernel,
+  const void* fns[6] = {(const void*)fp_mul_kernel, (const void*)dbl_kernel,
                         (const void*)add_kernel<SCAN_T>,
                         (const void*)msm_scan_kernel<SCAN_T>,
-                        (const void*)g1_table_kernel<SCAN_T>};
-  if (which < 0 || which > 4) return (int)cudaErrorInvalidValue;
+                        (const void*)g1_table_kernel<SCAN_T>,
+                        (const void*)g1_mont_kernel<SCAN_T>};
+  if (which < 0 || which > 5) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
   if (err != cudaSuccess) return (int)err;

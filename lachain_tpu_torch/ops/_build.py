@@ -1,4 +1,5 @@
-"""Build and bind the port's CUDA kernels (plain C interface + ctypes).
+"""Build and bind the port's native code: the CUDA kernels and the host
+pairing library (plain C interfaces + ctypes).
 
 `library()` compiles `csrc/g1.cu`, `csrc/g2.cu` (both include
 `csrc/fp.cuh` and, for their group-field kernels, `csrc/coop.cuh` over
@@ -11,10 +12,22 @@ and loads it. The first
 call in a fresh checkout therefore builds; later calls in the same
 checkout reuse the library. There is no fallback: without nvcc, or on a
 failed build, it raises.
+
+`host_library()` compiles the host BLS12-381 library (`crypto/native/`
+bls381.cpp and secp256k1.cpp, copies of the JAX package's) with g++ and
+the reference Makefile's flags into one shared library in the same
+directory, under a name keyed by a hash of the sources, the flags, `g++
+--version` and what `-march=native` resolves to on this CPU (`g++
+-march=native -Q --help=target`), so that a checkout shared by two CPUs
+never loads code built for the other. One process builds at a time (a
+file lock), others wait and load its result. Without g++, or on a failed
+build, it raises. This module imports no torch: the host backend that
+loads the library (`crypto/native_backend.py`) serves torch-free callers.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -33,7 +46,14 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
+HOST_SRC = _PKG / "crypto" / "native"
+HOST_SOURCES = ("bls381.cpp", "secp256k1.cpp")
+# the flags of lachain_tpu/crypto/native/Makefile, warnings aside
+HOST_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-fPIC", "-shared",
+              "-std=c++17", "-pthread")
+
 _LIB = None
+_HOST_LIB = None
 # wall seconds of this process's nvcc run (None when the library came from
 # an earlier build)
 build_seconds = None
@@ -46,6 +66,7 @@ _SIGNATURES = {
     "lt_g1_add": [_P, _P, _P, _I, _P],
     "lt_g1_table": [_P, _P, _I, _P],
     "lt_g1_msm_scan": [_P, _P, _P, _P, _I, _I, _P],
+    "lt_g1_mont": [_P, _P, _I, _I, _I, _P],
     "lt_g1_kernel_attrs": [_I] + [ctypes.POINTER(_I)] * 4,
     "lt_g2_dbl": [_P, _P, _I, _P],
     "lt_g2_add": [_P, _P, _P, _I, _P],
@@ -64,7 +85,7 @@ _SIGNATURES = {
 # (attrs entry, kernel names in its index order)
 _ATTRS = (
     ("lt_g1_kernel_attrs", ("fp_mul", "g1_dbl", "g1_add", "g1_msm_scan",
-                            "g1_table")),
+                            "g1_table", "g1_mont")),
     ("lt_g2_kernel_attrs", ("g2_dbl", "g2_add", "g2_msm_scan", "g2_table")),
     ("lt_secp_kernel_attrs", ("secp_fp_mul", "secp_dbl", "secp_add",
                               "secp_msm_scan", "secp_sqrt", "secp_table",
@@ -105,28 +126,38 @@ def _run_all(cmds) -> None:
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)} -> {proc.returncode}:\n{out}")
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
+
+
+def _publish(target: Path, steps) -> None:
+    """steps(work) builds `work / "lib.so"` in a fresh directory under
+    BUILD_DIR; it then replaces `target` atomically, so that a concurrent
+    loader never sees half a library."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        steps(work)
+        os.replace(work / "lib.so", target)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def _build(target: Path) -> None:
     global build_seconds
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
-    objs = [work / (Path(s).stem + ".o") for s in SOURCES]
-    tmp = work / "lib.so"
-    try:
-        t0 = time.perf_counter()
+
+    def steps(work: Path) -> None:
+        objs = [work / (Path(s).stem + ".o") for s in SOURCES]
         _run_all([
             [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
             for s, o in zip(SOURCES, objs)
         ])
-        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(work / "lib.so"),
                    *map(str, objs)]])
-        build_seconds = time.perf_counter() - t0
-        os.replace(tmp, target)  # atomic: a concurrent loader never sees half
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    _publish(target, steps)
+    build_seconds = time.perf_counter() - t0
 
 
 def library():
@@ -143,6 +174,45 @@ def library():
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _gxx() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError(
+            "g++ not found: the host pairing library builds only where a C++ "
+            "compiler is installed"
+        )
+    return path
+
+
+def _host_target(gxx: str) -> Path:
+    h = hashlib.sha256()
+    for name in HOST_SOURCES:
+        h.update(name.encode())
+        h.update((HOST_SRC / name).read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    for args in (["--version"], ["-march=native", "-Q", "--help=target"]):
+        h.update(subprocess.run([gxx, *args], capture_output=True,
+                                check=True).stdout)
+    return BUILD_DIR / f"libhost_{h.hexdigest()[:16]}.so"
+
+
+def host_library():
+    """The loaded host pairing library, built first if needed."""
+    global _HOST_LIB
+    if _HOST_LIB is None:
+        gxx = _gxx()
+        target = _host_target(gxx)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / "host.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            if not target.exists():
+                _publish(target, lambda work: _run_all([[
+                    gxx, *HOST_FLAGS, "-o", str(work / "lib.so"),
+                    *(str(HOST_SRC / s) for s in HOST_SOURCES)]]))
+        _HOST_LIB = ctypes.CDLL(str(target))
+    return _HOST_LIB
 
 
 ATTR_KEYS = ("regs", "local_bytes", "threads_per_lane", "block")

@@ -1,10 +1,11 @@
 """G1 era engine: the kernel wrappers and pg1's composite programs.
 
 The port of `lachain_tpu/ops/pg1.py`. Five wrappers front the CUDA kernels
-of `csrc/g1.cu` (`fp_mul`, `g1_dbl`, `g1_add`, `build_table`, `msm_scan`);
-the composites above them (`msm_windowed`, `tree_reduce_k`, `era_kernel`,
-`era_kernel_fused`, `msm_reduce`) are plain tensor code over those
-wrappers.
+of `csrc/g1.cu` that replace pg1's (`fp_mul`, `g1_dbl`, `g1_add`,
+`build_table`, `msm_scan`), and two front the port's own conversion kernel
+(`mont_convert`, `mul_beta`: `g1_mont`); the composites above them
+(`msm_windowed`, `tree_reduce_k`, `era_kernel`, `era_kernel_fused`,
+`msm_reduce`) are plain tensor code over those wrappers.
 
 Every wrapper dispatches on the device its tensors lie on, and on nothing
 else: on `cuda` it launches its kernel (or raises), on `cpu` it runs the
@@ -14,11 +15,13 @@ layouts, each the natural one for its arithmetic:
     a point is (36, n);
   * cpu:  int64 rows holding pg1's 44 x 10-bit signed plain limbs, a point
     is (132, n), so the CPU tests compare with pg1 limb for limb.
-`g1_pack` / `fp_encode` convert oracle ints into either layout; `fetch`
-brings a fused output buffer (flag row last) to the host in one copy, and
-`g1_unpack_host` reads oracle tuples from it. `g1_coords` / `fp_decode`
-read exact coordinates back. The composites only ever slice a point into
-thirds.
+`g1_pack` / `fp_encode` convert oracle ints into either layout (on the
+card: plain words uploaded in the final layout, one `mont_convert` launch
+into Montgomery form); `fetch` brings a fused output buffer (flag row last)
+to the host in one copy, after one launch out of Montgomery form over the
+whole buffer, and `g1_unpack_host` reads oracle tuples from it.
+`g1_coords` / `fp_decode` read exact coordinates back. The composites only
+ever slice a point into thirds.
 
 `LAUNCHES` counts the kernel launches of each wrapper (CUDA only), so a run
 can show that its path went through the kernels.
@@ -37,9 +40,13 @@ from .glv import TABLE
 NL = 12  # 32-bit Montgomery limbs per coordinate on the card
 _MONT_R = 1 << 384
 _R2 = _MONT_R * _MONT_R % bls.P  # x * R^2 / R = x R: into Montgomery form
+_BETA_R = glv.BETA * _MONT_R % bls.P  # x R * beta R / R = (x beta) R
+# lt_g1_mont's op (csrc/g1.cu MontOp) -> the factor of its plain version
+_MONT_OUT, _MONT_INTO, _MONT_BETA = 0, 1, 2
+_MONT_FACTOR = {_MONT_OUT: 1, _MONT_INTO: _R2, _MONT_BETA: _BETA_R}
 
 LAUNCHES = {"fp_mul": 0, "g1_dbl": 0, "g1_add": 0, "g1_table": 0,
-            "g1_msm_scan": 0}
+            "g1_msm_scan": 0, "g1_mont": 0}
 
 
 def reset_launches() -> None:
@@ -48,7 +55,7 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------------------
-# the five kernel wrappers
+# the kernel wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -177,6 +184,46 @@ def msm_scan(table, digits):
     return acc, flags
 
 
+def _mont(t, op: int):
+    """One g1_mont launch of `op` over a (12c [+ 1], n) card buffer."""
+    rows, n = t.shape
+    _check("g1_mont t", t, (rows, n))
+    out = torch.empty_like(t)
+    rc = _build.library().lt_g1_mont(
+        t.data_ptr(), out.data_ptr(), rows, n, op, _stream(t)
+    )
+    _launched("g1_mont", rc)
+    return out
+
+
+def mont_convert(t, into: bool):
+    """(12c, n) or (12c + 1, n) int32 words -> the same shape: every
+    coordinate (rows 12c' .. 12c' + 11, lane-minor, as the card's G1 and G2
+    buffers lie) into Montgomery form, x R mod p (`into`), or out of it, x /
+    R mod p (any 384-bit x); a trailing flag row is copied as it is. One
+    launch reads the buffer as it lies: no permute, no copy, no uploaded
+    constant (this port's own representation; pg1 has no Montgomery form).
+    A CPU tensor in the same layout takes the plain version."""
+    if t.dim() != 2 or t.shape[0] < NL or t.shape[0] % NL > 1:
+        raise ValueError(f"mont_convert: expected (12c [+ 1], n) rows, got {tuple(t.shape)}")
+    op = _MONT_INTO if into else _MONT_OUT
+    if _on_cpu(t):
+        return g1_ref.mont_mul_words(t, _MONT_FACTOR[op])
+    return _mont(t, op)
+
+
+def mul_beta(x):
+    """(R, n) field elements -> beta * x mod p, the X of phi(u) = (beta X,
+    Y, Z) (era_kernel; pg1 multiplies by beta with `_mul_kernel`). On the
+    card (12, n) Montgomery words, one g1_mont launch by beta R from its
+    constant bank; on the CPU pg1's limbs through g1_ref.fp_mul."""
+    if _on_cpu(x):
+        beta = torch.from_numpy(g1_ref.ints_to_limbs([glv.BETA] * x.shape[-1]))
+        return g1_ref.fp_mul(x, beta)
+    _check("mul_beta x", x, (NL, x.shape[-1]))
+    return _mont(x, _MONT_BETA)
+
+
 # ---------------------------------------------------------------------------
 # marshal: oracle ints <-> the device's layout
 # ---------------------------------------------------------------------------
@@ -189,8 +236,11 @@ def _words(vals: Sequence[int]) -> np.ndarray:
 
 
 def _from_words(a) -> list:
-    """(12, n) uint32 words -> ints."""
-    raw = np.ascontiguousarray(np.asarray(a, dtype="<u4").T).tobytes()
+    """(12c, n) uint32 words -> the c * n ints, coordinate by coordinate:
+    c0's n lanes, then c1's, ..."""
+    a = np.asarray(a, dtype="<u4")
+    c, n = a.shape[0] // NL, a.shape[-1]
+    raw = np.ascontiguousarray(a.reshape(c, NL, n).transpose(0, 2, 1)).tobytes()
     w = 4 * NL
     return [
         int.from_bytes(raw[i * w : (i + 1) * w], "little")
@@ -198,49 +248,28 @@ def _from_words(a) -> list:
     ]
 
 
-_COLS: dict = {}
-
-
-def _const_col(value: int, device) -> torch.Tensor:
-    """A field constant as one (R, 1) column in the device's layout."""
-    device = torch.device(device)
-    key = (value, device)
-    hit = _COLS.get(key)
-    if hit is None:
-        if _cpu_layout(device):
-            hit = torch.from_numpy(g1_ref.ints_to_limbs([value]))
-        else:
-            words = _words([value * _MONT_R % bls.P]).view(np.int32)
-            hit = torch.from_numpy(words).to(device)
-        _COLS[key] = hit
-    return hit
-
-
-def _mont_apply(t, factor: int):
-    """Multiply every coordinate of a (12c, n) CUDA array by the raw word
-    constant `factor` in one fp_mul launch: R^2 mod p converts into
-    Montgomery form, 1 converts out."""
-    c, n = t.shape[0] // NL, t.shape[-1]
-    # reshape after permute may return a strided view (n == 1): copy
-    flat = t.view(c, NL, n).permute(1, 0, 2).reshape(NL, c * n).contiguous()
-    k = torch.from_numpy(_words([factor]).view(np.int32)).to(t.device)
-    out = fp_mul(flat, k.expand(NL, c * n).contiguous())
-    return out.view(NL, c, n).permute(1, 0, 2).reshape(c * NL, n).contiguous()
+def encode_words(coords: Sequence[Sequence[int]], device) -> torch.Tensor:
+    """c lists of n field ints -> (12c, n) Montgomery words on the card:
+    the plain words uploaded in the final layout (coordinate c at rows 12c
+    .. 12c + 11), then one launch into form."""
+    words = np.concatenate([_words(v) for v in coords]).view(np.int32)
+    return mont_convert(torch.from_numpy(words).to(device), into=True)
 
 
 def fp_encode(vals: Sequence[int], device="cuda") -> torch.Tensor:
     """Field ints in [0, p) -> (R, n) in the device's layout."""
     if _cpu_layout(device):
         return torch.from_numpy(g1_ref.ints_to_limbs(vals))
-    words = torch.from_numpy(_words(vals).view(np.int32)).to(device)
-    return _mont_apply(words, _R2)
+    return encode_words([vals], device)
 
 
 def fp_decode(t) -> list:
-    """(R, n) in the device's layout -> canonical field ints."""
+    """(R, n) in the device's layout -> canonical field ints; on the card
+    any (12c, n) buffer -> its c * n ints, coordinate by coordinate (one
+    launch out of Montgomery form, one download)."""
     if _cpu_layout(t.device):
         return g1_ref.limbs_to_ints(t.numpy())
-    plain = _mont_apply(t.contiguous(), 1)
+    plain = mont_convert(t.contiguous(), into=False)
     return _from_words(plain.cpu().numpy().view(np.uint32))
 
 
@@ -250,14 +279,18 @@ def g1_pack(points, device="cuda") -> torch.Tensor:
     xs = [p[0] if p[2] != 0 else 0 for p in points]
     ys = [p[1] if p[2] != 0 else 1 for p in points]
     zs = [p[2] for p in points]
-    return fp_encode(xs + ys + zs, device).view(-1, 3, len(points)).permute(
-        1, 0, 2
-    ).reshape(-1, len(points)).contiguous()
+    if _cpu_layout(device):
+        return fp_encode(xs + ys + zs, device).view(-1, 3, len(points)).permute(
+            1, 0, 2
+        ).reshape(-1, len(points)).contiguous()
+    return encode_words([xs, ys, zs], device)
 
 
 def g1_coords(arr) -> list:
     """(3R, n) points -> the 3n canonical coordinate ints X... | Y... | Z...
     (no infinity mapping)."""
+    if not _cpu_layout(arr.device):
+        return fp_decode(arr)
     r, n = arr.shape[0] // 3, arr.shape[-1]
     return fp_decode(arr.reshape(3, r, n).permute(1, 0, 2).reshape(r, 3 * n))
 
@@ -278,8 +311,7 @@ def fetch(fused):
     if _cpu_layout(fused.device):
         a = fused.numpy()
     else:
-        plain = _mont_apply(fused[:-1].contiguous(), 1)
-        a = torch.cat([plain, fused[-1:]], dim=0).cpu().numpy()
+        a = mont_convert(fused, into=False).cpu().numpy()
     return a[:-1], a[-1] != 0
 
 
@@ -388,11 +420,8 @@ def era_kernel(u, y, rlc16, lag1, lag2, k: int):
     quarters, so the outputs are pg1's. Returns (rlc_pts (3R, 2S),
     rlc_flags, lag_pts (3R, 2S), lag_flags): per-slot u_agg | y_agg, then
     comb1 | comb2."""
-    n = u.shape[-1]
     r = u.shape[0] // 3
-    beta = _const_col(glv.BETA, u.device).expand(r, n).contiguous()
-    phi_x = fp_mul(u[:r].contiguous(), beta)
-    phi_u = torch.cat([phi_x, u[r:]], dim=0)
+    phi_u = torch.cat([mul_beta(u[:r].contiguous()), u[r:]], dim=0)
 
     lanes = torch.cat([u, y, u, phi_u], dim=1)
     acc, fl = msm_windowed(lanes, era_digits(rlc16, lag1, lag2))

@@ -285,3 +285,65 @@ def points_to_limbs(points) -> np.ndarray:
     return np.concatenate(
         [ints_to_limbs(xs), ints_to_limbs(ys), ints_to_limbs(zs)], axis=0
     )
+
+
+# ---------------------------------------------------------------------------
+# the card's Montgomery words (pg1 has no Montgomery form)
+# ---------------------------------------------------------------------------
+
+WORD_ROWS = 12  # 32-bit words per coordinate on the card
+_H = 16  # bits of a half-word limb
+_HMASK = (1 << _H) - 1
+
+
+def mont_words(t, k: int, p: int, words: int):
+    """(words * c, n) or (words * c + 1, n) int32 words in the card's layout
+    (coordinate c's little-endian words at rows words*c .. words*c +
+    words - 1) -> the same shape, every coordinate x replaced by the
+    canonical x * k / 2^(32 words) mod p, a trailing flag row copied. x may
+    be any value below 2^(32 words), k below p. Montgomery's product over
+    16-bit limbs in int64, every column exact (sums of at most 2 * 2 words
+    products below 2^32); the value before the last subtraction is below
+    (x k + 2^(32 words) p) / 2^(32 words) < 2p."""
+    halves = 2 * words
+    p_halves = [(p >> (_H * i)) & _HMASK for i in range(halves)]
+    pinv = -pow(p, -1, 1 << _H) % (1 << _H)
+    c = t.shape[0] // words
+    n = t.shape[-1]
+    w = (t[: words * c].to(torch.int64) & 0xFFFFFFFF).view(c, words, n)
+    a = torch.stack([w & _HMASK, w >> _H], dim=2).view(c, halves, n)
+    cols = torch.zeros((c, 2 * halves + 1, n), dtype=torch.int64, device=t.device)
+    for j in range(halves):
+        kj = (k >> (_H * j)) & _HMASK
+        if kj:
+            cols[:, j : j + halves] += a * kj
+    p_col = torch.tensor(p_halves, dtype=torch.int64, device=t.device)[:, None]
+    for i in range(halves):  # clear column i with m * p, carry it up
+        m = ((cols[:, i] & _HMASK) * pinv) & _HMASK
+        cols[:, i : i + halves] += m[:, None, :] * p_col
+        cols[:, i + 1] += cols[:, i] >> _H
+    r = cols[:, halves:]  # the value / 2^(32 words), below 2p: loose limbs
+    for j in range(halves):
+        r[:, j + 1] += r[:, j] >> _H
+        r[:, j] &= _HMASK
+    d = torch.empty_like(r)  # r - p, and whether it borrows (r < p)
+    borrow = torch.zeros_like(r[:, 0])
+    for j in range(halves + 1):
+        v = r[:, j] - (p_halves[j] if j < halves else 0) - borrow
+        borrow = (v < 0).to(torch.int64)
+        d[:, j] = v + (borrow << _H)
+    canon = torch.where(borrow.bool()[:, None, :], r[:, :halves], d[:, :halves])
+    out_words = canon[:, 0::2] | (canon[:, 1::2] << _H)
+    out_words = out_words - ((out_words >> 31) << 32)  # two's complement int32
+    out = t.clone()
+    out[: words * c] = out_words.reshape(words * c, n).to(torch.int32)
+    return out
+
+
+def mont_mul_words(t, k: int):
+    """(12c, n) or (12c + 1, n) int32 words in the card's layout -> every
+    coordinate x replaced by the canonical x * k / 2^384 mod p, a trailing
+    flag row copied: with k = 2^768 mod p into Montgomery form, with k = 1
+    out of it, with k = beta 2^384 mod p times beta (the plain version of
+    `g1.mont_convert` and `g1.mul_beta` on the card's words)."""
+    return mont_words(t, k, bls.P, WORD_ROWS)

@@ -14,8 +14,8 @@ its arithmetic:
     Z.c0 | Z.c1 of 12 Montgomery words each;
   * cpu:  (288, n) int64, pg2's 44 x 10-bit plain limbs per component in
     48-row slots, so the CPU tests compare with pg2 limb for limb.
-`g2_pack` / `g2_coords` convert oracle points through `g1.fp_encode` /
-`g1.fp_decode` over 6n coordinates; `g2_unpack_host` reads oracle tuples
+`g2_pack` / `g2_coords` convert oracle points through `g1.encode_words` /
+`g1.fp_decode` (on the card one `g1_mont` launch over the (72, n) buffer); `g2_unpack_host` reads oracle tuples
 from a buffer that `g1.fetch` brought to the host (pg2.g2_unpack).
 
 `LAUNCHES` counts the kernel launches of each wrapper (CUDA only).
@@ -138,11 +138,8 @@ def g2_pack(points: Sequence[tuple], device="cuda") -> torch.Tensor:
     ((0,0),(1,0),(0,0)); callers carry it in flags (pg2.g2_pack)."""
     if _cpu_layout(device):
         return torch.from_numpy(g2_ref.points_to_limbs(points))
-    n = len(points)
     comps = g2_ref.components(points)
-    flat = [c[j] for j in range(6) for c in comps]
-    enc = g1.fp_encode(flat, device)  # (12, 6n), component-major lanes
-    return enc.view(NL, 6, n).permute(1, 0, 2).reshape(ROWS2, n).contiguous()
+    return g1.encode_words([[c[j] for c in comps] for j in range(6)], device)
 
 
 def _by_component(a, slot: int, used: int):
@@ -167,7 +164,9 @@ def g2_coords(arr) -> list:
     """Points -> the 6n canonical coordinate ints, component-major:
     X.c0... | X.c1... | Y.c0... | Y.c1... | Z.c0... | Z.c1... (no infinity
     mapping)."""
-    slot, used = _slots(_cpu_layout(arr.device))
+    if not _cpu_layout(arr.device):
+        return g1.fp_decode(arr)  # (72, n) converted as it lies
+    slot, used = _slots(True)
     n = arr.shape[-1]
     comps = arr.reshape(6, slot, n)[:, :used].permute(1, 0, 2)
     return g1.fp_decode(comps.reshape(used, 6 * n))

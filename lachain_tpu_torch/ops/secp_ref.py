@@ -9,7 +9,8 @@ a point is (96, n) = X | Y | Z in 32-row slots (26 limbs, 6 zero rows),
 lane-last. The steps are psecp's step for step, so the outputs equal
 psecp's limb for limb (tests/test_torch_secp_kernels.py). The one
 exception is `mont_mul_words`, the conversions of the card's own
-Montgomery words, which psecp does not have: it works on those words.
+Montgomery words, which psecp does not have: it works on those words
+(`g1_ref.mont_words`).
 
 These run where the tensors lie: on the CPU they are what the wrappers in
 `ops/secp.py` use; on the card `chip_smoke.py` holds each CUDA kernel of
@@ -240,10 +241,6 @@ def sqrt(x):
 # ---------------------------------------------------------------------------
 
 WORD_ROWS = 8  # 32-bit words per coordinate on the card
-_H = 16  # bits of a half-word limb
-_HMASK = (1 << _H) - 1
-_P_HALVES = [(P >> (_H * i)) & _HMASK for i in range(2 * WORD_ROWS)]
-_PINV_HALF = -pow(P, -1, 1 << _H) % (1 << _H)
 
 
 def mont_mul_words(t, k: int):
@@ -251,40 +248,9 @@ def mont_mul_words(t, k: int):
     c's little-endian words at rows 8c .. 8c + 7) -> the same shape, every
     coordinate x replaced by the canonical x * k / 2^256 mod p, a trailing
     flag row copied: with k = 2^512 mod p into Montgomery form, with k = 1
-    out of it (the plain version of `secp.mont_convert`). Montgomery's
-    product over 16-bit limbs in int64, every column exact (sums of at
-    most 32 products below 2^32)."""
-    c = t.shape[0] // WORD_ROWS
-    n = t.shape[-1]
-    w = (t[: WORD_ROWS * c].to(torch.int64) & 0xFFFFFFFF).view(c, WORD_ROWS, n)
-    a = torch.stack([w & _HMASK, w >> _H], dim=2).view(c, 2 * WORD_ROWS, n)
-    halves = 2 * WORD_ROWS
-    cols = torch.zeros((c, 2 * halves + 1, n), dtype=torch.int64, device=t.device)
-    for j in range(halves):
-        kj = (k >> (_H * j)) & _HMASK
-        if kj:
-            cols[:, j : j + halves] += a * kj
-    p_col = torch.tensor(_P_HALVES, dtype=torch.int64, device=t.device)[:, None]
-    for i in range(halves):  # clear column i with m * p, carry it up
-        m = ((cols[:, i] & _HMASK) * _PINV_HALF) & _HMASK
-        cols[:, i : i + halves] += m[:, None, :] * p_col
-        cols[:, i + 1] += cols[:, i] >> _H
-    r = cols[:, halves:]  # the value / 2^256, below 2p: 17 loose limbs
-    for j in range(halves):
-        r[:, j + 1] += r[:, j] >> _H
-        r[:, j] &= _HMASK
-    d = torch.empty_like(r)  # r - p, and whether it borrows (r < p)
-    borrow = torch.zeros_like(r[:, 0])
-    for j in range(halves + 1):
-        v = r[:, j] - (_P_HALVES[j] if j < halves else 0) - borrow
-        borrow = (v < 0).to(torch.int64)
-        d[:, j] = v + (borrow << _H)
-    canon = torch.where(borrow.bool()[:, None, :], r[:, :halves], d[:, :halves])
-    words = canon[:, 0::2] | (canon[:, 1::2] << _H)
-    words = words - ((words >> 31) << 32)  # two's complement int32 values
-    out = t.clone()
-    out[: WORD_ROWS * c] = words.reshape(WORD_ROWS * c, n).to(torch.int32)
-    return out
+    out of it (the plain version of `secp.mont_convert`; the arithmetic is
+    `g1_ref.mont_words` over this prime)."""
+    return g1_ref.mont_words(t, k, P, WORD_ROWS)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ import torch
 
 from ..crypto import bls12381 as bls
 from ..crypto.host import HostBackend
+from ..crypto.native_backend import NativeBackend
 from . import g1, g2
 from .glv import W64, W128, W256, glv_split
 
@@ -117,11 +118,13 @@ class GpuEraPipeline:
 
     `last_timings` holds the wall seconds of the last run's phases: `pack_s`
     (marshal + upload), `device_s` (all launches, to a synchronised end) and
-    `fetch_s` (download + unpack + per-slot finish)."""
+    `fetch_s` (download + unpack + per-slot finish). `backend` serves the
+    escapes to the host MSM: the native library when it is None, as in
+    GpuBackend."""
 
     def __init__(self, backend=None, device="cuda"):
         self.device = resolve_device(device)
-        self._backend = backend or HostBackend()
+        self._backend = backend or NativeBackend()
         self._y_cache = _TiledYCache(self.device)
         self.last_timings: dict = {}
 
@@ -187,11 +190,12 @@ class TsGpuEraPipeline:
     coin (K G2 signature shares and K Lagrange-at-0 coefficients), y_points
     = the K per-validator TS public keys (G1). Returns (per-coin
     (sig_rlc_agg G2, y_rlc_agg G1, combined_sig G2), rlc). `last_timings`
-    holds the phases of the last run as GpuEraPipeline's does."""
+    holds the phases of the last run as GpuEraPipeline's does; `backend` as
+    there."""
 
     def __init__(self, backend=None, device="cuda"):
         self.device = resolve_device(device)
-        self._backend = backend or HostBackend()
+        self._backend = backend or NativeBackend()
         self._y_cache = _TiledYCache(self.device)
         self.last_timings: dict = {}
 
@@ -245,8 +249,9 @@ class TsGpuEraPipeline:
 
 class _HostEraPipelineBase:
     """The era-pipeline contract computed with the host MSMs: the port's
-    oracle for its device pipelines. The share group differs per subclass
-    (`_share_msm`)."""
+    oracle for its device pipelines, on the pure-Python HostBackend unless
+    given another, so that it stays independent of the code under test.
+    The share group differs per subclass (`_share_msm`)."""
 
     _share_msm = "g1_msm"
 

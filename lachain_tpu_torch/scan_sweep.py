@@ -30,7 +30,10 @@ reversed, so that each library runs before and after each other one:
     16,384 lanes); the G1 table build at 8192 lanes, at the TPKE era's
     16,384 joined lanes (`g1.tpke_lanes`) and at the coin era's 4096 key
     lanes (64 keys tiled per coin); g1_add at 8192 lanes and at 256, the
-    TPKE era's last tree pass;
+    TPKE era's last tree pass; the G1 conversions (`g1_mont`) into form on
+    the TPKE era's (36, 4096) share pack and the coin era's (72, 4096) G2
+    signature pack, out of it on a (37, 8192) buffer with a flag row, and
+    phi's product by beta on (12, 4096);
   * the G2 scan at `check` (64 windows x 8192 lanes of random 256-bit
     digits) and at `coin`, the N=64 coin era's scan (`g2.coin_digits`);
     the G2 table build at the coin era's 4096 signature lanes
@@ -50,13 +53,12 @@ reversed, so that each library runs before and after each other one:
 and `secp.cu` as they are (an unpacked earlier commit, e.g. `git archive
 <commit> | tar -x -C _scratch/base`) and times them in the same rounds,
 labelled `<source>_baseline_<DIR's name>`; it may be given more than once;
-it must have this tree's table entries (`lt_g1_table`, `lt_g2_table`,
-`lt_secp_table`); where it lacks `lt_secp_mont`, its square root takes and
-gives Montgomery words (its output is converted before the comparison)
-and its conversions run the path `secp_mont` replaced (`_mont_apply`: a
-permute copy, the factor uploaded and expanded over every lane, one
-`secp_fp_mul` launch, a permute copy back; `torch.cat` with the flag
-row).
+it must have this tree's table entries, secp conversion and plain-word
+square root (`lt_g1_table`, `lt_g2_table`, `lt_secp_table`,
+`lt_secp_mont`); where it lacks `lt_g1_mont`, its G1 conversions and
+product by beta run the path `g1_mont` replaced (`_mont_apply`: a permute
+copy, the factor uploaded and expanded over every lane, one `fp_mul`
+launch, a permute copy back; `torch.cat` with the flag row).
 
 `--int-rate` also builds a probe kernel and measures the card's sustained
 32x32->64-bit multiply-add rate, as `mad.wide.u32` (what coop.cuh's
@@ -132,7 +134,7 @@ VARIANTS = {
 # kernels first, longest names first: "dbl_kernel" is inside "g2_dbl_kernel"
 _NAMES = ("secp_msm_scan_kernel", "g2_msm_scan_kernel", "msm_scan_kernel",
           "secp_table_kernel", "g2_table_kernel", "g1_table_kernel",
-          "secp_mont_kernel",
+          "secp_mont_kernel", "g1_mont_kernel",
           "secp_fp_mul_kernel", "secp_dbl_kernel",
           "secp_add_kernel", "secp_sqrt_kernel", "g2_dbl_kernel",
           "g2_add_kernel", "fp_mul_kernel", "dbl_kernel", "add_kernel",
@@ -234,7 +236,7 @@ def build_variants(work: Path, sources: dict) -> dict:
         else:
             lib = ctypes.CDLL(str(work / f"{label}.so"))
             for name, args in _build._SIGNATURES.items():
-                # a baseline may lack an entry of this tree (secp_mont)
+                # a baseline may lack an entry of this tree (g1_mont)
                 if name.startswith(f"lt_{scan_of(label)}_") and hasattr(lib, name):
                     getattr(lib, name).argtypes = args
                     getattr(lib, name).restype = ctypes.c_int
@@ -265,6 +267,7 @@ def make_inputs(seed: int, dev) -> dict:
                                     bls.G2_GEN), dev)
     tpke = g1.g1_pack(g1.tpke_lanes(rng), dev)
     keys = glv.point_run(rng, 64)
+    g1_flag = torch.randint(0, 2, (1, LANES), dtype=torch.int32, device=dev)
     tab1, tab2 = g1.build_table(tpke), g2.build_table2(pts2[:, :LANES].contiguous())
     pts3 = secp.pt_pack(glv.point_run(rng, 2 * LANES, ecdsa._mul, ecdsa._add,
                                       ecdsa.G, ecdsa.N), dev)
@@ -285,6 +288,12 @@ def make_inputs(seed: int, dev) -> dict:
                "tables": {"check": p1, "tpke": tpke,
                           "coin": g1.g1_pack(keys * 64, dev)},
                "adds": {"check": (p1, q1), "tree": (half(p1, 256), half(q1, 256))},
+               # plain words of the eras' packs, a fused fetch buffer, the
+               # share X that phi multiplies by beta
+               "mont": {"into": g1.mont_convert(half(tpke, LANES // 2), into=False),
+                        "into_g2": g1.mont_convert(half(pts2, LANES // 2), into=False),
+                        "out": torch.cat([p1, g1_flag]),
+                        "beta": half(tpke[: g1.NL], LANES // 2)},
                "points": (p1, q1)},
         "g2": {"check": (tab2, on(random_digits(rng, LANES, glv.W256))),
                "coin": (tab2, on(g2.coin_digits(rng))),
@@ -295,10 +304,7 @@ def make_inputs(seed: int, dev) -> dict:
                  "tables": {"recover": rec},
                  "adds": {"check": (p3, q3),
                           "pair": (half(p3, LANES // 2), half(q3, LANES // 2))},
-                 # plain words, and the Montgomery form an earlier tree's
-                 # square root takes
-                 "sqrt": {k: (x, secp.mont_convert(x, into=True))
-                          for k, x in sqrt_in.items()},
+                 "sqrt": sqrt_in,  # plain words
                  "mont": {"into": secp.mont_convert(rec, into=False),
                           "out": torch.cat([rec, flag])},
                  "points": (p3, q3)},
@@ -336,52 +342,61 @@ def _add(lib, scan: str, p, q):
                               stream))], (out,)
 
 
-def _sqrt(lib, plain, mont):
-    """([launch()], outputs) of the square root on plain words; a library
-    without `lt_secp_mont` (an earlier tree) takes and gives Montgomery
-    words, and its outputs are a function that converts them."""
-    x = plain if hasattr(lib, "lt_secp_mont") else mont
+def _sqrt(lib, x):
+    """([launch()], outputs) of the square root on plain words."""
     out, n, stream = torch.empty_like(x), x.shape[-1], g1._stream(x)
-    launch = [lambda: _check(lib.lt_secp_sqrt(x.data_ptr(), out.data_ptr(), n, stream))]
-    if x is plain:
-        return launch, (out,)
-    return launch, lambda: (secp.mont_convert(out, into=False),)
+    return [lambda: _check(lib.lt_secp_sqrt(x.data_ptr(), out.data_ptr(), n,
+                                            stream))], (out,)
 
 
-def _mont_apply(lib, t, into: bool):
-    """The conversion before `secp_mont`, through `lib`'s secp_fp_mul: a
-    permute copy of the coordinates, the factor (R^2 mod p or 1) uploaded
-    and expanded over every lane, one launch, a permute copy back, and a
-    `torch.cat` with a flag row -> (launch(), out holder)."""
+# the conversions' directions: (module, {direction: (raw word factor of
+# the product, the op of lt_<scan>_mont)})
+_MONT = {
+    "secp": (secp, {"out": (1, 0), "into": (secp._R2, 1)}),
+    "g1": (g1, {"out": (1, g1._MONT_OUT), "into": (g1._R2, g1._MONT_INTO),
+                "into_g2": (g1._R2, g1._MONT_INTO),
+                "beta": (g1._BETA_R, g1._MONT_BETA)}),
+}
+
+
+def _mont_apply(lib, scan: str, t, factor: int):
+    """The conversion before `<scan>_mont`, through `lib`'s fp_mul: a
+    permute copy of the coordinates, the word factor (R^2 mod p, 1 or beta
+    R) uploaded and expanded over every lane, one launch, a permute copy
+    back, and a `torch.cat` with a flag row -> (launch(), out holder)."""
+    mod = _MONT[scan][0]
+    nl = mod.NL
     rows, n = t.shape
-    c = rows // secp.NL
+    c = rows // nl
+    fp_mul = getattr(lib, f"lt_{scan}_fp_mul")
     holder = []
 
     def run():
-        flat = t[: c * secp.NL].view(c, secp.NL, n).permute(1, 0, 2)
-        flat = flat.reshape(secp.NL, c * n).contiguous()
-        factor = secp._R2 if into else 1
-        k = torch.from_numpy(secp._words([factor]).view(np.int32)).to(t.device)
-        k = k.expand(secp.NL, c * n).contiguous()
+        flat = t[: c * nl].view(c, nl, n).permute(1, 0, 2)
+        flat = flat.reshape(nl, c * n).contiguous()
+        k = torch.from_numpy(mod._words([factor]).view(np.int32)).to(t.device)
+        k = k.expand(nl, c * n).contiguous()
         prod = torch.empty_like(flat)
-        _check(lib.lt_secp_fp_mul(flat.data_ptr(), k.data_ptr(), prod.data_ptr(),
-                                  c * n, g1._stream(t)))
-        out = prod.view(secp.NL, c, n).permute(1, 0, 2).reshape(c * secp.NL, n)
-        if rows > c * secp.NL:
-            out = torch.cat([out, t[c * secp.NL :]], dim=0)
+        _check(fp_mul(flat.data_ptr(), k.data_ptr(), prod.data_ptr(), c * n,
+                      g1._stream(t)))
+        out = prod.view(nl, c, n).permute(1, 0, 2).reshape(c * nl, n)
+        if rows > c * nl:
+            out = torch.cat([out, t[c * nl :]], dim=0)
         holder[:] = [out.contiguous()]
     return run, holder
 
 
-def _mont(lib, t, into: bool):
-    """([launch()], outputs) of one conversion of `t`: one `lt_secp_mont`
+def _mont(lib, scan: str, t, direction: str):
+    """([launch()], outputs) of one conversion of `t`: one `lt_<scan>_mont`
     launch, or an earlier tree's `_mont_apply` path."""
-    if not hasattr(lib, "lt_secp_mont"):
-        run, holder = _mont_apply(lib, t, into)
+    factor, op = _MONT[scan][1][direction]
+    entry = getattr(lib, f"lt_{scan}_mont", None)
+    if entry is None:
+        run, holder = _mont_apply(lib, scan, t, factor)
         return [run], lambda: tuple(holder)
     out, stream = torch.empty_like(t), g1._stream(t)
-    return [lambda: _check(lib.lt_secp_mont(t.data_ptr(), out.data_ptr(), t.shape[0],
-                                            t.shape[1], int(into), stream))], (out,)
+    return [lambda: _check(entry(t.data_ptr(), out.data_ptr(), t.shape[0],
+                                 t.shape[1], op, stream))], (out,)
 
 
 def launchers(lib, scan: str, inputs: dict) -> dict:
@@ -400,10 +415,10 @@ def launchers(lib, scan: str, inputs: dict) -> dict:
     adds = inp.get("adds", {"": (p, q)})
     for layout, (a, b) in adds.items():
         out[f"{scan}_add" + (f"_{layout}" if layout else "")] = _add(lib, scan, a, b)
-    for layout, (plain, mont) in inp.get("sqrt", {}).items():
-        out[f"sqrt_{layout}"] = _sqrt(lib, plain, mont)
+    for layout, x in inp.get("sqrt", {}).items():
+        out[f"sqrt_{layout}"] = _sqrt(lib, x)
     for direction, t in inp.get("mont", {}).items():
-        out[f"mont_{direction}"] = _mont(lib, t, direction == "into")
+        out[f"mont_{direction}"] = _mont(lib, scan, t, direction)
     if scan == "g1":
         x, y, o1 = p[:12].contiguous(), q[:12].contiguous(), torch.empty_like(p[:12])
         out["fp_mul"] = ([lambda: _check(lib.lt_g1_fp_mul(

@@ -269,6 +269,23 @@ def test_reduction_model(name, t):
         f.redc(f.split(x))
 
 
+@pytest.mark.parametrize("t", [1, 2, 4])
+def test_bls_reduction_full_range(t):
+    """fpg_redc for BlsFp over the whole 384-bit range, the G1 conversion
+    out of Montgomery form (g1_mont reads whatever the kernels stored): the
+    multiples k p, whose columns settle to exactly p before the last
+    subtraction, values just below p's multiples and 2^384, and seeded ones
+    anywhere below 2^384."""
+    f = Field("bls12_381", t)
+    top = 1 << (32 * f.words)
+    mults = [k * f.p for k in range(1, top // f.p + 1)]
+    rng = random.Random(0xF011 + t)
+    ops = (mults + [m - 1 for m in mults] + [top - k for k in range(1, 4)]
+           + [rng.randrange(top) for _ in range(48)])
+    for x in ops:
+        f.redc(f.split(x))
+
+
 @pytest.mark.parametrize("t", [2, 4, 8])
 def test_secp_sums_carry_out_of_the_group(t):
     """The case secp256k1 adds to the BLS field: a + b and the product's

@@ -158,9 +158,11 @@ def test_backend_on_card_isolates_poisoned_slot(card):
     res = GpuBackend().tpke_era_verify_combine(
         jobs, dealer.verification_keys, SeededRng(3)
     )
-    # the table build is one launch: no doubling of its own
-    assert g1.LAUNCHES["g1_dbl"] == 0
-    assert all(v > 0 for k, v in g1.LAUNCHES.items() if k != "g1_dbl")
+    # the table build is one launch: no doubling of its own; the
+    # conversions and phi's product by beta are g1_mont, not fp_mul
+    off_path = ("g1_dbl", "fp_mul")
+    assert all(g1.LAUNCHES[k] == 0 for k in off_path)
+    assert all(v > 0 for k, v in g1.LAUNCHES.items() if k not in off_path)
     assert [ok for ok, _ in res] == [True, True, False]
     for s in (0, 1):
         assert tpke.decrypt_with_combined(cts[s], res[s][1]) == msgs[s]
@@ -232,7 +234,9 @@ def test_g2_scan_lanes_and_collisions(card, n):
 
 def test_tpke_era_launches_one_scan(card):
     """The joined era kernel: one table build (one launch), one scan and one
-    tree reduce (log2 K adds) per era, no doubling."""
+    tree reduce (log2 K adds) per era, no doubling; 4 g1_mont launches (the
+    share pack, the key pack of a fresh pipeline, phi's product by beta, the
+    fetch) and no fp_mul."""
     dealer, jobs, _, _ = _era(5, 1, 3, seed=47)
     y_points = [vk.y_i for vk in dealer.verification_keys]
     slots = [(list(j.u_by_validator), list(j.lagrange_row)) for j in jobs]
@@ -240,6 +244,7 @@ def test_tpke_era_launches_one_scan(card):
     got, _ = GpuEraPipeline(device=card).run_era(slots, y_points, SeededRng(4))
     assert (g1.LAUNCHES["g1_msm_scan"], g1.LAUNCHES["g1_table"],
             g1.LAUNCHES["g1_dbl"], g1.LAUNCHES["g1_add"]) == (1, 1, 0, 3)  # K = 5 -> 8 lanes a slot
+    assert (g1.LAUNCHES["g1_mont"], g1.LAUNCHES["fp_mul"]) == (4, 0)
     want, _ = HostEraPipeline().run_era(slots, y_points, SeededRng(4))
     for g_slot, w_slot in zip(got, want):
         assert all(bls.g1_eq(a, b) for a, b in zip(g_slot, w_slot))
@@ -421,7 +426,8 @@ def test_coin_path_launch_counts(card):
     """The N=64 coin layout (64 signer lanes a coin, 22 live): one G2 table
     build, one G2 scan, 2 x 6 tree adds and no G2 doubling; the key RLC
     one G1 table build (one launch), scan and tree reduce (6 adds), no G1
-    doubling."""
+    doubling; 3 g1_mont launches (the signature pack, the key pack of a
+    fresh pipeline, the fetch) and no fp_mul."""
     rng = random.Random(0xC017)
     k, live = 64, 22
     y_points = [bls.g1_mul(bls.G1_GEN, rng.randrange(1, bls.R)) for _ in range(k)]
@@ -439,6 +445,7 @@ def test_coin_path_launch_counts(card):
     assert g2.LAUNCHES == {"g2_dbl": 0, "g2_add": 12, "g2_table": 1, "g2_msm_scan": 1}
     assert (g1.LAUNCHES["g1_msm_scan"], g1.LAUNCHES["g1_table"],
             g1.LAUNCHES["g1_dbl"], g1.LAUNCHES["g1_add"]) == (1, 1, 0, 6)
+    assert (g1.LAUNCHES["g1_mont"], g1.LAUNCHES["fp_mul"]) == (3, 0)
     want, _ = TsHostEraPipeline().run_era(coins, y_points, SeededRng(7), masks=masks)
     for g, w in zip(got, want):
         assert bls.g2_eq(g[0], w[0]) and bls.g1_eq(g[1], w[1])
@@ -586,16 +593,66 @@ def test_mont_convert_on_card(card, n):
 
 
 def test_secp_sqrt_and_mont_attrs(card):
-    """The new kernels' registers, local bytes, threads per lane and block
-    read through lt_secp_kernel_attrs."""
+    """The conversion and square-root kernels' registers, local bytes,
+    threads per lane and block read through lt_secp_kernel_attrs and
+    lt_g1_kernel_attrs."""
     from lachain_tpu_torch.ops import _build
 
     attrs = _build.kernel_attrs()
-    scan_t = attrs["secp_msm_scan"]["threads_per_lane"]
-    for name in ("secp_sqrt", "secp_mont"):
+    for name, scan in (("secp_sqrt", "secp"), ("secp_mont", "secp"),
+                       ("g1_mont", "g1")):
         a = attrs[name]
         assert a["regs"] > 0 and a["local_bytes"] >= 0
-        assert a["threads_per_lane"] == scan_t and a["block"] == 64
+        assert a["threads_per_lane"] == attrs[f"{scan}_msm_scan"]["threads_per_lane"]
+        assert a["block"] == 64
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 4096, 16384])
+def test_g1_mont_on_card(card, n):
+    """g1_mont into and out of Montgomery form and by beta equals the plain
+    version bit for bit and Python ints, on (12c, n) and (12c + 1, n)
+    buffers (a flag row copied bit for bit) and on a G2 (72, n) buffer,
+    with 0, 1, p - 1 among the values and, out of form, words up to
+    2^384 - 1."""
+    P, r = bls.P, 1 << 384
+    r_inv = pow(r, -1, P)
+    rng = random.Random(0x6A5 + n)
+    vals = ([0, 1, P - 1] + [rng.randrange(P) for _ in range(3 * n)])[: 3 * n]
+    words = np.concatenate([g1._words(vals[c * n : (c + 1) * n]) for c in range(3)])
+    flags = np.array([rng.randrange(-(1 << 31), 1 << 31) for _ in range(n)], np.int32)
+    buf = torch.from_numpy(np.concatenate([words.view(np.int32), flags[None]])).to(card)
+
+    def ints(t):
+        return g1._from_words(t.cpu().numpy().view(np.uint32))
+
+    g1.reset_launches()
+    into = g1.mont_convert(buf, into=True)
+    assert ints(into[:-1]) == [v * r % P for v in vals]
+    assert torch.equal(into[-1], buf[-1])
+    assert torch.equal(into, g1_ref.mont_mul_words(buf, g1._R2))
+    back = g1.mont_convert(into, into=False)
+    assert torch.equal(back, buf)
+    assert torch.equal(back, g1_ref.mont_mul_words(into, 1))
+    plain = g1.mont_convert(into[:-1].contiguous(), into=False)  # 12c rows
+    assert torch.equal(plain, buf[:-1])
+    beta = g1.mul_beta(into[: g1.NL].contiguous())
+    assert ints(beta) == [glv.BETA * v * r % P for v in vals[:n]]
+    assert torch.equal(beta, g1_ref.mont_mul_words(into[: g1.NL], g1._BETA_R))
+    # out of form reads any 384-bit word: the value / R mod p, canonical
+    wild = ([r - 1, P, 9 * P] + [rng.randrange(r) for _ in range(n)])[:n]
+    wt = torch.from_numpy(g1._words(wild).view(np.int32)).to(card)
+    assert ints(g1.mont_convert(wt, into=False)) == [v * r_inv % P for v in wild]
+    # a G2 buffer: six coordinates of 12 rows
+    g2vals = [rng.randrange(P) for _ in range(6 * n)]
+    g2buf = torch.from_numpy(np.concatenate(
+        [g1._words(g2vals[c * n : (c + 1) * n]) for c in range(6)]).view(np.int32)).to(card)
+    g2m = g1.mont_convert(g2buf, into=True)
+    assert torch.equal(g2m, g1_ref.mont_mul_words(g2buf, g1._R2))
+    assert ints(g2m) == [v * r % P for v in g2vals]
+    assert g1.LAUNCHES == dict(dict.fromkeys(g1.LAUNCHES, 0), g1_mont=6)
+    with pytest.raises(ValueError):
+        # a strided view (every other lane of a wider buffer) is refused
+        g1.mont_convert(torch.cat([buf, buf], dim=1)[:, ::2], into=True)
 
 
 @pytest.mark.parametrize("n", [1, 63, 65, 4097])

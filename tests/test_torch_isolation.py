@@ -6,6 +6,9 @@
   its `tpke_era_verify_combine` and `ts_era_verify_combine`),
   `GpuEraPipeline()`, `TsGpuEraPipeline()`, `GpuEcdsaRecover()`,
   `ecdsa.recover_hash_batch` and the kernel build have no CPU fallback.
+* The host pairing library is the port's own build: it loads from
+  `lachain_tpu_torch/_build/` (never from the JAX package's tree), its
+  binding loads no torch, and without g++ the build raises.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 
 from lachain_tpu_torch.crypto import ecdsa
 from lachain_tpu_torch.crypto.gpu_backend import GpuBackend
+from lachain_tpu_torch.crypto.native_backend import NativeBackend
 from lachain_tpu_torch.ops import _build
 from lachain_tpu_torch.ops.secp import GpuEcdsaRecover
 from lachain_tpu_torch.ops.verify import GpuEraPipeline, TsGpuEraPipeline
@@ -110,3 +114,52 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.os.path, "exists", lambda _path: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.library()
+
+
+_NATIVE_ONLY = """
+import sys
+import lachain_tpu_torch.crypto.native_backend as nb
+lib = nb.NativeBackend()._lib
+print(sorted(m for m in sys.modules if m == "torch" or m.startswith("torch.")
+             or m == "jax" or m == "lachain_tpu" or m.startswith("lachain_tpu.")))
+print(lib._name)
+"""
+
+
+def test_host_library_is_the_ports_own_build():
+    """The native host backend loads its library from the port's build
+    directory, and neither it nor its build imports torch, JAX or the JAX
+    package (a host-only caller pays for none of them)."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NATIVE_ONLY], cwd=_ROOT, capture_output=True,
+        text=True, check=True, timeout=300,
+    ).stdout.split("\n")
+    assert out[0] == "[]"
+    path = os.path.realpath(out[1])
+    build_dir = os.path.realpath(os.path.join(_ROOT, "lachain_tpu_torch", "_build"))
+    assert os.path.dirname(path) == build_dir
+    assert os.path.realpath(NativeBackend()._lib._name) == path
+
+
+def test_host_build_without_gxx_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "_HOST_LIB", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        NativeBackend()
+    assert not list(tmp_path.iterdir())  # nothing was built
+
+
+def test_host_build_failure_raises(monkeypatch, tmp_path):
+    """A compiler that fails raises with its output; nothing is loaded."""
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in _build.HOST_SOURCES:
+        (src / name).write_text("this is not C++\n")
+    monkeypatch.setattr(_build, "_HOST_LIB", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "HOST_SRC", src)
+    with pytest.raises(RuntimeError, match="build failed"):
+        _build.host_library()
+    assert _build._HOST_LIB is None
+    assert not list((tmp_path / "build").glob("*.so"))
