@@ -4,13 +4,14 @@
     python3 chip_smoke.py [--seed S]
 
 Phases, each of which must pass (any failure exits non-zero):
-  1. build   the CUDA kernels of lachain_tpu_torch/csrc/ (g1.cu, g2.cu and
-             secp.cu, one nvcc each, in parallel, sm_90a), with each
+  1. build   the CUDA kernels of lachain_tpu_torch/csrc/ (g1.cu, g2.cu,
+             secp.cu and rs.cu, one nvcc each, in parallel, sm_90a), with each
              kernel's registers, local bytes, threads per lane and block,
              and the host pairing library of lachain_tpu_torch/crypto/native/
              (g++, GpuBackend's host backend);
-  2. kernels hold each of the seventeen kernels against its plain PyTorch
-             version (ops/g1_ref.py, ops/g2_ref.py, ops/secp_ref.py) on the
+  2. kernels hold each of the nineteen kernels against its plain PyTorch
+             version (ops/g1_ref.py, ops/g2_ref.py, ops/secp_ref.py,
+             ops/rs_ref.py) on the
              card, on seeded inputs at the main paths' shapes (8192 lanes,
              the adds with a p == q lane; the G2 and secp scans with 64
              windows; the three table builds at their main path's lanes:
@@ -25,7 +26,13 @@ Phases, each of which must pass (any failure exits non-zero):
              form, into it and by beta on a (37, 8192) buffer with a flag
              row and into form on the coin era's (72, 4096) G2 pack): exact
              equality of coordinates mod p and flags (of the conversions,
-             words bit for bit, and Python ints).
+             words bit for bit, and Python ints); the Reed-Solomon product
+             (rs_matmul8, rs_matmul16) bit for bit at the RBC eras' shapes:
+             GF(2^8) (64 x 22)(22 x 8,384), the N=64 re-encode, and (64 x
+             22)(22 x 82,624), a 10,000-transaction block's; one grouped
+             decode launch of 64 distinct (22 x 22) inverses over 131
+             columns each; GF(2^16) (256 x 86)(86 x 1,280), the N=256
+             re-encode.
              The three scans run twice: at the main path's layout (the TPKE
              era's joined scan, 32 windows x 16,384 lanes; the coin era's
              scan, 48 leading zero windows on its RLC half and 22 live
@@ -36,7 +43,7 @@ Phases, each of which must pass (any failure exits non-zero):
              those of its kernel check, the shape the earlier slices
              reported; each scan's entry and the square root's also hold a
              `main` object, their numbers at the main path's layout;
-  3. main    three paths, each with the kernel launch counts set to 0 just
+  3. main    five paths, each with the kernel launch counts set to 0 just
              before its one counted call and read just after:
              the N=64 TPKE era (64 ACS slots x 64 decryption shares) through
              GpuBackend(device="cuda").tpke_era_verify_combine: every slot
@@ -66,15 +73,27 @@ Phases, each of which must pass (any failure exits non-zero):
              secp_fp_mul); a crafted
              u1*R == u2*G
              signature, in a call of its own, must be answered by the host
-             oracle exactly once. Around each counted call and the MSMs, no
-             result may have been recomputed on the host
+             oracle exactly once;
+             the RBC flush of one validator's era (its own proposal's encode,
+             one interpolation per slot, each slot losing a seeded 0..n-k
+             shards, an equivocating slot and a slot of mixed shard sizes)
+             through RbcEraBatcher(device="cuda") at N=64 (GF(2^8)) and at
+             N=256 (GF(2^16)), proposals the size of a 1,000-transaction
+             block's share: every verdict must equal scalar_verdict on the
+             host (None on the two bad slots), the encode rs.encode's (or
+             GF.matmul's past n = 255), and a cold flush (no cached inverse)
+             must launch exactly 3 rs_matmul (encode, the decode of every
+             erasure pattern, re-encode). Around each counted call and the
+             MSMs, no result may have been recomputed on the host
              (ops/verify.ESCAPES), and each path must launch its kernels;
   4. times   per-kernel times from CUDA events, the plain versions' times,
              each kernel's bound, the warm phase times of every path (the
-             eras' `pairing_s` with the host backend's name) and a
-             torch.profiler split of each device phase by kernel, whose
-             traced launches of each path's kernels must equal the counted
-             ones.
+             eras' `pairing_s` with the host backend's name; the RBC flush's
+             cold phases with its host inverses apart, its warm phases each
+             the best of 2, and its wall with device="cpu" and with the
+             numpy GF.matmul oracle) and a torch.profiler split of each
+             device phase by kernel, whose traced launches of each path's
+             kernels must equal the counted ones.
 The last three lines of standard output are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}.
 
@@ -119,6 +138,10 @@ OPS_PER_SECP_SQR = 2 * (8 * 9 // 2 + 8 * 8 + 8)
 MONT_WORD_PRODUCTS = 8 * (8 + 1)
 # the same over BLS12-381's 12 words (g1_mont)
 G1_MONT_WORD_PRODUCTS = 12 * (12 + 1)
+# the H100 SXM's shared-memory lookup rate, the Reed-Solomon product's
+# bound: one lookup a lane a clock on every SM, 132 SMs x 32 lanes x its
+# 1.98 GHz boost clock (NVIDIA's H100 data sheet and Hopper white paper)
+LOOKUPS_PER_S = 132 * 32 * 1.98e9
 
 N_VALIDATORS = 64
 KERNEL_LANES = 8192  # S*K*2 msm lanes of the N=64 eras
@@ -131,13 +154,20 @@ SQRT_LANES = 16384  # the square root's kernel check of the earlier slices
 RECOVER_SQRT_LANES = 9980
 N_SIGNATURES = 10000
 N_SENDERS = 64
+# the RBC eras: N validators, each proposing 1000 // N transfers of a
+# 1,000-transaction block (lachain_tpu/core/block_producer.py:29, :118)
+RBC_ERAS = (64, 256)
+BLOCK_TXS = 1000
+# every counted RBC flush: the encode, the decode of every erasure pattern
+# and the re-encode, one launch each
+RBC_LAUNCHES = 3
 KERNEL_NAMES = ("fp_mul_kernel", "dbl_kernel", "add_kernel", "msm_scan_kernel",
                 "g1_table_kernel", "g1_mont_kernel",
                 "g2_dbl_kernel", "g2_add_kernel", "g2_msm_scan_kernel",
                 "g2_table_kernel",
                 "secp_fp_mul_kernel", "secp_dbl_kernel", "secp_add_kernel",
                 "secp_msm_scan_kernel", "secp_sqrt_kernel", "secp_table_kernel",
-                "secp_mont_kernel")
+                "secp_mont_kernel", "rs_matmul8_kernel", "rs_matmul16_kernel")
 G1_KERNELS = ("fp_mul", "g1_dbl", "g1_add", "g1_table", "g1_msm_scan", "g1_mont")
 # the wrapper's kernel name -> the CUDA kernel's
 KERNEL_OF = {"fp_mul": "fp_mul_kernel", "g1_dbl": "dbl_kernel",
@@ -146,7 +176,8 @@ KERNEL_OF.update({k: f"{k}_kernel" for k in ("g1_table", "g1_mont", "g2_dbl", "g
                                               "g2_msm_scan", "g2_table",
                                               "secp_fp_mul", "secp_dbl", "secp_add",
                                               "secp_table", "secp_msm_scan",
-                                              "secp_sqrt", "secp_mont")})
+                                              "secp_sqrt", "secp_mont",
+                                              "rs_matmul8", "rs_matmul16")})
 # the TPKE era's counted call: one table build over the joined lanes (one
 # launch), one scan, a tree reduce of log2(64) = 6 adds; 4 G1 conversions
 # (g1_mont: the share pack into Montgomery form, the key pack of the
@@ -163,6 +194,7 @@ COIN_LAUNCHES = dict(TPKE_LAUNCHES, g2_table=1, g2_msm_scan=1, g2_add=12,
 G2_KERNELS = ("g2_dbl", "g2_add", "g2_table", "g2_msm_scan")
 SECP_KERNELS = ("secp_fp_mul", "secp_dbl", "secp_add", "secp_table",
                 "secp_msm_scan", "secp_sqrt", "secp_mont")
+RS_KERNELS = ("rs_matmul8", "rs_matmul16")
 # the one-thread doublings serve no main path since each table build is
 # one launch, secp_fp_mul none since the conversions are secp_mont, fp_mul
 # none since the G1 conversions and phi's product by beta are g1_mont
@@ -404,6 +436,7 @@ def check_kernels(seed: int, dev):
     report["g1_mont"] = g1_mont_entry(rng, dev, n)
     report.update(check_g2_kernels(rng, dev))
     report.update(check_secp_kernels(rng, dev))
+    report.update(check_rs_kernels(rng, dev))
     for name, r in report.items():
         report_line(name, r)
     bad = [name for name, r in report.items() if not r["ok"]]
@@ -818,7 +851,7 @@ def make_era(n: int, seed: int):
 
 def profile_device(run) -> dict:
     """{kernel: [device ms, launches]} of one call of run() from
-    torch.profiler; device work that is not one of the seventeen kernels
+    torch.profiler; device work that is not one of the nineteen kernels
     (copies, cat, where) is summed under "torch". A trace loses the first
     device activities of its session (a trace of the recover path lacked
     its first three launches), so run() goes once under the profiler's
@@ -851,7 +884,7 @@ def profile_device(run) -> dict:
 def kernel_of(key: str) -> str:
     """The kernel of a profiler key, templated or not
     ("(anonymous namespace)::msm_scan_kernel<4>(...)" -> "msm_scan_kernel"),
-    or "torch" for device work that is none of the seventeen."""
+    or "torch" for device work that is none of the nineteen."""
     m = re.search(r"::(\w+)[<(]", key)
     return m[1] if m and m[1] in KERNEL_NAMES else "torch"
 
@@ -867,18 +900,19 @@ def check_traced(label: str, by_kernel: dict, launches: dict, names) -> None:
 
 def reset_counts() -> None:
     """Set every kernel's launch count and every host recompute count to 0."""
-    from lachain_tpu_torch.ops import g1, g2, secp, verify
+    from lachain_tpu_torch.ops import g1, g2, rs_batch, secp, verify
 
     g1.reset_launches()
     g2.reset_launches()
     secp.reset_launches()
+    rs_batch.reset_launches()
     verify.reset_escapes()
 
 
 def read_launches() -> dict:
-    from lachain_tpu_torch.ops import g1, g2, secp
+    from lachain_tpu_torch.ops import g1, g2, rs_batch, secp
 
-    return dict(g1.LAUNCHES, **g2.LAUNCHES, **secp.LAUNCHES)
+    return dict(g1.LAUNCHES, **g2.LAUNCHES, **secp.LAUNCHES, **rs_batch.LAUNCHES)
 
 
 def check_no_escapes(label: str) -> None:
@@ -891,11 +925,15 @@ def check_no_escapes(label: str) -> None:
           f"{label}: host recomputes {verify.ESCAPES}")
 
 
+def phase_line(t: dict) -> str:
+    """Phases in seconds ({"pack_s": ...}) as "pack 1.23 ms, ..."."""
+    return ", ".join(f"{k[:-2]} {v * 1e3:.2f} ms" for k, v in t.items())
+
+
 def warm_summary(label: str, warm) -> None:
     """The phases of the warm run with the least wall time, in ms."""
     best = min(warm, key=lambda w: w["wall_s"])
-    phases = ", ".join(f"{k[:-2]} {v * 1e3:.2f} ms" for k, v in best.items())
-    log(f"{label} warm (best of {len(warm)}): {phases}")
+    log(f"{label} warm (best of {len(warm)}): {phase_line(best)}")
 
 
 def profile_phase(label: str, new_pipeline, run_era) -> dict:
@@ -1329,6 +1367,216 @@ def run_ecdsa_path(seed: int, dev):
     return launches, warm
 
 
+# ---------------------------------------------------------------------------
+# the Reed-Solomon product and the RBC flush
+# ---------------------------------------------------------------------------
+
+
+def rs_entry(dev, bits: int, mats, b, widths, layout: str, reps: int) -> dict:
+    """One rs_matmul launch over numpy groups `mats` and columns `b`
+    against its plain version on the card, bit for bit; both timed (the
+    wrapper's calls by CUDA events, which include its host time, and the
+    kernel's own device time from torch.profiler, `traced_ms`); the bound
+    the larger of B in and C out over HBM's rate and the exp lookups these
+    inputs need (a term whose two factors are nonzero) over the
+    shared-memory lookup rate."""
+    import numpy as np
+    import torch
+
+    from lachain_tpu_torch.ops import rs_batch, rs_ref
+
+    field = rs_batch.GF8 if bits == 8 else rs_batch.gf16()
+    kmats = [torch.from_numpy(m).to(dev) for m in mats]
+    kb = torch.from_numpy(b).to(dev)
+    exp = torch.from_numpy(field.exp.astype(np.int32)).to(dev)
+    log = torch.from_numpy(field.log).to(dev)
+    got = rs_batch.rs_matmul(bits, kmats, kb, widths).cpu().numpy().astype(np.int64)
+    want, plain_ms = cuda_ms_once(
+        lambda: rs_ref.gf_matmul_grouped(exp, log, kmats, kb, widths))
+    want = want.cpu().numpy().astype(np.int64)
+    lookups, off = 0, 0
+    for m, w in zip(mats, widths):
+        nz_b = (b[: m.shape[1], off : off + w] != 0).sum(axis=1)
+        lookups += int(((m != 0).sum(axis=0) * nz_b).sum())
+        off += w
+    traced = profile_device(
+        lambda: [rs_batch.rs_matmul(bits, kmats, kb, widths) for _ in range(10)]
+    )[f"rs_matmul{bits}_kernel"]
+    nbytes = (b.size + got.size) * field.sym_size
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = lookups / LOOKUPS_PER_S * 1e3
+    return dict(
+        layout=layout, lanes=int(b.shape[1]), groups=len(mats), lookups=lookups,
+        ok=bool((got == want).all()), max_abs_err=float(np.abs(got - want).max()),
+        ms=cuda_ms(lambda: rs_batch.rs_matmul(bits, kmats, kb, widths), reps),
+        traced_ms=traced[0] / traced[1], plain_ms=plain_ms,
+        bound=(t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"),
+    )
+
+
+def check_rs_kernels(rng: random.Random, dev):
+    """rs_matmul8 and rs_matmul16 at the RBC eras' shapes, the A matrices
+    the codec's own (Vandermonde, Gauss-Jordan inverses), B random
+    symbols: the N=64 re-encode (the entry's numbers), the 10,000-tx
+    block's re-encode and one grouped decode launch of 64 distinct
+    inverses (its checks); the N=256 re-encode in GF(2^16)."""
+    import numpy as np
+
+    from lachain_tpu_torch.ops import rs_batch
+
+    nprng = np.random.default_rng(rng.randrange(1 << 32))
+    gf8, gf16 = rs_batch.GF8, rs_batch.gf16()
+
+    def symbols(field, rows, cols):
+        return nprng.integers(0, field.order + 1, (rows, cols)).astype(field.dtype)
+
+    v64 = rs_batch.vandermonde(gf8, 22, 64)
+    patterns = set()
+    while len(patterns) < 64:
+        patterns.add(tuple(sorted(rng.sample(range(1, 65), 22))))
+    inverses = [rs_batch._inverse_for(gf8, 22, xs) for xs in sorted(patterns)]
+    checks = [
+        rs_entry(dev, 8, [v64], symbols(gf8, 22, 8384), [8384],
+                 "N=64 re-encode (64 x 22)(22 x 8384)", 100),
+        rs_entry(dev, 8, [v64], symbols(gf8, 22, 82624), [82624],
+                 "10,000-tx block re-encode (64 x 22)(22 x 82624)", 20),
+        rs_entry(dev, 8, inverses, symbols(gf8, 22, 64 * 131), [131] * 64,
+                 "N=64 decode, 64 groups (22 x 22)(22 x 131)", 100),
+    ]
+    r16 = rs_entry(dev, 16, [rs_batch.vandermonde(gf16, 86, 256)],
+                   symbols(gf16, 86, 1280), [1280],
+                   "N=256 re-encode (256 x 86)(86 x 1280)", 100)
+    for c in checks[1:]:
+        report_line("rs_matmul8 check", c)
+    for c in checks + [r16]:
+        log(f"rs_matmul{8 if c is not r16 else 16} ({c['layout']}): device time "
+            f"{c['traced_ms']:.4f} ms a launch (torch.profiler), {c['lookups']} lookups")
+    return {
+        "rs_matmul8": dict(checks[0], checks=checks[1:], ok=all(c["ok"] for c in checks)),
+        "rs_matmul16": r16,
+    }
+
+
+def proposal_bytes(transfers: int) -> int:
+    """A proposal's TPKE ciphertext: U (48 B), W (96 B), two u32 fields,
+    V's length prefix and V, the transfers each a 177-byte signed transfer
+    (lachain_tpu/core/types.py:80) behind a 4-byte length."""
+    return 48 + 96 + 2 * 4 + 4 + transfers * (4 + 177)
+
+
+def make_rbc_era(n: int, rng: random.Random):
+    """One validator's RBC work of an era at N=n: (k, own proposal, the
+    slots' payloads, [(shards with erasures, root)]). Every slot has its
+    own seeded payload and root and loses a seeded 0..n-k shards; slot n-2
+    is equivocating (some of its first k shards from another polynomial,
+    all under one root), slot n-1 has a first shard of another size."""
+    from lachain_tpu_torch.crypto import hashes
+    from lachain_tpu_torch.ops import rs_batch
+
+    k = n - 2 * ((n - 1) // 3)
+    size = proposal_bytes(BLOCK_TXS // n)
+    own = rng.randbytes(size)
+    payloads = [rng.randbytes(size) for _ in range(n)]
+    coded = rs_batch.encode_batch([(p, k, n) for p in payloads + [own]], device="numpy")
+    evil = coded[-1]
+    slots = []
+    for s, shards in enumerate(coded[:n]):
+        shards = list(shards)
+        if s == n - 2:
+            for i in rng.sample(range(k), 3):
+                shards[i] = evil[rng.randrange(n)]
+        elif s == n - 1:
+            shards[0] = shards[0] + bytes(rs_batch.field_for(n).sym_size)
+        slots.append(shards)
+    roots = hashes.merkle_roots([hashes.keccak256_batch(sh) for sh in slots])
+    era = []
+    for s, (shards, root) in enumerate(zip(slots, roots)):
+        if s < n - 2:
+            for i in rng.sample(range(n), rng.randint(0, n - k)):
+                shards[i] = None
+        era.append((shards, root))
+    return k, own, payloads, era
+
+
+def rbc_flush(device, n: int, k: int, own: bytes, era):
+    """A fresh RbcEraBatcher on `device` takes the era's own encode and one
+    interpolation per slot and flushes -> (batcher, encoded shards,
+    verdicts)."""
+    from lachain_tpu_torch.consensus.rbc_batcher import RbcEraBatcher
+
+    batcher = RbcEraBatcher(device=device)
+    enc, verdicts = [], [None] * len(era)
+    batcher.submit_encode(0, own, k, n, enc.append)
+    for s, (shards, root) in enumerate(era):
+        batcher.submit_interpolate(0, shards, k, n, root,
+                                   lambda v, s=s: verdicts.__setitem__(s, v))
+    batcher.flush()
+    return batcher, enc[0], verdicts
+
+
+def run_rbc_path(seed: int, n: int, dev):
+    """The RBC flush of one validator's era at N=n on the card: the
+    counted cold flush, the host oracle, warm flushes, the profiler split,
+    and the same flush's wall with the plain versions and the numpy
+    oracle."""
+    from lachain_tpu_torch.consensus.rbc_batcher import scalar_verdict
+    from lachain_tpu_torch.ops import rs, rs_batch
+
+    label = f"rbc flush N={n}"
+    rng = random.Random(seed + 300 + n)
+    t0 = time.perf_counter()
+    k, own, payloads, era = make_rbc_era(n, rng)
+    field = rs_batch.field_for(n)
+    log(f"{label}: host setup ({n} slots, k={k}, GF(2^{field.bits}), proposals of "
+        f"{len(own)} B): {time.perf_counter() - t0:.1f} s")
+    rbc_flush(dev, n, k, own, era[:1])  # the field's tables onto the card
+
+    # the main-path run whose launches are counted: a cold flush, every
+    # erasure pattern's inverse made anew on the host
+    rs_batch.clear_caches()
+    reset_counts()
+    batcher, enc, verdicts = rbc_flush("cuda", n, k, own, era)
+    launches = read_launches()
+    check_no_escapes(label)
+    want_launches = dict(dict.fromkeys(launches, 0), **{f"rs_matmul{field.bits}": RBC_LAUNCHES})
+    check(launches == want_launches, f"{label}: launches {launches} != {want_launches}")
+    log(f"{label} cold: {phase_line(batcher.last_timings)}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+    t0 = time.perf_counter()
+    for s, (shards, root) in enumerate(era):
+        check(verdicts[s] == scalar_verdict(shards, k, root),
+              f"{label}: slot {s} differs from scalar_verdict")
+        check((verdicts[s] is None) == (s >= n - 2),
+              f"{label}: slot {s} verdict {'None' if verdicts[s] is None else 'a payload'}")
+        if s < n - 2:
+            check(verdicts[s] == payloads[s], f"{label}: slot {s} payload differs")
+    want_enc = (rs.encode(own, k, n) if n <= 255
+                else rs_batch.encode(own, k, n, device="numpy"))
+    check(enc == want_enc, f"{label}: the encode differs from the host codec")
+    log(f"{label}: {n} verdicts equal scalar_verdict (None on the equivocating "
+        f"and the mixed-size slot), the encode the host codec's "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    warm = []
+    for r in range(2):
+        b, e, v = rbc_flush("cuda", n, k, own, era)
+        check(e == enc and v == verdicts, f"{label}: warm flush {r} differs")
+        warm.append(dict(b.last_timings))
+    best = {p: min(w[p] for w in warm) for p in warm[0]}
+    log(f"{label} warm (each phase the best of 2): {phase_line(best)}")
+    by_kernel = profile_device(lambda: rbc_flush("cuda", n, k, own, era))
+    busy = sum(v[0] for v in by_kernel.values())
+    log(f"{label} by kernel (torch.profiler, ms, launches): {by_kernel}; busy {busy:.3f} ms")
+    check_traced(label, by_kernel, launches, RS_KERNELS)
+    for device in ("cpu", "numpy"):
+        b, e, v = rbc_flush(device, n, k, own, era)
+        check(e == enc and v == verdicts, f"{label}: the {device} flush differs")
+        log(f"{label} with device={device!r} (reference, no yardstick): "
+            f"{phase_line(b.last_timings)}")
+    return launches, [dict(w) for w in warm]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -1366,11 +1614,15 @@ def main() -> int:
         "coin_era": run_coin_path(args.seed, backend, dev),
         "ecdsa_recover": run_ecdsa_path(args.seed, dev),
     }
+    for n in RBC_ERAS:
+        paths[f"rbc_flush_{n}"] = run_rbc_path(args.seed, n, dev)
     g1_path = tuple(k for k in G1_KERNELS if k not in NO_PATH)
     needs = {
         "tpke_era": g1_path,
         "coin_era": g1_path + ("g2_add", "g2_table", "g2_msm_scan"),
         "ecdsa_recover": tuple(k for k in SECP_KERNELS if k not in NO_PATH),
+        "rbc_flush_64": ("rs_matmul8",),
+        "rbc_flush_256": ("rs_matmul16",),
     }
     for path, (launches, warm) in paths.items():
         missing = [k for k in needs[path] if launches[k] == 0]
@@ -1379,7 +1631,7 @@ def main() -> int:
 
     sources = dict(
         {k: "g1" for k in G1_KERNELS}, **{k: "g2" for k in G2_KERNELS},
-        **{k: "secp" for k in SECP_KERNELS})
+        **{k: "secp" for k in SECP_KERNELS}, **{k: "rs" for k in RS_KERNELS})
     replaces = {
         "fp_mul": "lachain_tpu/ops/pg1.py:262",
         "g1_dbl": "lachain_tpu/ops/pg1.py:253",
@@ -1409,6 +1661,10 @@ def main() -> int:
         "secp_table": "lachain_tpu/ops/psecp.py:239",
         "secp_msm_scan": "lachain_tpu/ops/psecp.py:285",
         "secp_sqrt": "lachain_tpu/ops/psecp.py:380",
+        # the jitted GF matmul _mm of _device_jit (plain XLA), one launch
+        # per call and field over every group
+        "rs_matmul8": "lachain_tpu/ops/rs_batch.py:233",
+        "rs_matmul16": "lachain_tpu/ops/rs_batch.py:233",
     }
     def numbers(r: dict) -> dict:
         return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1433,6 +1689,11 @@ def main() -> int:
                          main=dict(numbers(m), **{k: m[k] for k in shape if k in m}))
         entry.update({k: r[k] for k in ("rows", "into_ms", "into_plain_ms", "beta_ms")
                       if k in r})
+        if k in RS_KERNELS:  # its shape, and the other shapes it was held at
+            entry.update(layout=r["layout"], lookups=r["lookups"], traced_ms=r["traced_ms"],
+                         checks=[dict(numbers(c), layout=c["layout"], lookups=c["lookups"],
+                                      traced_ms=c["traced_ms"], **{"pass": c["ok"]})
+                                 for c in r.get("checks", ())])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

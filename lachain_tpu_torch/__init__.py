@@ -9,7 +9,9 @@ Two era paths run on the card through `crypto.gpu_backend.GpuBackend`:
     kernels.
 `GpuBackend.g1_msm` / `g2_msm` run single MSMs on the same kernels.
 Pool-ingest ECDSA recovery runs `crypto.ecdsa.recover_hash_batch` over
-`ops.secp.GpuEcdsaRecover` and the secp256k1 kernels of csrc/secp.cu. The
+`ops.secp.GpuEcdsaRecover` and the secp256k1 kernels of csrc/secp.cu. An
+era's reliable-broadcast flush runs `consensus.rbc_batcher.RbcEraBatcher`
+over `ops.rs_batch` and the Reed-Solomon kernel of csrc/rs.cu. The
 package imports torch and numpy and nothing of JAX or of lachain_tpu. Its
 entry points run on the card unless the caller passes device="cpu".
 """

@@ -1,14 +1,24 @@
-"""Hash primitives of the port: the TPKE pad's XOF and Keccak-256.
+"""Hash primitives of the port: the TPKE pad's XOF, Keccak-256 and the
+Merkle root.
 
-Copies of `lachain_tpu/crypto/hashes.py:xof` and of its pure-Python
+Copies of `lachain_tpu/crypto/hashes.py:xof`, of its pure-Python
 Keccak-256 sponge (the legacy pre-NIST padding; hashlib ships only NIST
-SHA-3). The coin bit `threshold_sig.Signature.parity` is the low bit of
-keccak256 of the serialized signature, so it must equal the JAX package's.
+SHA-3), of `keccak256_batch` (:123) and of `merkle_root` (:194). The coin
+bit `threshold_sig.Signature.parity` is the low bit of keccak256 of the
+serialized signature, so it must equal the JAX package's.
+
+`keccak256_batch` hashes a whole batch in one call of the port's host
+library (`lt_keccak256_batch`, `crypto/native/bls381.cpp`, threaded in
+C++, built by `ops/_build.host_library()`); without the library it
+raises, where the reference falls back to hashing item by item. The
+Merkle roots hash each level of every tree in one such call.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
-from typing import List
+import os
+from typing import List, Optional, Sequence
 
 
 def xof(domain: bytes, data: bytes, nbytes: int) -> bytes:
@@ -83,3 +93,69 @@ def keccak256(data: bytes) -> bytes:
     for i in range(4):  # 32 bytes = 4 lanes
         out += state[i % 5][i // 5].to_bytes(8, "little")
     return bytes(out)
+
+
+_BATCH_FN: list = []
+
+
+def _batch_fn():
+    """lt_keccak256_batch of the host library, bound on first use (the
+    import of the build stays out of the protocol modules' import)."""
+    if not _BATCH_FN:
+        from ..ops import _build
+
+        fn = _build.host_library().lt_keccak256_batch
+        fn.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint64),
+                       ctypes.c_size_t, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_ubyte)]
+        fn.restype = ctypes.c_int
+        _BATCH_FN.append(fn)
+    return _BATCH_FN[0]
+
+
+def keccak256_batch(items: Sequence[bytes], nthreads: int = 0) -> List[bytes]:
+    """keccak256 of every item, in ONE call of the host library (threaded
+    in C++, the GIL released)."""
+    n = len(items)
+    if n == 0:
+        return []
+    if nthreads <= 0:
+        nthreads = min(os.cpu_count() or 1, 16)
+    offsets = (ctypes.c_uint64 * (n + 1))()
+    total = 0
+    for i, d in enumerate(items):
+        offsets[i] = total
+        total += len(d)
+    offsets[n] = total
+    out = (ctypes.c_ubyte * (n * 32))()
+    rc = _batch_fn()(b"".join(items), offsets, n, nthreads, out)
+    if rc != 0:
+        raise RuntimeError(f"lt_keccak256_batch failed: {rc}")
+    raw = bytes(out)
+    return [raw[i * 32 : (i + 1) * 32] for i in range(n)]
+
+
+def merkle_roots(trees: Sequence[Sequence[bytes]]) -> List[Optional[bytes]]:
+    """merkle_root of every tree; each level of all the trees is hashed in
+    one keccak256_batch call."""
+    levels = [list(t) for t in trees]
+    while True:
+        pairs, spans = [], []
+        for level in levels:
+            lo = len(pairs)
+            pairs += [level[i] + level[i + 1] for i in range(0, len(level) - 1, 2)]
+            spans.append((lo, len(pairs)))
+        if not pairs:
+            return [level[0] if level else None for level in levels]
+        hashed = keccak256_batch(pairs)
+        for t, (lo, hi) in enumerate(spans):
+            if hi > lo:
+                odd = [levels[t][-1]] if len(levels[t]) % 2 else []
+                levels[t] = hashed[lo:hi] + odd
+
+
+def merkle_root(leaves: Sequence[bytes]) -> Optional[bytes]:
+    """Binary Merkle root over 32-byte leaf hashes: pairwise
+    keccak256(left || right), the odd node promoted unchanged (the shape
+    of the reference's MerkleTree.ComputeRoot); None for no leaves."""
+    return merkle_roots([leaves])[0]

@@ -3,12 +3,15 @@ pairing library (plain C interfaces + ctypes).
 
 `library()` compiles `csrc/g1.cu`, `csrc/g2.cu` (both include
 `csrc/fp.cuh` and, for their group-field kernels, `csrc/coop.cuh` over
-fp.cuh's BlsFp) and `csrc/secp.cu` (its own one-thread field code, and
-`csrc/coop.cuh` for its group-field kernels) with nvcc for sm_90a, one
+fp.cuh's BlsFp), `csrc/secp.cu` (its own one-thread field code, and
+`csrc/coop.cuh` for its group-field kernels) and `csrc/rs.cu` (the
+Reed-Solomon GF(2^8) / GF(2^16) matrix product) with nvcc for sm_90a, one
 nvcc process per source, all started together, links them into one
 shared library in `lachain_tpu_torch/_build/` (listed in .gitignore)
-under a name keyed by a hash of the sources, the headers and the flags,
-and loads it. The first
+under a name keyed by a hash of the sources, the headers, the flags and
+`nvcc --version` (as the JAX package's kernel cache keys by toolchain,
+`lachain_tpu/crypto/kernel_cache.py:84-96`), so that a toolkit update
+rebuilds, and loads it. The first
 call in a fresh checkout therefore builds; later calls in the same
 checkout reuse the library. There is no fallback: without nvcc, or on a
 failed build, it raises.
@@ -39,7 +42,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("g1.cu", "g2.cu", "secp.cu")
+SOURCES = ("g1.cu", "g2.cu", "secp.cu", "rs.cu")
 HEADERS = ("fp.cuh", "coop.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -81,6 +84,9 @@ _SIGNATURES = {
     "lt_secp_sqrt": [_P, _P, _I, _P],
     "lt_secp_mont": [_P, _P, _I, _I, _I, _P],
     "lt_secp_kernel_attrs": [_I] + [ctypes.POINTER(_I)] * 4,
+    "lt_rs_matmul8": [_P, _P, _P, _I, _P, _I, _P, _I, _P],
+    "lt_rs_matmul16": [_P, _P, _P, _I, _P, _I, _P, _I, _P],
+    "lt_rs_kernel_attrs": [_I] + [ctypes.POINTER(_I)] * 4,
 }
 # (attrs entry, kernel names in its index order)
 _ATTRS = (
@@ -90,6 +96,7 @@ _ATTRS = (
     ("lt_secp_kernel_attrs", ("secp_fp_mul", "secp_dbl", "secp_add",
                               "secp_msm_scan", "secp_sqrt", "secp_table",
                               "secp_mont")),
+    ("lt_rs_kernel_attrs", ("rs_matmul8", "rs_matmul16")),
 )
 
 
@@ -103,12 +110,14 @@ def _nvcc() -> str:
     return path
 
 
-def _target() -> Path:
+def _target(nvcc: str) -> Path:
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(subprocess.run([nvcc, "--version"], capture_output=True,
+                            check=True).stdout)
     return BUILD_DIR / f"liblt_{h.hexdigest()[:16]}.so"
 
 
@@ -142,9 +151,8 @@ def _publish(target: Path, steps) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def _build(target: Path) -> None:
+def _build(target: Path, nvcc: str) -> None:
     global build_seconds
-    nvcc = _nvcc()
 
     def steps(work: Path) -> None:
         objs = [work / (Path(s).stem + ".o") for s in SOURCES]
@@ -164,9 +172,10 @@ def library():
     """The loaded kernel library, built first if needed."""
     global _LIB
     if _LIB is None:
-        target = _target()
+        nvcc = _nvcc()
+        target = _target(nvcc)
         if not target.exists():
-            _build(target)
+            _build(target, nvcc)
         lib = ctypes.CDLL(str(target))
         for name, args in _SIGNATURES.items():
             fn = getattr(lib, name)

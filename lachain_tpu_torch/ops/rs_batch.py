@@ -1,0 +1,483 @@
+"""Batched Reed-Solomon over GF(2^8)/GF(2^16): Vandermonde matrix form, one
+CUDA launch per batch call and field.
+
+The port of `lachain_tpu/ops/rs_batch.py`. Encode is `V @ C` for the n x k
+Vandermonde V (rows [x^0 .. x^{k-1}] at x = 1..n) against the k x L
+coefficient matrix C; decode is `inv(V_sel) @ R` for the k received rows.
+Items that share a (field, k, n), or for decode a (field, k, erasure
+pattern), form one group, as in the reference; all groups of a call and
+field then go to the card as ONE `rs_matmul8` / `rs_matmul16` launch
+(`csrc/rs.cu`): each group's matrix times its own run of columns, in the
+reference's column order, with no padding. The reference ran one jitted
+product per group. `GF`, `field_for`, `vandermonde`, `_inverse_for` (the
+Gauss-Jordan inverse, on the host as in the reference), `_coeff_matrix`
+and the byte layouts are the reference's, so shards and payloads are its
+bits. GF(2^16) (poly 0x1100B, generator 2) serves n > 255: shards are
+big-endian uint16 symbols, swapped once at the host boundary, and an
+odd-sized shard is a clean decode failure before any launch.
+
+`encode_batch`, `decode_batch`, `encode` and `decode` take `device`:
+"cuda" (the default; no card raises) launches the kernel, "cpu" runs its
+plain PyTorch version (`ops/rs_ref.py`), and "numpy" runs `GF.matmul` per
+group on the host (the reference's host product; an oracle, timed beside
+the card by `chip_smoke.py`). Nothing falls back: the reference's
+4096-column floor for the device, its `LACHAIN_RS_DEVICE` switch and probe,
+its numpy fallback on a device error and its padding of columns to a power
+of two are not carried over. The field tables, the Vandermonde matrices and
+the inverses go to the card once and stay there, keyed like the host caches.
+
+`LAUNCHES` counts the kernel launches of `rs_matmul` (CUDA only).
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import _build, rs_ref
+from .g1 import _on_cpu, _stream
+from .verify import resolve_device
+
+
+class GF:
+    """A binary field GF(2^bits) with exp/log tables (generator 2)."""
+
+    def __init__(self, bits: int, poly: int):
+        self.bits = bits
+        self.order = (1 << bits) - 1
+        self.poly = poly
+        self.dtype = np.uint8 if bits == 8 else np.uint16
+        # big-endian wire dtype: shard bytes <-> symbol arrays
+        self.be_dtype = np.uint8 if bits == 8 else np.dtype(">u2")
+        self.sym_size = 1 if bits == 8 else 2
+        exp = np.zeros(2 * self.order, dtype=self.dtype)
+        log = np.zeros(1 << bits, dtype=np.int32)
+        x = 1
+        for i in range(self.order):
+            exp[i] = x
+            log[x] = i
+            x <<= 1
+            if x & (1 << bits):
+                x ^= poly
+        # generator 2 must cycle through every nonzero element exactly once
+        assert x == 1, f"generator 2 is not primitive for poly {poly:#x}"
+        exp[self.order :] = exp[: self.order]
+        self.exp, self.log = exp, log
+
+    def mul(self, a: int, b: int) -> int:
+        if a == 0 or b == 0:
+            return 0
+        return int(self.exp[self.log[a] + self.log[b]])
+
+    def inv(self, a: int) -> int:
+        if a == 0:
+            raise ZeroDivisionError("gf_inv(0)")
+        return int(self.exp[self.order - self.log[a]])
+
+    def matmul(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        """GF matrix product a (r,k) @ b (k,c): exp[log+log] gather with
+        zero masks, XOR-accumulated over the contraction axis (the numpy
+        oracle of the kernel)."""
+        a = np.ascontiguousarray(a, dtype=self.dtype)
+        b = np.ascontiguousarray(b, dtype=self.dtype)
+        r, k = a.shape
+        c = b.shape[1]
+        out = np.zeros((r, c), dtype=self.dtype)
+        log_b = self.log[b]  # (k, c)
+        mask_b = b != 0
+        log_a = self.log[a]  # (r, k)
+        mask_a = a != 0
+        for j in range(k):
+            if not mask_a[:, j].any() or not mask_b[j].any():
+                continue
+            prod = self.exp[log_a[:, j, None] + log_b[j][None, :]]
+            np.bitwise_xor(
+                out,
+                np.where(mask_a[:, j, None] & mask_b[j][None, :], prod, 0),
+                out=out,
+            )
+        return out
+
+    def mat_inv(self, mat: np.ndarray) -> Optional[np.ndarray]:
+        """Gauss-Jordan inversion (first-nonzero pivot, same scan order as
+        ops/rs.py::_gf_mat_inv); None when singular."""
+        k = mat.shape[0]
+        a = mat.astype(np.int64).copy()
+        inv = np.eye(k, dtype=np.int64)
+        exp, log = self.exp, self.log
+        for col in range(k):
+            piv = None
+            for r in range(col, k):
+                if a[r, col] != 0:
+                    piv = r
+                    break
+            if piv is None:
+                return None
+            if piv != col:
+                a[[col, piv]] = a[[piv, col]]
+                inv[[col, piv]] = inv[[piv, col]]
+            pinv = self.inv(int(a[col, col]))
+            for row_arr in (a, inv):
+                row = row_arr[col]
+                nz = row != 0
+                row[nz] = exp[log[row[nz]] + log[pinv]]
+            for r in range(k):
+                if r == col or a[r, col] == 0:
+                    continue
+                fac = int(a[r, col])
+                for row_arr in (a, inv):
+                    prow = row_arr[col]
+                    nz = prow != 0
+                    term = np.zeros(k, dtype=np.int64)
+                    term[nz] = exp[log[prow[nz]] + log[fac]]
+                    row_arr[r] ^= term
+        return inv.astype(self.dtype)
+
+
+GF8 = GF(8, 0x11D)  # matches ops/rs.py tables exactly
+
+_GF16_CACHE: List[Optional[GF]] = [None]
+
+
+def gf16() -> GF:
+    """GF(2^16) built on first use (the 65535-step table bootstrap is not
+    free; n <= 255 workloads never pay it)."""
+    if _GF16_CACHE[0] is None:
+        _GF16_CACHE[0] = GF(16, 0x1100B)
+    return _GF16_CACHE[0]
+
+
+def field_for(n: int) -> GF:
+    if n <= 255:
+        return GF8
+    if n <= 65535:
+        return gf16()
+    raise ValueError(f"n={n} exceeds GF(2^16) evaluation points")
+
+
+def _field(bits: int) -> GF:
+    return GF8 if bits == 8 else gf16()
+
+
+# -- cached per-(field, k, n) matrices ---------------------------------------
+
+_VCACHE: Dict[Tuple[int, int, int], np.ndarray] = {}
+_ICACHE: Dict[Tuple[int, int, Tuple[int, ...]], Optional[np.ndarray]] = {}
+_CACHE_CAP = 512
+# (matrix key, device) -> the matrix on that device; (bits, device) -> the
+# field's tables there
+_DEV_MATS: Dict[tuple, torch.Tensor] = {}
+_DEV_TABLES: Dict[Tuple[int, str], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def vandermonde(field: GF, k: int, n: int) -> np.ndarray:
+    """n x k evaluation matrix: row i = [x^0 .. x^{k-1}] at x = i+1."""
+    key = (field.bits, k, n)
+    v = _VCACHE.get(key)
+    if v is None:
+        if len(_VCACHE) >= _CACHE_CAP:
+            _VCACHE.clear()
+        v = np.zeros((n, k), dtype=field.dtype)
+        for r in range(n):
+            acc = 1
+            for c in range(k):
+                v[r, c] = acc
+                acc = field.mul(acc, r + 1)
+        _VCACHE[key] = v
+    return v
+
+
+def _inverse_for(
+    field: GF, k: int, xs: Tuple[int, ...]
+) -> Optional[np.ndarray]:
+    key = (field.bits, k, xs)
+    if key in _ICACHE:
+        return _ICACHE[key]
+    if len(_ICACHE) >= _CACHE_CAP:
+        _ICACHE.clear()
+    mat = np.zeros((k, k), dtype=field.dtype)
+    for r, x in enumerate(xs):
+        acc = 1
+        for c in range(k):
+            mat[r, c] = acc
+            acc = field.mul(acc, x)
+    inv = field.mat_inv(mat)
+    _ICACHE[key] = inv
+    return inv
+
+
+def clear_caches() -> None:
+    """Forget every Vandermonde matrix and inverse, on the host and on the
+    card (the next flush is a cold one)."""
+    _VCACHE.clear()
+    _ICACHE.clear()
+    _DEV_MATS.clear()
+
+
+def _dev_mat(key: tuple, a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host-made matrix on `dev`, uploaded once per key."""
+    dkey = (key, str(dev))
+    t = _DEV_MATS.get(dkey)
+    if t is None:
+        if len(_DEV_MATS) >= 2 * _CACHE_CAP:
+            _DEV_MATS.clear()
+        t = _DEV_MATS[dkey] = torch.from_numpy(a).to(dev)
+    return t
+
+
+def _tables(field: GF, dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The field's (exp, log) on `dev`, made once: on the card the
+    kernel's (`order` and order + 1 symbols), on the CPU the plain
+    version's (int32, exp of 2 * order entries)."""
+    key = (field.bits, str(dev))
+    t = _DEV_TABLES.get(key)
+    if t is None:
+        if dev.type == "cpu":
+            t = (torch.from_numpy(field.exp.astype(np.int32)),
+                 torch.from_numpy(field.log))
+        else:
+            t = (torch.from_numpy(field.exp[: field.order].copy()).to(dev),
+                 torch.from_numpy(field.log.astype(field.dtype)).to(dev))
+        t = _DEV_TABLES[key] = t
+    return t
+
+
+# -- the kernel wrapper ------------------------------------------------------
+
+SYMBOLS = {8: torch.uint8, 16: torch.uint16}  # torch dtype of a field's symbols
+LAUNCHES = {"rs_matmul8": 0, "rs_matmul16": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def rs_matmul(bits: int, mats: Sequence[torch.Tensor], b: torch.Tensor,
+              widths: Sequence[int]) -> torch.Tensor:
+    """Every group's product over GF(2^bits) in one launch (replaces the
+    jitted `_mm`, lachain_tpu/ops/rs_batch.py:233, run once per group
+    there): mats[g] (rows_g, k_g) times the next widths[g] columns of b (K,
+    C), its rows past k_g unread, into those columns of the (R, C) result,
+    R the largest rows_g and rows past a group's own 0. Symbols are
+    `SYMBOLS[bits]`. CPU tensors run the plain version
+    (`rs_ref.gf_matmul_grouped`); CUDA tensors launch `rs_matmul<bits>`."""
+    field = _field(bits)
+    dtype = SYMBOLS[bits]
+    on_cpu = _on_cpu(b, *mats)
+    if len(widths) != len(mats) or sum(widths) != b.shape[1]:
+        raise ValueError(f"widths {list(widths)} do not cover b's {b.shape[1]} columns")
+    for name, t in [("b", b)] + [(f"mats[{g}]", m) for g, m in enumerate(mats)]:
+        if t.dtype != dtype or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"rs_matmul {name}: expected a contiguous 2-D {dtype} tensor")
+    if any(m.shape[1] > b.shape[0] for m in mats):
+        raise ValueError("rs_matmul: a group's k exceeds b's rows")
+    rows, cols = max((m.shape[0] for m in mats), default=0), b.shape[1]
+    exp, log = _tables(field, b.device)
+    if on_cpu:
+        return rs_ref.gf_matmul_grouped(exp, log, mats, b, widths)
+    out = torch.empty((rows, cols), dtype=dtype, device=b.device)
+    if rows == 0 or cols == 0:
+        return out
+    ends = np.cumsum(widths).tolist()
+    # non_blocking: a blocking upload would wait for the work already
+    # queued; CUDA stages the pageable rows before the call returns
+    groups = torch.tensor(
+        [[m.data_ptr(), m.shape[0], m.shape[1], e] for m, e in zip(mats, ends)],
+        dtype=torch.int64).to(b.device, non_blocking=True)
+    name = f"rs_matmul{bits}"
+    rc = getattr(_build.library(), f"lt_{name}")(
+        exp.data_ptr(), log.data_ptr(), groups.data_ptr(), len(mats),
+        b.data_ptr(), cols, out.data_ptr(), rows, _stream(b))
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
+# -- batched codec -----------------------------------------------------------
+
+
+def resolve(device) -> Optional[torch.device]:
+    """None for the numpy oracle, else the torch device (no card raises)."""
+    return None if device == "numpy" else resolve_device(device)
+
+
+def _add(timings: Optional[dict], key: str, t0: float) -> float:
+    """Add the seconds since t0 to timings[key]; return the clock."""
+    t = time.perf_counter()
+    if timings is not None:
+        timings[key] = timings.get(key, 0.0) + t - t0
+    return t
+
+
+def _products(field: GF, groups, dev: Optional[torch.device],
+              timings: Optional[dict]) -> List[np.ndarray]:
+    """groups: [(matrix key, A (rows_g, k_g), [blocks (k_g, w) of B])] of
+    one field -> each group's A @ [blocks] as big-endian wire symbols
+    (field.be_dtype), (rows_g, sum of w). On the card: B packed into one
+    pinned buffer and uploaded ("pack_s"), one launch ("device_s"), one
+    download ("fetch_s"); on the CPU the same through the plain version;
+    with dev None, GF.matmul per group."""
+    t = time.perf_counter()
+    if dev is None:
+        outs = [field.matmul(a, np.concatenate(blocks, axis=1)).astype(field.be_dtype)
+                for _key, a, blocks in groups]
+        _add(timings, "device_s", t)
+        return outs
+    widths = [sum(blk.shape[1] for blk in blocks) for _key, _a, blocks in groups]
+    card = dev.type == "cuda"
+    host = torch.empty((max(a.shape[1] for _key, a, _b in groups), sum(widths)),
+                       dtype=SYMBOLS[field.bits], pin_memory=card)
+    view = host.numpy()
+    off = 0
+    for _key, _a, blocks in groups:
+        for blk in blocks:
+            view[: blk.shape[0], off : off + blk.shape[1]] = blk
+            off += blk.shape[1]
+    mats = [_dev_mat(key, a, dev) for key, a, _blocks in groups]
+    b = host.to(dev, non_blocking=True)
+    if card:
+        torch.cuda.synchronize(dev)
+    t = _add(timings, "pack_s", t)
+    out = rs_matmul(field.bits, mats, b, widths)
+    if card:
+        torch.cuda.synchronize(dev)
+    t = _add(timings, "device_s", t)
+    if card:
+        fetched = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        fetched.copy_(out)
+        out = fetched
+    res = out.numpy().astype(field.be_dtype, copy=False)
+    outs, off = [], 0
+    for (_key, a, _blocks), w in zip(groups, widths):
+        outs.append(res[: a.shape[0], off : off + w])
+        off += w
+    _add(timings, "fetch_s", t)
+    return outs
+
+
+def _coeff_matrix(field: GF, data: bytes, k: int) -> np.ndarray:
+    """Length-prefix + zero-pad `data` into the k x L coefficient matrix
+    (L in field symbols), mirroring ops/rs.py::encode's layout."""
+    prefixed = len(data).to_bytes(4, "big") + data
+    unit = k * field.sym_size
+    shard_syms = (len(prefixed) + unit - 1) // unit
+    shard_syms = max(shard_syms, 1)
+    padded = prefixed + b"\x00" * (unit * shard_syms - len(prefixed))
+    return (
+        np.frombuffer(padded, dtype=field.be_dtype)
+        .reshape(k, shard_syms)
+        .astype(field.dtype)
+    )
+
+
+def encode_batch(
+    items: Sequence[Tuple[bytes, int, int]], device="cuda",
+    timings: Optional[dict] = None,
+) -> List[List[bytes]]:
+    """Encode many (data, k, n) payloads; one matrix product per (field,
+    k, n) group and one launch per field. Returns per-item n-shard lists,
+    ops/rs.py-bit-identical for n <= 255 and GF(2^16)-coded past that.
+    `timings`, when given, accumulates the phases' seconds."""
+    dev = resolve(device)
+    results: List[Optional[List[bytes]]] = [None] * len(items)
+    by_field: Dict[int, Dict[Tuple[int, int], List[int]]] = {}
+    for idx, (data, k, n) in enumerate(items):
+        assert 0 < k <= n
+        by_field.setdefault(field_for(n).bits, {}).setdefault((k, n), []).append(idx)
+    for bits, groups in by_field.items():
+        field = _field(bits)
+        t = time.perf_counter()
+        work = [((bits, k, n), vandermonde(field, k, n),
+                 [_coeff_matrix(field, items[i][0], k) for i in members])
+                for (k, n), members in groups.items()]
+        _add(timings, "pack_s", t)
+        outs = _products(field, work, dev, timings)
+        t = time.perf_counter()
+        for (_key, _v, blocks), members, out in zip(work, groups.values(), outs):
+            off = 0
+            for i, blk in zip(members, blocks):
+                w = blk.shape[1]
+                results[i] = [out[r, off : off + w].tobytes() for r in range(out.shape[0])]
+                off += w
+        _add(timings, "fetch_s", t)
+    return results  # type: ignore[return-value]
+
+
+def decode_batch(
+    items: Sequence[Tuple[Sequence[Optional[bytes]], int]], device="cuda",
+    timings: Optional[dict] = None,
+) -> List[Optional[bytes]]:
+    """Decode many (shards, k) items; shards is the full n-length list with
+    None for missing entries. One matrix product per (field, k, erasure
+    pattern) group and one launch per field; per-item None on any of the
+    scalar path's failure conditions (short, mixed-size, odd GF(2^16) size,
+    bad length prefix). The first k present shards are the ones used, and
+    only their sizes are checked, as in the reference. `timings` as in
+    encode_batch, the host inverses apart ("inverse_s")."""
+    dev = resolve(device)
+    results: List[Optional[bytes]] = [None] * len(items)
+    groups: Dict[Tuple[int, int, Tuple[int, ...]], List[int]] = {}
+    sel: List[Optional[List[Tuple[int, bytes]]]] = [None] * len(items)
+    for idx, (shards, k) in enumerate(items):
+        n = len(shards)
+        field = field_for(n)
+        have = [(i, s) for i, s in enumerate(shards) if s is not None]
+        if len(have) < k:
+            continue
+        have = have[:k]
+        size = len(have[0][1])
+        if any(len(s) != size for _, s in have):
+            continue  # adversarial mixed-size commitment: clean failure
+        if size % field.sym_size:
+            continue  # GF(2^16): odd byte length cannot be symbols
+        xs = tuple(i + 1 for i, _ in have)
+        sel[idx] = have
+        groups.setdefault((field.bits, k, xs), []).append(idx)
+    t = time.perf_counter()
+    by_field: Dict[int, list] = {}
+    for key, members in groups.items():
+        bits, k, xs = key
+        inv = _inverse_for(_field(bits), k, xs)
+        if inv is not None:  # singular selection: every member fails cleanly
+            by_field.setdefault(bits, []).append((key, inv, members))
+    _add(timings, "inverse_s", t)
+    for bits, work in by_field.items():
+        field = _field(bits)
+        t = time.perf_counter()
+        prepared = [
+            (key, inv, [np.frombuffer(b"".join(s for _i, s in sel[i]),
+                                      dtype=field.be_dtype).reshape(key[1], -1)
+                        for i in members])
+            for key, inv, members in work
+        ]
+        _add(timings, "pack_s", t)
+        outs = _products(field, prepared, dev, timings)
+        t = time.perf_counter()
+        for (_key, _inv, blocks), (_k, _i, members), out in zip(prepared, work, outs):
+            off = 0
+            for i, blk in zip(members, blocks):
+                w = blk.shape[1]
+                flat = out[:, off : off + w].tobytes()
+                off += w
+                if len(flat) < 4:
+                    continue
+                length = int.from_bytes(flat[:4], "big")
+                if length > len(flat) - 4:
+                    continue
+                results[i] = flat[4 : 4 + length]
+        _add(timings, "fetch_s", t)
+    return results
+
+
+def encode(data: bytes, k: int, n: int, device="cuda") -> List[bytes]:
+    """Single-item convenience (ops/rs.py delegates its n > 255 branch
+    here with device="cpu")."""
+    return encode_batch([(data, k, n)], device=device)[0]
+
+
+def decode(shards: Sequence[Optional[bytes]], k: int, device="cuda") -> Optional[bytes]:
+    return decode_batch([(shards, k)], device=device)[0]

@@ -5,10 +5,12 @@
 * Asking for the card where there is none raises: `GpuBackend()` (and so
   its `tpke_era_verify_combine` and `ts_era_verify_combine`),
   `GpuEraPipeline()`, `TsGpuEraPipeline()`, `GpuEcdsaRecover()`,
-  `ecdsa.recover_hash_batch` and the kernel build have no CPU fallback.
+  `ecdsa.recover_hash_batch`, `RbcEraBatcher()`, `rs_batch.encode_batch` /
+  `decode_batch` and the kernel build have no CPU fallback.
 * The host pairing library is the port's own build: it loads from
   `lachain_tpu_torch/_build/` (never from the JAX package's tree), its
-  binding loads no torch, and without g++ the build raises.
+  binding loads no torch, and without g++ the build raises; so does
+  `hashes.keccak256_batch`, which has no per-item fallback.
 """
 from __future__ import annotations
 
@@ -19,10 +21,11 @@ import sys
 import pytest
 import torch
 
-from lachain_tpu_torch.crypto import ecdsa
+from lachain_tpu_torch.consensus.rbc_batcher import RbcEraBatcher
+from lachain_tpu_torch.crypto import ecdsa, hashes
 from lachain_tpu_torch.crypto.gpu_backend import GpuBackend
 from lachain_tpu_torch.crypto.native_backend import NativeBackend
-from lachain_tpu_torch.ops import _build
+from lachain_tpu_torch.ops import _build, rs_batch
 from lachain_tpu_torch.ops.secp import GpuEcdsaRecover
 from lachain_tpu_torch.ops.verify import GpuEraPipeline, TsGpuEraPipeline
 
@@ -40,6 +43,9 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "lachain_tpu" or m.startswith("lachain_tpu."))
+new = {"lachain_tpu_torch.consensus.rbc_batcher", "lachain_tpu_torch.ops.rs",
+       "lachain_tpu_torch.ops.rs_batch", "lachain_tpu_torch.ops.rs_ref"}
+assert new <= set(names), new - set(names)
 print(len(names), bad)
 """
 
@@ -50,7 +56,7 @@ def test_port_imports_nothing_of_jax():
         text=True, check=True, timeout=120,
     ).stdout.split("\n")[0]
     count, bad = out.split(" ", 1)
-    assert int(count) >= 20  # every module of the package was imported
+    assert int(count) >= 26  # every module of the package was imported
     assert bad == "[]"
 
 
@@ -107,6 +113,16 @@ def test_ecdsa_path_without_card_raises():
         ecdsa.recover_hash_batch([], [])
 
 
+def test_rbc_path_without_card_raises():
+    _require_no_card()
+    with pytest.raises(RuntimeError):
+        RbcEraBatcher()
+    with pytest.raises(RuntimeError):
+        rs_batch.encode_batch([(b"payload", 2, 4)])
+    with pytest.raises(RuntimeError):
+        rs_batch.decode([None, b"a", b"b", None], 2)
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_LIB", None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
@@ -148,6 +164,17 @@ def test_host_build_without_gxx_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="g\\+\\+"):
         NativeBackend()
     assert not list(tmp_path.iterdir())  # nothing was built
+
+
+def test_keccak_batch_without_host_library_raises(monkeypatch, tmp_path):
+    """keccak256_batch binds the host library or raises: no per-item
+    fallback."""
+    monkeypatch.setattr(hashes, "_BATCH_FN", [])
+    monkeypatch.setattr(_build, "_HOST_LIB", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        hashes.keccak256_batch([b"abc"])
 
 
 def test_host_build_failure_raises(monkeypatch, tmp_path):
