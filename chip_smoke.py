@@ -27,12 +27,16 @@ Phases, each of which must pass (any failure exits non-zero):
              row and into form on the coin era's (72, 4096) G2 pack): exact
              equality of coordinates mod p and flags (of the conversions,
              words bit for bit, and Python ints); the Reed-Solomon product
-             (rs_matmul8, rs_matmul16) bit for bit at the RBC eras' shapes:
-             GF(2^8) (64 x 22)(22 x 8,384), the N=64 re-encode, and (64 x
-             22)(22 x 82,624), a 10,000-transaction block's; one grouped
-             decode launch of 64 distinct (22 x 22) inverses over 131
-             columns each; GF(2^16) (256 x 86)(86 x 1,280), the N=256
-             re-encode.
+             (rs_matmul8, rs_matmul16) bit for bit at every launch shape of
+             the RBC flushes: GF(2^8) (64 x 22)(22 x 8,384), the N=64
+             re-encode, (64 x 22)(22 x 131), the own proposal's encode,
+             one grouped decode launch of 64 distinct (22 x 22) inverses
+             over 131 columns each, and (64 x
+             22)(22 x 82,624), a 10,000-transaction block's; GF(2^16) (256
+             x 86)(86 x 1,280), the N=256 re-encode, (256 x 86)(86 x 5),
+             the encode, and the decode of 256 distinct (86 x 86)
+             inverses over 5 columns each; and ragged widths with zero
+             rows and columns in both fields.
              The three scans run twice: at the main path's layout (the TPKE
              era's joined scan, 32 windows x 16,384 lanes; the coin era's
              scan, 48 leading zero windows on its RLC half and 22 live
@@ -138,10 +142,14 @@ OPS_PER_SECP_SQR = 2 * (8 * 9 // 2 + 8 * 8 + 8)
 MONT_WORD_PRODUCTS = 8 * (8 + 1)
 # the same over BLS12-381's 12 words (g1_mont)
 G1_MONT_WORD_PRODUCTS = 12 * (12 + 1)
-# the H100 SXM's shared-memory lookup rate, the Reed-Solomon product's
-# bound: one lookup a lane a clock on every SM, 132 SMs x 32 lanes x its
-# 1.98 GHz boost clock (NVIDIA's H100 data sheet and Hopper white paper)
+# the Reed-Solomon product's bound: one term (a GF(2^16) exp lookup) a
+# lane a clock on every SM, 132 SMs x 32 lanes x the H100 SXM's 1.98 GHz
+# boost clock (NVIDIA's H100 data sheet and Hopper white paper)
 LOOKUPS_PER_S = 132 * 32 * 1.98e9
+# the GF(2^8) nibble design's integer operations: 64 INT32 lanes an SM
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# host idle time around each profiled step (profile_device)
+TRACE_PAD_S = 0.05
 
 N_VALIDATORS = 64
 KERNEL_LANES = 8192  # S*K*2 msm lanes of the N=64 eras
@@ -854,31 +862,58 @@ def profile_device(run) -> dict:
     torch.profiler; device work that is not one of the nineteen kernels
     (copies, cat, where) is summed under "torch". A trace loses the first
     device activities of its session (a trace of the recover path lacked
-    its first three launches), so run() goes once under the profiler's
-    warm-up step, whose events are dropped, and once under its active
+    its first three launches), so run() goes twice under the profiler's
+    warm-up steps, whose events are dropped, and once under its active
     step, which is what is summed. The step's own span ("ProfilerStep*")
-    covers the whole call and is left out."""
+    covers the whole call and is left out. Each step idles TRACE_PAD_S on
+    the host before run() and after it has synchronized, so that no launch
+    lies near the edge of its step's window: the profiler drops a device
+    activity whose time, mapped from the card's clock to the host's, falls
+    outside the window, and unpadded traces lost launches made just after
+    a window opened."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     traced = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
+                 schedule=schedule(wait=0, warmup=2, active=1),
                  on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
-        for _ in range(2):
+        for _ in range(3):
+            time.sleep(TRACE_PAD_S)
             run()
             torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
             prof.step()
     out: dict = {}
     for e in traced[0]:
         t = getattr(e, "self_device_time_total", 0) or 0
-        if t <= 0 or e.key.startswith("ProfilerStep"):
-            continue
         name = kernel_of(e.key)
+        # a kernel's launches count whatever device time the trace gives them
+        if e.key.startswith("ProfilerStep") or (t <= 0 and name == "torch"):
+            continue
         acc = out.setdefault(name, [0.0, 0])
         acc[0] += t / 1e3
         acc[1] += e.count
     return out
+
+
+def profile_launches(run, want: dict, label: str, tries: int = 5) -> dict:
+    """profile_device(run), again (at most `tries` traces) while its trace
+    lacks some of the `want` {kernel: launches} that run() makes: traces
+    of this card's profiler without the padding of profile_device lost a
+    flush's first launch, one or all ten launches of a kernel's timed use,
+    and in one run one of ten in three traces in a row. Each loss is
+    logged, and the phase fails when the last trace still lacks some: no
+    time is taken from a partial trace."""
+    for i in range(tries):
+        by_kernel = profile_device(run)
+        got = {k: by_kernel.get(k, [0.0, 0])[1] for k in want}
+        if got == want:
+            break
+        log(f"{label}: the trace lost device activities (trace {i + 1} of {tries}): "
+            f"{got} != {want}")
+    check(got == want, f"{label}: {tries} traces lacked launches: {got} != {want}")
+    return by_kernel
 
 
 def kernel_of(key: str) -> str:
@@ -894,7 +929,8 @@ def check_traced(label: str, by_kernel: dict, launches: dict, names) -> None:
     `names` as the counted main-path run made."""
     traced = {k: by_kernel.get(KERNEL_OF[k], [0, 0])[1] for k in names}
     counted = {k: launches[k] for k in names}
-    check(traced == counted, f"{label}: traced launches {traced} != counted {counted}")
+    check(traced == counted,
+          f"{label}: traced launches {traced} != counted {counted} (trace: {by_kernel})")
     log(f"{label}: traced launches equal the counted ones {counted}")
 
 
@@ -936,11 +972,11 @@ def warm_summary(label: str, warm) -> None:
     log(f"{label} warm (best of {len(warm)}): {phase_line(best)}")
 
 
-def profile_phase(label: str, new_pipeline, run_era) -> dict:
+def profile_phase(label: str, new_pipeline, run_era, launches: dict, names) -> dict:
     """Warm up, then split one era call by kernel. Each call runs
     run_era(pipeline) on a fresh new_pipeline(), so that, like the counted
     call (the backend's first era), it packs the keys: its launches are the
-    counted call's."""
+    counted call's (`launches` of `names`), which its trace must hold."""
     last = []
 
     def run():
@@ -948,7 +984,7 @@ def profile_phase(label: str, new_pipeline, run_era) -> dict:
         run_era(last[0])
 
     run()
-    by_kernel = profile_device(run)
+    by_kernel = profile_launches(run, {KERNEL_OF[k]: launches[k] for k in names}, label)
     busy = sum(v[0] for v in by_kernel.values())
     log(f"{label} device phase by kernel (torch.profiler, ms, launches): "
         f"{by_kernel}; busy {busy:.3f} ms of device phase "
@@ -1019,7 +1055,7 @@ def run_tpke_path(seed: int, backend, dev):
     y_points = [vk.y_i for vk in vks]
     slots = [(list(j.u_by_validator), list(j.lagrange_row)) for j in jobs]
     by_kernel = profile_phase("era", lambda: GpuEraPipeline(device=dev), lambda p: p.run_era(
-        slots, y_points, SeededRng(seed + 4)))
+        slots, y_points, SeededRng(seed + 4)), launches, tuple(TPKE_LAUNCHES))
     check_traced("era", by_kernel, launches, tuple(TPKE_LAUNCHES))
     check_host_pairing(backend, jobs, GpuEraPipeline(device=dev).run_era(
         slots, y_points, SeededRng(seed + 6))[0], bad_slot)
@@ -1167,7 +1203,7 @@ def run_coin_path(seed: int, backend, dev):
     y_points = [k.y for k in key_set.keys]
     by_kernel = profile_phase("coin era", lambda: TsGpuEraPipeline(device=dev),
                               lambda p: p.run_era(rows, y_points, SeededRng(seed + 14),
-                                                  masks=masks))
+                                                  masks=masks), launches, tuple(COIN_LAUNCHES))
     check_traced("coin era", by_kernel, launches, tuple(COIN_LAUNCHES))
 
     # 4 coins against the host oracle pipeline, same seeded rng
@@ -1356,7 +1392,9 @@ def run_ecdsa_path(seed: int, dev):
         check(out == [got[i] for i in regular], "warm recover differs")
         warm.append(dict(rec.last_timings))
         log(f"ecdsa warm {r}: {rec.last_timings}")
-    by_kernel = profile_device(lambda: rec.recover_batch(rh, rs))
+    by_kernel = profile_launches(lambda: rec.recover_batch(rh, rs),
+                                 {KERNEL_OF[k]: launches[k] for k in SECP_KERNELS},
+                                 "ecdsa recover")
     busy = sum(v[0] for v in by_kernel.values())
     t = rec.last_timings
     log(f"ecdsa recover by kernel (torch.profiler, ms, launches): {by_kernel}; "
@@ -1373,53 +1411,63 @@ def run_ecdsa_path(seed: int, dev):
 
 
 def rs_entry(dev, bits: int, mats, b, widths, layout: str, reps: int) -> dict:
-    """One rs_matmul launch over numpy groups `mats` and columns `b`
+    """One rs_matmul launch over numpy groups `mats` (put into the
+    kernel's form on the host, as the flush's cache does) and columns `b`
     against its plain version on the card, bit for bit; both timed (the
     wrapper's calls by CUDA events, which include its host time, and the
     kernel's own device time from torch.profiler, `traced_ms`); the bound
-    the larger of B in and C out over HBM's rate and the exp lookups these
-    inputs need (a term whose two factors are nonzero) over the
-    shared-memory lookup rate."""
+    the larger of B in and C out over HBM's rate and the terms these inputs
+    need (both factors nonzero) over one term a lane a clock; GF(2^8) also
+    its nibble design's integer operations (7 a word of 4 products a row,
+    12 a word's selectors a row block) over 64 INT32 lanes an SM."""
     import numpy as np
     import torch
 
-    from lachain_tpu_torch.ops import rs_batch, rs_ref
+    from lachain_tpu_torch.ops import _build, rs_batch
 
     field = rs_batch.GF8 if bits == 8 else rs_batch.gf16()
-    kmats = [torch.from_numpy(m).to(dev) for m in mats]
+    kmats = [torch.from_numpy(rs_batch.operand(bits, m)).to(dev) for m in mats]
     kb = torch.from_numpy(b).to(dev)
-    exp = torch.from_numpy(field.exp.astype(np.int32)).to(dev)
-    log = torch.from_numpy(field.log).to(dev)
     got = rs_batch.rs_matmul(bits, kmats, kb, widths).cpu().numpy().astype(np.int64)
-    want, plain_ms = cuda_ms_once(
-        lambda: rs_ref.gf_matmul_grouped(exp, log, kmats, kb, widths))
+    want, plain_ms = cuda_ms_once(lambda: rs_batch.rs_matmul_plain(bits, kmats, kb, widths))
     want = want.cpu().numpy().astype(np.int64)
-    lookups, off = 0, 0
+    lookups, int_ops, off = 0, 0, 0
+    rows_a_thread = rs_batch.geometry(_build.library(), bits)[0]
     for m, w in zip(mats, widths):
         nz_b = (b[: m.shape[1], off : off + w] != 0).sum(axis=1)
         lookups += int(((m != 0).sum(axis=0) * nz_b).sum())
+        words = (off + w + 3) // 4 - off // 4 if w else 0
+        int_ops += m.shape[1] * words * (7 * m.shape[0] + 12 * -(-m.shape[0] // rows_a_thread))
         off += w
-    traced = profile_device(
-        lambda: [rs_batch.rs_matmul(bits, kmats, kb, widths) for _ in range(10)]
-    )[f"rs_matmul{bits}_kernel"]
+    name = f"rs_matmul{bits}_kernel"
+    traced = profile_launches(
+        lambda: [rs_batch.rs_matmul(bits, kmats, kb, widths) for _ in range(10)],
+        {name: 10}, layout)[name]
     nbytes = (b.size + got.size) * field.sym_size
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = lookups / LOOKUPS_PER_S * 1e3
-    return dict(
+    entry = dict(
         layout=layout, lanes=int(b.shape[1]), groups=len(mats), lookups=lookups,
         ok=bool((got == want).all()), max_abs_err=float(np.abs(got - want).max()),
         ms=cuda_ms(lambda: rs_batch.rs_matmul(bits, kmats, kb, widths), reps),
         traced_ms=traced[0] / traced[1], plain_ms=plain_ms,
         bound=(t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"),
     )
+    if bits == 8:
+        entry.update(int_ops=int_ops, int_bound_ms=int_ops / INT32_OPS_PER_S * 1e3)
+    return entry
 
 
 def check_rs_kernels(rng: random.Random, dev):
-    """rs_matmul8 and rs_matmul16 at the RBC eras' shapes, the A matrices
-    the codec's own (Vandermonde, Gauss-Jordan inverses), B random
-    symbols: the N=64 re-encode (the entry's numbers), the 10,000-tx
-    block's re-encode and one grouped decode launch of 64 distinct
-    inverses (its checks); the N=256 re-encode in GF(2^16)."""
+    """rs_matmul8 and rs_matmul16 at every launch shape of the RBC flushes,
+    the A matrices the codec's own (Vandermonde, Gauss-Jordan inverses), B
+    random symbols. GF(2^8): the N=64 re-encode (the entry's numbers), the
+    own proposal's encode and the grouped decode of 64 distinct inverses
+    at the flush's layout (131 columns a group, words shared by two
+    groups), the 10,000-tx block's re-encode, and a ragged check of
+    widths 1, 7, 123 with zero rows and columns in A and B.
+    GF(2^16): the N=256 re-encode (its numbers), the own proposal's encode,
+    the decode of 256 distinct inverses, and a ragged check."""
     import numpy as np
 
     from lachain_tpu_torch.ops import rs_batch
@@ -1430,30 +1478,60 @@ def check_rs_kernels(rng: random.Random, dev):
     def symbols(field, rows, cols):
         return nprng.integers(0, field.order + 1, (rows, cols)).astype(field.dtype)
 
+    def inverses(field, n, k, count):
+        patterns = set()
+        while len(patterns) < count:
+            patterns.add(tuple(sorted(rng.sample(range(1, n + 1), k))))
+        return [rs_batch._inverse_for(field, k, xs) for xs in sorted(patterns)]
+
+    def zero_lines(mats, b):
+        mats = [m.copy() for m in mats]
+        for m in mats:
+            m[nprng.integers(m.shape[0])] = 0
+            m[:, nprng.integers(m.shape[1])] = 0
+        b = b.copy()
+        b[:, ::3] = 0
+        return mats, b
+
     v64 = rs_batch.vandermonde(gf8, 22, 64)
-    patterns = set()
-    while len(patterns) < 64:
-        patterns.add(tuple(sorted(rng.sample(range(1, 65), 22))))
-    inverses = [rs_batch._inverse_for(gf8, 22, xs) for xs in sorted(patterns)]
-    checks = [
+    inv64 = inverses(gf8, 64, 22, 64)
+    ragged8 = zero_lines([v64[:9, :5], v64[:3, :5], v64[:64, :22]], symbols(gf8, 22, 1 + 7 + 123))
+    checks8 = [
         rs_entry(dev, 8, [v64], symbols(gf8, 22, 8384), [8384],
                  "N=64 re-encode (64 x 22)(22 x 8384)", 100),
+        rs_entry(dev, 8, [v64], symbols(gf8, 22, 131), [131],
+                 "N=64 encode (64 x 22)(22 x 131)", 100),
+        rs_entry(dev, 8, inv64, symbols(gf8, 22, 64 * 131), [131] * 64,
+                 "N=64 decode, 64 groups (22 x 22)(22 x 131)", 100),
         rs_entry(dev, 8, [v64], symbols(gf8, 22, 82624), [82624],
                  "10,000-tx block re-encode (64 x 22)(22 x 82624)", 20),
-        rs_entry(dev, 8, inverses, symbols(gf8, 22, 64 * 131), [131] * 64,
-                 "N=64 decode, 64 groups (22 x 22)(22 x 131)", 100),
+        rs_entry(dev, 8, *ragged8, [1, 7, 123],
+                 "ragged: widths 1, 7, 123, zero rows and columns", 20),
     ]
-    r16 = rs_entry(dev, 16, [rs_batch.vandermonde(gf16, 86, 256)],
-                   symbols(gf16, 86, 1280), [1280],
-                   "N=256 re-encode (256 x 86)(86 x 1280)", 100)
-    for c in checks[1:]:
-        report_line("rs_matmul8 check", c)
-    for c in checks + [r16]:
-        log(f"rs_matmul{8 if c is not r16 else 16} ({c['layout']}): device time "
-            f"{c['traced_ms']:.4f} ms a launch (torch.profiler), {c['lookups']} lookups")
+    v256 = rs_batch.vandermonde(gf16, 86, 256)
+    inv256 = inverses(gf16, 256, 86, 256)
+    checks16 = [
+        rs_entry(dev, 16, [v256], symbols(gf16, 86, 1280), [1280],
+                 "N=256 re-encode (256 x 86)(86 x 1280)", 100),
+        rs_entry(dev, 16, [v256], symbols(gf16, 86, 5), [5],
+                 "N=256 encode (256 x 86)(86 x 5)", 100),
+        rs_entry(dev, 16, inv256, symbols(gf16, 86, 256 * 5), [5] * 256,
+                 "N=256 decode, 256 groups (86 x 86)(86 x 5)", 50),
+        rs_entry(dev, 16, *zero_lines([v256[:130, :86], inv256[0][:3, :86]],
+                                      symbols(gf16, 86, 301 + 2)), [301, 2],
+                 "ragged: widths 301, 2, zero rows and columns", 20),
+    ]
+    for c in checks8[1:] + checks16[1:]:
+        report_line("rs_matmul check", c)
+    for bits, checks in ((8, checks8), (16, checks16)):
+        for c in checks:
+            extra = (f", integer-op bound {c['int_bound_ms']:.5f} ms" if "int_bound_ms" in c
+                     else "")
+            log(f"rs_matmul{bits} ({c['layout']}): device time {c['traced_ms']:.4f} ms a "
+                f"launch (torch.profiler), {c['lookups']} terms{extra}")
     return {
-        "rs_matmul8": dict(checks[0], checks=checks[1:], ok=all(c["ok"] for c in checks)),
-        "rs_matmul16": r16,
+        f"rs_matmul{bits}": dict(checks[0], checks=checks[1:], ok=all(c["ok"] for c in checks))
+        for bits, checks in ((8, checks8), (16, checks16))
     }
 
 
@@ -1565,7 +1643,8 @@ def run_rbc_path(seed: int, n: int, dev):
         warm.append(dict(b.last_timings))
     best = {p: min(w[p] for w in warm) for p in warm[0]}
     log(f"{label} warm (each phase the best of 2): {phase_line(best)}")
-    by_kernel = profile_device(lambda: rbc_flush("cuda", n, k, own, era))
+    by_kernel = profile_launches(lambda: rbc_flush("cuda", n, k, own, era),
+                                 {KERNEL_OF[k]: launches[k] for k in RS_KERNELS}, label)
     busy = sum(v[0] for v in by_kernel.values())
     log(f"{label} by kernel (torch.profiler, ms, launches): {by_kernel}; busy {busy:.3f} ms")
     check_traced(label, by_kernel, launches, RS_KERNELS)
@@ -1690,9 +1769,10 @@ def main() -> int:
         entry.update({k: r[k] for k in ("rows", "into_ms", "into_plain_ms", "beta_ms")
                       if k in r})
         if k in RS_KERNELS:  # its shape, and the other shapes it was held at
-            entry.update(layout=r["layout"], lookups=r["lookups"], traced_ms=r["traced_ms"],
-                         checks=[dict(numbers(c), layout=c["layout"], lookups=c["lookups"],
-                                      traced_ms=c["traced_ms"], **{"pass": c["ok"]})
+            rs_keys = ("layout", "lookups", "traced_ms", "int_bound_ms")
+            entry.update({x: r[x] for x in rs_keys if x in r},
+                         checks=[dict(numbers(c), **{x: c[x] for x in rs_keys if x in c},
+                                      **{"pass": c["ok"]})
                                  for c in r.get("checks", ())])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)

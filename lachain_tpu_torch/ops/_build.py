@@ -63,6 +63,7 @@ build_seconds = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "lt_g1_fp_mul": [_P, _P, _P, _I, _P],
     "lt_g1_dbl": [_P, _P, _I, _P],
@@ -84,8 +85,9 @@ _SIGNATURES = {
     "lt_secp_sqrt": [_P, _P, _I, _P],
     "lt_secp_mont": [_P, _P, _I, _I, _I, _P],
     "lt_secp_kernel_attrs": [_I] + [ctypes.POINTER(_I)] * 4,
-    "lt_rs_matmul8": [_P, _P, _P, _I, _P, _I, _P, _I, _P],
-    "lt_rs_matmul16": [_P, _P, _P, _I, _P, _I, _P, _I, _P],
+    "lt_rs_matmul8": [_P, _I, _L, _P, _I, _P, _I, _I, _I, _I, _P],
+    "lt_rs_matmul16": [_P, _P, _P, _I, _L, _P, _I, _P, _I, _I, _I, _I, _P],
+    "lt_rs_geometry": [_I] + [ctypes.POINTER(_I)] * 6,
     "lt_rs_kernel_attrs": [_I] + [ctypes.POINTER(_I)] * 4,
 }
 # (attrs entry, kernel names in its index order)

@@ -23,13 +23,16 @@ group on the host (the reference's host product; an oracle, timed beside
 the card by `chip_smoke.py`). Nothing falls back: the reference's
 4096-column floor for the device, its `LACHAIN_RS_DEVICE` switch and probe,
 its numpy fallback on a device error and its padding of columns to a power
-of two are not carried over. The field tables, the Vandermonde matrices and
-the inverses go to the card once and stay there, keyed like the host caches.
+of two are not carried over. The Vandermonde matrices and the inverses go
+to the card once, in the kernels' forms (`operand`: GF(2^8) nibble tables,
+GF(2^16) log(A)), made on the host with numpy and keyed like the host
+caches; GF(2^16)'s exp and log tables go once per device.
 
 `LAUNCHES` counts the kernel launches of `rs_matmul` (CUDA only).
 """
 from __future__ import annotations
 
+import ctypes
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -166,10 +169,10 @@ def _field(bits: int) -> GF:
 _VCACHE: Dict[Tuple[int, int, int], np.ndarray] = {}
 _ICACHE: Dict[Tuple[int, int, Tuple[int, ...]], Optional[np.ndarray]] = {}
 _CACHE_CAP = 512
-# (matrix key, device) -> the matrix on that device; (bits, device) -> the
-# field's tables there
+# (matrix key, device) -> the matrix in the kernel's form on that device;
+# (device, plain) -> GF(2^16)'s exp and log there
 _DEV_MATS: Dict[tuple, torch.Tensor] = {}
-_DEV_TABLES: Dict[Tuple[int, str], Tuple[torch.Tensor, torch.Tensor]] = {}
+_DEV_TABLES: Dict[Tuple[str, bool], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def vandermonde(field: GF, k: int, n: int) -> np.ndarray:
@@ -209,38 +212,44 @@ def _inverse_for(
 
 
 def clear_caches() -> None:
-    """Forget every Vandermonde matrix and inverse, on the host and on the
-    card (the next flush is a cold one)."""
+    """Forget every Vandermonde matrix and inverse, on the host and, in the
+    kernels' forms, on the card (the next flush is a cold one)."""
     _VCACHE.clear()
     _ICACHE.clear()
     _DEV_MATS.clear()
 
 
+def operand(bits: int, a: np.ndarray) -> np.ndarray:
+    """A (rows, k) in the form `rs_matmul` takes: over GF(2^8) its nibble
+    tables (rows, k, 32) uint8, over GF(2^16) log(A) (rows, k) uint16 with
+    0xFFFF at a zero (`ops/rs_ref.py`)."""
+    field = _field(bits)
+    if bits == 8:
+        return rs_ref.nibble_tables(field, a)
+    return rs_ref.log_matrix(field, a)
+
+
 def _dev_mat(key: tuple, a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A host-made matrix on `dev`, uploaded once per key."""
+    """`operand` of a host-made matrix (key[0] its field's bits) on `dev`,
+    made and uploaded once per key."""
     dkey = (key, str(dev))
     t = _DEV_MATS.get(dkey)
     if t is None:
         if len(_DEV_MATS) >= 2 * _CACHE_CAP:
             _DEV_MATS.clear()
-        t = _DEV_MATS[dkey] = torch.from_numpy(a).to(dev)
+        t = _DEV_MATS[dkey] = torch.from_numpy(operand(key[0], a)).to(dev)
     return t
 
 
-def _tables(field: GF, dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The field's (exp, log) on `dev`, made once: on the card the
-    kernel's (`order` and order + 1 symbols), on the CPU the plain
-    version's (int32, exp of 2 * order entries)."""
-    key = (field.bits, str(dev))
+def _tables16(dev: torch.device, plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GF(2^16)'s (exp, log) on `dev`, made once (`rs_ref.log16_tables`):
+    uint16 for the kernel, int64 for the plain version."""
+    key = (str(dev), plain)
     t = _DEV_TABLES.get(key)
     if t is None:
-        if dev.type == "cpu":
-            t = (torch.from_numpy(field.exp.astype(np.int32)),
-                 torch.from_numpy(field.log))
-        else:
-            t = (torch.from_numpy(field.exp[: field.order].copy()).to(dev),
-                 torch.from_numpy(field.log.astype(field.dtype)).to(dev))
-        t = _DEV_TABLES[key] = t
+        tabs = rs_ref.log16_tables(gf16())
+        t = _DEV_TABLES[key] = tuple(
+            torch.from_numpy(x.astype(np.int64) if plain else x).to(dev) for x in tabs)
     return t
 
 
@@ -248,6 +257,10 @@ def _tables(field: GF, dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 SYMBOLS = {8: torch.uint8, 16: torch.uint16}  # torch dtype of a field's symbols
 LAUNCHES = {"rs_matmul8": 0, "rs_matmul16": 0}
+# (library, bits) -> its `lt_rs_geometry`: rows a thread, columns a unit,
+# threads a block, the largest rtile, ctile and stage depth
+_GEOMETRY: Dict[Tuple[str, int], Tuple[int, ...]] = {}
+_SMS: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
@@ -255,45 +268,161 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def geometry(lib, bits: int) -> Tuple[int, ...]:
+    """(rows a thread, columns a unit, threads a block, largest rtile,
+    largest ctile, largest stage depth) of `lib`'s rs_matmul<bits>
+    kernel."""
+    vals = [ctypes.c_int() for _ in range(6)]
+    rc = lib.lt_rs_geometry(0 if bits == 8 else 1, *map(ctypes.byref, vals))
+    if rc != 0:
+        raise RuntimeError(f"lt_rs_geometry failed with CUDA error {rc}")
+    return tuple(v.value for v in vals)
+
+
+def tiles_for(units: int, rows: int, k: int, geom, sms: int) -> Tuple[int, int, int]:
+    """(rtile, ctile, kd) of a call of `units` column units in all, `rows`
+    rows and largest k: rtile its rows up to the kernel's largest; ctile
+    the column units that cut the call into about one item an SM (fewer
+    where the columns are few), at most a block's threads' worth of units
+    (one pass) and the largest ctile; kd, the j a stage of shared memory
+    holds, k up to the largest."""
+    rb, _cols, block, max_rt, max_ct, max_kd = geom
+    rtile = max(1, min(rows, max_rt))
+    col_tiles = max(1, sms // -(-rows // rtile))
+    ctile = max(1, min(-(-units // col_tiles), block // -(-rtile // rb), max_ct))
+    return rtile, ctile, max(1, min(k, max_kd))
+
+
+def group_info(bits: int, mats: Sequence[torch.Tensor]) -> List[Tuple[int, int, int]]:
+    """[(address, rows_g, k_g)] of each group's form of A, each checked to
+    be the form `rs_matmul` takes (`operand`: a contiguous (rows, k, 32)
+    uint8 tensor over GF(2^8), on the card at a 16-byte aligned address,
+    which the kernel reads in 16-byte loads; (rows, k) uint16 over
+    GF(2^16)); one pass over the groups."""
+    dtype, dim = (torch.uint8, 3) if bits == 8 else (torch.uint16, 2)
+    out = []
+    for g, m in enumerate(mats):
+        shape = m.shape
+        if (m.dtype != dtype or len(shape) != dim or not m.is_contiguous()
+                or (dim == 3 and shape[2] != 32)):
+            raise ValueError(f"rs_matmul mats[{g}]: expected GF(2^{bits})'s form of A "
+                             f"(`operand`), a contiguous {dim}-D {dtype} tensor")
+        ptr = m.data_ptr()
+        if dim == 3 and ptr & 15 and m.is_cuda:
+            raise ValueError(f"rs_matmul mats[{g}]: its address is not 16-byte aligned")
+        out.append((ptr, shape[0], shape[1]))
+    return out
+
+
+def group_rows(bits: int, info: Sequence[Tuple[int, int, int]], widths: Sequence[int],
+               rows: int, tiles: Optional[Sequence[int]] = None, geom=None, sms: int = 0):
+    """(the kernel's group rows [A's form's address, rows_g, k_g,
+    col_begin, col_end, first item], `info` the first three; the call's
+    item count; its tiles, by default `tiles_for`'s with the kernel's
+    geometry `geom` and `sms` SMs). Each group is cut into ceil(rows /
+    rtile) row tiles x ceil(units / ctile) column tiles, a unit a word of 4
+    columns that its columns touch (GF(2^8); shared with a neighbour where
+    a group's run is not 4-aligned) or a column (GF(2^16)); its items are
+    adjacent, in group order. One group's row is a list, made without
+    numpy; many groups' one (G, 6) int64 array."""
+    k = max(i[2] for i in info)
+    if len(info) == 1:
+        w = int(widths[0])
+        units = total = (w + 3) // 4 if bits == 8 else w
+    else:
+        w = np.asarray(widths, dtype=np.int64)
+        end = np.cumsum(w)
+        begin = end - w
+        units = np.where(w > 0, (end + 3) // 4 - begin // 4, 0) if bits == 8 else w
+        total = int(units.sum())
+    if tiles is None:
+        tiles = tiles_for(total, rows, k, geom, sms)
+    rtile, ctile = tiles[:2]
+    items = -(-rows // rtile) * (-(-units // ctile))
+    if len(info) == 1:
+        return [[*info[0], 0, w, 0]], items, tiles
+    out = np.empty((len(info), 6), dtype=np.int64)
+    out[:, :3] = info
+    out[:, 3] = begin
+    out[:, 4] = end
+    out[:, 5] = np.cumsum(items) - items
+    return out, int(items.sum()), tiles
+
+
+def _sms(dev: torch.device) -> int:
+    key = str(dev)
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[key]
+
+
+def rs_matmul_plain(bits: int, mats: Sequence[torch.Tensor], b: torch.Tensor,
+                    widths: Sequence[int]) -> torch.Tensor:
+    """`rs_matmul`'s plain version on the tensors' own device: what the
+    wrapper runs on the CPU, and the card checks' yardstick on the card."""
+    if bits == 8:
+        return rs_ref.nibble_matmul_grouped(mats, b, widths)
+    return rs_ref.log_matmul_grouped(*_tables16(b.device, plain=True), mats, b, widths)
+
+
 def rs_matmul(bits: int, mats: Sequence[torch.Tensor], b: torch.Tensor,
               widths: Sequence[int]) -> torch.Tensor:
     """Every group's product over GF(2^bits) in one launch (replaces the
     jitted `_mm`, lachain_tpu/ops/rs_batch.py:233, run once per group
-    there): mats[g] (rows_g, k_g) times the next widths[g] columns of b (K,
-    C), its rows past k_g unread, into those columns of the (R, C) result,
-    R the largest rows_g and rows past a group's own 0. Symbols are
-    `SYMBOLS[bits]`. CPU tensors run the plain version
-    (`rs_ref.gf_matmul_grouped`); CUDA tensors launch `rs_matmul<bits>`."""
-    field = _field(bits)
+    there): group g's A (rows_g, k_g), given in its kernel form mats[g]
+    (`operand`: nibble tables (rows_g, k_g, 32) uint8, or log(A) (rows_g,
+    k_g) uint16), times the next widths[g] columns of b (K, C), its rows
+    past k_g unread, into those columns of the (R, C) result, R the largest
+    rows_g and rows past a group's own 0. Symbols are `SYMBOLS[bits]`. CPU
+    tensors run the plain version (`rs_ref.nibble_matmul_grouped`,
+    `rs_ref.log_matmul_grouped`); CUDA tensors launch `rs_matmul<bits>`."""
     dtype = SYMBOLS[bits]
     on_cpu = _on_cpu(b, *mats)
     if len(widths) != len(mats) or sum(widths) != b.shape[1]:
         raise ValueError(f"widths {list(widths)} do not cover b's {b.shape[1]} columns")
-    for name, t in [("b", b)] + [(f"mats[{g}]", m) for g, m in enumerate(mats)]:
-        if t.dtype != dtype or t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"rs_matmul {name}: expected a contiguous 2-D {dtype} tensor")
-    if any(m.shape[1] > b.shape[0] for m in mats):
+    if b.dtype != dtype or b.dim() != 2 or not b.is_contiguous():
+        raise ValueError(f"rs_matmul b: expected a contiguous 2-D {dtype} tensor")
+    info = group_info(bits, mats)
+    if any(k > b.shape[0] for _p, _r, k in info):
         raise ValueError("rs_matmul: a group's k exceeds b's rows")
-    rows, cols = max((m.shape[0] for m in mats), default=0), b.shape[1]
-    exp, log = _tables(field, b.device)
     if on_cpu:
-        return rs_ref.gf_matmul_grouped(exp, log, mats, b, widths)
-    out = torch.empty((rows, cols), dtype=dtype, device=b.device)
+        return rs_matmul_plain(bits, mats, b, widths)
+    out = launch(_build.library(), bits, info, b, widths)
+    if out.numel():  # launch() launches nothing for an empty result
+        LAUNCHES[f"rs_matmul{bits}"] += 1
+    return out
+
+
+def launch(lib, bits: int, info: Sequence[Tuple[int, int, int]], b: torch.Tensor,
+           widths: Sequence[int], tiles: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+    """One `lt_rs_matmul<bits>` launch of the library `lib` over the groups
+    of `group_info` and columns b that `rs_matmul` has checked, cut into
+    tiles (rtile, ctile, kd), by default `tiles_for`'s -> the (R, C) result
+    (no launch when it is empty)."""
+    rows = max((i[1] for i in info), default=0)
+    cols = b.shape[1]
+    out = torch.empty((rows, cols), dtype=b.dtype, device=b.device)
     if rows == 0 or cols == 0:
         return out
-    ends = np.cumsum(widths).tolist()
+    geom = None
+    if tiles is None:
+        geom = _GEOMETRY.get((lib._name, bits))
+        if geom is None:
+            geom = _GEOMETRY[(lib._name, bits)] = geometry(lib, bits)
+    host_rows, items, tiles = group_rows(bits, info, widths, rows, tiles, geom,
+                                         _sms(b.device))
     # non_blocking: a blocking upload would wait for the work already
     # queued; CUDA stages the pageable rows before the call returns
-    groups = torch.tensor(
-        [[m.data_ptr(), m.shape[0], m.shape[1], e] for m, e in zip(mats, ends)],
-        dtype=torch.int64).to(b.device, non_blocking=True)
-    name = f"rs_matmul{bits}"
-    rc = getattr(_build.library(), f"lt_{name}")(
-        exp.data_ptr(), log.data_ptr(), groups.data_ptr(), len(mats),
-        b.data_ptr(), cols, out.data_ptr(), rows, _stream(b))
+    groups = torch.as_tensor(host_rows, dtype=torch.int64).to(b.device, non_blocking=True)
+    args = (groups.data_ptr(), len(info), items, b.data_ptr(), cols, out.data_ptr(),
+            rows, *tiles, _stream(b))
+    if bits == 8:
+        rc = lib.lt_rs_matmul8(*args)
+    else:
+        exp, log = _tables16(b.device)
+        rc = lib.lt_rs_matmul16(exp.data_ptr(), log.data_ptr(), *args)
     if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"rs_matmul{bits}: kernel launch failed with CUDA error {rc}")
     return out
 
 

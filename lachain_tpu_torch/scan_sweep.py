@@ -1,7 +1,8 @@
-"""Variants of the group-field kernels built beside the shipped ones, on one
-card.
+"""Variants of the group-field kernels and of the Reed-Solomon product built
+beside the shipped ones, on one card.
 
     python3 -m lachain_tpu_torch.scan_sweep [--seed S] [--baseline DIR ...]
+                                            [--sources g1 g2 secp rs]
                                             [--int-rate] [--out FILE]
 
 `csrc/g1.cu`, `csrc/g2.cu` and `csrc/secp.cu` run their scans, adds and
@@ -49,8 +50,18 @@ reversed, so that each library runs before and after each other one:
   * the other kernels of the same source (fp_mul, g1_dbl; g2_dbl, g2_add;
     secp_dbl) at 8192 lanes.
 
-`--baseline DIR` also builds DIR's `lachain_tpu_torch/csrc/g1.cu`, `g2.cu`
-and `secp.cu` as they are (an unpacked earlier commit, e.g. `git archive
+`csrc/rs.cu` (`--sources rs`) is built at each value of its rows a thread,
+`LT_RS8_ROWS` in RS_ROWS[8] and `LT_RS16_ROWS` in RS_ROWS[16] (the shipped
+value too, a second build of the same code: its spread is the noise), and
+its kernels are timed at every launch shape of the RBC flushes (`RS_SHAPES`:
+N=64's encode, decode of 64 erasure patterns and re-encode, a 10,000-
+transaction block's re-encode; N=256's encode, decode of 256 patterns and
+re-encode), the shipped library also at other tiles than the wrapper's
+(`RS_TILES`); every output must equal the shipped library's at the
+wrapper's tiles word for word.
+
+`--baseline DIR` also builds DIR's `lachain_tpu_torch/csrc/g1.cu`, `g2.cu`,
+`secp.cu` and `rs.cu` as they are (an unpacked earlier commit, e.g. `git archive
 <commit> | tar -x -C _scratch/base`) and times them in the same rounds,
 labelled `<source>_baseline_<DIR's name>`; it may be given more than once;
 it must have this tree's table entries, secp conversion and plain-word
@@ -58,7 +69,9 @@ square root (`lt_g1_table`, `lt_g2_table`, `lt_secp_table`,
 `lt_secp_mont`); where it lacks `lt_g1_mont`, its G1 conversions and
 product by beta run the path `g1_mont` replaced (`_mont_apply`: a permute
 copy, the factor uploaded and expanded over every lane, one `fp_mul`
-launch, a permute copy back; `torch.cat` with the flag row).
+launch, a permute copy back; `torch.cat` with the flag row). A baseline
+`rs.cu` without `lt_rs_geometry` (the earlier design: A as symbols, exp/log tables,
+int64 group rows [A, rows, k, column end]) gets its own operands.
 
 `--int-rate` also builds a probe kernel and measures the card's sustained
 32x32->64-bit multiply-add rate, as `mad.wide.u32` (what coop.cuh's
@@ -90,7 +103,7 @@ import torch
 
 from .crypto import bls12381 as bls
 from .crypto import ecdsa
-from .ops import _build, g1, g2, glv, secp
+from .ops import _build, g1, g2, glv, rs_batch, secp
 
 LANES = 8192
 ROUNDS = 10  # timing rounds, their order alternating
@@ -132,7 +145,7 @@ VARIANTS = {
 }
 
 # kernels first, longest names first: "dbl_kernel" is inside "g2_dbl_kernel"
-_NAMES = ("secp_msm_scan_kernel", "g2_msm_scan_kernel", "msm_scan_kernel",
+_NAMES = ("rs_matmul8_kernel", "rs_matmul16_kernel", "secp_msm_scan_kernel", "g2_msm_scan_kernel", "msm_scan_kernel",
           "secp_table_kernel", "g2_table_kernel", "g1_table_kernel",
           "secp_mont_kernel", "g1_mont_kernel",
           "secp_fp_mul_kernel", "secp_dbl_kernel",
@@ -179,19 +192,19 @@ def scan_of(label: str) -> str:
     return label.split("_")[0]
 
 
-def variant_sources(work: Path, shipped_t: dict, baselines=()) -> dict:
-    """{label: (source, include dir, -D defines)}: each scan at the other
-    values of T, each VARIANTS edit at the shipped T in its own copy of
-    csrc/, and each baseline checkout's sources."""
+def variant_sources(work: Path, shipped_t: dict, baselines=(), scans=SCANS) -> dict:
+    """{label: (source, include dir, -D defines)}: each of `scans` at the
+    other values of T, each VARIANTS edit at the shipped T in its own copy
+    of csrc/, and each baseline checkout's sources."""
     out = {}
-    for scan in SCANS:
+    for scan in scans:
         macro = f"LT_{scan.upper()}_SCAN_T"
         for t in T_VALUES[scan]:
             if t != shipped_t[scan]:
                 out[f"{scan}_T{t}"] = (_build.CSRC / f"{scan}.cu", _build.CSRC,
                                        [f"-D{macro}={t}"])
-    for name, (scans, edits) in VARIANTS.items():
-        for scan in scans:
+    for name, (variant_scans, edits) in VARIANTS.items():
+        for scan in (s for s in variant_scans if s in scans):
             label = f"{scan}_{name}"
             src = work / label
             shutil.copytree(_build.CSRC, src)
@@ -206,7 +219,7 @@ def variant_sources(work: Path, shipped_t: dict, baselines=()) -> dict:
             out[label] = (src / f"{scan}.cu", src, [])
     for base in baselines:
         csrc = Path(base) / "lachain_tpu_torch" / "csrc"
-        for scan in SCANS:
+        for scan in scans:
             out[f"{scan}_baseline_{Path(base).name}"] = (csrc / f"{scan}.cu", csrc, [])
     return out
 
@@ -240,6 +253,9 @@ def build_variants(work: Path, sources: dict) -> dict:
                 if name.startswith(f"lt_{scan_of(label)}_") and hasattr(lib, name):
                     getattr(lib, name).argtypes = args
                     getattr(lib, name).restype = ctypes.c_int
+            if scan_of(label) == "rs" and not hasattr(lib, "lt_rs_geometry"):
+                for name in ("lt_rs_matmul8", "lt_rs_matmul16"):  # the earlier entries
+                    getattr(lib, name).argtypes = _RS_BASELINE_ARGS
             rec["lib"] = lib
         out[label] = rec
     return out
@@ -443,6 +459,158 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 # ---------------------------------------------------------------------------
+# the Reed-Solomon product
+# ---------------------------------------------------------------------------
+
+# rows a thread (`LT_RS8_ROWS`, `LT_RS16_ROWS`) each field's kernel is built at
+RS_ROWS = {8: (2, 4, 8, 16), 16: (1, 2, 4)}
+# the tiles the shipped library is timed at: the wrapper's (`tiles_for`),
+# "wide" (as many units an item as a block has threads: fewer, larger
+# items) and "narrow" (half the wrapper's ctile: more, smaller items)
+RS_TILES = ("auto", "wide", "narrow")
+# shape -> (bits, (rows, k, columns) of its groups, timing reps); the N=64
+# encode and decode twice: 131 columns a group as they lie (ragged words
+# shared by two groups) and from 4-column boundaries (131 -> 132)
+RS_SHAPES = {
+    "n64_encode": (8, [(64, 22, 131)], 100),
+    "n64_encode_aligned": (8, [(64, 22, 132)], 100),
+    "n64_decode": (8, [(22, 22, 131)] * 64, 100),
+    "n64_decode_aligned": (8, [(22, 22, 132)] * 64, 100),
+    "n64_reencode": (8, [(64, 22, 8384)], 100),
+    "block10k": (8, [(64, 22, 82624)], 20),
+    "n256_encode": (16, [(256, 86, 5)], 100),
+    "n256_decode": (16, [(86, 86, 5)] * 256, 50),
+    "n256_reencode": (16, [(256, 86, 1280)], 50),
+}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the earlier design's lt_rs_matmul<bits>(exp, log, groups, G, b, C, out, R, stream)
+_RS_BASELINE_ARGS = [_P, _P, _P, _I, _P, _I, _P, _I, _P]
+
+
+def rs_variant_sources(baselines=()) -> dict:
+    """{label: (source, include dir, -D defines)}: rs.cu at each value of
+    RS_ROWS, and each baseline checkout's rs.cu."""
+    out = {f"rs_rows{bits}_{r}": (_build.CSRC / "rs.cu", _build.CSRC,
+                                  [f"-DLT_RS{bits}_ROWS={r}"])
+           for bits, values in RS_ROWS.items() for r in values}
+    for base in baselines:
+        csrc = Path(base) / "lachain_tpu_torch" / "csrc"
+        out[f"rs_baseline_{Path(base).name}"] = (csrc / "rs.cu", csrc, [])
+    return out
+
+
+def rs_inputs(seed: int, dev) -> dict:
+    """{shape: (bits, A matrices (numpy), B on the card, widths)}: the
+    codec's Vandermonde matrices and GF(2^8) inverses; the 256 GF(2^16)
+    decode matrices random nonzero symbols (256 Gauss-Jordan inverses at k
+    = 86 take ~20 s on the host; neither kernel's work depends on the
+    values beyond their zeros)."""
+    rng = np.random.default_rng(seed)
+    pyrng = random.Random(seed)
+    out = {}
+    for name, (bits, shapes, _reps) in RS_SHAPES.items():
+        field = rs_batch.GF8 if bits == 8 else rs_batch.gf16()
+        mats = []
+        for r, k, _c in shapes:
+            if len(shapes) == 1:
+                mats.append(rs_batch.vandermonde(field, k, r))
+            elif bits == 8:
+                xs = tuple(sorted(pyrng.sample(range(1, 65), k)))
+                mats.append(rs_batch._inverse_for(field, k, xs))
+            else:
+                mats.append(rng.integers(1, field.order + 1, (r, k)).astype(field.dtype))
+        k = max(k for _r, k, _c in shapes)
+        b = rng.integers(0, field.order + 1, (k, sum(c for *_x, c in shapes)))
+        out[name] = (bits, mats, torch.from_numpy(b.astype(field.dtype)).to(dev),
+                     [c for *_x, c in shapes])
+    return out
+
+
+def rs_tiles(lib, bits: int, info, widths, rows: int, which: str, dev):
+    """(rtile, ctile, kd) of `which` in RS_TILES for `lib`'s kernel over
+    the groups `info` (`rs_batch.group_info`)."""
+    geom = rs_batch.geometry(lib, bits)
+    rtile, ctile, kd = rs_batch.group_rows(bits, info, widths, rows, None, geom,
+                                           rs_batch._sms(dev))[2]
+    nrb = -(-rtile // geom[0])
+    if which == "wide":
+        ctile = min(geom[2] // nrb, geom[4])
+    elif which == "narrow":
+        ctile = max(1, ctile // 2)
+    return rtile, ctile, kd
+
+
+def rs_launcher(lib, inp, which: str = "auto"):
+    """(launch(), out) of one rs_matmul launch of `lib` on `inp`: this
+    tree's operands (the matrices' forms, group rows with items) cut at
+    tiles `which`, or an earlier design's baseline (A as symbols, its exp/log, its
+    group rows); group rows and output made once, outside the timing."""
+    bits, mats, b, widths = inp
+    dev, stream = b.device, g1._stream(b)
+    rows, cols = max(m.shape[0] for m in mats), b.shape[1]
+    out = torch.empty((rows, cols), dtype=b.dtype, device=dev)
+    fn = getattr(lib, f"lt_rs_matmul{bits}")
+    if hasattr(lib, "lt_rs_geometry"):
+        forms = [torch.from_numpy(rs_batch.operand(bits, m)).to(dev) for m in mats]
+        info = rs_batch.group_info(bits, forms)
+        tiles = rs_tiles(lib, bits, info, widths, rows, which, dev)
+        host, items, _tiles = rs_batch.group_rows(bits, info, widths, rows, tiles)
+        groups = torch.as_tensor(host, dtype=torch.int64).to(dev)
+        args = (groups.data_ptr(), len(mats), items, b.data_ptr(), cols, out.data_ptr(),
+                rows, *tiles, stream)
+        if bits == 16:
+            exp, log = rs_batch._tables16(dev)
+            args = (exp.data_ptr(), log.data_ptr()) + args
+        keep = (forms, groups)
+    else:
+        field = rs_batch.GF8 if bits == 8 else rs_batch.gf16()
+        amats = [torch.from_numpy(np.ascontiguousarray(m)).to(dev) for m in mats]
+        exp = torch.from_numpy(field.exp[: field.order].copy()).to(dev)
+        log = torch.from_numpy(field.log.astype(field.dtype)).to(dev)
+        ends = np.cumsum(widths).tolist()
+        groups = torch.tensor([[m.data_ptr(), m.shape[0], m.shape[1], e]
+                               for m, e in zip(amats, ends)], dtype=torch.int64).to(dev)
+        args = (exp.data_ptr(), log.data_ptr(), groups.data_ptr(), len(mats), b.data_ptr(),
+                cols, out.data_ptr(), rows, stream)
+        keep = (amats, exp, log, groups)
+
+    def launch(_keep=keep):  # the operands live as long as the launcher
+        _check(fn(*args))
+    return launch, out
+
+
+def rs_sweep(libs: dict, inputs: dict, rounds: int) -> dict:
+    """Every library's launches at every shape of its fields, the shipped
+    one at each of RS_TILES: outputs equal to the shipped library's at the
+    wrapper's tiles, and CUDA-event ms in `rounds` alternating rounds."""
+    runs = {}
+    for label, lib in libs.items():
+        for shape, inp in inputs.items():
+            bits = inp[0]
+            if label.startswith("rs_rows") and not label.startswith(f"rs_rows{bits}_"):
+                continue
+            for which in (RS_TILES if label == "rs_shipped" else ("auto",)):
+                runs[f"{label}/{shape}/{which}"] = rs_launcher(lib, inp, which)
+    for fn, _out in runs.values():
+        fn()
+    torch.cuda.synchronize()
+
+    def words(t):
+        return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+    equal = {key: bool(torch.equal(words(out), words(runs[f"rs_shipped/{key.split('/')[1]}/auto"][1])))
+             for key, (_fn, out) in runs.items() if key.split("/")[0] != "rs_shipped"
+             or not key.endswith("/auto")}
+    ms: dict = {}
+    order = list(runs.items())
+    for i in range(rounds):
+        for key, (fn, _out) in (order if i % 2 == 0 else order[::-1]):
+            ms.setdefault(key, []).append(round(cuda_ms(fn, RS_SHAPES[key.split("/")[1]][2]), 5))
+    return {"equal_to_shipped": equal, "ms": ms,
+            "median_ms": {k: statistics.median(v) for k, v in ms.items()}}
+
+
+# ---------------------------------------------------------------------------
 # the 32x32->64-bit multiply-add rate
 # ---------------------------------------------------------------------------
 
@@ -527,6 +695,8 @@ def main() -> int:
     ap.add_argument("--baseline", action="append", default=[],
                     help="root of an earlier checkout to time beside this one"
                          " (repeatable)")
+    ap.add_argument("--sources", nargs="+", default=list(SCANS) + ["rs"],
+                    choices=list(SCANS) + ["rs"], help="the sources to sweep")
     ap.add_argument("--int-rate", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -539,52 +709,67 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
     shipped = _build.library()
     attrs = _build.kernel_attrs()
+    scans = tuple(s for s in SCANS if s in args.sources)
     shipped_t = {s: attrs[f"{s}_msm_scan"]["threads_per_lane"] for s in SCANS}
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
+    report = {"card": smi, "seed": args.seed, "shipped_t": shipped_t,
+              "attrs_shipped": attrs}
+    equal = {}
     try:
         t0 = time.perf_counter()
-        built = build_variants(work, variant_sources(work, shipped_t, args.baseline))
+        sources = variant_sources(work, shipped_t, args.baseline, scans) if scans else {}
+        if "rs" in args.sources:
+            sources.update(rs_variant_sources(args.baseline))
+        built = build_variants(work, sources)
         print(f"variants built in {time.perf_counter() - t0:.1f} s: "
               f"{ {k: ('ok' if 'lib' in v else 'FAILED', v['nvcc_s']) for k, v in built.items()} }",
               flush=True)
-        inputs = make_inputs(args.seed, dev)
-        libs = {f"{s}_shipped": shipped for s in SCANS}
-        libs.update((k, v["lib"]) for k, v in built.items() if "lib" in v)
-        runs = {label: launchers(lib, scan_of(label), inputs)
-                for label, lib in libs.items()}
-        for kernels in runs.values():
-            for launches, _ in kernels.values():
-                for fn in launches:
-                    fn()
-        torch.cuda.synchronize()
-        def tensors(outs):
-            return outs() if callable(outs) else outs
+        report["build"] = {k: {kk: vv for kk, vv in v.items() if kk != "lib"}
+                           for k, v in built.items()}
+        if scans:
+            inputs = make_inputs(args.seed, dev)
+            libs = {f"{s}_shipped": shipped for s in scans}
+            libs.update((k, v["lib"]) for k, v in built.items()
+                        if "lib" in v and scan_of(k) in scans)
+            runs = {label: launchers(lib, scan_of(label), inputs)
+                    for label, lib in libs.items()}
+            for kernels in runs.values():
+                for launches, _ in kernels.values():
+                    for fn in launches:
+                        fn()
+            torch.cuda.synchronize()
 
-        equal = {
-            f"{label}/{k}": all(torch.equal(a, b) for a, b in zip(
-                tensors(outs), tensors(runs[f"{scan_of(label)}_shipped"][k][1])))
-            for label, kernels in runs.items() if not label.endswith("shipped")
-            for k, (_, outs) in kernels.items()
-        }
-        reps = {"g1": 10, "g2": 5, "secp": 10}
-        ms: dict = {}
-        order = [(label, k, launches) for label, kernels in runs.items()
-                 for k, (launches, _) in kernels.items()]
-        for i in range(ROUNDS):
-            for label, k, launches in (order if i % 2 == 0 else order[::-1]):
-                long = k.startswith(("scan", "sqrt")) or "_table" in k
-                r = reps[scan_of(label)] if long else 100
-                ms.setdefault(f"{label}/{k}", []).append(
-                    round(sum(cuda_ms(fn, r) for fn in launches), 5))
-        report = {
-            "card": smi, "seed": args.seed, "shipped_t": shipped_t,
-            "attrs_shipped": attrs,
-            "build": {k: {kk: vv for kk, vv in v.items() if kk != "lib"}
-                      for k, v in built.items()},
-            "equal_to_shipped": equal, "ms": ms,
-            "median_ms": {k: statistics.median(v) for k, v in ms.items()},
-        }
+            def tensors(outs):
+                return outs() if callable(outs) else outs
+
+            equal.update({
+                f"{label}/{k}": all(torch.equal(a, b) for a, b in zip(
+                    tensors(outs), tensors(runs[f"{scan_of(label)}_shipped"][k][1])))
+                for label, kernels in runs.items() if not label.endswith("shipped")
+                for k, (_, outs) in kernels.items()
+            })
+            reps = {"g1": 10, "g2": 5, "secp": 10}
+            ms: dict = {}
+            order = [(label, k, launches) for label, kernels in runs.items()
+                     for k, (launches, _) in kernels.items()]
+            for i in range(ROUNDS):
+                for label, k, launches in (order if i % 2 == 0 else order[::-1]):
+                    long = k.startswith(("scan", "sqrt")) or "_table" in k
+                    r = reps[scan_of(label)] if long else 100
+                    ms.setdefault(f"{label}/{k}", []).append(
+                        round(sum(cuda_ms(fn, r) for fn in launches), 5))
+            report.update(ms=ms, median_ms={k: statistics.median(v) for k, v in ms.items()})
+        if "rs" in args.sources:
+            libs = {"rs_shipped": shipped}
+            libs.update((k, v["lib"]) for k, v in built.items()
+                        if "lib" in v and scan_of(k) == "rs")
+            report["rs"] = rs_sweep(libs, rs_inputs(args.seed, dev), ROUNDS)
+            report["rs"]["geometry"] = {
+                label: {bits: rs_batch.geometry(lib, bits) for bits in (8, 16)}
+                for label, lib in libs.items() if hasattr(lib, "lt_rs_geometry")}
+            equal.update({f"rs/{k}": v for k, v in report["rs"]["equal_to_shipped"].items()})
+        report["equal_to_shipped"] = equal
         if args.int_rate:
             report["int_rate_per_s"] = int_rate(work, dev)
     finally:

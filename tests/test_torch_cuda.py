@@ -686,9 +686,10 @@ def test_recover_batch_unpadded_on_card(card, n, monkeypatch):
         assert got[i] == ecdsa.recover_hash(hashes[i], sigs[i])
 
 
-def _rs_case(bits, shapes, seed):
+def _rs_case(bits, shapes, seed, zero_lines=False):
     """Groups (rows, k, cols) of random symbols (a fifth of them 0) with
-    B's unread rows noise -> (numpy mats, numpy b, widths)."""
+    B's unread rows noise -> (numpy mats, numpy b, widths); zero_lines
+    also zeroes a row and a column of each A and every third column of B."""
     field = rs_batch.GF8 if bits == 8 else rs_batch.gf16()
     rng = np.random.default_rng(seed)
 
@@ -700,39 +701,133 @@ def _rs_case(bits, shapes, seed):
     kmax = max(k for _r, k, _c in shapes)
     mats = [sym((r, k)) for r, k, _c in shapes]
     b = sym((kmax, sum(c for _r, _k, c in shapes)))
+    if zero_lines:
+        for m in mats:
+            if m.size:
+                m[rng.integers(m.shape[0])] = 0
+                m[:, rng.integers(m.shape[1])] = 0
+        b[:, ::3] = 0
     return mats, b, [c for _r, _k, c in shapes]
 
 
-@pytest.mark.parametrize("bits,shapes", [
-    (8, [(1, 1, 1)]),
-    (8, [(64, 22, 8384)]),
-    (8, [(22, 22, 131)] * 64),
-    (8, [(5, 3, 33), (9, 7, 0), (2, 7, 20), (64, 4, 1), (13, 22, 700)]),
-    (16, [(3, 2, 7)]),
-    (16, [(256, 86, 1280)]),
-    (16, [(86, 86, 5)] * 16 + [(300, 100, 3), (1, 1, 0)]),
-])
-def test_rs_matmul_equals_plain(card, bits, shapes):
+# the card's launch shapes of the RBC flushes (N=64: encode, decode of 64
+# erasure patterns, re-encode; N=256 the same), ragged widths (groups of
+# 1-7 columns, C not a multiple of 4), a group of 0 rows and groups of 0
+# columns
+RS_SHAPES = {
+    "unit": (8, [(1, 1, 1)]),
+    "n64_encode": (8, [(64, 22, 131)]),
+    "n64_decode": (8, [(22, 22, 131)] * 64),
+    "n64_reencode": (8, [(64, 22, 8384)]),
+    "mixed8": (8, [(5, 3, 33), (9, 7, 0), (2, 7, 20), (64, 4, 1), (13, 22, 700)]),
+    "ragged8": (8, [(7, 5, 1), (3, 5, 2), (9, 5, 3), (4, 2, 5), (0, 5, 6), (9, 5, 7),
+                    (1, 1, 0), (6, 40, 1)]),
+    "unit16": (16, [(3, 2, 7)]),
+    "n256_encode": (16, [(256, 86, 5)]),
+    "n256_decode": (16, [(86, 86, 5)] * 256),
+    "n256_reencode": (16, [(256, 86, 1280)]),
+    "mixed16": (16, [(86, 86, 5)] * 16 + [(300, 100, 3), (1, 1, 0)]),
+    "ragged16": (16, [(7, 5, 1), (3, 5, 2), (0, 5, 3), (130, 97, 301), (1, 1, 0)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RS_SHAPES))
+@pytest.mark.parametrize("zero_lines", [False, True])
+def test_rs_matmul_equals_plain(card, case, zero_lines):
     """One launch over every group equals the plain version bit for bit
     (groups of their own rows and k, a group of no columns, rows past a
-    group's k of B unread, rows past its rows of C zero)."""
+    group's k of B unread, rows past its rows of C zero), and GF.matmul
+    on the first groups."""
+    bits, shapes = RS_SHAPES[case]
     field = rs_batch.GF8 if bits == 8 else rs_batch.gf16()
-    mats, b, widths = _rs_case(bits, shapes, seed=len(shapes) * bits)
-    kmats = [torch.from_numpy(m).to(card) for m in mats]
+    mats, b, widths = _rs_case(bits, shapes, seed=len(shapes) * bits, zero_lines=zero_lines)
+    kmats = [torch.from_numpy(rs_batch.operand(bits, m)).to(card) for m in mats]
     kb = torch.from_numpy(b).to(card)
-    exp = torch.from_numpy(field.exp.astype(np.int32)).to(card)
-    log = torch.from_numpy(field.log).to(card)
     rs_batch.reset_launches()
     got = rs_batch.rs_matmul(bits, kmats, kb, widths).cpu().numpy()
     assert rs_batch.LAUNCHES == dict(dict.fromkeys(rs_batch.LAUNCHES, 0),
                                      **{f"rs_matmul{bits}": 1})
-    want = rs_ref.gf_matmul_grouped(exp, log, kmats, kb, widths).cpu().numpy()
+    want = rs_batch.rs_matmul_plain(bits, kmats, kb, widths).cpu().numpy()
     np.testing.assert_array_equal(got, want)
     off = 0
-    for m, w in zip(mats[:3], widths[:3]):
+    for m, w in zip(mats[:8], widths[:8]):
         np.testing.assert_array_equal(got[: m.shape[0], off : off + w],
                                       field.matmul(m, b[: m.shape[1], off : off + w]))
+        assert not got[m.shape[0] :, off : off + w].any()
         off += w
+
+
+@pytest.mark.parametrize("case,tiles", [
+    ("n64_reencode", (64, 256, 22)),  # 4096 units: sixteen passes of the block
+    ("n64_reencode", (5, 3, 8)),      # k = 22 over three stages
+    ("ragged8", (64, 1, 32)),         # k = 40: two stages
+    ("n256_reencode", (128, 256, 96)),  # 32,768 units: many passes
+    ("n256_decode", (86, 5, 40)),     # k = 86 over three stages
+    ("mixed16", (3, 1, 96)),          # k = 100: two stages
+    ("ragged16", (128, 7, 13)),
+])
+def test_rs_matmul_tiles_equal_plain(card, case, tiles):
+    """Tiles other than the wrapper's (a tile of more units than a block
+    has threads, tiles of a few rows or columns, stages of fewer j than k)
+    give the same product."""
+    bits, shapes = RS_SHAPES[case]
+    mats, b, widths = _rs_case(bits, shapes, seed=7, zero_lines=True)
+    kmats = [torch.from_numpy(rs_batch.operand(bits, m)).to(card) for m in mats]
+    kb = torch.from_numpy(b).to(card)
+    got = rs_batch.launch(_build.library(), bits, rs_batch.group_info(bits, kmats), kb,
+                          widths, tiles)
+    want = rs_batch.rs_matmul_plain(bits, kmats, kb, widths)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_rs_matmul_empty_result_launches_nothing(card, bits):
+    """A call with no rows (groups of 0 rows), no columns or no groups
+    returns its empty result and neither launches a kernel nor counts
+    one."""
+    mats, b, _widths = _rs_case(bits, [(3, 2, 4)], seed=3)
+    form = torch.from_numpy(rs_batch.operand(bits, mats[0])).to(card)
+    no_rows = form[:0].contiguous()
+    kb = torch.from_numpy(b).to(card)
+    rs_batch.reset_launches()
+    assert rs_batch.rs_matmul(bits, [no_rows], kb, [4]).shape == (0, 4)
+    assert rs_batch.rs_matmul(bits, [form], kb[:, :0].contiguous(), [0]).shape == (3, 0)
+    assert rs_batch.rs_matmul(bits, [form, no_rows], kb[:, :0].contiguous(), [0, 0]).shape == (3, 0)
+    assert rs_batch.rs_matmul(bits, [], kb[:, :0].contiguous(), []).shape == (0, 0)
+    torch.cuda.synchronize()
+    assert rs_batch.LAUNCHES == dict.fromkeys(rs_batch.LAUNCHES, 0)
+
+
+@pytest.mark.parametrize("bits,offset", [(8, 1), (8, 2), (8, 3), (16, 1)])
+def test_rs_matmul_on_unaligned_views(card, bits, offset):
+    """B a contiguous view `offset` symbols into its buffer (GF(2^8): at
+    an address that is not 4-byte aligned, as kb[1:] of an odd C is)
+    gives the plain version's product; ragged groups."""
+    mats, b, widths = _rs_case(bits, [(22, 22, 131), (5, 3, 7), (9, 22, 2)], seed=11,
+                               zero_lines=True)
+    buf = np.zeros(offset + b.size, dtype=b.dtype)
+    buf[offset:] = b.reshape(-1)
+    kb = torch.from_numpy(buf).to(card)[offset:].view(b.shape)
+    assert kb.is_contiguous() and (bits == 16 or kb.data_ptr() % 4)
+    kmats = [torch.from_numpy(rs_batch.operand(bits, m)).to(card) for m in mats]
+    got = rs_batch.rs_matmul(bits, kmats, kb, widths)
+    want = rs_batch.rs_matmul_plain(bits, kmats, torch.from_numpy(b).to(card), widths)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_rs_matmul_refuses_unaligned_tables(card):
+    """GF(2^8)'s nibble tables are read in 16-byte loads: a form on the
+    card at an address that is not 16-byte aligned is refused before any
+    launch."""
+    mats, b, widths = _rs_case(8, [(4, 3, 5)], seed=5)
+    form = rs_batch.operand(8, mats[0])
+    buf = np.zeros(1 + form.size, dtype=np.uint8)
+    buf[1:] = form.reshape(-1)
+    flat = torch.from_numpy(buf).to(card)
+    rs_batch.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        rs_batch.rs_matmul(8, [flat[1:].view(form.shape)], torch.from_numpy(b).to(card), widths)
+    assert rs_batch.LAUNCHES["rs_matmul8"] == 0
 
 
 @pytest.mark.parametrize("n,size", [(16, 300), (64, 2871), (260, 40)])

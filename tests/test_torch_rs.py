@@ -6,7 +6,8 @@ version of the `rs_matmul` kernel) and with `device="numpy"` against
 `lachain_tpu.ops.rs`, on seeded payloads: both fields, random erasures
 from 0 to n - k, equivocating shards, mixed and odd shard sizes, empty
 payloads, mixed (k, n) and mixed-field batches in one call (one product
-per field). The plain products against `GF.matmul` per group, the
+per field). The plain products on the kernels' forms of A against
+`GF.matmul` per group, the
 Vandermonde matrices and inverses, and the port's `keccak256_batch` and
 `merkle_root` against the JAX package's. The kernel itself runs on the
 card only (tests/test_torch_cuda.py, chip_smoke.py).
@@ -155,16 +156,20 @@ def _matrices(rng, field, r, k, c, zero_frac):
 
 @pytest.mark.parametrize("bits", [8, 16])
 def test_plain_products_equal_gf_matmul(bits):
-    """gf_matmul and the grouped form (groups of their own k and rows, a
-    group of no columns, B's unread rows filled with noise) equal the
-    JAX package's GF.matmul per group."""
+    """The plain products on the kernels' forms of A (nibble tables,
+    log(A)) and the grouped form (groups of their own k and rows, a group
+    of no columns, B's unread rows filled with noise) equal the JAX
+    package's GF.matmul per group."""
     rng = np.random.default_rng(bits)
     jfield = jrb.GF8 if bits == 8 else jrb.gf16()
     field = rs_batch.GF8 if bits == 8 else rs_batch.gf16()
-    exp = torch.from_numpy(field.exp.astype(np.int32))
-    log = torch.from_numpy(field.log)
     a, b = _matrices(rng, field, 9, 7, 33, 0.2)
-    got = rs_ref.gf_matmul(exp, log, torch.from_numpy(a), torch.from_numpy(b))
+    form = torch.from_numpy(rs_batch.operand(bits, a))
+    if bits == 8:
+        got = rs_ref.nibble_matmul(form, torch.from_numpy(b))
+    else:
+        exp, log = (torch.from_numpy(t.astype(np.int64)) for t in rs_ref.log16_tables(field))
+        got = rs_ref.log_matmul(exp, log, form, torch.from_numpy(b))
     np.testing.assert_array_equal(got.numpy(), jfield.matmul(a, b))
     shapes = [(5, 3, 11), (9, 7, 0), (2, 7, 20), (9, 4, 1)]
     pairs = [_matrices(rng, field, *s, 0.3) for s in shapes]
@@ -172,7 +177,7 @@ def test_plain_products_equal_gf_matmul(bits):
     noise = rng.integers(1, field.order, size=big.shape).astype(field.dtype)
     for (_a, bb), lo in zip(pairs, np.cumsum([0] + [s[2] for s in shapes])):
         big[bb.shape[0] :, lo : lo + bb.shape[1]] = noise[bb.shape[0] :, lo : lo + bb.shape[1]]
-    out = rs_batch.rs_matmul(bits, [torch.from_numpy(aa) for aa, _b in pairs],
+    out = rs_batch.rs_matmul(bits, [torch.from_numpy(rs_batch.operand(bits, aa)) for aa, _b in pairs],
                              torch.from_numpy(big), [s[2] for s in shapes]).numpy()
     assert out.shape == (9, big.shape[1])
     off = 0
@@ -183,7 +188,9 @@ def test_plain_products_equal_gf_matmul(bits):
 
 
 def test_rs_matmul_refuses_bad_operands():
-    a = torch.zeros((3, 2), dtype=torch.uint8)
+    """Symbols of the wrong type, widths that do not cover b, a group's k
+    past b's rows, and A itself where its kernel form is due."""
+    a = torch.zeros((3, 2, 32), dtype=torch.uint8)
     b = torch.zeros((2, 5), dtype=torch.uint8)
     with pytest.raises(ValueError):
         rs_batch.rs_matmul(8, [a], b.to(torch.int32), [5])
@@ -192,7 +199,9 @@ def test_rs_matmul_refuses_bad_operands():
     with pytest.raises(ValueError):
         rs_batch.rs_matmul(8, [a], b, [4])
     with pytest.raises(ValueError):
-        rs_batch.rs_matmul(8, [torch.zeros((3, 3), dtype=torch.uint8)], b, [5])
+        rs_batch.rs_matmul(8, [torch.zeros((3, 3, 32), dtype=torch.uint8)], b, [5])
+    with pytest.raises(ValueError):
+        rs_batch.rs_matmul(8, [torch.zeros((3, 2), dtype=torch.uint8)], b, [5])
 
 
 @pytest.mark.parametrize("bits,k,n", [(8, 5, 13), (8, 22, 64), (16, 4, 300)])
