@@ -47,8 +47,12 @@ Phases, each of which must pass (any failure exits non-zero):
              those of its kernel check, the shape the earlier slices
              reported; each scan's entry and the square root's also hold a
              `main` object, their numbers at the main path's layout;
-  3. main    five paths, each with the kernel launch counts set to 0 just
-             before its one counted call and read just after:
+  3. warmup  the node-start warmup (crypto/warmup.warmup_era_kernels(64,
+             backend)) is started and joined: the fully masked TPKE era
+             at each slot tier, largest first, and one coin era, on a
+             GpuBackend of its own; it must end with no error;
+  4. main    six paths, each with the kernel launch counts set to 0 just
+             before its counted calls and read just after:
              the N=64 TPKE era (64 ACS slots x 64 decryption shares) through
              GpuBackend(device="cuda").tpke_era_verify_combine: every slot
              must verify and decrypt, with exactly 1 G1 table build, 1 G1
@@ -58,6 +62,16 @@ Phases, each of which must pass (any failure exits non-zero):
              host backend's pairing (the native library) must equal the
              pure-Python HostBackend's on the era's grand-check pairs and
              on the same pairs with one slot poisoned;
+             the same era's TPKE flush through
+             consensus/crypto_batcher.TpkeEraBatcher (run_flush_path): a
+             node's 64 one-job submissions in one chunk, a 64-validator
+             in-process fleet's 4096 jobs with one slot poisoned deduped to
+             64, and the node's submissions in 4 chunks of 16; every
+             callback result must equal the synchronous era call's, with
+             TPKE_LAUNCHES a chunk (the keys packed once) counted and,
+             at depth 2, traced; then 10 flushes of the one-chunk and
+             4-chunk configurations at depth 1 and 2 in turns, with each
+             chunk's phases and the card's idle share;
              the N=64 coin era (64 coins x 64 signers, 22 live shares each)
              through threshold_sig.era_verify_combine on the same backend:
              every signature must verify under the shared key with the host
@@ -90,7 +104,7 @@ Phases, each of which must pass (any failure exits non-zero):
              erasure pattern, re-encode). Around each counted call and the
              MSMs, no result may have been recomputed on the host
              (ops/verify.ESCAPES), and each path must launch its kernels;
-  4. times   per-kernel times from CUDA events, the plain versions' times,
+  5. times   per-kernel times from CUDA events, the plain versions' times,
              each kernel's bound, the warm phase times of every path (the
              eras' `pairing_s` with the host backend's name; the RBC flush's
              cold phases with its host inverses apart, its warm phases each
@@ -992,17 +1006,14 @@ def profile_phase(label: str, new_pipeline, run_era, launches: dict, names) -> d
     return by_kernel
 
 
-def run_tpke_path(seed: int, backend, dev):
+def run_tpke_path(seed: int, backend, dev, era):
     from lachain_tpu_torch.crypto import bls12381 as bls
     from lachain_tpu_torch.crypto import tpke
     from lachain_tpu_torch.crypto.gpu_backend import EraSlotJob
     from lachain_tpu_torch.ops.verify import GpuEraPipeline, HostEraPipeline
 
-    n = N_VALIDATORS
-    t0 = time.perf_counter()
-    dealer, cts, msgs, jobs = make_era(n, seed)
-    log(f"host setup (dealer, {n} ciphertexts, {n * n} shares): "
-        f"{time.perf_counter() - t0:.1f} s")
+    dealer, cts, msgs, jobs = era
+    n = len(jobs)
     vks = dealer.verification_keys
 
     def check_all(res, bad=()):
@@ -1024,7 +1035,8 @@ def run_tpke_path(seed: int, backend, dev):
     check_all(res)
     got = {k: launches[k] for k in TPKE_LAUNCHES}
     check(got == TPKE_LAUNCHES, f"tpke era launches {got} != {TPKE_LAUNCHES}")
-    log(f"era N={n}: {n} slots verified and decrypted; cold {cold_s:.3f} s; "
+    log(f"era N={n}: {n} slots verified and decrypted; first era of the backend "
+        f"(after the warmup) {cold_s:.3f} s; "
         f"launches {launches}; phases {backend.last_timings}")
 
     warm = []
@@ -1077,7 +1089,7 @@ def run_tpke_path(seed: int, backend, dev):
 def check_host_pairing(backend, jobs, aggs, bad_slot: int) -> None:
     """The backend's host pairing (the native library) against the
     pure-Python HostBackend on the TPKE era's own grand check, the 2 pairs
-    e(u_agg, H), e(-y_agg, W) of every slot (GpuBackend._era_batch), and on
+    e(u_agg, H), e(-y_agg, W) of every slot (GpuBackend._dispatch_era_batch), and on
     the same pairs with slot `bad_slot`'s u_agg moved: both must hold the
     first and refuse the second. Both timed on the host clock."""
     from lachain_tpu_torch.crypto import bls12381 as bls
@@ -1101,6 +1113,176 @@ def check_host_pairing(backend, jobs, aggs, bad_slot: int) -> None:
         log(f"host pairing, {label} of {len(ps)} pairs: {backend.host_name} "
             f"{got} in {t1 - t0:.4f} s, python HostBackend {oracle} in "
             f"{t2 - t1:.4f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the N=64 era's TPKE flush through TpkeEraBatcher
+# ---------------------------------------------------------------------------
+
+# the flush's configurations: (name, max_slots_per_call, chunks)
+FLUSH_CONFIGS = (("node", 512, 1), ("fleet", 512, 1), ("chunked", 16, 4))
+# the timed configurations and their in-turn flushes at each depth
+FLUSH_TIMED = ("node", "chunked")
+FLUSH_ROUNDS = 10
+CHUNK_PHASES = ("pack_s", "launch_s", "device_s", "wait_s", "fetch_s", "pairing_s")
+
+
+def flush_launches(chunks: int) -> dict:
+    """A counted flush's launches on a fresh backend: TPKE_LAUNCHES per
+    chunk, but the tiled keys are packed into form once (one g1_mont) and
+    kept for every later chunk of the same (key set, S)."""
+    want = {k: v * chunks for k, v in TPKE_LAUNCHES.items()}
+    want["g1_mont"] -= chunks - 1
+    return want
+
+
+def quartiles(xs) -> tuple:
+    """(q1, median, q3) of xs, by the inclusive method."""
+    import statistics
+
+    q1, med, q3 = statistics.quantiles(xs, n=4, method="inclusive")
+    return q1, med, q3
+
+
+def run_flush_path(seed: int, backend, dev, era):
+    """The N=64 era's slots through TpkeEraBatcher, in three configurations
+    (FLUSH_CONFIGS): a node's 64 one-job submissions, the way HoneyBadger's
+    era ticks submit them, at the reference default max_slots_per_call=512
+    (one chunk); an in-process fleet, 64 validators each submitting the
+    same 64 jobs with one slot poisoned, which dedupe to 64; and the node's
+    submissions in chunks of 16 (4 chunks). Every callback result must
+    equal backend.tpke_era_verify_combine on the same jobs, every honest
+    slot decrypt and the poisoned one be isolated, with no host recompute;
+    the counted flushes (fresh backends, depth 2) launch flush_launches(
+    chunks), and a profiled flush of each traces as many. Then 10 flushes
+    of the node and chunked configurations at depth 1 and depth 2, in
+    turns, on one warm backend: the walls' quartiles, each chunk's median
+    phases, and the card's idle share (1 - traced device time / median
+    wall)."""
+    from lachain_tpu_torch.consensus.crypto_batcher import TpkeEraBatcher
+    from lachain_tpu_torch.crypto import bls12381 as bls
+    from lachain_tpu_torch.crypto import tpke
+    from lachain_tpu_torch.crypto.gpu_backend import EraSlotJob, GpuBackend
+
+    dealer, cts, msgs, jobs = era
+    n = len(jobs)
+    vks = dealer.verification_keys
+    bad_slot = n // 4 + 1
+
+    def copy(job):
+        return EraSlotJob(list(job.u_by_validator), list(job.lagrange_row), job.h, job.w)
+
+    row = list(jobs[bad_slot].u_by_validator)
+    row[3] = bls.g1_add(row[3], bls.G1_GEN)
+    poisoned = list(jobs)
+    poisoned[bad_slot] = EraSlotJob(row, jobs[bad_slot].lagrange_row,
+                                    jobs[bad_slot].h, jobs[bad_slot].w)
+    # per configuration: its submissions, each a list of jobs
+    subs = {
+        "node": [[job] for job in jobs],
+        "fleet": [[copy(job) for job in poisoned] for _ in range(n)],
+        "chunked": [[job] for job in jobs],
+    }
+    bad = {"node": (), "fleet": (bad_slot,), "chunked": ()}
+    t0 = time.perf_counter()
+    want = {"node": backend.tpke_era_verify_combine(jobs, vks, SeededRng(seed + 30))}
+    want["chunked"] = want["node"]
+    want["fleet"] = backend.tpke_era_verify_combine(poisoned, vks, SeededRng(seed + 31))
+    log(f"tpke_flush: synchronous era calls for the expected results "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def flush(name: str, b, rng, depth: int):
+        """One flush of configuration `name` on backend b -> (batcher,
+        results per submission)."""
+        _, max_slots, _ = next(c for c in FLUSH_CONFIGS if c[0] == name)
+        batcher = TpkeEraBatcher(b, rng, max_slots_per_call=max_slots, depth=depth)
+        out = [None] * len(subs[name])
+        for i, js in enumerate(subs[name]):
+            batcher.submit(js, vks, lambda res, i=i: out.__setitem__(i, res))
+        check(batcher.flush() == len(subs[name]), f"{name}: not every submission flushed")
+        return batcher, out
+
+    def check_results(name: str, out) -> None:
+        per_job = [r for res in out for r in res]
+        expect = want[name] * (len(per_job) // n)
+        for i, ((ok, comb), (wok, wcomb)) in enumerate(zip(per_job, expect)):
+            s = i % n
+            check(ok is wok and (comb is None) == (wcomb is None)
+                  and (comb is None or bls.g1_eq(comb, wcomb)),
+                  f"{name}: job {i} differs from the synchronous era call")
+            if s in bad[name]:
+                check(ok is False and comb is None, f"{name}: slot {s} not isolated")
+            elif i < n:
+                check(ok and tpke.decrypt_with_combined(cts[s], comb) == msgs[s],
+                      f"{name}: slot {s} not decrypted")
+
+    # the counted flushes, each on a fresh backend at depth 2
+    reset_counts()
+    counted = {}
+    for name, max_slots, chunks in FLUSH_CONFIGS:
+        before = read_launches()
+        t0 = time.perf_counter()
+        batcher, out = flush(name, GpuBackend(device=dev), SeededRng(seed + 32), 2)
+        wall = time.perf_counter() - t0
+        after = read_launches()
+        check_no_escapes(f"tpke_flush {name}")
+        check_results(name, out)
+        got = {k: after[k] - before[k] for k in TPKE_LAUNCHES}
+        check(batcher.chunks == chunks, f"{name}: {batcher.chunks} chunks != {chunks}")
+        check(got == flush_launches(chunks),
+              f"{name}: launches {got} != {flush_launches(chunks)}")
+        counted[name] = got
+        t = batcher.last_timings
+        log(f"tpke_flush {name}: {len(subs[name])} submissions, "
+            f"{sum(map(len, subs[name]))} jobs, {batcher.slots_flushed} distinct "
+            f"({batcher.deduped_slots} deduped in {t['dedupe_s'] * 1e3:.2f} ms), "
+            f"{chunks} chunk(s) of <= {max_slots}; equal to the synchronous era, "
+            f"slot(s) {list(bad[name])} isolated, the others decrypt; depth 2 on a "
+            f"fresh backend {wall:.4f} s; launches {got}")
+    launches = read_launches()
+
+    names = tuple(TPKE_LAUNCHES)
+    for name in counted:
+        by_kernel = profile_launches(
+            lambda: flush(name, GpuBackend(device=dev), SeededRng(seed + 33), 2),
+            {KERNEL_OF[k]: counted[name][k] for k in names}, f"tpke_flush {name}")
+        check_traced(f"tpke_flush {name} (depth 2)", by_kernel, counted[name], names)
+
+    # in turns on one warm backend: depth 1 and depth 2, each timed config
+    walls = {(c, d): [] for c in FLUSH_TIMED for d in (1, 2)}
+    chunk_t = {(c, d): [] for c in FLUSH_TIMED for d in (1, 2)}
+    warm = []
+    for name in FLUSH_TIMED:  # the chunk shape's tiled keys, pinned buffers
+        flush(name, backend, SeededRng(seed + 34), 2)
+    for r in range(FLUSH_ROUNDS):
+        for depth in ((1, 2) if r % 2 == 0 else (2, 1)):
+            for name in FLUSH_TIMED:
+                batcher, out = flush(name, backend, SeededRng(seed + 40 + r), depth)
+                check_results(name, out)
+                t = batcher.last_timings
+                walls[(name, depth)].append(t["wall_s"])
+                chunk_t[(name, depth)].append(t["chunks"])
+                if name == "node" and depth == 2:
+                    warm.append({k: v for k, v in t.items() if k != "chunks"})
+    for name in FLUSH_TIMED:
+        for depth in (1, 2):
+            key = (name, depth)
+            by_kernel = profile_device(lambda: flush(name, backend, SeededRng(seed + 35),
+                                                     depth))
+            busy = sum(v[0] for v in by_kernel.values())
+            q1, med, q3 = quartiles(walls[key])
+            chunks = len(chunk_t[key][0])
+            phases = "; ".join(
+                f"chunk {c}: " + ", ".join(
+                    f"{p[:-2] if p != 'pairing_s' else 'grand check'} "
+                    f"{quartiles([f[c][p] for f in chunk_t[key]])[1] * 1e3:.3f}"
+                    for p in CHUNK_PHASES)
+                for c in range(chunks))
+            log(f"tpke_flush {name} depth {depth}: wall median {med * 1e3:.3f} ms "
+                f"(q1 {q1 * 1e3:.3f}, q3 {q3 * 1e3:.3f}) over {FLUSH_ROUNDS} flushes in "
+                f"turns; per chunk, median ms: {phases}; traced device time "
+                f"{busy:.3f} ms, idle share {1 - busy / (med * 1e3):.4f}")
+    return launches, warm
 
 
 # ---------------------------------------------------------------------------
@@ -1668,6 +1850,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from lachain_tpu_torch.crypto.gpu_backend import GpuBackend
+    from lachain_tpu_torch.crypto.warmup import warmup_era_kernels
     from lachain_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
@@ -1688,8 +1871,21 @@ def main() -> int:
 
     report = check_kernels(args.seed, dev)
     backend = GpuBackend(device="cuda")
+    # the node-start warmup, on a backend of its own; the TPKE path's first
+    # era follows it
+    warmup = warmup_era_kernels(N_VALIDATORS, backend)
+    warmup.join()
+    check(warmup.error is None, f"warmup failed: {warmup.error!r}")
+    log(f"warmup: {warmup.seconds:.2f} s, eras {warmup.eras} (tpke: slots, "
+        f"coin: coins; K={N_VALIDATORS})")
+    reset_counts()
+    t0 = time.perf_counter()
+    era = make_era(N_VALIDATORS, args.seed)
+    log(f"host setup (dealer, {N_VALIDATORS} ciphertexts, {N_VALIDATORS ** 2} "
+        f"shares): {time.perf_counter() - t0:.1f} s")
     paths = {
-        "tpke_era": run_tpke_path(args.seed, backend, dev),
+        "tpke_era": run_tpke_path(args.seed, backend, dev, era),
+        "tpke_flush": run_flush_path(args.seed, backend, dev, era),
         "coin_era": run_coin_path(args.seed, backend, dev),
         "ecdsa_recover": run_ecdsa_path(args.seed, dev),
     }
@@ -1698,6 +1894,7 @@ def main() -> int:
     g1_path = tuple(k for k in G1_KERNELS if k not in NO_PATH)
     needs = {
         "tpke_era": g1_path,
+        "tpke_flush": g1_path,
         "coin_era": g1_path + ("g2_add", "g2_table", "g2_msm_scan"),
         "ecdsa_recover": tuple(k for k in SECP_KERNELS if k not in NO_PATH),
         "rbc_flush_64": ("rs_matmul8",),

@@ -1,15 +1,22 @@
 """GPU crypto backend: the era's threshold crypto and the MSMs on the card.
 
 The port of `lachain_tpu/crypto/tpu_backend.py`. Two era-tick batch ops
-share one engine (`_era_batch`, the port of `_dispatch_era_batch`,
+share one engine (`_dispatch_era_batch`, the port of the reference's,
 tpu_backend.py:396-485): mask absent lanes, pad the slot axis to a power of
-two with fully-masked dummy slots, run the era pipeline, then fold every
-slot into ONE grand multi-pairing (2 pairs per slot) and bisect on failure.
-Each slot's equality is randomized by its own RLC coefficients, so a
-pairing product over any subset is a sound batch check for that subset.
-  * `tpke_era_verify_combine`: TPKE decryption shares (G1), GpuEraPipeline;
+two with fully-masked dummy slots, dispatch the era pipeline, and return a
+finish call that folds every slot into ONE grand multi-pairing (2 pairs per
+slot) and bisects on failure. Each slot's equality is randomized by its own
+RLC coefficients, so a pairing product over any subset is a sound batch
+check for that subset.
+  * `tpke_era_verify_combine_async`: TPKE decryption shares (G1) on
+    GpuEraPipeline.dispatch_era, whose kernels run between dispatch and
+    finish; at most `era_dispatch_depth` (the pipeline's MAX_INFLIGHT)
+    dispatches may be unfinished. `tpke_era_verify_combine` is its
+    dispatch and finish in one call;
   * `ts_era_verify_combine`: common-coin signature shares (G2),
-    TsGpuEraPipeline.
+    TsGpuEraPipeline, synchronous (the reference has no async coin op).
+`era_calls`, `era_slots_total` and `ts_era_calls` count the era calls run
+to their end, as the reference's counters do.
 `g1_msm` / `g2_msm` run on the card through `g1.msm_reduce` /
 `g2.msm2_reduce` (tpu_backend.py:207-267).
 
@@ -88,8 +95,17 @@ class GpuBackend:
         self._pipeline = GpuEraPipeline(self._host, self.device)
         self._ts_pipeline = TsGpuEraPipeline(self._host, self.device)
         self._y_cache: dict = {}
-        # wall seconds of the last era: the pipeline's phases + `pairing_s`
+        # wall seconds of the era finished last: the pipeline's phases +
+        # `pairing_s`
         self.last_timings: dict = {}
+        self.era_calls = 0
+        self.era_slots_total = 0
+        self.ts_era_calls = 0
+
+    @property
+    def era_dispatch_depth(self) -> int:
+        """How many TPKE era dispatches may be unfinished at once."""
+        return self._pipeline.MAX_INFLIGHT
 
     # -- host ops ------------------------------------------------------------
     @property
@@ -170,14 +186,14 @@ class GpuBackend:
         self._y_cache[key] = (vks, y_points)
         return y_points
 
-    def _era_batch(
+    def _dispatch_era_batch(
         self, jobs, rows, lags, y_points, inf_point, pipeline, pairs_for, rng,
-    ) -> List[Tuple[bool, Optional[tuple]]]:
-        """The engine both era ops share. `pairs_for(job, agg)` yields the
-        two pairing pairs of one slot's verification equality."""
+    ):
+        """The engine both era ops share. A pipeline with `dispatch_era`
+        runs its kernels until the returned call finishes it; a synchronous
+        one completes here. `pairs_for(job, agg)` yields the two pairing
+        pairs of one slot's verification equality."""
         s = len(jobs)
-        if s == 0:
-            return []
         k = len(y_points)
         slots, masks = [], []
         for row, lag in zip(rows, lags):
@@ -190,22 +206,59 @@ class GpuBackend:
         for _ in range(_pow2_at_least(s) - s):
             slots.append(([inf_point] * k, [0] * k))
             masks.append([False] * k)
-        aggs, _rlc = pipeline.run_era(slots, y_points, rng, masks=masks)
+        dispatch = getattr(pipeline, "dispatch_era", None)
+        if dispatch is not None:
+            pipeline_fin = dispatch(slots, y_points, rng, masks=masks)
+        else:
+            ran = pipeline.run_era(slots, y_points, rng, masks=masks)
+            pipeline_fin = lambda: ran  # noqa: E731
 
-        def group_ok(idx: List[int]) -> bool:
-            pairs = []
-            for i in idx:
-                pairs.extend(pairs_for(jobs[i], aggs[i]))
-            return self._host.pairing_check(pairs)
+        def finish() -> List[Tuple[bool, Optional[tuple]]]:
+            aggs, _rlc = pipeline_fin()
+            timings = dict(pipeline.last_timings)  # this era's, just finished
 
-        t0 = time.perf_counter()
-        ok_flags = batch_bisect_verify(group_ok, s)
-        self.last_timings = dict(
-            pipeline.last_timings, pairing_s=time.perf_counter() - t0
+            def group_ok(idx: List[int]) -> bool:
+                pairs = []
+                for i in idx:
+                    pairs.extend(pairs_for(jobs[i], aggs[i]))
+                return self._host.pairing_check(pairs)
+
+            t0 = time.perf_counter()
+            ok_flags = batch_bisect_verify(group_ok, s)
+            self.last_timings = dict(timings, pairing_s=time.perf_counter() - t0)
+            return [
+                (ok, aggs[i][2] if ok else None) for i, ok in enumerate(ok_flags)
+            ]
+
+        return finish
+
+    def tpke_era_verify_combine_async(
+        self, jobs: Sequence[EraSlotJob], verification_keys, rng
+    ):
+        """The two-phase tpke_era_verify_combine: draws the RLC
+        coefficients, packs the era and launches its kernels now, and
+        returns a finish() giving the same per-job results. Eras dispatched
+        in order draw from `rng` as the same synchronous calls would."""
+        if not jobs:
+            return lambda: []
+        fin = self._dispatch_era_batch(
+            jobs,
+            [j.u_by_validator for j in jobs],
+            [j.lagrange_row for j in jobs],
+            self._stable_y_points(verification_keys, "y_i"),
+            bls.G1_INF,
+            self._pipeline,
+            lambda job, agg: [(agg[0], job.h), (bls.g1_neg(agg[1]), job.w)],
+            rng,
         )
-        return [
-            (ok, aggs[i][2] if ok else None) for i, ok in enumerate(ok_flags)
-        ]
+
+        def finish() -> List[Tuple[bool, Optional[tuple]]]:
+            results = fin()
+            self.era_calls += 1
+            self.era_slots_total += len(jobs)
+            return results
+
+        return finish
 
     def tpke_era_verify_combine(
         self, jobs: Sequence[EraSlotJob], verification_keys, rng
@@ -217,16 +270,7 @@ class GpuBackend:
         whose shares fail the grand check is isolated by bisection and
         reports (False, None). The check per slot is
         e(u_agg, H) == e(y_agg, W)."""
-        return self._era_batch(
-            jobs,
-            [j.u_by_validator for j in jobs],
-            [j.lagrange_row for j in jobs],
-            self._stable_y_points(verification_keys, "y_i"),
-            bls.G1_INF,
-            self._pipeline,
-            lambda job, agg: [(agg[0], job.h), (bls.g1_neg(agg[1]), job.w)],
-            rng,
-        )
+        return self.tpke_era_verify_combine_async(jobs, verification_keys, rng)()
 
     def ts_era_verify_combine(
         self, jobs: Sequence[CoinJob], ts_public_keys, rng
@@ -237,7 +281,9 @@ class GpuBackend:
         Returns per-coin (all_shares_valid, combined_sigma), with the same
         grand multi-pairing and bisection as `tpke_era_verify_combine`; the
         check per coin is e(g1, sig_agg) == e(y_agg, H(coin id))."""
-        return self._era_batch(
+        if not jobs:
+            return []
+        results = self._dispatch_era_batch(
             jobs,
             [j.sigma_by_signer for j in jobs],
             [j.lagrange_row for j in jobs],
@@ -246,4 +292,6 @@ class GpuBackend:
             self._ts_pipeline,
             lambda job, agg: [(bls.G1_GEN, agg[0]), (bls.g1_neg(agg[1]), job.h)],
             rng,
-        )
+        )()
+        self.ts_era_calls += 1
+        return results

@@ -26,6 +26,10 @@ never loads code built for the other. One process builds at a time (a
 file lock), others wait and load its result. Without g++, or on a failed
 build, it raises. This module imports no torch: the host backend that
 loads the library (`crypto/native_backend.py`) serves torch-free callers.
+
+Each lazy build runs under a lock of its own, so that two threads of one
+process (the node-start warmup of `crypto/warmup.py` and its caller) build
+and load each library once.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -57,6 +62,8 @@ HOST_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-fPIC", "-shared",
 
 _LIB = None
 _HOST_LIB = None
+_LIB_LOCK = threading.Lock()
+_HOST_LIB_LOCK = threading.Lock()
 # wall seconds of this process's nvcc run (None when the library came from
 # an earlier build)
 build_seconds = None
@@ -173,17 +180,18 @@ def _build(target: Path, nvcc: str) -> None:
 def library():
     """The loaded kernel library, built first if needed."""
     global _LIB
-    if _LIB is None:
-        nvcc = _nvcc()
-        target = _target(nvcc)
-        if not target.exists():
-            _build(target, nvcc)
-        lib = ctypes.CDLL(str(target))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        _LIB = lib
+    with _LIB_LOCK:
+        if _LIB is None:
+            nvcc = _nvcc()
+            target = _target(nvcc)
+            if not target.exists():
+                _build(target, nvcc)
+            lib = ctypes.CDLL(str(target))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _LIB = lib
     return _LIB
 
 
@@ -212,17 +220,18 @@ def _host_target(gxx: str) -> Path:
 def host_library():
     """The loaded host pairing library, built first if needed."""
     global _HOST_LIB
-    if _HOST_LIB is None:
-        gxx = _gxx()
-        target = _host_target(gxx)
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with open(BUILD_DIR / "host.lock", "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-            if not target.exists():
-                _publish(target, lambda work: _run_all([[
-                    gxx, *HOST_FLAGS, "-o", str(work / "lib.so"),
-                    *(str(HOST_SRC / s) for s in HOST_SOURCES)]]))
-        _HOST_LIB = ctypes.CDLL(str(target))
+    with _HOST_LIB_LOCK:
+        if _HOST_LIB is None:
+            gxx = _gxx()
+            target = _host_target(gxx)
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with open(BUILD_DIR / "host.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+                if not target.exists():
+                    _publish(target, lambda work: _run_all([[
+                        gxx, *HOST_FLAGS, "-o", str(work / "lib.so"),
+                        *(str(HOST_SRC / s) for s in HOST_SOURCES)]]))
+            _HOST_LIB = ctypes.CDLL(str(target))
     return _HOST_LIB
 
 

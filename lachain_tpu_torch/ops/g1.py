@@ -159,10 +159,15 @@ def build_table(lanes):
     return table
 
 
-def msm_scan(table, digits):
+def msm_scan(table, digits, digits_checked: bool = False):
     """table (16, 3R, n), digits (W, n) int32 in [0, 16), MSB-first ->
     ((3R, n) accumulators, (n,) bool infinity flags)
-    (replaces pg1 `_msm_kernel` / `_msm_scan`)."""
+    (replaces pg1 `_msm_kernel` / `_msm_scan`).
+
+    The card's range check reads the digits back, so it waits for the work
+    queued on the stream; `digits_checked=True` skips it where the caller
+    made the digits on the host with `glv.digits_col` (4-bit nibbles, in
+    range by construction), so that an era dispatch never blocks."""
     if _on_cpu(table, digits):
         return g1_ref.msm_scan(table, digits)
     n = table.shape[-1]
@@ -171,9 +176,10 @@ def msm_scan(table, digits):
         raise ValueError("msm_scan: need at least one window")
     _check("msm_scan table", table, (TABLE, 3 * NL, n))
     _check("msm_scan digits", digits, (nwin, n))
-    lo, hi = torch.aminmax(digits)
-    if lo.item() < 0 or hi.item() >= TABLE:  # the kernel indexes table[d]
-        raise ValueError("msm_scan: digits must lie in [0, 16)")
+    if not digits_checked:
+        lo, hi = torch.aminmax(digits)
+        if lo.item() < 0 or hi.item() >= TABLE:  # the kernel indexes table[d]
+            raise ValueError("msm_scan: digits must lie in [0, 16)")
     acc = torch.empty((3 * NL, n), dtype=torch.int32, device=table.device)
     flags = torch.empty((n,), dtype=torch.bool, device=table.device)
     rc = _build.library().lt_g1_msm_scan(
@@ -248,12 +254,18 @@ def _from_words(a) -> list:
     ]
 
 
+def plain_words(coords: Sequence[Sequence[int]]) -> np.ndarray:
+    """c lists of n field ints -> (12c, n) int32 plain words in the card's
+    layout (coordinate c at rows 12c .. 12c + 11), not yet in Montgomery
+    form."""
+    return np.concatenate([_words(v) for v in coords]).view(np.int32)
+
+
 def encode_words(coords: Sequence[Sequence[int]], device) -> torch.Tensor:
     """c lists of n field ints -> (12c, n) Montgomery words on the card:
-    the plain words uploaded in the final layout (coordinate c at rows 12c
-    .. 12c + 11), then one launch into form."""
-    words = np.concatenate([_words(v) for v in coords]).view(np.int32)
-    return mont_convert(torch.from_numpy(words).to(device), into=True)
+    the plain words uploaded in the final layout, then one launch into
+    form."""
+    return mont_convert(torch.from_numpy(plain_words(coords)).to(device), into=True)
 
 
 def fp_encode(vals: Sequence[int], device="cuda") -> torch.Tensor:
@@ -273,12 +285,17 @@ def fp_decode(t) -> list:
     return _from_words(plain.cpu().numpy().view(np.uint32))
 
 
+def g1_xyz(points) -> list:
+    """Oracle Jacobian tuples -> [xs, ys, zs] with infinity as (0, 1, 0)."""
+    return [[p[0] if p[2] != 0 else 0 for p in points],
+            [p[1] if p[2] != 0 else 1 for p in points],
+            [p[2] for p in points]]
+
+
 def g1_pack(points, device="cuda") -> torch.Tensor:
     """Oracle Jacobian tuples -> (3R, n) points on `device`. Infinity maps
     to (0, 1, 0); callers carry it in flags (pg1.g1_pack)."""
-    xs = [p[0] if p[2] != 0 else 0 for p in points]
-    ys = [p[1] if p[2] != 0 else 1 for p in points]
-    zs = [p[2] for p in points]
+    xs, ys, zs = g1_xyz(points)
     if _cpu_layout(device):
         return fp_encode(xs + ys + zs, device).view(-1, 3, len(points)).permute(
             1, 0, 2
@@ -407,7 +424,7 @@ def tpke_lanes(rng, slots: int = 64, k: int = 64) -> list:
     return u + y + u + phi
 
 
-def era_kernel(u, y, rlc16, lag1, lag2, k: int):
+def era_kernel(u, y, rlc16, lag1, lag2, k: int, digits_checked: bool = False):
     """u, y: (3R, S*K) share points / verification keys; rlc16 (16, S*K);
     lag1, lag2 (32, S*K) GLV halves; k = K (a power of two).
 
@@ -419,21 +436,23 @@ def era_kernel(u, y, rlc16, lag1, lag2, k: int):
     idiom of ops/g2.py ts_era_kernel); groups of K never straddle two
     quarters, so the outputs are pg1's. Returns (rlc_pts (3R, 2S),
     rlc_flags, lag_pts (3R, 2S), lag_flags): per-slot u_agg | y_agg, then
-    comb1 | comb2."""
+    comb1 | comb2. `digits_checked` as in msm_scan."""
     r = u.shape[0] // 3
     phi_u = torch.cat([mul_beta(u[:r].contiguous()), u[r:]], dim=0)
 
     lanes = torch.cat([u, y, u, phi_u], dim=1)
-    acc, fl = msm_windowed(lanes, era_digits(rlc16, lag1, lag2))
+    acc, fl = msm_scan(build_table(lanes), era_digits(rlc16, lag1, lag2),
+                       digits_checked)
     out, ofl = tree_reduce_k(acc, fl, k)
     s2 = out.shape[-1] // 2
     return out[:, :s2], ofl[:s2], out[:, s2:], ofl[s2:]
 
 
-def era_kernel_fused(u, y, rlc16, lag1, lag2, k: int):
+def era_kernel_fused(u, y, rlc16, lag1, lag2, k: int, digits_checked: bool = False):
     """era_kernel with every output in ONE (3R + 1, 4S) array, the last row
     carrying the infinity flags (pg1.py:516-524): one device->host copy."""
-    out_r, ofl_r, out_l, ofl_l = era_kernel(u, y, rlc16, lag1, lag2, k)
+    out_r, ofl_r, out_l, ofl_l = era_kernel(u, y, rlc16, lag1, lag2, k,
+                                            digits_checked)
     pts = torch.cat([out_r, out_l], dim=1)
     flags = torch.cat([ofl_r, ofl_l]).to(pts.dtype)[None, :]
     return torch.cat([pts, flags], dim=0)

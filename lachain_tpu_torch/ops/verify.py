@@ -14,7 +14,10 @@ plus one grand multi-pairing on the host (crypto/gpu_backend.py):
 
 `GpuEraPipeline.run_era` and `TsGpuEraPipeline.run_era` keep the contracts
 of `PallasEraPipeline.run_era` (verify.py:262-326) and
-`TsPallasPipeline.run_era` (:348-394); `HostEraPipeline` and
+`TsPallasPipeline.run_era` (:348-394); `GpuEraPipeline.dispatch_era` is
+the async half of run_era, under the JAX package's
+`MeshEraPipeline.dispatch_era` contract (parallel/mesh.py:375-487), on two
+CUDA streams. `HostEraPipeline` and
 `TsHostEraPipeline` compute the same aggregates with the host MSMs and are
 the port's own oracles.
 
@@ -28,12 +31,13 @@ from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from ..crypto import bls12381 as bls
 from ..crypto.host import HostBackend
 from ..crypto.native_backend import NativeBackend
-from . import g1, g2
+from . import g1, g2, glv
 from .glv import W64, W128, W256, glv_split
 
 ESCAPES = {"tpke_combine": 0, "ts_combine": 0, "g1_msm": 0, "g2_msm": 0,
@@ -92,7 +96,13 @@ def _pow2_at_least(k: int) -> int:
 class _TiledYCache:
     """Device copy of the era-invariant verification keys: one (3R, S*K_pad)
     tiled lane block per (key list, S, K_pad), keyed by id() with a strong
-    reference so a collected list can never alias a new validator set."""
+    reference so a collected list can never alias a new validator set.
+
+    On the card a block is built on the stream current at its first use and
+    read by later eras on other streams (GpuEraPipeline dispatches on two):
+    every read orders the reading stream after the build's event and marks
+    the block as used there, so that its memory is not reused while that
+    stream may still read it."""
 
     LIMIT = 4  # validator sets kept
 
@@ -103,39 +113,164 @@ class _TiledYCache:
     def get(self, y_points, s: int, k_pad: int):
         key = (id(y_points), s, k_pad)
         hit = self._cache.get(key)
+        card = self._device.type == "cuda"
         if hit is not None and hit[0] is y_points:
-            return hit[1]
+            _, y_dev, built = hit
+            if card:
+                stream = torch.cuda.current_stream(self._device)
+                stream.wait_event(built)
+                y_dev.record_stream(stream)
+            return y_dev
         padded = list(y_points) + [bls.G1_INF] * (k_pad - len(y_points))
         y_dev = g1.g1_pack(padded, self._device).repeat(1, s)
+        built = None
+        if card:
+            built = torch.cuda.Event()
+            built.record(torch.cuda.current_stream(self._device))
         if len(self._cache) >= self.LIMIT:
             self._cache.pop(next(iter(self._cache)))
-        self._cache[key] = (y_points, y_dev)
+        self._cache[key] = (y_points, y_dev, built)
         return y_dev
+
+
+# rows of one era's pinned upload: the share words (3 x 12), the RLC digits
+# (W64) and the two GLV halves of the Lagrange coefficients (W128 each)
+_U_ROWS = 3 * g1.NL
+_STAGE_ROWS = _U_ROWS + W64 + 2 * W128
+
+
+class _Stage:
+    """One pinned host buffer of an era's upload, (_STAGE_ROWS, S*K_pad)
+    int32, and the event recorded on its stream after the upload that read
+    it last."""
+
+    def __init__(self, n: int):
+        self.host = torch.empty((_STAGE_ROWS, n), dtype=torch.int32, pin_memory=True)
+        self.uploaded = torch.cuda.Event()
+
+
+class _EraDispatch:
+    """One dispatched era: calling it returns run_era's (out, rlc).
+
+    On the card the host blocks on the era's completion event `done`, reads
+    the fused output (one launch out of Montgomery form and one download on
+    the era's own stream) and finishes each slot; on the CPU the work was
+    done at dispatch and calling it returns it. `timings` holds the era's
+    phases in seconds: `pack_s` (the host's marshal into the pinned
+    buffer), `launch_s` (the host's time enqueueing the upload and the
+    launches; 0 on the CPU), `device_s` (on the card: CUDA events on the
+    era's stream from the first upload to the last launch; on the CPU: the
+    plain versions' host time), `wait_s` (host time blocked in the call)
+    and `fetch_s` (download, unpack and the per-slot finish)."""
+
+    def __init__(self, pipeline, slots, rlc, timings, fused=None, stream=None,
+                 start=None, done=None, result=None):
+        self._pipeline = pipeline
+        self._slots = slots
+        self._rlc = rlc
+        self._fused = fused
+        self._stream = stream
+        self._start = start
+        self.done = done
+        self.timings = timings
+        self._result = result
+        self._called = False
+
+    def __call__(self):
+        if self._called:
+            if self._result is None:
+                raise RuntimeError("this era's finish failed")
+            return self._result
+        self._called = True
+        try:
+            if self.done is not None:
+                t = self.timings
+                t0 = time.perf_counter()
+                self.done.synchronize()
+                t1 = time.perf_counter()
+                t["wait_s"] = t1 - t0
+                t["device_s"] = self._start.elapsed_time(self.done) / 1e3
+                with torch.cuda.stream(self._stream):
+                    out = self._pipeline._finish_slots(self._fused, self._slots)
+                t["fetch_s"] = time.perf_counter() - t1
+                self._result = (out, self._rlc)
+        finally:
+            self._fused = None
+            self._pipeline._release(self)
+        return self._result
 
 
 class GpuEraPipeline:
     """The era pipeline on the G1 kernels (ops/g1.py).
 
-    `last_timings` holds the wall seconds of the last run's phases: `pack_s`
-    (marshal + upload), `device_s` (all launches, to a synchronised end) and
-    `fetch_s` (download + unpack + per-slot finish). `backend` serves the
-    escapes to the host MSM: the native library when it is None, as in
-    GpuBackend."""
+    `dispatch_era` is the async half of `run_era`, under the contract of
+    the JAX package's MeshEraPipeline.dispatch_era (parallel/mesh.py:375-487):
+    it draws the RLC coefficients, packs the era into a pinned host buffer,
+    uploads it and launches the era's kernels on a CUDA stream of its own,
+    and returns a call that blocks and finishes. At most MAX_INFLIGHT = 2
+    dispatches may be unfinished: dispatch i runs on stream i % 2 and fills
+    pinned buffer i % 2 of its (S, K_pad) shape, after waiting for the
+    upload that read that buffer last (the copy only, not that era's
+    kernels); a third raises RuntimeError. A caller holding several eras
+    (consensus/crypto_batcher.TpkeEraBatcher) so overlaps era e+1's host
+    pack with era e's kernels, and era e's finish on the host with era
+    e+1's kernels. Every tensor of one era is made, used and read on its
+    own stream. A dispatch waits for the card only where a key set first
+    meets an (S, K_pad) shape (its tiled keys upload once from pageable
+    memory) and for the upload that last read its pinned buffer. On the
+    CPU the work is done at dispatch and the call only returns it, with
+    the same in-flight bookkeeping.
+
+    `last_timings` holds the phases of the era finished last (see
+    _EraDispatch). `backend` serves the escapes to the host MSM: the native
+    library when it is None, as in GpuBackend."""
+
+    MAX_INFLIGHT = 2
+    STAGED_SHAPES = 8  # (S, K_pad) shapes whose pinned buffers are kept
 
     def __init__(self, backend=None, device="cuda"):
         self.device = resolve_device(device)
         self._backend = backend or NativeBackend()
         self._y_cache = _TiledYCache(self.device)
         self.last_timings: dict = {}
+        self._dispatched = 0
+        self._inflight = 0
+        self._staging: dict = {}
+        self._streams = None
+        if self.device.type == "cuda":
+            self._streams = tuple(torch.cuda.Stream(self.device) for _ in range(2))
 
-    def run_era(self, slots, y_points, rng, masks=None):
+    def _release(self, dispatch) -> None:
+        self._inflight -= 1
+        self.last_timings = dispatch.timings
+
+    def _stage(self, s: int, k_pad: int, i: int) -> _Stage:
+        """Pinned buffer i % 2 of the (s, k_pad) shape, free to refill."""
+        pair = self._staging.get((s, k_pad))
+        if pair is None:
+            if len(self._staging) >= self.STAGED_SHAPES:
+                for old in self._staging.pop(next(iter(self._staging))):
+                    old.uploaded.synchronize()
+            pair = self._staging[(s, k_pad)] = (_Stage(s * k_pad), _Stage(s * k_pad))
+        stage = pair[i % 2]
+        stage.uploaded.synchronize()
+        return stage
+
+    def dispatch_era(self, slots, y_points, rng, masks=None) -> _EraDispatch:
         """slots: list of (u_list, lagrange_list) per ACS slot; y_points: the
-        K verification keys. Returns (per-slot (u_agg, y_agg, combined)
-        oracle points, rlc coefficients used).
+        K verification keys. Returns a call giving (per-slot (u_agg, y_agg,
+        combined) oracle points, rlc coefficients used); the coefficients
+        are drawn here, so eras dispatched in order draw as the same run_era
+        calls would.
 
         masks (optional): per-slot list of K bools; False lanes get a ZERO
         RLC coefficient, so an absent share (pass G1_INF for it) adds to
         neither aggregate."""
+        if self._inflight >= self.MAX_INFLIGHT:
+            raise RuntimeError(
+                f"{self._inflight} era dispatches are unfinished; finish one "
+                f"before dispatching another (MAX_INFLIGHT = {self.MAX_INFLIGHT})"
+            )
         t0 = time.perf_counter()
         s = len(slots)
         k = len(y_points)
@@ -144,23 +279,68 @@ class GpuEraPipeline:
         # slot with flagged-out filler lanes (zero digits -> infinity flags)
         k_pad = _pow2_at_least(k)
         pad = k_pad - k
-        dev = self.device
         u_flat = [u for u_list, _ in slots for u in u_list + [bls.G1_INF] * pad]
-        u = g1.g1_pack(u_flat, dev)
-        y = self._y_cache.get(y_points, s, k_pad)
         rlc_flat = [c for row in rlc for c in row + [0] * pad]
-        lag_flat = [c for _, lag_list in slots for c in lag_list + [0] * pad]
-        halves = [glv_split(v) for v in lag_flat]
-        rlc16 = g1.digits_col(rlc_flat, W64, dev)
-        lag1 = g1.digits_col([h[0] for h in halves], W128, dev)
-        lag2 = g1.digits_col([h[1] for h in halves], W128, dev)
+        halves = [glv_split(c) for _, lag_list in slots for c in lag_list + [0] * pad]
+        digits = (
+            (rlc_flat, W64),
+            ([h[0] for h in halves], W128),
+            ([h[1] for h in halves], W128),
+        )
+        if self._streams is None:
+            dispatch = self._dispatch_cpu(slots, y_points, rlc, u_flat, digits,
+                                          k_pad, t0)
+        else:
+            dispatch = self._dispatch_card(slots, y_points, rlc, u_flat, digits,
+                                           k_pad, t0)
+        self._dispatched += 1
+        self._inflight += 1
+        return dispatch
+
+    def _dispatch_cpu(self, slots, y_points, rlc, u_flat, digits, k_pad, t0):
+        dev = self.device
+        u = g1.g1_pack(u_flat, dev)
+        y = self._y_cache.get(y_points, len(slots), k_pad)
+        rlc16, lag1, lag2 = (g1.digits_col(v, w, dev) for v, w in digits)
         t1 = time.perf_counter()
         fused = g1.era_kernel_fused(u, y, rlc16, lag1, lag2, k_pad)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
         t2 = time.perf_counter()
+        out = self._finish_slots(fused, slots)
+        timings = {"pack_s": t1 - t0, "launch_s": 0.0, "device_s": t2 - t1,
+                   "wait_s": 0.0, "fetch_s": time.perf_counter() - t2}
+        return _EraDispatch(self, slots, rlc, timings, result=(out, rlc))
+
+    def _dispatch_card(self, slots, y_points, rlc, u_flat, digits, k_pad, t0):
+        s = len(slots)
+        i = self._dispatched
+        stream = self._streams[i % 2]
+        parts = [g1.plain_words(g1.g1_xyz(u_flat))]
+        # 4-bit digits, in range as glv.digits_col makes them
+        parts += [glv.digits_col(vals, nwin) for vals, nwin in digits]
+        stage = self._stage(s, k_pad, i)
+        np.concatenate(parts, out=stage.host.numpy())
+        t1 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            y = self._y_cache.get(y_points, s, k_pad)
+            start.record(stream)
+            buf = torch.empty(stage.host.shape, dtype=torch.int32, device=self.device)
+            buf.copy_(stage.host, non_blocking=True)
+            stage.uploaded.record(stream)
+            u = g1.mont_convert(buf[:_U_ROWS], into=True)
+            rlc16, lag1, lag2 = torch.split(buf[_U_ROWS:], [W64, W128, W128])
+            fused = g1.era_kernel_fused(u, y, rlc16, lag1, lag2, k_pad,
+                                        digits_checked=True)
+            done.record(stream)
+        timings = {"pack_s": t1 - t0, "launch_s": time.perf_counter() - t1}
+        return _EraDispatch(self, slots, rlc, timings, fused, stream, start, done)
+
+    def _finish_slots(self, fused, slots) -> list:
+        """The fused output -> per-slot (u_agg, y_agg, combined)."""
+        s = len(slots)
         rows, flags = g1.fetch(fused)  # ONE device->host copy
-        cols = g1.g1_unpack_host(rows, flags, dev.type == "cpu")  # u|y|c1|c2
+        cols = g1.g1_unpack_host(rows, flags, self.device.type == "cpu")  # u|y|c1|c2
         out = []
         for i in range(s):
             comb = bls.g1_add(cols[2 * s + i], cols[3 * s + i])
@@ -175,11 +355,11 @@ class GpuEraPipeline:
                     [c for c in lag_list if c],
                 )
             out.append((cols[i], cols[s + i], comb))
-        t3 = time.perf_counter()
-        self.last_timings = {
-            "pack_s": t1 - t0, "device_s": t2 - t1, "fetch_s": t3 - t2,
-        }
-        return out, rlc
+        return out
+
+    def run_era(self, slots, y_points, rng, masks=None):
+        """dispatch_era(...)(): the era run to its end."""
+        return self.dispatch_era(slots, y_points, rng, masks)()
 
 
 class TsGpuEraPipeline:

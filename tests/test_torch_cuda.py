@@ -869,3 +869,119 @@ def test_rs_attrs(card):
     attrs = _build.kernel_attrs()
     for name, block in (("rs_matmul8", 256), ("rs_matmul16", 1024)):
         assert attrs[name]["block"] == block and attrs[name]["local_bytes"] == 0
+
+
+def _dispatch_eras(seed):
+    """Three 2-slot eras of one N=5 key set, as (slots, y_points)."""
+    dealer, jobs, _, _ = _era(5, 1, 6, seed=seed)
+    y_points = [vk.y_i for vk in dealer.verification_keys]
+    slots = [(list(j.u_by_validator), list(j.lagrange_row)) for j in jobs]
+    return [slots[0:2], slots[2:4], slots[4:6]], y_points
+
+
+def _assert_eras_equal(got, want):
+    for (g_out, g_rlc), (w_out, w_rlc) in zip(got, want):
+        assert g_rlc == w_rlc
+        for g_slot, w_slot in zip(g_out, w_out):
+            assert all(bls.g1_eq(a, b) for a, b in zip(g_slot, w_slot))
+
+
+@pytest.mark.parametrize("sleep", [False, True])
+def test_two_stream_dispatch_equals_synchronous(card, sleep, monkeypatch):
+    """Two eras in flight on the pipeline's two streams, then a third
+    after the first finished (refilling pinned buffer 0 and running on
+    stream 0 again), equal run_era of the same eras in the same draw order;
+    with `sleep`, each dispatch's kernels wait behind a spin kernel on its
+    stream, so that the eras overlap on the card."""
+    eras, y_points = _dispatch_eras(61)
+    rng = SeededRng(8)
+    want = [GpuEraPipeline(device=card).run_era(sl, y_points, rng) for sl in eras]
+    if sleep:
+        fused = g1.era_kernel_fused
+
+        def slow(*args, **kwargs):
+            torch.cuda._sleep(50_000_000)  # ~25 ms at 2 GHz, on the era's stream
+            return fused(*args, **kwargs)
+
+        monkeypatch.setattr(g1, "era_kernel_fused", slow)
+    verify.reset_escapes()
+    pipe = GpuEraPipeline(device=card)
+    rng = SeededRng(8)
+    first = pipe.dispatch_era(eras[0], y_points, rng)
+    second = pipe.dispatch_era(eras[1], y_points, rng)
+    assert first._stream is not second._stream
+    with pytest.raises(RuntimeError, match="MAX_INFLIGHT"):
+        pipe.dispatch_era(eras[2], y_points, rng)
+    got = [first()]
+    third = pipe.dispatch_era(eras[2], y_points, rng)
+    assert third._stream is first._stream
+    got += [second(), third()]
+    _assert_eras_equal(got, want)
+    assert verify.ESCAPES["tpke_combine"] == 0
+    assert len(pipe._staging) == 1 and pipe._inflight == 0
+    assert all(d.timings["device_s"] > 0 for d in (first, second, third))
+
+
+def test_dispatch_returns_before_the_previous_era_completes(card, monkeypatch):
+    """With era e's kernels held behind a ~0.5 s spin kernel on its stream,
+    dispatching era e+1 returns on the host while era e's completion event
+    has not fired: no step of a dispatch waits for the card."""
+    eras, y_points = _dispatch_eras(67)
+    pipe = GpuEraPipeline(device=card)
+    for d in [pipe.dispatch_era(sl, y_points, SeededRng(1)) for sl in eras[:2]]:
+        d()  # warm: both streams' allocations, the tiled keys, the staging
+    fused = g1.era_kernel_fused
+    held = []
+
+    def slow(*args, **kwargs):
+        if not held:
+            torch.cuda._sleep(1_000_000_000)
+        held.append(True)
+        return fused(*args, **kwargs)
+
+    monkeypatch.setattr(g1, "era_kernel_fused", slow)
+    rng = SeededRng(2)
+    first = pipe.dispatch_era(eras[0], y_points, rng)
+    second = pipe.dispatch_era(eras[1], y_points, rng)
+    assert not first.done.query()
+    got = [first(), second()]
+    assert first.timings["wait_s"] > 0.05
+    want_pipe = GpuEraPipeline(device=card)
+    rng = SeededRng(2)
+    _assert_eras_equal(got, [want_pipe.run_era(sl, y_points, rng) for sl in eras[:2]])
+
+
+def test_batcher_on_card_equals_synchronous_era(card):
+    """TpkeEraBatcher over GpuBackend(): 5 slots, one poisoned, in chunks of
+    2 at depth 1 and 2, equal one synchronous era call of the same jobs."""
+    from lachain_tpu_torch.consensus.crypto_batcher import TpkeEraBatcher
+
+    dealer, jobs, cts, msgs = _era(5, 1, 5, seed=71)
+    row = list(jobs[3].u_by_validator)
+    row[0] = bls.g1_add(row[0], bls.G1_GEN)
+    jobs[3] = EraSlotJob(row, jobs[3].lagrange_row, jobs[3].h, jobs[3].w)
+    vks = dealer.verification_keys
+    backend = GpuBackend()
+    want = backend.tpke_era_verify_combine(jobs, vks, SeededRng(5))
+    assert [ok for ok, _ in want] == [True, True, True, False, True]
+    for depth in (1, 2):
+        batcher = TpkeEraBatcher(backend, SeededRng(6), max_slots_per_call=2, depth=depth)
+        got = []
+        for job in jobs:
+            batcher.submit([job], vks, got.extend)
+        g1.reset_launches()
+        assert batcher.flush() == 5
+        assert batcher.chunks == 3 and g1.LAUNCHES["g1_msm_scan"] == 3
+        assert [ok for ok, _ in got] == [ok for ok, _ in want]
+        for (ok, comb), (_, wcomb), ct, msg in zip(got, want, cts, msgs):
+            assert (comb is None) if not ok else (
+                bls.g1_eq(comb, wcomb) and tpke.decrypt_with_combined(ct, comb) == msg)
+
+
+def test_warmup_on_card(card):
+    from lachain_tpu_torch.crypto.warmup import era_warmup_shapes, warmup_era_kernels
+
+    t = warmup_era_kernels(5, GpuBackend())
+    t.join(timeout=300)
+    assert not t.is_alive() and t.error is None
+    assert t.eras == [("tpke", s) for s in era_warmup_shapes(5)] + [("coin", 1)]
