@@ -9,7 +9,7 @@ Phases, each of which must pass (any failure exits non-zero):
              kernel's registers, local bytes, threads per lane and block,
              and the host pairing library of lachain_tpu_torch/crypto/native/
              (g++, GpuBackend's host backend);
-  2. kernels hold each of the nineteen kernels against its plain PyTorch
+  2. kernels hold each of the twenty-one kernels against its plain PyTorch
              version (ops/g1_ref.py, ops/g2_ref.py, ops/secp_ref.py,
              ops/rs_ref.py) on the
              card, on seeded inputs at the main paths' shapes (8192 lanes,
@@ -24,7 +24,11 @@ Phases, each of which must pass (any failure exits non-zero):
              secp Montgomery conversions out of and into form on a (25,
              8192) buffer with a flag row, the G1 ones (g1_mont) out of
              form, into it and by beta on a (37, 8192) buffer with a flag
-             row and into form on the coin era's (72, 4096) G2 pack): exact
+             row and into form on the coin era's (72, 4096) G2 pack; the
+             GLV era's fixed-base kernels at N=64: g1_fixed_tables over the
+             64 keys, entries (0, 1), (7, 15), (15, 1), (15, 15) also against
+             the host's multiples, and g1_fixed_scan over the 4096 key lanes
+             with 64-bit RLC digits, a zero-digit and an all-zero lane): exact
              equality of coordinates mod p and flags (of the conversions,
              words bit for bit, and Python ints); the Reed-Solomon product
              (rs_matmul8, rs_matmul16) bit for bit at every launch shape of
@@ -51,7 +55,7 @@ Phases, each of which must pass (any failure exits non-zero):
              backend)) is started and joined: the fully masked TPKE era
              at each slot tier, largest first, and one coin era, on a
              GpuBackend of its own; it must end with no error;
-  4. main    six paths, each with the kernel launch counts set to 0 just
+  4. main    seven paths, each with the kernel launch counts set to 0 just
              before its counted calls and read just after:
              the N=64 TPKE era (64 ACS slots x 64 decryption shares) through
              GpuBackend(device="cuda").tpke_era_verify_combine: every slot
@@ -72,6 +76,16 @@ Phases, each of which must pass (any failure exits non-zero):
              at depth 2, traced; then 10 flushes of the one-chunk and
              4-chunk configurations at depth 1 and 2 in turns, with each
              chunk's phases and the card's idle share;
+             the same N=64 era through GpuBackend(pipeline=GlvEraPipeline())
+             (run_glv_path): a fresh backend's first era launches the key
+             tables once (GLV_FIRST), a warm era exactly 1 G1 table build
+             over [u | u | phi(u)] (12,288 lanes), 1 G1 scan, 1 fixed-base
+             scan over the 4096 key lanes, 6 tree adds, 3 g1_mont, no
+             doubling, no fp_mul (GLV_LAUNCHES, traced as counted); every
+             slot decrypts, a poisoned share isolates its slot, 4 slots equal
+             HostEraPipeline's; then GpuTpkeVerifier on slot 0 (K=64) and
+             curve.g1_msm / g2_msm at n=100 with 256 bits against the host,
+             and msm.tpke_era_glv_kernel's (S, 4) output against era_kernel's;
              the N=64 coin era (64 coins x 64 signers, 22 live shares each)
              through threshold_sig.era_verify_combine on the same backend:
              every signature must verify under the shared key with the host
@@ -111,7 +125,10 @@ Phases, each of which must pass (any failure exits non-zero):
              the best of 2, and its wall with device="cpu" and with the
              numpy GF.matmul oracle) and a torch.profiler split of each
              device phase by kernel, whose traced launches of each path's
-             kernels must equal the counted ones.
+             kernels must equal the counted ones; the GLV key tables'
+             first call, and 10 warm GLV and Pallas-path eras in turns
+             (medians and quartiles of the wall and the device phase, the
+             traced device time by kernel, the idle share).
 The last three lines of standard output are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}.
 
@@ -184,17 +201,22 @@ BLOCK_TXS = 1000
 # and the re-encode, one launch each
 RBC_LAUNCHES = 3
 KERNEL_NAMES = ("fp_mul_kernel", "dbl_kernel", "add_kernel", "msm_scan_kernel",
-                "g1_table_kernel", "g1_mont_kernel",
+                "g1_table_kernel", "g1_mont_kernel", "g1_fixed_tables_kernel",
+                "g1_fixed_scan_kernel",
                 "g2_dbl_kernel", "g2_add_kernel", "g2_msm_scan_kernel",
                 "g2_table_kernel",
                 "secp_fp_mul_kernel", "secp_dbl_kernel", "secp_add_kernel",
                 "secp_msm_scan_kernel", "secp_sqrt_kernel", "secp_table_kernel",
                 "secp_mont_kernel", "rs_matmul8_kernel", "rs_matmul16_kernel")
-G1_KERNELS = ("fp_mul", "g1_dbl", "g1_add", "g1_table", "g1_msm_scan", "g1_mont")
+G1_KERNELS = ("fp_mul", "g1_dbl", "g1_add", "g1_table", "g1_msm_scan", "g1_mont",
+              "g1_fixed_tables", "g1_fixed_scan")
+# the fixed-base key kernels serve the GLV era path only
+GLV_ONLY = ("g1_fixed_tables", "g1_fixed_scan")
 # the wrapper's kernel name -> the CUDA kernel's
 KERNEL_OF = {"fp_mul": "fp_mul_kernel", "g1_dbl": "dbl_kernel",
              "g1_add": "add_kernel", "g1_msm_scan": "msm_scan_kernel"}
-KERNEL_OF.update({k: f"{k}_kernel" for k in ("g1_table", "g1_mont", "g2_dbl", "g2_add",
+KERNEL_OF.update({k: f"{k}_kernel" for k in ("g1_table", "g1_mont", "g1_fixed_tables",
+                                              "g1_fixed_scan", "g2_dbl", "g2_add",
                                               "g2_msm_scan", "g2_table",
                                               "secp_fp_mul", "secp_dbl", "secp_add",
                                               "secp_table", "secp_msm_scan",
@@ -207,6 +229,15 @@ KERNEL_OF.update({k: f"{k}_kernel" for k in ("g1_table", "g1_mont", "g2_dbl", "g
 # fp_mul
 TPKE_LAUNCHES = {"g1_msm_scan": 1, "g1_table": 1, "g1_dbl": 0, "g1_add": 6,
                  "g1_mont": 4, "fp_mul": 0}
+# a warm GLV era (GlvEraPipeline, the key tables cached): one table build
+# and one scan over [u | u | phi(u)] (12,288 lanes at N=64), the
+# fixed-base scan over the 4096 key lanes, ONE tree of log2(64) = 6 adds;
+# 3 g1_mont (the share pack, phi's product by beta, the fetch); no
+# doubling, no fp_mul, no table of the keys. A key set's first era adds
+# one g1_fixed_tables and one g1_mont (the key pack).
+GLV_LAUNCHES = {"g1_table": 1, "g1_msm_scan": 1, "g1_fixed_scan": 1, "g1_add": 6,
+                "g1_mont": 3, "g1_dbl": 0, "fp_mul": 0, "g1_fixed_tables": 0}
+GLV_FIRST = dict(GLV_LAUNCHES, g1_fixed_tables=1, g1_mont=4)
 # the coin era's counted call: one G2 table build (one launch) and one
 # G2 scan over [table | table], two G2 tree reduces of 6 adds; the key RLC
 # as one G1 table build, scan and tree reduce; 3 g1_mont (the G2 signature
@@ -456,6 +487,7 @@ def check_kernels(seed: int, dev):
     # (17) g1_mont on a (37, 8192) buffer with a flag row (the fetch's
     # layout), and into form on the coin era's (72, 4096) G2 pack
     report["g1_mont"] = g1_mont_entry(rng, dev, n)
+    report.update(check_fixed_base_kernels(rng, dev))
     report.update(check_g2_kernels(rng, dev))
     report.update(check_secp_kernels(rng, dev))
     report.update(check_rs_kernels(rng, dev))
@@ -463,6 +495,76 @@ def check_kernels(seed: int, dev):
         report_line(name, r)
     bad = [name for name, r in report.items() if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
+    return report
+
+
+def check_fixed_base_kernels(rng: random.Random, dev):
+    """The GLV era's two fixed-base kernels against g1_ref at N=64's shapes:
+    g1_fixed_tables over the 64 keys (every entry of the 16 x 16 tables,
+    and entries (w, d) = (0, 1), (7, 15), (15, 1), (15, 15) of three keys
+    against the host's d * 16^(15 - w) * Y), and g1_fixed_scan over the
+    era's 4096 key lanes (64 slots x 64) with 64-bit RLC digits, a lane
+    with zero digits between nonzero ones and an all-zero lane among
+    them. Exact: coordinates mod p and flags."""
+    import torch
+
+    from lachain_tpu_torch.crypto import bls12381 as bls
+    from lachain_tpu_torch.ops import g1, g1_ref, glv
+
+    k = N_VALIDATORS
+    keys = glv.point_run(rng, k)
+    kk = g1.g1_pack(keys, dev)
+    kt = g1.fixed_tables(kk)
+    rt, plain_ms = cuda_ms_once(lambda: g1_ref.fixed_tables(
+        torch.from_numpy(g1_ref.points_to_limbs(keys)).to(dev)))
+
+    def window(tables, w):
+        if tables.dtype == torch.int32:
+            return g1.fp_decode(tables[w].reshape(glv.TABLE * 36, k))
+        limbs = tables[w].reshape(3 * glv.TABLE, 44, k).permute(1, 0, 2)
+        return g1_ref.limbs_to_ints(limbs.reshape(44, -1).cpu().numpy())
+
+    diffs = [max_err(window(kt, w), window(rt, w)) for w in range(glv.W64)]
+    for w, d in ((0, 1), (7, 15), (15, 1), (15, 15)):
+        co = g1.g1_coords(kt[w, d])
+        for i in (0, k // 2, k - 1):
+            check(bls.g1_eq((co[i], co[k + i], co[2 * k + i]),
+                            bls.g1_mul(keys[i], d * 16 ** (glv.W64 - 1 - w))),
+                  f"g1_fixed_tables entry ({w}, {d}) of key {i} != the host's")
+    # the function's own sequential chain (msm.y_fixed_base_tables): 4
+    # doublings from one window's base to the next, a table a window. The
+    # kernel re-doubles each (key, window) lane from Y, 4 * (15 - w)
+    # doublings, to shorten the chain; the bound does not count them.
+    products = k * (MULS_DBL * glv.WINDOW * (glv.W64 - 1) + glv.W64 * MULS_TABLE)
+    tables_bytes = glv.W64 * glv.TABLE * 144 * k
+    report = {"g1_fixed_tables": dict(
+        lanes=glv.W64 * k, layout="N=64 keys", ok=max(diffs) == 0, max_abs_err=max(diffs),
+        ms=cuda_ms(lambda: g1.fixed_tables(kk), 10), plain_ms=plain_ms,
+        bound=bound(144 * k + tables_bytes, products * OPS_PER_FIELD_MUL),
+    )}
+
+    n = KERNEL_LANES // 2  # 64 slots x 64 key lanes
+    rlc = [rng.randrange(1, 1 << 64) for _ in range(n)]
+    rlc[0] = 0  # an all-zero lane
+    rlc[1] = 0xF00000000000000F  # zero digits between nonzero ones
+    digits = g1.digits_col(rlc, glv.W64, dev)
+    acc, fl = g1.fixed_scan(kt, digits, k)
+    (racc, rfl), plain_ms = cuda_ms_once(lambda: g1_ref.fixed_scan(rt, digits, k))
+    got, want = g1.g1_coords(acc), g1.g1_coords(racc.cpu())
+    flags_ok = fl.cpu().tolist() == rfl.cpu().tolist() == [c == 0 for c in rlc]
+    for j in (1, 2, n - 1):
+        check(bls.g1_eq((want[j], want[n + j], want[2 * n + j]), bls.g1_mul(keys[j % k], rlc[j])),
+              f"g1_ref.fixed_scan lane {j} != the host's rlc * Y")
+    nz = digits.cpu() != 0
+    adds = int(nz.sum()) - int(nz.any(0).sum())
+    report["g1_fixed_scan"] = dict(
+        lanes=n, windows=glv.W64, layout="N=64 key lanes", ok=got == want and flags_ok,
+        max_abs_err=max_err(got, want),
+        ms=cuda_ms(lambda: g1.fixed_scan(kt, digits, k, digits_checked=True), 20),
+        plain_ms=plain_ms,
+        bound=bound(tables_bytes + 4 * glv.W64 * n + 145 * n,
+                    adds * MULS_ADD * OPS_PER_FIELD_MUL),
+    )
     return report
 
 
@@ -873,7 +975,7 @@ def make_era(n: int, seed: int):
 
 def profile_device(run) -> dict:
     """{kernel: [device ms, launches]} of one call of run() from
-    torch.profiler; device work that is not one of the nineteen kernels
+    torch.profiler; device work that is not one of the twenty-one kernels
     (copies, cat, where) is summed under "torch". A trace loses the first
     device activities of its session (a trace of the recover path lacked
     its first three launches), so run() goes twice under the profiler's
@@ -933,7 +1035,7 @@ def profile_launches(run, want: dict, label: str, tries: int = 5) -> dict:
 def kernel_of(key: str) -> str:
     """The kernel of a profiler key, templated or not
     ("(anonymous namespace)::msm_scan_kernel<4>(...)" -> "msm_scan_kernel"),
-    or "torch" for device work that is none of the nineteen."""
+    or "torch" for device work that is none of the twenty-one."""
     m = re.search(r"::(\w+)[<(]", key)
     return m[1] if m and m[1] in KERNEL_NAMES else "torch"
 
@@ -1282,6 +1384,191 @@ def run_flush_path(seed: int, backend, dev, era):
                 f"(q1 {q1 * 1e3:.3f}, q3 {q3 * 1e3:.3f}) over {FLUSH_ROUNDS} flushes in "
                 f"turns; per chunk, median ms: {phases}; traced device time "
                 f"{busy:.3f} ms, idle share {1 - busy / (med * 1e3):.4f}")
+    return launches, warm
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the N=64 TPKE era on the fixed-base key tables (GlvEraPipeline)
+# ---------------------------------------------------------------------------
+
+GLV_ROUNDS = 10
+
+
+def run_glv_path(seed: int, backend, dev, era):
+    """The N=64 era through GpuBackend(pipeline=GlvEraPipeline()): the
+    counted run is a fresh backend's first era (GLV_FIRST: the key tables
+    made) and a warm era (GLV_LAUNCHES); every slot decrypts, a poisoned
+    share isolates its slot, 4 slots equal HostEraPipeline's (on the
+    native host library, as the checks below), no host
+    recompute, and a warm era's traced launches equal the counted ones.
+    Then GpuTpkeVerifier on slot 0 (K=64), curve.g1_msm / g2_msm at n=100
+    with 256 bits against the host MSM, and msm.tpke_era_glv_kernel's (S, 4)
+    output against era_kernel's. Timed: the key tables' first call, and
+    GLV_ROUNDS warm GLV eras and Pallas-path eras (`backend`) in turns:
+    medians and quartiles of the wall and the device phase (CUDA events),
+    the traced device time by kernel, the idle share."""
+    import torch
+
+    from lachain_tpu_torch.crypto import bls12381 as bls
+    from lachain_tpu_torch.crypto import tpke
+    from lachain_tpu_torch.crypto.gpu_backend import EraSlotJob, GpuBackend
+    from lachain_tpu_torch.crypto.native_backend import NativeBackend
+    from lachain_tpu_torch.ops import curve, g1, g2, glv, msm
+    from lachain_tpu_torch.ops.verify import (
+        GlvEraPipeline, GpuEraPipeline, GpuTpkeVerifier, HostEraPipeline)
+
+    dealer, cts, msgs, jobs = era
+    n = len(jobs)
+    vks = dealer.verification_keys
+    y_points = [vk.y_i for vk in vks]
+    slots = [(list(j.u_by_validator), list(j.lagrange_row)) for j in jobs]
+    names = tuple(GLV_LAUNCHES)
+
+    def check_all(res, bad=()):
+        for s, (ok, comb) in enumerate(res):
+            if s in bad:
+                check(ok is False and comb is None, f"glv era: slot {s} not isolated")
+            else:
+                check(ok and tpke.decrypt_with_combined(cts[s], comb) == msgs[s],
+                      f"glv era: slot {s} not verified and decrypted")
+
+    # the counted run: a fresh backend's first era, then a warm one
+    glv_backend = GpuBackend(device=dev, pipeline=GlvEraPipeline(device=dev))
+    reset_counts()
+    t0 = time.perf_counter()
+    res = glv_backend.tpke_era_verify_combine(jobs, vks, SeededRng(seed + 50))
+    first_s = time.perf_counter() - t0
+    first = {k: read_launches()[k] for k in names}
+    check_all(res)
+    check(first == GLV_FIRST, f"glv era: first era launches {first} != {GLV_FIRST}")
+    res = glv_backend.tpke_era_verify_combine(jobs, vks, SeededRng(seed + 51))
+    launches = read_launches()
+    check_no_escapes("glv era")
+    check_all(res)
+    warm_got = {k: launches[k] - first[k] for k in names}
+    check(warm_got == GLV_LAUNCHES, f"glv era: warm launches {warm_got} != {GLV_LAUNCHES}")
+    log(f"glv era N={n}: {n} slots verified and decrypted through "
+        f"GpuBackend(pipeline=GlvEraPipeline()); first era {first_s:.3f} s, launches "
+        f"{first}; warm era launches {warm_got}; phases {glv_backend.last_timings}")
+
+    bad_slot = n // 4 + 1
+    row = list(jobs[bad_slot].u_by_validator)
+    row[3] = bls.g1_add(row[3], bls.G1_GEN)
+    poisoned = list(jobs)
+    poisoned[bad_slot] = EraSlotJob(row, jobs[bad_slot].lagrange_row,
+                                    jobs[bad_slot].h, jobs[bad_slot].w)
+    check_all(glv_backend.tpke_era_verify_combine(poisoned, vks, SeededRng(seed + 52)),
+              bad=(bad_slot,))
+    log(f"glv era, poisoned: slot {bad_slot} isolated, the others decrypt")
+
+    # a warm era's traced launches against the counted ones
+    warm_pipe = GlvEraPipeline(device=dev)
+    warm_pipe.run_era(slots, y_points, SeededRng(seed + 53))
+    by_kernel = profile_launches(
+        lambda: warm_pipe.run_era(slots, y_points, SeededRng(seed + 54)),
+        {KERNEL_OF[k]: GLV_LAUNCHES[k] for k in names}, "glv era")
+    check_traced("glv era (warm)", by_kernel, warm_got, names)
+
+    # the host oracles on the native library: independent of the kernels,
+    # and seconds faster than pure Python at these sizes
+    host = NativeBackend()
+    got, got_rlc = warm_pipe.run_era(slots[:4], y_points, SeededRng(seed + 55))
+    want, want_rlc = HostEraPipeline(host).run_era(slots[:4], y_points,
+                                                   SeededRng(seed + 55))
+    check(got_rlc == want_rlc, "glv era: rlc draws differ")
+    for s, (a, b) in enumerate(zip(got, want)):
+        check(all(bls.g1_eq(x, y) for x, y in zip(a, b)),
+              f"glv era: slot {s} differs from HostEraPipeline")
+    log("glv era: 4 slots equal to HostEraPipeline (u_agg, y_agg, combined, rlc)")
+
+    # GpuTpkeVerifier on slot 0, all 64 shares
+    rng = random.Random(seed + 56)
+    u0, lag0 = slots[0]
+    rlc0 = [rng.randrange(1, 1 << 64) for _ in range(n)]
+    reset_counts()
+    t0 = time.perf_counter()
+    ok, comb = GpuTpkeVerifier(device=dev).verify_and_combine(
+        u0, y_points, jobs[0].h, jobs[0].w, rlc0, lag0)
+    ver_s = time.perf_counter() - t0
+    check_no_escapes("GpuTpkeVerifier")
+    check(ok and tpke.decrypt_with_combined(cts[0], comb) == msgs[0],
+          "GpuTpkeVerifier: slot 0 not verified and decrypted")
+    check(bls.g1_eq(comb, host.g1_msm(u0, lag0)), "GpuTpkeVerifier: combined != host")
+    log(f"GpuTpkeVerifier, slot 0 (K={n}): ok, combined equals the host MSM, "
+        f"{ver_s:.3f} s, launches {read_launches()}")
+
+    # the bit-serial MSM entries at n = 100 with 256 bits
+    g1_pts = glv.point_run(rng, 100)
+    g1_pts[7] = bls.G1_INF
+    g2_pts = glv.point_run(rng, 100, mul=bls.g2_mul, add=bls.g2_add, gen=bls.G2_GEN)
+    scalars = [rng.randrange(bls.R) for _ in range(100)]
+    bits = torch.from_numpy(curve.scalars_to_bits(scalars, 256)).to(dev)
+    reset_counts()
+    out = []
+    for pack, fn in ((g1.g1_pack, curve.g1_msm), (g2.g2_pack, curve.g2_msm)):
+        pt, fl = fn(pack(g1_pts if fn is curve.g1_msm else g2_pts, dev), bits)
+        out.append(g1.fetch(torch.cat([pt, fl.to(pt.dtype)[None]])[:, None]))
+    msm_launches = read_launches()
+    cpu = dev.type == "cpu"
+    got1 = g1.g1_unpack_host(*out[0], cpu)[0]
+    got2 = g2.g2_unpack_host(*out[1], cpu)[0]
+    check(bls.g1_eq(got1, host.g1_msm(g1_pts, scalars)), "curve.g1_msm != host")
+    check(bls.g2_eq(got2, host.g2_msm(g2_pts, scalars)), "curve.g2_msm != host")
+    log(f"curve.g1_msm and g2_msm at n=100 (256 bits, an infinity input) equal "
+        f"the host MSM; launches {msm_launches}")
+
+    # the 4K-lane era kernel's (S, 4) entry against era_kernel
+    k_pad = n
+    u = g1.g1_pack([p for u_list, _ in slots for p in u_list], dev)
+    y = g1.g1_pack(y_points * n, dev)
+    rlc16, lag1, lag2 = (torch.from_numpy(d).to(dev) for d in msm.era_digits(
+        [rng.randrange(1, 1 << 64) for _ in range(n * n)],
+        [c for _, lag in slots for c in lag]))
+    pts, flags = msm.tpke_era_glv_kernel(u, y, rlc16, lag1, lag2, k_pad)
+    out_r, ofl_r, out_l, ofl_l = g1.era_kernel(u, y, rlc16, lag1, lag2, k_pad)
+    check(torch.equal(pts, torch.cat([out_r, out_l], 1).reshape(-1, 4, n).transpose(1, 2))
+          and torch.equal(flags, torch.cat([ofl_r, ofl_l]).reshape(4, n).T),
+          "tpke_era_glv_kernel (S, 4) != era_kernel")
+    log(f"msm.tpke_era_glv_kernel: (S, 4) = {tuple(flags.shape)} output equal to "
+        f"era_kernel's, word for word")
+
+    # times: the key tables' first call, then warm eras in turns
+    fresh = GlvEraPipeline(device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tables = fresh.y_device(y_points)
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    kk = g1.g1_pack(y_points, dev)
+    tables_ms = cuda_ms(lambda: msm.y_fixed_base_tables(kk), 5)
+    log(f"glv key tables ({tuple(tables.shape)}, {tables.numel() * 4 / 1e6:.2f} MB): "
+        f"first call {tables_s * 1e3:.3f} ms on the host clock (pack, g1_mont, "
+        f"g1_fixed_tables, synchronized); g1_fixed_tables alone {tables_ms:.4f} ms")
+    paths = {"glv": glv_backend, "pallas": backend}
+    walls = {p: [] for p in paths}
+    device = {p: [] for p in paths}
+    warm = []
+    for r in range(GLV_ROUNDS):
+        for p in (("glv", "pallas") if r % 2 == 0 else ("pallas", "glv")):
+            b = paths[p]
+            t0 = time.perf_counter()
+            check_all(b.tpke_era_verify_combine(jobs, vks, SeededRng(seed + 60 + r)))
+            wall = time.perf_counter() - t0
+            walls[p].append(wall)
+            device[p].append(b.last_timings["device_s"])
+            if p == "glv":
+                warm.append(dict(b.last_timings, wall_s=wall))
+    pal_pipe = GpuEraPipeline(device=dev)
+    pal_pipe.run_era(slots, y_points, SeededRng(seed + 57))
+    for p, pipe in (("glv", warm_pipe), ("pallas", pal_pipe)):
+        by_kernel = profile_device(lambda: pipe.run_era(slots, y_points, SeededRng(seed + 58)))
+        busy = sum(v[0] for v in by_kernel.values())
+        wq, dq = quartiles(walls[p]), quartiles(device[p])
+        log(f"{p} era warm: wall median {wq[1] * 1e3:.3f} ms (q1 {wq[0] * 1e3:.3f}, "
+            f"q3 {wq[2] * 1e3:.3f}), device phase median {dq[1] * 1e3:.3f} ms (q1 "
+            f"{dq[0] * 1e3:.3f}, q3 {dq[2] * 1e3:.3f}) over {GLV_ROUNDS} eras in turns; "
+            f"traced device {busy:.3f} ms by kernel (ms, launches) {by_kernel}; idle "
+            f"share {1 - busy / (wq[1] * 1e3):.4f}")
     return launches, warm
 
 
@@ -1883,18 +2170,23 @@ def main() -> int:
     era = make_era(N_VALIDATORS, args.seed)
     log(f"host setup (dealer, {N_VALIDATORS} ciphertexts, {N_VALIDATORS ** 2} "
         f"shares): {time.perf_counter() - t0:.1f} s")
-    paths = {
-        "tpke_era": run_tpke_path(args.seed, backend, dev, era),
-        "tpke_flush": run_flush_path(args.seed, backend, dev, era),
-        "coin_era": run_coin_path(args.seed, backend, dev),
-        "ecdsa_recover": run_ecdsa_path(args.seed, dev),
-    }
-    for n in RBC_ERAS:
-        paths[f"rbc_flush_{n}"] = run_rbc_path(args.seed, n, dev)
-    g1_path = tuple(k for k in G1_KERNELS if k not in NO_PATH)
+    runs = [
+        ("tpke_era", lambda: run_tpke_path(args.seed, backend, dev, era)),
+        ("tpke_flush", lambda: run_flush_path(args.seed, backend, dev, era)),
+        ("glv_era", lambda: run_glv_path(args.seed, backend, dev, era)),
+        ("coin_era", lambda: run_coin_path(args.seed, backend, dev)),
+        ("ecdsa_recover", lambda: run_ecdsa_path(args.seed, dev)),
+    ] + [(f"rbc_flush_{n}", lambda n=n: run_rbc_path(args.seed, n, dev)) for n in RBC_ERAS]
+    paths = {}
+    for path, run in runs:
+        t0 = time.perf_counter()
+        paths[path] = run()
+        log(f"path {path}: {time.perf_counter() - t0:.1f} s")
+    g1_path = tuple(k for k in G1_KERNELS if k not in NO_PATH + GLV_ONLY)
     needs = {
         "tpke_era": g1_path,
         "tpke_flush": g1_path,
+        "glv_era": tuple(k for k in GLV_FIRST if GLV_FIRST[k]),
         "coin_era": g1_path + ("g2_add", "g2_table", "g2_msm_scan"),
         "ecdsa_recover": tuple(k for k in SECP_KERNELS if k not in NO_PATH),
         "rbc_flush_64": ("rs_matmul8",),
@@ -1916,6 +2208,10 @@ def main() -> int:
         # _dbl_kernel), pg1.py:447, in one launch
         "g1_table": "lachain_tpu/ops/pg1.py:257",
         "g1_msm_scan": "lachain_tpu/ops/pg1.py:355",
+        # XLA device programs of msm.py, not Pallas: the fixed-base tables
+        # and the gathers of the y aggregates
+        "g1_fixed_tables": "lachain_tpu/ops/msm.py:246",
+        "g1_fixed_scan": "lachain_tpu/ops/msm.py:266",
         "g2_dbl": "lachain_tpu/ops/pg2.py:218",
         "g2_add": "lachain_tpu/ops/pg2.py:222",
         # build_table2's chain of _add2_kernel launches (and one

@@ -86,13 +86,22 @@ class GpuBackend:
 
     `GpuBackend()` asks for the card and raises where there is none;
     `device="cpu"` runs the kernels' plain versions (tests). The host ops
-    run on `host_backend`, the native library when it is None."""
+    run on `host_backend`, the native library when it is None. `pipeline`
+    takes the TPKE era pipeline, as TpuBackend.__init__ does
+    (tpu_backend.py:81-87): by default a GpuEraPipeline on the backend's
+    device; a synchronous pipeline (ops/verify.GlvEraPipeline) runs
+    tpke_era_verify_combine through _dispatch_era_batch's synchronous
+    branch. A pipeline on another device than the backend's raises. The
+    coin era always runs on a TsGpuEraPipeline."""
 
-    def __init__(self, device="cuda", host_backend=None):
+    def __init__(self, device="cuda", host_backend=None, pipeline=None):
         self.device = resolve_device(device)
+        if pipeline is not None and pipeline.device != self.device:
+            raise ValueError(f"a pipeline on {pipeline.device} for a backend "
+                             f"on {self.device}")
         self._host = host_backend or NativeBackend()
-        # the pipelines' escapes to the host MSM use the host backend
-        self._pipeline = GpuEraPipeline(self._host, self.device)
+        # the default pipelines' escapes to the host MSM use the host backend
+        self._pipeline = pipeline or GpuEraPipeline(self._host, self.device)
         self._ts_pipeline = TsGpuEraPipeline(self._host, self.device)
         self._y_cache: dict = {}
         # wall seconds of the era finished last: the pipeline's phases +
@@ -104,8 +113,10 @@ class GpuBackend:
 
     @property
     def era_dispatch_depth(self) -> int:
-        """How many TPKE era dispatches may be unfinished at once."""
-        return self._pipeline.MAX_INFLIGHT
+        """How many TPKE era dispatches may be unfinished at once: the
+        pipeline's MAX_INFLIGHT, 1 for a synchronous pipeline
+        (GlvEraPipeline)."""
+        return getattr(self._pipeline, "MAX_INFLIGHT", 1)
 
     # -- host ops ------------------------------------------------------------
     @property

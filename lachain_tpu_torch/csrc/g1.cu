@@ -10,7 +10,16 @@
 //   lt_g1_mont      this port's own: every coordinate of a buffer into or
 //                   out of Montgomery form, or times beta (phi's X), in one
 //                   launch (pg1 has no Montgomery form)
+//   lt_g1_fixed_tables <- msm.y_fixed_base_tables (XLA, msm.py:246): the
+//                   keys' 16 x 16 fixed-base table entries, one launch
+//   lt_g1_fixed_scan   <- msm.y_agg_fixed_base's gathers (XLA, msm.py:266):
+//                   the RLC windows' entries summed per lane, no doublings
 //
+// The two fixed-base kernels are latency chains on few lanes: a tables lane
+// runs up to 4 * 15 doublings and a table chain (74 point operations), the
+// scan at most 15 adds; their bounds (operations) are microseconds
+// (chip_smoke.py). They run on the group field like the scan, 4 threads a
+// lane, and are kept simple.
 // Representation. pg1's 44 x 10-bit signed limbs, its f32 MXU residue fold
 // and its 256-lane VMEM tiles are TPU artifacts. Here a field element is 12
 // x 32-bit limbs in Montgomery form (R = 2^384), always canonical in [0, p)
@@ -94,6 +103,7 @@ namespace {
 constexpr int PR = 3 * NL;   // rows per point: X | Y | Z
 constexpr int WINDOW = 4;
 constexpr int TABLE = 16;   // entries k*P, k in [0, 16)
+constexpr int W64 = 16;     // windows of a 64-bit RLC coefficient
 constexpr int THREADS = 64;  // n = 8192 lanes -> 128 blocks over 132 SMs
 constexpr int SCAN_T = LT_G1_SCAN_T;  // threads per lane (group field)
 constexpr int SCAN_BLOCK = 64;        // their threads per block
@@ -322,6 +332,82 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
   }
 }
 
+// msm.y_fixed_base_tables (msm.py:246) in one launch: the tables (16, 16,
+// 36, K) of K keys, entry [w, d] = d * 16^(15 - w) * Y, one lane per
+// (window, key), lane e = w * K + key. The lane doubles its key 4 * (15 -
+// w) times, then runs build_table's chain (coop.cuh chain_table) into
+// window w. A doubling chain is deterministic, so every entry is word for
+// word the one of the plain version's sequential chain (g1_ref
+// fixed_tables). Lanes of one window are adjacent, so a warp straddles two
+// windows only where 8 does not divide K; the doubling loop runs while any
+// lane of the warp still doubles (lanes_any), which keeps its collectives
+// converged. A group past the lanes doubles nothing and stores nothing.
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    g1_fixed_tables_kernel(const uint32_t* __restrict__ keys,
+                           uint32_t* __restrict__ tables, int k) {
+  const Group<T> g = make_coop_group<BlsFp, T>();
+  bool live;
+  const int e = group_lane<T, SCAN_BLOCK>(TABLE * k, live);
+  const int w = e / k, col = e - w * k;
+  const int ndbl = live ? WINDOW * (TABLE - 1 - w) : 0;
+  PtG<T> p = load_pt_g(g, keys, k, col);
+#pragma unroll 1
+  for (int i = 0; lanes_any(g, i < ndbl); ++i) {
+    const PtG<T> q = g1_dbl_g(g, p);
+    if (i < ndbl) p = q;
+  }
+  const ZPow<FpG<T>> pz = z_pow_g(g, p.z);
+  uint32_t* __restrict__ win = tables + (size_t)w * TABLE * PR * k;
+  chain_table<TABLE>(
+      p, live, [&](const PtG<T>& q) { return g1_dbl_g(g, q); },
+      [&](const PtG<T>& q) { return g1_add_g(g, q, p, pz); },
+      [&](int d, const PtG<T>& q) {
+        store_pt_g(g, win + (size_t)d * PR * k, k, col, q);
+      });
+}
+
+// msm.y_agg_fixed_base's gathers (msm.py:266) as a scan: lane j of n sums
+// tables[w, d_w] of key column j % k_pad over the 16 MSB-first RLC windows,
+// with msm_scan's flag rules (a zero digit keeps the accumulator and the
+// flag, a flagged accumulator takes the entry, otherwise the entry is
+// added). It is msm_scan_kernel with the doublings taken out and table row
+// w read at tables + w * 16 * 36 * k_pad: at most 15 incomplete adds a
+// lane. A lane's partial sums are multiples of its key below 2^64 < r, so
+// they never equal +-entry: the adds cannot collide. Digits must lie in
+// [0, 16).
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    g1_fixed_scan_kernel(const uint32_t* __restrict__ tables,
+                         const int32_t* __restrict__ digits,
+                         uint32_t* __restrict__ acc_out,
+                         uint8_t* __restrict__ flag_out, int n, int k_pad) {
+  const Group<T> g = make_coop_group<BlsFp, T>();
+  bool live;
+  const int lane = group_lane<T, SCAN_BLOCK>(n, live);
+  const int col = lane % k_pad;
+  const size_t window = (size_t)TABLE * PR * k_pad;
+  int d = live ? digits[lane] : 0;
+  PtG<T> acc = select_entry_g(g, tables, d, k_pad, col);
+  bool flag = d == 0;
+#pragma unroll 1
+  for (int w = 1; w < W64; ++w) {
+    d = live ? digits[(size_t)w * n + lane] : 0;
+    const PtG<T> entry = select_entry_g(g, tables + w * window, d, k_pad, col);
+    const bool add = d != 0 && !flag;
+    if (lanes_any(g, add)) {
+      const PtG<T> sum = g1_add_g(g, acc, entry);
+      if (add) acc = sum;
+    }
+    if (d != 0 && flag) acc = entry;
+    flag = flag && d == 0;
+  }
+  if (live) {
+    store_pt_g(g, acc_out, n, lane, acc);
+    if (g.rank == 0) flag_out[lane] = flag ? 1 : 0;
+  }
+}
+
 // Every coordinate of a (12 coords [+ 1], n) buffer in one launch:
 // element c * n + j is coordinate c's words at rows 12c .. 12c + 11, lane
 // j, read as the buffer lies. kMontInto: x R mod p, one product by R^2;
@@ -407,6 +493,30 @@ int lt_g1_msm_scan(const void* table, const void* digits, void* acc,
   return (int)cudaGetLastError();
 }
 
+int lt_g1_fixed_tables(const void* keys, void* tables, int k, void* stream) {
+  if (k > 0) {
+    g1_fixed_tables_kernel<SCAN_T>
+        <<<group_blocks<SCAN_T, SCAN_BLOCK>(TABLE * k), SCAN_BLOCK, 0,
+           (cudaStream_t)stream>>>((const uint32_t*)keys, (uint32_t*)tables,
+                                   k);
+  }
+  return (int)cudaGetLastError();
+}
+
+// n lanes, a multiple of k_pad: lane j reads key column j % k_pad
+int lt_g1_fixed_scan(const void* tables, const void* digits, void* acc,
+                     void* flags, int n, int k_pad, void* stream) {
+  if (k_pad < 1 || n % k_pad != 0) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    g1_fixed_scan_kernel<SCAN_T>
+        <<<group_blocks<SCAN_T, SCAN_BLOCK>(n), SCAN_BLOCK, 0,
+           (cudaStream_t)stream>>>((const uint32_t*)tables,
+                                   (const int32_t*)digits, (uint32_t*)acc,
+                                   (uint8_t*)flags, n, k_pad);
+  }
+  return (int)cudaGetLastError();
+}
+
 // rows = 12 * coords, or 12 * coords + 1 with a trailing flag row; op a
 // MontOp
 int lt_g1_mont(const void* x, void* out, int rows, int n, int op,
@@ -424,15 +534,17 @@ int lt_g1_mont(const void* x, void* out, int rows, int n, int op,
 
 // Registers per thread, local (spill) bytes, threads per lane and threads
 // per block of kernel `which` (0 fp_mul, 1 dbl, 2 add, 3 msm_scan, 4
-// table, 5 mont), for the chip report.
+// table, 5 mont, 6 fixed_tables, 7 fixed_scan), for the chip report.
 int lt_g1_kernel_attrs(int which, int* regs, int* local_bytes,
                        int* threads_per_lane, int* block) {
-  const void* fns[6] = {(const void*)fp_mul_kernel, (const void*)dbl_kernel,
+  const void* fns[8] = {(const void*)fp_mul_kernel, (const void*)dbl_kernel,
                         (const void*)add_kernel<SCAN_T>,
                         (const void*)msm_scan_kernel<SCAN_T>,
                         (const void*)g1_table_kernel<SCAN_T>,
-                        (const void*)g1_mont_kernel<SCAN_T>};
-  if (which < 0 || which > 5) return (int)cudaErrorInvalidValue;
+                        (const void*)g1_mont_kernel<SCAN_T>,
+                        (const void*)g1_fixed_tables_kernel<SCAN_T>,
+                        (const void*)g1_fixed_scan_kernel<SCAN_T>};
+  if (which < 0 || which > 7) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
   if (err != cudaSuccess) return (int)err;

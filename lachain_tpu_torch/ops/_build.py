@@ -78,6 +78,8 @@ _SIGNATURES = {
     "lt_g1_table": [_P, _P, _I, _P],
     "lt_g1_msm_scan": [_P, _P, _P, _P, _I, _I, _P],
     "lt_g1_mont": [_P, _P, _I, _I, _I, _P],
+    "lt_g1_fixed_tables": [_P, _P, _I, _P],
+    "lt_g1_fixed_scan": [_P, _P, _P, _P, _I, _I, _P],
     "lt_g1_kernel_attrs": [_I] + [ctypes.POINTER(_I)] * 4,
     "lt_g2_dbl": [_P, _P, _I, _P],
     "lt_g2_add": [_P, _P, _P, _I, _P],
@@ -100,7 +102,8 @@ _SIGNATURES = {
 # (attrs entry, kernel names in its index order)
 _ATTRS = (
     ("lt_g1_kernel_attrs", ("fp_mul", "g1_dbl", "g1_add", "g1_msm_scan",
-                            "g1_table", "g1_mont")),
+                            "g1_table", "g1_mont", "g1_fixed_tables",
+                            "g1_fixed_scan")),
     ("lt_g2_kernel_attrs", ("g2_dbl", "g2_add", "g2_msm_scan", "g2_table")),
     ("lt_secp_kernel_attrs", ("secp_fp_mul", "secp_dbl", "secp_add",
                               "secp_msm_scan", "secp_sqrt", "secp_table",

@@ -2,8 +2,11 @@
 
 The port of `lachain_tpu/ops/pg1.py`. Five wrappers front the CUDA kernels
 of `csrc/g1.cu` that replace pg1's (`fp_mul`, `g1_dbl`, `g1_add`,
-`build_table`, `msm_scan`), and two front the port's own conversion kernel
-(`mont_convert`, `mul_beta`: `g1_mont`); the composites above them
+`build_table`, `msm_scan`), two front the port's own conversion kernel
+(`mont_convert`, `mul_beta`: `g1_mont`), and two the fixed-base key
+kernels that replace XLA programs of `lachain_tpu/ops/msm.py`
+(`fixed_tables`, `fixed_scan`; their composites are `ops/msm.py`'s); the
+composites above them
 (`msm_windowed`, `tree_reduce_k`, `era_kernel`, `era_kernel_fused`,
 `msm_reduce`) are plain tensor code over those wrappers.
 
@@ -46,7 +49,8 @@ _MONT_OUT, _MONT_INTO, _MONT_BETA = 0, 1, 2
 _MONT_FACTOR = {_MONT_OUT: 1, _MONT_INTO: _R2, _MONT_BETA: _BETA_R}
 
 LAUNCHES = {"fp_mul": 0, "g1_dbl": 0, "g1_add": 0, "g1_table": 0,
-            "g1_msm_scan": 0, "g1_mont": 0}
+            "g1_msm_scan": 0, "g1_mont": 0, "g1_fixed_tables": 0,
+            "g1_fixed_scan": 0}
 
 
 def reset_launches() -> None:
@@ -187,6 +191,52 @@ def msm_scan(table, digits, digits_checked: bool = False):
         n, nwin, _stream(table),
     )
     _launched("g1_msm_scan", rc)
+    return acc, flags
+
+
+def fixed_tables(keys):
+    """Keys (3R, K) -> (16, 16, 3R, K) fixed-base tables, entry [w, d] =
+    d * 16^(15 - w) * Y, window w MSB-first, entry 0 zero and never
+    selected, in one launch (replaces the XLA program
+    `msm.y_fixed_base_tables`, msm.py:246). Made once per validator set."""
+    if _on_cpu(keys):
+        return g1_ref.fixed_tables(keys)
+    k = keys.shape[-1]
+    _check("fixed_tables keys", keys, (3 * NL, k))
+    tables = torch.empty((glv.W64, TABLE, 3 * NL, k), dtype=torch.int32,
+                         device=keys.device)
+    rc = _build.library().lt_g1_fixed_tables(
+        keys.data_ptr(), tables.data_ptr(), k, _stream(keys)
+    )
+    _launched("g1_fixed_tables", rc)
+    return tables
+
+
+def fixed_scan(tables, digits, k_pad: int, digits_checked: bool = False):
+    """tables (16, 16, 3R, k_pad) from `fixed_tables`, digits (16, n) int32
+    in [0, 16), MSB-first, n a multiple of k_pad -> ((3R, n) accumulators,
+    (n,) bool infinity flags): lane j sums tables[w, d_w] of key column
+    j % k_pad with msm_scan's flag rules and no doubling (replaces the
+    gathers of the XLA program `msm.y_agg_fixed_base`, msm.py:266).
+    `digits_checked` as in msm_scan."""
+    if _on_cpu(tables, digits):
+        return g1_ref.fixed_scan(tables, digits, k_pad)
+    n = digits.shape[-1]
+    if k_pad < 1 or n % k_pad:
+        raise ValueError(f"fixed_scan: {n} lanes are no multiple of k_pad {k_pad}")
+    _check("fixed_scan tables", tables, (glv.W64, TABLE, 3 * NL, k_pad))
+    _check("fixed_scan digits", digits, (glv.W64, n))
+    if not digits_checked:
+        lo, hi = torch.aminmax(digits)
+        if lo.item() < 0 or hi.item() >= TABLE:  # the kernel indexes table[d]
+            raise ValueError("fixed_scan: digits must lie in [0, 16)")
+    acc = torch.empty((3 * NL, n), dtype=torch.int32, device=tables.device)
+    flags = torch.empty((n,), dtype=torch.bool, device=tables.device)
+    rc = _build.library().lt_g1_fixed_scan(
+        tables.data_ptr(), digits.data_ptr(), acc.data_ptr(), flags.data_ptr(),
+        n, k_pad, _stream(tables),
+    )
+    _launched("g1_fixed_scan", rc)
     return acc, flags
 
 
@@ -357,10 +407,11 @@ def digits_col(scalars: Sequence[int], nwindows: int, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def msm_windowed(lanes, digits):
+def msm_windowed(lanes, digits, digits_checked: bool = False):
     """Per-lane windowed scalar multiply: lanes (3R, n), digits (W, n)
-    MSB-first -> ((3R, n) accumulators, (n,) infinity flags)."""
-    return msm_scan(build_table(lanes), digits)
+    MSB-first -> ((3R, n) accumulators, (n,) infinity flags).
+    `digits_checked` as in msm_scan."""
+    return msm_scan(build_table(lanes), digits, digits_checked)
 
 
 def tree_reduce_k(acc, flags, k: int):
@@ -458,10 +509,10 @@ def era_kernel_fused(u, y, rlc16, lag1, lag2, k: int, digits_checked: bool = Fal
     return torch.cat([pts, flags], dim=0)
 
 
-def msm_reduce(lanes, digits, k: int):
+def msm_reduce(lanes, digits, k: int, digits_checked: bool = False):
     """Windowed MSM + tree reduce over groups of k lanes (pg1.msm_reduce,
     :560): lanes (3R, n), digits (W, n) -> (3R + 1, n/k), the flag row
-    last."""
-    acc, fl = msm_windowed(lanes, digits)
+    last. `digits_checked` as in msm_scan."""
+    acc, fl = msm_windowed(lanes, digits, digits_checked)
     out, ofl = tree_reduce_k(acc, fl, k)
     return torch.cat([out, ofl.to(out.dtype)[None, :]], dim=0)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the five G1 kernels, in pg1's own arithmetic.
+"""Plain PyTorch versions of the G1 kernels, in pg1's own arithmetic.
 
 `fp_mul`, `dbl`, `add_incomplete`, `build_table` and `msm_scan` carry the
 math of `lachain_tpu/ops/pg1.py:110-220`, `build_table` (:447) and
@@ -6,7 +6,10 @@ math of `lachain_tpu/ops/pg1.py:110-220`, `build_table` (:447) and
 10-bit limbs (plain, not Montgomery), a point is (132, n) = X | Y | Z limb
 rows, lane-last. Because the steps are
 pg1's step for step, the outputs equal pg1's limb for limb
-(tests/test_torch_g1_kernels.py, tests/test_torch_msm.py).
+(tests/test_torch_g1_kernels.py, tests/test_torch_msm.py). `fixed_tables`
+and `fixed_scan` are the fixed-base key tables and their gather-and-add
+scan of `lachain_tpu/ops/msm.py:246-277` over the same group law
+(tests/test_torch_glv_tables.py).
 
 These run where the tensors lie: on the CPU they are what the kernel
 wrappers in `ops/g1.py` use; on the card `chip_smoke.py` holds each CUDA
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from ..crypto import bls12381 as bls
-from .glv import TABLE, WINDOW
+from .glv import TABLE, W64, WINDOW
 
 NLIMBS = 44
 BASE = 10
@@ -232,6 +235,51 @@ def msm_scan(table, digits):
     """table (16, 132, n), digits (W, n) MSB-first -> ((132, n) acc,
     (n,) bool infinity flags) (pg1 `_msm_kernel`)."""
     return scan(table, digits, dbl, add_incomplete)
+
+
+# ---------------------------------------------------------------------------
+# fixed-base tables of the verification keys (msm.py:246-277)
+# ---------------------------------------------------------------------------
+
+
+def fixed_tables(keys):
+    """(132, K) keys -> (16, 16, 132, K) tables, entry [w, d] = d *
+    16^(15 - w) * Y: window w is MSB-first, the index convention of
+    `msm.y_fixed_base_tables` after its `rows[::-1]` (msm.py:261-263).
+    Window 15 is build_table(Y); each earlier window is build_table of the
+    previous window's base after 4 doublings, msm.py's own chain."""
+    rows = []
+    base = keys
+    for w in range(W64):
+        rows.append(build_table(base))
+        if w + 1 < W64:
+            for _ in range(WINDOW):
+                base = dbl(base)
+    return torch.stack(rows[::-1], dim=0)
+
+
+def fixed_scan(tables, digits, k_pad: int):
+    """tables (16, 16, R, K) from `fixed_tables`, digits (16, n) MSB-first,
+    lane j reading key column j % k_pad -> ((R, n) acc, (n,) bool infinity
+    flags): acc = sum_w tables[w, d_w] with the scan's flag rules (a zero
+    digit keeps the accumulator, a flagged accumulator takes the entry,
+    otherwise the entry is added with `add_incomplete`). msm_scan without
+    its doublings, a table of its own for each window."""
+    n = digits.shape[-1]
+    assert tables.shape[0] == digits.shape[0] and n % k_pad == 0
+    cols = torch.arange(n, device=digits.device) % k_pad
+    acc = flag = None
+    for w in range(digits.shape[0]):
+        d = digits[w]
+        keep = d == 0
+        entry = _select_entry(tables[w][:, :, cols], d)
+        if acc is None:
+            acc, flag = entry, keep
+            continue
+        added = add_incomplete(acc, entry)
+        acc = torch.where(keep, acc, torch.where(flag, entry, added))
+        flag = flag & keep
+    return acc, flag
 
 
 # ---------------------------------------------------------------------------

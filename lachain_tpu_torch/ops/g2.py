@@ -103,10 +103,11 @@ def build_table2(lanes):
     return table
 
 
-def msm2_scan(table, digits):
+def msm2_scan(table, digits, digits_checked: bool = False):
     """table (16, 72, n), digits (W, n) int32 in [0, 16), MSB-first ->
     ((72, n) accumulators, (n,) bool infinity flags)
-    (replaces pg2 `_msm2_kernel` / `_msm2_scan`)."""
+    (replaces pg2 `_msm2_kernel` / `_msm2_scan`). `digits_checked` as in
+    g1.msm_scan."""
     if _on_cpu(table, digits):
         return g2_ref.msm_scan(table, digits)
     n = table.shape[-1]
@@ -115,9 +116,10 @@ def msm2_scan(table, digits):
         raise ValueError("msm2_scan: need at least one window")
     _check("msm2_scan table", table, (TABLE, ROWS2, n))
     _check("msm2_scan digits", digits, (nwin, n))
-    lo, hi = torch.aminmax(digits)
-    if lo.item() < 0 or hi.item() >= TABLE:  # the kernel indexes table[d]
-        raise ValueError("msm2_scan: digits must lie in [0, 16)")
+    if not digits_checked:
+        lo, hi = torch.aminmax(digits)
+        if lo.item() < 0 or hi.item() >= TABLE:  # the kernel indexes table[d]
+            raise ValueError("msm2_scan: digits must lie in [0, 16)")
     acc = torch.empty((ROWS2, n), dtype=torch.int32, device=table.device)
     flags = torch.empty((n,), dtype=torch.bool, device=table.device)
     rc = _build.library().lt_g2_msm_scan(
@@ -185,10 +187,10 @@ def g2_unpack_host(rows, flags, cpu_layout: bool) -> list:
 # ---------------------------------------------------------------------------
 
 
-def msm2_windowed(lanes, digits):
+def msm2_windowed(lanes, digits, digits_checked: bool = False):
     """Per-lane windowed G2 scalar multiply: lanes (P, n), digits (W, n)
     MSB-first -> ((P, n) accumulators, (n,) infinity flags)."""
-    return msm2_scan(build_table2(lanes), digits)
+    return msm2_scan(build_table2(lanes), digits, digits_checked)
 
 
 def tree_reduce2_k(acc, flags, k: int):
@@ -276,9 +278,9 @@ def ts_era_kernel(sig, y, rlc16, lag64, k: int):
     return torch.cat([pts, flags], dim=0)
 
 
-def msm2_reduce(lanes, digits, k: int):
+def msm2_reduce(lanes, digits, k: int, digits_checked: bool = False):
     """G2 windowed MSM + tree reduce over groups of k lanes
     (pg2.msm2_reduce, :441): -> (P + 1, n/k), the flag row last."""
-    acc, fl = msm2_windowed(lanes, digits)
+    acc, fl = msm2_windowed(lanes, digits, digits_checked)
     out, ofl = tree_reduce2_k(acc, fl, k)
     return torch.cat([out, ofl.to(out.dtype)[None, :]], dim=0)

@@ -37,11 +37,11 @@ import torch
 from ..crypto import bls12381 as bls
 from ..crypto.host import HostBackend
 from ..crypto.native_backend import NativeBackend
-from . import g1, g2, glv
-from .glv import W64, W128, W256, glv_split
+from . import curve, g1, g2, msm
+from .glv import W64, W128, W256
 
 ESCAPES = {"tpke_combine": 0, "ts_combine": 0, "g1_msm": 0, "g2_msm": 0,
-           "ecdsa_recover": 0}
+           "ecdsa_recover": 0, "tpke_verifier": 0}
 
 
 def reset_escapes() -> None:
@@ -93,44 +93,66 @@ def _pow2_at_least(k: int) -> int:
     return 1 << max(0, k - 1).bit_length() if k > 1 else 1
 
 
-class _TiledYCache:
-    """Device copy of the era-invariant verification keys: one (3R, S*K_pad)
-    tiled lane block per (key list, S, K_pad), keyed by id() with a strong
-    reference so a collected list can never alias a new validator set.
+def _era_marshal(slots, y_points, rng, masks):
+    """The G1 era pipelines' host marshal: the RLC draws (era_rlc), each
+    slot padded to K_pad = the next power of two with flagged-out filler
+    lanes (the tree reduce sums power-of-two groups of adjacent lanes; zero
+    digits give infinity flags), and the digit planes (msm.era_digits) ->
+    (rlc, k_pad, u_flat, (rlc16, lag1, lag2) numpy)."""
+    k = len(y_points)
+    rlc = era_rlc(slots, k, rng, masks)
+    k_pad = _pow2_at_least(k)
+    pad = k_pad - k
+    u_flat = [u for u_list, _ in slots for u in u_list + [bls.G1_INF] * pad]
+    rlc_flat = [c for row in rlc for c in row + [0] * pad]
+    lag_flat = [c for _, lag_list in slots for c in lag_list + [0] * pad]
+    return rlc, k_pad, u_flat, msm.era_digits(rlc_flat, lag_flat)
 
-    On the card a block is built on the stream current at its first use and
-    read by later eras on other streams (GpuEraPipeline dispatches on two):
-    every read orders the reading stream after the build's event and marks
-    the block as used there, so that its memory is not reused while that
-    stream may still read it."""
 
-    LIMIT = 4  # validator sets kept
+class _KeyCache:
+    """Device copies of era-invariant verification keys (GpuEraPipeline's
+    tiled lane blocks, GlvEraPipeline's fixed-base tables), keyed by id()
+    of the key list and the shape they were made for, with a strong
+    reference so a collected list can never alias a new validator set;
+    LIMIT entries are kept, the oldest dropped.
+
+    On the card an entry is built on the stream current at its first use
+    and read by later eras on other streams (GpuEraPipeline dispatches on
+    two): every read orders the reading stream after the build's event and
+    marks the entry as used there, so that its memory is not reused while
+    that stream may still read it."""
+
+    LIMIT = 4
 
     def __init__(self, device):
         self._device = device
         self._cache = {}
 
-    def get(self, y_points, s: int, k_pad: int):
-        key = (id(y_points), s, k_pad)
+    def get(self, y_points, build, shape=()):
+        """The entry of (y_points, shape), made by build() on a miss."""
+        key = (id(y_points), *shape)
         hit = self._cache.get(key)
         card = self._device.type == "cuda"
         if hit is not None and hit[0] is y_points:
-            _, y_dev, built = hit
+            _, value, built = hit
             if card:
                 stream = torch.cuda.current_stream(self._device)
                 stream.wait_event(built)
-                y_dev.record_stream(stream)
-            return y_dev
-        padded = list(y_points) + [bls.G1_INF] * (k_pad - len(y_points))
-        y_dev = g1.g1_pack(padded, self._device).repeat(1, s)
+                value.record_stream(stream)
+            return value
+        value = build()
         built = None
         if card:
             built = torch.cuda.Event()
             built.record(torch.cuda.current_stream(self._device))
         if len(self._cache) >= self.LIMIT:
             self._cache.pop(next(iter(self._cache)))
-        self._cache[key] = (y_points, y_dev, built)
-        return y_dev
+        self._cache[key] = (y_points, value, built)
+        return value
+
+
+def _pad_keys(y_points, k_pad: int) -> list:
+    return list(y_points) + [bls.G1_INF] * (k_pad - len(y_points))
 
 
 # rows of one era's pinned upload: the share words (3 x 12), the RLC digits
@@ -200,29 +222,40 @@ class _EraDispatch:
         return self._result
 
 
-class GpuEraPipeline:
-    """The era pipeline on the G1 kernels (ops/g1.py).
+def _finish_g1_slots(fused, slots, device, backend) -> list:
+    """A G1 era's fused output (3R + 1, 4S), columns u_agg | y_agg | comb1 |
+    comb2 -> per-slot (u_agg, y_agg, combined) oracle points. A combine
+    that collided in the incomplete add tree (the Lagrange lanes carry no
+    random coefficients) is recomputed by the host MSM and counted in
+    ESCAPES (msm.combine_or_host_msm; the pg1 pipelines do the same)."""
+    s = len(slots)
+    rows, flags = g1.fetch(fused)  # ONE device->host copy
+    cols = g1.g1_unpack_host(rows, flags, device.type == "cpu")
+    out = []
+    for i in range(s):
+        comb, escaped = msm.combine_or_host_msm(
+            bls.g1_add(cols[2 * s + i], cols[3 * s + i]), *slots[i], backend)
+        ESCAPES["tpke_combine"] += escaped
+        out.append((cols[i], cols[s + i], comb))
+    return out
 
-    `dispatch_era` is the async half of `run_era`, under the contract of
-    the JAX package's MeshEraPipeline.dispatch_era (parallel/mesh.py:375-487):
-    it draws the RLC coefficients, packs the era into a pinned host buffer,
-    uploads it and launches the era's kernels on a CUDA stream of its own,
-    and returns a call that blocks and finishes. At most MAX_INFLIGHT = 2
-    dispatches may be unfinished: dispatch i runs on stream i % 2 and fills
-    pinned buffer i % 2 of its (S, K_pad) shape, after waiting for the
-    upload that read that buffer last (the copy only, not that era's
-    kernels); a third raises RuntimeError. A caller holding several eras
-    (consensus/crypto_batcher.TpkeEraBatcher) so overlaps era e+1's host
-    pack with era e's kernels, and era e's finish on the host with era
-    e+1's kernels. Every tensor of one era is made, used and read on its
-    own stream. A dispatch waits for the card only where a key set first
-    meets an (S, K_pad) shape (its tiled keys upload once from pageable
-    memory) and for the upload that last read its pinned buffer. On the
-    CPU the work is done at dispatch and the call only returns it, with
-    the same in-flight bookkeeping.
 
-    `last_timings` holds the phases of the era finished last (see
-    _EraDispatch). `backend` serves the escapes to the host MSM: the native
+class _G1EraPipeline:
+    """The G1 era pipelines' shared dispatch: the marshal (_era_marshal),
+    on the card the pinned upload, one `mont_convert` of the shares into
+    form and the era's device program on a CUDA stream of its own, then
+    the slot finish (_finish_g1_slots). A subclass gives the key operand
+    (`_keys`) and the device program (`_program`); both programs return
+    the (3R + 1, 4S) u_agg | y_agg | comb1 | comb2 layout.
+
+    At most MAX_INFLIGHT dispatches may be unfinished: dispatch i runs on
+    stream i % MAX_INFLIGHT and fills pinned buffer i % MAX_INFLIGHT of its
+    (S, K_pad) shape, after waiting for the upload that read that buffer
+    last (the copy only, not that era's kernels); one more raises
+    RuntimeError. On the CPU the work is done at dispatch and the call
+    only returns it, with the same in-flight bookkeeping. `last_timings`
+    holds the phases of the era finished last (see _EraDispatch);
+    `backend` serves the combine escapes to the host MSM: the native
     library when it is None, as in GpuBackend."""
 
     MAX_INFLIGHT = 2
@@ -231,62 +264,48 @@ class GpuEraPipeline:
     def __init__(self, backend=None, device="cuda"):
         self.device = resolve_device(device)
         self._backend = backend or NativeBackend()
-        self._y_cache = _TiledYCache(self.device)
+        self._y_cache = _KeyCache(self.device)
         self.last_timings: dict = {}
         self._dispatched = 0
         self._inflight = 0
         self._staging: dict = {}
         self._streams = None
         if self.device.type == "cuda":
-            self._streams = tuple(torch.cuda.Stream(self.device) for _ in range(2))
+            self._streams = tuple(torch.cuda.Stream(self.device)
+                                  for _ in range(self.MAX_INFLIGHT))
+
+    def _keys(self, y_points, s: int, k_pad: int):
+        raise NotImplementedError
+
+    def _program(self, u, y, rlc16, lag1, lag2, k_pad: int, digits_checked=False):
+        raise NotImplementedError
 
     def _release(self, dispatch) -> None:
         self._inflight -= 1
         self.last_timings = dispatch.timings
 
     def _stage(self, s: int, k_pad: int, i: int) -> _Stage:
-        """Pinned buffer i % 2 of the (s, k_pad) shape, free to refill."""
-        pair = self._staging.get((s, k_pad))
-        if pair is None:
+        """Pinned buffer i % MAX_INFLIGHT of the (s, k_pad) shape, free to
+        refill."""
+        ring = self._staging.get((s, k_pad))
+        if ring is None:
             if len(self._staging) >= self.STAGED_SHAPES:
                 for old in self._staging.pop(next(iter(self._staging))):
                     old.uploaded.synchronize()
-            pair = self._staging[(s, k_pad)] = (_Stage(s * k_pad), _Stage(s * k_pad))
-        stage = pair[i % 2]
+            ring = self._staging[(s, k_pad)] = tuple(
+                _Stage(s * k_pad) for _ in range(self.MAX_INFLIGHT))
+        stage = ring[i % self.MAX_INFLIGHT]
         stage.uploaded.synchronize()
         return stage
 
-    def dispatch_era(self, slots, y_points, rng, masks=None) -> _EraDispatch:
-        """slots: list of (u_list, lagrange_list) per ACS slot; y_points: the
-        K verification keys. Returns a call giving (per-slot (u_agg, y_agg,
-        combined) oracle points, rlc coefficients used); the coefficients
-        are drawn here, so eras dispatched in order draw as the same run_era
-        calls would.
-
-        masks (optional): per-slot list of K bools; False lanes get a ZERO
-        RLC coefficient, so an absent share (pass G1_INF for it) adds to
-        neither aggregate."""
+    def _dispatch(self, slots, y_points, rng, masks=None) -> _EraDispatch:
         if self._inflight >= self.MAX_INFLIGHT:
             raise RuntimeError(
                 f"{self._inflight} era dispatches are unfinished; finish one "
                 f"before dispatching another (MAX_INFLIGHT = {self.MAX_INFLIGHT})"
             )
         t0 = time.perf_counter()
-        s = len(slots)
-        k = len(y_points)
-        rlc = era_rlc(slots, k, rng, masks)
-        # the tree reduce sums power-of-two groups of adjacent lanes: pad each
-        # slot with flagged-out filler lanes (zero digits -> infinity flags)
-        k_pad = _pow2_at_least(k)
-        pad = k_pad - k
-        u_flat = [u for u_list, _ in slots for u in u_list + [bls.G1_INF] * pad]
-        rlc_flat = [c for row in rlc for c in row + [0] * pad]
-        halves = [glv_split(c) for _, lag_list in slots for c in lag_list + [0] * pad]
-        digits = (
-            (rlc_flat, W64),
-            ([h[0] for h in halves], W128),
-            ([h[1] for h in halves], W128),
-        )
+        rlc, k_pad, u_flat, digits = _era_marshal(slots, y_points, rng, masks)
         if self._streams is None:
             dispatch = self._dispatch_cpu(slots, y_points, rlc, u_flat, digits,
                                           k_pad, t0)
@@ -298,12 +317,11 @@ class GpuEraPipeline:
         return dispatch
 
     def _dispatch_cpu(self, slots, y_points, rlc, u_flat, digits, k_pad, t0):
-        dev = self.device
-        u = g1.g1_pack(u_flat, dev)
-        y = self._y_cache.get(y_points, len(slots), k_pad)
-        rlc16, lag1, lag2 = (g1.digits_col(v, w, dev) for v, w in digits)
+        u = g1.g1_pack(u_flat, self.device)
+        y = self._keys(y_points, len(slots), k_pad)
+        rlc16, lag1, lag2 = (torch.from_numpy(d) for d in digits)
         t1 = time.perf_counter()
-        fused = g1.era_kernel_fused(u, y, rlc16, lag1, lag2, k_pad)
+        fused = self._program(u, y, rlc16, lag1, lag2, k_pad)
         t2 = time.perf_counter()
         out = self._finish_slots(fused, slots)
         timings = {"pack_s": t1 - t0, "launch_s": 0.0, "device_s": t2 - t1,
@@ -313,53 +331,116 @@ class GpuEraPipeline:
     def _dispatch_card(self, slots, y_points, rlc, u_flat, digits, k_pad, t0):
         s = len(slots)
         i = self._dispatched
-        stream = self._streams[i % 2]
-        parts = [g1.plain_words(g1.g1_xyz(u_flat))]
-        # 4-bit digits, in range as glv.digits_col makes them
-        parts += [glv.digits_col(vals, nwin) for vals, nwin in digits]
+        stream = self._streams[i % self.MAX_INFLIGHT]
+        # the share words, then the 4-bit digits, in range as
+        # glv.digits_col makes them
+        parts = [g1.plain_words(g1.g1_xyz(u_flat)), *digits]
         stage = self._stage(s, k_pad, i)
         np.concatenate(parts, out=stage.host.numpy())
         t1 = time.perf_counter()
         start = torch.cuda.Event(enable_timing=True)
         done = torch.cuda.Event(enable_timing=True)
         with torch.cuda.stream(stream):
-            y = self._y_cache.get(y_points, s, k_pad)
+            y = self._keys(y_points, s, k_pad)
             start.record(stream)
             buf = torch.empty(stage.host.shape, dtype=torch.int32, device=self.device)
             buf.copy_(stage.host, non_blocking=True)
             stage.uploaded.record(stream)
             u = g1.mont_convert(buf[:_U_ROWS], into=True)
             rlc16, lag1, lag2 = torch.split(buf[_U_ROWS:], [W64, W128, W128])
-            fused = g1.era_kernel_fused(u, y, rlc16, lag1, lag2, k_pad,
-                                        digits_checked=True)
+            fused = self._program(u, y, rlc16, lag1, lag2, k_pad,
+                                  digits_checked=True)
             done.record(stream)
         timings = {"pack_s": t1 - t0, "launch_s": time.perf_counter() - t1}
         return _EraDispatch(self, slots, rlc, timings, fused, stream, start, done)
 
     def _finish_slots(self, fused, slots) -> list:
-        """The fused output -> per-slot (u_agg, y_agg, combined)."""
-        s = len(slots)
-        rows, flags = g1.fetch(fused)  # ONE device->host copy
-        cols = g1.g1_unpack_host(rows, flags, self.device.type == "cpu")  # u|y|c1|c2
-        out = []
-        for i in range(s):
-            comb = bls.g1_add(cols[2 * s + i], cols[3 * s + i])
-            if comb[2] == 0 and any(c for c in slots[i][1]):
-                # incomplete-add collision in the combine tree: the Lagrange
-                # lanes carry no random coefficients, so the slot's combine
-                # is recomputed by the host MSM (pg1 pipelines do the same)
-                u_list, lag_list = slots[i]
-                ESCAPES["tpke_combine"] += 1
-                comb = self._backend.g1_msm(
-                    [u for u, c in zip(u_list, lag_list) if c],
-                    [c for c in lag_list if c],
-                )
-            out.append((cols[i], cols[s + i], comb))
-        return out
+        return _finish_g1_slots(fused, slots, self.device, self._backend)
 
     def run_era(self, slots, y_points, rng, masks=None):
-        """dispatch_era(...)(): the era run to its end."""
-        return self.dispatch_era(slots, y_points, rng, masks)()
+        """slots: list of (u_list, lagrange_list) per ACS slot; y_points: the
+        K verification keys. Returns (per-slot (u_agg, y_agg, combined)
+        oracle points, rlc coefficients used). masks (optional): per-slot
+        list of K bools; False lanes get a ZERO RLC coefficient, so an
+        absent share (pass G1_INF for it) adds to neither aggregate."""
+        return self._dispatch(slots, y_points, rng, masks)()
+
+
+class GpuEraPipeline(_G1EraPipeline):
+    """The era pipeline on the G1 kernels (ops/g1.py): the keys tiled to
+    the S*K_pad lanes, the device program g1.era_kernel_fused.
+
+    `dispatch_era` is the async half of `run_era`, under the contract of
+    the JAX package's MeshEraPipeline.dispatch_era (parallel/mesh.py:375-487):
+    it draws the RLC coefficients, packs the era into a pinned host buffer,
+    uploads it and launches the era's kernels on a CUDA stream of its own,
+    and returns a call that blocks and finishes. At most MAX_INFLIGHT = 2
+    dispatches may be unfinished (see _G1EraPipeline). A caller holding
+    several eras (consensus/crypto_batcher.TpkeEraBatcher) so overlaps era
+    e+1's host pack with era e's kernels, and era e's finish on the host
+    with era e+1's kernels. Every tensor of one era is made, used and read
+    on its own stream. A dispatch waits for the card only where a key set
+    first meets an (S, K_pad) shape (its tiled keys upload once from
+    pageable memory) and for the upload that last read its pinned buffer."""
+
+    def _keys(self, y_points, s: int, k_pad: int):
+        return self._y_cache.get(
+            y_points,
+            lambda: g1.g1_pack(_pad_keys(y_points, k_pad), self.device).repeat(1, s),
+            (s, k_pad))
+
+    def _program(self, u, y, rlc16, lag1, lag2, k_pad: int, digits_checked=False):
+        return g1.era_kernel_fused(u, y, rlc16, lag1, lag2, k_pad,
+                                   digits_checked=digits_checked)
+
+    def dispatch_era(self, slots, y_points, rng, masks=None) -> _EraDispatch:
+        """slots: list of (u_list, lagrange_list) per ACS slot; y_points: the
+        K verification keys. Returns a call giving (per-slot (u_agg, y_agg,
+        combined) oracle points, rlc coefficients used); the coefficients
+        are drawn here, so eras dispatched in order draw as the same run_era
+        calls would.
+
+        masks (optional): per-slot list of K bools; False lanes get a ZERO
+        RLC coefficient, so an absent share (pass G1_INF for it) adds to
+        neither aggregate."""
+        return self._dispatch(slots, y_points, rng, masks)
+
+
+class GlvEraPipeline(_G1EraPipeline):
+    """The era pipeline on the fixed-base key tables (the JAX package's
+    GlvEraPipeline, verify.py:144-231), synchronous like it: no dispatch_era,
+    one stream, one pinned buffer a shape (MAX_INFLIGHT = 1).
+
+    The verification keys Y_i are fixed for a validator set, so `y_device`
+    makes their fixed-base tables d * 16^(15 - w) * Y_i once (one
+    `g1_mont` into Montgomery form and one `g1_fixed_tables` launch) and
+    keeps them for up to 4 key sets. Each era then runs GpuEraPipeline's
+    marshal and upload (_G1EraPipeline) and the device program
+    msm.glv_era_fused: one table build and one scan over [u | u | phi(u)]
+    (3K lanes a slot), the fixed-base scan over the S*K_pad key lanes (no
+    doubling), ONE tree reduce over the four groups and one fetch. A warm
+    era launches g1_table 1, g1_msm_scan 1, g1_fixed_scan 1, g1_add
+    log2(K_pad), g1_mont 3 (the share pack, phi's product by beta, the
+    fetch); a key set's first era adds g1_fixed_tables 1 and g1_mont 1."""
+
+    MAX_INFLIGHT = 1
+
+    def y_device(self, y_points):
+        """The fixed-base tables (16, 16, 3R, K_pad) of the K verification
+        keys (padded with infinity to K_pad), made once per key set and
+        cached. Keyed by id() with a strong reference to the key list and an
+        `is` recheck, so a collected list can never alias a new validator
+        set (verify.py:166-185); up to 4 sets stay cached."""
+        k_pad = _pow2_at_least(len(y_points))
+        return self._y_cache.get(y_points, lambda: msm.y_fixed_base_tables(
+            g1.g1_pack(_pad_keys(y_points, k_pad), self.device)))
+
+    def _keys(self, y_points, s: int, k_pad: int):
+        return self.y_device(y_points)
+
+    def _program(self, u, y, rlc16, lag1, lag2, k_pad: int, digits_checked=False):
+        return msm.glv_era_fused(u, y, rlc16, lag1, lag2, k_pad,
+                                 digits_checked=digits_checked)
 
 
 class TsGpuEraPipeline:
@@ -376,7 +457,7 @@ class TsGpuEraPipeline:
     def __init__(self, backend=None, device="cuda"):
         self.device = resolve_device(device)
         self._backend = backend or NativeBackend()
-        self._y_cache = _TiledYCache(self.device)
+        self._y_cache = _KeyCache(self.device)
         self.last_timings: dict = {}
 
     def run_era(self, coins, y_points, rng, masks=None):
@@ -393,7 +474,9 @@ class TsGpuEraPipeline:
         rlc_flat = [c for row in rlc for c in row + [0] * pad]
         lag_flat = [c for _, lag in coins for c in lag + [0] * pad]
         sig = g2.g2_pack(sig_flat, dev)
-        y = self._y_cache.get(y_points, s, k_pad)
+        y = self._y_cache.get(
+            y_points, lambda: g1.g1_pack(_pad_keys(y_points, k_pad), dev).repeat(1, s),
+            (s, k_pad))
         rlc16 = g1.digits_col(rlc_flat, W64, dev)
         lag64 = g1.digits_col(lag_flat, W256, dev)
         t1 = time.perf_counter()
@@ -469,3 +552,103 @@ class TsHostEraPipeline(_HostEraPipelineBase):
     """Coins: the shares are G2 signatures."""
 
     _share_msm = "g2_msm"
+
+
+# ---------------------------------------------------------------------------
+# the bit-serial era steps (verify.py:32-83) and the per-batch verifier
+# ---------------------------------------------------------------------------
+
+
+def tpke_era_slots_step(u, y, rlc_bits, lagrange_bits):
+    """The era's three MSMs per slot (tpke_era_slots_step, verify.py:54):
+    u, y (3R, S, K) share points and their verification keys;
+    rlc_bits / lagrange_bits (S, K, nbits) MSB-first bit rows (zero rows
+    for shares outside the combine) on the same device -> (u_agg, y_agg,
+    combined) each (3R, S), and their (3, S) infinity flags.
+
+    One table build, one scan and one tree over the joined lanes [u | y |
+    u] with digits [rlc | rlc | lag] (curve.bits_to_digits; the shorter
+    behind leading zero windows), K padded to a power of two with flagged
+    lanes. Infinity inputs get zero digits and the flags and Z = 0 mean
+    what curve.g1_msm's do: a clear flag with Z = 0 marks an incomplete add
+    that met p = +-q (GpuTpkeVerifier recomputes such a sum on the host)."""
+    r3, s, k = u.shape
+    k_pad = _pow2_at_least(k)
+    rlc = curve.bits_to_digits(rlc_bits.reshape(s * k, -1))
+    lag = curve.bits_to_digits(lagrange_bits.reshape(s * k, -1))
+
+    def lanes(t):
+        """(rows, S*K) -> (rows, S*K_pad): each slot padded with zero lanes."""
+        rows = t.shape[0]
+        return curve.pad_lanes(t.reshape(rows * s, k), k_pad).reshape(rows, s * k_pad)
+
+    u2, y2 = u.reshape(r3, s * k), y.reshape(r3, s * k)
+    digits = msm.joined_digits(*(lanes(curve.live_digits(p, d))
+                                 for p, d in ((u2, rlc), (y2, rlc), (u2, lag))))
+    joined = torch.cat([lanes(u2), lanes(y2), lanes(u2)], dim=1)
+    acc, fl = g1.msm_scan(g1.build_table(joined), digits, digits_checked=True)
+    out, ofl = g1.tree_reduce_k(acc, fl, k_pad)  # u_agg | y_agg | combined
+    return out[:, :s], out[:, s:2 * s], out[:, 2 * s:], ofl.reshape(3, s)
+
+
+def tpke_era_step(u, y, rlc_bits, lagrange_bits):
+    """One batch's three MSMs (tpke_era_step, verify.py:32): u, y (3R, n),
+    rlc_bits / lagrange_bits (n, nbits) -> (u_agg, y_agg, combined) each
+    (3R,), and their (3,) infinity flags: tpke_era_slots_step with one
+    slot."""
+    u_agg, y_agg, comb, flags = tpke_era_slots_step(
+        u[:, None], y[:, None], rlc_bits[None], lagrange_bits[None])
+    return u_agg[:, 0], y_agg[:, 0], comb[:, 0], flags[:, 0]
+
+
+class GpuTpkeVerifier:
+    """The per-batch verify + combine (the JAX package's TpuTpkeVerifier,
+    verify.py:452-498): marshals oracle shares to the card, runs
+    tpke_era_step there, and finishes with 2 pairings on the host backend
+    (the native library when it is None).
+
+    The step's adds are incomplete, so an aggregate that comes back as
+    infinity while some lane is live (a nonzero coefficient on a finite
+    point: a repeated point, or p with -p) is recomputed by the host MSM
+    and counted in ESCAPES["tpke_verifier"]; the reference's complete adds
+    give that answer directly."""
+
+    RLC_BITS, LAGRANGE_BITS = 128, 256  # verify.py:487-488
+
+    def __init__(self, backend=None, device="cuda"):
+        self.device = resolve_device(device)
+        self._backend = backend or NativeBackend()
+
+    def verify_and_combine(self, u_points, y_points, h_point, w_point, rlc,
+                           lagrange):
+        """Returns (all_valid, combined_point)."""
+        n = len(u_points)
+        if not n or not n == len(y_points) == len(rlc) == len(lagrange):
+            raise ValueError("one share, key, RLC and Lagrange coefficient each, "
+                             "at least one")
+        size = _pow2_at_least(n)
+        pad = size - n
+        u_all = list(u_points) + [bls.G1_INF] * pad
+        y_all = list(y_points) + [bls.G1_INF] * pad
+        rlc_all = [c % (1 << self.RLC_BITS) for c in rlc] + [0] * pad
+        lag_all = [c % (1 << self.LAGRANGE_BITS) for c in lagrange] + [0] * pad
+        dev = self.device
+        bits = [torch.from_numpy(curve.scalars_to_bits(v, nb)).to(dev)
+                for v, nb in ((rlc_all, self.RLC_BITS), (lag_all, self.LAGRANGE_BITS))]
+        u_agg, y_agg, comb, flags = tpke_era_step(
+            g1.g1_pack(u_all, dev), g1.g1_pack(y_all, dev), *bits)
+        fused = torch.cat([torch.stack([u_agg, y_agg, comb], dim=1),
+                           flags.to(torch.int32)[None]], dim=0)
+        rows, fl = g1.fetch(fused)  # ONE device->host copy
+        aggs = g1.g1_unpack_host(rows, fl, dev.type == "cpu")
+        for i, (pts, scalars) in enumerate(((u_all, rlc_all), (y_all, rlc_all),
+                                            (u_all, lag_all))):
+            live = any(c and not bls.g1_is_inf(p) for p, c in zip(pts, scalars))
+            if bls.g1_is_inf(aggs[i]) and live:
+                ESCAPES["tpke_verifier"] += 1
+                aggs[i] = self._backend.g1_msm(pts, scalars)
+        u_agg, y_agg, combined = aggs
+        ok = self._backend.pairing_check(
+            [(u_agg, h_point), (bls.g1_neg(y_agg), w_point)]
+        )
+        return ok, combined

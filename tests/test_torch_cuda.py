@@ -23,10 +23,13 @@ from lachain_tpu_torch.crypto import ecdsa, hashes, threshold_sig, tpke
 from lachain_tpu_torch.crypto.gpu_backend import EraSlotJob, GpuBackend
 from lachain_tpu_torch.crypto.host import HostBackend
 from lachain_tpu_torch.ops import (
-    _build, g1, g1_ref, g2, g2_ref, glv, rs, rs_batch, rs_ref, secp, secp_ref, verify,
+    _build, curve, g1, g1_ref, g2, g2_ref, glv, msm, rs, rs_batch, rs_ref, secp,
+    secp_ref, verify,
 )
 from lachain_tpu_torch.ops.verify import (
+    GlvEraPipeline,
     GpuEraPipeline,
+    GpuTpkeVerifier,
     HostEraPipeline,
     TsGpuEraPipeline,
     TsHostEraPipeline,
@@ -164,8 +167,9 @@ def test_backend_on_card_isolates_poisoned_slot(card):
         jobs, dealer.verification_keys, SeededRng(3)
     )
     # the table build is one launch: no doubling of its own; the
-    # conversions and phi's product by beta are g1_mont, not fp_mul
-    off_path = ("g1_dbl", "fp_mul")
+    # conversions and phi's product by beta are g1_mont, not fp_mul; the
+    # fixed-base key kernels serve the GLV pipeline only
+    off_path = ("g1_dbl", "fp_mul", "g1_fixed_tables", "g1_fixed_scan")
     assert all(g1.LAUNCHES[k] == 0 for k in off_path)
     assert all(v > 0 for k, v in g1.LAUNCHES.items() if k not in off_path)
     assert [ok for ok, _ in res] == [True, True, False]
@@ -985,3 +989,155 @@ def test_warmup_on_card(card):
     t.join(timeout=300)
     assert not t.is_alive() and t.error is None
     assert t.eras == [("tpke", s) for s in era_warmup_shapes(5)] + [("coin", 1)]
+
+
+# ---------------------------------------------------------------------------
+# the fixed-base key kernels, the GLV era and the bit-serial MSM entries
+# ---------------------------------------------------------------------------
+
+
+def _window_ints(tables, w: int) -> list:
+    """Window w of card tables (16, 16, 36, K) or plain ones (16, 16, 132,
+    K) -> every coordinate's ints, entry by entry."""
+    if tables.dtype == torch.int32:  # the card's Montgomery words
+        return g1.fp_decode(tables[w].reshape(16 * 36, tables.shape[-1]))
+    k = tables.shape[-1]
+    limbs = tables[w].reshape(48, 44, k).permute(1, 0, 2).reshape(44, 48 * k)
+    return g1_ref.limbs_to_ints(limbs.cpu().numpy())
+
+
+@pytest.mark.parametrize("k", [1, 5, 64])
+def test_fixed_tables_equal_plain_version(card, k):
+    """Every entry of every window word for word against the plain chain,
+    an infinity key among the keys; some entries against the host's
+    d * 16^(15 - w) * Y_i."""
+    rng = random.Random(0xF1 + k)
+    keys = _points(rng, k)
+    if k > 1:
+        keys[k // 2] = bls.G1_INF
+    g1.reset_launches()
+    kt = g1.fixed_tables(g1.g1_pack(keys, card))
+    assert g1.LAUNCHES["g1_fixed_tables"] == 1
+    rt = g1_ref.fixed_tables(_ref(keys, card))
+    for w in range(glv.W64):
+        assert _window_ints(kt, w) == _window_ints(rt, w), w
+    for w, d in ((0, 1), (7, 15), (15, 1), (15, 15)):
+        co = g1.g1_coords(kt[w, d])
+        for i, y in enumerate(keys):
+            if y[2]:
+                want = bls.g1_mul(y, d * 16 ** (glv.W64 - 1 - w))
+                assert bls.g1_eq((co[i], co[k + i], co[2 * k + i]), want)
+
+
+@pytest.mark.parametrize("k,slots", [(1, 1), (4, 3), (64, 64)])
+def test_fixed_scan_equal_plain_version(card, k, slots):
+    rng = random.Random(0xF5 + k)
+    keys = _points(rng, k)
+    kt = g1.fixed_tables(g1.g1_pack(keys, card))
+    rt = g1_ref.fixed_tables(_ref(keys, card))
+    n = k * slots
+    rlc = [rng.randrange(1, 1 << 64) for _ in range(n)]
+    rlc[0] = 0  # an all-zero lane
+    if n > 2:
+        rlc[1] = 0xF00000000000000F  # zero digits between nonzero ones
+        rlc[2] = 5  # leading zero windows
+    digits = g1.digits_col(rlc, glv.W64, card)
+    g1.reset_launches()
+    acc, fl = g1.fixed_scan(kt, digits, k)
+    assert g1.LAUNCHES["g1_fixed_scan"] == 1
+    racc, rfl = g1_ref.fixed_scan(rt, digits, k)
+    assert g1.g1_coords(acc) == g1.g1_coords(racc.cpu())
+    assert fl.cpu().tolist() == rfl.cpu().tolist() == [c == 0 for c in rlc]
+    co = g1.g1_coords(acc)
+    for j in range(1, min(n, 4)):
+        assert bls.g1_eq((co[j], co[n + j], co[2 * n + j]), bls.g1_mul(keys[j % k], rlc[j]))
+
+
+def test_glv_era_on_card_equals_gpu_pipeline(card):
+    """GlvEraPipeline on the card against GpuEraPipeline and the host
+    oracle, with its launches: a key set's first era builds the tables
+    (g1_fixed_tables 1, g1_mont 4), a warm era does not (g1_mont 3)."""
+    dealer, jobs, _, _ = _era(5, 1, 3, seed=53)
+    y_points = [vk.y_i for vk in dealer.verification_keys]
+    slots = [(list(j.u_by_validator), list(j.lagrange_row)) for j in jobs]
+    masks = [[True] * 5, [True, False, True, True, True], [True] * 5]
+    pipeline = GlvEraPipeline(device=card)
+    want, want_rlc = HostEraPipeline().run_era(slots, y_points, SeededRng(8), masks)
+    ref, _ = GpuEraPipeline(device=card).run_era(slots, y_points, SeededRng(8), masks)
+    warm = {"g1_table": 1, "g1_msm_scan": 1, "g1_fixed_scan": 1, "g1_add": 3,
+            "g1_mont": 3, "g1_fixed_tables": 0, "g1_dbl": 0, "fp_mul": 0}
+    for first in (True, False):
+        g1.reset_launches()
+        verify.reset_escapes()
+        got, got_rlc = pipeline.run_era(slots, y_points, SeededRng(8), masks)
+        assert g1.LAUNCHES == dict(warm, g1_fixed_tables=int(first),
+                                   g1_mont=3 + int(first))
+        assert not any(verify.ESCAPES.values())
+        assert got_rlc == want_rlc
+        for g_slot, w_slot, r_slot in zip(got, want, ref):
+            assert all(bls.g1_eq(a, b) and bls.g1_eq(a, c)
+                       for a, b, c in zip(g_slot, w_slot, r_slot))
+
+
+def test_backend_on_glv_pipeline_on_card(card):
+    dealer, jobs, cts, msgs = _era(5, 1, 3, seed=59)
+    row = list(jobs[0].u_by_validator)
+    row[4] = bls.g1_add(row[4], bls.G1_GEN)
+    jobs[0] = EraSlotJob(row, jobs[0].lagrange_row, jobs[0].h, jobs[0].w)
+    backend = GpuBackend(device=card, pipeline=GlvEraPipeline(device=card))
+    res = backend.tpke_era_verify_combine(jobs, dealer.verification_keys, SeededRng(9))
+    assert [ok for ok, _ in res] == [False, True, True]
+    for s in (1, 2):
+        assert tpke.decrypt_with_combined(cts[s], res[s][1]) == msgs[s]
+
+
+def test_glv_kernel_entry_equals_era_kernel(card):
+    rng = random.Random(0xE4)
+    s, k = 3, 8
+    u = g1.g1_pack(_points(rng, s * k), card)
+    y = g1.g1_pack(_points(rng, k) * s, card)
+    rlc = g1.digits_col([rng.randrange(1 << 64) for _ in range(s * k)], glv.W64, card)
+    lag1, lag2 = (g1.digits_col([rng.randrange(1 << 128) for _ in range(s * k)],
+                                glv.W128, card) for _ in range(2))
+    pts, flags = msm.tpke_era_glv_kernel(u, y, rlc, lag1, lag2, k)
+    out_r, ofl_r, out_l, ofl_l = g1.era_kernel(u, y, rlc, lag1, lag2, k)
+    want = torch.cat([out_r, out_l], dim=1).reshape(-1, 4, s).transpose(1, 2)
+    assert torch.equal(pts, want)
+    assert torch.equal(flags, torch.cat([ofl_r, ofl_l]).reshape(4, s).T)
+
+
+def test_curve_msm_and_verifier_on_card(card):
+    """g1_msm / g2_msm at n = 5 (padded to 8) with 256 bits against the host
+    MSM, an infinity input among the points; a repeated point gives Z = 0
+    with the flag clear; GpuTpkeVerifier against the host, and escaping a
+    colliding combine."""
+    rng = random.Random(0xC5)
+    host = HostBackend()
+    pts = _points(rng, 5)
+    pts[3] = bls.G1_INF
+    q2 = _g2_points(rng, 5)
+    sc = [rng.randrange(bls.R) for _ in range(5)]
+    bits = torch.from_numpy(curve.scalars_to_bits(sc, 256)).to(card)
+    pt, fl = curve.g1_msm(g1.g1_pack(pts, card), bits)
+    cpu = card.type == "cpu"
+    got = g1.g1_unpack_host(*g1.fetch(torch.cat([pt, fl.to(pt.dtype)[None]])[:, None]), cpu)
+    assert bls.g1_eq(got[0], host.g1_msm(pts, sc))
+    pt, fl = curve.g2_msm(g2.g2_pack(q2, card), bits)
+    rows, fls = g1.fetch(torch.cat([pt, fl.to(pt.dtype)[None]])[:, None])
+    assert bls.g2_eq(g2.g2_unpack_host(rows, fls, cpu)[0], host.g2_msm(q2, sc))
+    pt, fl = curve.g1_msm(g1.g1_pack([pts[0], pts[0]], card), bits[:1].repeat(2, 1))
+    assert not bool(fl) and g1.g1_coords(pt[:, None])[2] == 0
+
+    dealer, jobs, cts, msgs = _era(5, 1, 1, seed=67)
+    y_points = [vk.y_i for vk in dealer.verification_keys]
+    rlc = [rng.randrange(1, 1 << 64) for _ in range(5)]
+    u = list(jobs[0].u_by_validator)
+    verify.reset_escapes()
+    ok, comb = GpuTpkeVerifier(device=card).verify_and_combine(
+        u, y_points, jobs[0].h, jobs[0].w, rlc, jobs[0].lagrange_row)
+    assert ok and not any(verify.ESCAPES.values())
+    assert tpke.decrypt_with_combined(cts[0], comb) == msgs[0]
+    ok, comb = GpuTpkeVerifier(device=card).verify_and_combine(
+        [u[0], u[0]], y_points[:2], jobs[0].h, jobs[0].w, rlc[:2], [7, 7])
+    assert verify.ESCAPES["tpke_verifier"] == 1
+    assert bls.g1_eq(comb, bls.g1_mul(u[0], 14))

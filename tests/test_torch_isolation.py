@@ -3,8 +3,9 @@
 * In a fresh interpreter, importing every module of `lachain_tpu_torch`
   must bring in neither JAX nor any module of the JAX package.
 * Asking for the card where there is none raises: `GpuBackend()` (and so
-  its `tpke_era_verify_combine` and `ts_era_verify_combine`),
-  `GpuEraPipeline()`, `TsGpuEraPipeline()`, `GpuEcdsaRecover()`,
+  its `tpke_era_verify_combine` and `ts_era_verify_combine`, and with a
+  pipeline given), `GpuEraPipeline()`, `GlvEraPipeline()`,
+  `GpuTpkeVerifier()`, `TsGpuEraPipeline()`, `GpuEcdsaRecover()`,
   `ecdsa.recover_hash_batch`, `RbcEraBatcher()`, `rs_batch.encode_batch` /
   `decode_batch` and the kernel build have no CPU fallback.
 * The host pairing library is the port's own build: it loads from
@@ -27,7 +28,12 @@ from lachain_tpu_torch.crypto.gpu_backend import GpuBackend
 from lachain_tpu_torch.crypto.native_backend import NativeBackend
 from lachain_tpu_torch.ops import _build, rs_batch
 from lachain_tpu_torch.ops.secp import GpuEcdsaRecover
-from lachain_tpu_torch.ops.verify import GpuEraPipeline, TsGpuEraPipeline
+from lachain_tpu_torch.ops.verify import (
+    GlvEraPipeline,
+    GpuEraPipeline,
+    GpuTpkeVerifier,
+    TsGpuEraPipeline,
+)
 
 pytestmark = pytest.mark.kernel
 
@@ -44,7 +50,8 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "lachain_tpu" or m.startswith("lachain_tpu."))
 new = {"lachain_tpu_torch.consensus.rbc_batcher", "lachain_tpu_torch.ops.rs",
-       "lachain_tpu_torch.ops.rs_batch", "lachain_tpu_torch.ops.rs_ref"}
+       "lachain_tpu_torch.ops.rs_batch", "lachain_tpu_torch.ops.rs_ref",
+       "lachain_tpu_torch.ops.msm", "lachain_tpu_torch.ops.curve"}
 assert new <= set(names), new - set(names)
 print(len(names), bad)
 """
@@ -56,7 +63,7 @@ def test_port_imports_nothing_of_jax():
         text=True, check=True, timeout=120,
     ).stdout.split("\n")[0]
     count, bad = out.split(" ", 1)
-    assert int(count) >= 26  # every module of the package was imported
+    assert int(count) >= 28  # every module of the package was imported
     assert bad == "[]"
 
 
@@ -91,6 +98,16 @@ def test_gpu_backend_without_card_raises():
         GpuBackend()
     with pytest.raises(RuntimeError):
         GpuEraPipeline()
+
+
+def test_glv_path_and_verifier_without_card_raise():
+    _require_no_card()
+    with pytest.raises(RuntimeError):
+        GlvEraPipeline()
+    with pytest.raises(RuntimeError):
+        GpuTpkeVerifier()
+    with pytest.raises(RuntimeError):
+        GpuBackend(pipeline=GlvEraPipeline(device="cpu"))
 
 
 def test_coin_path_without_card_raises():
