@@ -55,10 +55,13 @@ Phases, each of which must pass (any failure exits non-zero):
              backend)) is started and joined: the fully masked TPKE era
              at each slot tier, largest first, and one coin era, on a
              GpuBackend of its own; it must end with no error;
-  4. main    seven paths, each with the kernel launch counts set to 0 just
-             before its counted calls and read just after:
+  4. main    eleven paths (thirteen where more than one card is visible),
+             each with the kernel launch counts set to 0 just before its
+             counted calls and read just after; the paths before the mesh
+             paths run on one card however many are visible:
              the N=64 TPKE era (64 ACS slots x 64 decryption shares) through
-             GpuBackend(device="cuda").tpke_era_verify_combine: every slot
+             GpuBackend(pipeline=GpuEraPipeline()).tpke_era_verify_combine
+             on one card: every slot
              must verify and decrypt, with exactly 1 G1 table build, 1 G1
              scan, 6 tree adds, 4 G1 conversions (g1_mont), no doubling and
              no fp_mul; a poisoned share must isolate exactly its slot, 4
@@ -115,9 +118,28 @@ Phases, each of which must pass (any failure exits non-zero):
              host (None on the two bad slots), the encode rs.encode's (or
              GF.matmul's past n = 255), and a cold flush (no cached inverse)
              must launch exactly 3 rs_matmul (encode, the decode of every
-             erasure pattern, re-encode). Around each counted call and the
-             MSMs, no result may have been recomputed on the host
-             (ops/verify.ESCAPES), and each path must launch its kernels;
+             erasure pattern, re-encode);
+             the N=64 TPKE era on a virtual mesh of the card
+             (parallel/mesh.py, run_mesh_path): GpuBackend(pipeline=
+             MeshEraPipeline(devices=[cuda:0] * n)) at n = 1 (1x1), 2 (2x1)
+             and 8 (4x2), every shard's kernels launched on the one card:
+             a fresh backend's first era launches exactly mesh_launches
+             (per shard a table build, a scan, its tree and 2 g1_mont; the
+             cross-shard adds; a key pack per share block; one fetch), and
+             every slot's (ok, combined) equals the tpke_era path's on the
+             same rng; on the 4x2 mesh also sharded_g1_msm / sharded_g2_msm
+             at n=100 over 4 shards against GpuBackend.g1_msm / g2_msm;
+             the RBC flushes above through RbcEraBatcher(mesh=make_mesh(
+             [cuda:0] * 2)) (rbc_flush_mesh): every group's columns in 2
+             blocks, exactly 6 rs_matmul launches a flush, verdicts and
+             encode equal to the one-card flush's and scalar_verdict's.
+             Where more than one card is visible, the same era over every
+             card (mesh_era_cards, the sharded MSMs over them too) and the
+             RBC flushes over every card (rbc_flush_cards), with the same
+             checks; a machine with one card runs neither.
+             Around each counted call and the MSMs, no result may have been
+             recomputed on the host (ops/verify.ESCAPES), and each path
+             must launch its kernels;
   5. times   per-kernel times from CUDA events, the plain versions' times,
              each kernel's bound, the warm phase times of every path (the
              eras' `pairing_s` with the host backend's name; the RBC flush's
@@ -128,7 +150,12 @@ Phases, each of which must pass (any failure exits non-zero):
              kernels must equal the counted ones; the GLV key tables'
              first call, and 10 warm GLV and Pallas-path eras in turns
              (medians and quartiles of the wall and the device phase, the
-             traced device time by kernel, the idle share).
+             traced device time by kernel, the idle share); 10 warm eras
+             of each mesh in turns with the tpke_era path's backend
+             (medians and quartiles of launch, device (events) and wall,
+             the mesh's gather_mb, a warm era's traced device time by
+             kernel and the idle share), and 4 warm RBC flushes a field on
+             the 2-shard mesh in turns with the one-card flush.
 The last three lines of standard output are the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}.
 
@@ -252,6 +279,41 @@ RS_KERNELS = ("rs_matmul8", "rs_matmul16")
 # one launch, secp_fp_mul none since the conversions are secp_mont, fp_mul
 # none since the G1 conversions and phi's product by beta are g1_mont
 NO_PATH = ("g1_dbl", "g2_dbl", "secp_dbl", "secp_fp_mul", "fp_mul")
+# the mesh paths: MeshEraPipeline over n copies of cuda:0 (1x1, 2x1, 4x2),
+# every sharded code path on the one card; their warm eras in turns with
+# the tpke_era path's; the RBC flush's column shards over 2 copies
+MESH_SIZES = (1, 2, 8)
+MESH_ROUNDS = 10
+RBC_MESH = 2
+
+
+def one_card_backend(dev):
+    """GpuBackend on `dev` with a one-card TPKE era pipeline: where more
+    cards are visible, GpuBackend() would take a mesh over them, and the
+    paths before the mesh paths run on one card."""
+    from lachain_tpu_torch.crypto.gpu_backend import GpuBackend
+    from lachain_tpu_torch.ops.verify import GpuEraPipeline
+
+    return GpuBackend(device=dev, pipeline=GpuEraPipeline(device=dev))
+
+
+def mesh_launches(grid, k: int = N_VALIDATORS) -> dict:
+    """A fresh mesh pipeline's first era at K = k (a power of two) over the
+    (n_slot, n_share) device grid: per shard one share pack and phi's
+    product by beta (g1_mont), one table build and one scan over [u | y |
+    u | phi(u)], log2(k / n_share) tree adds; per slot row log2(n_share)
+    adds over the share shards; one key pack per share block and device
+    (a virtual mesh keeps one copy on cuda:0 for every row) and one
+    fetch."""
+    import numpy as np
+
+    n_slot, n_share = grid.shape
+    shards = n_slot * n_share
+    key_packs = len({(dev, c) for (_r, c), dev in np.ndenumerate(grid)})
+    return {"g1_table": shards, "g1_msm_scan": shards, "g1_dbl": 0, "fp_mul": 0,
+            "g1_add": shards * (k // n_share).bit_length() - shards
+            + n_slot * (n_share.bit_length() - 1),
+            "g1_mont": 2 * shards + key_packs + 1}
 
 
 class SeededRng:
@@ -1264,7 +1326,7 @@ def run_flush_path(seed: int, backend, dev, era):
     from lachain_tpu_torch.consensus.crypto_batcher import TpkeEraBatcher
     from lachain_tpu_torch.crypto import bls12381 as bls
     from lachain_tpu_torch.crypto import tpke
-    from lachain_tpu_torch.crypto.gpu_backend import EraSlotJob, GpuBackend
+    from lachain_tpu_torch.crypto.gpu_backend import EraSlotJob
 
     dealer, cts, msgs, jobs = era
     n = len(jobs)
@@ -1324,7 +1386,7 @@ def run_flush_path(seed: int, backend, dev, era):
     for name, max_slots, chunks in FLUSH_CONFIGS:
         before = read_launches()
         t0 = time.perf_counter()
-        batcher, out = flush(name, GpuBackend(device=dev), SeededRng(seed + 32), 2)
+        batcher, out = flush(name, one_card_backend(dev), SeededRng(seed + 32), 2)
         wall = time.perf_counter() - t0
         after = read_launches()
         check_no_escapes(f"tpke_flush {name}")
@@ -1346,7 +1408,7 @@ def run_flush_path(seed: int, backend, dev, era):
     names = tuple(TPKE_LAUNCHES)
     for name in counted:
         by_kernel = profile_launches(
-            lambda: flush(name, GpuBackend(device=dev), SeededRng(seed + 33), 2),
+            lambda: flush(name, one_card_backend(dev), SeededRng(seed + 33), 2),
             {KERNEL_OF[k]: counted[name][k] for k in names}, f"tpke_flush {name}")
         check_traced(f"tpke_flush {name} (depth 2)", by_kernel, counted[name], names)
 
@@ -1569,6 +1631,127 @@ def run_glv_path(seed: int, backend, dev, era):
             f"{dq[0] * 1e3:.3f}, q3 {dq[2] * 1e3:.3f}) over {GLV_ROUNDS} eras in turns; "
             f"traced device {busy:.3f} ms by kernel (ms, launches) {by_kernel}; idle "
             f"share {1 - busy / (wq[1] * 1e3):.4f}")
+    return launches, warm
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the N=64 era on a virtual mesh of the card (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def median_line(xs) -> str:
+    """"median (q1, q3)" of seconds, in ms."""
+    q1, med, q3 = quartiles(xs)
+    return f"{med * 1e3:.3f} ({q1 * 1e3:.3f}, {q3 * 1e3:.3f})"
+
+
+def run_mesh_path(seed: int, backend, dev, era, devices, msm_devices=None):
+    """The N=64 era through GpuBackend(pipeline=MeshEraPipeline(devices=
+    devices)) (n copies of cuda:0, or distinct cards): a fresh backend's
+    first era is counted (mesh_launches) and every slot's (ok, combined)
+    must equal the tpke_era path's one-card backend on the same rng, with
+    no host recompute; then MESH_ROUNDS warm eras in turns with that
+    backend (launch, device (events) and wall medians, the mesh's
+    gather_mb), and a warm era's traced device time by kernel, whose
+    launches must be the counted ones less the key packs, with the idle
+    share. With `msm_devices`, sharded_g1_msm / sharded_g2_msm at n=100
+    over a 1-D mesh of them against GpuBackend.g1_msm / g2_msm."""
+    import torch
+
+    from lachain_tpu_torch.crypto import bls12381 as bls
+    from lachain_tpu_torch.crypto import tpke
+    from lachain_tpu_torch.crypto.gpu_backend import GpuBackend
+    from lachain_tpu_torch.ops import curve, g1, g2, glv
+    from lachain_tpu_torch.parallel.mesh import (
+        MeshEraPipeline, make_mesh, sharded_g1_msm, sharded_g2_msm)
+
+    dealer, cts, msgs, jobs = era
+    vks = dealer.verification_keys
+    mesh_backend = GpuBackend(device=devices[0], pipeline=MeshEraPipeline(devices=devices))
+    pipe = mesh_backend._pipeline
+    n_slot, n_share = pipe.mesh.devices.shape
+    cards = len(pipe.mesh.distinct())
+    label = f"mesh era {n_slot}x{n_share}" + (f" over {cards} cards" if cards > 1 else "")
+
+    want = backend.tpke_era_verify_combine(jobs, vks, SeededRng(seed + 70))
+    reset_counts()
+    t0 = time.perf_counter()
+    res = mesh_backend.tpke_era_verify_combine(jobs, vks, SeededRng(seed + 70))
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    check_no_escapes(label)
+    expect = mesh_launches(pipe.mesh.devices)
+    key_packs = expect["g1_mont"] - 2 * pipe.n_devices - 1
+    got = {k: launches[k] for k in expect}
+    check(got == expect, f"{label}: launches {got} != {expect}")
+    for s, ((ok, comb), (ok1, comb1)) in enumerate(zip(res, want)):
+        check(ok is ok1 is True and bls.g1_eq(comb, comb1)
+              and tpke.decrypt_with_combined(cts[s], comb) == msgs[s],
+              f"{label}: slot {s} differs from the tpke_era path")
+    log(f"{label}: {len(jobs)} slots equal the tpke_era path's (ok, combined) and "
+        f"decrypt; first era {first_s:.3f} s, launches "
+        f"{ {k: v for k, v in launches.items() if v} }; pad waste {pipe.pad_waste}")
+
+    walls = {"mesh": [], "tpke": []}
+    phases = {p: {"launch_s": [], "device_s": []} for p in walls}
+    warm, gather0 = [], pipe.gather_mb
+    for r in range(MESH_ROUNDS):
+        for p in (("mesh", "tpke") if r % 2 == 0 else ("tpke", "mesh")):
+            b = mesh_backend if p == "mesh" else backend
+            t0 = time.perf_counter()
+            res = b.tpke_era_verify_combine(jobs, vks, SeededRng(seed + 71 + r))
+            wall = time.perf_counter() - t0
+            check(all(ok for ok, _ in res), f"{label}: warm era {r} ({p}) failed")
+            walls[p].append(wall)
+            for key in phases[p]:
+                phases[p][key].append(b.last_timings[key])
+            if p == "mesh":
+                warm.append(dict(b.last_timings, wall_s=wall))
+    check_no_escapes(label)
+    gather = (pipe.gather_mb - gather0) / MESH_ROUNDS
+    for p in ("mesh", "tpke"):
+        name = label if p == "mesh" else "tpke_era (same turns)"
+        log(f"{name} warm over {MESH_ROUNDS} eras in turns, median (q1, q3) ms: "
+            f"launch {median_line(phases[p]['launch_s'])}, device (events) "
+            f"{median_line(phases[p]['device_s'])}, wall {median_line(walls[p])}"
+            + (f"; gather_mb {gather:.6f} an era" if p == "mesh" else ""))
+
+    # a warm era's device time by kernel; its traced launches are the
+    # counted ones less the key packs
+    slots = [(list(j.u_by_validator), list(j.lagrange_row)) for j in jobs]
+    y_points = [vk.y_i for vk in vks]
+    pipe.run_era(slots, y_points, SeededRng(seed + 73))
+    names = tuple(k for k in expect if expect[k])
+    want_traced = dict(expect, g1_mont=expect["g1_mont"] - key_packs)
+    by_kernel = profile_launches(
+        lambda: pipe.run_era(slots, y_points, SeededRng(seed + 74)),
+        {KERNEL_OF[k]: want_traced[k] for k in names}, label)
+    busy = sum(v[0] for v in by_kernel.values())
+    log(f"{label} warm era by kernel (torch.profiler, ms, launches): {by_kernel}; "
+        f"busy {busy:.3f} ms, idle share {1 - busy / quartiles(walls['mesh'])[1] / 1e3:.4f}")
+
+    if msm_devices is not None:
+        rng = random.Random(seed + 72)
+        g1_pts = glv.point_run(rng, 100)
+        g1_pts[7] = bls.G1_INF
+        g2_pts = glv.point_run(rng, 100, mul=bls.g2_mul, add=bls.g2_add, gen=bls.G2_GEN)
+        scalars = [rng.randrange(bls.R) for _ in range(100)]
+        bits = torch.from_numpy(curve.scalars_to_bits(scalars, 256)).to(dev)
+        msm_mesh = make_mesh(msm_devices)
+        shards = len(msm_devices)
+        for name, pts, pack, sharded, unpack, eq, msm in (
+                ("g1", g1_pts, g1.g1_pack, sharded_g1_msm, g1.g1_unpack_host,
+                 bls.g1_eq, backend.g1_msm),
+                ("g2", g2_pts, g2.g2_pack, sharded_g2_msm, g2.g2_unpack_host,
+                 bls.g2_eq, backend.g2_msm)):
+            pt, fl = sharded(msm_mesh)(pack(pts, dev), bits)
+            rows, flags = g1.fetch(torch.cat([pt, fl.to(pt.dtype)[None]])[:, None])
+            check(eq(unpack(rows, flags, dev.type == "cpu")[0], msm(pts, scalars)),
+                  f"sharded_{name}_msm over {shards} shards != GpuBackend.{name}_msm")
+        check_no_escapes("sharded MSMs")
+        log(f"sharded_g1_msm / sharded_g2_msm at n=100 (256 bits, an infinity "
+            f"input) over {shards} shards on {len(msm_mesh.distinct())} card(s) "
+            f"equal GpuBackend.g1_msm / g2_msm")
     return launches, warm
 
 
@@ -2045,13 +2228,18 @@ def make_rbc_era(n: int, rng: random.Random):
     return k, own, payloads, era
 
 
-def rbc_flush(device, n: int, k: int, own: bytes, era):
-    """A fresh RbcEraBatcher on `device` takes the era's own encode and one
-    interpolation per slot and flushes -> (batcher, encoded shards,
-    verdicts)."""
+def rbc_flush(device, n: int, k: int, own: bytes, era, mesh=None):
+    """A fresh RbcEraBatcher on `device` (or `mesh`) takes the era's own
+    encode and one interpolation per slot and flushes -> (batcher, encoded
+    shards, verdicts). With no mesh, a flush on the card runs on that one
+    card, where more cards would give the batcher a mesh over them."""
     from lachain_tpu_torch.consensus.rbc_batcher import RbcEraBatcher
+    from lachain_tpu_torch.parallel.mesh import make_mesh
 
-    batcher = RbcEraBatcher(device=device)
+    if mesh is None and device not in ("cpu", "numpy"):
+        mesh = make_mesh([device])
+
+    batcher = RbcEraBatcher(device=device, mesh=mesh)
     enc, verdicts = [], [None] * len(era)
     batcher.submit_encode(0, own, k, n, enc.append)
     for s, (shards, root) in enumerate(era):
@@ -2125,6 +2313,57 @@ def run_rbc_path(seed: int, n: int, dev):
     return launches, [dict(w) for w in warm]
 
 
+def run_rbc_mesh_path(seed: int, dev, devices):
+    """The RBC flushes of run_rbc_path (the same seeded eras) through
+    RbcEraBatcher(mesh=make_mesh(devices)) (RBC_MESH copies of cuda:0, or
+    distinct cards): every group's columns in a block a device, one
+    rs_matmul launch a block of each of the flush's three products. Every
+    verdict and the encode must equal the one-card flush's and
+    scalar_verdict's; launches a flush counted; warm walls beside the
+    one-card flush's."""
+    from lachain_tpu_torch.consensus.rbc_batcher import scalar_verdict
+    from lachain_tpu_torch.ops import rs_batch
+    from lachain_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices)
+    n_shards, cards = len(devices), len(mesh.distinct())
+    total = dict.fromkeys(read_launches(), 0)
+    warm = []
+    for n in RBC_ERAS:
+        label = f"rbc flush mesh N={n}" + (f" over {cards} cards" if cards > 1 else "")
+        k, own, payloads, era = make_rbc_era(n, random.Random(seed + 300 + n))
+        bits = rs_batch.field_for(n).bits
+        _, enc1, verdicts1 = rbc_flush(dev, n, k, own, era)  # the inverses cached
+        reset_counts()
+        batcher, enc, verdicts = rbc_flush(dev, n, k, own, era, mesh=mesh)
+        launches = read_launches()
+        check_no_escapes(label)
+        want = dict(dict.fromkeys(launches, 0), **{f"rs_matmul{bits}": RBC_LAUNCHES * n_shards})
+        check(launches == want, f"{label}: launches {launches} != {want}")
+        check(enc == enc1 and verdicts == verdicts1,
+              f"{label}: differs from the one-card flush")
+        for s, (shards, root) in enumerate(era):
+            check(verdicts[s] == scalar_verdict(shards, k, root),
+                  f"{label}: slot {s} differs from scalar_verdict")
+        for key, v in launches.items():
+            total[key] += v
+        log(f"{label}: {n} verdicts and the encode equal the one-card flush's and "
+            f"scalar_verdict's; {launches[f'rs_matmul{bits}']} rs_matmul{bits} launches "
+            f"a flush over {n_shards} shards; {phase_line(batcher.last_timings)}")
+        walls = {"mesh": [], "card": []}
+        for r in range(4):
+            for p in (("mesh", "card") if r % 2 == 0 else ("card", "mesh")):
+                t0 = time.perf_counter()
+                b, e, v = rbc_flush(dev, n, k, own, era, mesh=mesh if p == "mesh" else None)
+                walls[p].append(time.perf_counter() - t0)
+                check(e == enc and v == verdicts, f"{label}: warm flush {r} ({p}) differs")
+                if p == "mesh":
+                    warm.append(dict(b.last_timings))
+        log(f"{label} warm, 4 flushes in turns, median (q1, q3) ms: mesh "
+            f"{median_line(walls['mesh'])}, one card {median_line(walls['card'])}")
+    return total, warm
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -2136,7 +2375,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    from lachain_tpu_torch.crypto.gpu_backend import GpuBackend
     from lachain_tpu_torch.crypto.warmup import warmup_era_kernels
     from lachain_tpu_torch.ops import _build
 
@@ -2157,7 +2395,7 @@ def main() -> int:
                     for k, a in attrs.items()))
 
     report = check_kernels(args.seed, dev)
-    backend = GpuBackend(device="cuda")
+    backend = one_card_backend(dev)
     # the node-start warmup, on a backend of its own; the TPKE path's first
     # era follows it
     warmup = warmup_era_kernels(N_VALIDATORS, backend)
@@ -2177,6 +2415,16 @@ def main() -> int:
         ("coin_era", lambda: run_coin_path(args.seed, backend, dev)),
         ("ecdsa_recover", lambda: run_ecdsa_path(args.seed, dev)),
     ] + [(f"rbc_flush_{n}", lambda n=n: run_rbc_path(args.seed, n, dev)) for n in RBC_ERAS]
+    card = torch.device("cuda", torch.cuda.current_device())
+    runs += [(f"mesh_era_{m}", lambda n=n: run_mesh_path(
+        args.seed, backend, dev, era, [card] * n, [card] * 4 if n == 8 else None))
+        for n, m in zip(MESH_SIZES, ("1x1", "2x1", "4x2"))]
+    runs.append(("rbc_flush_mesh", lambda: run_rbc_mesh_path(args.seed, dev, [card] * RBC_MESH)))
+    if torch.cuda.device_count() > 1:  # a mesh over distinct cards
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        runs += [("mesh_era_cards", lambda: run_mesh_path(args.seed, backend, dev, era,
+                                                          cards, cards)),
+                 ("rbc_flush_cards", lambda: run_rbc_mesh_path(args.seed, dev, cards))]
     paths = {}
     for path, run in runs:
         t0 = time.perf_counter()
@@ -2191,6 +2439,9 @@ def main() -> int:
         "ecdsa_recover": tuple(k for k in SECP_KERNELS if k not in NO_PATH),
         "rbc_flush_64": ("rs_matmul8",),
         "rbc_flush_256": ("rs_matmul16",),
+        "rbc_flush_mesh": RS_KERNELS,
+        "rbc_flush_cards": RS_KERNELS,
+        **{f"mesh_era_{m}": g1_path for m in ("1x1", "2x1", "4x2", "cards")},
     }
     for path, (launches, warm) in paths.items():
         missing = [k for k in needs[path] if launches[k] == 0]

@@ -28,8 +28,12 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict, List, Optional
 
+import torch
+
 from ..crypto import hashes
 from ..ops import rs, rs_batch
+from ..parallel import mesh_by_default
+from ..parallel.mesh import cards_from, make_mesh
 
 PHASES = ("inverse_s", "pack_s", "device_s", "fetch_s", "recheck_s")
 
@@ -50,12 +54,20 @@ def scalar_verdict(shards, k: int, root: bytes) -> Optional[bytes]:
 class RbcEraBatcher:
     """Collects pending RBC encodes/interpolations; flush() runs each era's
     backlog through batched RS matrix products on `device` ("cuda" by
-    default; no card raises) and fans results out. `last_timings` holds the
-    phases of the last flush in seconds (`PHASES` and `wall_s`)."""
+    default; no card raises) and fans results out. `mesh`, a 1-D mesh
+    (parallel/mesh.make_mesh), cuts every product's columns into a block a
+    device in place of `device`; on the card with none given, one over
+    every visible card where there are two or more (`mesh_by_default`).
+    `last_timings` holds the phases of the last flush in seconds (`PHASES`
+    and `wall_s`)."""
 
-    def __init__(self, device="cuda"):
-        rs_batch.resolve(device)
+    def __init__(self, device="cuda", mesh=None):
+        dev = rs_batch.resolve(device)
+        if mesh is None and dev is not None and dev.type == "cuda" and mesh_by_default(
+                torch.cuda.device_count()):
+            mesh = make_mesh(cards_from(dev))
         self.device = device
+        self.mesh = mesh
         # era -> [(value, k, n, cb)]
         self._enc: Dict[int, List[tuple]] = {}
         # era -> [(key, shards, k, root, cb)]; key = (root, k, n)
@@ -155,7 +167,7 @@ class RbcEraBatcher:
             return []
         return rs_batch.encode_batch(
             [(v, k, n) for (v, k, n, _cb) in encs], device=self.device,
-            timings=timings)
+            timings=timings, mesh=self.mesh)
 
     def _run_interps(
         self, uniq: Dict[tuple, tuple], order: List[tuple], timings: dict
@@ -165,14 +177,14 @@ class RbcEraBatcher:
             return verdicts
         payloads = rs_batch.decode_batch(
             [(uniq[key][0], uniq[key][1]) for key in order],
-            device=self.device, timings=timings)
+            device=self.device, timings=timings, mesh=self.mesh)
         # re-encode the successful reconstructions in one batch, then
         # recheck every Merkle commitment with ONE fused keccak call
         payload_of = dict(zip(order, payloads))
         ok_keys = [key for key, p in zip(order, payloads) if p is not None]
         reenc = rs_batch.encode_batch(
             [(payload_of[key], key[1], key[2]) for key in ok_keys],
-            device=self.device, timings=timings)
+            device=self.device, timings=timings, mesh=self.mesh)
         t = time.perf_counter()
         flat_leaves = hashes.keccak256_batch([s for shards in reenc for s in shards])
         trees, off = [], 0

@@ -33,6 +33,8 @@ import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
+import torch
+
 from . import bls12381 as bls
 from .host import batch_bisect_verify
 from .native_backend import NativeBackend
@@ -45,6 +47,8 @@ from ..ops.verify import (
     _pow2_at_least,
     resolve_device,
 )
+from ..parallel import mesh_by_default
+from ..parallel.mesh import MeshEraPipeline, canonical_device, cards_from
 
 
 @dataclass
@@ -88,20 +92,30 @@ class GpuBackend:
     `device="cpu"` runs the kernels' plain versions (tests). The host ops
     run on `host_backend`, the native library when it is None. `pipeline`
     takes the TPKE era pipeline, as TpuBackend.__init__ does
-    (tpu_backend.py:81-87): by default a GpuEraPipeline on the backend's
-    device; a synchronous pipeline (ops/verify.GlvEraPipeline) runs
+    (tpu_backend.py:81-87): by default, on the card, a MeshEraPipeline over
+    every visible card where there are two or more (`mesh_by_default`, the
+    rule of tpu_backend.py:155-161), the backend's device first
+    (`cards_from`), else a GpuEraPipeline on the backend's device; a
+    synchronous pipeline (ops/verify.GlvEraPipeline) runs
     tpke_era_verify_combine through _dispatch_era_batch's synchronous
-    branch. A pipeline on another device than the backend's raises. The
-    coin era always runs on a TsGpuEraPipeline."""
+    branch. A pipeline whose (first) device is not the backend's raises.
+    The coin era always runs on a TsGpuEraPipeline (tpu_backend.py:178-193),
+    on the backend's device."""
 
     def __init__(self, device="cuda", host_backend=None, pipeline=None):
         self.device = resolve_device(device)
-        if pipeline is not None and pipeline.device != self.device:
+        if pipeline is not None and canonical_device(pipeline.device) != canonical_device(
+                self.device):
             raise ValueError(f"a pipeline on {pipeline.device} for a backend "
                              f"on {self.device}")
         self._host = host_backend or NativeBackend()
         # the default pipelines' escapes to the host MSM use the host backend
-        self._pipeline = pipeline or GpuEraPipeline(self._host, self.device)
+        if pipeline is None:
+            if self.device.type == "cuda" and mesh_by_default(torch.cuda.device_count()):
+                pipeline = MeshEraPipeline(self._host, devices=cards_from(self.device))
+            else:
+                pipeline = GpuEraPipeline(self._host, self.device)
+        self._pipeline = pipeline
         self._ts_pipeline = TsGpuEraPipeline(self._host, self.device)
         self._y_cache: dict = {}
         # wall seconds of the era finished last: the pipeline's phases +

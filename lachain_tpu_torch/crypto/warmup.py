@@ -12,12 +12,17 @@ both libraries, then runs the reference's fully masked dummy TPKE eras at
 each slot tier, largest first, and one dummy coin era, on stable dummy
 keys.
 
+Slot tiers that fall on one `padded_shape` of the backend's pipeline (on
+a mesh, parallel/mesh.py, several do) are warmed once, as in the
+reference (warmup.py:65-83).
+
 Two differences from the reference:
   * the port's GpuBackend is not thread-safe, so the thread runs its eras
-    on a GpuBackend of its own, on the caller's device and host backend
-    (exposed as the thread's `.backend`). What it warms is process-wide:
-    the builds, the CUDA context, lazy module loading, the allocator's and
-    the pinned pools;
+    on a GpuBackend of its own, on the caller's device and host backend,
+    with a pipeline of the same kind on the same devices (exposed as the
+    thread's `.backend`). What it warms is process-wide: the builds, the
+    CUDA context, lazy module loading, the allocator's and the pinned
+    pools;
   * a failure is not swallowed: it is stored on the thread as `.error`,
     logged, and raised again by the thread's `join()`.
 """
@@ -50,6 +55,16 @@ def era_warmup_shapes(n_validators: int) -> List[int]:
     return shapes
 
 
+def _same_pipeline(pipe):
+    """A new TPKE era pipeline of pipe's kind, on its devices and host
+    backend."""
+    from ..parallel.mesh import MeshEraPipeline
+
+    if isinstance(pipe, MeshEraPipeline):
+        return MeshEraPipeline(pipe._backend, devices=list(pipe.mesh.devices.flat))
+    return type(pipe)(pipe._backend, pipe.device)
+
+
 class WarmupThread(threading.Thread):
     """The warmup's daemon thread. `.backend` is the GpuBackend its eras
     ran on, `.eras` the eras run as ("tpke", S) and ("coin", coins),
@@ -60,10 +75,16 @@ class WarmupThread(threading.Thread):
         super().__init__(name="lt-torch-kernel-warmup", daemon=True)
         from .gpu_backend import GpuBackend
 
-        self.backend = GpuBackend(device=backend.device, host_backend=backend._host)
+        pipe = _same_pipeline(backend._pipeline)
+        self.backend = GpuBackend(device=backend.device, host_backend=backend._host,
+                                  pipeline=pipe)
         self.n_validators = n_validators
         self.shapes = (list(shapes) if shapes is not None
                        else era_warmup_shapes(n_validators))
+        padded: dict = {}
+        for s in self.shapes:
+            padded.setdefault(pipe.padded_shape(s, n_validators), s)
+        self.shapes = list(padded.values())
         self.include_ts = include_ts
         self.eras: List[tuple] = []
         self.seconds: Optional[float] = None

@@ -399,18 +399,30 @@ __global__ void __launch_bounds__(BLOCK16, 1)
   cp_async_wait_all();  // a block with no item leaves no copy in flight
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess) {
-      sms = 0;
-      return 1;
-    }
+// What a launch needs to know of the current device, made once a device:
+// a kernel's dynamic shared memory ceiling is a function attribute of one
+// device, and the SM count and occupancy are the device's own. A mesh
+// launches on several devices from one host thread.
+constexpr int MAX_DEVICES = 64;
+struct DeviceState {
+  bool smem8 = false, smem16 = false;  // the kernels' ceilings raised
+  int sms = 0;
+  int per_sm8 = 1;  // rs_matmul8 blocks an SM at smem8_bytes
+  size_t smem8_bytes = 0;
+};
+DeviceState device_states[MAX_DEVICES];
+
+// The current device's state, or null where it cannot be read.
+DeviceState* device_state() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return nullptr;
+  DeviceState* st = &device_states[dev];
+  if (st->sms == 0 &&
+      cudaDeviceGetAttribute(&st->sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    st->sms = 0;
+    return nullptr;
   }
-  return sms;
+  return st;
 }
 
 size_t smem_bytes8(int rtile, int ctile, int kd) {
@@ -421,9 +433,9 @@ size_t smem_bytes16(int rtile, int ctile, int kd) {
   return EXP16_BYTES + ((size_t)rtile * (kd + 1) + (size_t)kd * ctile) * 2;
 }
 
-// grid of at most `per_sm` blocks an SM
-int grid_for(long long items, int per_sm) {
-  const long long cap = (long long)sm_count() * per_sm;
+// grid of at most `per_sm` blocks an SM of a device of `sms` SMs
+int grid_for(long long items, int sms, int per_sm) {
+  const long long cap = (long long)sms * per_sm;
   return (int)(items < cap ? items : cap);
 }
 
@@ -442,26 +454,25 @@ int lt_rs_matmul8(const void* groups, int G, long long items, const void* b,
                   void* stream) {
   if (rtile < 1 || rtile > RT8 || ctile < 1 || ctile > CT8 || kd < 1 || kd > KD8)
     return (int)cudaErrorInvalidValue;
-  static bool smem_set = false;
-  static int per_sm = 1;
-  static size_t per_sm_smem = 0;
-  if (!smem_set) {
+  DeviceState* st = device_state();
+  if (st == nullptr) return (int)cudaErrorInvalidDevice;
+  if (!st->smem8) {
     const cudaError_t err = cudaFuncSetAttribute(
         rs_matmul8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes8(RT8, CT8, KD8));
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+    st->smem8 = true;
   }
   const size_t smem = smem_bytes8(rtile, ctile, kd);
-  if (smem != per_sm_smem) {
+  if (smem != st->smem8_bytes) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, rs_matmul8_kernel, BLOCK8, smem);
+        &st->per_sm8, rs_matmul8_kernel, BLOCK8, smem);
     if (err != cudaSuccess) return (int)err;
-    per_sm = per_sm < 1 ? 1 : per_sm;
-    per_sm_smem = smem;
+    st->per_sm8 = st->per_sm8 < 1 ? 1 : st->per_sm8;
+    st->smem8_bytes = smem;
   }
   if (G > 0 && items > 0) {
-    rs_matmul8_kernel<<<grid_for(items, per_sm), BLOCK8, smem,
+    rs_matmul8_kernel<<<grid_for(items, st->sms, st->per_sm8), BLOCK8, smem,
                         (cudaStream_t)stream>>>(
         (const long long*)groups, G, items, (const uint8_t*)b, C,
         (uint8_t*)out, R, rtile, ctile, kd);
@@ -474,16 +485,17 @@ int lt_rs_matmul16(const void* exp, const void* log, const void* groups,
                    int R, int rtile, int ctile, int kd, void* stream) {
   if (rtile < 1 || rtile > RT16 || ctile < 1 || ctile > CT16 || kd < 1 || kd > KD16)
     return (int)cudaErrorInvalidValue;
-  static bool smem_set = false;
-  if (!smem_set) {
+  DeviceState* st = device_state();
+  if (st == nullptr) return (int)cudaErrorInvalidDevice;
+  if (!st->smem16) {
     const cudaError_t err = cudaFuncSetAttribute(
         rs_matmul16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes16(RT16, CT16, KD16));
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+    st->smem16 = true;
   }
   if (G > 0 && items > 0) {
-    rs_matmul16_kernel<<<grid_for(items, 1), BLOCK16, smem_bytes16(rtile, ctile, kd),
+    rs_matmul16_kernel<<<grid_for(items, st->sms, 1), BLOCK16, smem_bytes16(rtile, ctile, kd),
                          (cudaStream_t)stream>>>(
         (const uint16_t*)exp, (const uint16_t*)log, (const long long*)groups,
         G, items, (const uint16_t*)b, C, (uint16_t*)out, R, rtile, ctile, kd);

@@ -102,6 +102,15 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _run(fn, t, *args) -> int:
+    """fn(*args, stream): a launch on t's device and its current stream
+    there -> the CUDA error code. A ctypes launch goes to the host thread's
+    current device, so t's is made current for the call: a mesh's shards
+    (parallel/mesh.py) lie on devices other than the current one."""
+    with torch.cuda.device(t.device):
+        return fn(*args, _stream(t))
+
+
 def fp_mul(x, y):
     """(R, n) x (R, n) -> (R, n) field product x*y mod p
     (replaces pg1 `_mul_kernel`)."""
@@ -111,9 +120,8 @@ def fp_mul(x, y):
     _check("fp_mul x", x, (NL, n))
     _check("fp_mul y", y, (NL, n))
     out = torch.empty_like(x)
-    rc = _build.library().lt_g1_fp_mul(
-        x.data_ptr(), y.data_ptr(), out.data_ptr(), n, _stream(x)
-    )
+    rc = _run(_build.library().lt_g1_fp_mul, x, x.data_ptr(), y.data_ptr(),
+              out.data_ptr(), n)
     _launched("fp_mul", rc)
     return out
 
@@ -125,7 +133,7 @@ def g1_dbl(p):
     n = p.shape[-1]
     _check("g1_dbl p", p, (3 * NL, n))
     out = torch.empty_like(p)
-    rc = _build.library().lt_g1_dbl(p.data_ptr(), out.data_ptr(), n, _stream(p))
+    rc = _run(_build.library().lt_g1_dbl, p, p.data_ptr(), out.data_ptr(), n)
     _launched("g1_dbl", rc)
     return out
 
@@ -139,9 +147,8 @@ def g1_add(p, q):
     _check("g1_add p", p, (3 * NL, n))
     _check("g1_add q", q, (3 * NL, n))
     out = torch.empty_like(p)
-    rc = _build.library().lt_g1_add(
-        p.data_ptr(), q.data_ptr(), out.data_ptr(), n, _stream(p)
-    )
+    rc = _run(_build.library().lt_g1_add, p, p.data_ptr(), q.data_ptr(),
+              out.data_ptr(), n)
     _launched("g1_add", rc)
     return out
 
@@ -156,9 +163,8 @@ def build_table(lanes):
     n = lanes.shape[-1]
     _check("build_table lanes", lanes, (3 * NL, n))
     table = torch.empty((TABLE, 3 * NL, n), dtype=torch.int32, device=lanes.device)
-    rc = _build.library().lt_g1_table(
-        lanes.data_ptr(), table.data_ptr(), n, _stream(lanes)
-    )
+    rc = _run(_build.library().lt_g1_table, lanes, lanes.data_ptr(),
+              table.data_ptr(), n)
     _launched("g1_table", rc)
     return table
 
@@ -186,10 +192,8 @@ def msm_scan(table, digits, digits_checked: bool = False):
             raise ValueError("msm_scan: digits must lie in [0, 16)")
     acc = torch.empty((3 * NL, n), dtype=torch.int32, device=table.device)
     flags = torch.empty((n,), dtype=torch.bool, device=table.device)
-    rc = _build.library().lt_g1_msm_scan(
-        table.data_ptr(), digits.data_ptr(), acc.data_ptr(), flags.data_ptr(),
-        n, nwin, _stream(table),
-    )
+    rc = _run(_build.library().lt_g1_msm_scan, table, table.data_ptr(),
+              digits.data_ptr(), acc.data_ptr(), flags.data_ptr(), n, nwin)
     _launched("g1_msm_scan", rc)
     return acc, flags
 
@@ -205,9 +209,8 @@ def fixed_tables(keys):
     _check("fixed_tables keys", keys, (3 * NL, k))
     tables = torch.empty((glv.W64, TABLE, 3 * NL, k), dtype=torch.int32,
                          device=keys.device)
-    rc = _build.library().lt_g1_fixed_tables(
-        keys.data_ptr(), tables.data_ptr(), k, _stream(keys)
-    )
+    rc = _run(_build.library().lt_g1_fixed_tables, keys, keys.data_ptr(),
+              tables.data_ptr(), k)
     _launched("g1_fixed_tables", rc)
     return tables
 
@@ -232,10 +235,8 @@ def fixed_scan(tables, digits, k_pad: int, digits_checked: bool = False):
             raise ValueError("fixed_scan: digits must lie in [0, 16)")
     acc = torch.empty((3 * NL, n), dtype=torch.int32, device=tables.device)
     flags = torch.empty((n,), dtype=torch.bool, device=tables.device)
-    rc = _build.library().lt_g1_fixed_scan(
-        tables.data_ptr(), digits.data_ptr(), acc.data_ptr(), flags.data_ptr(),
-        n, k_pad, _stream(tables),
-    )
+    rc = _run(_build.library().lt_g1_fixed_scan, tables, tables.data_ptr(),
+              digits.data_ptr(), acc.data_ptr(), flags.data_ptr(), n, k_pad)
     _launched("g1_fixed_scan", rc)
     return acc, flags
 
@@ -245,9 +246,7 @@ def _mont(t, op: int):
     rows, n = t.shape
     _check("g1_mont t", t, (rows, n))
     out = torch.empty_like(t)
-    rc = _build.library().lt_g1_mont(
-        t.data_ptr(), out.data_ptr(), rows, n, op, _stream(t)
-    )
+    rc = _run(_build.library().lt_g1_mont, t, t.data_ptr(), out.data_ptr(), rows, n, op)
     _launched("g1_mont", rc)
     return out
 

@@ -28,7 +28,7 @@ import torch
 
 from ..crypto import bls12381 as bls
 from . import _build, g1, g2_ref, glv
-from .g1 import NL, _check, _cpu_layout, _on_cpu, _stream
+from .g1 import NL, _check, _cpu_layout, _on_cpu, _run
 from .g1_ref import NLIMBS
 from .glv import TABLE
 
@@ -65,7 +65,7 @@ def g2_dbl(p):
     n = p.shape[-1]
     _check("g2_dbl p", p, (ROWS2, n))
     out = torch.empty_like(p)
-    rc = _build.library().lt_g2_dbl(p.data_ptr(), out.data_ptr(), n, _stream(p))
+    rc = _run(_build.library().lt_g2_dbl, p, p.data_ptr(), out.data_ptr(), n)
     _launched("g2_dbl", rc)
     return out
 
@@ -79,9 +79,8 @@ def g2_add(p, q):
     _check("g2_add p", p, (ROWS2, n))
     _check("g2_add q", q, (ROWS2, n))
     out = torch.empty_like(p)
-    rc = _build.library().lt_g2_add(
-        p.data_ptr(), q.data_ptr(), out.data_ptr(), n, _stream(p)
-    )
+    rc = _run(_build.library().lt_g2_add, p, p.data_ptr(), q.data_ptr(),
+              out.data_ptr(), n)
     _launched("g2_add", rc)
     return out
 
@@ -96,9 +95,8 @@ def build_table2(lanes):
     n = lanes.shape[-1]
     _check("build_table2 lanes", lanes, (ROWS2, n))
     table = torch.empty((TABLE, ROWS2, n), dtype=torch.int32, device=lanes.device)
-    rc = _build.library().lt_g2_table(
-        lanes.data_ptr(), table.data_ptr(), n, _stream(lanes)
-    )
+    rc = _run(_build.library().lt_g2_table, lanes, lanes.data_ptr(),
+              table.data_ptr(), n)
     _launched("g2_table", rc)
     return table
 
@@ -122,10 +120,8 @@ def msm2_scan(table, digits, digits_checked: bool = False):
             raise ValueError("msm2_scan: digits must lie in [0, 16)")
     acc = torch.empty((ROWS2, n), dtype=torch.int32, device=table.device)
     flags = torch.empty((n,), dtype=torch.bool, device=table.device)
-    rc = _build.library().lt_g2_msm_scan(
-        table.data_ptr(), digits.data_ptr(), acc.data_ptr(), flags.data_ptr(),
-        n, nwin, _stream(table),
-    )
+    rc = _run(_build.library().lt_g2_msm_scan, table, table.data_ptr(),
+              digits.data_ptr(), acc.data_ptr(), flags.data_ptr(), n, nwin)
     _launched("g2_msm_scan", rc)
     return acc, flags
 

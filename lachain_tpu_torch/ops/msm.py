@@ -16,8 +16,10 @@ of K lanes lie slot-major along n, and digits are (W, n) MSB-first planes.
   * `glv_era_fused`: the GLV era's device program (ops/verify
     GlvEraPipeline): the 3K-lane scan and the fixed-base scan, then ONE
     tree over [u*rlc | y | u*lag1 | phi(u)*lag2], fused for one fetch.
-  * `glv_split`, `era_digits` (the era pipelines' shared digit marshal) and
-    `combine_or_host_msm` (the shared escape of a colliding combine).
+  * `glv_split`, `era_digits` (an era's digit planes from its flat
+    coefficients; the pipelines' staging, ops/verify._EraStaging, fills
+    the same planes) and `combine_or_host_msm` (the shared escape of a
+    colliding combine).
 
 Sums are taken in another order than the JAX package's (it pairs the first
 half of a group with the second, msm.py:221-238; `g1.tree_reduce_k` pairs
@@ -112,7 +114,7 @@ def glv_era_fused(u, tables, rlc16, lag1, lag2, k: int, digits_checked: bool = F
 
 
 def era_digits(rlc_flat: Sequence[int], lag_flat: Sequence[int]):
-    """The era pipelines' shared coefficient marshal (msm.py:367-386): the
+    """An era's coefficient marshal (msm.py:367-386): the
     per-lane 64-bit RLC coefficients and Lagrange coefficients, slot-major
     -> numpy int32 MSB-first digit planes (rlc16 (16, n), lag1 (32, n), lag2
     (32, n)), the Lagrange coefficients GLV-split into halves below 2^128.

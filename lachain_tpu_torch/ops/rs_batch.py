@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from . import _build, rs_ref
-from .g1 import _on_cpu, _stream
+from .g1 import _on_cpu, _run
 from .verify import resolve_device
 
 
@@ -415,12 +415,12 @@ def launch(lib, bits: int, info: Sequence[Tuple[int, int, int]], b: torch.Tensor
     # queued; CUDA stages the pageable rows before the call returns
     groups = torch.as_tensor(host_rows, dtype=torch.int64).to(b.device, non_blocking=True)
     args = (groups.data_ptr(), len(info), items, b.data_ptr(), cols, out.data_ptr(),
-            rows, *tiles, _stream(b))
+            rows, *tiles)
     if bits == 8:
-        rc = lib.lt_rs_matmul8(*args)
+        rc = _run(lib.lt_rs_matmul8, b, *args)
     else:
         exp, log = _tables16(b.device)
-        rc = lib.lt_rs_matmul16(exp.data_ptr(), log.data_ptr(), *args)
+        rc = _run(lib.lt_rs_matmul16, b, exp.data_ptr(), log.data_ptr(), *args)
     if rc != 0:
         raise RuntimeError(f"rs_matmul{bits}: kernel launch failed with CUDA error {rc}")
     return out
@@ -442,50 +442,81 @@ def _add(timings: Optional[dict], key: str, t0: float) -> float:
     return t
 
 
-def _products(field: GF, groups, dev: Optional[torch.device],
+def _products(field: GF, groups, devs: Optional[list],
               timings: Optional[dict]) -> List[np.ndarray]:
     """groups: [(matrix key, A (rows_g, k_g), [blocks (k_g, w) of B])] of
     one field -> each group's A @ [blocks] as big-endian wire symbols
-    (field.be_dtype), (rows_g, sum of w). On the card: B packed into one
-    pinned buffer and uploaded ("pack_s"), one launch ("device_s"), one
-    download ("fetch_s"); on the CPU the same through the plain version;
-    with dev None, GF.matmul per group."""
+    (field.be_dtype), (rows_g, sum of w). Over the devices `devs` (one, or
+    a 1-D mesh's in order; the reference's column sharding,
+    rs_batch.py:260-305, without its power-of-two padding) each group's
+    columns are cut into len(devs) contiguous blocks, block i of a run of w
+    the columns w * i // n .. w * (i + 1) // n: device i gets its blocks of
+    every group packed into one host buffer (pinned on the card) and
+    uploaded ("pack_s"), runs ONE launch over them ("device_s"; none where
+    it has no columns), and its result is downloaded (into pinned memory on
+    the card) and each group's blocks joined in column order ("fetch_s").
+    On the CPU the same through the plain version; with devs None,
+    GF.matmul per group."""
     t = time.perf_counter()
-    if dev is None:
+    if devs is None:
         outs = [field.matmul(a, np.concatenate(blocks, axis=1)).astype(field.be_dtype)
                 for _key, a, blocks in groups]
         _add(timings, "device_s", t)
         return outs
+    n = len(devs)
+    card = devs[0].type == "cuda"
     widths = [sum(blk.shape[1] for blk in blocks) for _key, _a, blocks in groups]
-    card = dev.type == "cuda"
-    host = torch.empty((max(a.shape[1] for _key, a, _b in groups), sum(widths)),
-                       dtype=SYMBOLS[field.bits], pin_memory=card)
-    view = host.numpy()
-    off = 0
-    for _key, _a, blocks in groups:
-        for blk in blocks:
-            view[: blk.shape[0], off : off + blk.shape[1]] = blk
-            off += blk.shape[1]
-    mats = [_dev_mat(key, a, dev) for key, a, _blocks in groups]
-    b = host.to(dev, non_blocking=True)
-    if card:
+    k_max = max(a.shape[1] for _key, a, _b in groups)
+    shards = []  # (the groups' column ranges, the live groups' widths, forms, B)
+    for i, dev in enumerate(devs):
+        cuts = [(w * i // n, w * (i + 1) // n) for w in widths]
+        live = [g for g, (lo, hi) in enumerate(cuts) if hi > lo]
+        if not live:
+            continue
+        ws = [cuts[g][1] - cuts[g][0] for g in live]
+        host = torch.empty((k_max, sum(ws)), dtype=SYMBOLS[field.bits], pin_memory=card)
+        view, off = host.numpy(), 0
+        for g in live:  # columns lo..hi of the group's blocks side by side
+            lo, hi = cuts[g]
+            pos = 0
+            for blk in groups[g][2]:
+                w = blk.shape[1]
+                a, b = max(lo, pos), min(hi, pos + w)
+                if a < b:
+                    view[: blk.shape[0], off + a - lo : off + b - lo] = (
+                        blk if b - a == w else blk[:, a - pos : b - pos])
+                pos += w
+            off += hi - lo
+        mats = [_dev_mat(groups[g][0], groups[g][1], dev) for g in live]
+        shards.append((cuts, ws, mats, host.to(dev, non_blocking=True)))
+    used = list(dict.fromkeys(sh[3].device for sh in shards)) if card else []
+    for dev in used:
         torch.cuda.synchronize(dev)
     t = _add(timings, "pack_s", t)
-    out = rs_matmul(field.bits, mats, b, widths)
-    if card:
+    outs = [rs_matmul(field.bits, mats, b, ws) for _cuts, ws, mats, b in shards]
+    for dev in used:
         torch.cuda.synchronize(dev)
     t = _add(timings, "device_s", t)
-    if card:
-        fetched = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        fetched.copy_(out)
-        out = fetched
-    res = out.numpy().astype(field.be_dtype, copy=False)
-    outs, off = [], 0
-    for (_key, a, _blocks), w in zip(groups, widths):
-        outs.append(res[: a.shape[0], off : off + w])
-        off += w
+    pieces: List[list] = [[] for _ in groups]  # a group's blocks in column order
+    for (cuts, _ws, _mats, _b), out in zip(shards, outs):
+        if card:
+            fetched = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            fetched.copy_(out)
+            out = fetched
+        res, off = out.numpy().astype(field.be_dtype, copy=False), 0
+        for g, (lo, hi) in enumerate(cuts):
+            if hi > lo:
+                pieces[g].append(res[: groups[g][1].shape[0], off : off + hi - lo])
+                off += hi - lo
+    results = []
+    for p, (_key, a, _blocks) in zip(pieces, groups):
+        if len(p) == 1:
+            results.append(p[0])
+        else:  # blocks of several devices, or no column at all
+            results.append(np.concatenate(p or [np.zeros((a.shape[0], 0), field.dtype)], axis=1,
+                                          dtype=field.be_dtype))
     _add(timings, "fetch_s", t)
-    return outs
+    return results
 
 
 def _coeff_matrix(field: GF, data: bytes, k: int) -> np.ndarray:
@@ -503,15 +534,29 @@ def _coeff_matrix(field: GF, data: bytes, k: int) -> np.ndarray:
     )
 
 
+def _devices(device, mesh) -> Optional[list]:
+    """The devices a call's products run on: a 1-D mesh's (parallel/
+    mesh.py), in order, where one is given; else [device], or None for the
+    numpy oracle."""
+    if mesh is not None:
+        return list(mesh.devices.flat)
+    dev = resolve(device)
+    return None if dev is None else [dev]
+
+
 def encode_batch(
     items: Sequence[Tuple[bytes, int, int]], device="cuda",
-    timings: Optional[dict] = None,
+    timings: Optional[dict] = None, mesh=None,
 ) -> List[List[bytes]]:
     """Encode many (data, k, n) payloads; one matrix product per (field,
-    k, n) group and one launch per field. Returns per-item n-shard lists,
-    ops/rs.py-bit-identical for n <= 255 and GF(2^16)-coded past that.
-    `timings`, when given, accumulates the phases' seconds."""
-    dev = resolve(device)
+    k, n) group and one launch per field (a launch per device and field
+    over a `mesh`, in place of `device`: every group's columns cut into a
+    contiguous block a device, the reference's column sharding,
+    rs_batch.py:260-305, without its power-of-two padding). Returns
+    per-item n-shard lists, ops/rs.py-bit-identical for n <= 255 and
+    GF(2^16)-coded past that. `timings`, when given, accumulates the
+    phases' seconds."""
+    devs = _devices(device, mesh)
     results: List[Optional[List[bytes]]] = [None] * len(items)
     by_field: Dict[int, Dict[Tuple[int, int], List[int]]] = {}
     for idx, (data, k, n) in enumerate(items):
@@ -524,7 +569,7 @@ def encode_batch(
                  [_coeff_matrix(field, items[i][0], k) for i in members])
                 for (k, n), members in groups.items()]
         _add(timings, "pack_s", t)
-        outs = _products(field, work, dev, timings)
+        outs = _products(field, work, devs, timings)
         t = time.perf_counter()
         for (_key, _v, blocks), members, out in zip(work, groups.values(), outs):
             off = 0
@@ -538,16 +583,16 @@ def encode_batch(
 
 def decode_batch(
     items: Sequence[Tuple[Sequence[Optional[bytes]], int]], device="cuda",
-    timings: Optional[dict] = None,
+    timings: Optional[dict] = None, mesh=None,
 ) -> List[Optional[bytes]]:
     """Decode many (shards, k) items; shards is the full n-length list with
     None for missing entries. One matrix product per (field, k, erasure
     pattern) group and one launch per field; per-item None on any of the
     scalar path's failure conditions (short, mixed-size, odd GF(2^16) size,
     bad length prefix). The first k present shards are the ones used, and
-    only their sizes are checked, as in the reference. `timings` as in
-    encode_batch, the host inverses apart ("inverse_s")."""
-    dev = resolve(device)
+    only their sizes are checked, as in the reference. `timings` and `mesh`
+    as in encode_batch, the host inverses apart ("inverse_s")."""
+    devs = _devices(device, mesh)
     results: List[Optional[bytes]] = [None] * len(items)
     groups: Dict[Tuple[int, int, Tuple[int, ...]], List[int]] = {}
     sel: List[Optional[List[Tuple[int, bytes]]]] = [None] * len(items)
@@ -584,7 +629,7 @@ def decode_batch(
             for key, inv, members in work
         ]
         _add(timings, "pack_s", t)
-        outs = _products(field, prepared, dev, timings)
+        outs = _products(field, prepared, devs, timings)
         t = time.perf_counter()
         for (_key, _inv, blocks), (_k, _i, members), out in zip(prepared, work, outs):
             off = 0

@@ -38,7 +38,7 @@ import torch
 
 from ..crypto import ecdsa
 from . import _build, glv, secp_ref
-from .g1 import _check, _cpu_layout, _on_cpu, _stream
+from .g1 import _check, _cpu_layout, _on_cpu, _run
 from .glv import TABLE, W256
 from .verify import ESCAPES, _pow2_at_least, resolve_device
 
@@ -86,9 +86,8 @@ def secp_fp_mul(x, y):
     _check("secp_fp_mul x", x, (NL, n))
     _check("secp_fp_mul y", y, (NL, n))
     out = torch.empty_like(x)
-    rc = _build.library().lt_secp_fp_mul(
-        x.data_ptr(), y.data_ptr(), out.data_ptr(), n, _stream(x)
-    )
+    rc = _run(_build.library().lt_secp_fp_mul, x, x.data_ptr(), y.data_ptr(),
+              out.data_ptr(), n)
     _launched("secp_fp_mul", rc)
     return out
 
@@ -100,7 +99,7 @@ def secp_dbl(p):
     n = p.shape[-1]
     _check("secp_dbl p", p, (ROWS, n))
     out = torch.empty_like(p)
-    rc = _build.library().lt_secp_dbl(p.data_ptr(), out.data_ptr(), n, _stream(p))
+    rc = _run(_build.library().lt_secp_dbl, p, p.data_ptr(), out.data_ptr(), n)
     _launched("secp_dbl", rc)
     return out
 
@@ -114,9 +113,8 @@ def secp_add(p, q):
     _check("secp_add p", p, (ROWS, n))
     _check("secp_add q", q, (ROWS, n))
     out = torch.empty_like(p)
-    rc = _build.library().lt_secp_add(
-        p.data_ptr(), q.data_ptr(), out.data_ptr(), n, _stream(p)
-    )
+    rc = _run(_build.library().lt_secp_add, p, p.data_ptr(), q.data_ptr(),
+              out.data_ptr(), n)
     _launched("secp_add", rc)
     return out
 
@@ -131,9 +129,8 @@ def build_table(lanes):
     n = lanes.shape[-1]
     _check("build_table lanes", lanes, (ROWS, n))
     table = torch.empty((TABLE, ROWS, n), dtype=torch.int32, device=lanes.device)
-    rc = _build.library().lt_secp_table(
-        lanes.data_ptr(), table.data_ptr(), n, _stream(lanes)
-    )
+    rc = _run(_build.library().lt_secp_table, lanes, lanes.data_ptr(),
+              table.data_ptr(), n)
     _launched("secp_table", rc)
     return table
 
@@ -155,10 +152,8 @@ def msm_scan(table, digits):
         raise ValueError("msm_scan: digits must lie in [0, 16)")
     acc = torch.empty((ROWS, n), dtype=torch.int32, device=table.device)
     flags = torch.empty((n,), dtype=torch.bool, device=table.device)
-    rc = _build.library().lt_secp_msm_scan(
-        table.data_ptr(), digits.data_ptr(), acc.data_ptr(), flags.data_ptr(),
-        n, nwin, _stream(table),
-    )
+    rc = _run(_build.library().lt_secp_msm_scan, table, table.data_ptr(),
+              digits.data_ptr(), acc.data_ptr(), flags.data_ptr(), n, nwin)
     _launched("secp_msm_scan", rc)
     return acc, flags
 
@@ -177,7 +172,7 @@ def sqrt(x):
     n = x.shape[-1]
     _check("sqrt x", x, (NL, n))
     out = torch.empty_like(x)
-    rc = _build.library().lt_secp_sqrt(x.data_ptr(), out.data_ptr(), n, _stream(x))
+    rc = _run(_build.library().lt_secp_sqrt, x, x.data_ptr(), out.data_ptr(), n)
     _launched("secp_sqrt", rc)
     return out
 
@@ -197,9 +192,8 @@ def mont_convert(t, into: bool):
     rows, n = t.shape
     _check("mont_convert t", t, (rows, n))
     out = torch.empty_like(t)
-    rc = _build.library().lt_secp_mont(
-        t.data_ptr(), out.data_ptr(), rows, n, int(into), _stream(t)
-    )
+    rc = _run(_build.library().lt_secp_mont, t, t.data_ptr(), out.data_ptr(),
+              rows, n, int(into))
     _launched("secp_mont", rc)
     return out
 

@@ -29,6 +29,7 @@ that its answers came from the card.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -37,7 +38,7 @@ import torch
 from ..crypto import bls12381 as bls
 from ..crypto.host import HostBackend
 from ..crypto.native_backend import NativeBackend
-from . import curve, g1, g2, msm
+from . import curve, g1, g2, glv, msm
 from .glv import W64, W128, W256
 
 ESCAPES = {"tpke_combine": 0, "ts_combine": 0, "g1_msm": 0, "g2_msm": 0,
@@ -93,22 +94,6 @@ def _pow2_at_least(k: int) -> int:
     return 1 << max(0, k - 1).bit_length() if k > 1 else 1
 
 
-def _era_marshal(slots, y_points, rng, masks):
-    """The G1 era pipelines' host marshal: the RLC draws (era_rlc), each
-    slot padded to K_pad = the next power of two with flagged-out filler
-    lanes (the tree reduce sums power-of-two groups of adjacent lanes; zero
-    digits give infinity flags), and the digit planes (msm.era_digits) ->
-    (rlc, k_pad, u_flat, (rlc16, lag1, lag2) numpy)."""
-    k = len(y_points)
-    rlc = era_rlc(slots, k, rng, masks)
-    k_pad = _pow2_at_least(k)
-    pad = k_pad - k
-    u_flat = [u for u_list, _ in slots for u in u_list + [bls.G1_INF] * pad]
-    rlc_flat = [c for row in rlc for c in row + [0] * pad]
-    lag_flat = [c for _, lag_list in slots for c in lag_list + [0] * pad]
-    return rlc, k_pad, u_flat, msm.era_digits(rlc_flat, lag_flat)
-
-
 class _KeyCache:
     """Device copies of era-invariant verification keys (GpuEraPipeline's
     tiled lane blocks, GlvEraPipeline's fixed-base tables), keyed by id()
@@ -155,45 +140,130 @@ def _pad_keys(y_points, k_pad: int) -> list:
     return list(y_points) + [bls.G1_INF] * (k_pad - len(y_points))
 
 
-# rows of one era's pinned upload: the share words (3 x 12), the RLC digits
+# rows of a block's pinned upload: the share words (3 x 12), the RLC digits
 # (W64) and the two GLV halves of the Lagrange coefficients (W128 each)
 _U_ROWS = 3 * g1.NL
 _STAGE_ROWS = _U_ROWS + W64 + 2 * W128
 
 
-class _Stage:
-    """One pinned host buffer of an era's upload, (_STAGE_ROWS, S*K_pad)
-    int32, and the event recorded on its stream after the upload that read
-    it last."""
+class _LagDigitCache:
+    """The (lag1, lag2) digit planes, each (W128, k) int32, of a Lagrange
+    row's GLV halves (msm.era_digits' layout), keyed by the row's values
+    (the JAX package's parallel/mesh.py:229): a fixed signer set repeats
+    its row across every slot of every era, so the split and the digits are
+    made once."""
 
-    def __init__(self, n: int):
-        self.host = torch.empty((_STAGE_ROWS, n), dtype=torch.int32, pin_memory=True)
-        self.uploaded = torch.cuda.Event()
+    def __init__(self, limit: int = 128):
+        self._cache: dict = {}
+        self._limit = limit
+
+    def get(self, row) -> tuple:
+        key = tuple(row)
+        hit = self._cache.get(key)
+        if hit is not None:
+            return hit
+        halves = [glv.glv_split(v) for v in row]
+        planes = (glv.digits_col([h[0] for h in halves], W128),
+                  glv.digits_col([h[1] for h in halves], W128))
+        if len(self._cache) >= self._limit:
+            self._cache.pop(next(iter(self._cache)))
+        self._cache[key] = planes
+        return planes
+
+
+class _EraStaging:
+    """Host marshal buffers of one padded (s_pad, k_pad) era grid (the JAX
+    package's parallel/mesh.py:192), in the upload's layouts: `u` (rows,
+    s_pad, k_pad) share points (plain words on the card, g1_ref's limbs on
+    the CPU), `rlc` (W64, s_pad, k_pad) and `lag1` / `lag2` (W128, ...)
+    int32 MSB-first digit planes. Filler lanes hold infinity and zero
+    digits; a fill writes only the live [:s, :k] region, after `clean(s,
+    k)` has reset what a previous, larger live region left there, so an
+    era's host work follows its live lanes.
+
+    On the card, for a grid of (n_slot, n_share) blocks, `pinned` holds one
+    page-locked block a shard, (n_slot, n_share, _STAGE_ROWS, S_l, K_l)
+    int32, filled from the planes by `pack()`; on a grid of one block the
+    planes are views of it and `pack()` copies nothing. `uploaded` holds
+    the events recorded after the blocks' uploads, which a refill waits
+    for."""
+
+    __slots__ = ("u", "rlc", "lag1", "lag2", "pinned", "uploaded", "_inf_col",
+                 "_filled")
+
+    def __init__(self, s_pad: int, k_pad: int, inf_col: np.ndarray, blocks=None):
+        self._inf_col = inf_col  # (rows,) infinity in the upload's layout
+        self._filled = (s_pad, k_pad)  # everything is reset below
+        self.pinned = None
+        self.uploaded: list = []
+        if blocks is not None:
+            n_slot, n_share = blocks
+            self.pinned = torch.empty(
+                (n_slot, n_share, _STAGE_ROWS, s_pad // n_slot, k_pad // n_share),
+                dtype=torch.int32, pin_memory=True)
+        if blocks == (1, 1):
+            self.u, self.rlc, self.lag1, self.lag2 = np.split(
+                self.pinned.numpy()[0, 0], np.cumsum([_U_ROWS, W64, W128]))
+        else:
+            self.u = np.empty((len(inf_col), s_pad, k_pad), dtype=inf_col.dtype)
+            self.rlc = np.empty((W64, s_pad, k_pad), dtype=np.int32)
+            self.lag1 = np.empty((W128, s_pad, k_pad), dtype=np.int32)
+            self.lag2 = np.empty((W128, s_pad, k_pad), dtype=np.int32)
+        self.clean(0, 0)
+
+    def _reset(self, slots, shares) -> None:
+        self.u[:, slots, shares] = self._inf_col[:, None, None]
+        for plane in (self.rlc, self.lag1, self.lag2):
+            plane[:, slots, shares] = 0
+
+    def clean(self, s: int, k: int) -> None:
+        fs, fk = self._filled
+        if fs > s:
+            self._reset(slice(s, fs), slice(0, fk))
+        if fk > k:
+            self._reset(slice(0, min(fs, s)), slice(k, fk))
+        self._filled = (s, k)
+
+    def pack(self) -> None:
+        """The grid into the shards' pinned blocks, block (r, c) the slots
+        r * S_l.. and shares c * K_l.."""
+        p = self.pinned.numpy()
+        n_slot, n_share, _, s_l, k_l = p.shape
+        if (n_slot, n_share) == (1, 1):
+            return  # the planes are the block
+        off = 0
+        for plane in (self.u, self.rlc, self.lag1, self.lag2):
+            rows = plane.shape[0]
+            np.copyto(p[:, :, off:off + rows],
+                      plane.reshape(rows, n_slot, s_l, n_share, k_l).transpose(1, 3, 0, 2, 4))
+            off += rows
 
 
 class _EraDispatch:
     """One dispatched era: calling it returns run_era's (out, rlc).
 
-    On the card the host blocks on the era's completion event `done`, reads
-    the fused output (one launch out of Montgomery form and one download on
-    the era's own stream) and finishes each slot; on the CPU the work was
-    done at dispatch and calling it returns it. `timings` holds the era's
-    phases in seconds: `pack_s` (the host's marshal into the pinned
-    buffer), `launch_s` (the host's time enqueueing the upload and the
-    launches; 0 on the CPU), `device_s` (on the card: CUDA events on the
-    era's stream from the first upload to the last launch; on the CPU: the
-    plain versions' host time), `wait_s` (host time blocked in the call)
-    and `fetch_s` (download, unpack and the per-slot finish)."""
+    On the card the host blocks on the last event of each device the era
+    ran on (`spans`, one (start, last) pair a device; `done` is the first
+    device's), reads the fused output (one launch out of Montgomery form
+    and one download on the era's stream on the first device) and finishes
+    each slot; on the CPU the work was done at dispatch and calling it
+    returns it. `timings` holds the era's phases in seconds: `pack_s` (the
+    host's marshal into the pinned buffers), `launch_s` (the host's time
+    enqueueing the uploads and the launches; 0 on the CPU), `device_s` (on
+    the card: CUDA events on the era's stream from the first upload to the
+    last launch, the longest of its devices'; on the CPU: the plain
+    versions' host time), `wait_s` (host time blocked in the call) and
+    `fetch_s` (download, unpack and the per-slot finish)."""
 
     def __init__(self, pipeline, slots, rlc, timings, fused=None, stream=None,
-                 start=None, done=None, result=None):
+                 spans=(), result=None):
         self._pipeline = pipeline
         self._slots = slots
         self._rlc = rlc
         self._fused = fused
         self._stream = stream
-        self._start = start
-        self.done = done
+        self._spans = list(spans)
+        self.done = self._spans[0][1] if self._spans else None
         self.timings = timings
         self._result = result
         self._called = False
@@ -208,10 +278,11 @@ class _EraDispatch:
             if self.done is not None:
                 t = self.timings
                 t0 = time.perf_counter()
-                self.done.synchronize()
+                for _start, last in self._spans:
+                    last.synchronize()
                 t1 = time.perf_counter()
                 t["wait_s"] = t1 - t0
-                t["device_s"] = self._start.elapsed_time(self.done) / 1e3
+                t["device_s"] = max(a.elapsed_time(b) for a, b in self._spans) / 1e3
                 with torch.cuda.stream(self._stream):
                     out = self._pipeline._finish_slots(self._fused, self._slots)
                 t["fetch_s"] = time.perf_counter() - t1
@@ -223,80 +294,135 @@ class _EraDispatch:
 
 
 def _finish_g1_slots(fused, slots, device, backend) -> list:
-    """A G1 era's fused output (3R + 1, 4S), columns u_agg | y_agg | comb1 |
-    comb2 -> per-slot (u_agg, y_agg, combined) oracle points. A combine
-    that collided in the incomplete add tree (the Lagrange lanes carry no
-    random coefficients) is recomputed by the host MSM and counted in
-    ESCAPES (msm.combine_or_host_msm; the pg1 pipelines do the same)."""
-    s = len(slots)
+    """A G1 era's fused output (3R + 1, 4 S_pad), columns u_agg | y_agg |
+    comb1 | comb2 over S_pad >= S slots -> per-slot (u_agg, y_agg,
+    combined) oracle points of the S live slots. A combine that collided in
+    the incomplete add tree (the Lagrange lanes carry no random
+    coefficients) is recomputed by the host MSM and counted in ESCAPES
+    (msm.combine_or_host_msm; the pg1 pipelines do the same)."""
+    s_pad = fused.shape[1] // 4
     rows, flags = g1.fetch(fused)  # ONE device->host copy
     cols = g1.g1_unpack_host(rows, flags, device.type == "cpu")
     out = []
-    for i in range(s):
+    for i, slot in enumerate(slots):
         comb, escaped = msm.combine_or_host_msm(
-            bls.g1_add(cols[2 * s + i], cols[3 * s + i]), *slots[i], backend)
+            bls.g1_add(cols[2 * s_pad + i], cols[3 * s_pad + i]), *slot, backend)
         ESCAPES["tpke_combine"] += escaped
-        out.append((cols[i], cols[s + i], comb))
+        out.append((cols[i], cols[s_pad + i], comb))
     return out
 
 
+def _one_device(device) -> np.ndarray:
+    grid = np.empty((1, 1), dtype=object)
+    grid[0, 0] = resolve_device(device)
+    return grid
+
+
 class _G1EraPipeline:
-    """The G1 era pipelines' shared dispatch: the marshal (_era_marshal),
-    on the card the pinned upload, one `mont_convert` of the shares into
-    form and the era's device program on a CUDA stream of its own, then
-    the slot finish (_finish_g1_slots). A subclass gives the key operand
-    (`_keys`) and the device program (`_program`); both programs return
-    the (3R + 1, 4S) u_agg | y_agg | comb1 | comb2 layout.
+    """The G1 era pipelines' shared dispatch over an (n_slot, n_share) grid
+    of devices: one device (GpuEraPipeline, GlvEraPipeline) or a mesh's
+    (parallel/mesh.MeshEraPipeline).
+
+    A dispatch draws the RLC coefficients over every lane in the
+    synchronous order (era_rlc), fills the staging of its padded shape
+    (`padded_shape`; _EraStaging, the Lagrange planes from _LagDigitCache),
+    and for each block (r, c), slots r * S_l.. and shares c * K_l.., on
+    the card uploads the block's pinned buffer to its device, converts its
+    shares into Montgomery form (one `mont_convert`) and enqueues the
+    device program (`_program`) there, without waiting for the card.
+    `_join` makes the blocks' outputs one (3R + 1, 4 S_pad) u_agg | y_agg
+    | comb1 | comb2 buffer on the first device, which the call fetches to
+    finish each slot (_finish_g1_slots). A subclass gives the key operand
+    of a block (`_keys`) and the program; a grid of several blocks, the
+    cross-shard sum (`_join`).
 
     At most MAX_INFLIGHT dispatches may be unfinished: dispatch i runs on
-    stream i % MAX_INFLIGHT and fills pinned buffer i % MAX_INFLIGHT of its
-    (S, K_pad) shape, after waiting for the upload that read that buffer
-    last (the copy only, not that era's kernels); one more raises
+    stream i % MAX_INFLIGHT of each of its devices and fills staging i %
+    MAX_INFLIGHT of its padded shape, after waiting for the uploads that
+    read it last (the copies only, not that era's kernels); one more raises
     RuntimeError. On the CPU the work is done at dispatch and the call
-    only returns it, with the same in-flight bookkeeping. `last_timings`
-    holds the phases of the era finished last (see _EraDispatch);
-    `backend` serves the combine escapes to the host MSM: the native
-    library when it is None, as in GpuBackend."""
+    only returns it, with the same in-flight bookkeeping. `calls` counts
+    the dispatches, `pad_waste` is the last one's share of filler lanes,
+    `last_timings` holds the phases of the era finished last (see
+    _EraDispatch); `backend` serves the combine escapes to the host MSM:
+    the native library when it is None, as in GpuBackend."""
 
     MAX_INFLIGHT = 2
-    STAGED_SHAPES = 8  # (S, K_pad) shapes whose pinned buffers are kept
+    STAGED_SHAPES = 8  # padded shapes whose staging is kept
 
-    def __init__(self, backend=None, device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, backend=None, device="cuda", grid=None):
+        self._grid = _one_device(device) if grid is None else grid
+        self.device = self._grid[0, 0]
         self._backend = backend or NativeBackend()
-        self._y_cache = _KeyCache(self.device)
-        self.last_timings: dict = {}
-        self._dispatched = 0
-        self._inflight = 0
-        self._staging: dict = {}
+        distinct = list(dict.fromkeys(self._grid.flat))
+        self._key_caches = {dev: _KeyCache(dev) for dev in distinct}
+        self._lag_cache = _LagDigitCache()
         self._streams = None
         if self.device.type == "cuda":
-            self._streams = tuple(torch.cuda.Stream(self.device)
-                                  for _ in range(self.MAX_INFLIGHT))
+            self._streams = {dev: tuple(torch.cuda.Stream(dev)
+                                        for _ in range(self.MAX_INFLIGHT))
+                             for dev in distinct}
+        self._inf_col = self._u_rows([bls.G1_INF])[:, 0]
+        self._staging: dict = {}
+        self._inflight = 0
+        self.calls = 0
+        self.pad_waste = 0.0
+        self.last_timings: dict = {}
 
-    def _keys(self, y_points, s: int, k_pad: int):
+    def padded_shape(self, s: int, k: int) -> tuple:
+        """(s_pad, k_pad) the pipeline runs for a live (s, k) era grid: each
+        slot padded to a power of two with flagged-out filler lanes (the
+        tree reduce sums power-of-two groups of adjacent lanes)."""
+        return s, _pow2_at_least(k)
+
+    def _keys(self, dev, y_points, s_pad: int, k_pad: int, c: int):
         raise NotImplementedError
 
-    def _program(self, u, y, rlc16, lag1, lag2, k_pad: int, digits_checked=False):
+    def _program(self, u, y, rlc16, lag1, lag2, k: int, digits_checked=False):
         raise NotImplementedError
+
+    def _join(self, outs, on):
+        """The blocks' outputs (a list of rows) -> the era's fused buffer on
+        the first device; `on(device)` gives the context of work there. One
+        block: its own output."""
+        (out,), = outs
+        return out
 
     def _release(self, dispatch) -> None:
         self._inflight -= 1
         self.last_timings = dispatch.timings
 
-    def _stage(self, s: int, k_pad: int, i: int) -> _Stage:
-        """Pinned buffer i % MAX_INFLIGHT of the (s, k_pad) shape, free to
-        refill."""
-        ring = self._staging.get((s, k_pad))
+    def _u_rows(self, points) -> np.ndarray:
+        """Oracle points -> (rows, n) in the upload's layout."""
+        if self._streams is not None:
+            return g1.plain_words(g1.g1_xyz(points))
+        return g1.g1_pack(points, "cpu").numpy()
+
+    def _stage(self, s_pad: int, k_pad: int) -> _EraStaging:
+        """Staging calls % MAX_INFLIGHT of the shape, free to refill."""
+        ring = self._staging.get((s_pad, k_pad))
         if ring is None:
             if len(self._staging) >= self.STAGED_SHAPES:
                 for old in self._staging.pop(next(iter(self._staging))):
-                    old.uploaded.synchronize()
-            ring = self._staging[(s, k_pad)] = tuple(
-                _Stage(s * k_pad) for _ in range(self.MAX_INFLIGHT))
-        stage = ring[i % self.MAX_INFLIGHT]
-        stage.uploaded.synchronize()
+                    for ev in old.uploaded:
+                        ev.synchronize()
+            blocks = self._grid.shape if self._streams is not None else None
+            ring = self._staging[(s_pad, k_pad)] = tuple(
+                _EraStaging(s_pad, k_pad, self._inf_col, blocks)
+                for _ in range(self.MAX_INFLIGHT))
+        stage = ring[self.calls % self.MAX_INFLIGHT]
+        for ev in stage.uploaded:
+            ev.synchronize()
         return stage
+
+    def _fill(self, stage: _EraStaging, slots, rlc, s: int, k: int) -> None:
+        stage.clean(s, k)
+        stage.u[:, :s, :k] = self._u_rows(
+            [u for u_list, _ in slots for u in u_list]).reshape(-1, s, k)
+        stage.rlc[:, :s, :k] = glv.digits_col(
+            [c for row in rlc for c in row], W64).reshape(W64, s, k)
+        for i, (_, lag_list) in enumerate(slots):
+            stage.lag1[:, i, :k], stage.lag2[:, i, :k] = self._lag_cache.get(lag_list)
 
     def _dispatch(self, slots, y_points, rng, masks=None) -> _EraDispatch:
         if self._inflight >= self.MAX_INFLIGHT:
@@ -305,54 +431,88 @@ class _G1EraPipeline:
                 f"before dispatching another (MAX_INFLIGHT = {self.MAX_INFLIGHT})"
             )
         t0 = time.perf_counter()
-        rlc, k_pad, u_flat, digits = _era_marshal(slots, y_points, rng, masks)
-        if self._streams is None:
-            dispatch = self._dispatch_cpu(slots, y_points, rlc, u_flat, digits,
-                                          k_pad, t0)
-        else:
-            dispatch = self._dispatch_card(slots, y_points, rlc, u_flat, digits,
-                                           k_pad, t0)
-        self._dispatched += 1
+        s, k = len(slots), len(y_points)
+        rlc = era_rlc(slots, k, rng, masks)  # every lane's, before any cut
+        s_pad, k_pad = self.padded_shape(s, k)
+        self.pad_waste = 1.0 - s * k / (s_pad * k_pad)
+        stage = self._stage(s_pad, k_pad)
+        self._fill(stage, slots, rlc, s, k)
+        run = self._dispatch_cpu if self._streams is None else self._dispatch_card
+        dispatch = run(stage, slots, y_points, rlc, s_pad, k_pad, t0)
+        self.calls += 1
         self._inflight += 1
         return dispatch
 
-    def _dispatch_cpu(self, slots, y_points, rlc, u_flat, digits, k_pad, t0):
-        u = g1.g1_pack(u_flat, self.device)
-        y = self._keys(y_points, len(slots), k_pad)
-        rlc16, lag1, lag2 = (torch.from_numpy(d) for d in digits)
+    def _dispatch_cpu(self, stage, slots, y_points, rlc, s_pad, k_pad, t0):
+        n_slot, n_share = self._grid.shape
+        s_l, k_l = s_pad // n_slot, k_pad // n_share
         t1 = time.perf_counter()
-        fused = self._program(u, y, rlc16, lag1, lag2, k_pad)
+        outs = []
+        for r in range(n_slot):
+            row = []
+            for c in range(n_share):
+                cut = (slice(None), slice(r * s_l, (r + 1) * s_l),
+                       slice(c * k_l, (c + 1) * k_l))
+                u, rlc16, lag1, lag2 = (
+                    torch.from_numpy(np.ascontiguousarray(p[cut]).reshape(p.shape[0], -1))
+                    for p in (stage.u, stage.rlc, stage.lag1, stage.lag2))
+                y = self._keys(self._grid[r, c], y_points, s_pad, k_pad, c)
+                row.append(self._program(u, y, rlc16, lag1, lag2, k_l, True))
+            outs.append(row)
+        fused = self._join(outs, lambda _dev: contextlib.nullcontext())
         t2 = time.perf_counter()
         out = self._finish_slots(fused, slots)
         timings = {"pack_s": t1 - t0, "launch_s": 0.0, "device_s": t2 - t1,
                    "wait_s": 0.0, "fetch_s": time.perf_counter() - t2}
         return _EraDispatch(self, slots, rlc, timings, result=(out, rlc))
 
-    def _dispatch_card(self, slots, y_points, rlc, u_flat, digits, k_pad, t0):
-        s = len(slots)
-        i = self._dispatched
-        stream = self._streams[i % self.MAX_INFLIGHT]
-        # the share words, then the 4-bit digits, in range as
-        # glv.digits_col makes them
-        parts = [g1.plain_words(g1.g1_xyz(u_flat)), *digits]
-        stage = self._stage(s, k_pad, i)
-        np.concatenate(parts, out=stage.host.numpy())
+    def _dispatch_card(self, stage, slots, y_points, rlc, s_pad, k_pad, t0):
+        i = self.calls % self.MAX_INFLIGHT
+        n_slot, n_share = self._grid.shape
+        s_l, k_l = s_pad // n_slot, k_pad // n_share
+        stage.pack()
         t1 = time.perf_counter()
-        start = torch.cuda.Event(enable_timing=True)
-        done = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.stream(stream):
-            y = self._keys(y_points, s, k_pad)
-            start.record(stream)
-            buf = torch.empty(stage.host.shape, dtype=torch.int32, device=self.device)
-            buf.copy_(stage.host, non_blocking=True)
-            stage.uploaded.record(stream)
-            u = g1.mont_convert(buf[:_U_ROWS], into=True)
-            rlc16, lag1, lag2 = torch.split(buf[_U_ROWS:], [W64, W128, W128])
-            fused = self._program(u, y, rlc16, lag1, lag2, k_pad,
-                                  digits_checked=True)
-            done.record(stream)
+        starts: dict = {}
+
+        def on(dev):
+            """This dispatch's stream on dev, its start event recorded at the
+            device's first use."""
+            stream = self._streams[dev][i]
+            if dev not in starts:
+                starts[dev] = torch.cuda.Event(enable_timing=True)
+                starts[dev].record(stream)
+            return torch.cuda.stream(stream)
+
+        uploaded, outs = [], []
+        for r in range(n_slot):
+            row = []
+            for c in range(n_share):
+                dev = self._grid[r, c]
+                with torch.cuda.stream(self._streams[dev][i]):
+                    y = self._keys(dev, y_points, s_pad, k_pad, c)
+                with on(dev):
+                    buf = torch.empty((_STAGE_ROWS, s_l * k_l), dtype=torch.int32,
+                                      device=dev)
+                    buf.copy_(stage.pinned[r, c].view(_STAGE_ROWS, -1), non_blocking=True)
+                    uploaded.append(torch.cuda.Event())
+                    uploaded[-1].record()
+                    # the share words, then the 4-bit digits, in range as
+                    # glv.digits_col makes them
+                    u = g1.mont_convert(buf[:_U_ROWS], into=True)
+                    rlc16, lag1, lag2 = torch.split(buf[_U_ROWS:], [W64, W128, W128])
+                    row.append(self._program(u, y, rlc16, lag1, lag2, k_l,
+                                             digits_checked=True))
+            outs.append(row)
+        fused = self._join(outs, on)
+        stage.uploaded = uploaded
+        spans = []
+        for dev, start in starts.items():  # the first device first
+            last = torch.cuda.Event(enable_timing=True)
+            last.record(self._streams[dev][i])
+            spans.append((start, last))
         timings = {"pack_s": t1 - t0, "launch_s": time.perf_counter() - t1}
-        return _EraDispatch(self, slots, rlc, timings, fused, stream, start, done)
+        return _EraDispatch(self, slots, rlc, timings, fused,
+                            self._streams[self.device][i], spans)
 
     def _finish_slots(self, fused, slots) -> list:
         return _finish_g1_slots(fused, slots, self.device, self._backend)
@@ -368,7 +528,7 @@ class _G1EraPipeline:
 
 class GpuEraPipeline(_G1EraPipeline):
     """The era pipeline on the G1 kernels (ops/g1.py): the keys tiled to
-    the S*K_pad lanes, the device program g1.era_kernel_fused.
+    the lanes of a block, the device program g1.era_kernel_fused.
 
     `dispatch_era` is the async half of `run_era`, under the contract of
     the JAX package's MeshEraPipeline.dispatch_era (parallel/mesh.py:375-487):
@@ -380,17 +540,23 @@ class GpuEraPipeline(_G1EraPipeline):
     e+1's host pack with era e's kernels, and era e's finish on the host
     with era e+1's kernels. Every tensor of one era is made, used and read
     on its own stream. A dispatch waits for the card only where a key set
-    first meets an (S, K_pad) shape (its tiled keys upload once from
-    pageable memory) and for the upload that last read its pinned buffer."""
+    first meets a padded shape (its tiled keys upload once from pageable
+    memory) and for the upload that last read its pinned buffer."""
 
-    def _keys(self, y_points, s: int, k_pad: int):
-        return self._y_cache.get(
+    def _keys(self, dev, y_points, s_pad: int, k_pad: int, c: int):
+        """Share block c's key columns (the keys padded with infinity to
+        k_pad), tiled over a block's slots, on dev; made once per key set
+        and shape and kept by identity (_KeyCache)."""
+        n_slot, n_share = self._grid.shape
+        s_l, k_l = s_pad // n_slot, k_pad // n_share
+        return self._key_caches[dev].get(
             y_points,
-            lambda: g1.g1_pack(_pad_keys(y_points, k_pad), self.device).repeat(1, s),
-            (s, k_pad))
+            lambda: g1.g1_pack(_pad_keys(y_points, k_pad)[c * k_l:(c + 1) * k_l],
+                               dev).repeat(1, s_l),
+            (s_pad, k_pad, c))
 
-    def _program(self, u, y, rlc16, lag1, lag2, k_pad: int, digits_checked=False):
-        return g1.era_kernel_fused(u, y, rlc16, lag1, lag2, k_pad,
+    def _program(self, u, y, rlc16, lag1, lag2, k: int, digits_checked=False):
+        return g1.era_kernel_fused(u, y, rlc16, lag1, lag2, k,
                                    digits_checked=digits_checked)
 
     def dispatch_era(self, slots, y_points, rng, masks=None) -> _EraDispatch:
@@ -432,14 +598,14 @@ class GlvEraPipeline(_G1EraPipeline):
         `is` recheck, so a collected list can never alias a new validator
         set (verify.py:166-185); up to 4 sets stay cached."""
         k_pad = _pow2_at_least(len(y_points))
-        return self._y_cache.get(y_points, lambda: msm.y_fixed_base_tables(
+        return self._key_caches[self.device].get(y_points, lambda: msm.y_fixed_base_tables(
             g1.g1_pack(_pad_keys(y_points, k_pad), self.device)))
 
-    def _keys(self, y_points, s: int, k_pad: int):
+    def _keys(self, dev, y_points, s_pad: int, k_pad: int, c: int):
         return self.y_device(y_points)
 
-    def _program(self, u, y, rlc16, lag1, lag2, k_pad: int, digits_checked=False):
-        return msm.glv_era_fused(u, y, rlc16, lag1, lag2, k_pad,
+    def _program(self, u, y, rlc16, lag1, lag2, k: int, digits_checked=False):
+        return msm.glv_era_fused(u, y, rlc16, lag1, lag2, k,
                                  digits_checked=digits_checked)
 
 

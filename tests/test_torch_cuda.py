@@ -34,6 +34,12 @@ from lachain_tpu_torch.ops.verify import (
     TsGpuEraPipeline,
     TsHostEraPipeline,
 )
+from lachain_tpu_torch.parallel.mesh import (
+    MeshEraPipeline,
+    make_mesh,
+    sharded_g1_msm,
+    sharded_g2_msm,
+)
 
 pytestmark = [pytest.mark.cuda, pytest.mark.kernel]
 
@@ -1141,3 +1147,222 @@ def test_curve_msm_and_verifier_on_card(card):
         [u[0], u[0]], y_points[:2], jobs[0].h, jobs[0].w, rlc[:2], [7, 7])
     assert verify.ESCAPES["tpke_verifier"] == 1
     assert bls.g1_eq(comb, bls.g1_mul(u[0], 14))
+
+
+# -- the mesh on one card: n copies of cuda:0 (parallel/mesh.py) ------------
+# Every shard's kernels launch on the one card; the copies between devices
+# are no-ops. The device guard of the kernel wrappers (ops/g1._run: each
+# launch on its tensor's own device) cannot be shown wrong on a machine
+# with one card: the tests of a mesh over distinct cards (`cards`, below)
+# run only where there are several.
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_mesh_era_on_card_equals_one_card(card, n):
+    """MeshEraPipeline on the 2x1 and 4x2 meshes against GpuEraPipeline on
+    the same era and rng (N=5: each slot padded to 8 lanes, 5 slots; a
+    masked lane): equal rlc rows and points; the first era's launches those
+    of its shards, a warm era one key pack a share block fewer; two eras in
+    flight equal run_era's."""
+    dealer, jobs, _, _ = _era(5, 1, 5, seed=71)
+    y_points = [vk.y_i for vk in dealer.verification_keys]
+    slots = [(list(j.u_by_validator), list(j.lagrange_row)) for j in jobs]
+    masks = [[True] * 5 for _ in slots]
+    masks[2][4] = False
+    pipe = MeshEraPipeline(devices=[torch.device("cuda", 0)] * n)
+    n_slot, n_share = pipe.mesh.devices.shape
+    shards = n_slot * n_share
+    want = GpuEraPipeline(device=card).run_era(slots, y_points, SeededRng(3), masks)
+    for first in (True, False):
+        g1.reset_launches()
+        verify.reset_escapes()
+        got = pipe.run_era(slots, y_points, SeededRng(3), masks)
+        _assert_eras_equal([got], [want])
+        assert not any(verify.ESCAPES.values())
+        assert g1.LAUNCHES == dict(
+            dict.fromkeys(g1.LAUNCHES, 0), g1_table=shards, g1_msm_scan=shards,
+            g1_add=shards * (8 // n_share).bit_length() - shards
+            + n_slot * (n_share.bit_length() - 1),
+            g1_mont=2 * shards + 1 + (n_share if first else 0))
+    rng = SeededRng(3)
+    firsts = [pipe.dispatch_era(slots, y_points, rng, masks) for _ in range(2)]
+    rng = SeededRng(3)
+    seq = [GpuEraPipeline(device=card).run_era(slots, y_points, rng, masks)
+           for _ in range(2)]
+    _assert_eras_equal([d() for d in firsts], seq)
+    assert pipe.last_timings["device_s"] > 0 and pipe.calls == 4
+
+
+def test_mesh_backend_on_card(card):
+    dealer, jobs, cts, msgs = _era(5, 1, 3, seed=73)
+    backend = GpuBackend(device=card, pipeline=MeshEraPipeline(
+        devices=[torch.device("cuda", 0)] * 4))
+    res = backend.tpke_era_verify_combine(jobs, dealer.verification_keys, SeededRng(9))
+    assert all(ok for ok, _ in res)
+    for s in range(3):
+        assert tpke.decrypt_with_combined(cts[s], res[s][1]) == msgs[s]
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_msms_on_card_equal_one_card(card, shards):
+    rng = random.Random(0x5A + shards)
+    pts = _points(rng, 37)
+    pts[5] = bls.G1_INF
+    q2 = _g2_points(rng, 9)
+    sc = [rng.randrange(bls.R) for _ in range(37)]
+    bits = torch.from_numpy(curve.scalars_to_bits(sc, 256)).to(card)
+    mesh = make_mesh([torch.device("cuda", 0)] * shards)
+    for (pack, one, sharded, unpack, eq, p) in (
+            (g1.g1_pack, curve.g1_msm, sharded_g1_msm, g1.g1_unpack_host, bls.g1_eq, pts),
+            (g2.g2_pack, curve.g2_msm, sharded_g2_msm, g2.g2_unpack_host, bls.g2_eq, q2)):
+        packed, b = pack(p, card), bits[: len(p)]
+        got = [unpack(*g1.fetch(torch.cat([pt, fl.to(pt.dtype)[None]])[:, None]), False)[0]
+               for pt, fl in (sharded(mesh)(packed, b), one(packed, b))]
+        assert eq(got[0], got[1])
+
+
+def test_rbc_flush_on_card_mesh_equals_one_card(card):
+    """An N=64 era's flush on a 2-shard mesh of the card: 6 launches (a
+    block of each product a shard), the one-card flush's verdicts and
+    encode."""
+    rng = random.Random(64)
+    n, k, size = 64, 22, 2871
+    own = rng.randbytes(size)
+    slots = []
+    for s in range(6):
+        shards = list(rs_batch.encode(rng.randbytes(size), k, n, device="numpy"))
+        root = hashes.merkle_root(hashes.keccak256_batch(shards))
+        for i in rng.sample(range(n), rng.randint(0, n - k)):
+            shards[i] = None
+        slots.append((shards, root))
+    out = []
+    for mesh in (make_mesh([card]), make_mesh([torch.device("cuda", 0)] * 2)):
+        batcher = RbcEraBatcher(device="cuda", mesh=mesh)
+        enc, verdicts = [], {}
+        batcher.submit_encode(0, own, k, n, enc.append)
+        for s, (shards, root) in enumerate(slots):
+            batcher.submit_interpolate(0, shards, k, n, root,
+                                       lambda v, s=s: verdicts.__setitem__(s, v))
+        rs_batch.reset_launches()
+        batcher.flush()
+        out.append((enc, verdicts, rs_batch.LAUNCHES["rs_matmul8"]))
+    assert out[0][:2] == out[1][:2] and (out[0][2], out[1][2]) == (3, 6)
+    for s, (shards, root) in enumerate(slots):
+        assert out[1][1][s] == scalar_verdict(shards, k, root)
+
+
+# -- the mesh over distinct cards ---------------------------------------------
+
+
+@pytest.fixture
+def cards():
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more cards: a mesh over distinct cards")
+    return [torch.device("cuda", i) for i in range(count)]
+
+
+def _kernels_by_card(run) -> dict:
+    """run() under torch.profiler -> {(kernel, card index): launches} of the
+    traced kernels (chip_smoke.kernel_of's names). As in chip_smoke's
+    profile_device, run() goes twice under the warm-up steps and once
+    under the active step, each padded by idle host time: a trace drops
+    launches near the edges of its window."""
+    import time
+
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=2, active=1),
+                 on_trace_ready=lambda p: traced.append(p.events())) as prof:
+        for _ in range(3):
+            time.sleep(chip_smoke.TRACE_PAD_S)
+            run()
+            torch.cuda.synchronize()
+            time.sleep(chip_smoke.TRACE_PAD_S)
+            prof.step()
+    out: dict = {}
+    for ev in traced[0]:
+        name = chip_smoke.kernel_of(ev.name)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and name != "torch":
+            out[(name, ev.device_index)] = out.get((name, ev.device_index), 0) + 1
+    return out
+
+
+def test_mesh_over_distinct_cards_equals_one_card(cards):
+    """MeshEraPipeline over every card (2x1 over two, 2x2 over four ...)
+    against GpuEraPipeline on cuda:0 on the same era and rng, once cold and
+    once warm, then two eras in flight: equal rlc rows and points, no host
+    recompute. Each shard's table build and scan are traced on its own card
+    (the kernel wrappers' device guard); the sharded MSMs over the cards and
+    an RBC flush over them equal the one-card results, and GpuBackend /
+    RbcEraBatcher on the last card default to a mesh over every card that
+    starts there."""
+    dealer, jobs, _, _ = _era(5, 1, 5, seed=79)
+    y_points = [vk.y_i for vk in dealer.verification_keys]
+    slots = [(list(j.u_by_validator), list(j.lagrange_row)) for j in jobs]
+    masks = [[True] * 5 for _ in slots]
+    masks[2][4] = False
+    pipe = MeshEraPipeline(devices=cards)
+    assert pipe.mesh.distinct() == cards
+    want = GpuEraPipeline(device=cards[0]).run_era(slots, y_points, SeededRng(5), masks)
+    verify.reset_escapes()
+    _assert_eras_equal([pipe.run_era(slots, y_points, SeededRng(5), masks)], [want])
+    traced = _kernels_by_card(lambda: _assert_eras_equal(
+        [pipe.run_era(slots, y_points, SeededRng(5), masks)], [want]))
+    for i in range(len(cards)):  # one shard a card
+        for kernel in ("msm_scan_kernel", "g1_table_kernel"):
+            assert traced.get((kernel, i), 0) >= 1, traced
+    rng = SeededRng(6)
+    firsts = [pipe.dispatch_era(slots, y_points, rng, masks) for _ in range(2)]
+    rng = SeededRng(6)
+    seq = [GpuEraPipeline(device=cards[0]).run_era(slots, y_points, rng, masks)
+           for _ in range(2)]
+    _assert_eras_equal([d() for d in firsts], seq)
+    assert not any(verify.ESCAPES.values())
+
+    rng = random.Random(0x5D)
+    pts = _points(rng, 37)
+    pts[5] = bls.G1_INF
+    sc = [rng.randrange(bls.R) for _ in range(37)]
+    bits = torch.from_numpy(curve.scalars_to_bits(sc, 256)).to(cards[0])
+    packed = g1.g1_pack(pts, cards[0])
+    got = [g1.g1_unpack_host(*g1.fetch(torch.cat([pt, fl.to(pt.dtype)[None]])[:, None]),
+                             False)[0]
+           for pt, fl in (sharded_g1_msm(make_mesh(cards))(packed, bits),
+                          curve.g1_msm(packed, bits))]
+    assert bls.g1_eq(got[0], got[1])
+
+    last = cards[-1]
+    assert GpuBackend(device=last)._pipeline.mesh.distinct() == cards[-1:] + cards[:-1]
+    assert RbcEraBatcher(device=last).mesh.shape == {"shares": len(cards)}
+    assert list(RbcEraBatcher(device=last).mesh.devices.flat)[0] == last
+    k, n = 22, 64
+    own = rng.randbytes(2871)
+    out = []
+    for mesh in (make_mesh(cards[:1]), make_mesh(cards)):
+        batcher = RbcEraBatcher(device=cards[0], mesh=mesh)
+        enc = []
+        batcher.submit_encode(0, own, k, n, enc.append)
+        rs_batch.reset_launches()
+        batcher.flush()
+        out.append((enc, rs_batch.LAUNCHES["rs_matmul8"]))
+    assert out[0][0] == out[1][0] == [rs.encode(own, k, n)]
+    assert (out[0][1], out[1][1]) == (1, len(cards))
+
+
+def test_chip_smoke_card_paths(cards):
+    """chip_smoke.py's paths over distinct cards (mesh_era_cards,
+    rbc_flush_cards), which a one-card machine does not run, with their
+    checks, beside the one-card tpke_era backend they are held against."""
+    import chip_smoke
+
+    era = chip_smoke.make_era(chip_smoke.N_VALIDATORS, 1)
+    backend = chip_smoke.one_card_backend(cards[0])
+    backend.tpke_era_verify_combine(era[3], era[0].verification_keys, SeededRng(1))
+    launches, warm = chip_smoke.run_mesh_path(1, backend, cards[0], era, cards, cards)
+    assert launches["g1_msm_scan"] == len(cards) and warm
+    launches, warm = chip_smoke.run_rbc_mesh_path(1, cards[0], cards)
+    assert launches["rs_matmul8"] == launches["rs_matmul16"] == 3 * len(cards)

@@ -7,7 +7,9 @@
   pipeline given), `GpuEraPipeline()`, `GlvEraPipeline()`,
   `GpuTpkeVerifier()`, `TsGpuEraPipeline()`, `GpuEcdsaRecover()`,
   `ecdsa.recover_hash_batch`, `RbcEraBatcher()`, `rs_batch.encode_batch` /
-  `decode_batch` and the kernel build have no CPU fallback.
+  `decode_batch`, the mesh over the visible cards (`make_mesh()`,
+  `MeshEraPipeline()`, an `RbcEraBatcher` on a mesh of the card) and the
+  kernel build have no CPU fallback.
 * The host pairing library is the port's own build: it loads from
   `lachain_tpu_torch/_build/` (never from the JAX package's tree), its
   binding loads no torch, and without g++ the build raises; so does
@@ -34,6 +36,7 @@ from lachain_tpu_torch.ops.verify import (
     GpuTpkeVerifier,
     TsGpuEraPipeline,
 )
+from lachain_tpu_torch.parallel.mesh import MeshEraPipeline, make_era_mesh, make_mesh
 
 pytestmark = pytest.mark.kernel
 
@@ -51,7 +54,8 @@ bad = sorted(m for m in sys.modules
              or m == "lachain_tpu" or m.startswith("lachain_tpu."))
 new = {"lachain_tpu_torch.consensus.rbc_batcher", "lachain_tpu_torch.ops.rs",
        "lachain_tpu_torch.ops.rs_batch", "lachain_tpu_torch.ops.rs_ref",
-       "lachain_tpu_torch.ops.msm", "lachain_tpu_torch.ops.curve"}
+       "lachain_tpu_torch.ops.msm", "lachain_tpu_torch.ops.curve",
+       "lachain_tpu_torch.parallel", "lachain_tpu_torch.parallel.mesh"}
 assert new <= set(names), new - set(names)
 print(len(names), bad)
 """
@@ -138,6 +142,17 @@ def test_rbc_path_without_card_raises():
         rs_batch.encode_batch([(b"payload", 2, 4)])
     with pytest.raises(RuntimeError):
         rs_batch.decode([None, b"a", b"b", None], 2)
+
+
+def test_mesh_without_card_raises():
+    _require_no_card()
+    for build in (make_mesh, make_era_mesh, MeshEraPipeline,
+                  lambda: make_mesh(["cuda:0"] * 2),
+                  lambda: MeshEraPipeline(devices=["cuda"] * 8),
+                  lambda: RbcEraBatcher(mesh=make_mesh()),
+                  lambda: RbcEraBatcher(device="cpu", mesh=make_mesh(["cuda"] * 2))):
+        with pytest.raises(RuntimeError):
+            build()
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
