@@ -55,7 +55,7 @@ Phases, each of which must pass (any failure exits non-zero):
              backend)) is started and joined: the fully masked TPKE era
              at each slot tier, largest first, and one coin era, on a
              GpuBackend of its own; it must end with no error;
-  4. main    eleven paths (thirteen where more than one card is visible),
+  4. main    thirteen paths (fifteen where more than one card is visible),
              each with the kernel launch counts set to 0 just before its
              counted calls and read just after; the paths before the mesh
              paths run on one card however many are visible:
@@ -76,7 +76,7 @@ Phases, each of which must pass (any failure exits non-zero):
              64, and the node's submissions in 4 chunks of 16; every
              callback result must equal the synchronous era call's, with
              TPKE_LAUNCHES a chunk (the keys packed once) counted and,
-             at depth 2, traced; then 10 flushes of the one-chunk and
+             at depth 2, traced; then 6 flushes of the one-chunk and
              4-chunk configurations at depth 1 and 2 in turns, with each
              chunk's phases and the card's idle share;
              the same N=64 era through GpuBackend(pipeline=GlvEraPipeline())
@@ -136,7 +136,21 @@ Phases, each of which must pass (any failure exits non-zero):
              Where more than one card is visible, the same era over every
              card (mesh_era_cards, the sharded MSMs over them too) and the
              RBC flushes over every card (rbc_flush_cards), with the same
-             checks; a machine with one card runs neither.
+             checks; a machine with one card runs neither;
+             the HoneyBadger era (consensus/simulator.SimulatedNetwork on
+             the card, both batchers): hb_era_64, N=64, f=21, TAKE_FIRST,
+             every validator's seeded proposal a 1,000-transaction block's
+             share (16 transfers of 4 + 177 bytes), run to every router's
+             result under torch.profiler: agreement, at least N-f slots,
+             every plaintext its proposer's, the G1 era kernels and
+             rs_matmul8 launched; its wall, messages, each batcher's
+             flushes and summed phases, the coins' host seconds and the
+             card's busy share (traced device time / wall); and
+             hb_era_16_check, N=16, f=5, TAKE_RANDOM, router 0's
+             decryption shares corrupted, once on the card and once with
+             device="cpu" (the plain versions): equal results, messages,
+             flush counts and evidence (every honest router convicts
+             exactly router 0, invalid_share, "dec").
              Around each counted call and the MSMs, no result may have been
              recomputed on the host (ops/verify.ESCAPES), and each path
              must launch its kernels;
@@ -148,9 +162,9 @@ Phases, each of which must pass (any failure exits non-zero):
              numpy GF.matmul oracle) and a torch.profiler split of each
              device phase by kernel, whose traced launches of each path's
              kernels must equal the counted ones; the GLV key tables'
-             first call, and 10 warm GLV and Pallas-path eras in turns
+             first call, and 6 warm GLV and Pallas-path eras in turns
              (medians and quartiles of the wall and the device phase, the
-             traced device time by kernel, the idle share); 10 warm eras
+             traced device time by kernel, the idle share); 6 warm eras
              of each mesh in turns with the tpke_era path's backend
              (medians and quartiles of launch, device (events) and wall,
              the mesh's gather_mb, a warm era's traced device time by
@@ -283,7 +297,7 @@ NO_PATH = ("g1_dbl", "g2_dbl", "secp_dbl", "secp_fp_mul", "fp_mul")
 # every sharded code path on the one card; their warm eras in turns with
 # the tpke_era path's; the RBC flush's column shards over 2 copies
 MESH_SIZES = (1, 2, 8)
-MESH_ROUNDS = 10
+MESH_ROUNDS = 6
 RBC_MESH = 2
 
 
@@ -1035,14 +1049,15 @@ def make_era(n: int, seed: int):
     return dealer, cts, msgs, jobs
 
 
-def profile_device(run) -> dict:
+def profile_device(run, warm=None) -> dict:
     """{kernel: [device ms, launches]} of one call of run() from
     torch.profiler; device work that is not one of the twenty-one kernels
     (copies, cat, where) is summed under "torch". A trace loses the first
     device activities of its session (a trace of the recover path lacked
-    its first three launches), so run() goes twice under the profiler's
-    warm-up steps, whose events are dropped, and once under its active
-    step, which is what is summed. The step's own span ("ProfilerStep*")
+    its first three launches), so run() (or `warm()`, where a path runs
+    once) goes twice under the profiler's warm-up steps, whose events are
+    dropped, and run() once under its active step, which is what is
+    summed. The step's own span ("ProfilerStep*")
     covers the whole call and is left out. Each step idles TRACE_PAD_S on
     the host before run() and after it has synchronized, so that no launch
     lies near the edge of its step's window: the profiler drops a device
@@ -1056,9 +1071,9 @@ def profile_device(run) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=2, active=1),
                  on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
-        for _ in range(3):
+        for step in range(3):
             time.sleep(TRACE_PAD_S)
-            run()
+            (run if warm is None or step == 2 else warm)()
             torch.cuda.synchronize()
             time.sleep(TRACE_PAD_S)
             prof.step()
@@ -1287,7 +1302,7 @@ def check_host_pairing(backend, jobs, aggs, bad_slot: int) -> None:
 FLUSH_CONFIGS = (("node", 512, 1), ("fleet", 512, 1), ("chunked", 16, 4))
 # the timed configurations and their in-turn flushes at each depth
 FLUSH_TIMED = ("node", "chunked")
-FLUSH_ROUNDS = 10
+FLUSH_ROUNDS = 6
 CHUNK_PHASES = ("pack_s", "launch_s", "device_s", "wait_s", "fetch_s", "pairing_s")
 
 
@@ -1318,7 +1333,7 @@ def run_flush_path(seed: int, backend, dev, era):
     equal backend.tpke_era_verify_combine on the same jobs, every honest
     slot decrypt and the poisoned one be isolated, with no host recompute;
     the counted flushes (fresh backends, depth 2) launch flush_launches(
-    chunks), and a profiled flush of each traces as many. Then 10 flushes
+    chunks), and a profiled flush of each traces as many. Then 6 flushes
     of the node and chunked configurations at depth 1 and depth 2, in
     turns, on one warm backend: the walls' quartiles, each chunk's median
     phases, and the card's idle share (1 - traced device time / median
@@ -1453,7 +1468,7 @@ def run_flush_path(seed: int, backend, dev, era):
 # phase 3: the N=64 TPKE era on the fixed-base key tables (GlvEraPipeline)
 # ---------------------------------------------------------------------------
 
-GLV_ROUNDS = 10
+GLV_ROUNDS = 6
 
 
 def run_glv_path(seed: int, backend, dev, era):
@@ -2364,6 +2379,186 @@ def run_rbc_mesh_path(seed: int, dev, devices):
     return total, warm
 
 
+# ---------------------------------------------------------------------------
+# the HoneyBadger era: the consensus protocols and both flush batchers
+# ---------------------------------------------------------------------------
+
+HB_N, HB_F = 64, 21
+HB_CHECK_N, HB_CHECK_F = 16, 5
+HB_MAX_MESSAGES = 6_000_000
+TRANSFER_BYTES = 177  # a signed transfer (lachain_tpu/core/types.py:80)
+
+
+def hb_proposals(n: int, rng: random.Random) -> list:
+    """Every validator's seeded plaintext: its share of a BLOCK_TXS block,
+    ceil(BLOCK_TXS / n) transfers of TRANSFER_BYTES behind a 4-byte length
+    (the V of proposal_bytes)."""
+    per = -(-BLOCK_TXS // n)
+    return [b"".join(TRANSFER_BYTES.to_bytes(4, "big") + rng.randbytes(TRANSFER_BYTES)
+                     for _ in range(per)) for _ in range(n)]
+
+
+def malicious_router_cls():
+    """An EraRouter whose HoneyBadger broadcasts a corrupted decryption
+    share (its point times 1337) for every slot, as the JAX package's
+    tests/test_consensus_byzantine.MaliciousRouter does."""
+    from lachain_tpu_torch.consensus import messages as M
+    from lachain_tpu_torch.consensus.era import EraRouter
+    from lachain_tpu_torch.consensus.honey_badger import HoneyBadger
+    from lachain_tpu_torch.crypto import bls12381 as bls
+    from lachain_tpu_torch.crypto import tpke
+
+    class MaliciousHoneyBadger(HoneyBadger):
+        def handle_child_result(self, child_id, value):
+            if not isinstance(child_id, M.CommonSubsetId) or self._ciphertexts is not None:
+                return super().handle_child_result(child_id, value)
+            self._ciphertexts = {}
+            for slot, blob in value.items():
+                try:
+                    share = tpke.EncryptedShare.from_bytes(blob, self.host)
+                except (ValueError, AssertionError):
+                    self._plaintexts[slot] = None
+                    continue
+                self._ciphertexts[slot] = share
+                dec = self._priv.tpke_priv.decrypt_share(share, backend=self.host)
+                bad = tpke.PartiallyDecryptedShare(
+                    bls.g1_mul(dec.ui, 1337), dec.decryptor_id, dec.share_id)
+                self.broadcaster.broadcast(
+                    M.DecryptedMessage(hb=self.id, share_id=slot, payload=bad.to_bytes()))
+
+    class MaliciousRouter(EraRouter):
+        def _create(self, pid):
+            if isinstance(pid, M.HoneyBadgerId):
+                return MaliciousHoneyBadger(pid, self, self.public_keys, self.private_keys)
+            return super()._create(pid)
+
+    return MaliciousRouter
+
+
+def hb_run(net, proposals, live) -> tuple:
+    """Every validator posts its proposal; the network runs to every live
+    router's result -> (wall seconds, live results)."""
+    from lachain_tpu_torch.consensus import messages as M
+
+    pid = M.HoneyBadgerId(era=0)
+    t0 = time.perf_counter()
+    for i, p in enumerate(proposals):
+        net.post_request(i, pid, p)
+    check(net.run(lambda: all(net.routers[i].result_of(pid) is not None for i in live),
+                  max_messages=HB_MAX_MESSAGES), "the era did not finish")
+    return time.perf_counter() - t0, [net.routers[i].result_of(pid) for i in live]
+
+
+def check_hb_results(label: str, results, proposals, n: int, f: int) -> None:
+    """Agreement, at least n - f slots, and every slot's plaintext its
+    proposer's."""
+    check(all(r == results[0] for r in results), f"{label}: routers disagree")
+    check(len(results[0]) >= n - f, f"{label}: {len(results[0])} slots < n - f")
+    bad = [j for j, pt in results[0].items() if pt != proposals[j]]
+    check(not bad, f"{label}: slots {bad} differ from their proposers' plaintexts")
+
+
+def batcher_lines(label: str, net) -> None:
+    tb, rb = net.crypto_batcher, net.rbc_batcher
+    log(f"{label} tpke batcher: {tb.flushes} flushes, {tb.slots_flushed} slots, "
+        f"{tb.deduped_slots} deduped, {tb.chunks} chunks; summed phases: "
+        f"{phase_line(net.tpke_phase_s)}")
+    log(f"{label} rbc batcher: {rb.flushes} flushes, {rb.items} items, {rb.deduped} "
+        f"deduped, {rb.memo_hits} memo hits; summed phases: {phase_line(net.rbc_phase_s)}")
+
+
+def run_hb_era_path(seed: int, dev):
+    """The N=64, f=21 HoneyBadger era through SimulatedNetwork on the card
+    (TAKE_FIRST, both batchers), traced whole by torch.profiler: the wall,
+    the messages, each batcher's flushes and summed phases, the coins' host
+    seconds, and the card's busy share of the wall (the trace's device
+    time)."""
+    import torch
+
+    from lachain_tpu_torch.consensus.keys import trusted_key_gen
+    from lachain_tpu_torch.consensus.simulator import DeliveryMode, SimulatedNetwork
+
+    label = f"hb era N={HB_N}"
+    t0 = time.perf_counter()
+    pub, privs = trusted_key_gen(HB_N, HB_F, SeededRng(seed + 640))
+    proposals = hb_proposals(HB_N, random.Random(seed + 641))
+    log(f"{label}: host setup (dealer, {HB_N} proposals of {len(proposals[0])} B): "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+
+    def era():
+        reset_counts()
+        net = SimulatedNetwork(pub, privs, seed=seed, mode=DeliveryMode.TAKE_FIRST,
+                               use_rbc_batcher=True, device=dev)
+        out["wall"], out["results"] = hb_run(net, proposals, range(HB_N))
+        out["launches"] = read_launches()
+        out["net"] = net
+
+    def warm():
+        torch.arange(1 << 12, device=dev).sum().item()
+
+    by_kernel = profile_device(era, warm=warm)
+    net, wall, launches = out["net"], out["wall"], out["launches"]
+    check_no_escapes(label)
+    check_hb_results(label, out["results"], proposals, HB_N, HB_F)
+    busy = sum(v[0] for v in by_kernel.values())
+    traced = {k: by_kernel.get(KERNEL_OF[k], [0, 0])[1] for k in launches if launches[k]}
+    counted = {k: v for k, v in launches.items() if v}
+    log(f"{label}: {len(out['results'][0])} slots agreed and decrypted at every "
+        f"router; wall {wall:.3f} s, {net.delivered_count} messages "
+        f"({net.delivered_count / wall:.0f} a second); coin combines {net.coin_s:.3f} s "
+        f"on the host")
+    batcher_lines(label, net)
+    log(f"{label}: launches {counted}, traced {traced}"
+        + ("" if traced == counted else " (the trace lost launches)"))
+    log(f"{label} by kernel (torch.profiler, ms, launches): {by_kernel}; busy "
+        f"{busy:.3f} ms of the {wall * 1e3:.1f} ms wall: busy share {busy / (wall * 1e3):.6f}")
+    return launches, [{"wall_s": wall}]
+
+
+def run_hb_check_path(seed: int, dev):
+    """The N=16, f=5 era in TAKE_RANDOM with router 0 malicious (corrupted
+    decryption shares), once on the card and once with device="cpu" (both
+    batchers on the kernels' plain versions): equal results at every
+    honest router, equal delivered_count, equal flush counts, and equal
+    evidence: every honest router convicts exactly router 0, kind
+    invalid_share, proto "dec"."""
+    from lachain_tpu_torch.consensus.keys import trusted_key_gen
+    from lachain_tpu_torch.consensus.simulator import DeliveryMode, SimulatedNetwork
+
+    label = f"hb era check N={HB_CHECK_N}"
+    n, f = HB_CHECK_N, HB_CHECK_F
+    pub, privs = trusted_key_gen(n, f, SeededRng(seed + 160))
+    proposals = hb_proposals(n, random.Random(seed + 161))
+    bad_router = malicious_router_cls()
+    outcomes, launches = [], None
+    for device in (dev, "cpu"):
+        reset_counts()
+        net = SimulatedNetwork(pub, privs, seed=seed, mode=DeliveryMode.TAKE_RANDOM,
+                               use_rbc_batcher=True, device=device)
+        net.routers[0] = net.make_router(0, 0, pub, privs[0], router_cls=bad_router)
+        wall, results = hb_run(net, proposals, range(1, n))
+        if launches is None:
+            launches = read_launches()
+            check_no_escapes(label)
+        check_hb_results(f"{label} on {device}", results, proposals, n, f)
+        evidence = [net.routers[i].evidence.snapshot() for i in range(1, n)]
+        want = {("invalid_share", 0, "dec")}
+        check(all({(r["kind"], r["offender"], r["proto"]) for r in ev} == want
+                  for ev in evidence),
+              f"{label} on {device}: evidence {evidence[0]} is not router 0's dec shares")
+        outcomes.append((results, net.delivered_count, net.crypto_batcher.flushes,
+                         net.rbc_batcher.flushes, evidence))
+        log(f"{label} on {device}: {len(results[0])} slots, wall {wall:.3f} s, "
+            f"{net.delivered_count} messages, {len(evidence[0])} evidence records "
+            f"at each honest router")
+        batcher_lines(f"{label} on {device}", net)
+    check(outcomes[0] == outcomes[1], f"{label}: the card's era differs from the plain one")
+    log(f"{label}: the card's era equals the plain versions' (results, messages, "
+        f"flushes, evidence)")
+    return launches, [{"wall_s": wall}]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -2420,6 +2615,8 @@ def main() -> int:
         args.seed, backend, dev, era, [card] * n, [card] * 4 if n == 8 else None))
         for n, m in zip(MESH_SIZES, ("1x1", "2x1", "4x2"))]
     runs.append(("rbc_flush_mesh", lambda: run_rbc_mesh_path(args.seed, dev, [card] * RBC_MESH)))
+    runs += [("hb_era_64", lambda: run_hb_era_path(args.seed, dev)),
+             ("hb_era_16_check", lambda: run_hb_check_path(args.seed, dev))]
     if torch.cuda.device_count() > 1:  # a mesh over distinct cards
         cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         runs += [("mesh_era_cards", lambda: run_mesh_path(args.seed, backend, dev, era,
@@ -2442,6 +2639,8 @@ def main() -> int:
         "rbc_flush_mesh": RS_KERNELS,
         "rbc_flush_cards": RS_KERNELS,
         **{f"mesh_era_{m}": g1_path for m in ("1x1", "2x1", "4x2", "cards")},
+        "hb_era_64": g1_path + ("rs_matmul8",),
+        "hb_era_16_check": g1_path + ("rs_matmul8",),
     }
     for path, (launches, warm) in paths.items():
         missing = [k for k in needs[path] if launches[k] == 0]

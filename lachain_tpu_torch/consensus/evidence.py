@@ -1,0 +1,122 @@
+"""Byzantine evidence: records of detected misbehavior.
+
+The port of `lachain_tpu/consensus/evidence.py` (:143-257), in memory. Two
+detection families feed it:
+  * equivocation: one validator sent two different payloads for the same
+    per-era decision slot (journal.send_slot is the slot key), caught by
+    the router's first-seen latch (era.py);
+  * invalid_share: a share that fails its parse or its cryptographic check
+    at a combine: TPKE decryption shares (honey_badger.py) and coin
+    signature shares (common_coin.py, ThresholdSigner.pruned).
+Records are deduplicated, so re-detection cannot grow the store, which is
+bounded by `cap`. The reference's KV persistence, metrics and per-era
+counters are not carried over.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+EQUIVOCATION = "equivocation"
+INVALID_SHARE = "invalid_share"
+
+
+@dataclass(frozen=True, order=True)
+class EvidenceRecord:
+    """One detected offense, normalized to plain ints and strings so that
+    records compare across runs and across packages."""
+
+    era: int
+    kind: str  # EQUIVOCATION | INVALID_SHARE
+    offender: int
+    proto: str  # "dec" | "coin" | "hdr" | "aux" | "conf" | "bval" | ...
+    index: Tuple[int, ...]  # proto-specific slot coordinates
+
+    def to_dict(self) -> dict:
+        return {
+            "era": self.era,
+            "kind": self.kind,
+            "offender": self.offender,
+            "proto": self.proto,
+            "index": list(self.index),
+        }
+
+
+def describe_slot(slot: tuple) -> Tuple[str, Tuple[int, ...]]:
+    """Normalize a journal.send_slot key, (tag, protocol id, extras...),
+    into the flat (proto, index) coordinates an EvidenceRecord carries."""
+    tag = slot[0]
+    pid = slot[1]
+    if tag == "dec":
+        return "dec", (int(slot[2]),)
+    if tag == "coin":
+        return "coin", (int(pid.agreement), int(pid.epoch))
+    if tag == "hdr":
+        return "hdr", ()
+    if tag == "val":
+        return "val", (int(pid.sender_id), int(slot[2]))
+    if tag in ("echo", "ready"):
+        return tag, (int(pid.sender_id),)
+    if tag in ("aux", "conf"):
+        return tag, (int(pid.agreement), int(pid.epoch))
+    if tag == "bval":
+        return "bval", (int(pid.agreement), int(pid.epoch), int(slot[2]))
+    return tag, ()
+
+
+class EvidenceStore:
+    """Deduplicated in-memory store of EvidenceRecords, one per validator
+    (owned by its EraRouter). A record past `cap` is dropped and counted
+    in `dropped`."""
+
+    def __init__(self, cap: int = 4096):
+        self.cap = cap
+        self.dropped = 0
+        self._records: set = set()
+        self._ordered: List[EvidenceRecord] = []
+
+    def _record(self, rec: EvidenceRecord) -> bool:
+        if rec in self._records:
+            return False
+        if len(self._ordered) >= self.cap:
+            self.dropped += 1
+            return False
+        self._records.add(rec)
+        self._ordered.append(rec)
+        return True
+
+    def record_equivocation(
+        self, era: int, offender: int, proto: str, index: Tuple[int, ...]
+    ) -> bool:
+        return self._record(
+            EvidenceRecord(
+                era=int(era),
+                kind=EQUIVOCATION,
+                offender=int(offender),
+                proto=proto,
+                index=tuple(int(i) for i in index),
+            )
+        )
+
+    def record_invalid_share(
+        self, era: int, offender: int, proto: str, index: Tuple[int, ...]
+    ) -> bool:
+        return self._record(
+            EvidenceRecord(
+                era=int(era),
+                kind=INVALID_SHARE,
+                offender=int(offender),
+                proto=proto,
+                index=tuple(int(i) for i in index),
+            )
+        )
+
+    # -- queries --------------------------------------------------------------
+    def records(self, era: Optional[int] = None) -> List[EvidenceRecord]:
+        if era is None:
+            return list(self._ordered)
+        return [r for r in self._ordered if r.era == era]
+
+    def snapshot(self, era: Optional[int] = None) -> List[dict]:
+        """The records as plain dicts, sorted: what the packages compare."""
+        return [r.to_dict() for r in sorted(self.records(era))]

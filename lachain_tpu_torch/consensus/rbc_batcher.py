@@ -75,6 +75,7 @@ class RbcEraBatcher:
         # era -> {key: verdict}; the post-Merkle-recheck payload (or None)
         self._memo: Dict[int, Dict[tuple, Optional[bytes]]] = {}
         self.flushes = 0
+        self.items = 0  # encodes and interpolations flushed
         self.memo_hits = 0
         self.deduped = 0
         self.last_timings: dict = {}
@@ -150,6 +151,7 @@ class RbcEraBatcher:
                 order.append(key)
             waiters.setdefault(key, []).append(cb)
         self.deduped += len(interps) - len(uniq)
+        self.items += len(encs) + len(interps)
         enc_out = self._run_encodes(encs, timings)
         verdicts = self._run_interps(uniq, order, timings)
         self.flushes += 1

@@ -7,6 +7,8 @@ with its own `bls12381.g1_to_bytes` (96 bytes, affine x || y, all-zero for
 infinity), `g2_to_bytes` (192 bytes) and `fr_to_bytes` (32 bytes, big
 endian); these functions read those encodings from uint8 arrays and return
 the port's objects, with the same on-curve and subgroup checks.
+`consensus_keys_from_numpy` carries a whole era key set (TPKE,
+threshold-signature and ECDSA keys) into the port's consensus key sets.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import List, Sequence
 
 import numpy as np
 
+from .consensus.keys import PrivateConsensusKeys, PublicConsensusKeys
 from .crypto import bls12381 as bls
 from .crypto.threshold_sig import (
     PartialSignature,
@@ -113,3 +116,30 @@ def partial_signatures_from_numpy(
         PartialSignature(sigma=p, signer_id=int(i))
         for p, i in zip(pts, signer_ids)
     ]
+
+
+def consensus_keys_from_numpy(f: int, tpke_y, tpke_y_i, tpke_x_i, ts_y_i, ts_x_i,
+                              ecdsa_pubs: Sequence[bytes],
+                              ecdsa_privs: Sequence[bytes]):
+    """A dealt era key set (the JAX package's `consensus.keys.
+    trusted_key_gen` output, serialized) -> (PublicConsensusKeys,
+    [PrivateConsensusKeys per validator]).
+
+    tpke_y: uint8 (96,) TPKE master key; tpke_y_i: uint8 (n, 96) TPKE
+    verification keys; tpke_x_i: uint8 (n, 32) TPKE private shares; ts_y_i
+    / ts_x_i: the threshold-signature keys alike; f: the fault bound, the
+    degree of both polynomials; ecdsa_pubs / ecdsa_privs: n compressed
+    public keys (33 bytes) and n private keys (32 bytes)."""
+    tpke_pub, vks, tpke_privs = tpke_keys_from_numpy(tpke_y, f, tpke_y_i, tpke_x_i)
+    ts_keys, ts_shares = ts_keys_from_numpy(ts_y_i, f, ts_x_i)
+    n = len(vks)
+    if not (len(ts_shares) == len(ecdsa_pubs) == len(ecdsa_privs) == n):
+        raise ValueError("every key list must have one entry per validator")
+    pub = PublicConsensusKeys(
+        n=n, f=f, tpke_pub=tpke_pub, tpke_verification_keys=vks,
+        ts_keys=ts_keys, ecdsa_pub_keys=[bytes(k) for k in ecdsa_pubs])
+    privs = [
+        PrivateConsensusKeys(tpke_priv=tp, ts_share=tss, ecdsa_priv=bytes(sk))
+        for tp, tss, sk in zip(tpke_privs, ts_shares, ecdsa_privs)
+    ]
+    return pub, privs

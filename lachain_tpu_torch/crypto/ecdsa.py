@@ -2,8 +2,8 @@
 the card.
 
 The port's copy of `lachain_tpu/crypto/ecdsa.py`: the domain parameters and
-affine curve law (:26-64), `public_key_point` / `public_key_bytes` (pure
-Python), `decompress_public_key`, `address_from_public_key`, the RFC 6979
+affine curve law (:26-64), `generate_private_key` (:69), `public_key_point`
+/ `public_key_bytes` (pure Python), `decompress_public_key`, `address_from_public_key`, the RFC 6979
 nonce, the pure-Python signer (`_sign_hash_py`, :198) and recovery
 (`recover_hash`, the reference's `_recover_hash_py`, :416). The port has no
 native library, so these are the only host paths.
@@ -68,6 +68,16 @@ def _mul(p: Optional[Tuple[int, int]], k: int):
 
 def _compress(pt: Tuple[int, int]) -> bytes:
     return bytes([0x02 | (pt[1] & 1)]) + pt[0].to_bytes(32, "big")
+
+
+def generate_private_key(rng) -> bytes:
+    """A private key, 32 bytes big endian in [1, N), drawn from `rng`
+    (`secrets` in production, a seeded object in tests): the reference's
+    draw (:69), so that one seed deals the same keys in both packages."""
+    while True:
+        k = rng.randbelow(N)
+        if 1 <= k < N:
+            return k.to_bytes(32, "big")
 
 
 def public_key_point(priv: bytes) -> Tuple[int, int]:

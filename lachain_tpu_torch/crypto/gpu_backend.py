@@ -138,6 +138,14 @@ class GpuBackend:
         """The host backend's name ("native" or "python")."""
         return self._host.name
 
+    @property
+    def host(self):
+        """The host backend: the consensus protocols run their host ops
+        (hash-to-curve, point checks, pairings, the per-slot and coin MSMs)
+        on it, as the JAX package's TpuBackend sends MSMs below its lane
+        threshold to its host backend (tpu_backend.py:195-217)."""
+        return self._host
+
     def g1_mul(self, point: tuple, scalar: int) -> tuple:
         return self._host.g1_mul(point, scalar)
 

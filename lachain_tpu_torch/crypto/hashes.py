@@ -12,6 +12,13 @@ library (`lt_keccak256_batch`, `crypto/native/bls381.cpp`, threaded in
 C++, built by `ops/_build.host_library()`); without the library it
 raises, where the reference falls back to hashing item by item. The
 Merkle roots hash each level of every tree in one such call.
+
+The consensus path's per-message hashes (an RBC shard's leaf, a Merkle
+branch's nodes) take `keccak256_host`, one item in one call of the same
+library (`lt_keccak256`, the reference's native `keccak256`), which
+raises without it too. `merkle_proof` / `merkle_verify` are the
+reference's (:214-248); `merkle_proofs` gives every leaf's branch of one
+tree, each level hashed in one `keccak256_batch` call.
 """
 from __future__ import annotations
 
@@ -96,6 +103,7 @@ def keccak256(data: bytes) -> bytes:
 
 
 _BATCH_FN: list = []
+_ONE_FN: list = []
 
 
 def _batch_fn():
@@ -111,6 +119,27 @@ def _batch_fn():
         fn.restype = ctypes.c_int
         _BATCH_FN.append(fn)
     return _BATCH_FN[0]
+
+
+def _one_fn():
+    """lt_keccak256 of the host library, bound on first use."""
+    if not _ONE_FN:
+        from ..ops import _build
+
+        fn = _build.host_library().lt_keccak256
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p]
+        fn.restype = None
+        _ONE_FN.append(fn)
+    return _ONE_FN[0]
+
+
+def keccak256_host(data: bytes) -> bytes:
+    """keccak256(data) in one call of the host library: the value of
+    `keccak256`, at the speed the consensus path's per-message hashes
+    need."""
+    out = ctypes.create_string_buffer(32)
+    _one_fn()(data, len(data), out)
+    return out.raw
 
 
 def keccak256_batch(items: Sequence[bytes], nthreads: int = 0) -> List[bytes]:
@@ -159,3 +188,46 @@ def merkle_root(leaves: Sequence[bytes]) -> Optional[bytes]:
     keccak256(left || right), the odd node promoted unchanged (the shape
     of the reference's MerkleTree.ComputeRoot); None for no leaves."""
     return merkle_roots([leaves])[0]
+
+
+def _levels(leaves: Sequence[bytes]) -> List[List[bytes]]:
+    """Every level of the Merkle tree over `leaves`, the leaves first."""
+    levels = [list(leaves)]
+    while len(levels[-1]) > 1:
+        level = levels[-1]
+        hashed = keccak256_batch(
+            [level[i] + level[i + 1] for i in range(0, len(level) - 1, 2)])
+        levels.append(hashed + ([level[-1]] if len(level) % 2 else []))
+    return levels
+
+
+def merkle_proofs(leaves: Sequence[bytes]) -> List[List[bytes]]:
+    """merkle_proof(leaves, i) for every i, from one tree."""
+    levels = _levels(leaves)
+    return [
+        [level[(i >> d) ^ 1] if (i >> d) ^ 1 < len(level) else b""
+         for d, level in enumerate(levels[:-1])]
+        for i in range(len(leaves))
+    ]
+
+
+def merkle_proof(leaves: Sequence[bytes], index: int) -> List[bytes]:
+    """Sibling path for leaves[index] (b"" where the node was promoted
+    unchanged); verify with merkle_verify."""
+    return merkle_proofs(leaves)[index]
+
+
+def merkle_verify(
+    leaf: bytes, index: int, proof: Sequence[bytes], root: bytes
+) -> bool:
+    node = leaf
+    idx = index
+    for sib in proof:
+        if sib == b"":
+            pass  # promoted unchanged
+        elif idx % 2 == 0:
+            node = keccak256_host(node + sib)
+        else:
+            node = keccak256_host(sib + node)
+        idx //= 2
+    return node == root

@@ -1,7 +1,7 @@
 """Host crypto ops of the port: the pure-Python oracle behind a backend API.
 
 The subset of `lachain_tpu/crypto/provider.py` that the TPKE and coin era
-paths use: pairings and hash-to-curve stay on the host, as they do in the
+paths and the consensus protocols use (with the checked deserializers): pairings and hash-to-curve stay on the host, as they do in the
 JAX package, and the era pipelines' escapes to the host MSM and their host
 oracles run the G1 and G2 MSMs here. `batch_bisect_verify` is the shared RLC
 bisection loop; `select_distinct` picks the shares of a combine.
@@ -43,6 +43,17 @@ class HostBackend:
 
     def hash_to_g2(self, msg: bytes, domain: bytes = b"LTPU-G2") -> tuple:
         return bls.hash_to_g2(msg, domain)
+
+    def g1_deserialize(self, data: bytes) -> tuple:
+        """Wire bytes -> point, on-curve and subgroup checked (ValueError)."""
+        if len(data) != bls.G1_BYTES:
+            raise ValueError("bad G1 encoding length")
+        return bls.g1_from_bytes(data, check_subgroup=True)
+
+    def g2_deserialize(self, data: bytes) -> tuple:
+        if len(data) != bls.G2_BYTES:
+            raise ValueError("bad G2 encoding length")
+        return bls.g2_from_bytes(data, check_subgroup=True)
 
 
 def batch_bisect_verify(group_ok, n: int) -> List[bool]:

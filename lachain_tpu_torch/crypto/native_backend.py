@@ -1,10 +1,11 @@
 """The host backend on the native BLS12-381 library (ctypes).
 
 The port's copy of the subset of `lachain_tpu/crypto/native_backend.py`
-(:63-235) that `GpuBackend` and its era pipelines use: the grand
-multi-pairing (`pairing_check`), `hash_to_g2`, `g1_mul`, `g2_mul`,
-`g1_msm`, `g2_msm`, and the wire checks that raise `ValueError` on a bad
-point (`g1_deserialize`, `g2_deserialize`). The library is the port's copy
+(:63-235) that `GpuBackend`, its era pipelines and the consensus
+protocols use: the grand multi-pairing (`pairing_check`), `hash_to_g2`,
+`g1_mul`, `g2_mul`, `g1_mul_batch` (a node's TPKE decryption shares of an
+era tick), `g1_msm`, `g2_msm`, and the wire checks that raise
+`ValueError` on a bad point (`g1_deserialize`, `g2_deserialize`). The library is the port's copy
 of the JAX package's C++ sources (`crypto/native/`), built by
 `ops/_build.host_library()` into `lachain_tpu_torch/_build/`; a missing
 compiler or a failed build raises, and nothing falls back to pure Python.
@@ -32,6 +33,7 @@ _SIGNATURES = {
     "lt_g1_mul": [_B, _B, _B],
     "lt_g2_mul": [_B, _B, _B],
     "lt_g1_msm": [_B, _B, _N, _B],
+    "lt_g1_mul_batch": [_B, _B, _N, _I, _B],
     "lt_g2_msm": [_B, _B, _N, _B],
     "lt_pairing_check": [_B, _B, _N],
     "lt_pairing_check_mt": [_B, _B, _N, _I],
@@ -80,6 +82,23 @@ class NativeBackend:
         if self._lib.lt_g2_mul(bls.g2_to_bytes(point), _scalar32(scalar), out):
             raise ValueError("native g2_mul: bad point encoding")
         return bls.g2_from_bytes(out.raw, check_subgroup=False)
+
+    def g1_mul_batch(self, points: Sequence[tuple], scalars: Sequence[int]) -> list:
+        """n independent products points[i] * scalars[i] (no sum) in one
+        threaded call: a node's decryption shares of an era tick."""
+        if len(points) != len(scalars):
+            raise ValueError("g1_mul_batch: points/scalars length mismatch")
+        if not points:
+            return []
+        pts = b"".join(bls.g1_to_bytes(p) for p in points)
+        ss = b"".join(_scalar32(s) for s in scalars)
+        out = ctypes.create_string_buffer(bls.G1_BYTES * len(points))
+        threads = min(os.cpu_count() or 1, 16)
+        if self._lib.lt_g1_mul_batch(pts, ss, len(points), threads, out):
+            raise ValueError("native g1_mul_batch: bad point encoding")
+        raw = out.raw
+        return [bls.g1_from_bytes(raw[i * bls.G1_BYTES:(i + 1) * bls.G1_BYTES],
+                                  check_subgroup=False) for i in range(len(points))]
 
     def g1_msm(self, points: Sequence[tuple], scalars: Sequence[int]) -> tuple:
         if len(points) != len(scalars):

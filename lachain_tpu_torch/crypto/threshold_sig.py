@@ -15,26 +15,39 @@ takes its `backend` (a `host.HostBackend`, or a `gpu_backend.GpuBackend`
 for the card). `era_verify_combine` runs the whole era through the
 backend's `ts_era_verify_combine` where it has one, and only where it has
 none through the per-coin host operations; an error on the card's path
-propagates. The per-message collector `ThresholdSigner` is not ported yet.
+propagates. `ThresholdSigner` (reference :331-394) is the per-message
+collector the common coin runs on the host: it combines as soon as t+1
+shares are in, checks the combined signature with 2 pairings, and only
+when that fails isolates the bad shares by the RLC batch check and prunes
+them (`pruned`). H_G2(msg) runs through the backend's `hash_to_g2` (the
+pure-Python HostBackend where none is given), memoized per (msg,
+backend).
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from . import bls12381 as bls
 from .hashes import keccak256
-from .host import batch_bisect_verify, select_distinct
+from .host import HostBackend, batch_bisect_verify, select_distinct
+from ..utils.serialization import Reader, write_u32
 
 _SIG_DOMAIN = b"LTPU-TSIG"
 
+_HOST = HostBackend()
+
 
 @functools.lru_cache(maxsize=4096)
-def _hash_to_sig_point(msg: bytes) -> tuple:
-    """H_G2(msg), memoized: every sign/verify/combine of one coin hashes
-    the same coin id."""
-    return bls.hash_to_g2(msg, _SIG_DOMAIN)
+def _hash_cached(msg: bytes, backend) -> tuple:
+    return backend.hash_to_g2(msg, _SIG_DOMAIN)
+
+
+def _hash_to_sig_point(msg: bytes, backend=None) -> tuple:
+    """H_G2(msg) through `backend.hash_to_g2`, memoized: every
+    sign/verify/combine of one coin hashes the same coin id."""
+    return _hash_cached(msg, backend or _HOST)
 
 
 @dataclass(frozen=True)
@@ -61,6 +74,18 @@ class PartialSignature:
     sigma: tuple  # G2
     signer_id: int
 
+    def to_bytes(self) -> bytes:
+        """The coin message's wire form: the point, then the signer id."""
+        return bls.g2_to_bytes(self.sigma) + write_u32(self.signer_id)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, backend=None) -> "PartialSignature":
+        sigma = (backend or _HOST).g2_deserialize(data[: bls.G2_BYTES])
+        r = Reader(data[bls.G2_BYTES :])
+        signer = r.u32()
+        r.assert_eof()
+        return cls(sigma, signer)
+
 
 class TsPublicKey:
     """Single public key (shared or per-validator), in G1."""
@@ -70,7 +95,7 @@ class TsPublicKey:
 
     def verify(self, msg: bytes, sig: Signature, backend) -> bool:
         """e(g1, sigma) == e(Y, H_G2(msg))."""
-        h = _hash_to_sig_point(msg)
+        h = _hash_to_sig_point(msg, backend)
         return backend.pairing_check(
             [(bls.G1_GEN, sig.sigma), (bls.g1_neg(self.y), h)]
         )
@@ -96,7 +121,7 @@ class TsPublicKeySet:
         """e(g1, sigma_i) == e(Y_i, H(msg))."""
         if not (0 <= ps.signer_id < len(self.keys)):
             return False
-        h = _hash_to_sig_point(msg)
+        h = _hash_to_sig_point(msg, backend)
         yk = self.keys[ps.signer_id].y
         return backend.pairing_check(
             [(bls.G1_GEN, ps.sigma), (bls.g1_neg(yk), h)]
@@ -115,7 +140,7 @@ class TsPublicKeySet:
         live = [i for i, ok in enumerate(in_range) if ok]
         if not live:
             return [False] * len(shares)
-        h = _hash_to_sig_point(msg)
+        h = _hash_to_sig_point(msg, backend)
 
         def group_ok(idx: List[int]) -> bool:
             cs = [rng.randbelow((1 << 128) - 1) + 1 for _ in idx]
@@ -192,7 +217,7 @@ def era_verify_combine(key_set: TsPublicKeySet, coins, rng, backend):
         for i, c in zip(signers, cs):
             lag_row[i] = c
             sigma_row[i] = shares[i].sigma
-        jobs.append(CoinJob(sigma_row, lag_row, _hash_to_sig_point(msg)))
+        jobs.append(CoinJob(sigma_row, lag_row, _hash_to_sig_point(msg, backend)))
     results = era_fn(jobs, key_set.keys, rng)
     for idx, (ok, comb) in zip(live, results):
         out[idx] = Signature(comb) if ok else None
@@ -208,10 +233,70 @@ class TsPrivateKeyShare:
 
     def sign(self, msg: bytes, backend) -> PartialSignature:
         """sigma_i = H_G2(msg)^{x_i}."""
-        h = _hash_to_sig_point(msg)
+        h = _hash_to_sig_point(msg, backend)
         return PartialSignature(
             sigma=backend.g2_mul(h, self.x_i), signer_id=self.my_id
         )
+
+
+class ThresholdSigner:
+    """Stateful per-message share collector (reference :331-394).
+
+    Collects shares of `msg`, verifies each on arrival (verify=True) or
+    defers the verification to the combine, and produces the combined
+    signature once t+1 valid shares are held. Every group op runs on
+    `backend`; `rng` draws the RLC weights of the prune's batch check."""
+
+    def __init__(self, msg: bytes, key_share: TsPrivateKeyShare,
+                 pub_key_set: TsPublicKeySet, backend, rng):
+        self.msg = msg
+        self.key_share = key_share
+        self.pub_key_set = pub_key_set
+        self.backend = backend
+        self.rng = rng
+        self._shares: Dict[int, PartialSignature] = {}
+        self._signature: Optional[Signature] = None
+        # signer ids whose shares failed the deferred batch verification:
+        # evidence the owning protocol reports
+        self.pruned: set = set()
+
+    def sign(self) -> PartialSignature:
+        return self.key_share.sign(self.msg, self.backend)
+
+    def _combine_verified(self) -> Optional[Signature]:
+        keys = self.pub_key_set
+        sig = keys.combine(list(self._shares.values()), self.backend)
+        return sig if keys.shared.verify(self.msg, sig, self.backend) else None
+
+    def add_share(self, ps: PartialSignature, verify: bool = True) -> bool:
+        """True if the share was accepted. The combined signature is
+        available once t+1 distinct valid shares are held."""
+        keys = self.pub_key_set
+        if self._signature is not None:
+            return True  # already done
+        if ps.signer_id in self._shares:
+            return self._shares[ps.signer_id].sigma == ps.sigma
+        if not (0 <= ps.signer_id < keys.n):
+            return False
+        if verify and not keys.verify_share(self.msg, ps, self.backend):
+            return False
+        self._shares[ps.signer_id] = ps
+        if len(self._shares) >= keys.t + 1:
+            self._signature = self._combine_verified()
+            if self._signature is None:
+                # a bad share slipped in (deferred verification): prune the
+                # invalid shares so that they cannot poison a later combine
+                held = list(self._shares.values())
+                oks = keys.batch_verify_shares(self.msg, held, self.rng, self.backend)
+                self.pruned.update(s.signer_id for s, ok in zip(held, oks) if not ok)
+                self._shares = {s.signer_id: s for s, ok in zip(held, oks) if ok}
+                if len(self._shares) >= keys.t + 1:
+                    self._signature = self._combine_verified()
+        return True
+
+    @property
+    def signature(self) -> Optional[Signature]:
+        return self._signature
 
 
 class TsTrustedKeyGen:

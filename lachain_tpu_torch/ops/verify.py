@@ -680,12 +680,17 @@ class _HostEraPipelineBase:
     """The era-pipeline contract computed with the host MSMs: the port's
     oracle for its device pipelines, on the pure-Python HostBackend unless
     given another, so that it stays independent of the code under test.
-    The share group differs per subclass (`_share_msm`)."""
+    The share group differs per subclass (`_share_msm`). It runs on the
+    CPU and can stand behind `GpuBackend(device="cpu", pipeline=...)`
+    (CPU tests of the consensus protocols, where the plain kernels' era
+    would take seconds a flush); `last_timings` stays empty."""
 
     _share_msm = "g1_msm"
+    device = torch.device("cpu")
 
     def __init__(self, backend=None):
         self._backend = backend or HostBackend()
+        self.last_timings: dict = {}
 
     def run_era(self, slots, y_points, rng, masks=None):
         k = len(y_points)

@@ -5,7 +5,9 @@ ops/secp_ref.py) on the same values, exact equality of coordinates mod p
 and of flags; the era pipelines, the backend and its MSM routes, and the
 batched ECDSA recovery on the card against the host oracles; the
 Reed-Solomon product (rs_matmul8, rs_matmul16) bit for bit against
-ops/rs_ref.py and an RBC flush's launch count. CUDA kernels have no CPU mode:
+ops/rs_ref.py and an RBC flush's launch count; an N=16 HoneyBadger era
+with a malicious router on the card against the plain versions. CUDA
+kernels have no CPU mode:
 on a machine without a card these tests skip, and `python3 chip_smoke.py`
 runs the same checks at the N=64 era's shapes on the card.
 """
@@ -1366,3 +1368,18 @@ def test_chip_smoke_card_paths(cards):
     assert launches["g1_msm_scan"] == len(cards) and warm
     launches, warm = chip_smoke.run_rbc_mesh_path(1, cards[0], cards)
     assert launches["rs_matmul8"] == launches["rs_matmul16"] == 3 * len(cards)
+
+
+def test_honey_badger_era_on_card_equals_plain_versions(card):
+    """chip_smoke.py's hb_era_16_check: the N=16, f=5 HoneyBadger era in
+    TAKE_RANDOM with router 0's decryption shares corrupted, both batchers
+    on, on the card and with device="cpu" (the kernels' plain versions):
+    equal results at every honest router, equal delivered_count and flush
+    counts, and the same evidence (exactly router 0, invalid_share,
+    "dec"); the card's run launches the G1 era kernels and rs_matmul8."""
+    import chip_smoke
+
+    launches, _warm = chip_smoke.run_hb_check_path(1, card)
+    for kernel in ("g1_table", "g1_msm_scan", "g1_add", "g1_mont", "rs_matmul8"):
+        assert launches[kernel] >= 1, launches
+    assert not any(verify.ESCAPES.values())

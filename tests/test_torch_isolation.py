@@ -9,11 +9,14 @@
   `ecdsa.recover_hash_batch`, `RbcEraBatcher()`, `rs_batch.encode_batch` /
   `decode_batch`, the mesh over the visible cards (`make_mesh()`,
   `MeshEraPipeline()`, an `RbcEraBatcher` on a mesh of the card) and the
-  kernel build have no CPU fallback.
+  kernel build have no CPU fallback; neither have the consensus
+  simulator (`SimulatedNetwork`) and the era router (`EraRouter`) built
+  for the card.
 * The host pairing library is the port's own build: it loads from
   `lachain_tpu_torch/_build/` (never from the JAX package's tree), its
   binding loads no torch, and without g++ the build raises; so does
-  `hashes.keccak256_batch`, which has no per-item fallback.
+  `hashes.keccak256_batch` and `hashes.keccak256_host`, which have no
+  pure-Python fallback.
 """
 from __future__ import annotations
 
@@ -24,7 +27,10 @@ import sys
 import pytest
 import torch
 
+from lachain_tpu_torch.consensus.era import EraRouter
+from lachain_tpu_torch.consensus.keys import trusted_key_gen
 from lachain_tpu_torch.consensus.rbc_batcher import RbcEraBatcher
+from lachain_tpu_torch.consensus.simulator import SeededRng, SimulatedNetwork
 from lachain_tpu_torch.crypto import ecdsa, hashes
 from lachain_tpu_torch.crypto.gpu_backend import GpuBackend
 from lachain_tpu_torch.crypto.native_backend import NativeBackend
@@ -55,7 +61,12 @@ bad = sorted(m for m in sys.modules
 new = {"lachain_tpu_torch.consensus.rbc_batcher", "lachain_tpu_torch.ops.rs",
        "lachain_tpu_torch.ops.rs_batch", "lachain_tpu_torch.ops.rs_ref",
        "lachain_tpu_torch.ops.msm", "lachain_tpu_torch.ops.curve",
-       "lachain_tpu_torch.parallel", "lachain_tpu_torch.parallel.mesh"}
+       "lachain_tpu_torch.parallel", "lachain_tpu_torch.parallel.mesh",
+       "lachain_tpu_torch.crypto.provider", "lachain_tpu_torch.utils.serialization"}
+new |= {f"lachain_tpu_torch.consensus.{m}" for m in (
+    "messages", "protocol", "keys", "binary_broadcast", "binary_agreement",
+    "common_coin", "common_subset", "reliable_broadcast", "honey_badger",
+    "evidence", "journal", "era", "simulator")}
 assert new <= set(names), new - set(names)
 print(len(names), bad)
 """
@@ -67,13 +78,14 @@ def test_port_imports_nothing_of_jax():
         text=True, check=True, timeout=120,
     ).stdout.split("\n")[0]
     count, bad = out.split(" ", 1)
-    assert int(count) >= 28  # every module of the package was imported
+    assert int(count) >= 44  # every module of the package was imported
     assert bad == "[]"
 
 
 _HOST_ONLY = """
 import sys
 import lachain_tpu_torch.crypto.ecdsa
+import lachain_tpu_torch.crypto.provider
 import lachain_tpu_torch.crypto.threshold_sig
 import lachain_tpu_torch.crypto.tpke
 print(sorted(m for m in sys.modules if m == "torch"
@@ -155,6 +167,21 @@ def test_mesh_without_card_raises():
             build()
 
 
+def test_consensus_on_the_card_without_card_raises():
+    """The simulator and a router built for the card (the default) build a
+    GpuBackend on it, which raises without one."""
+    _require_no_card()
+    pub, privs = trusted_key_gen(4, 1, SeededRng(1))
+    with pytest.raises(RuntimeError):
+        SimulatedNetwork(pub, privs)
+    with pytest.raises(RuntimeError):
+        SimulatedNetwork(pub, privs, device="cuda", use_rbc_batcher=True)
+    with pytest.raises(RuntimeError):
+        EraRouter(0, 0, pub, privs[0], lambda _t, _p: None, SeededRng(2))
+    net = SimulatedNetwork(pub, privs, device="cpu")  # the plain versions
+    assert net.backend.device.type == "cpu"
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_LIB", None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
@@ -207,6 +234,9 @@ def test_keccak_batch_without_host_library_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+"):
         hashes.keccak256_batch([b"abc"])
+    monkeypatch.setattr(hashes, "_ONE_FN", [])
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        hashes.keccak256_host(b"abc")
 
 
 def test_host_build_failure_raises(monkeypatch, tmp_path):
