@@ -25,10 +25,14 @@ Phases, each of which must pass (any failure exits non-zero):
              8192) buffer with a flag row, the G1 ones (g1_mont) out of
              form, into it and by beta on a (37, 8192) buffer with a flag
              row and into form on the coin era's (72, 4096) G2 pack; the
-             GLV era's fixed-base kernels at N=64: g1_fixed_tables over the
-             64 keys, entries (0, 1), (7, 15), (15, 1), (15, 15) also against
-             the host's multiples, and g1_fixed_scan over the 4096 key lanes
-             with 64-bit RLC digits, a zero-digit and an all-zero lane): exact
+             GLV era's fixed-base kernels at N=64 and at N=256:
+             g1_fixed_tables over the N keys (a block a key: the doubling
+             chain once, the 16 tables in log depth), entries (0, 1), (7,
+             15), (15, 1), (15, 15) also against the host's multiples, and
+             g1_fixed_scan over the N x N key lanes (4096, 65,536; a lane's
+             windows over 4 sub-lanes) with 64-bit RLC digits, a
+             zero-digit and an all-zero lane, the N=256 numbers under
+             `n256`): exact
              equality of coordinates mod p and flags (of the conversions,
              words bit for bit, and Python ints); the Reed-Solomon product
              (rs_matmul8, rs_matmul16) bit for bit at every launch shape of
@@ -406,7 +410,7 @@ def scan_products(digits, mul_dbl: int, mul_add: int) -> int:
 
 
 def report_line(name: str, r: dict) -> None:
-    for label, x in (("", r), (" main", r.get("main"))):
+    for label, x in (("", r), (" main", r.get("main")), (" n256", r.get("n256"))):
         if x is None:
             continue
         shape = f"lanes={x['lanes']}" + (f" windows={x['windows']}" if "windows" in x else "")
@@ -574,73 +578,89 @@ def check_kernels(seed: int, dev):
     return report
 
 
+# the fixed-base kernels' shapes: N validators' keys (K = N) and the era's
+# N slots x N key lanes; N=64 is the GLV era's, N=256 the largest era
+FIXED_ERAS = (64, 256)
+
+
 def check_fixed_base_kernels(rng: random.Random, dev):
-    """The GLV era's two fixed-base kernels against g1_ref at N=64's shapes:
-    g1_fixed_tables over the 64 keys (every entry of the 16 x 16 tables,
-    and entries (w, d) = (0, 1), (7, 15), (15, 1), (15, 15) of three keys
-    against the host's d * 16^(15 - w) * Y), and g1_fixed_scan over the
-    era's 4096 key lanes (64 slots x 64) with 64-bit RLC digits, a lane
-    with zero digits between nonzero ones and an all-zero lane among
-    them. Exact: coordinates mod p and flags."""
+    """The GLV era's two fixed-base kernels against g1_ref at N=64's and
+    N=256's shapes: g1_fixed_tables over the N keys (every entry of the 16
+    x 16 tables, and entries (w, d) = (0, 1), (7, 15), (15, 1), (15, 15) of
+    three keys against the host's d * 16^(15 - w) * Y), and g1_fixed_scan
+    over the era's N x N key lanes with 64-bit RLC digits, a lane with zero digits
+    between nonzero ones and an all-zero lane among them. Exact:
+    coordinates mod p and flags. The N=64 numbers are the entries' own,
+    N=256's under `n256`."""
     import torch
 
     from lachain_tpu_torch.crypto import bls12381 as bls
     from lachain_tpu_torch.ops import g1, g1_ref, glv
 
-    k = N_VALIDATORS
-    keys = glv.point_run(rng, k)
-    kk = g1.g1_pack(keys, dev)
-    kt = g1.fixed_tables(kk)
-    rt, plain_ms = cuda_ms_once(lambda: g1_ref.fixed_tables(
-        torch.from_numpy(g1_ref.points_to_limbs(keys)).to(dev)))
+    report = {}
+    for k in FIXED_ERAS:
+        keys = glv.point_run(rng, k)
+        kk = g1.g1_pack(keys, dev)
+        kt = g1.fixed_tables(kk)
+        rt, plain_ms = cuda_ms_once(lambda: g1_ref.fixed_tables(
+            torch.from_numpy(g1_ref.points_to_limbs(keys)).to(dev)))
 
-    def window(tables, w):
-        if tables.dtype == torch.int32:
-            return g1.fp_decode(tables[w].reshape(glv.TABLE * 36, k))
-        limbs = tables[w].reshape(3 * glv.TABLE, 44, k).permute(1, 0, 2)
-        return g1_ref.limbs_to_ints(limbs.reshape(44, -1).cpu().numpy())
+        def window(tables, w):
+            if tables.dtype == torch.int32:
+                return g1.fp_decode(tables[w].reshape(glv.TABLE * 36, k))
+            limbs = tables[w].reshape(3 * glv.TABLE, 44, k).permute(1, 0, 2)
+            return g1_ref.limbs_to_ints(limbs.reshape(44, -1).cpu().numpy())
 
-    diffs = [max_err(window(kt, w), window(rt, w)) for w in range(glv.W64)]
-    for w, d in ((0, 1), (7, 15), (15, 1), (15, 15)):
-        co = g1.g1_coords(kt[w, d])
-        for i in (0, k // 2, k - 1):
-            check(bls.g1_eq((co[i], co[k + i], co[2 * k + i]),
-                            bls.g1_mul(keys[i], d * 16 ** (glv.W64 - 1 - w))),
-                  f"g1_fixed_tables entry ({w}, {d}) of key {i} != the host's")
-    # the function's own sequential chain (msm.y_fixed_base_tables): 4
-    # doublings from one window's base to the next, a table a window. The
-    # kernel re-doubles each (key, window) lane from Y, 4 * (15 - w)
-    # doublings, to shorten the chain; the bound does not count them.
-    products = k * (MULS_DBL * glv.WINDOW * (glv.W64 - 1) + glv.W64 * MULS_TABLE)
-    tables_bytes = glv.W64 * glv.TABLE * 144 * k
-    report = {"g1_fixed_tables": dict(
-        lanes=glv.W64 * k, layout="N=64 keys", ok=max(diffs) == 0, max_abs_err=max(diffs),
-        ms=cuda_ms(lambda: g1.fixed_tables(kk), 10), plain_ms=plain_ms,
-        bound=bound(144 * k + tables_bytes, products * OPS_PER_FIELD_MUL),
-    )}
+        diffs = [max_err(window(kt, w), window(rt, w)) for w in range(glv.W64)]
+        for w, d in ((0, 1), (7, 15), (15, 1), (15, 15)):
+            co = g1.g1_coords(kt[w, d])
+            for i in (0, k // 2, k - 1):
+                check(bls.g1_eq((co[i], co[k + i], co[2 * k + i]),
+                                bls.g1_mul(keys[i], d * 16 ** (glv.W64 - 1 - w))),
+                      f"g1_fixed_tables entry ({w}, {d}) of key {i} != the host's")
+        # the function's own work: the 60 doublings of the chain and a
+        # table a window; the kernel's tables (3 doublings and 11 adds of
+        # 16 products, 197) cost 6 products a window more than the chain
+        # of one doubling and 13 adds sharing the point's z powers (191)
+        products = k * (MULS_DBL * glv.WINDOW * (glv.W64 - 1) + glv.W64 * MULS_TABLE)
+        tables_bytes = glv.W64 * glv.TABLE * 144 * k
+        tab = dict(
+            lanes=glv.W64 * k, layout=f"N={k} keys", ok=max(diffs) == 0,
+            max_abs_err=max(diffs), ms=cuda_ms(lambda: g1.fixed_tables(kk), 10),
+            plain_ms=plain_ms,
+            bound=bound(144 * k + tables_bytes, products * OPS_PER_FIELD_MUL),
+        )
 
-    n = KERNEL_LANES // 2  # 64 slots x 64 key lanes
-    rlc = [rng.randrange(1, 1 << 64) for _ in range(n)]
-    rlc[0] = 0  # an all-zero lane
-    rlc[1] = 0xF00000000000000F  # zero digits between nonzero ones
-    digits = g1.digits_col(rlc, glv.W64, dev)
-    acc, fl = g1.fixed_scan(kt, digits, k)
-    (racc, rfl), plain_ms = cuda_ms_once(lambda: g1_ref.fixed_scan(rt, digits, k))
-    got, want = g1.g1_coords(acc), g1.g1_coords(racc.cpu())
-    flags_ok = fl.cpu().tolist() == rfl.cpu().tolist() == [c == 0 for c in rlc]
-    for j in (1, 2, n - 1):
-        check(bls.g1_eq((want[j], want[n + j], want[2 * n + j]), bls.g1_mul(keys[j % k], rlc[j])),
-              f"g1_ref.fixed_scan lane {j} != the host's rlc * Y")
-    nz = digits.cpu() != 0
-    adds = int(nz.sum()) - int(nz.any(0).sum())
-    report["g1_fixed_scan"] = dict(
-        lanes=n, windows=glv.W64, layout="N=64 key lanes", ok=got == want and flags_ok,
-        max_abs_err=max_err(got, want),
-        ms=cuda_ms(lambda: g1.fixed_scan(kt, digits, k, digits_checked=True), 20),
-        plain_ms=plain_ms,
-        bound=bound(tables_bytes + 4 * glv.W64 * n + 145 * n,
-                    adds * MULS_ADD * OPS_PER_FIELD_MUL),
-    )
+        n = k * k  # N slots x N key lanes
+        rlc = [rng.randrange(1, 1 << 64) for _ in range(n)]
+        rlc[0] = 0  # an all-zero lane
+        rlc[1] = 0xF00000000000000F  # zero digits between nonzero ones
+        digits = g1.digits_col(rlc, glv.W64, dev)
+        acc, fl = g1.fixed_scan(kt, digits, k)
+        (racc, rfl), plain_ms = cuda_ms_once(lambda: g1_ref.fixed_scan(rt, digits, k))
+        got, want = g1.g1_coords(acc), g1.g1_coords(racc.cpu())
+        flags_ok = fl.cpu().tolist() == rfl.cpu().tolist() == [c == 0 for c in rlc]
+        for j in (1, 2, n - 1):
+            check(bls.g1_eq((want[j], want[n + j], want[2 * n + j]),
+                            bls.g1_mul(keys[j % k], rlc[j])),
+                  f"g1_ref.fixed_scan lane {j} != the host's rlc * Y")
+        nz = digits.cpu() != 0
+        adds = int(nz.sum()) - int(nz.any(0).sum())
+        scan = dict(
+            lanes=n, windows=glv.W64, layout=f"N={k} key lanes, 4 sub-lanes a lane",
+            ok=got == want and flags_ok, max_abs_err=max_err(got, want),
+            ms=cuda_ms(lambda: g1.fixed_scan(kt, digits, k, digits_checked=True), 20),
+            plain_ms=plain_ms,
+            bound=bound(tables_bytes + 4 * glv.W64 * n + 145 * n,
+                        adds * MULS_ADD * OPS_PER_FIELD_MUL),
+        )
+        del rt, racc, got, want
+        if not report:
+            report = {"g1_fixed_tables": tab, "g1_fixed_scan": scan}
+        else:
+            for name, r in (("g1_fixed_tables", tab), ("g1_fixed_scan", scan)):
+                report[name]["ok"] = report[name]["ok"] and r["ok"]
+                report[name][f"n{k}"] = r
     return report
 
 
@@ -2709,8 +2729,11 @@ def main() -> int:
             shape = ("layout", "lanes", "windows")
             entry.update({k: r[k] for k in shape[::2] if k in r},
                          main=dict(numbers(m), **{k: m[k] for k in shape if k in m}))
-        entry.update({k: r[k] for k in ("rows", "into_ms", "into_plain_ms", "beta_ms")
-                      if k in r})
+        entry.update({k: r[k] for k in ("rows", "into_ms", "into_plain_ms", "beta_ms",
+                                        "layout") if k in r})
+        if "n256" in r:  # the fixed-base kernels at N=256's shapes
+            m = r["n256"]
+            entry["n256"] = dict(numbers(m), **{k: m[k] for k in ("layout", "lanes") if k in m})
         if k in RS_KERNELS:  # its shape, and the other shapes it was held at
             rs_keys = ("layout", "lookups", "traced_ms", "int_bound_ms")
             entry.update({x: r[x] for x in rs_keys if x in r},

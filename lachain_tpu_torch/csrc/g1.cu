@@ -15,11 +15,25 @@
 //   lt_g1_fixed_scan   <- msm.y_agg_fixed_base's gathers (XLA, msm.py:266):
 //                   the RLC windows' entries summed per lane, no doublings
 //
-// The two fixed-base kernels are latency chains on few lanes: a tables lane
-// runs up to 4 * 15 doublings and a table chain (74 point operations), the
-// scan at most 15 adds; their bounds (operations) are microseconds
-// (chip_smoke.py). They run on the group field like the scan, 4 threads a
-// lane, and are kept simple.
+// The two fixed-base kernels run few lanes (a validator set's K keys; the
+// era's S x K key lanes), so latency bounds them, not their operations
+// bound (microseconds, chip_smoke.py). The tables: a key's bases 16^w * Y
+// are one chain of 60 doublings, which no design shortens (an addition
+// chain for 2^60 Y has at least 60 steps). The kernel runs that chain once
+// a key, each doubling's 7 products over three groups of warp 0 (3
+// products deep; an earlier design re-doubled from Y in every (window,
+// key) lane, 6416 products a key against ~3570, w = 0's lane 635 products
+// deep), then builds the 16 windows' tables together in 4 levels from
+// shared memory. Its floor is that chain at one warp's latency. The scan:
+// up to 15 dependent adds a lane at 4 warps an SM ran each add at one
+// warp's latency; splitting a lane's windows over 4 sub-lanes puts 4 times
+// the warps on the card and leaves 3 + 2 adds a lane deep. Its floor is
+// the group field's product rate, which every group-field kernel shares.
+// The scan's adds and the tables' table phase call their field products
+// out of line (MulCall): a point add inlines ~16 copies of the product's
+// unrolled code, and the calls ran both faster (scan_sweep.py's
+// `mulinline` variant; PERF.md). The tables' chain keeps them inline: a
+// lone warp's 3 products a step, out of line they ran it 2% slower.
 // Representation. pg1's 44 x 10-bit signed limbs, its f32 MXU residue fold
 // and its 256-lane VMEM tiles are TPU artifacts. Here a field element is 12
 // x 32-bit limbs in Montgomery form (R = 2^384), always canonical in [0, p)
@@ -107,6 +121,13 @@ constexpr int W64 = 16;     // windows of a 64-bit RLC coefficient
 constexpr int THREADS = 64;  // n = 8192 lanes -> 128 blocks over 132 SMs
 constexpr int SCAN_T = LT_G1_SCAN_T;  // threads per lane (group field)
 constexpr int SCAN_BLOCK = 64;        // their threads per block
+// g1_fixed_tables: level 4's adds (16 windows x entries 9 .. 15), the most
+// groups a level of its table phase uses
+constexpr int TABLE_OPS = W64 * (TABLE / 2 - 1);
+// g1_fixed_scan: a lane's 16 windows split over FIXED_G sub-lanes, in
+// blocks of FIXED_BLOCK threads
+constexpr int FIXED_G = 4;
+constexpr int FIXED_BLOCK = 128;
 
 // beta R mod p: a product by it multiplies a Montgomery word by beta, the
 // cube root of unity of phi(x, y) = (beta x, y) (ops/glv.py BETA)
@@ -194,24 +215,55 @@ using FpG = CoopFp<BlsFp, T>;
 template <int T>
 using PtG = CoopPt<BlsFp, T>;
 
-// g1_dbl on the group field, operation for operation.
+// How a group-law function below takes its field products: MulInline
+// inlines each (the scans, adds and table builds), MulCall calls one
+// out-of-line copy of the product. Inlined, a point add is ~16 copies of
+// the product's unrolled code: a lone lane's chain (g1_fixed_tables) and a
+// scan of adds only (g1_fixed_scan) then wait on instruction fetch, and
+// the calls ran them faster (PERF.md). The values are the same.
+struct MulInline {
+  template <int T>
+  static __device__ __forceinline__ FpG<T> mul(const Group<T>& g,
+                                               const FpG<T>& a,
+                                               const FpG<T>& b) {
+    return fpg_mul(g, a, b);
+  }
+};
+
 template <int T>
+__device__ __noinline__ FpG<T> fpg_mul_call(const Group<T> g, const FpG<T> a,
+                                            const FpG<T> b) {
+  return fpg_mul(g, a, b);
+}
+
+struct MulCall {
+  template <int T>
+  static __device__ __forceinline__ FpG<T> mul(const Group<T>& g,
+                                               const FpG<T>& a,
+                                               const FpG<T>& b) {
+    return fpg_mul_call(g, a, b);
+  }
+};
+
+// g1_dbl on the group field, operation for operation.
+template <int T, class M = MulInline>
 __device__ __forceinline__ PtG<T> g1_dbl_g(const Group<T>& g,
                                            const PtG<T>& p) {
-  const FpG<T> A = fpg_sqr(g, p.x);
-  const FpG<T> B = fpg_sqr(g, p.y);
-  const FpG<T> C = fpg_sqr(g, B);
-  FpG<T> D = fpg_sub(g, fpg_sub(g, fpg_sqr(g, fpg_add(g, p.x, B)), A), C);
+  const FpG<T> A = M::mul(g, p.x, p.x);
+  const FpG<T> B = M::mul(g, p.y, p.y);
+  const FpG<T> C = M::mul(g, B, B);
+  const FpG<T> XB = fpg_add(g, p.x, B);
+  FpG<T> D = fpg_sub(g, fpg_sub(g, M::mul(g, XB, XB), A), C);
   D = fpg_add(g, D, D);
   const FpG<T> E = fpg_add(g, fpg_add(g, A, A), A);
-  const FpG<T> F = fpg_sqr(g, E);
+  const FpG<T> F = M::mul(g, E, E);
   PtG<T> r;
   r.x = fpg_sub(g, F, fpg_add(g, D, D));
   FpG<T> C8 = fpg_add(g, C, C);
   C8 = fpg_add(g, C8, C8);
   C8 = fpg_add(g, C8, C8);
-  r.y = fpg_sub(g, fpg_mul(g, E, fpg_sub(g, D, r.x)), C8);
-  const FpG<T> Z3 = fpg_mul(g, p.y, p.z);
+  r.y = fpg_sub(g, M::mul(g, E, fpg_sub(g, D, r.x)), C8);
+  const FpG<T> Z3 = M::mul(g, p.y, p.z);
   r.z = fpg_add(g, Z3, Z3);
   return r;
 }
@@ -221,36 +273,86 @@ __device__ __forceinline__ PtG<T> g1_dbl_g(const Group<T>& g,
 // 14 products here and 2 in qz, pg1's 16. S1 = Y1 * Z2^3 is grouped
 // Y1 * (Z2 * Z2Z2) where pg1 has (Y1 * Z2) * Z2Z2: every product is the
 // canonical residue, so the values are the same.
-template <int T>
+template <int T, class M = MulInline>
 __device__ __forceinline__ PtG<T> g1_add_g(const Group<T>& g, const PtG<T>& p,
                                            const PtG<T>& q,
                                            const ZPow<FpG<T>>& qz) {
-  const FpG<T> Z1Z1 = fpg_sqr(g, p.z);
+  const FpG<T> Z1Z1 = M::mul(g, p.z, p.z);
   const FpG<T> Z2Z2 = qz.zz;
-  const FpG<T> U1 = fpg_mul(g, p.x, Z2Z2);
-  const FpG<T> U2 = fpg_mul(g, q.x, Z1Z1);
-  const FpG<T> S1 = fpg_mul(g, p.y, qz.zzz);
-  const FpG<T> S2 = fpg_mul(g, fpg_mul(g, q.y, p.z), Z1Z1);
+  const FpG<T> U1 = M::mul(g, p.x, Z2Z2);
+  const FpG<T> U2 = M::mul(g, q.x, Z1Z1);
+  const FpG<T> S1 = M::mul(g, p.y, qz.zzz);
+  const FpG<T> S2 = M::mul(g, M::mul(g, q.y, p.z), Z1Z1);
   const FpG<T> H = fpg_sub(g, U2, U1);
   const FpG<T> Rr = fpg_sub(g, S2, S1);
-  const FpG<T> I = fpg_sqr(g, fpg_add(g, H, H));
-  const FpG<T> J = fpg_mul(g, H, I);
+  const FpG<T> H2 = fpg_add(g, H, H);
+  const FpG<T> I = M::mul(g, H2, H2);
+  const FpG<T> J = M::mul(g, H, I);
   const FpG<T> Rr2 = fpg_add(g, Rr, Rr);
-  const FpG<T> V = fpg_mul(g, U1, I);
+  const FpG<T> V = M::mul(g, U1, I);
   PtG<T> r;
-  r.x = fpg_sub(g, fpg_sub(g, fpg_sqr(g, Rr2), J), fpg_add(g, V, V));
-  const FpG<T> S1J = fpg_mul(g, S1, J);
-  r.y = fpg_sub(g, fpg_mul(g, Rr2, fpg_sub(g, V, r.x)), fpg_add(g, S1J, S1J));
-  const FpG<T> Z3 = fpg_mul(g, fpg_mul(g, p.z, q.z), H);
+  r.x = fpg_sub(g, fpg_sub(g, M::mul(g, Rr2, Rr2), J), fpg_add(g, V, V));
+  const FpG<T> S1J = M::mul(g, S1, J);
+  r.y = fpg_sub(g, M::mul(g, Rr2, fpg_sub(g, V, r.x)), fpg_add(g, S1J, S1J));
+  const FpG<T> Z3 = M::mul(g, M::mul(g, p.z, q.z), H);
   r.z = fpg_add(g, Z3, Z3);
   return r;
 }
 
-// the add of any p and q (16 products)
+// x of group `src` of the warp (this thread's words of it): a warp-wide
+// shuffle, so every thread of the warp must call it
 template <int T>
+__device__ __forceinline__ FpG<T> from_group(const Group<T>& g, const FpG<T>& x,
+                                             int src) {
+  FpG<T> r;
+#pragma unroll
+  for (int j = 0; j < NL / T; ++j)
+    r.v[j] = __shfl_sync(g.mask, x.v[j], src * T + g.rank);
+  return r;
+}
+
+// g1_dbl_g over three groups of a warp, for a chain of doublings on one
+// lane (g1_fixed_tables): the 7 products are 3 levels of independent ones,
+// (X^2, Y^2, YZ), (B^2, (X + B)^2, E^2) and E (D - X3); groups 0, 1, 2
+// each take one product of a level (a group g takes slot g % 3, its
+// operands chosen by selects, so the warp runs one instruction stream) and
+// every group reads the three results by shuffles. Every group of the warp
+// ends with the same point, word for word g1_dbl_g's: each product is the
+// canonical residue, whichever group makes it. The critical path is 3
+// products, not 7.
+template <int T>
+__device__ __forceinline__ PtG<T> g1_dbl_warp(const Group<T>& g,
+                                              const PtG<T>& p) {
+  const int slot = ((int)(threadIdx.x & 31u) / T) % 3;
+  const FpG<T> a1 = slot == 0 ? p.x : p.y;
+  const FpG<T> b1 = slot == 0 ? p.x : slot == 1 ? p.y : p.z;
+  const FpG<T> r1 = fpg_mul(g, a1, b1);
+  const FpG<T> A = from_group(g, r1, 0), B = from_group(g, r1, 1);
+  const FpG<T> YZ = from_group(g, r1, 2);
+  const FpG<T> XB = fpg_add(g, p.x, B);
+  const FpG<T> E = fpg_add(g, fpg_add(g, A, A), A);
+  const FpG<T> a2 = slot == 0 ? B : slot == 1 ? XB : E;
+  const FpG<T> r2 = fpg_mul(g, a2, a2);
+  const FpG<T> C = from_group(g, r2, 0), XB2 = from_group(g, r2, 1);
+  const FpG<T> F = from_group(g, r2, 2);
+  FpG<T> D = fpg_sub(g, fpg_sub(g, XB2, A), C);
+  D = fpg_add(g, D, D);
+  PtG<T> r;
+  r.x = fpg_sub(g, F, fpg_add(g, D, D));
+  FpG<T> C8 = fpg_add(g, C, C);
+  C8 = fpg_add(g, C8, C8);
+  C8 = fpg_add(g, C8, C8);
+  r.y = fpg_sub(g, fpg_mul(g, E, fpg_sub(g, D, r.x)), C8);
+  r.z = fpg_add(g, YZ, YZ);
+  return r;
+}
+
+// the add of any p and q (16 products)
+template <int T, class M = MulInline>
 __device__ __forceinline__ PtG<T> g1_add_g(const Group<T>& g, const PtG<T>& p,
                                            const PtG<T>& q) {
-  return g1_add_g(g, p, q, z_pow_g(g, q.z));
+  const FpG<T> zz = M::mul(g, q.z, q.z);
+  return g1_add_g<T, M>(g, p, q, ZPow<FpG<T>>{zz, M::mul(g, q.z, zz)});
 }
 
 // pg1._add_kernel on the group field: out = p + q (incomplete). A group
@@ -332,77 +434,175 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
   }
 }
 
-// msm.y_fixed_base_tables (msm.py:246) in one launch: the tables (16, 16,
-// 36, K) of K keys, entry [w, d] = d * 16^(15 - w) * Y, one lane per
-// (window, key), lane e = w * K + key. The lane doubles its key 4 * (15 -
-// w) times, then runs build_table's chain (coop.cuh chain_table) into
-// window w. A doubling chain is deterministic, so every entry is word for
-// word the one of the plain version's sequential chain (g1_ref
-// fixed_tables). Lanes of one window are adjacent, so a warp straddles two
-// windows only where 8 does not divide K; the doubling loop runs while any
-// lane of the warp still doubles (lanes_any), which keeps its collectives
-// converged. A group past the lanes doubles nothing and stores nothing.
+// A point of 3 x NL words in shared memory, word c * NL + i of coordinate
+// c: this thread's words of it (the same words a lane-minor array holds).
 template <int T>
-__global__ void __launch_bounds__(SCAN_BLOCK)
+__device__ __forceinline__ PtG<T> load_pt_s(const Group<T>& g,
+                                            const uint32_t* s) {
+  constexpr int W = NL / T;
+  PtG<T> r;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    r.x.v[j] = s[g.rank * W + j];
+    r.y.v[j] = s[NL + g.rank * W + j];
+    r.z.v[j] = s[2 * NL + g.rank * W + j];
+  }
+  return r;
+}
+
+template <int T>
+__device__ __forceinline__ void store_pt_s(const Group<T>& g, uint32_t* s,
+                                           const PtG<T>& p) {
+  constexpr int W = NL / T;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    s[g.rank * W + j] = p.x.v[j];
+    s[NL + g.rank * W + j] = p.y.v[j];
+    s[2 * NL + g.rank * W + j] = p.z.v[j];
+  }
+}
+
+// msm.y_fixed_base_tables (msm.py:246) in one launch: the tables (16, 16,
+// 36, K) of K keys, entry [w, d] = d * 16^(15 - w) * Y, one block a key.
+// Chain phase: warp 0 runs the key's 60 doublings once, each doubling over
+// three groups of the warp
+// (g1_dbl_warp: 3 products deep, not 7), and puts base_w = 16^(15 - w) * Y
+// in shared memory every 4th doubling, base_15 = Y; the other warps write
+// the zero entries 0. Table phase, after a barrier: the block's 112 groups
+// build the 16 windows' tables at once in 4 levels, B =
+// entry 1:
+//   level 1: 2B = dbl(B)
+//   level 2: 4B = dbl(2B), 3B = 1B + 2B
+//   level 3: 8B = dbl(4B), 5B, 6B, 7B = {1, 2, 3}B + 4B
+//   level 4: 9B .. 15B = {1 .. 7}B + 8B
+// (entry h + j = add(entry j, entry h), the incomplete add of two
+// different multiples below 16 < r: no collision), their products called
+// out of line (MulCall). A level's doublings (16 groups) and adds (16, 48,
+// 112) each fill whole warps at T = 2 and 4, so every collective finds its
+// warp converged (T = 1 has none); a barrier ends each level. Each entry goes to shared memory, where the next levels read
+// it, and to the tables as it is made. The plain version
+// (g1_ref.fixed_tables) runs the same doublings and adds, so every entry
+// is word for word its one. An infinity key (Z = 0) keeps Z = 0 in every
+// entry: a doubling's Z is 2YZ, an add's 2 Z1 Z2 H.
+template <int T>
+__global__ void __launch_bounds__(TABLE_OPS * T)
     g1_fixed_tables_kernel(const uint32_t* __restrict__ keys,
                            uint32_t* __restrict__ tables, int k) {
+  __shared__ uint32_t ent[W64][TABLE][PR];  // entry 0 unused: 36,864 B
+  const int key = blockIdx.x;
+  const auto out = [&](int w, int d) {
+    return tables + (size_t)(w * TABLE + d) * PR * k;
+  };
   const Group<T> g = make_coop_group<BlsFp, T>();
-  bool live;
-  const int e = group_lane<T, SCAN_BLOCK>(TABLE * k, live);
-  const int w = e / k, col = e - w * k;
-  const int ndbl = live ? WINDOW * (TABLE - 1 - w) : 0;
-  PtG<T> p = load_pt_g(g, keys, k, col);
+  if (threadIdx.x < 32) {
+    const bool lead = threadIdx.x < T;
+    PtG<T> p = load_pt_g(g, keys, k, key);
 #pragma unroll 1
-  for (int i = 0; lanes_any(g, i < ndbl); ++i) {
-    const PtG<T> q = g1_dbl_g(g, p);
-    if (i < ndbl) p = q;
+    for (int w = W64 - 1;; --w) {
+      if (lead) {
+        store_pt_s(g, ent[w][1], p);
+        store_pt_g(g, out(w, 1), k, key, p);
+      }
+      if (w == 0) break;
+#pragma unroll 1
+      for (int i = 0; i < WINDOW; ++i) p = g1_dbl_warp(g, p);
+    }
+  } else {
+    for (int i = threadIdx.x - 32; i < W64 * PR; i += blockDim.x - 32) {
+      const int w = i / PR;
+      out(w, 0)[(size_t)(i - w * PR) * k + key] = 0u;
+    }
   }
-  const ZPow<FpG<T>> pz = z_pow_g(g, p.z);
-  uint32_t* __restrict__ win = tables + (size_t)w * TABLE * PR * k;
-  chain_table<TABLE>(
-      p, live, [&](const PtG<T>& q) { return g1_dbl_g(g, q); },
-      [&](const PtG<T>& q) { return g1_add_g(g, q, p, pz); },
-      [&](int d, const PtG<T>& q) {
-        store_pt_g(g, win + (size_t)d * PR * k, k, col, q);
-      });
+  __syncthreads();
+  const int op = threadIdx.x / T;
+#pragma unroll 1
+  for (int h = 1; h < TABLE; h *= 2) {  // entries h + 1 .. 2h
+    const int ndbl = 2 * h < TABLE ? W64 : 0;
+    if (op < ndbl) {
+      const PtG<T> r = g1_dbl_g<T, MulCall>(g, load_pt_s(g, ent[op][h]));
+      store_pt_s(g, ent[op][2 * h], r);
+      store_pt_g(g, out(op, 2 * h), k, key, r);
+    } else if (op < ndbl + W64 * (h - 1)) {
+      const int a = op - ndbl, w = a % W64, j = 1 + a / W64;
+      const PtG<T> r = g1_add_g<T, MulCall>(g, load_pt_s(g, ent[w][j]),
+                                            load_pt_s(g, ent[w][h]));
+      store_pt_s(g, ent[w][h + j], r);
+      store_pt_g(g, out(w, h + j), k, key, r);
+    }
+    __syncthreads();
+  }
 }
 
 // msm.y_agg_fixed_base's gathers (msm.py:266) as a scan: lane j of n sums
-// tables[w, d_w] of key column j % k_pad over the 16 MSB-first RLC windows,
-// with msm_scan's flag rules (a zero digit keeps the accumulator and the
-// flag, a flagged accumulator takes the entry, otherwise the entry is
-// added). It is msm_scan_kernel with the doublings taken out and table row
-// w read at tables + w * 16 * 36 * k_pad: at most 15 incomplete adds a
-// lane. A lane's partial sums are multiples of its key below 2^64 < r, so
-// they never equal +-entry: the adds cannot collide. Digits must lie in
-// [0, 16).
+// tables[w, d_w] of key column j % k_pad over the 16 MSB-first RLC
+// windows. The windows are split over G = FIXED_G = 4 sub-lanes: sub-lane
+// q sums windows [4q, 4q + 4) with msm_scan's flag rules (a zero digit
+// keeps the accumulator and the flag, a flagged accumulator takes the
+// entry, otherwise the entry is added), then the 4 partials meet in shared
+// memory in 2 levels in a fixed order (0 + 1, 2 + 3, then 01 + 23; where
+// one side is flagged the other is taken). A block of 128 threads holds
+// 128 / T groups, 32 / T lanes: sub-lane q of them is groups [q * 32/T,
+// (q + 1) * 32/T), one warp, so each level's combining groups fill whole
+// warps. No add collides: a sub-lane's partial sums, and the partials two
+// sides bring to a combine, are c * Y for c from disjoint digit positions,
+// so two of them differ whenever both are nonzero, and 0 < c_a + c_b <
+// 2^64 < r. The adds call their products out of line (MulCall). One G at
+// every lane count: G = 4 ran fastest at N=64's 4096 lanes and within 1.4%
+// of the fastest G at N=256's 65,536 (PERF.md).
 template <int T>
-__global__ void __launch_bounds__(SCAN_BLOCK)
+__global__ void __launch_bounds__(FIXED_BLOCK)
     g1_fixed_scan_kernel(const uint32_t* __restrict__ tables,
                          const int32_t* __restrict__ digits,
                          uint32_t* __restrict__ acc_out,
                          uint8_t* __restrict__ flag_out, int n, int k_pad) {
+  constexpr int G = FIXED_G;
+  constexpr int GROUPS = FIXED_BLOCK / T, PER = GROUPS / G, NW = W64 / G;
+  __shared__ uint32_t part[GROUPS][PR];
+  __shared__ uint8_t part_flag[GROUPS];
   const Group<T> g = make_coop_group<BlsFp, T>();
-  bool live;
-  const int lane = group_lane<T, SCAN_BLOCK>(n, live);
-  const int col = lane % k_pad;
+  const int gi = threadIdx.x / T;
+  const int q = gi / PER;
+  const int lane0 = blockIdx.x * PER + (gi - q * PER);
+  const bool live = lane0 < n;
+  const int lane = live ? lane0 : 0, col = lane % k_pad;
   const size_t window = (size_t)TABLE * PR * k_pad;
-  int d = live ? digits[lane] : 0;
-  PtG<T> acc = select_entry_g(g, tables, d, k_pad, col);
+  const int w0 = q * NW;
+  int d = live ? digits[(size_t)w0 * n + lane] : 0;
+  PtG<T> acc = select_entry_g(g, tables + w0 * window, d, k_pad, col);
   bool flag = d == 0;
 #pragma unroll 1
-  for (int w = 1; w < W64; ++w) {
+  for (int w = w0 + 1; w < w0 + NW; ++w) {
     d = live ? digits[(size_t)w * n + lane] : 0;
     const PtG<T> entry = select_entry_g(g, tables + w * window, d, k_pad, col);
     const bool add = d != 0 && !flag;
     if (lanes_any(g, add)) {
-      const PtG<T> sum = g1_add_g(g, acc, entry);
+      const PtG<T> sum = g1_add_g<T, MulCall>(g, acc, entry);
       if (add) acc = sum;
     }
     if (d != 0 && flag) acc = entry;
     flag = flag && d == 0;
   }
-  if (live) {
+#pragma unroll
+  for (int s = 1; s < G; s *= 2) {
+    __syncthreads();  // the last level's reads are done
+    if (q % (2 * s) == s) {
+      store_pt_s(g, part[gi], acc);
+      if (g.rank == 0) part_flag[gi] = flag;
+    }
+    __syncthreads();
+    if (q % (2 * s) == 0) {
+      const PtG<T> other = load_pt_s(g, part[gi + s * PER]);
+      const bool oflag = part_flag[gi + s * PER] != 0;
+      const bool add = !flag && !oflag;
+      if (lanes_any(g, add)) {
+        const PtG<T> sum = g1_add_g<T, MulCall>(g, acc, other);
+        if (add) acc = sum;
+      }
+      if (flag) acc = other;
+      flag = flag && oflag;
+    }
+  }
+  if (q == 0 && live) {
     store_pt_g(g, acc_out, n, lane, acc);
     if (g.rank == 0) flag_out[lane] = flag ? 1 : 0;
   }
@@ -496,7 +696,7 @@ int lt_g1_msm_scan(const void* table, const void* digits, void* acc,
 int lt_g1_fixed_tables(const void* keys, void* tables, int k, void* stream) {
   if (k > 0) {
     g1_fixed_tables_kernel<SCAN_T>
-        <<<group_blocks<SCAN_T, SCAN_BLOCK>(TABLE * k), SCAN_BLOCK, 0,
+        <<<k, TABLE_OPS * SCAN_T, 0,
            (cudaStream_t)stream>>>((const uint32_t*)keys, (uint32_t*)tables,
                                    k);
   }
@@ -508,11 +708,11 @@ int lt_g1_fixed_scan(const void* tables, const void* digits, void* acc,
                      void* flags, int n, int k_pad, void* stream) {
   if (k_pad < 1 || n % k_pad != 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
+    constexpr int per = FIXED_BLOCK / SCAN_T / FIXED_G;  // lanes a block
     g1_fixed_scan_kernel<SCAN_T>
-        <<<group_blocks<SCAN_T, SCAN_BLOCK>(n), SCAN_BLOCK, 0,
-           (cudaStream_t)stream>>>((const uint32_t*)tables,
-                                   (const int32_t*)digits, (uint32_t*)acc,
-                                   (uint8_t*)flags, n, k_pad);
+        <<<(n + per - 1) / per, FIXED_BLOCK, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)tables, (const int32_t*)digits, (uint32_t*)acc,
+            (uint8_t*)flags, n, k_pad);
   }
   return (int)cudaGetLastError();
 }
@@ -544,6 +744,9 @@ int lt_g1_kernel_attrs(int which, int* regs, int* local_bytes,
                         (const void*)g1_mont_kernel<SCAN_T>,
                         (const void*)g1_fixed_tables_kernel<SCAN_T>,
                         (const void*)g1_fixed_scan_kernel<SCAN_T>};
+  const int blocks[8] = {THREADS,    THREADS,    SCAN_BLOCK,
+                         SCAN_BLOCK, SCAN_BLOCK, SCAN_BLOCK,
+                         TABLE_OPS * SCAN_T, FIXED_BLOCK};
   if (which < 0 || which > 7) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
@@ -552,7 +755,7 @@ int lt_g1_kernel_attrs(int which, int* regs, int* local_bytes,
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   *threads_per_lane = one_thread ? 1 : SCAN_T;
-  *block = one_thread ? THREADS : SCAN_BLOCK;
+  *block = blocks[which];
   return 0;
 }
 

@@ -202,7 +202,9 @@ def fixed_tables(keys):
     """Keys (3R, K) -> (16, 16, 3R, K) fixed-base tables, entry [w, d] =
     d * 16^(15 - w) * Y, window w MSB-first, entry 0 zero and never
     selected, in one launch (replaces the XLA program
-    `msm.y_fixed_base_tables`, msm.py:246). Made once per validator set."""
+    `msm.y_fixed_base_tables`, msm.py:246): a block a key, its doubling
+    chain once, then the 16 tables in log depth. Made once per validator
+    set."""
     if _on_cpu(keys):
         return g1_ref.fixed_tables(keys)
     k = keys.shape[-1]
@@ -219,7 +221,8 @@ def fixed_scan(tables, digits, k_pad: int, digits_checked: bool = False):
     """tables (16, 16, 3R, k_pad) from `fixed_tables`, digits (16, n) int32
     in [0, 16), MSB-first, n a multiple of k_pad -> ((3R, n) accumulators,
     (n,) bool infinity flags): lane j sums tables[w, d_w] of key column
-    j % k_pad with msm_scan's flag rules and no doubling (replaces the
+    j % k_pad with msm_scan's flag rules and no doubling, its windows split
+    over 4 sub-lanes whose partials meet in shared memory (replaces the
     gathers of the XLA program `msm.y_agg_fixed_base`, msm.py:266).
     `digits_checked` as in msm_scan."""
     if _on_cpu(tables, digits):

@@ -8,8 +8,10 @@ rows, lane-last. Because the steps are
 pg1's step for step, the outputs equal pg1's limb for limb
 (tests/test_torch_g1_kernels.py, tests/test_torch_msm.py). `fixed_tables`
 and `fixed_scan` are the fixed-base key tables and their gather-and-add
-scan of `lachain_tpu/ops/msm.py:246-277` over the same group law
-(tests/test_torch_glv_tables.py).
+scan of `lachain_tpu/ops/msm.py:246-277` over the same group law, in the
+order of the card's kernels (tables in log depth, a lane's windows split
+over 4 sub-lanes), so they equal msm.py's as points
+(tests/test_torch_glv_tables.py, tests/test_torch_fixed_base.py).
 
 These run where the tensors lie: on the CPU they are what the kernel
 wrappers in `ops/g1.py` use; on the card `chip_smoke.py` holds each CUDA
@@ -35,6 +37,7 @@ BASE = 10
 MASK = (1 << BASE) - 1
 CONVLEN = 2 * NLIMBS - 1  # 87
 POINT_ROWS = 3 * NLIMBS  # 132
+FIXED_SPLIT = 4  # the sub-lanes of a fixed-scan lane (g1.cu FIXED_G)
 
 
 def _int_to_limbs(v: int) -> np.ndarray:
@@ -242,32 +245,46 @@ def msm_scan(table, digits):
 # ---------------------------------------------------------------------------
 
 
+def log_table(bases):
+    """(R, n) bases B -> (16, R, n) tables, entry d = d*B, entry 0 zero and
+    never selected, in 4 levels: 2B = dbl(B); 4B = dbl(2B), 3B = 1B + 2B;
+    8B = dbl(4B), 5B..7B = {1..3}B + 4B; 9B..15B = {1..7}B + 8B (entry
+    h + j = add(entry j, entry h)). The order of `g1_fixed_tables`' table
+    phase, operation for operation."""
+    rows = [torch.zeros_like(bases), bases] + [None] * (TABLE - 2)
+    h = 1
+    while h < TABLE:
+        if 2 * h < TABLE:
+            rows[2 * h] = dbl(rows[h])
+        for j in range(1, h):
+            rows[h + j] = add_incomplete(rows[j], rows[h])
+        h *= 2
+    return torch.stack(rows, dim=0)
+
+
 def fixed_tables(keys):
     """(132, K) keys -> (16, 16, 132, K) tables, entry [w, d] = d *
     16^(15 - w) * Y: window w is MSB-first, the index convention of
     `msm.y_fixed_base_tables` after its `rows[::-1]` (msm.py:261-263).
-    Window 15 is build_table(Y); each earlier window is build_table of the
-    previous window's base after 4 doublings, msm.py's own chain."""
-    rows = []
-    base = keys
-    for w in range(W64):
-        rows.append(build_table(base))
-        if w + 1 < W64:
-            for _ in range(WINDOW):
-                base = dbl(base)
-    return torch.stack(rows[::-1], dim=0)
+    The order of `g1_fixed_tables`: one chain of 60 doublings from Y gives
+    the windows' bases 16^(15 - w) * Y (base_15 = Y, 4 doublings from one
+    to the next, msm.py's own chain), then every window's table at once in
+    log depth (`log_table`)."""
+    bases = [keys]
+    for _ in range(W64 - 1):
+        base = bases[-1]
+        for _ in range(WINDOW):
+            base = dbl(base)
+        bases.append(base)
+    lanes = torch.cat(bases[::-1], dim=1)  # (132, 16K), window-major
+    tables = log_table(lanes)
+    k = keys.shape[-1]
+    return tables.reshape(TABLE, POINT_ROWS, W64, k).permute(2, 0, 1, 3).contiguous()
 
 
-def fixed_scan(tables, digits, k_pad: int):
-    """tables (16, 16, R, K) from `fixed_tables`, digits (16, n) MSB-first,
-    lane j reading key column j % k_pad -> ((R, n) acc, (n,) bool infinity
-    flags): acc = sum_w tables[w, d_w] with the scan's flag rules (a zero
-    digit keeps the accumulator, a flagged accumulator takes the entry,
-    otherwise the entry is added with `add_incomplete`). msm_scan without
-    its doublings, a table of its own for each window."""
-    n = digits.shape[-1]
-    assert tables.shape[0] == digits.shape[0] and n % k_pad == 0
-    cols = torch.arange(n, device=digits.device) % k_pad
+def _fixed_windows(tables, digits, cols):
+    """One sub-lane's sum over its windows of `tables` and `digits` (the
+    same count, MSB-first) with msm_scan's flag rules and no doubling."""
     acc = flag = None
     for w in range(digits.shape[0]):
         d = digits[w]
@@ -280,6 +297,32 @@ def fixed_scan(tables, digits, k_pad: int):
         acc = torch.where(keep, acc, torch.where(flag, entry, added))
         flag = flag & keep
     return acc, flag
+
+
+def fixed_scan(tables, digits, k_pad: int):
+    """tables (16, 16, R, K) from `fixed_tables`, digits (16, n) MSB-first,
+    lane j reading key column j % k_pad -> ((R, n) acc, (n,) bool infinity
+    flags): acc = sum_w tables[w, d_w] in `g1_fixed_scan`'s order. The 16
+    windows split over FIXED_SPLIT = 4 sub-lanes, sub-lane q summing
+    windows [4q, 4q + 4) with the scan's flag rules (a zero digit keeps the
+    accumulator, a flagged accumulator takes the entry, otherwise the entry
+    is added with `add_incomplete`); the partials then meet in 2 levels,
+    0 + 1, 2 + 3, then 01 + 23, a flagged side giving way to the other."""
+    n = digits.shape[-1]
+    assert tables.shape[0] == digits.shape[0] and n % k_pad == 0
+    cols = torch.arange(n, device=digits.device) % k_pad
+    per = digits.shape[0] // FIXED_SPLIT
+    parts = [_fixed_windows(tables[q * per:(q + 1) * per],
+                            digits[q * per:(q + 1) * per], cols)
+             for q in range(FIXED_SPLIT)]
+    s = 1
+    while s < FIXED_SPLIT:
+        for q in range(0, FIXED_SPLIT, 2 * s):
+            (a, fa), (b, fb) = parts[q], parts[q + s]
+            added = add_incomplete(a, b)
+            parts[q] = (torch.where(fa, b, torch.where(fb, a, added)), fa & fb)
+        s *= 2
+    return parts[0]
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,9 @@ of K lanes lie slot-major along n, and digits are (W, n) MSB-first planes.
 
 Sums are taken in another order than the JAX package's (it pairs the first
 half of a group with the second, msm.py:221-238; `g1.tree_reduce_k` pairs
-adjacent lanes, and the fixed-base scan sums 16 windows a lane before the
-tree): the Jacobian coordinates differ, the points do not.
+adjacent lanes, and the fixed-base scan sums 16 windows a lane, split over
+4 sub-lanes, before the tree; the fixed-base tables are built in log
+depth): the Jacobian coordinates differ, the points do not.
 """
 from __future__ import annotations
 

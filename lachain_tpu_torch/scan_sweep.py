@@ -16,7 +16,12 @@ which must find its text):
   * groupmask   each group's own lanes as the collectives' mask and groups
                 that diverge on their flags (coop.cuh);
   * prefetch    the window's table entry loaded before the doublings;
-  * fp2inline   the group-field Fp2 products inlined (g2.cu).
+  * fp2inline   the group-field Fp2 products inlined (g2.cu);
+  * chainserial g1_fixed_tables' doubling chain on one group, the 7
+                products of a doubling in sequence, not over three groups
+                of its warp (g1.cu);
+  * mulinline   the two fixed-base kernels' group law with its products
+                inlined, not called out of line (g1.cu MulCall).
 All nvcc processes start together, with `-Xptxas -v`; the report holds
 each build's seconds and, per kernel, the registers, stack frame and
 spills ptxas reports, its callees' too, or the compiler's failure.
@@ -48,7 +53,17 @@ reversed, so that each library runs before and after each other one:
     the Montgomery conversions of a chunk, into form on the pack's (24,
     8192) words and out of it on a (25, 8192) buffer with a flag row;
   * the other kernels of the same source (fp_mul, g1_dbl; g2_dbl, g2_add;
-    secp_dbl) at 8192 lanes.
+    secp_dbl) at 8192 lanes;
+  * the GLV era's fixed-base kernels at N=64's and N=256's shapes
+    (`FIXED_ERAS`): g1_fixed_tables over N keys, g1_fixed_scan over the
+    N x N key lanes of 64-bit RLC digits over the shipped library's
+    tables.
+
+A baseline's fixed-base kernels are compared with the shipped ones as
+affine points (and the scan's infinity flags exactly), not word for word:
+the shipped g1_fixed_tables builds its tables in log depth and
+g1_fixed_scan sums a lane's windows over 4 sub-lanes in another order, so
+their Jacobian words differ from an earlier design's by design.
 
 `csrc/rs.cu` (`--sources rs`) is built at each value of its rows a thread,
 `LT_RS8_ROWS` in RS_ROWS[8] and `LT_RS16_ROWS` in RS_ROWS[16] (the shipped
@@ -113,6 +128,8 @@ T_VALUES = {"g1": (1, 2, 4), "g2": (1, 2, 4), "secp": (1, 2, 4, 8)}
 SQRT_LANES = {"check": 16384, "recover": 9980}
 # the main path's layout of each scan, beside the random-digit `check`
 MAIN_LAYOUT = {"g1": "tpke", "g2": "coin", "secp": "recover"}
+# the fixed-base kernels' shapes: N keys, N slots x N key lanes
+FIXED_ERAS = (64, 256)
 
 # label -> (scans, {file: [(shipped text, variant text)]})
 VARIANTS = {
@@ -138,6 +155,10 @@ VARIANTS = {
 """)] for s, pt, sel in (("g1", "PtG", "select_entry_g"),
                          ("g2", "Pt2G", "select_entry2_g"),
                          ("secp", "PtG", "select_entry_g"))}),
+    "chainserial": (("g1",), {"g1.cu": [
+        ("      for (int i = 0; i < WINDOW; ++i) p = g1_dbl_warp(g, p);",
+         "      for (int i = 0; i < WINDOW; ++i) p = g1_dbl_g(g, p);")]}),
+    "mulinline": (("g1",), {"g1.cu": [("<T, MulCall>", "<T, MulInline>")]}),
     "fp2inline": (("g2",), {"g2.cu": [
         (f"__device__ __noinline__ Fp2G<T> fp2g_{op}(",
          f"__device__ __forceinline__ Fp2G<T> fp2g_{op}(") for op in ("mul", "sqr")
@@ -145,7 +166,7 @@ VARIANTS = {
 }
 
 # kernels first, longest names first: "dbl_kernel" is inside "g2_dbl_kernel"
-_NAMES = ("rs_matmul8_kernel", "rs_matmul16_kernel", "secp_msm_scan_kernel", "g2_msm_scan_kernel", "msm_scan_kernel",
+_NAMES = ("g1_fixed_tables_kernel", "g1_fixed_scan_kernel", "rs_matmul8_kernel", "rs_matmul16_kernel", "secp_msm_scan_kernel", "g2_msm_scan_kernel", "msm_scan_kernel",
           "secp_table_kernel", "g2_table_kernel", "g1_table_kernel",
           "secp_mont_kernel", "g1_mont_kernel",
           "secp_fp_mul_kernel", "secp_dbl_kernel",
@@ -298,8 +319,15 @@ def make_inputs(seed: int, dev) -> dict:
     half = lambda t, m: t[:, :m].contiguous()  # noqa: E731
     p1, q1 = half(pts1, LANES), pts1[:, LANES:].contiguous()
     p3, q3 = half(pts3, LANES), pts3[:, LANES:].contiguous()
+    fixed = {}
+    for k in FIXED_ERAS:
+        ykeys = g1.g1_pack(glv.point_run(rng, k), dev)
+        rlc = [rng.randrange(1, 1 << 64) for _ in range(k * k)]
+        rlc[0], rlc[1] = 0, 0xF00000000000000F  # an all-zero lane, zero windows
+        fixed[k] = (ykeys, g1.fixed_tables(ykeys), on(glv.digits_col(rlc, glv.W64)))
     return {
         "g1": {"check": (g1.build_table(p1), on(random_digits(rng, LANES, glv.W128))),
+               "fixed": fixed,
                "tpke": (tab1, on(g1.tpke_digits(rng))),
                "tables": {"check": p1, "tpke": tpke,
                           "coin": g1.g1_pack(keys * 64, dev)},
@@ -356,6 +384,50 @@ def _add(lib, scan: str, p, q):
     fn = getattr(lib, f"lt_{scan}_add")
     return [lambda: _check(fn(p.data_ptr(), q.data_ptr(), out.data_ptr(), n,
                               stream))], (out,)
+
+
+def _fixed_tables(lib, keys):
+    k, stream = keys.shape[-1], g1._stream(keys)
+    tables = torch.empty((glv.W64, glv.TABLE, 3 * g1.NL, k), dtype=torch.int32,
+                         device=keys.device)
+    return [lambda: _check(lib.lt_g1_fixed_tables(keys.data_ptr(), tables.data_ptr(),
+                                                  k, stream))], (tables,)
+
+
+def _fixed_scan(lib, tables, digits):
+    k, n, stream = tables.shape[-1], digits.shape[-1], g1._stream(tables)
+    acc = torch.empty((3 * g1.NL, n), dtype=torch.int32, device=tables.device)
+    flags = torch.empty((n,), dtype=torch.bool, device=tables.device)
+    return [lambda: _check(lib.lt_g1_fixed_scan(
+        tables.data_ptr(), digits.data_ptr(), acc.data_ptr(), flags.data_ptr(), n, k,
+        stream))], (acc, flags)
+
+
+def _columns(t):
+    """(36, n) points, or (16, 16, 36, K) tables as (36, 256 K) points."""
+    if t.dim() == 4:
+        t = t.permute(2, 0, 1, 3).reshape(3 * g1.NL, -1)
+    return t.contiguous()
+
+
+def same_points(a, b) -> bool:
+    """Card points a and b (Montgomery words; (36, n) or fixed-base tables)
+    are the same affine points lane by lane: X1 Z2^2 = X2 Z1^2 and Y1 Z2^3
+    = Y2 Z1^3 mod p, Z = 0 (infinity) on both sides or neither."""
+    ca = g1.g1_coords(_columns(a))
+    cb = g1.g1_coords(_columns(b))
+    n, p = len(ca) // 3, bls.P
+    for i in range(n):
+        x1, y1, z1 = ca[i], ca[n + i], ca[2 * n + i]
+        x2, y2, z2 = cb[i], cb[n + i], cb[2 * n + i]
+        if (z1 == 0) != (z2 == 0):
+            return False
+        if z1 == 0:
+            continue
+        z11, z22 = z1 * z1 % p, z2 * z2 % p
+        if (x1 * z22 - x2 * z11) % p or (y1 * z22 * z2 - y2 * z11 * z1) % p:
+            return False
+    return True
 
 
 def _sqrt(lib, x):
@@ -436,6 +508,9 @@ def launchers(lib, scan: str, inputs: dict) -> dict:
     for direction, t in inp.get("mont", {}).items():
         out[f"mont_{direction}"] = _mont(lib, scan, t, direction)
     if scan == "g1":
+        for k, (keys, tables, digits) in inp["fixed"].items():
+            out[f"fixed_tables_n{k}"] = _fixed_tables(lib, keys)
+            out[f"fixed_scan_n{k}"] = _fixed_scan(lib, tables, digits)
         x, y, o1 = p[:12].contiguous(), q[:12].contiguous(), torch.empty_like(p[:12])
         out["fp_mul"] = ([lambda: _check(lib.lt_g1_fp_mul(
             x.data_ptr(), y.data_ptr(), o1.data_ptr(), n, stream))], (o1,))
@@ -743,9 +818,18 @@ def main() -> int:
             def tensors(outs):
                 return outs() if callable(outs) else outs
 
+            def same(label, k, outs):
+                ref = tensors(runs[f"{scan_of(label)}_shipped"][k][1])
+                if "_baseline_" in label and k.startswith("fixed_tables"):
+                    return same_points(tensors(outs)[0], ref[0])
+                if "_baseline_" in label and k.startswith("fixed_scan"):
+                    (acc, flags), (racc, rflags) = tensors(outs), ref
+                    return bool(torch.equal(flags, rflags)) and same_points(
+                        acc[:, ~flags], racc[:, ~rflags])
+                return all(torch.equal(a, b) for a, b in zip(tensors(outs), ref))
+
             equal.update({
-                f"{label}/{k}": all(torch.equal(a, b) for a, b in zip(
-                    tensors(outs), tensors(runs[f"{scan_of(label)}_shipped"][k][1])))
+                f"{label}/{k}": same(label, k, outs)
                 for label, kernels in runs.items() if not label.endswith("shipped")
                 for k, (_, outs) in kernels.items()
             })
@@ -755,7 +839,7 @@ def main() -> int:
                      for k, (launches, _) in kernels.items()]
             for i in range(ROUNDS):
                 for label, k, launches in (order if i % 2 == 0 else order[::-1]):
-                    long = k.startswith(("scan", "sqrt")) or "_table" in k
+                    long = k.startswith(("scan", "sqrt", "fixed")) or "_table" in k
                     r = reps[scan_of(label)] if long else 100
                     ms.setdefault(f"{label}/{k}", []).append(
                         round(sum(cuda_ms(fn, r) for fn in launches), 5))

@@ -1014,10 +1014,11 @@ def _window_ints(tables, w: int) -> list:
     return g1_ref.limbs_to_ints(limbs.cpu().numpy())
 
 
-@pytest.mark.parametrize("k", [1, 5, 64])
+@pytest.mark.parametrize("k", [1, 5, 64, 256])
 def test_fixed_tables_equal_plain_version(card, k):
-    """Every entry of every window word for word against the plain chain,
-    an infinity key among the keys; some entries against the host's
+    """Every entry of every window word for word against the plain
+    version (one doubling chain a key, the tables in log depth), an
+    infinity key among the keys; some entries against the host's
     d * 16^(15 - w) * Y_i."""
     rng = random.Random(0xF1 + k)
     keys = _points(rng, k)
@@ -1037,8 +1038,12 @@ def test_fixed_tables_equal_plain_version(card, k):
                 assert bls.g1_eq((co[i], co[k + i], co[2 * k + i]), want)
 
 
-@pytest.mark.parametrize("k,slots", [(1, 1), (4, 3), (64, 64)])
+@pytest.mark.parametrize("k,slots", [(1, 1), (4, 3), (64, 64), (256, 256)])
 def test_fixed_scan_equal_plain_version(card, k, slots):
+    """The scan word for word against the plain version (a lane's windows
+    over 4 sub-lanes, their partials in the same order), at N=64's 4096
+    lanes and N=256's 65,536 among others; flags and some lanes against
+    the host's rlc * Y."""
     rng = random.Random(0xF5 + k)
     keys = _points(rng, k)
     kt = g1.fixed_tables(g1.g1_pack(keys, card))

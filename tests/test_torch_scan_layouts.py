@@ -120,6 +120,29 @@ ptxas info    : Used 104 registers, used 0 barriers, 480 bytes cumulative stack 
 """
 
 
+_PTXAS_FIXED = """\
+ptxas info    : Compiling entry function '_ZN37_GLOBAL__N__5_g1_cu22g1_fixed_tables_kernelILi4ELi4EEEvPKjPji' for 'sm_90a'
+ptxas info    : Function properties for _ZN37_GLOBAL__N__5_g1_cu22g1_fixed_tables_kernelILi4ELi4EEEvPKjPji
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 112 registers, used 1 barriers, 36864 bytes smem
+ptxas info    : Compiling entry function '_ZN37_GLOBAL__N__5_g1_cu20g1_fixed_scan_kernelILi4EEEvPKjPKiPjPhiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN37_GLOBAL__N__5_g1_cu20g1_fixed_scan_kernelILi4EEEvPKjPKiPjPhiii
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 8 bytes cumulative stack size, 4640 bytes smem
+"""
+
+
+def test_sweep_reads_fixed_base_ptxas_report():
+    """The two fixed-base kernels by their own names: neither is taken for
+    g1_table_kernel or msm_scan_kernel."""
+    assert scan_sweep.parse_ptxas(_PTXAS_FIXED) == {
+        "g1_fixed_tables_kernel": {"regs": 112, "stack": 0, "spill_stores": 0,
+                                   "spill_loads": 0, "callees": {}},
+        "g1_fixed_scan_kernel": {"regs": 128, "stack": 8, "spill_stores": 8,
+                                 "spill_loads": 8, "callees": {}},
+    }
+
+
 def test_sweep_reads_templated_ptxas_report():
     assert scan_sweep.parse_ptxas(_PTXAS) == {
         "msm_scan_kernel": {"regs": 96, "stack": 0, "spill_stores": 0,
@@ -141,9 +164,10 @@ def test_sweep_variants_edit_copies_of_the_shipped_sources(tmp_path):
                for f in ("g1.cu", "g2.cu", "secp.cu", "coop.cuh")}
     srcs = scan_sweep.variant_sources(tmp_path, {"g1": 4, "g2": 4, "secp": 4})
     assert sorted(srcs) == [
-        "g1_T1", "g1_T2", "g1_groupmask", "g1_prefetch", "g2_T1", "g2_T2",
-        "g2_fp2inline", "g2_groupmask", "g2_prefetch",
-        "secp_T1", "secp_T2", "secp_T8", "secp_groupmask", "secp_prefetch"]
+        "g1_T1", "g1_T2", "g1_chainserial", "g1_groupmask", "g1_mulinline",
+        "g1_prefetch", "g2_T1", "g2_T2", "g2_fp2inline", "g2_groupmask",
+        "g2_prefetch", "secp_T1", "secp_T2", "secp_T8", "secp_groupmask",
+        "secp_prefetch"]
     assert srcs["g2_T1"][2] == ["-DLT_G2_SCAN_T=1"]
     assert srcs["secp_T2"][2] == ["-DLT_SECP_SCAN_T=2"]
     assert srcs["secp_T8"][2] == ["-DLT_SECP_SCAN_T=8"]
