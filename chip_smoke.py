@@ -229,6 +229,9 @@ TRACE_PAD_S = 0.05
 
 N_VALIDATORS = 64
 KERNEL_LANES = 8192  # S*K*2 msm lanes of the N=64 eras
+# the doublings' second check: a partial last block and warp, infinity
+# lanes among the lanes
+ODD_LANES = 8191
 COIN_LANES = 4096  # the coin era's signature lanes: 64 coins x 64 signers
 LIVE = 22  # t + 1 of the N=64 eras: the combined shares of a coin
 SQRT_LANES = 16384  # the square root's kernel check of the earlier slices
@@ -293,9 +296,9 @@ G2_KERNELS = ("g2_dbl", "g2_add", "g2_table", "g2_msm_scan")
 SECP_KERNELS = ("secp_fp_mul", "secp_dbl", "secp_add", "secp_table",
                 "secp_msm_scan", "secp_sqrt", "secp_mont")
 RS_KERNELS = ("rs_matmul8", "rs_matmul16")
-# the one-thread doublings serve no main path since each table build is
-# one launch, secp_fp_mul none since the conversions are secp_mont, fp_mul
-# none since the G1 conversions and phi's product by beta are g1_mont
+# the doublings serve no main path since each table build is one launch,
+# secp_fp_mul none since the conversions are secp_mont, fp_mul none since
+# the G1 conversions and phi's product by beta are g1_mont
 NO_PATH = ("g1_dbl", "g2_dbl", "secp_dbl", "secp_fp_mul", "fp_mul")
 # the mesh paths: MeshEraPipeline over n copies of cuda:0 (1x1, 2x1, 4x2),
 # every sharded code path on the one card; their warm eras in turns with
@@ -410,7 +413,8 @@ def scan_products(digits, mul_dbl: int, mul_add: int) -> int:
 
 
 def report_line(name: str, r: dict) -> None:
-    for label, x in (("", r), (" main", r.get("main")), (" n256", r.get("n256"))):
+    for label, x in (("", r), (" main", r.get("main")), (" n256", r.get("n256")),
+                     (" odd", r.get("odd"))):
         if x is None:
             continue
         shape = f"lanes={x['lanes']}" + (f" windows={x['windows']}" if "windows" in x else "")
@@ -442,6 +446,27 @@ def scan_entry(kernel, plain, coords, ktab, rtab, digits, muls_dbl, muls_add,
         bound=bound(nbytes, muls * ops_per_mul), want=want, flags=rfl.cpu(),
     )
 
+
+
+def odd_dbl_entry(dbl, plain, coords, pack, ref, points, inf, z_rows,
+                  point_bytes: int, muls: int, reps: int) -> dict:
+    """A doubling (`dbl`, its `plain` version, the `coords` reader) at
+    ODD_LANES lanes, every third lane from lane 1 infinity (0, 1, 0), the
+    others taken from `points`: word for word, Z = 0 kept on the infinity
+    lanes (coordinate rows `z_rows`), CUDA-event times of both and the
+    bound."""
+    n = ODD_LANES
+    live = iter(points)
+    pts = [inf if i % 3 == 1 else next(live) for i in range(n)]
+    kp, rp = pack(pts), ref(pts)
+    got, want = coords(dbl(kp)), coords(plain(rp).cpu())
+    inf_z = all(want[r * n + i] == 0 for r in z_rows for i in range(1, n, 3))
+    return dict(
+        layout="infinity every third lane", lanes=n, ok=got == want and inf_z,
+        max_abs_err=max_err(got, want), ms=cuda_ms(lambda: dbl(kp), reps),
+        plain_ms=cuda_ms(lambda: plain(rp), 3),
+        bound=bound(2 * point_bytes * n, n * muls * OPS_PER_FIELD_MUL),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -480,7 +505,8 @@ def check_kernels(seed: int, dev):
     )
 
     # (2) g1_dbl and (3) g1_add on n Jacobian points (Z != 1), lane 7 of the
-    # add holding p == q (Z = 0 on both sides)
+    # add holding p == q (Z = 0 on both sides); the doubling also at
+    # ODD_LANES with infinity lanes
     ps = glv.point_run(rng, n)
     qs = glv.point_run(rng, n)
     qs[7] = ps[7]
@@ -491,11 +517,15 @@ def check_kernels(seed: int, dev):
     for i in range(0, n, 997):
         pt = (want[i], want[n + i], want[2 * n + i])
         check(bls.g1_eq(pt, bls.g1_dbl(ps[i])), "g1_ref.dbl wrong")
+    odd_pts = glv.point_run(random.Random(0xDB1), ODD_LANES)
+    odd = odd_dbl_entry(g1.g1_dbl, g1_ref.dbl, g1.g1_coords,
+                        lambda pts: g1.g1_pack(pts, dev), ref_pts, odd_pts,
+                        bls.G1_INF, (2,), 144, MULS_DBL, 100)
     report["g1_dbl"] = dict(
-        lanes=n, ok=got == want, max_abs_err=max_err(got, want),
+        lanes=n, ok=got == want and odd["ok"], max_abs_err=max_err(got, want),
         ms=cuda_ms(lambda: g1.g1_dbl(kp), 100),
         plain_ms=cuda_ms(lambda: g1_ref.dbl(rp), 3),
-        bound=bound(2 * 144 * n, n * MULS_DBL * OPS_PER_FIELD_MUL),
+        bound=bound(2 * 144 * n, n * MULS_DBL * OPS_PER_FIELD_MUL), odd=odd,
     )
     got = g1.g1_coords(g1.g1_add(kp, kq))
     want = g1.g1_coords(g1_ref.add_incomplete(rp, rq).cpu())
@@ -680,7 +710,8 @@ def check_g2_kernels(rng: random.Random, dev):
         return torch.from_numpy(g2_ref.points_to_limbs(points)).to(dev)
 
     # (5) g2_dbl and (6) g2_add on n Jacobian points (Z != 1), lane 7 of the
-    # add holding p == q (Z = 0 on both sides)
+    # add holding p == q (Z = 0 on both sides); the doubling also at
+    # ODD_LANES with infinity lanes
     ps = glv.point_run(rng, n, bls.g2_mul, bls.g2_add, bls.G2_GEN)
     qs = glv.point_run(rng, n, bls.g2_mul, bls.g2_add, bls.G2_GEN)
     qs[7] = ps[7]
@@ -690,11 +721,16 @@ def check_g2_kernels(rng: random.Random, dev):
     want = g2.g2_coords(g2_ref.dbl(rp).cpu())
     for i in range(0, n, 997):
         check(bls.g2_eq(g2_lane(want, i, n), bls.g2_dbl(ps[i])), "g2_ref.dbl wrong")
+    odd_pts = glv.point_run(random.Random(0xDB2), ODD_LANES,
+                            bls.g2_mul, bls.g2_add, bls.G2_GEN)
+    odd = odd_dbl_entry(g2.g2_dbl, g2_ref.dbl, g2.g2_coords,
+                        lambda pts: g2.g2_pack(pts, dev), ref_pts, odd_pts,
+                        bls.G2_INF, (4, 5), 288, MULS_DBL2, 50)
     report["g2_dbl"] = dict(
-        lanes=n, ok=got == want, max_abs_err=max_err(got, want),
+        lanes=n, ok=got == want and odd["ok"], max_abs_err=max_err(got, want),
         ms=cuda_ms(lambda: g2.g2_dbl(kp), 50),
         plain_ms=cuda_ms(lambda: g2_ref.dbl(rp), 3),
-        bound=bound(2 * 288 * n, n * MULS_DBL2 * OPS_PER_FIELD_MUL),
+        bound=bound(2 * 288 * n, n * MULS_DBL2 * OPS_PER_FIELD_MUL), odd=odd,
     )
     got = g2.g2_coords(g2.g2_add(kp, kq))
     want = g2.g2_coords(g2_ref.add_incomplete(rp, rq).cpu())
@@ -2731,9 +2767,11 @@ def main() -> int:
                          main=dict(numbers(m), **{k: m[k] for k in shape if k in m}))
         entry.update({k: r[k] for k in ("rows", "into_ms", "into_plain_ms", "beta_ms",
                                         "layout") if k in r})
-        if "n256" in r:  # the fixed-base kernels at N=256's shapes
-            m = r["n256"]
-            entry["n256"] = dict(numbers(m), **{k: m[k] for k in ("layout", "lanes") if k in m})
+        for extra in ("n256", "odd"):  # fixed-base at N=256; doublings at odd lanes
+            if extra in r:
+                m = r[extra]
+                entry[extra] = dict(numbers(m), **{k: m[k] for k in ("layout", "lanes")
+                                                   if k in m})
         if k in RS_KERNELS:  # its shape, and the other shapes it was held at
             rs_keys = ("layout", "lookups", "traced_ms", "int_bound_ms")
             entry.update({x: r[x] for x in rs_keys if x in r},

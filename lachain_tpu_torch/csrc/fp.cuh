@@ -1,4 +1,8 @@
-// The BLS12-381 base field Fp on the card, shared by g1.cu and g2.cu.
+// The BLS12-381 base field Fp on the card, shared by g1.cu and g2.cu: its
+// constants, the traits of coop.cuh's group field (BlsFp), on which every
+// G1 and G2 kernel but fp_mul runs, and the one-thread field of g1.cu's
+// fp_mul_kernel (Fp, mont_mul), which stays until that kernel moves to the
+// group field.
 //
 // A field element is 12 x 32-bit limbs in Montgomery form (R = 2^384),
 // always canonical in [0, p). Arrays are lane-minor: limb i of lane l sits
@@ -28,9 +32,9 @@ __constant__ uint32_t kR2[NL] = {
     0x4c95b6d5u, 0x8de5476cu, 0x939d83c0u, 0x67eb88a9u,
     0xb519952du, 0x9a793e85u, 0x92cae3aau, 0x11988fe5u};
 
-// The field traits of coop.cuh's group field (g1.cu's scan; g2.cu's scan,
-// add and table build). 2p < 2^383, so no sum carries out of the group and
-// the carry word is never read.
+// The field traits of coop.cuh's group field (g1.cu's and g2.cu's kernels
+// but fp_mul). 2p < 2^383, so no sum carries out of the group and the
+// carry word is never read.
 struct BlsFp {
   static constexpr int words = NL;
   static constexpr uint32_t pinv = kPInv;
@@ -41,13 +45,6 @@ struct BlsFp {
 struct Fp {
   uint32_t v[NL];
 };
-
-__device__ __forceinline__ Fp fp_zero() {
-  Fp r;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) r.v[i] = 0u;
-  return r;
-}
 
 // a - p when a >= p; requires a < 2p.
 __device__ __forceinline__ Fp reduce_once(const Fp& a) {
@@ -63,39 +60,6 @@ __device__ __forceinline__ Fp reduce_once(const Fp& a) {
 #pragma unroll
   for (int i = 0; i < NL; ++i) r.v[i] = borrow ? a.v[i] : t.v[i];
   return r;
-}
-
-// a + b < 2p < 2^382: no carry leaves the top limb.
-__device__ __forceinline__ Fp fp_add(const Fp& a, const Fp& b) {
-  Fp s;
-  uint64_t c = 0;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    c += (uint64_t)a.v[i] + b.v[i];
-    s.v[i] = (uint32_t)c;
-    c >>= 32;
-  }
-  return reduce_once(s);
-}
-
-__device__ __forceinline__ Fp fp_sub(const Fp& a, const Fp& b) {
-  Fp d;
-  uint32_t borrow = 0u;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    const uint64_t t = (uint64_t)a.v[i] - b.v[i] - borrow;
-    d.v[i] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-  const uint32_t mask = 0u - borrow;  // a < b: add p back
-  uint64_t c = 0;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    c += (uint64_t)d.v[i] + (kP[i] & mask);
-    d.v[i] = (uint32_t)c;
-    c >>= 32;
-  }
-  return d;
 }
 
 // CIOS Montgomery product a*b/R mod p for a, b < p; the result is < 2p
@@ -133,8 +97,6 @@ __device__ __forceinline__ Fp mont_mul(const Fp& a, const Fp& b) {
   for (int i = 0; i < NL; ++i) r.v[i] = t[i];
   return reduce_once(r);
 }
-
-__device__ __forceinline__ Fp fp_sqr(const Fp& a) { return mont_mul(a, a); }
 
 __device__ __forceinline__ Fp load_fp(const uint32_t* __restrict__ a,
                                       int row0, int n, int lane) {

@@ -55,13 +55,13 @@
 // Bytes are small beside them: the MSM reads its 16-entry table (2304
 // B/lane) once per lane per window at most, the table build writes it.
 //
-// fp_mul and dbl: one thread per lane on fp.cuh's field (uint64 CIOS); since
-// the table build is one launch, dbl serves no main path, and since the
-// conversions and phi's product by beta are g1_mont, fp_mul serves none.
-// The group-field kernels (the scan, add, the table build and mont): SCAN_T
-// threads per lane on coop.cuh's group field over fp.cuh's p (BlsFp:
-// carry-save column products, PTX carry chains for the carries, ballots
-// between the threads), the group law inlined. add serves the tree
+// fp_mul: one thread per lane on fp.cuh's one-thread field (uint64 CIOS);
+// since the conversions and phi's product by beta are g1_mont, it serves
+// no main path. Every other kernel runs on coop.cuh's group field over
+// fp.cuh's p (BlsFp: carry-save column products, PTX carry chains for the
+// carries, ballots between the threads), the group law inlined: the scan,
+// add, the table build, mont and dbl (since the table build is one launch
+// it serves no main path) a lane on SCAN_T threads. add serves the tree
 // reductions (6 passes an era, 8192 down to 256 lanes), where one thread
 // per lane left a launch one lane's latency through 16 uint64 products
 // (0.057 ms at any lane count). The table kernel builds build_table's 16
@@ -139,51 +139,6 @@ __constant__ uint32_t kBetaR[NL] = {
 // lt_g1_mont's op: out of Montgomery form, into it, times beta
 enum MontOp { kMontOut = 0, kMontInto = 1, kMontBeta = 2 };
 
-struct Pt {
-  Fp x, y, z;
-};
-
-// The one-thread doubling of dbl_kernel stays out of line: with the
-// one-thread group law's uint64 products inlined into every kernel, nvcc
-// 12.9's device front end (cicc) crashed with a segmentation fault on this
-// file.
-
-// pg1._g1_dbl_val: Jacobian doubling, a = 0 (7 products).
-__device__ __noinline__ Pt g1_dbl(const Pt& p) {
-  const Fp A = fp_sqr(p.x);
-  const Fp B = fp_sqr(p.y);
-  const Fp C = fp_sqr(B);
-  Fp D = fp_sub(fp_sub(fp_sqr(fp_add(p.x, B)), A), C);
-  D = fp_add(D, D);
-  const Fp E = fp_add(fp_add(A, A), A);
-  const Fp F = fp_sqr(E);
-  Pt r;
-  r.x = fp_sub(F, fp_add(D, D));
-  Fp C8 = fp_add(C, C);
-  C8 = fp_add(C8, C8);
-  C8 = fp_add(C8, C8);
-  r.y = fp_sub(mont_mul(E, fp_sub(D, r.x)), C8);
-  const Fp Z3 = mont_mul(p.y, p.z);
-  r.z = fp_add(Z3, Z3);
-  return r;
-}
-
-__device__ __forceinline__ Pt load_pt(const uint32_t* __restrict__ a, int n,
-                                      int lane) {
-  Pt r;
-  r.x = load_fp(a, 0, n, lane);
-  r.y = load_fp(a, NL, n, lane);
-  r.z = load_fp(a, 2 * NL, n, lane);
-  return r;
-}
-
-__device__ __forceinline__ void store_pt(uint32_t* __restrict__ a, int n,
-                                         int lane, const Pt& p) {
-  store_fp(a, 0, n, lane, p.x);
-  store_fp(a, NL, n, lane, p.y);
-  store_fp(a, 2 * NL, n, lane, p.z);
-}
-
 __global__ void __launch_bounds__(THREADS)
     fp_mul_kernel(const uint32_t* __restrict__ x,
                   const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
@@ -192,14 +147,6 @@ __global__ void __launch_bounds__(THREADS)
   if (lane >= n) return;
   store_fp(out, 0, n, lane,
            mont_mul(load_fp(x, 0, n, lane), load_fp(y, 0, n, lane)));
-}
-
-__global__ void __launch_bounds__(THREADS)
-    dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
-               int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  store_pt(out, n, lane, g1_dbl(load_pt(p, n, lane)));
 }
 
 // ---------------------------------------------------------------------------
@@ -245,7 +192,8 @@ struct MulCall {
   }
 };
 
-// g1_dbl on the group field, operation for operation.
+// pg1._g1_dbl_val on the group field: Jacobian doubling, a = 0, operation
+// for operation (7 products).
 template <int T, class M = MulInline>
 __device__ __forceinline__ PtG<T> g1_dbl_g(const Group<T>& g,
                                            const PtG<T>& p) {
@@ -366,6 +314,25 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
   const int col = group_lane<T, SCAN_BLOCK>(n, live);
   const PtG<T> r =
       g1_add_g(g, load_pt_g(g, p, n, col), load_pt_g(g, q, n, col));
+  if (live) store_pt_g(g, out, n, col, r);
+}
+
+// pg1._dbl_kernel on the group field: out = dbl(p), a lane on SCAN_T
+// threads. An 8192-lane launch is far from the card's rate (0.0011 ms of
+// multiply-adds): a lane's chain of 7 products bounds it. On SCAN_T
+// threads each product's columns split 4 ways, and 4 times the warps of
+// one thread a lane share the card. A lane on three groups of its warp,
+// its products 3 deep as in g1_dbl_warp (the sweep's `dbltrio`), issued
+// 1.7 times the instructions a lane and ran 1.7 times slower (PERF.md). A
+// group past n doubles lane 0's point and stores nothing.
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
+               int n) {
+  const Group<T> g = make_coop_group<BlsFp, T>();
+  bool live;
+  const int col = group_lane<T, SCAN_BLOCK>(n, live);
+  const PtG<T> r = g1_dbl_g(g, load_pt_g(g, p, n, col));
   if (live) store_pt_g(g, out, n, col, r);
 }
 
@@ -657,8 +624,9 @@ int lt_g1_fp_mul(const void* x, const void* y, void* out, int n,
 
 int lt_g1_dbl(const void* p, void* out, int n, void* stream) {
   if (n > 0) {
-    dbl_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)p, (uint32_t*)out, n);
+    dbl_kernel<SCAN_T><<<group_blocks<SCAN_T, SCAN_BLOCK>(n), SCAN_BLOCK, 0,
+                         (cudaStream_t)stream>>>((const uint32_t*)p,
+                                                 (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
 }
@@ -737,24 +705,24 @@ int lt_g1_mont(const void* x, void* out, int rows, int n, int op,
 // table, 5 mont, 6 fixed_tables, 7 fixed_scan), for the chip report.
 int lt_g1_kernel_attrs(int which, int* regs, int* local_bytes,
                        int* threads_per_lane, int* block) {
-  const void* fns[8] = {(const void*)fp_mul_kernel, (const void*)dbl_kernel,
+  const void* fns[8] = {(const void*)fp_mul_kernel,
+                        (const void*)dbl_kernel<SCAN_T>,
                         (const void*)add_kernel<SCAN_T>,
                         (const void*)msm_scan_kernel<SCAN_T>,
                         (const void*)g1_table_kernel<SCAN_T>,
                         (const void*)g1_mont_kernel<SCAN_T>,
                         (const void*)g1_fixed_tables_kernel<SCAN_T>,
                         (const void*)g1_fixed_scan_kernel<SCAN_T>};
-  const int blocks[8] = {THREADS,    THREADS,    SCAN_BLOCK,
+  const int blocks[8] = {THREADS,    SCAN_BLOCK, SCAN_BLOCK,
                          SCAN_BLOCK, SCAN_BLOCK, SCAN_BLOCK,
                          TABLE_OPS * SCAN_T, FIXED_BLOCK};
   if (which < 0 || which > 7) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
   if (err != cudaSuccess) return (int)err;
-  const bool one_thread = which < 2;  // fp_mul and dbl
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
-  *threads_per_lane = one_thread ? 1 : SCAN_T;
+  *threads_per_lane = which == 0 ? 1 : SCAN_T;  // fp_mul: one thread
   *block = blocks[which];
   return 0;
 }

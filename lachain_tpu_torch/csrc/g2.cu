@@ -13,7 +13,7 @@
 // component slots, its 44 x 10-bit limbs and its side-by-side packing of
 // the three Karatsuba products on one lane block are TPU artifacts.
 //
-// Arithmetic: fp2_mul is Karatsuba (3 Montgomery products), fp2_sqr is
+// Arithmetic: fp2g_mul is Karatsuba (3 Montgomery products), fp2g_sqr is
 // (a+b)(a-b) and 2ab (2 products). The group law uses pg2's formulas
 // (pg2._g2_dbl_val, pg2._g2_add_val, pg2.py:154-200) operation for
 // operation (the group-field add groups one product otherwise, to the same
@@ -28,12 +28,11 @@
 // Bytes are small beside them: the scan reads one 288-byte table entry per
 // lane per nonzero digit, the table build writes 16.
 //
-// g2_dbl: one thread per lane on fp.cuh's field (uint64 CIOS); since the
-// table build is one launch it serves no main path.
-// The group-field kernels (the scan, g2_add and the table build): SCAN_T
-// threads per lane on coop.cuh's group field over fp.cuh's p (BlsFp:
+// Every kernel runs on coop.cuh's group field over fp.cuh's p (BlsFp:
 // carry-save column products, PTX carry chains for the carries, ballots
-// between the threads), the group law inlined and the Fp2 products out of line.
+// between the threads), the group law inlined and the Fp2 products out of
+// line, a lane on SCAN_T threads: the scan, g2_add, the table build and
+// g2_dbl (since the table build is one launch it serves no main path).
 // g2_add serves the tree reductions (the coin era's 12 launches, 2048 down
 // to 32 lanes); one thread per lane, a launch of 4096 lanes was one lane's
 // latency through 44 Fp products (0.094 ms). The table kernel builds
@@ -87,96 +86,10 @@ namespace {
 constexpr int ROWS2 = 6 * NL;  // rows of a point: six Fp components
 constexpr int WINDOW = 4;
 constexpr int TABLE = 16;    // table entries: 4-bit windows
-constexpr int THREADS = 64;  // n = 8192 lanes -> 128 blocks over 132 SMs
-// threads per lane, and per block, of the group-field kernels: the scan,
-// g2_add and the table build
+// threads per lane, and per block, of every kernel: the scan, g2_add, the
+// table build and g2_dbl
 constexpr int SCAN_T = LT_G2_SCAN_T;
 constexpr int SCAN_BLOCK = 64;
-
-struct Fp2 {
-  Fp c0, c1;
-};
-
-struct Pt2 {
-  Fp2 x, y, z;
-};
-
-__device__ __forceinline__ Fp2 fp2_add(const Fp2& a, const Fp2& b) {
-  return {fp_add(a.c0, b.c0), fp_add(a.c1, b.c1)};
-}
-
-__device__ __forceinline__ Fp2 fp2_sub(const Fp2& a, const Fp2& b) {
-  return {fp_sub(a.c0, b.c0), fp_sub(a.c1, b.c1)};
-}
-
-__device__ __forceinline__ Fp2 fp2_dbl(const Fp2& a) { return fp2_add(a, a); }
-
-// The products stay out of line, like the doubling below: inlined, every
-// one-thread G2 kernel ran slower (PERF.md, PRs 2 and 5), and inlining
-// every uint64 product into one function is what crashed nvcc 12.9's
-// device front end (cicc) on the G1 source.
-
-// pg2._fp2_mul: (a + bi)(d + ei) = (ad - be) + ((a+b)(d+e) - ad - be) i.
-__device__ __noinline__ Fp2 fp2_mul(const Fp2& x, const Fp2& y) {
-  const Fp ad = mont_mul(x.c0, y.c0);
-  const Fp be = mont_mul(x.c1, y.c1);
-  const Fp k = mont_mul(fp_add(x.c0, x.c1), fp_add(y.c0, y.c1));
-  return {fp_sub(ad, be), fp_sub(fp_sub(k, ad), be)};
-}
-
-// pg2._fp2_sqr: (a + bi)^2 = (a+b)(a-b) + 2ab i.
-__device__ __noinline__ Fp2 fp2_sqr(const Fp2& x) {
-  const Fp re = mont_mul(fp_add(x.c0, x.c1), fp_sub(x.c0, x.c1));
-  const Fp ab = mont_mul(x.c0, x.c1);
-  return {re, fp_add(ab, ab)};
-}
-
-// pg2._g2_dbl_val: Jacobian doubling, a = 0 (16 products).
-__device__ __noinline__ Pt2 g2_dbl(const Pt2& p) {
-  const Fp2 A = fp2_sqr(p.x);
-  const Fp2 B = fp2_sqr(p.y);
-  const Fp2 C = fp2_sqr(B);
-  Fp2 D = fp2_sub(fp2_sub(fp2_sqr(fp2_add(p.x, B)), A), C);
-  D = fp2_dbl(D);
-  const Fp2 E = fp2_add(fp2_dbl(A), A);
-  const Fp2 F = fp2_sqr(E);
-  Pt2 r;
-  r.x = fp2_sub(F, fp2_dbl(D));
-  const Fp2 C8 = fp2_dbl(fp2_dbl(fp2_dbl(C)));
-  r.y = fp2_sub(fp2_mul(E, fp2_sub(D, r.x)), C8);
-  r.z = fp2_dbl(fp2_mul(p.y, p.z));
-  return r;
-}
-
-__device__ __forceinline__ Pt2 load_pt2(const uint32_t* __restrict__ a,
-                                        int n, int lane) {
-  Pt2 r;
-  r.x.c0 = load_fp(a, 0 * NL, n, lane);
-  r.x.c1 = load_fp(a, 1 * NL, n, lane);
-  r.y.c0 = load_fp(a, 2 * NL, n, lane);
-  r.y.c1 = load_fp(a, 3 * NL, n, lane);
-  r.z.c0 = load_fp(a, 4 * NL, n, lane);
-  r.z.c1 = load_fp(a, 5 * NL, n, lane);
-  return r;
-}
-
-__device__ __forceinline__ void store_pt2(uint32_t* __restrict__ a, int n,
-                                          int lane, const Pt2& p) {
-  store_fp(a, 0 * NL, n, lane, p.x.c0);
-  store_fp(a, 1 * NL, n, lane, p.x.c1);
-  store_fp(a, 2 * NL, n, lane, p.y.c0);
-  store_fp(a, 3 * NL, n, lane, p.y.c1);
-  store_fp(a, 4 * NL, n, lane, p.z.c0);
-  store_fp(a, 5 * NL, n, lane, p.z.c1);
-}
-
-__global__ void __launch_bounds__(THREADS)
-    g2_dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
-                  int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  store_pt2(out, n, lane, g2_dbl(load_pt2(p, n, lane)));
-}
 
 // ---------------------------------------------------------------------------
 // the group-field kernels: one lane on a group of T threads (coop.cuh)
@@ -222,7 +135,8 @@ __device__ __forceinline__ Fp2G<T> fp2g_dbl(const Group<T>& g,
 // scan took 248 registers and ran 22% slower on the coin layout (the T
 // sweep's fp2inline variant).
 
-// fp2_mul on the group field (Karatsuba, 3 products).
+// pg2._fp2_mul on the group field: (a + bi)(d + ei) = (ad - be) +
+// ((a+b)(d+e) - ad - be) i (Karatsuba, 3 products).
 template <int T>
 __device__ __noinline__ Fp2G<T> fp2g_mul(const Group<T>& g, const Fp2G<T>& x,
                                          const Fp2G<T>& y) {
@@ -233,7 +147,8 @@ __device__ __noinline__ Fp2G<T> fp2g_mul(const Group<T>& g, const Fp2G<T>& x,
   return {fpg_sub(g, ad, be), fpg_sub(g, fpg_sub(g, k, ad), be)};
 }
 
-// fp2_sqr on the group field (2 products).
+// pg2._fp2_sqr on the group field: (a + bi)^2 = (a+b)(a-b) + 2ab i (2
+// products).
 template <int T>
 __device__ __noinline__ Fp2G<T> fp2g_sqr(const Group<T>& g, const Fp2G<T>& x) {
   const FpG<T> re =
@@ -242,7 +157,8 @@ __device__ __noinline__ Fp2G<T> fp2g_sqr(const Group<T>& g, const Fp2G<T>& x) {
   return {re, fpg_add(g, ab, ab)};
 }
 
-// g2_dbl on the group field, operation for operation (16 products).
+// pg2._g2_dbl_val on the group field: Jacobian doubling, a = 0,
+// operation for operation (16 products).
 template <int T>
 __device__ __forceinline__ Pt2G<T> g2_dbl_g(const Group<T>& g,
                                             const Pt2G<T>& p) {
@@ -346,6 +262,25 @@ __device__ __forceinline__ Pt2G<T> select_entry2_g(
   return load_pt2_g(g, table + (size_t)d * ROWS2 * n, n, lane);
 }
 
+// pg2._dbl2_kernel on the group field: out = dbl(p), a lane on SCAN_T
+// threads. An 8192-lane launch is far from the card's rate (0.0026 ms of
+// multiply-adds): a lane's chain of 16 products bounds it. On SCAN_T
+// threads each product's columns split 4 ways, and 4 times the warps of
+// one thread a lane share the card. A lane on three groups of its warp,
+// its Fp2 operations 3 levels deep (the sweep's `dbltrio`), issued twice
+// the instructions a lane and ran 2.2 times slower (PERF.md). A group past
+// n doubles lane 0's point and stores nothing.
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    g2_dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
+                  int n) {
+  const Group<T> g = make_coop_group<BlsFp, T>();
+  bool live;
+  const int col = group_lane<T, SCAN_BLOCK>(n, live);
+  const Pt2G<T> r = g2_dbl_g(g, load_pt2_g(g, p, n, col));
+  if (live) store_pt2_g(g, out, n, col, r);
+}
+
 // pg2._add2_kernel on the group field: out = p + q (incomplete).
 template <int T>
 __global__ void __launch_bounds__(SCAN_BLOCK)
@@ -422,16 +357,15 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
   }
 }
 
-inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
-
 }  // namespace
 
 extern "C" {
 
 int lt_g2_dbl(const void* p, void* out, int n, void* stream) {
   if (n > 0) {
-    g2_dbl_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)p, (uint32_t*)out, n);
+    g2_dbl_kernel<SCAN_T>
+        <<<group_blocks<SCAN_T, SCAN_BLOCK>(n), SCAN_BLOCK, 0,
+           (cudaStream_t)stream>>>((const uint32_t*)p, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
 }
@@ -473,7 +407,7 @@ int lt_g2_msm_scan(const void* table, const void* digits, void* acc,
 // chip report.
 int lt_g2_kernel_attrs(int which, int* regs, int* local_bytes,
                        int* threads_per_lane, int* block) {
-  const void* fns[4] = {(const void*)g2_dbl_kernel,
+  const void* fns[4] = {(const void*)g2_dbl_kernel<SCAN_T>,
                         (const void*)g2_add_kernel<SCAN_T>,
                         (const void*)g2_msm_scan_kernel<SCAN_T>,
                         (const void*)g2_table_kernel<SCAN_T>};
@@ -483,8 +417,8 @@ int lt_g2_kernel_attrs(int which, int* regs, int* local_bytes,
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
-  *threads_per_lane = which == 0 ? 1 : SCAN_T;
-  *block = which == 0 ? THREADS : SCAN_BLOCK;
+  *threads_per_lane = SCAN_T;
+  *block = SCAN_BLOCK;
   return 0;
 }
 

@@ -21,7 +21,11 @@ which must find its text):
                 products of a doubling in sequence, not over three groups
                 of its warp (g1.cu);
   * mulinline   the two fixed-base kernels' group law with its products
-                inlined, not called out of line (g1.cu MulCall).
+                inlined, not called out of line (g1.cu MulCall);
+  * dbltrio     the doublings (dbl_kernel, g2_dbl_kernel) a lane on three
+                groups of a warp, a level's independent products one a
+                group, not a lane on one group (g1.cu, g2.cu, coop.cuh);
+  * dblcall     dbl_kernel's products called out of line (MulCall).
 All nvcc processes start together, with `-Xptxas -v`; the report holds
 each build's seconds and, per kernel, the registers, stack frame and
 spills ptxas reports, its callees' too, or the compiler's failure.
@@ -131,6 +135,91 @@ MAIN_LAYOUT = {"g1": "tpke", "g2": "coin", "secp": "recover"}
 # the fixed-base kernels' shapes: N keys, N slots x N key lanes
 FIXED_ERAS = (64, 256)
 
+# `dbltrio`: the doublings a lane on three groups of a warp, each group
+# taking one of a level's three independent products (3 levels: G1's 7
+# products 3 deep, G2's Fp2 operations 8 Fp products deep), results read
+# by shuffles from the trio's groups; 2 lanes a warp at T = 4, groups 6 and
+# 7 idle. It issued 1.7 (G1) and 2 (G2) times the instructions a lane of
+# the shipped doublings and ran 1.7 and 2.2 times slower (PERF.md, PR 16).
+_GROUP_BLOCKS = """inline int group_blocks(int n) {
+  return (int)(((long long)n * T + BLOCK - 1) / BLOCK);
+}
+"""
+_TRIO = """
+struct Trio {
+  int lane, slot;
+  bool live;
+};
+
+// group j of a warp works at slot j % 3 on the warp's lane j / 3
+template <int T, int BLOCK>
+__device__ __forceinline__ Trio trio_lane(int n) {
+  constexpr int LANES = 32 / T / 3;
+  const int gi = (int)(threadIdx.x & 31u) / T;
+  const int lane =
+      (int)((blockIdx.x * (unsigned)BLOCK + threadIdx.x) / 32u) * LANES + gi / 3;
+  Trio t;
+  t.live = gi / 3 < LANES && lane < n;
+  t.lane = t.live ? lane : 0;
+  t.slot = gi % 3;
+  return t;
+}
+
+// the first group of this thread's trio (0 for the groups left over)
+template <int T>
+__device__ __forceinline__ int trio_base() {
+  const int trio = (int)(threadIdx.x & 31u) / T / 3;
+  return trio < 32 / T / 3 ? 3 * trio : 0;
+}
+
+template <int T, int BLOCK>
+inline int trio_blocks(int n) {
+  constexpr int LANES = 32 / T / 3 * (BLOCK / 32);
+  return (n + LANES - 1) / LANES;
+}
+"""
+_Z_POW2 = "// q.z^2 and q.z^3 for g2_add_g"
+_G2_TRIO = """template <int T>
+__device__ __forceinline__ Fp2G<T> from_trio2(const Group<T>& g,
+                                              const Fp2G<T>& x, int src) {
+  const int lane = (trio_base<T>() + src) * T + g.rank;
+  Fp2G<T> r;
+#pragma unroll
+  for (int j = 0; j < NL / T; ++j) {
+    r.c0.v[j] = __shfl_sync(g.mask, x.c0.v[j], lane);
+    r.c1.v[j] = __shfl_sync(g.mask, x.c1.v[j], lane);
+  }
+  return r;
+}
+
+// level 1 (X X, Y Y, Y Z) as Karatsuba products, level 2 three squares,
+// level 3 E (D - X3)
+template <int T>
+__device__ __forceinline__ Pt2G<T> g2_dbl_trio(const Group<T>& g,
+                                               const Pt2G<T>& p) {
+  const int slot = ((int)(threadIdx.x & 31u) / T) % 3;
+  const Fp2G<T> a1 = slot == 0 ? p.x : p.y;
+  const Fp2G<T> b1 = slot == 0 ? p.x : slot == 1 ? p.y : p.z;
+  const Fp2G<T> r1 = fp2g_mul(g, a1, b1);
+  const Fp2G<T> A = from_trio2(g, r1, 0), B = from_trio2(g, r1, 1);
+  const Fp2G<T> YZ = from_trio2(g, r1, 2);
+  const Fp2G<T> XB = fp2g_add(g, p.x, B);
+  const Fp2G<T> E = fp2g_add(g, fp2g_dbl(g, A), A);
+  const Fp2G<T> a2 = slot == 0 ? B : slot == 1 ? XB : E;
+  const Fp2G<T> r2 = fp2g_sqr(g, a2);
+  const Fp2G<T> C = from_trio2(g, r2, 0), XB2 = from_trio2(g, r2, 1);
+  const Fp2G<T> F = from_trio2(g, r2, 2);
+  Fp2G<T> D = fp2g_dbl(g, fp2g_sub(g, fp2g_sub(g, XB2, A), C));
+  Pt2G<T> r;
+  r.x = fp2g_sub(g, F, fp2g_dbl(g, D));
+  const Fp2G<T> C8 = fp2g_dbl(g, fp2g_dbl(g, fp2g_dbl(g, C)));
+  r.y = fp2g_sub(g, fp2g_mul(g, E, fp2g_sub(g, D, r.x)), C8);
+  r.z = fp2g_dbl(g, YZ);
+  return r;
+}
+
+"""
+
 # label -> (scans, {file: [(shipped text, variant text)]})
 VARIANTS = {
     "groupmask": (SCANS, {"coop.cuh": [
@@ -158,6 +247,38 @@ VARIANTS = {
     "chainserial": (("g1",), {"g1.cu": [
         ("      for (int i = 0; i < WINDOW; ++i) p = g1_dbl_warp(g, p);",
          "      for (int i = 0; i < WINDOW; ++i) p = g1_dbl_g(g, p);")]}),
+    "dbltrio": (("g1", "g2"), {
+        "coop.cuh": [(_GROUP_BLOCKS, _GROUP_BLOCKS + _TRIO)],
+        "g1.cu": [("x.v[j], src * T + g.rank);", "x.v[j], (trio_base<T>() + src) * T + g.rank);"),
+                  ("""  bool live;
+  const int col = group_lane<T, SCAN_BLOCK>(n, live);
+  const PtG<T> r = g1_dbl_g(g, load_pt_g(g, p, n, col));
+  if (live) store_pt_g(g, out, n, col, r);
+""", """  const Trio t = trio_lane<T, SCAN_BLOCK>(n);
+  const PtG<T> r = g1_dbl_warp(g, load_pt_g(g, p, n, t.lane));
+  if (t.live)
+    store_fpg(g, out, t.slot * NL, n, t.lane,
+              t.slot == 0 ? r.x : t.slot == 1 ? r.y : r.z);
+"""), ("dbl_kernel<SCAN_T><<<group_blocks<SCAN_T, SCAN_BLOCK>(n)",
+       "dbl_kernel<SCAN_T><<<trio_blocks<SCAN_T, SCAN_BLOCK>(n)")],
+        "g2.cu": [(_Z_POW2, _G2_TRIO + _Z_POW2),
+                  ("""  bool live;
+  const int col = group_lane<T, SCAN_BLOCK>(n, live);
+  const Pt2G<T> r = g2_dbl_g(g, load_pt2_g(g, p, n, col));
+  if (live) store_pt2_g(g, out, n, col, r);
+""", """  const Trio t = trio_lane<T, SCAN_BLOCK>(n);
+  const Pt2G<T> r = g2_dbl_trio(g, load_pt2_g(g, p, n, t.lane));
+  if (t.live) {
+    const Fp2G<T>& c = t.slot == 0 ? r.x : t.slot == 1 ? r.y : r.z;
+    store_fpg(g, out, 2 * t.slot * NL, n, t.lane, c.c0);
+    store_fpg(g, out, (2 * t.slot + 1) * NL, n, t.lane, c.c1);
+  }
+"""), ("""    g2_dbl_kernel<SCAN_T>
+        <<<group_blocks<SCAN_T, SCAN_BLOCK>(n)""", """    g2_dbl_kernel<SCAN_T>
+        <<<trio_blocks<SCAN_T, SCAN_BLOCK>(n)""")]}),
+    "dblcall": (("g1",), {"g1.cu": [
+        ("g1_dbl_g(g, load_pt_g(g, p, n, col))",
+         "g1_dbl_g<T, MulCall>(g, load_pt_g(g, p, n, col))")]}),
     "mulinline": (("g1",), {"g1.cu": [("<T, MulCall>", "<T, MulInline>")]}),
     "fp2inline": (("g2",), {"g2.cu": [
         (f"__device__ __noinline__ Fp2G<T> fp2g_{op}(",
@@ -173,7 +294,7 @@ _NAMES = ("g1_fixed_tables_kernel", "g1_fixed_scan_kernel", "rs_matmul8_kernel",
           "secp_add_kernel", "secp_sqrt_kernel", "g2_dbl_kernel",
           "g2_add_kernel", "fp_mul_kernel", "dbl_kernel", "add_kernel",
           "secp_dbl", "secp_add", "g2_dbl", "g2_add", "g1_dbl", "g1_add",
-          "fp2g_mul", "fp2g_sqr", "fp2_mul", "fp2_sqr")
+          "fp2g_mul", "fp2g_sqr")
 
 
 def _short(mangled: str):

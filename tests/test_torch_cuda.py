@@ -545,6 +545,46 @@ def test_g1_add_on_group_field_with_collisions(card, n):
     assert [want[2 * n + i] == 0 for i in range(min(n, 3))] == [True, True, False][:n]
 
 
+@pytest.mark.parametrize("n", [1, 5, 63, 65, 8192])
+def test_g1_dbl_on_group_field(card, n):
+    """g1_dbl (a lane on three groups of 4 threads, 2 lanes a warp) against
+    the plain doubling word for word, on Jacobian points with Z != 1 and
+    infinity lanes (0, 1, 0), which keep Z = 0; lane counts on both sides
+    of a 64-thread block's 4 lanes and a partial last warp."""
+    rng = random.Random(0xDB1 + n)
+    live = iter(glv.point_run(rng, n))
+    ps = [bls.G1_INF if i % 3 == 1 else next(live) for i in range(n)]
+    attrs = _build.kernel_attrs()["g1_dbl"]
+    assert attrs["threads_per_lane"] > 1 and attrs["block"] == 64
+    g1.reset_launches()
+    got = g1.g1_coords(g1.g1_dbl(g1.g1_pack(ps, card)))
+    assert g1.LAUNCHES == dict(g1.LAUNCHES, g1_dbl=1)
+    want = g1.g1_coords(g1_ref.dbl(_ref(ps, card)).cpu())
+    assert got == want
+    assert all(want[2 * n + i] == 0 for i in range(1, n, 3))
+    assert bls.g1_eq((got[0], got[n], got[2 * n]), bls.g1_dbl(ps[0]))
+
+
+@pytest.mark.parametrize("n", [1, 5, 63, 65, 8192])
+def test_g2_dbl_on_group_field(card, n):
+    """g2_dbl (a lane on three groups of 4 threads, its Fp2 operations in 3
+    levels) against the plain doubling word for word, on Jacobian points
+    with Z != 1 and infinity lanes (0, 1, 0), which keep Z = 0."""
+    rng = random.Random(0xDB2 + n)
+    live = iter(glv.point_run(rng, n, bls.g2_mul, bls.g2_add, bls.G2_GEN))
+    ps = [bls.G2_INF if i % 3 == 1 else next(live) for i in range(n)]
+    attrs = _build.kernel_attrs()["g2_dbl"]
+    assert attrs["threads_per_lane"] > 1 and attrs["block"] == 64
+    g2.reset_launches()
+    got = g2.g2_coords(g2.g2_dbl(g2.g2_pack(ps, card)))
+    assert g2.LAUNCHES == dict(g2.LAUNCHES, g2_dbl=1)
+    want = g2.g2_coords(g2_ref.dbl(_ref2(ps, card)).cpu())
+    assert got == want
+    assert all(want[4 * n + i] == want[5 * n + i] == 0 for i in range(1, n, 3))
+    assert bls.g2_eq(_unpack(g2.g2_dbl(g2.g2_pack(ps[:1], card)))[0],
+                     bls.g2_dbl(ps[0]))
+
+
 @pytest.mark.parametrize("n", [1, 5, 8192])
 def test_secp_add_on_group_field_with_collisions(card, n):
     """secp_add (4 threads a lane) against the plain add; lane 0 holds

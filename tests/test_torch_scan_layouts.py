@@ -164,10 +164,10 @@ def test_sweep_variants_edit_copies_of_the_shipped_sources(tmp_path):
                for f in ("g1.cu", "g2.cu", "secp.cu", "coop.cuh")}
     srcs = scan_sweep.variant_sources(tmp_path, {"g1": 4, "g2": 4, "secp": 4})
     assert sorted(srcs) == [
-        "g1_T1", "g1_T2", "g1_chainserial", "g1_groupmask", "g1_mulinline",
-        "g1_prefetch", "g2_T1", "g2_T2", "g2_fp2inline", "g2_groupmask",
-        "g2_prefetch", "secp_T1", "secp_T2", "secp_T8", "secp_groupmask",
-        "secp_prefetch"]
+        "g1_T1", "g1_T2", "g1_chainserial", "g1_dblcall", "g1_dbltrio",
+        "g1_groupmask", "g1_mulinline", "g1_prefetch", "g2_T1", "g2_T2",
+        "g2_dbltrio", "g2_fp2inline", "g2_groupmask", "g2_prefetch",
+        "secp_T1", "secp_T2", "secp_T8", "secp_groupmask", "secp_prefetch"]
     assert srcs["g2_T1"][2] == ["-DLT_G2_SCAN_T=1"]
     assert srcs["secp_T2"][2] == ["-DLT_SECP_SCAN_T=2"]
     assert srcs["secp_T8"][2] == ["-DLT_SECP_SCAN_T=8"]
