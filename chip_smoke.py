@@ -449,12 +449,13 @@ def scan_entry(kernel, plain, coords, ktab, rtab, digits, muls_dbl, muls_add,
 
 
 def odd_dbl_entry(dbl, plain, coords, pack, ref, points, inf, z_rows,
-                  point_bytes: int, muls: int, reps: int) -> dict:
+                  point_bytes: int, muls: int, reps: int,
+                  ops_per_mul: int = OPS_PER_FIELD_MUL) -> dict:
     """A doubling (`dbl`, its `plain` version, the `coords` reader) at
     ODD_LANES lanes, every third lane from lane 1 infinity (0, 1, 0), the
     others taken from `points`: word for word, Z = 0 kept on the infinity
     lanes (coordinate rows `z_rows`), CUDA-event times of both and the
-    bound."""
+    bound of `muls` products a lane at `ops_per_mul` operations each."""
     n = ODD_LANES
     live = iter(points)
     pts = [inf if i % 3 == 1 else next(live) for i in range(n)]
@@ -465,7 +466,7 @@ def odd_dbl_entry(dbl, plain, coords, pack, ref, points, inf, z_rows,
         layout="infinity every third lane", lanes=n, ok=got == want and inf_z,
         max_abs_err=max_err(got, want), ms=cuda_ms(lambda: dbl(kp), reps),
         plain_ms=cuda_ms(lambda: plain(rp), 3),
-        bound=bound(2 * point_bytes * n, n * muls * OPS_PER_FIELD_MUL),
+        bound=bound(2 * point_bytes * n, n * muls * ops_per_mul),
     )
 
 
@@ -850,8 +851,9 @@ def check_secp_kernels(rng: random.Random, dev):
         bound=bound(3 * 32 * n, n * OPS_PER_SECP_MUL),
     )
 
-    # (9) secp_dbl on n affine points; (10) secp_add on the doubled points
-    # (Z != 1) and n more, lane 7 holding p == q (Z = 0 on both sides)
+    # (9) secp_dbl on n affine points, and at ODD_LANES with infinity lanes;
+    # (10) secp_add on the doubled points (Z != 1) and n more, lane 7
+    # holding p == q (Z = 0 on both sides)
     secp_run = (ecdsa._mul, ecdsa._add, ecdsa.G, ecdsa.N)
     ps = glv.point_run(rng, n, *secp_run)
     qs = glv.point_run(rng, n, *secp_run)
@@ -862,11 +864,15 @@ def check_secp_kernels(rng: random.Random, dev):
     got, want = secp.pt_coords(kd), secp_ref.coords(rd.cpu())
     for i in range(0, n, 997):
         check(affine(want, i) == ecdsa._add(ps[i], ps[i]), "secp_ref.dbl wrong")
+    odd_pts = glv.point_run(random.Random(0xDB3), ODD_LANES, *secp_run)
+    odd = odd_dbl_entry(secp.secp_dbl, secp_ref.dbl, secp.pt_coords,
+                        lambda pts: secp.pt_pack(pts, dev), ref_pts, odd_pts,
+                        None, (2,), 96, MULS_DBL, 100, OPS_PER_SECP_MUL)
     report["secp_dbl"] = dict(
-        lanes=n, ok=got == want, max_abs_err=max_err(got, want),
+        lanes=n, ok=got == want and odd["ok"], max_abs_err=max_err(got, want),
         ms=cuda_ms(lambda: secp.secp_dbl(kp), 100),
         plain_ms=cuda_ms(lambda: secp_ref.dbl(rp), 3),
-        bound=bound(2 * 96 * n, n * MULS_DBL * OPS_PER_SECP_MUL),
+        bound=bound(2 * 96 * n, n * MULS_DBL * OPS_PER_SECP_MUL), odd=odd,
     )
     got = secp.pt_coords(secp.secp_add(kd, kq))
     want = secp_ref.coords(secp_ref.add_incomplete(rd, rq).cpu())

@@ -18,21 +18,21 @@
 // fold and its 32-row component slots are TPU artifacts. Here a field
 // element is 8 x 32-bit limbs in Montgomery form (R = 2^256), always
 // canonical in [0, p); a point is 24 rows X | Y | Z, lane-minor, so a
-// warp's loads of one limb coalesce. The one-thread field code is this
-// file's own, with internal linkage (fp.cuh's field is BLS12-381's); the
-// scan's is coop.cuh's group field over this file's p (SecpFp).
+// warp's loads of one limb coalesce. Every kernel of this file runs on
+// coop.cuh's group field over this file's p (SecpFp); the file has no
+// one-thread field or point code.
 //
 // p = 2^256 - 2^32 - 977 fills its top limb, so a + b and the Montgomery
 // product's last step can carry out of 256 bits (unlike the BLS field,
-// fp.cuh:53): fe_add and mont_mul, and coop.cuh's code with
-// SecpFp::top_carry, take that carry word into the final conditional
-// subtraction.
+// fp.cuh:53): coop.cuh's add and product, with SecpFp::top_carry, take
+// that carry word into the final conditional subtraction.
 //
-// Multiply: CIOS Montgomery, 2*8*8 + 8 word products. The group law uses
-// psecp's formulas (psecp._pt_dbl_val, psecp._pt_add_val, :158-194)
+// Multiply: coop.cuh's CIOS Montgomery product over carry-save columns
+// split across the group's threads, 2*8*8 + 8 word products. The group law
+// uses psecp's formulas (psecp._pt_dbl_val, psecp._pt_add_val, :158-194)
 // operation for operation (the group-field add groups one product
-// otherwise, to the same values), so a collision p = +-q in an incomplete add
-// gives Z = 0 exactly where the TPU kernel does, and the recover path's
+// otherwise, to the same values), so a collision p = +-q in an incomplete
+// add gives Z = 0 exactly where the TPU kernel does, and the recover path's
 // escape to the host oracle fires on the same signatures. A doubling is 7
 // products, an add 16.
 //
@@ -46,9 +46,10 @@
 // Montgomery conversions are bound by their bytes (32 in and out a
 // coordinate against 136 or 72 word products).
 //
-// fp_mul and dbl: one thread per lane on this file's uint64 field; since
-// the table build is one launch, dbl serves no main path, and since the
-// conversions are secp_mont, neither does fp_mul.
+// fp_mul and dbl: a lane on SCAN_T threads like add. Since the table
+// build is one launch, dbl serves no main path, and since the conversions
+// are secp_mont, neither does fp_mul; both are bound by one launch's
+// latency and a lane's product chain, not by their bytes.
 //
 // The square root: where psecp walks the exponent's bits (501 products a
 // lane), sqrt runs libsecp256k1's addition chain for (p+1)/4 (268), on the
@@ -56,7 +57,7 @@
 // product chain, no branch on data, so every warp stays converged. Its
 // lanes are the batch's, with no padding to a power of two.
 //
-// The group-field kernels (the scan, add, the table build, sqrt, mont):
+// Every kernel (the scan, add, dbl, fp_mul, the table build, sqrt, mont):
 // SCAN_T threads per lane on coop.cuh's group field over secp256k1 (SecpFp:
 // carry-save column products, PTX carry chains, ballots between the
 // threads, the carry word past 256 bits folded into the top thread's carry
@@ -109,6 +110,18 @@
 // At 16,384 lanes T = 1 wins (the card is full, and the group field's
 // shuffles and ballots cost issue slots); at the recovery's 9,980 one
 // thread a lane leaves the schedulers short of warps and T = 4 ties it.
+// The same T serves dbl and fp_mul, medians of 10 rounds in ms at 8192
+// lanes with the stream held while the sweep enqueues (a launch's host
+// time is longer than either kernel), dbl / fp_mul:
+//   T = 1: 0.00764 / 0.00281 (80 / 42 registers);
+//   T = 2: 0.00684 / 0.00285 (48 / 34);
+//   T = 4: 0.00696 / 0.00281 (32 / 28)  <- SCAN_T
+//   T = 8: 0.00766 / 0.00316 (32 / 18);
+//   the one-thread kernels they replaced: 0.00966 / 0.00289 (90 registers
+//   and 96 local bytes / 40).
+// T = 2 leads the doubling by 1.7% and trails the product; the product
+// reads the same at every T and on one thread: the launch, not its 136
+// word products a lane, sets its time.
 //
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is non-zero.
@@ -128,7 +141,6 @@ constexpr int NL = 8;        // 32-bit limbs per field element
 constexpr int PR = 3 * NL;   // rows per point: X | Y | Z
 constexpr int WINDOW = 4;
 constexpr int TABLE = 16;    // entries k*P, k in [0, 16)
-constexpr int THREADS = 64;  // n = 8192 lanes -> 128 blocks over 132 SMs
 constexpr int SCAN_T = LT_SECP_SCAN_T;  // threads per lane (group field)
 constexpr int SCAN_BLOCK = 64;          // their threads per block
 
@@ -143,186 +155,8 @@ __constant__ uint32_t kSevenR[NL] = {0x00001ab7u, 0x00000007u, 0u, 0u,
 __constant__ uint32_t kR2[NL] = {0x000e90a1u, 0x000007a2u, 0x00000001u, 0u,
                                  0u, 0u, 0u, 0u};
 
-struct Fe {
-  uint32_t v[NL];
-};
-
-struct Pt {
-  Fe x, y, z;
-};
-
-__device__ __forceinline__ Fe fe_zero() {
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) r.v[i] = 0u;
-  return r;
-}
-
-// (top * 2^256 + a) mod p for a value below 2p (top is 0 or 1): subtract p
-// when the carry word is set or a >= p.
-__device__ __forceinline__ Fe reduce_once(const Fe& a, uint32_t top) {
-  Fe t;
-  uint32_t borrow = 0u;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    const uint64_t d = (uint64_t)a.v[i] - kP[i] - borrow;
-    t.v[i] = (uint32_t)d;
-    borrow = (uint32_t)(d >> 63);
-  }
-  const bool keep = top == 0u && borrow != 0u;  // a < p and no carry word
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) r.v[i] = keep ? a.v[i] : t.v[i];
-  return r;
-}
-
-// a + b < 2p < 2^257: the carry out of the top limb goes to reduce_once.
-__device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
-  Fe s;
-  uint64_t c = 0;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    c += (uint64_t)a.v[i] + b.v[i];
-    s.v[i] = (uint32_t)c;
-    c >>= 32;
-  }
-  return reduce_once(s, (uint32_t)c);
-}
-
-// a - b, plus p when it borrows; the carry of that addition leaves 256
-// bits and is dropped (a - b + p lies in [0, p)).
-__device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
-  Fe d;
-  uint32_t borrow = 0u;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    const uint64_t t = (uint64_t)a.v[i] - b.v[i] - borrow;
-    d.v[i] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-  const uint32_t mask = 0u - borrow;
-  uint64_t c = 0;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    c += (uint64_t)d.v[i] + (kP[i] & mask);
-    d.v[i] = (uint32_t)c;
-    c >>= 32;
-  }
-  return d;
-}
-
-// CIOS Montgomery product a*b/R mod p for a, b < p. Every partial result
-// stays below 2p < 2^257, so the word t[NL] is 0 or 1 at the end and goes
-// to the final subtraction with the low eight.
-__device__ __forceinline__ Fe mont_mul(const Fe& a, const Fe& b) {
-  uint32_t t[NL + 2];
-#pragma unroll
-  for (int i = 0; i < NL + 2; ++i) t[i] = 0u;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) {
-      c += (uint64_t)a.v[j] * b.v[i] + t[j];
-      t[j] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[NL];
-    t[NL] = (uint32_t)c;
-    t[NL + 1] = (uint32_t)(c >> 32);
-    const uint32_t m = t[0] * kPInv;
-    c = ((uint64_t)m * kP[0] + t[0]) >> 32;
-#pragma unroll
-    for (int j = 1; j < NL; ++j) {
-      c += (uint64_t)m * kP[j] + t[j];
-      t[j - 1] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[NL];
-    t[NL - 1] = (uint32_t)c;
-    t[NL] = t[NL + 1] + (uint32_t)(c >> 32);
-  }
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) r.v[i] = t[i];
-  return reduce_once(r, t[NL]);
-}
-
-__device__ __forceinline__ Fe fe_sqr(const Fe& a) { return mont_mul(a, a); }
-
-__device__ __forceinline__ Fe load_fe(const uint32_t* __restrict__ a,
-                                      int row0, int n, int lane) {
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) r.v[i] = a[(size_t)(row0 + i) * n + lane];
-  return r;
-}
-
-__device__ __forceinline__ void store_fe(uint32_t* __restrict__ a, int row0,
-                                         int n, int lane, const Fe& v) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) a[(size_t)(row0 + i) * n + lane] = v.v[i];
-}
-
-// The one-thread group law stays out of line, as in g1.cu, where nvcc
-// 12.9's device front end crashed on a fully inlined one-thread source.
-
-// psecp._pt_dbl_val: Jacobian doubling, a = 0 (7 products).
-__device__ __noinline__ Pt secp_dbl(const Pt& p) {
-  const Fe A = fe_sqr(p.x);
-  const Fe B = fe_sqr(p.y);
-  const Fe C = fe_sqr(B);
-  Fe D = fe_sub(fe_sub(fe_sqr(fe_add(p.x, B)), A), C);
-  D = fe_add(D, D);
-  const Fe E = fe_add(fe_add(A, A), A);
-  const Fe F = fe_sqr(E);
-  Pt r;
-  r.x = fe_sub(F, fe_add(D, D));
-  Fe C8 = fe_add(C, C);
-  C8 = fe_add(C8, C8);
-  C8 = fe_add(C8, C8);
-  r.y = fe_sub(mont_mul(E, fe_sub(D, r.x)), C8);
-  const Fe Z3 = mont_mul(p.y, p.z);
-  r.z = fe_add(Z3, Z3);
-  return r;
-}
-
-__device__ __forceinline__ Pt load_pt(const uint32_t* __restrict__ a, int n,
-                                      int lane) {
-  Pt r;
-  r.x = load_fe(a, 0, n, lane);
-  r.y = load_fe(a, NL, n, lane);
-  r.z = load_fe(a, 2 * NL, n, lane);
-  return r;
-}
-
-__device__ __forceinline__ void store_pt(uint32_t* __restrict__ a, int n,
-                                         int lane, const Pt& p) {
-  store_fe(a, 0, n, lane, p.x);
-  store_fe(a, NL, n, lane, p.y);
-  store_fe(a, 2 * NL, n, lane, p.z);
-}
-
-__global__ void __launch_bounds__(THREADS)
-    secp_fp_mul_kernel(const uint32_t* __restrict__ x,
-                       const uint32_t* __restrict__ y,
-                       uint32_t* __restrict__ out, int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  store_fe(out, 0, n, lane,
-           mont_mul(load_fe(x, 0, n, lane), load_fe(y, 0, n, lane)));
-}
-
-__global__ void __launch_bounds__(THREADS)
-    secp_dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
-                    int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  store_pt(out, n, lane, secp_dbl(load_pt(p, n, lane)));
-}
-
 // ---------------------------------------------------------------------------
-// the scan: one lane on a group of T threads (coop.cuh over secp256k1)
+// every kernel: one lane on a group of T threads (coop.cuh over secp256k1)
 // ---------------------------------------------------------------------------
 
 // p = 2^256 - 2^32 - 977 fills its top word: a sum below 2p can carry out
@@ -343,7 +177,8 @@ using FeG = CoopFp<SecpFp, T>;
 template <int T>
 using PtG = CoopPt<SecpFp, T>;
 
-// secp_dbl on the group field, operation for operation.
+// psecp._pt_dbl_val on the group field: Jacobian doubling, a = 0, 7
+// products, operation for operation.
 template <int T>
 __device__ __forceinline__ PtG<T> secp_dbl_g(const SecpGroup<T>& g,
                                              const PtG<T>& p) {
@@ -415,6 +250,28 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
   const int col = group_lane<T, SCAN_BLOCK>(n, live);
   const PtG<T> r =
       secp_add_g(g, load_pt_g(g, p, n, col), load_pt_g(g, q, n, col));
+  if (live) store_pt_g(g, out, n, col, r);
+}
+
+// psecp._dbl_kernel on the group field: out = dbl(p), a lane on SCAN_T
+// threads. An 8192-lane launch is far from both of the card's rates (its
+// bound is 0.00047 ms of bytes): a lane's chain of 7 products in 3
+// dependent levels, and the launch's own latency, bound it. One thread a
+// lane (the uint32 CIOS code this replaced, 90 registers and 96 local
+// bytes) put 2 warps a block of 64 on an SM, each waiting out its own
+// chain; on SCAN_T threads each product's columns split 4 ways and 4 times
+// the warps share the card, as in dbl_kernel (g1.cu). A lane on three
+// groups of its warp (the sweep's `dbltrio`) ran 1.7 times slower for G1,
+// so the lane stays on one group. A group past n doubles lane 0's point
+// and stores nothing.
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    secp_dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
+                    int n) {
+  const SecpGroup<T> g = make_coop_group<SecpFp, T>();
+  bool live;
+  const int col = group_lane<T, SCAN_BLOCK>(n, live);
+  const PtG<T> r = secp_dbl_g(g, load_pt_g(g, p, n, col));
   if (live) store_pt_g(g, out, n, col, r);
 }
 
@@ -536,6 +393,27 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
   if (live) store_fpg(g, out, 0, n, col, y);
 }
 
+// psecp._mul on the group field: out = x y / R mod p, a lane's product on
+// SCAN_T threads (x, y (8, n) Montgomery words; psecp.py:121). Its bytes
+// (96 a lane: 0.00023 ms at 8192 lanes) and its 136 word products a lane
+// are far below what one launch costs: a lone launch's latency bounds it,
+// and it reads the same at every T and as the one-thread uint32 CIOS
+// kernel it replaced (the sweep above). On the group field, as secp_mont,
+// the file keeps one field code. A group past n multiplies lane 0's words
+// and stores nothing.
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    secp_fp_mul_kernel(const uint32_t* __restrict__ x,
+                       const uint32_t* __restrict__ y,
+                       uint32_t* __restrict__ out, int n) {
+  const SecpGroup<T> g = make_coop_group<SecpFp, T>();
+  bool live;
+  const int col = group_lane<T, SCAN_BLOCK>(n, live);
+  const FeG<T> r =
+      fpg_mul(g, load_fpg(g, x, 0, n, col), load_fpg(g, y, 0, n, col));
+  if (live) store_fpg(g, out, 0, n, col, r);
+}
+
 // Montgomery form of every element of a (8 coords [+ 1], n) buffer, in
 // one launch: element c * n + j is coordinate c's words at rows 8c .. 8c +
 // 7, lane j, read as the buffer lies. into: x * R mod p, one product by R^2
@@ -558,8 +436,6 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
   }
 }
 
-inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
-
 }  // namespace
 
 extern "C" {
@@ -567,16 +443,19 @@ extern "C" {
 int lt_secp_fp_mul(const void* x, const void* y, void* out, int n,
                    void* stream) {
   if (n > 0) {
-    secp_fp_mul_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)x, (const uint32_t*)y, (uint32_t*)out, n);
+    secp_fp_mul_kernel<SCAN_T>
+        <<<group_blocks<SCAN_T, SCAN_BLOCK>(n), SCAN_BLOCK, 0,
+           (cudaStream_t)stream>>>(
+            (const uint32_t*)x, (const uint32_t*)y, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
 }
 
 int lt_secp_dbl(const void* p, void* out, int n, void* stream) {
   if (n > 0) {
-    secp_dbl_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)p, (uint32_t*)out, n);
+    secp_dbl_kernel<SCAN_T>
+        <<<group_blocks<SCAN_T, SCAN_BLOCK>(n), SCAN_BLOCK, 0,
+           (cudaStream_t)stream>>>((const uint32_t*)p, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
 }
@@ -641,8 +520,8 @@ int lt_secp_mont(const void* x, void* out, int rows, int n, int into,
 // 5 table, 6 mont), for the chip report.
 int lt_secp_kernel_attrs(int which, int* regs, int* local_bytes,
                          int* threads_per_lane, int* block) {
-  const void* fns[7] = {(const void*)secp_fp_mul_kernel,
-                        (const void*)secp_dbl_kernel,
+  const void* fns[7] = {(const void*)secp_fp_mul_kernel<SCAN_T>,
+                        (const void*)secp_dbl_kernel<SCAN_T>,
                         (const void*)secp_add_kernel<SCAN_T>,
                         (const void*)secp_msm_scan_kernel<SCAN_T>,
                         (const void*)secp_sqrt_kernel<SCAN_T>,
@@ -652,11 +531,10 @@ int lt_secp_kernel_attrs(int which, int* regs, int* local_bytes,
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
   if (err != cudaSuccess) return (int)err;
-  const bool group = which >= 2;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
-  *threads_per_lane = group ? SCAN_T : 1;
-  *block = group ? SCAN_BLOCK : THREADS;
+  *threads_per_lane = SCAN_T;
+  *block = SCAN_BLOCK;
   return 0;
 }
 

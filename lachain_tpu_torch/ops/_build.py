@@ -3,8 +3,8 @@ pairing library (plain C interfaces + ctypes).
 
 `library()` compiles `csrc/g1.cu`, `csrc/g2.cu` (both include
 `csrc/fp.cuh` and, for their group-field kernels, `csrc/coop.cuh` over
-fp.cuh's BlsFp), `csrc/secp.cu` (its own one-thread field code, and
-`csrc/coop.cuh` for its group-field kernels) and `csrc/rs.cu` (the
+fp.cuh's BlsFp), `csrc/secp.cu` (every kernel on `csrc/coop.cuh`'s
+group field over its SecpFp) and `csrc/rs.cu` (the
 Reed-Solomon GF(2^8) / GF(2^16) matrix product) with nvcc for sm_90a, one
 nvcc process per source, all started together, links them into one
 shared library in `lachain_tpu_torch/_build/` (listed in .gitignore)

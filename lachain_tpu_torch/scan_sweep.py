@@ -33,7 +33,9 @@ spills ptxas reports, its callees' too, or the compiler's failure.
 Every library's kernels then run on the same seeded inputs, and each
 output must equal the shipped library's word for word. They are timed
 with CUDA events in ROUNDS rounds whose order alternates forward and
-reversed, so that each library runs before and after each other one:
+reversed, so that each library runs before and after each other one; the
+stream is held (`HOLD_CYCLES`) while a timing's launches are enqueued, so
+that a kernel shorter than its launch's host time is timed on the device:
   * the G1 scan at `check` (32 windows x 8192 lanes of random 128-bit
     digits, every 61st lane zero: chip_smoke.py's kernel check) and at
     `tpke`, the N=64 TPKE era's joined scan (`g1.tpke_digits`, 32 windows x
@@ -57,7 +59,8 @@ reversed, so that each library runs before and after each other one:
     the Montgomery conversions of a chunk, into form on the pack's (24,
     8192) words and out of it on a (25, 8192) buffer with a flag row;
   * the other kernels of the same source (fp_mul, g1_dbl; g2_dbl, g2_add;
-    secp_dbl) at 8192 lanes;
+    secp_fp_mul, secp_dbl) at 8192 lanes, the field products on the
+    points' X words;
   * the GLV era's fixed-base kernels at N=64's and N=256's shapes
     (`FIXED_ERAS`): g1_fixed_tables over N keys, g1_fixed_scan over the
     N x N key lanes of 64-bit RLC digits over the shipped library's
@@ -293,7 +296,7 @@ _NAMES = ("g1_fixed_tables_kernel", "g1_fixed_scan_kernel", "rs_matmul8_kernel",
           "secp_fp_mul_kernel", "secp_dbl_kernel",
           "secp_add_kernel", "secp_sqrt_kernel", "g2_dbl_kernel",
           "g2_add_kernel", "fp_mul_kernel", "dbl_kernel", "add_kernel",
-          "secp_dbl", "secp_add", "g2_dbl", "g2_add", "g1_dbl", "g1_add",
+          "secp_add", "g2_dbl", "g2_add", "g1_dbl", "g1_add",
           "fp2g_mul", "fp2g_sqr")
 
 
@@ -632,8 +635,11 @@ def launchers(lib, scan: str, inputs: dict) -> dict:
         for k, (keys, tables, digits) in inp["fixed"].items():
             out[f"fixed_tables_n{k}"] = _fixed_tables(lib, keys)
             out[f"fixed_scan_n{k}"] = _fixed_scan(lib, tables, digits)
-        x, y, o1 = p[:12].contiguous(), q[:12].contiguous(), torch.empty_like(p[:12])
-        out["fp_mul"] = ([lambda: _check(lib.lt_g1_fp_mul(
+    if scan in ("g1", "secp"):  # the field product on the points' X words
+        nl = (g1 if scan == "g1" else secp).NL
+        x, y, o1 = p[:nl].contiguous(), q[:nl].contiguous(), torch.empty_like(p[:nl])
+        mul = getattr(lib, f"lt_{scan}_fp_mul")
+        out["fp_mul" if scan == "g1" else "secp_fp_mul"] = ([lambda: _check(mul(
             x.data_ptr(), y.data_ptr(), o1.data_ptr(), n, stream))], (o1,))
     od = torch.empty_like(p)
     out[f"{scan}_dbl"] = ([lambda: _check(getattr(lib, f"lt_{scan}_dbl")(
@@ -641,11 +647,19 @@ def launchers(lib, scan: str, inputs: dict) -> dict:
     return out
 
 
+# torch.cuda._sleep cycles that hold the stream while the host enqueues a
+# timing's launches (~2 ms at 1.98 GHz, more than 100 launches take), so
+# that the events time the device alone: unheld, a kernel shorter than its
+# launch's host time (~7-8 us through ctypes) reads the enqueue rate
+HOLD_CYCLES = 4_000_000
+
+
 def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()

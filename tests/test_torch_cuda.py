@@ -547,10 +547,11 @@ def test_g1_add_on_group_field_with_collisions(card, n):
 
 @pytest.mark.parametrize("n", [1, 5, 63, 65, 8192])
 def test_g1_dbl_on_group_field(card, n):
-    """g1_dbl (a lane on three groups of 4 threads, 2 lanes a warp) against
-    the plain doubling word for word, on Jacobian points with Z != 1 and
-    infinity lanes (0, 1, 0), which keep Z = 0; lane counts on both sides
-    of a 64-thread block's 4 lanes and a partial last warp."""
+    """g1_dbl (a lane on one group of 4 threads, 16 lanes a 64-thread
+    block) against the plain doubling word for word, on Jacobian points
+    with Z != 1 and infinity lanes (0, 1, 0), which keep Z = 0; lane
+    counts on both sides of a block's 16 lanes and a partial last group
+    and block."""
     rng = random.Random(0xDB1 + n)
     live = iter(glv.point_run(rng, n))
     ps = [bls.G1_INF if i % 3 == 1 else next(live) for i in range(n)]
@@ -567,8 +568,8 @@ def test_g1_dbl_on_group_field(card, n):
 
 @pytest.mark.parametrize("n", [1, 5, 63, 65, 8192])
 def test_g2_dbl_on_group_field(card, n):
-    """g2_dbl (a lane on three groups of 4 threads, its Fp2 operations in 3
-    levels) against the plain doubling word for word, on Jacobian points
+    """g2_dbl (a lane on one group of 4 threads, its Fp2 products out of
+    line) against the plain doubling word for word, on Jacobian points
     with Z != 1 and infinity lanes (0, 1, 0), which keep Z = 0."""
     rng = random.Random(0xDB2 + n)
     live = iter(glv.point_run(rng, n, bls.g2_mul, bls.g2_add, bls.G2_GEN))
@@ -583,6 +584,55 @@ def test_g2_dbl_on_group_field(card, n):
     assert all(want[4 * n + i] == want[5 * n + i] == 0 for i in range(1, n, 3))
     assert bls.g2_eq(_unpack(g2.g2_dbl(g2.g2_pack(ps[:1], card)))[0],
                      bls.g2_dbl(ps[0]))
+
+
+@pytest.mark.parametrize("n", [1, 5, 63, 65, 8192])
+def test_secp_dbl_on_group_field(card, n):
+    """secp_dbl (a lane on one group of 4 threads, 16 lanes a 64-thread
+    block) against the plain doubling word for word, on Jacobian points
+    with Z != 1 (a first doubling's output) and every third lane from lane
+    1 infinity, which keeps Z = 0; lane counts on both sides of a block's
+    16 lanes and a partial last group and block."""
+    rng = random.Random(0xDB3 + n)
+    live = iter(_secp_run(rng, n))
+    ps = [None if i % 3 == 1 else next(live) for i in range(n)]
+    attrs = _build.kernel_attrs()["secp_dbl"]
+    assert attrs["threads_per_lane"] > 1 and attrs["block"] == 64
+    rp = secp_ref.dbl(torch.from_numpy(secp_ref.points_to_limbs(ps)).to(card))
+    kp = secp.secp_dbl(secp.pt_pack(ps, card))
+    assert secp.pt_coords(kp) == secp_ref.coords(rp.cpu())
+    secp.reset_launches()
+    out = secp.secp_dbl(kp)
+    assert secp.LAUNCHES == dict(dict.fromkeys(secp.LAUNCHES, 0), secp_dbl=1)
+    got = secp.pt_coords(out)
+    want = secp_ref.coords(secp_ref.dbl(rp).cpu())
+    assert got == want
+    assert all(want[2 * n + i] == 0 for i in range(1, n, 3))
+    x, y, z = got[0], got[n], got[2 * n]
+    zi = pow(z, -1, ecdsa.P)
+    assert (x * zi * zi % ecdsa.P, y * zi ** 3 % ecdsa.P) == ecdsa._mul(ps[0], 4)
+
+
+@pytest.mark.parametrize("n", [1, 5, 63, 65, 8192])
+def test_secp_fp_mul_on_group_field(card, n):
+    """secp_fp_mul (a lane's product on 4 threads) against the plain product
+    and Python ints, its Montgomery words word for word, with 0, 1, p - 1
+    and 2^256 mod p among the operands."""
+    P, r = ecdsa.P, 1 << 256
+    rng = random.Random(0xF3 + n)
+    edge = [0, 1, P - 1, r % P]
+    xs = (edge + [rng.randrange(P) for _ in range(n)])[:n]
+    ys = (edge[::-1] + [rng.randrange(P) for _ in range(n)])[:n]
+    attrs = _build.kernel_attrs()["secp_fp_mul"]
+    assert attrs["threads_per_lane"] > 1 and attrs["block"] == 64
+    kx, ky = secp.fe_encode(xs, card), secp.fe_encode(ys, card)
+    secp.reset_launches()
+    prod = secp.secp_fp_mul(kx, ky)
+    assert secp.LAUNCHES == dict(dict.fromkeys(secp.LAUNCHES, 0), secp_fp_mul=1)
+    assert secp._download_words(prod) == [x * y * r % P for x, y in zip(xs, ys)]
+    ref = lambda v: torch.from_numpy(secp_ref.ints_to_limbs(v)).to(card)  # noqa: E731
+    want = secp_ref.limbs_to_ints(secp_ref.fp_mul(ref(xs), ref(ys)).cpu().numpy())
+    assert secp.fe_decode(prod) == want == [x * y % P for x, y in zip(xs, ys)]
 
 
 @pytest.mark.parametrize("n", [1, 5, 8192])

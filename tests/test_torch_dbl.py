@@ -1,15 +1,18 @@
-"""The plain versions of the G1 and G2 doublings vs the JAX package's.
+"""The plain versions of the G1, G2 and secp256k1 doublings vs the JAX
+package's.
 
-`g1_ref.dbl` and `g2_ref.dbl` are what the card's `dbl_kernel` and
-`g2_dbl_kernel` (a lane on three groups of coop.cuh's group field) must
-equal word for word (tests/test_torch_cuda.py, chip_smoke.py). Here they
-run through the wrappers `g1.g1_dbl` / `g2.g2_dbl` on CPU tensors and are
-held limb for limb against pg1's `pl_dbl` and pg2's `pl_dbl2` (Pallas in
-interpret mode, as tests/test_pg1.py and tests/test_pg2.py run them), and
-coordinate for coordinate against the JAX package's `bls12381.g1_dbl` /
-`g2_dbl`, which use the same formulas. Points are Jacobian with Z != 1,
-made from a numpy seed; every fourth lane from lane 1 is infinity (0, 1,
-0), whose doubling keeps Z = 0. Tolerance: exact equality.
+`g1_ref.dbl`, `g2_ref.dbl` and `secp_ref.dbl` are what the card's
+`dbl_kernel`, `g2_dbl_kernel` and `secp_dbl_kernel` (a lane on one group of
+4 threads of coop.cuh's group field) must equal word for word
+(tests/test_torch_cuda.py, chip_smoke.py). Here they run through the
+wrappers `g1.g1_dbl` / `g2.g2_dbl` / `secp.secp_dbl` on CPU tensors and are
+held limb for limb against pg1's `pl_dbl`, pg2's `pl_dbl2` and psecp's
+`pl_dbl` (Pallas in interpret mode, as tests/test_pg1.py, tests/test_pg2.py
+and tests/test_torch_secp_kernels.py run them), and against the JAX
+package's `bls12381.g1_dbl` / `g2_dbl` coordinate for coordinate (the same
+formulas) and `ecdsa._add(p, p)` as affine points. Points are Jacobian
+with Z != 1, made from a numpy seed; every fourth lane from lane 1 is
+infinity (0, 1, 0), whose doubling keeps Z = 0. Tolerance: exact equality.
 """
 from __future__ import annotations
 
@@ -20,9 +23,11 @@ import torch
 import jax.numpy as jnp
 
 from lachain_tpu.crypto import bls12381 as jbls
-from lachain_tpu.ops import pg1, pg2
+from lachain_tpu.crypto import ecdsa as jecdsa
+from lachain_tpu.ops import pg1, pg2, psecp
 from lachain_tpu_torch.crypto import bls12381 as bls
-from lachain_tpu_torch.ops import g1, g1_ref, g2, g2_ref
+from lachain_tpu_torch.crypto import ecdsa
+from lachain_tpu_torch.ops import g1, g1_ref, g2, g2_ref, secp, secp_ref
 
 pytestmark = pytest.mark.kernel
 
@@ -113,3 +118,53 @@ def test_g2_dbl_equals_pg2_and_the_jax_doubling(n):
             assert jbls.g2_is_inf(jbls.g2_dbl(p))
         else:
             assert (x, y, z) == jbls.g2_dbl(p)
+
+
+def _secp_lanes(seed: int, n: int) -> tuple:
+    """n secp256k1 Jacobian points (X l^2, Y l^3, l) with random l not in
+    (0, 1) as Z, and their affine points; lanes 1, 5, 9, ... infinity (0,
+    1, 0), affine None."""
+    rng = np.random.default_rng(seed)
+    P = ecdsa.P
+    jac, aff = [], []
+    for i in range(n):
+        if i % 4 == 1:
+            jac.append((0, 1, 0))
+            aff.append(None)
+            continue
+        x, y = ecdsa._mul(ecdsa.G, _below(rng, ecdsa.N))
+        lz = 1 + _below(rng, P - 1)
+        jac.append((x * lz * lz % P, y * lz ** 3 % P, lz))
+        aff.append((x, y))
+    return jac, aff
+
+
+@pytest.mark.parametrize("n", LANES)
+def test_secp_dbl_equals_psecp_and_the_jax_doubling(n):
+    jac, aff = _secp_lanes(0xD0B3 + n, n)
+    P, rows = ecdsa.P, psecp.COMP_ROWS
+    assert all(p[2] not in (0, 1) for i, p in enumerate(jac) if i % 4 != 1)
+    packed = np.zeros((psecp.POINT_ROWS, n), dtype=np.int32)
+    for c in range(3):
+        packed[c * rows : c * rows + psecp.NLIMBS] = psecp.limbs_from_ints(
+            [p[c] for p in jac]).T
+    want = np.asarray(psecp.pl_dbl(jnp.asarray(packed)))
+    lanes = torch.zeros((secp_ref.POINT_ROWS, n), dtype=torch.int64)
+    for c in range(3):
+        lanes[c * rows : c * rows + secp_ref.NLIMBS] = torch.from_numpy(
+            secp_ref.ints_to_limbs([p[c] for p in jac]))
+    assert (lanes.numpy() == packed).all()
+    secp.reset_launches()
+    got = secp.secp_dbl(lanes)
+    assert all(v == 0 for v in secp.LAUNCHES.values())  # the plain version
+    assert torch.equal(got, secp_ref.dbl(lanes))
+    assert (got.numpy() == want).all()
+    coords = secp.pt_coords(got)
+    for i, p in enumerate(aff):
+        x, y, z = coords[i], coords[n + i], coords[2 * n + i]
+        if p is None:  # (0, 1, 0) doubles to (0, -8, 0)
+            assert (x, y, z) == (0, P - 8, 0)
+            assert jecdsa._add(p, p) is None
+        else:
+            zi = pow(z, -1, P)
+            assert (x * zi * zi % P, y * zi ** 3 % P) == jecdsa._add(p, p)
