@@ -12,7 +12,9 @@ Phases, each of which must pass (any failure exits non-zero):
   2. kernels hold each of the twenty-one kernels against its plain PyTorch
              version (ops/g1_ref.py, ops/g2_ref.py, ops/secp_ref.py,
              ops/rs_ref.py) on the
-             card, on seeded inputs at the main paths' shapes (8192 lanes,
+             card, on seeded inputs at the main paths' shapes (8192 lanes;
+             fp_mul and the doublings also at 8191 (`odd`), fp_mul's
+             operands with 0, 1, p-1 and R mod p among them,
              the adds with a p == q lane; the G2 and secp scans with 64
              windows; the three table builds at their main path's lanes:
              the TPKE era's 16,384 joined lanes [u | y | u | phi(u)], the
@@ -141,18 +143,30 @@ Phases, each of which must pass (any failure exits non-zero):
              card (mesh_era_cards, the sharded MSMs over them too) and the
              RBC flushes over every card (rbc_flush_cards), with the same
              checks; a machine with one card runs neither;
-             the HoneyBadger era (consensus/simulator.SimulatedNetwork on
-             the card, both batchers): hb_era_64, N=64, f=21, TAKE_FIRST,
-             every validator's seeded proposal a 1,000-transaction block's
-             share (16 transfers of 4 + 177 bytes), run to every router's
-             result under torch.profiler: agreement, at least N-f slots,
-             every plaintext its proposer's, the G1 era kernels and
-             rs_matmul8 launched; its wall, messages, each batcher's
-             flushes and summed phases, the coins' host seconds and the
+             the root era (consensus.root_protocol.RootProtocol at every
+             validator through the routers' extra_factories, over
+             consensus/simulator.SimulatedNetwork on the card, both
+             batchers): root_era_64, N=64, f=21, TAKE_FIRST, every
+             validator proposing its 16 seeded transfers (177 bytes each,
+             signed with the native sign_hash by 64 seeded senders; a
+             1,000-transaction block's share) into HoneyBadger, signing the
+             header natively and making the block at N-f signatures, the
+             producer (RootProducer) recovering the block's senders on the
+             card (core/types.warm_sender_caches), run to every router's
+             block under torch.profiler: one block at every router, at
+             least N-f slots each its proposer's batch, the block's
+             transfers exactly theirs in the reference's order, each
+             sender its signer's address, at least N-f multisig entries
+             each verifying natively; the G1 era kernels, rs_matmul8 and
+             the recovery's secp kernels (sqrt, table, scan, add, mont)
+             launched; its wall, messages, each batcher's flushes and
+             summed phases, the coins' host seconds, the header round's
+             sign / verify seconds, the block recovery's phases and the
              card's busy share (traced device time / wall); and
-             hb_era_16_check, N=16, f=5, TAKE_RANDOM, router 0's
-             decryption shares corrupted, once on the card and once with
-             device="cpu" (the plain versions): equal results, messages,
+             root_era_16_check, N=16, f=5, TAKE_RANDOM, 8 transfers a
+             validator, router 0's decryption shares corrupted, once on the
+             card and once with device="cpu" (the plain versions, the
+             senders recovered afresh in each): equal blocks, messages,
              flush counts and evidence (every honest router convicts
              exactly router 0, invalid_share, "dec").
              Around each counted call and the MSMs, no result may have been
@@ -470,6 +484,39 @@ def odd_dbl_entry(dbl, plain, coords, pack, ref, points, inf, z_rows,
     )
 
 
+def fp_mul_entry(rng: random.Random, dev, n: int) -> dict:
+    """fp_mul (a lane on SCAN_T threads) at n lanes, with 0, 1, p - 1 and R
+    mod p among the operands: its Montgomery words word for word against
+    x y R mod p, its values against g1_ref.fp_mul's and Python ints,
+    CUDA-event times of both and the bound of its bytes (two operands in,
+    one out) and one product a lane."""
+    import numpy as np
+    import torch
+
+    from lachain_tpu_torch.crypto import bls12381 as bls
+    from lachain_tpu_torch.ops import g1, g1_ref
+
+    P, r = bls.P, 1 << 384
+    edge = [0, 1, P - 1, r % P]
+    xs = edge + [rng.randrange(P) for _ in range(n - len(edge))]
+    ys = list(reversed(edge)) + [rng.randrange(P) for _ in range(n - len(edge))]
+    kx, ky = g1.fp_encode(xs, dev), g1.fp_encode(ys, dev)
+    rx = torch.from_numpy(g1_ref.ints_to_limbs(xs)).to(dev)
+    ry = torch.from_numpy(g1_ref.ints_to_limbs(ys)).to(dev)
+    prod = g1.fp_mul(kx, ky)
+    words = g1._from_words(prod.cpu().numpy().view(np.uint32))
+    got = g1.fp_decode(prod)
+    want = g1_ref.limbs_to_ints(g1_ref.fp_mul(rx, ry).cpu().numpy())
+    check(want == [x * y % P for x, y in zip(xs, ys)], "g1_ref.fp_mul wrong")
+    words_ok = words == [x * y * r % P for x, y in zip(xs, ys)]
+    return dict(
+        lanes=n, ok=got == want and words_ok, max_abs_err=max_err(got, want),
+        ms=cuda_ms(lambda: g1.fp_mul(kx, ky), 200),
+        plain_ms=cuda_ms(lambda: g1_ref.fp_mul(rx, ry), 5),
+        bound=bound(3 * 48 * n, n * OPS_PER_FIELD_MUL),
+    )
+
+
 # ---------------------------------------------------------------------------
 # phase 2: every kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -488,22 +535,10 @@ def check_kernels(seed: int, dev):
     def ref_pts(points):
         return torch.from_numpy(g1_ref.points_to_limbs(points)).to(dev)
 
-    # (1) fp_mul, with 0, 1, p-1 and 2^384 mod p among the operands
-    edge = [0, 1, bls.P - 1, (1 << 384) % bls.P]
-    xs = edge + [rng.randrange(bls.P) for _ in range(n - len(edge))]
-    ys = list(reversed(edge)) + [rng.randrange(bls.P) for _ in range(n - len(edge))]
-    kx, ky = g1.fp_encode(xs, dev), g1.fp_encode(ys, dev)
-    rx = torch.from_numpy(g1_ref.ints_to_limbs(xs)).to(dev)
-    ry = torch.from_numpy(g1_ref.ints_to_limbs(ys)).to(dev)
-    got = g1.fp_decode(g1.fp_mul(kx, ky))
-    want = g1_ref.limbs_to_ints(g1_ref.fp_mul(rx, ry).cpu().numpy())
-    check(want == [x * y % bls.P for x, y in zip(xs, ys)], "g1_ref.fp_mul wrong")
-    report["fp_mul"] = dict(
-        lanes=n, ok=got == want, max_abs_err=max_err(got, want),
-        ms=cuda_ms(lambda: g1.fp_mul(kx, ky), 200),
-        plain_ms=cuda_ms(lambda: g1_ref.fp_mul(rx, ry), 5),
-        bound=bound(3 * 48 * n, n * OPS_PER_FIELD_MUL),
-    )
+    # (1) fp_mul, with 0, 1, p-1 and R = 2^384 mod p among the operands,
+    # at n lanes and at ODD_LANES
+    mul, odd = fp_mul_entry(rng, dev, n), fp_mul_entry(rng, dev, ODD_LANES)
+    report["fp_mul"] = dict(mul, ok=mul["ok"] and odd["ok"], odd=odd)
 
     # (2) g1_dbl and (3) g1_add on n Jacobian points (Z != 1), lane 7 of the
     # add holding p == q (Z = 0 on both sides); the doubling also at
@@ -2449,15 +2484,110 @@ HB_N, HB_F = 64, 21
 HB_CHECK_N, HB_CHECK_F = 16, 5
 HB_MAX_MESSAGES = 6_000_000
 TRANSFER_BYTES = 177  # a signed transfer (lachain_tpu/core/types.py:80)
+ROOT_CHAIN_ID = 225
+# the producer's fixed state hash (tests/test_torch_root_protocol.py's)
+ROOT_STATE_HASH = b"\x5a" * 32
+# transfers a validator at the N=16 check: its plain run recovers the
+# block's senders on the host's plain kernels, ~70 ms a signature
+ROOT_CHECK_TXS = 8
 
 
-def hb_proposals(n: int, rng: random.Random) -> list:
-    """Every validator's seeded plaintext: its share of a BLOCK_TXS block,
-    ceil(BLOCK_TXS / n) transfers of TRANSFER_BYTES behind a 4-byte length
-    (the V of proposal_bytes)."""
-    per = -(-BLOCK_TXS // n)
-    return [b"".join(TRANSFER_BYTES.to_bytes(4, "big") + rng.randbytes(TRANSFER_BYTES)
-                     for _ in range(per)) for _ in range(n)]
+def root_transfers(n: int, per: int, rng: random.Random):
+    """Every validator's proposal: `per` seeded transfers of TRANSFER_BYTES,
+    signed with the native `sign_hash` by N_SENDERS seeded sender keys in
+    turn (nonces counting per sender) -> (proposals, {tx hash: its
+    signer's address})."""
+    from lachain_tpu_torch.core import types
+    from lachain_tpu_torch.crypto import ecdsa
+
+    keys = [rng.randrange(1, ecdsa.N).to_bytes(32, "big") for _ in range(N_SENDERS)]
+    addrs = [ecdsa.address_from_public_key(ecdsa.public_key_bytes(k)) for k in keys]
+    proposals, signer = [], {}
+    for i in range(n):
+        batch = []
+        for j in range(per):
+            k = i * per + j
+            tx = types.Transaction(to=rng.randbytes(20), value=rng.randrange(1, 10**21),
+                                   nonce=k // N_SENDERS, gas_price=rng.randrange(1, 10**11),
+                                   gas_limit=21000)
+            stx = types.sign_transaction(tx, keys[k % N_SENDERS], ROOT_CHAIN_ID)
+            check(len(stx.encode()) == TRANSFER_BYTES, "a transfer is not 177 bytes")
+            signer[stx.hash()] = addrs[k % N_SENDERS]
+            batch.append(stx)
+        proposals.append(batch)
+    return proposals, signer
+
+
+class RootProducer:
+    """The producer seam of consensus.root_protocol.RootProtocol (the shape
+    of the reference's BlockProducer), filled as the reference's devnet and
+    tests fill it but with no chain state: it proposes its validator's
+    transfers; the header and the block recover every sender in one batch
+    (core/types.warm_sender_caches on `device`, as BlockManager.
+    execute_block does before it orders), order the transactions as the
+    reference's block manager does (sender, nonce, hash), and build the
+    header over `parent`, ROOT_STATE_HASH, the Merkle root of the ordered
+    hashes and the coin's nonce. The validators of one process share the
+    decoded transactions (core/block_producer's memo), so the first header
+    of the era recovers the block's senders and every later call finds
+    them cached. `recover_s`: seconds in warm_sender_caches."""
+
+    def __init__(self, txs, device, parent: bytes):
+        self._txs, self._device, self._parent = txs, device, parent
+        self.recover_s = 0.0
+
+    def get_transactions_to_propose(self):
+        return list(self._txs)
+
+    def _ordered(self, txs):
+        from lachain_tpu_torch.core import types
+
+        t0 = time.perf_counter()
+        types.warm_sender_caches(txs, ROOT_CHAIN_ID, device=self._device)
+        self.recover_s += time.perf_counter() - t0
+        return sorted(txs, key=lambda stx: (stx.sender(ROOT_CHAIN_ID) or b"\xff" * 20,
+                                            stx.tx.nonce, stx.hash()))
+
+    def create_header(self, index, txs, nonce):
+        from lachain_tpu_torch.core import types
+
+        ordered = self._ordered(txs)
+        return types.BlockHeader(
+            index=index, prev_block_hash=self._parent,
+            merkle_root=types.tx_merkle_root([t.hash() for t in ordered]),
+            state_hash=ROOT_STATE_HASH, nonce=nonce)
+
+    def produce_block(self, header, txs, multisig):
+        from lachain_tpu_torch.core import types
+
+        ordered = self._ordered(txs)
+        return types.Block(header=header, tx_hashes=tuple(t.hash() for t in ordered),
+                           multisig=multisig)
+
+
+def root_factories(pub, privs, proposals, device, parent: bytes):
+    """extra_factories of a root era: validator i's RootProtocol over its
+    RootProducer, as the JAX package's devnet wires them
+    (lachain_tpu/core/devnet.py:148-159) -> (factories, producers)."""
+    from lachain_tpu_torch.consensus import messages as M
+    from lachain_tpu_torch.consensus.root_protocol import RootProtocol
+
+    producers = [RootProducer(txs, device, parent) for txs in proposals]
+
+    def make(pid, router):
+        i = router.my_id
+        return RootProtocol(pid, router, producer=producers[i],
+                            ecdsa_priv=privs[i].ecdsa_priv, ecdsa_pubs=pub.ecdsa_pub_keys)
+    return {M.RootProtocolId: make}, producers
+
+
+def clear_block_memos() -> None:
+    """Drop the process-wide decoded proposals and recovered senders, so
+    that the next era recovers its block's senders again."""
+    from lachain_tpu_torch.core import block_producer, types
+
+    block_producer._DECODE_MEMO.clear()
+    types._SENDER_MEMO.clear()
 
 
 def malicious_router_cls():
@@ -2497,27 +2627,68 @@ def malicious_router_cls():
     return MaliciousRouter
 
 
-def hb_run(net, proposals, live) -> tuple:
-    """Every validator posts its proposal; the network runs to every live
-    router's result -> (wall seconds, live results)."""
+def root_run(net, live) -> tuple:
+    """Every validator starts its RootProtocol; the network runs to every
+    live router's block -> (wall seconds, live blocks)."""
     from lachain_tpu_torch.consensus import messages as M
 
-    pid = M.HoneyBadgerId(era=0)
+    pid = M.RootProtocolId(era=0)
     t0 = time.perf_counter()
-    for i, p in enumerate(proposals):
-        net.post_request(i, pid, p)
+    for i in range(net.n):
+        net.post_request(i, pid, None)
     check(net.run(lambda: all(net.routers[i].result_of(pid) is not None for i in live),
                   max_messages=HB_MAX_MESSAGES), "the era did not finish")
     return time.perf_counter() - t0, [net.routers[i].result_of(pid) for i in live]
 
 
-def check_hb_results(label: str, results, proposals, n: int, f: int) -> None:
-    """Agreement, at least n - f slots, and every slot's plaintext its
-    proposer's."""
-    check(all(r == results[0] for r in results), f"{label}: routers disagree")
-    check(len(results[0]) >= n - f, f"{label}: {len(results[0])} slots < n - f")
-    bad = [j for j, pt in results[0].items() if pt != proposals[j]]
-    check(not bad, f"{label}: slots {bad} differ from their proposers' plaintexts")
+def check_root_blocks(label: str, net, blocks, live, proposals, signer, pub, n: int,
+                      f: int) -> None:
+    """Every live router returned a Block, all with one header hash and
+    one transaction list; HoneyBadger agreed on at least n - f slots, each
+    its proposer's batch; the block holds exactly those slots'
+    transactions, each sender recovered in the producers' batch and its
+    signer's address, in the reference's order; each multisig has at least n - f entries, every one verifying
+    natively under its validator's key."""
+    from lachain_tpu_torch.consensus import messages as M
+    from lachain_tpu_torch.core import block_producer, types
+    from lachain_tpu_torch.crypto import ecdsa
+
+    check(all(isinstance(b, types.Block) for b in blocks), f"{label}: a router gave no Block")
+    h = blocks[0].header.hash()
+    check(all(b.header.hash() == h and b.tx_hashes == blocks[0].tx_hashes for b in blocks),
+          f"{label}: the routers' blocks differ")
+    slots = net.routers[live[0]].result_of(M.HoneyBadgerId(era=0))
+    check(len(slots) >= n - f, f"{label}: {len(slots)} slots < n - f")
+    check(all(pt == block_producer.encode_tx_batch(proposals[j]) for j, pt in slots.items()),
+          f"{label}: a slot differs from its proposer's batch")
+    want = {t.hash() for j in slots for t in proposals[j]}
+    check(set(blocks[0].tx_hashes) == want and len(blocks[0].tx_hashes) == len(want),
+          f"{label}: the block's transactions are not the agreed slots'")
+    # the objects the routers decoded (the memo's), whose senders the
+    # producers' batch recovery cached
+    txs = {t.hash(): t for pt in slots.values() for t in block_producer.decode_tx_batch(pt)}
+    check(all("_sender_cache" in t.__dict__ for t in txs.values()),
+          f"{label}: a sender was not recovered in the producers' batch")
+    senders = [txs[x].sender(ROOT_CHAIN_ID) for x in blocks[0].tx_hashes]
+    check(senders == [signer[x] for x in blocks[0].tx_hashes],
+          f"{label}: a sender is not its signer's address")
+    check(senders == sorted(senders), f"{label}: the block is not in sender order")
+    for b in blocks:
+        sigs = b.multisig.signatures
+        check(len(sigs) >= n - f and all(
+            ecdsa.verify_hash(pub.ecdsa_pub_keys[i], h, sig) for i, sig in sigs),
+            f"{label}: a multisig has fewer than n - f valid signatures")
+
+
+def root_seconds(net, producers) -> dict:
+    """The header round's summed sign / verify seconds over the routers, and
+    the block recovery's (the producers' warm_sender_caches)."""
+    from lachain_tpu_torch.consensus import messages as M
+
+    roots = [r.protocol(M.RootProtocolId(era=0)) for r in net.routers]
+    return dict(sign_s=sum(p.sign_s for p in roots if p is not None),
+                verify_s=sum(p.verify_s for p in roots if p is not None),
+                recover_s=sum(p.recover_s for p in producers))
 
 
 def batcher_lines(label: str, net) -> None:
@@ -2529,94 +2700,118 @@ def batcher_lines(label: str, net) -> None:
         f"deduped, {rb.memo_hits} memo hits; summed phases: {phase_line(net.rbc_phase_s)}")
 
 
-def run_hb_era_path(seed: int, dev):
-    """The N=64, f=21 HoneyBadger era through SimulatedNetwork on the card
-    (TAKE_FIRST, both batchers), traced whole by torch.profiler: the wall,
-    the messages, each batcher's flushes and summed phases, the coins' host
-    seconds, and the card's busy share of the wall (the trace's device
-    time)."""
+def run_root_era_path(seed: int, dev):
+    """The N=64, f=21 root era through SimulatedNetwork on the card
+    (TAKE_FIRST, both batchers): every validator's RootProtocol proposes
+    its 16 signed transfers into HoneyBadger, signs the header, and makes
+    the block at N - f signatures, its senders recovered on the card;
+    traced whole by torch.profiler: the wall, the messages, each batcher's
+    flushes and summed phases, the coins' host seconds, the header round's
+    sign / verify seconds, the block recovery's phases, and the card's
+    busy share of the wall (the trace's device time)."""
     import torch
 
     from lachain_tpu_torch.consensus.keys import trusted_key_gen
     from lachain_tpu_torch.consensus.simulator import DeliveryMode, SimulatedNetwork
+    from lachain_tpu_torch.crypto import ecdsa
 
-    label = f"hb era N={HB_N}"
+    label = f"root era N={HB_N}"
     t0 = time.perf_counter()
     pub, privs = trusted_key_gen(HB_N, HB_F, SeededRng(seed + 640))
-    proposals = hb_proposals(HB_N, random.Random(seed + 641))
-    log(f"{label}: host setup (dealer, {HB_N} proposals of {len(proposals[0])} B): "
-        f"{time.perf_counter() - t0:.1f} s")
+    rng = random.Random(seed + 641)
+    proposals, signer = root_transfers(HB_N, -(-BLOCK_TXS // HB_N), rng)
+    parent = rng.randbytes(32)
+    log(f"{label}: host setup (dealer, {HB_N} proposals of {len(proposals[0])} signed "
+        f"transfers, {len(signer)} signatures): {time.perf_counter() - t0:.1f} s")
     out = {}
 
     def era():
+        clear_block_memos()
         reset_counts()
+        factories, producers = root_factories(pub, privs, proposals, dev, parent)
         net = SimulatedNetwork(pub, privs, seed=seed, mode=DeliveryMode.TAKE_FIRST,
-                               use_rbc_batcher=True, device=dev)
-        out["wall"], out["results"] = hb_run(net, proposals, range(HB_N))
+                               use_rbc_batcher=True, device=dev, extra_factories=factories)
+        out["wall"], out["blocks"] = root_run(net, range(HB_N))
         out["launches"] = read_launches()
-        out["net"] = net
+        out["net"], out["producers"] = net, producers
 
     def warm():
         torch.arange(1 << 12, device=dev).sum().item()
 
     by_kernel = profile_device(era, warm=warm)
-    net, wall, launches = out["net"], out["wall"], out["launches"]
+    net, wall, launches, blocks = out["net"], out["wall"], out["launches"], out["blocks"]
     check_no_escapes(label)
-    check_hb_results(label, out["results"], proposals, HB_N, HB_F)
+    check_root_blocks(label, net, blocks, list(range(HB_N)), proposals, signer, pub,
+                      HB_N, HB_F)
     busy = sum(v[0] for v in by_kernel.values())
     traced = {k: by_kernel.get(KERNEL_OF[k], [0, 0])[1] for k in launches if launches[k]}
     counted = {k: v for k, v in launches.items() if v}
-    log(f"{label}: {len(out['results'][0])} slots agreed and decrypted at every "
-        f"router; wall {wall:.3f} s, {net.delivered_count} messages "
+    secs = root_seconds(net, out["producers"])
+    rec = ecdsa.batch_recoverer(dev).last_timings
+    log(f"{label}: every router made block {blocks[0].header.hash().hex()[:16]} "
+        f"({len(blocks[0].tx_hashes)} transfers, {len(blocks[0].multisig.signatures)} "
+        f"signatures); wall {wall:.3f} s, {net.delivered_count} messages "
         f"({net.delivered_count / wall:.0f} a second); coin combines {net.coin_s:.3f} s "
         f"on the host")
+    log(f"{label}: header round sign {secs['sign_s']:.3f} s, verify {secs['verify_s']:.3f} s "
+        f"(summed over the routers); block recovery {secs['recover_s']:.3f} s, "
+        f"last_timings {rec}")
     batcher_lines(label, net)
     log(f"{label}: launches {counted}, traced {traced}"
         + ("" if traced == counted else " (the trace lost launches)"))
     log(f"{label} by kernel (torch.profiler, ms, launches): {by_kernel}; busy "
         f"{busy:.3f} ms of the {wall * 1e3:.1f} ms wall: busy share {busy / (wall * 1e3):.6f}")
-    return launches, [{"wall_s": wall}]
+    return launches, [dict(wall_s=wall, **secs)]
 
 
-def run_hb_check_path(seed: int, dev):
-    """The N=16, f=5 era in TAKE_RANDOM with router 0 malicious (corrupted
-    decryption shares), once on the card and once with device="cpu" (both
-    batchers on the kernels' plain versions): equal results at every
-    honest router, equal delivered_count, equal flush counts, and equal
-    evidence: every honest router convicts exactly router 0, kind
-    invalid_share, proto "dec"."""
+def run_root_check_path(seed: int, dev):
+    """The N=16, f=5 root era in TAKE_RANDOM with router 0 malicious
+    (corrupted decryption shares), once on the card and once with
+    device="cpu" (both batchers and the block's sender recovery on the
+    plain versions), each recovering its block's senders afresh: equal
+    blocks at every honest router, equal delivered_count, equal flush
+    counts, and equal evidence: every honest router convicts exactly
+    router 0, kind invalid_share, proto "dec"."""
     from lachain_tpu_torch.consensus.keys import trusted_key_gen
     from lachain_tpu_torch.consensus.simulator import DeliveryMode, SimulatedNetwork
 
-    label = f"hb era check N={HB_CHECK_N}"
+    label = f"root era check N={HB_CHECK_N}"
     n, f = HB_CHECK_N, HB_CHECK_F
     pub, privs = trusted_key_gen(n, f, SeededRng(seed + 160))
-    proposals = hb_proposals(n, random.Random(seed + 161))
+    rng = random.Random(seed + 161)
+    proposals, signer = root_transfers(n, ROOT_CHECK_TXS, rng)
+    parent = rng.randbytes(32)
     bad_router = malicious_router_cls()
     outcomes, launches = [], None
+    live = list(range(1, n))
     for device in (dev, "cpu"):
+        clear_block_memos()
         reset_counts()
+        factories, producers = root_factories(pub, privs, proposals, device, parent)
         net = SimulatedNetwork(pub, privs, seed=seed, mode=DeliveryMode.TAKE_RANDOM,
-                               use_rbc_batcher=True, device=device)
-        net.routers[0] = net.make_router(0, 0, pub, privs[0], router_cls=bad_router)
-        wall, results = hb_run(net, proposals, range(1, n))
+                               use_rbc_batcher=True, device=device, extra_factories=factories)
+        net.routers[0] = net.make_router(0, 0, pub, privs[0], extra_factories=factories,
+                                         router_cls=bad_router)
+        wall, blocks = root_run(net, live)
         if launches is None:
             launches = read_launches()
             check_no_escapes(label)
-        check_hb_results(f"{label} on {device}", results, proposals, n, f)
-        evidence = [net.routers[i].evidence.snapshot() for i in range(1, n)]
+        check_root_blocks(f"{label} on {device}", net, blocks, live, proposals, signer,
+                          pub, n, f)
+        evidence = [net.routers[i].evidence.snapshot() for i in live]
         want = {("invalid_share", 0, "dec")}
         check(all({(r["kind"], r["offender"], r["proto"]) for r in ev} == want
                   for ev in evidence),
               f"{label} on {device}: evidence {evidence[0]} is not router 0's dec shares")
-        outcomes.append((results, net.delivered_count, net.crypto_batcher.flushes,
-                         net.rbc_batcher.flushes, evidence))
-        log(f"{label} on {device}: {len(results[0])} slots, wall {wall:.3f} s, "
-            f"{net.delivered_count} messages, {len(evidence[0])} evidence records "
-            f"at each honest router")
+        outcomes.append(([b.encode() for b in blocks], net.delivered_count,
+                         net.crypto_batcher.flushes, net.rbc_batcher.flushes, evidence))
+        secs = root_seconds(net, producers)
+        log(f"{label} on {device}: block of {len(blocks[0].tx_hashes)} transfers, wall "
+            f"{wall:.3f} s, {net.delivered_count} messages, {len(evidence[0])} evidence "
+            f"records at each honest router; block recovery {secs['recover_s']:.3f} s")
         batcher_lines(f"{label} on {device}", net)
     check(outcomes[0] == outcomes[1], f"{label}: the card's era differs from the plain one")
-    log(f"{label}: the card's era equals the plain versions' (results, messages, "
+    log(f"{label}: the card's era equals the plain versions' (blocks, messages, "
         f"flushes, evidence)")
     return launches, [{"wall_s": wall}]
 
@@ -2677,8 +2872,8 @@ def main() -> int:
         args.seed, backend, dev, era, [card] * n, [card] * 4 if n == 8 else None))
         for n, m in zip(MESH_SIZES, ("1x1", "2x1", "4x2"))]
     runs.append(("rbc_flush_mesh", lambda: run_rbc_mesh_path(args.seed, dev, [card] * RBC_MESH)))
-    runs += [("hb_era_64", lambda: run_hb_era_path(args.seed, dev)),
-             ("hb_era_16_check", lambda: run_hb_check_path(args.seed, dev))]
+    runs += [("root_era_64", lambda: run_root_era_path(args.seed, dev)),
+             ("root_era_16_check", lambda: run_root_check_path(args.seed, dev))]
     if torch.cuda.device_count() > 1:  # a mesh over distinct cards
         cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         runs += [("mesh_era_cards", lambda: run_mesh_path(args.seed, backend, dev, era,
@@ -2690,19 +2885,20 @@ def main() -> int:
         paths[path] = run()
         log(f"path {path}: {time.perf_counter() - t0:.1f} s")
     g1_path = tuple(k for k in G1_KERNELS if k not in NO_PATH + GLV_ONLY)
+    secp_path = tuple(k for k in SECP_KERNELS if k not in NO_PATH)
     needs = {
         "tpke_era": g1_path,
         "tpke_flush": g1_path,
         "glv_era": tuple(k for k in GLV_FIRST if GLV_FIRST[k]),
         "coin_era": g1_path + ("g2_add", "g2_table", "g2_msm_scan"),
-        "ecdsa_recover": tuple(k for k in SECP_KERNELS if k not in NO_PATH),
+        "ecdsa_recover": secp_path,
         "rbc_flush_64": ("rs_matmul8",),
         "rbc_flush_256": ("rs_matmul16",),
         "rbc_flush_mesh": RS_KERNELS,
         "rbc_flush_cards": RS_KERNELS,
         **{f"mesh_era_{m}": g1_path for m in ("1x1", "2x1", "4x2", "cards")},
-        "hb_era_64": g1_path + ("rs_matmul8",),
-        "hb_era_16_check": g1_path + ("rs_matmul8",),
+        "root_era_64": g1_path + ("rs_matmul8",) + secp_path,
+        "root_era_16_check": g1_path + ("rs_matmul8",) + secp_path,
     }
     for path, (launches, warm) in paths.items():
         missing = [k for k in needs[path] if launches[k] == 0]

@@ -12,6 +12,10 @@ Pool-ingest ECDSA recovery runs `crypto.ecdsa.recover_hash_batch` over
 `ops.secp.GpuEcdsaRecover` and the secp256k1 kernels of csrc/secp.cu. An
 era's reliable-broadcast flush runs `consensus.rbc_batcher.RbcEraBatcher`
 over `ops.rs_batch` and the Reed-Solomon kernel of csrc/rs.cu. The
+consensus (`consensus/`) runs an era from the proposals to its block
+(`consensus.root_protocol.RootProtocol`), whose senders
+`core.types.warm_sender_caches` recovers on the same secp256k1 kernels;
+its host ECDSA runs in the native host library (`crypto.ecdsa`). The
 package imports torch and numpy and nothing of JAX or of lachain_tpu. Its
 entry points run on the card unless the caller passes device="cpu".
 """

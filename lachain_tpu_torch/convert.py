@@ -9,6 +9,9 @@ endian); these functions read those encodings from uint8 arrays and return
 the port's objects, with the same on-curve and subgroup checks.
 `consensus_keys_from_numpy` carries a whole era key set (TPKE,
 threshold-signature and ECDSA keys) into the port's consensus key sets.
+`signed_transactions_from_bytes` carries the JAX package's signed
+transactions (`core/types.SignedTransaction.encode()`) into the port's
+`SignedTransaction`s.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import List, Sequence
 import numpy as np
 
 from .consensus.keys import PrivateConsensusKeys, PublicConsensusKeys
+from .core.types import SignedTransaction
 from .crypto import bls12381 as bls
 from .crypto.threshold_sig import (
     PartialSignature,
@@ -143,3 +147,10 @@ def consensus_keys_from_numpy(f: int, tpke_y, tpke_y_i, tpke_x_i, ts_y_i, ts_x_i
         for tp, tss, sk in zip(tpke_privs, ts_shares, ecdsa_privs)
     ]
     return pub, privs
+
+
+def signed_transactions_from_bytes(blobs: Sequence[bytes]) -> List[SignedTransaction]:
+    """The JAX package's wire encodings of signed transactions (each its
+    `SignedTransaction.encode()`) -> the port's `SignedTransaction`s, with
+    the same hashes and senders. A malformed encoding raises ValueError."""
+    return [SignedTransaction.decode(bytes(b)) for b in blobs]

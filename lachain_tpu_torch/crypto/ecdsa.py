@@ -1,28 +1,51 @@
-"""secp256k1 ECDSA of the port: signing, recovery, and batched recovery on
-the card.
+"""secp256k1 ECDSA of the port: signing, verification, recovery, ECDH,
+AES-GCM and ECIES on the host, and batched recovery on the card.
 
 The port's copy of `lachain_tpu/crypto/ecdsa.py`: the domain parameters and
 affine curve law (:26-64), `generate_private_key` (:69), `public_key_point`
-/ `public_key_bytes` (pure Python), `decompress_public_key`, `address_from_public_key`, the RFC 6979
-nonce, the pure-Python signer (`_sign_hash_py`, :198) and recovery
-(`recover_hash`, the reference's `_recover_hash_py`, :416). The port has no
-native library, so these are the only host paths.
+/ `public_key_bytes` (:87), `decompress_public_key`,
+`address_from_public_key`, the RFC 6979 nonce, `sign_hash` (:185),
+`verify_hash` (:224), `ecdh_shared_secret` (:252), AES-GCM (:263-289),
+ECIES (:291-307), `recover_hash` (:309) and `recover_hash_batch` (:357).
 
-`recover_hash_batch` (:357) sends every entry of regular length to the card
+`public_key_bytes`, `sign_hash`, `verify_hash` and `recover_hash` (and
+the keccak of `address_from_public_key`) run in the port's native host
+library (its copy of the reference's
+`crypto/native/secp256k1.cpp`, built by `ops/_build.host_library()`,
+typed by `native_backend.load_lib`); a missing compiler or a failed build
+raises, there is no pure-Python fallback. Where the library returns an
+error code, each answers as the reference's function does: `sign_hash`
+signs in Python (`_sign_hash_py`), `public_key_bytes` derives in Python,
+`recover_hash` returns None; `verify_hash` and `recover_hash` take the
+pure-Python forms (`_verify_hash_py`, `_recover_hash_py`) for a key or a
+hash of irregular length, as the reference does. The pure-Python forms are
+the plain versions the tests hold the library to.
+
+AES-GCM always runs `_aes_fallback` (the port's copy of the reference's
+pure-Python GCM): the port imports no optional package. The random
+generators are explicit: `generate_private_key`, `aes_gcm_encrypt` (its
+nonce) and `ecies_encrypt` take an `rng` with `randbelow` (`secrets` in
+production, a seeded object in tests) where the reference draws from
+`secrets`.
+
+`recover_hash_batch` sends every entry of regular length to the card
 (ops/secp.GpuEcdsaRecover): there is no batch-size threshold, and an error
 on the card propagates instead of falling back to the host. Entries of
-irregular length take `recover_hash`, as in the JAX package.
+irregular length take `recover_hash`, as in the JAX package. Its
+recoverer is kept per device (`batch_recoverer`), so the last call's
+phases can be read.
 
 Signing is not constant-time (branchy double-and-add over the nonce), as
 in the reference: devnet grade; recovery takes only public inputs.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import hmac
 from typing import List, Optional, Sequence, Tuple
 
-from .hashes import keccak256
+from .hashes import keccak256_host, sha256
 
 # secp256k1 domain parameters
 P = 2**256 - 2**32 - 977
@@ -84,9 +107,40 @@ def public_key_point(priv: bytes) -> Tuple[int, int]:
     return _mul(G, int.from_bytes(priv, "big"))
 
 
+_LIB: list = []
+
+
+def _lib():
+    """The native host library with its ECDSA entries typed, loaded on
+    first use (the import of the build stays out of this module's import);
+    a failed build raises."""
+    if not _LIB:
+        from .native_backend import load_lib
+
+        _LIB.append(load_lib())
+    return _LIB[0]
+
+
+# sha256(priv) -> compressed public key: nodes sign with a handful of
+# long-lived keys; keyed by a hash so the cache pins no secret bytes
+_PUB_CACHE: dict = {}
+
+
 def public_key_bytes(priv: bytes) -> bytes:
     """Compressed SEC1 encoding (33 bytes)."""
-    return _compress(public_key_point(priv))
+    ck = sha256(priv)
+    pub = _PUB_CACHE.get(ck)
+    if pub is not None:
+        return pub
+    out = ctypes.create_string_buffer(33)
+    if _lib().lt_ec_pubkey(priv, out) == 0:
+        pub = out.raw
+    else:
+        pub = _compress(public_key_point(priv))
+    if len(_PUB_CACHE) > 4096:
+        _PUB_CACHE.clear()
+    _PUB_CACHE[ck] = pub
+    return pub
 
 
 def decompress_public_key(pub: bytes) -> Tuple[int, int]:
@@ -112,7 +166,7 @@ def address_from_public_key(pub: bytes) -> bytes:
         int.from_bytes(pub[33:], "big"),
     )
     raw = x.to_bytes(32, "big") + y.to_bytes(32, "big")
-    return keccak256(raw)[12:]
+    return keccak256_host(raw)[12:]
 
 
 def _rfc6979_k(priv: bytes, msg_hash: bytes) -> int:
@@ -148,9 +202,20 @@ def _signature(d: int, z: int, k: int, pt: Tuple[int, int]) -> Optional[bytes]:
     return r.to_bytes(32, "big") + s.to_bytes(32, "big") + bytes([v])
 
 
-def _sign_hash_py(priv: bytes, msg_hash: bytes) -> bytes:
+def sign_hash(priv: bytes, msg_hash: bytes) -> bytes:
     """65-byte recoverable signature r(32) || s(32) || v(1), low-s
-    enforced, RFC 6979 nonce."""
+    enforced, RFC 6979 nonce: the native library's, or `_sign_hash_py`'s
+    where the library refuses the key (as the reference does)."""
+    if len(msg_hash) != 32 or len(priv) != 32:
+        raise ValueError("msg_hash and priv must be 32 bytes")
+    out = ctypes.create_string_buffer(65)
+    if _lib().lt_ec_sign(priv, msg_hash, out) == 0:
+        return out.raw
+    return _sign_hash_py(priv, msg_hash)
+
+
+def _sign_hash_py(priv: bytes, msg_hash: bytes) -> bytes:
+    """`sign_hash` in pure Python (the reference's `_sign_hash_py`)."""
     if len(msg_hash) != 32 or len(priv) != 32:
         raise ValueError("msg_hash and priv must be 32 bytes")
     z = int.from_bytes(msg_hash, "big") % N
@@ -166,9 +231,91 @@ def _sign_hash_py(priv: bytes, msg_hash: bytes) -> bytes:
         extra += b"\x00"
 
 
+def verify_hash(pub: bytes, msg_hash: bytes, sig: bytes) -> bool:
+    """Whether `sig` signs `msg_hash` under the compressed key `pub`: in
+    the native library; a key or hash of irregular length takes
+    `_verify_hash_py`, as in the reference."""
+    if len(pub) == 33 and len(msg_hash) == 32:
+        return bool(_lib().lt_ec_verify(pub, msg_hash, sig, len(sig)))
+    return _verify_hash_py(pub, msg_hash, sig)
+
+
+def _verify_hash_py(pub: bytes, msg_hash: bytes, sig: bytes) -> bool:
+    """`verify_hash` in pure Python (the reference's `_verify_hash_py`)."""
+    if len(sig) != 65:
+        return False
+    try:
+        q = decompress_public_key(pub)
+    except ValueError:
+        return False
+    r = int.from_bytes(sig[:32], "big")
+    s = int.from_bytes(sig[32:64], "big")
+    if not (1 <= r < N and 1 <= s < N):
+        return False
+    z = int.from_bytes(msg_hash, "big") % N
+    w = _inv(s, N)
+    pt = _add(_mul(G, z * w % N), _mul(q, r * w % N))
+    if pt is None:
+        return False
+    return pt[0] % N == r
+
+
+def ecdh_shared_secret(priv: bytes, pub: bytes) -> bytes:
+    """32-byte shared secret: sha256 of the compressed shared point."""
+    pt = _mul(decompress_public_key(pub), int.from_bytes(priv, "big"))
+    if pt is None:
+        raise ValueError("degenerate ECDH result")
+    return hashlib.sha256(_compress(pt)).digest()
+
+
+def aes_gcm_encrypt(key: bytes, plaintext: bytes, rng) -> bytes:
+    """nonce(12) || ciphertext || tag(16), the nonce drawn from `rng`."""
+    from . import _aes_fallback
+
+    nonce = rng.randbelow(1 << 96).to_bytes(12, "big")
+    return nonce + _aes_fallback.encrypt(key, nonce, plaintext)
+
+
+def aes_gcm_decrypt(key: bytes, data: bytes) -> bytes:
+    """The plaintext of `aes_gcm_encrypt`'s output; ValueError when the
+    payload is short or its tag does not verify."""
+    from . import _aes_fallback
+
+    if len(data) < 12 + 16:
+        raise ValueError("AES-GCM payload too short")
+    return _aes_fallback.decrypt(key, data[:12], data[12:])
+
+
+def ecies_encrypt(pub: bytes, plaintext: bytes, rng) -> bytes:
+    """ECIES = ephemeral ECDH + AES-GCM, the ephemeral key and the nonce
+    drawn from `rng`. Layout: ephemeral compressed public key (33) ||
+    nonce (12) || ciphertext || tag."""
+    eph = generate_private_key(rng)
+    key = ecdh_shared_secret(eph, pub)
+    return public_key_bytes(eph) + aes_gcm_encrypt(key, plaintext, rng)
+
+
+def ecies_decrypt(priv: bytes, data: bytes) -> bytes:
+    if len(data) < 33 + 12 + 16:
+        raise ValueError("ECIES payload too short")
+    key = ecdh_shared_secret(priv, data[:33])
+    return aes_gcm_decrypt(key, data[33:])
+
+
 def recover_hash(msg_hash: bytes, sig: bytes) -> Optional[bytes]:
-    """Recover the compressed public key from a 65-byte signature, or None
-    (the reference's `_recover_hash_py`)."""
+    """Recover the compressed public key from a 65-byte signature, or None:
+    in the native library; a hash of irregular length takes
+    `_recover_hash_py`, as in the reference."""
+    if len(msg_hash) != 32:
+        return _recover_hash_py(msg_hash, sig)
+    out = ctypes.create_string_buffer(33)
+    if _lib().lt_ec_recover(msg_hash, sig, len(sig), out) == 0:
+        return out.raw
+    return None
+
+
+def _recover_hash_py(msg_hash: bytes, sig: bytes) -> Optional[bytes]:
+    """`recover_hash` in pure Python (the reference's `_recover_hash_py`)."""
     if len(sig) != 65:
         return None
     r = int.from_bytes(sig[:32], "big")
@@ -194,6 +341,20 @@ def recover_hash(msg_hash: bytes, sig: bytes) -> Optional[bytes]:
     return _compress(q)
 
 
+# the batch recovery of each device, kept so that a caller can read the
+# last call's phases (`batch_recoverer(device).last_timings`)
+_RECOVERERS: dict = {}
+
+
+def batch_recoverer(device="cuda"):
+    """The `GpuEcdsaRecover` that `recover_hash_batch` runs on `device`
+    (raises where the card is missing)."""
+    from ..ops.secp import GpuEcdsaRecover
+
+    rec = GpuEcdsaRecover(device)
+    return _RECOVERERS.setdefault(str(rec.device), rec)
+
+
 def recover_hash_batch(
     hashes: Sequence[bytes], sigs: Sequence[bytes], device="cuda"
 ) -> List[Optional[bytes]]:
@@ -202,12 +363,10 @@ def recover_hash_batch(
     `GpuEcdsaRecover` on `device` (the card unless the caller passes
     "cpu"); the others take `recover_hash`. Same results as `recover_hash`
     on every entry."""
-    from ..ops.secp import GpuEcdsaRecover
-
     n = len(hashes)
     if n != len(sigs):
         raise ValueError("hashes/sigs length mismatch")
-    rec = GpuEcdsaRecover(device)  # raises where the card is missing
+    rec = batch_recoverer(device)  # raises where the card is missing
     regular = [i for i in range(n) if len(hashes[i]) == 32 and len(sigs[i]) == 65]
     out: List[Optional[bytes]] = [None] * n
     got = rec.recover_batch([hashes[i] for i in regular], [sigs[i] for i in regular])

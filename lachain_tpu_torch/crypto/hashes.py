@@ -18,7 +18,8 @@ branch's nodes) take `keccak256_host`, one item in one call of the same
 library (`lt_keccak256`, the reference's native `keccak256`), which
 raises without it too. `merkle_proof` / `merkle_verify` are the
 reference's (:214-248); `merkle_proofs` gives every leaf's branch of one
-tree, each level hashed in one `keccak256_batch` call.
+tree, each level hashed in one `keccak256_batch` call. `sha256` (:174)
+serves the VRF and the ECDSA key cache.
 """
 from __future__ import annotations
 
@@ -100,6 +101,10 @@ def keccak256(data: bytes) -> bytes:
     for i in range(4):  # 32 bytes = 4 lanes
         out += state[i % 5][i // 5].to_bytes(8, "little")
     return bytes(out)
+
+
+def sha256(data: bytes) -> bytes:
+    return hashlib.sha256(data).digest()
 
 
 _BATCH_FN: list = []

@@ -14,7 +14,9 @@ Pure Python runs only where a caller passes `host.HostBackend()`.
 Points cross the boundary in the port's own wire format (`bls12381.py`:
 big-endian affine, zeros for infinity), so results come back as affine
 tuples (Z = 1); they are the same group elements `HostBackend` returns
-(tests/test_torch_native_host.py). Imports no torch.
+(tests/test_torch_native_host.py). `load_lib` also types the library's
+secp256k1 ECDSA entries, which `crypto/ecdsa.py` calls (the reference
+calls them untyped through its `_native_lib`). Imports no torch.
 """
 from __future__ import annotations
 
@@ -40,6 +42,15 @@ _SIGNATURES = {
     "lt_hash_to_g2": [_B, _N, _B, _N, _B],
     "lt_g1_check": [_B],
     "lt_g2_check": [_B],
+    # secp256k1 ECDSA (crypto/native/secp256k1.cpp:646-891), the entries
+    # crypto/ecdsa.py calls: 0 = ok for pubkey, sign and recover; 1 = valid
+    # for verify; the batches fill one byte per entry of `oks`
+    "lt_ec_pubkey": [_B, _B],
+    "lt_ec_sign": [_B, _B, _B],
+    "lt_ec_verify": [_B, _B, _B, _N],
+    "lt_ec_recover": [_B, _B, _N, _B],
+    "lt_ec_recover_batch": [_B, _B, _N, _I, _B, _B],
+    "lt_ec_verify_batch": [_B, _B, _B, _N, _I, _B],
 }
 # a product of at least this many pairs spreads its Miller loops over
 # threads (lt_pairing_check_mt); below it thread start-up would dominate

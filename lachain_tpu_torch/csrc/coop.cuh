@@ -17,8 +17,8 @@
 // Splitting a lane's words over T threads (W = words / T each) cuts the
 // chain per thread and puts T times the warps on the card. The values are
 // the same: every operation here returns the canonical residue in [0, p),
-// as the one-thread code does, so a kernel's output is word for word the
-// one of the one-thread arithmetic.
+// as the plain versions do, so a kernel's output is word for word theirs
+// (and that of the one-thread kernels the group field replaced).
 //
 // Layout. The T threads of a group are adjacent lanes of one warp (T
 // divides 32); rank r holds words [rW, rW + W) of each element, and of p.

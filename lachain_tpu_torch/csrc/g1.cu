@@ -55,13 +55,12 @@
 // Bytes are small beside them: the MSM reads its 16-entry table (2304
 // B/lane) once per lane per window at most, the table build writes it.
 //
-// fp_mul: one thread per lane on fp.cuh's one-thread field (uint64 CIOS);
-// since the conversions and phi's product by beta are g1_mont, it serves
-// no main path. Every other kernel runs on coop.cuh's group field over
-// fp.cuh's p (BlsFp: carry-save column products, PTX carry chains for the
-// carries, ballots between the threads), the group law inlined: the scan,
-// add, the table build, mont and dbl (since the table build is one launch
-// it serves no main path) a lane on SCAN_T threads. add serves the tree
+// Every kernel runs on coop.cuh's group field over fp.cuh's p (BlsFp:
+// carry-save column products, PTX carry chains for the carries, ballots
+// between the threads), the group law inlined: the scan, add, the table
+// build, mont, dbl and fp_mul a lane on SCAN_T threads (dbl since the
+// table build is one launch, fp_mul since the conversions and phi's
+// product by beta are g1_mont, serve no main path). add serves the tree
 // reductions (6 passes an era, 8192 down to 256 lanes), where one thread
 // per lane left a launch one lane's latency through 16 uint64 products
 // (0.057 ms at any lane count). The table kernel builds build_table's 16
@@ -98,9 +97,8 @@
 // mont: one Fp product a coordinate (into form: by R^2 mod p; phi's X: by
 // beta R mod p, both from the constant bank) or one reduction (out of form,
 // 156 word products at 12 words), so the bound is its bytes, 2 x 48 a
-// coordinate: one launch over the buffer as it lies replaced a permute copy,
-// an uploaded constant expanded over every lane, one fp_mul launch and a
-// permute copy back (and a torch.cat with the flag row in a fetch).
+// coordinate, read and written where the buffer lies: no permute copy, no
+// constant expanded over the lanes, no torch.cat with the flag row.
 //
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is non-zero.
@@ -118,7 +116,6 @@ constexpr int PR = 3 * NL;   // rows per point: X | Y | Z
 constexpr int WINDOW = 4;
 constexpr int TABLE = 16;   // entries k*P, k in [0, 16)
 constexpr int W64 = 16;     // windows of a 64-bit RLC coefficient
-constexpr int THREADS = 64;  // n = 8192 lanes -> 128 blocks over 132 SMs
 constexpr int SCAN_T = LT_G1_SCAN_T;  // threads per lane (group field)
 constexpr int SCAN_BLOCK = 64;        // their threads per block
 // g1_fixed_tables: level 4's adds (16 windows x entries 9 .. 15), the most
@@ -138,16 +135,6 @@ __constant__ uint32_t kBetaR[NL] = {
 
 // lt_g1_mont's op: out of Montgomery form, into it, times beta
 enum MontOp { kMontOut = 0, kMontInto = 1, kMontBeta = 2 };
-
-__global__ void __launch_bounds__(THREADS)
-    fp_mul_kernel(const uint32_t* __restrict__ x,
-                  const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
-                  int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  store_fp(out, 0, n, lane,
-           mont_mul(load_fp(x, 0, n, lane), load_fp(y, 0, n, lane)));
-}
 
 // ---------------------------------------------------------------------------
 // the scan: one lane on a group of T threads (coop.cuh)
@@ -575,6 +562,25 @@ __global__ void __launch_bounds__(FIXED_BLOCK)
   }
 }
 
+// pg1._mul_kernel on the group field: out = x y / R mod p, a lane's
+// product on SCAN_T threads (x, y (12, n) Montgomery words; pg1.py:262).
+// Its bytes (144 a lane: 0.00035 ms at 8192 lanes) and its 300 word
+// products a lane are far below what one launch costs, so a lone launch's
+// latency bounds it. A group past n multiplies lane 0's words and stores
+// nothing.
+template <int T>
+__global__ void __launch_bounds__(SCAN_BLOCK)
+    fp_mul_kernel(const uint32_t* __restrict__ x,
+                  const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
+                  int n) {
+  const Group<T> g = make_coop_group<BlsFp, T>();
+  bool live;
+  const int col = group_lane<T, SCAN_BLOCK>(n, live);
+  const FpG<T> r =
+      fpg_mul(g, load_fpg(g, x, 0, n, col), load_fpg(g, y, 0, n, col));
+  if (live) store_fpg(g, out, 0, n, col, r);
+}
+
 // Every coordinate of a (12 coords [+ 1], n) buffer in one launch:
 // element c * n + j is coordinate c's words at rows 12c .. 12c + 11, lane
 // j, read as the buffer lies. kMontInto: x R mod p, one product by R^2;
@@ -607,8 +613,6 @@ __global__ void __launch_bounds__(SCAN_BLOCK)
   }
 }
 
-inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
-
 }  // namespace
 
 extern "C" {
@@ -616,7 +620,8 @@ extern "C" {
 int lt_g1_fp_mul(const void* x, const void* y, void* out, int n,
                  void* stream) {
   if (n > 0) {
-    fp_mul_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+    fp_mul_kernel<SCAN_T><<<group_blocks<SCAN_T, SCAN_BLOCK>(n), SCAN_BLOCK,
+                            0, (cudaStream_t)stream>>>(
         (const uint32_t*)x, (const uint32_t*)y, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
@@ -705,7 +710,7 @@ int lt_g1_mont(const void* x, void* out, int rows, int n, int op,
 // table, 5 mont, 6 fixed_tables, 7 fixed_scan), for the chip report.
 int lt_g1_kernel_attrs(int which, int* regs, int* local_bytes,
                        int* threads_per_lane, int* block) {
-  const void* fns[8] = {(const void*)fp_mul_kernel,
+  const void* fns[8] = {(const void*)fp_mul_kernel<SCAN_T>,
                         (const void*)dbl_kernel<SCAN_T>,
                         (const void*)add_kernel<SCAN_T>,
                         (const void*)msm_scan_kernel<SCAN_T>,
@@ -713,7 +718,7 @@ int lt_g1_kernel_attrs(int which, int* regs, int* local_bytes,
                         (const void*)g1_mont_kernel<SCAN_T>,
                         (const void*)g1_fixed_tables_kernel<SCAN_T>,
                         (const void*)g1_fixed_scan_kernel<SCAN_T>};
-  const int blocks[8] = {THREADS,    SCAN_BLOCK, SCAN_BLOCK,
+  const int blocks[8] = {SCAN_BLOCK, SCAN_BLOCK, SCAN_BLOCK,
                          SCAN_BLOCK, SCAN_BLOCK, SCAN_BLOCK,
                          TABLE_OPS * SCAN_T, FIXED_BLOCK};
   if (which < 0 || which > 7) return (int)cudaErrorInvalidValue;
@@ -722,7 +727,7 @@ int lt_g1_kernel_attrs(int which, int* regs, int* local_bytes,
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
-  *threads_per_lane = which == 0 ? 1 : SCAN_T;  // fp_mul: one thread
+  *threads_per_lane = SCAN_T;
   *block = blocks[which];
   return 0;
 }

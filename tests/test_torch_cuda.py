@@ -613,6 +613,29 @@ def test_secp_dbl_on_group_field(card, n):
     assert (x * zi * zi % ecdsa.P, y * zi ** 3 % ecdsa.P) == ecdsa._mul(ps[0], 4)
 
 
+@pytest.mark.parametrize("n", [1, 5, 63, 65, 8191, 8192])
+def test_fp_mul_on_group_field(card, n):
+    """fp_mul (a lane's product on 4 threads) against the plain product and
+    Python ints, its Montgomery words word for word, with 0, 1, p - 1 and
+    R mod p (R = 2^384) among the operands."""
+    P, r = bls.P, 1 << 384
+    rng = random.Random(0xF1 + n)
+    edge = [0, 1, P - 1, r % P]
+    xs = (edge + [rng.randrange(P) for _ in range(n)])[:n]
+    ys = (edge[::-1] + [rng.randrange(P) for _ in range(n)])[:n]
+    attrs = _build.kernel_attrs()["fp_mul"]
+    assert attrs["threads_per_lane"] > 1 and attrs["block"] == 64
+    kx, ky = g1.fp_encode(xs, card), g1.fp_encode(ys, card)
+    g1.reset_launches()
+    prod = g1.fp_mul(kx, ky)
+    assert g1.LAUNCHES == dict(dict.fromkeys(g1.LAUNCHES, 0), fp_mul=1)
+    assert g1._from_words(prod.cpu().numpy().view(np.uint32)) == [
+        x * y * r % P for x, y in zip(xs, ys)]
+    ref = lambda v: torch.from_numpy(g1_ref.ints_to_limbs(v)).to(card)  # noqa: E731
+    want = g1_ref.limbs_to_ints(g1_ref.fp_mul(ref(xs), ref(ys)).cpu().numpy())
+    assert g1.fp_decode(prod) == want == [x * y % P for x, y in zip(xs, ys)]
+
+
 @pytest.mark.parametrize("n", [1, 5, 63, 65, 8192])
 def test_secp_fp_mul_on_group_field(card, n):
     """secp_fp_mul (a lane's product on 4 threads) against the plain product
@@ -1466,15 +1489,18 @@ def test_chip_smoke_card_paths(cards):
 
 
 def test_honey_badger_era_on_card_equals_plain_versions(card):
-    """chip_smoke.py's hb_era_16_check: the N=16, f=5 HoneyBadger era in
-    TAKE_RANDOM with router 0's decryption shares corrupted, both batchers
-    on, on the card and with device="cpu" (the kernels' plain versions):
-    equal results at every honest router, equal delivered_count and flush
-    counts, and the same evidence (exactly router 0, invalid_share,
-    "dec"); the card's run launches the G1 era kernels and rs_matmul8."""
+    """chip_smoke.py's root_era_16_check: the N=16, f=5 era (HoneyBadger
+    under RootProtocol, 8 signed transfers a validator) in TAKE_RANDOM with
+    router 0's decryption shares corrupted, both batchers on, on the card
+    and with device="cpu" (the kernels' plain versions): equal blocks at
+    every honest router, equal delivered_count and flush counts, and the
+    same evidence (exactly router 0, invalid_share, "dec"); the card's run
+    launches the G1 era kernels, rs_matmul8 and the block recovery's secp
+    kernels."""
     import chip_smoke
 
-    launches, _warm = chip_smoke.run_hb_check_path(1, card)
-    for kernel in ("g1_table", "g1_msm_scan", "g1_add", "g1_mont", "rs_matmul8"):
+    launches, _warm = chip_smoke.run_root_check_path(1, card)
+    for kernel in ("g1_table", "g1_msm_scan", "g1_add", "g1_mont", "rs_matmul8",
+                   "secp_sqrt", "secp_table", "secp_msm_scan", "secp_add", "secp_mont"):
         assert launches[kernel] >= 1, launches
     assert not any(verify.ESCAPES.values())

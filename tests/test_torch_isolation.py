@@ -15,8 +15,9 @@
 * The host pairing library is the port's own build: it loads from
   `lachain_tpu_torch/_build/` (never from the JAX package's tree), its
   binding loads no torch, and without g++ the build raises; so does
-  `hashes.keccak256_batch` and `hashes.keccak256_host`, which have no
-  pure-Python fallback.
+  `hashes.keccak256_batch`, `hashes.keccak256_host` and the native ECDSA
+  entries (`ecdsa.sign_hash`, `verify_hash`, `recover_hash`,
+  `public_key_bytes`), which have no pure-Python fallback.
 """
 from __future__ import annotations
 
@@ -66,7 +67,10 @@ new = {"lachain_tpu_torch.consensus.rbc_batcher", "lachain_tpu_torch.ops.rs",
 new |= {f"lachain_tpu_torch.consensus.{m}" for m in (
     "messages", "protocol", "keys", "binary_broadcast", "binary_agreement",
     "common_coin", "common_subset", "reliable_broadcast", "honey_badger",
-    "evidence", "journal", "era", "simulator")}
+    "evidence", "journal", "era", "simulator", "root_protocol")}
+new |= {"lachain_tpu_torch.crypto.vrf", "lachain_tpu_torch.crypto._aes_fallback",
+        "lachain_tpu_torch.core", "lachain_tpu_torch.core.types",
+        "lachain_tpu_torch.core.block_producer"}
 assert new <= set(names), new - set(names)
 print(len(names), bad)
 """
@@ -78,7 +82,7 @@ def test_port_imports_nothing_of_jax():
         text=True, check=True, timeout=120,
     ).stdout.split("\n")[0]
     count, bad = out.split(" ", 1)
-    assert int(count) >= 44  # every module of the package was imported
+    assert int(count) >= 50  # every module of the package was imported
     assert bad == "[]"
 
 
@@ -88,6 +92,10 @@ import lachain_tpu_torch.crypto.ecdsa
 import lachain_tpu_torch.crypto.provider
 import lachain_tpu_torch.crypto.threshold_sig
 import lachain_tpu_torch.crypto.tpke
+import lachain_tpu_torch.crypto.vrf
+import lachain_tpu_torch.core.types
+import lachain_tpu_torch.core.block_producer
+import lachain_tpu_torch.consensus.root_protocol
 print(sorted(m for m in sys.modules if m == "torch"
              or m.startswith("lachain_tpu_torch.ops")))
 """
@@ -222,6 +230,24 @@ def test_host_build_without_gxx_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+"):
         NativeBackend()
+    assert not list(tmp_path.iterdir())  # nothing was built
+
+
+def test_native_ecdsa_without_host_library_raises(monkeypatch, tmp_path):
+    """sign_hash, verify_hash, recover_hash and public_key_bytes run in the
+    host library or raise: no pure-Python fallback when the build fails."""
+    monkeypatch.setattr(ecdsa, "_LIB", [])
+    monkeypatch.setattr(ecdsa, "_PUB_CACHE", {})
+    monkeypatch.setattr(_build, "_HOST_LIB", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    priv, h = (7).to_bytes(32, "big"), bytes(range(32))
+    sig = ecdsa._sign_hash_py(priv, h)
+    pub = ecdsa._recover_hash_py(h, sig)
+    for call in (lambda: ecdsa.sign_hash(priv, h), lambda: ecdsa.verify_hash(pub, h, sig),
+                 lambda: ecdsa.recover_hash(h, sig), lambda: ecdsa.public_key_bytes(priv)):
+        with pytest.raises(RuntimeError, match="g\\+\\+"):
+            call()
     assert not list(tmp_path.iterdir())  # nothing was built
 
 
