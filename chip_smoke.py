@@ -61,7 +61,7 @@ Phases, each of which must pass (any failure exits non-zero):
              backend)) is started and joined: the fully masked TPKE era
              at each slot tier, largest first, and one coin era, on a
              GpuBackend of its own; it must end with no error;
-  4. main    thirteen paths (fifteen where more than one card is visible),
+  4. main    fifteen paths (seventeen where more than one card is visible),
              each with the kernel launch counts set to 0 just before its
              counted calls and read just after; the paths before the mesh
              paths run on one card however many are visible:
@@ -168,7 +168,25 @@ Phases, each of which must pass (any failure exits non-zero):
              card and once with device="cpu" (the plain versions, the
              senders recovered afresh in each): equal blocks, messages,
              flush counts and evidence (every honest router convicts
-             exactly router 0, invalid_share, "dec").
+             exactly router 0, invalid_share, "dec");
+             the same two eras through the native consensus engine
+             (consensus/native_rt.NativeSimulatedNetwork over the port's
+             g++ build of consensus/native/consensus_rt.cpp, both
+             batchers): root_era_native_64, root_era_64's keys, proposals,
+             parent and seed with RootProtocol hosted natively at every
+             validator (set_root_context), traced whole: root_era_64's
+             checks, its block hash and delivered_count, no per-message
+             crossing (opaque_message, acs_result, coin_request 0;
+             hb_acs and root_produce N), traced launches equal to the
+             counted ones; printed its wall, messages a second, the
+             engine's natively handled messages, the crossings, the
+             batchers' phases, the coins' seconds, the header round, the
+             recovery and the busy share; and root_era_native_16_check,
+             root_era_16_check's era with router 0's HoneyBadger (and so
+             its RootProtocol) kept in Python and malicious through
+             `_extra_factories`, card against device="cpu", with the same
+             checks (its CPU run is ~2.5 min: one flush of 31 distinct
+             slots on the plain kernels).
              Around each counted call and the MSMs, no result may have been
              recomputed on the host (ops/verify.ESCAPES), and each path
              must launch its kernels;
@@ -202,6 +220,8 @@ import re
 import subprocess
 import sys
 import time
+
+from lachain_tpu_torch.consensus.honey_badger import HoneyBadger
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and float32
 # outside the tensor cores, 67 TFLOP/s = 33.5 T fused multiply-adds/s. The
@@ -2590,38 +2610,50 @@ def clear_block_memos() -> None:
     types._SENDER_MEMO.clear()
 
 
+class MaliciousHoneyBadger(HoneyBadger):
+    """A HoneyBadger that broadcasts a corrupted decryption share (its
+    point times 1337) for every slot, as the JAX package's
+    tests/test_consensus_byzantine.MaliciousHoneyBadger does: router 0's in
+    both root checks (through MaliciousRouter on the Python engine, through
+    `_extra_factories` on the native one)."""
+
+    def handle_child_result(self, child_id, value):
+        from lachain_tpu_torch.consensus import messages as M
+        from lachain_tpu_torch.crypto import bls12381 as bls
+        from lachain_tpu_torch.crypto import tpke
+
+        if not isinstance(child_id, M.CommonSubsetId) or self._ciphertexts is not None:
+            return super().handle_child_result(child_id, value)
+        self._ciphertexts = {}
+        for slot, blob in value.items():
+            try:
+                share = tpke.EncryptedShare.from_bytes(blob, self.host)
+            except (ValueError, AssertionError):
+                self._plaintexts[slot] = None
+                continue
+            self._ciphertexts[slot] = share
+            dec = self._priv.tpke_priv.decrypt_share(share, backend=self.host)
+            bad = tpke.PartiallyDecryptedShare(
+                bls.g1_mul(dec.ui, 1337), dec.decryptor_id, dec.share_id)
+            self.broadcaster.broadcast(
+                M.DecryptedMessage(hb=self.id, share_id=slot, payload=bad.to_bytes()))
+
+
+def malicious_honey_badger(pid, router):
+    """The `_extra_factories[HoneyBadgerId]` entry of a malicious router."""
+    return MaliciousHoneyBadger(pid, router, router.public_keys, router.private_keys)
+
+
 def malicious_router_cls():
-    """An EraRouter whose HoneyBadger broadcasts a corrupted decryption
-    share (its point times 1337) for every slot, as the JAX package's
-    tests/test_consensus_byzantine.MaliciousRouter does."""
+    """An EraRouter whose HoneyBadger is a MaliciousHoneyBadger, as the JAX
+    package's tests/test_consensus_byzantine.MaliciousRouter."""
     from lachain_tpu_torch.consensus import messages as M
     from lachain_tpu_torch.consensus.era import EraRouter
-    from lachain_tpu_torch.consensus.honey_badger import HoneyBadger
-    from lachain_tpu_torch.crypto import bls12381 as bls
-    from lachain_tpu_torch.crypto import tpke
-
-    class MaliciousHoneyBadger(HoneyBadger):
-        def handle_child_result(self, child_id, value):
-            if not isinstance(child_id, M.CommonSubsetId) or self._ciphertexts is not None:
-                return super().handle_child_result(child_id, value)
-            self._ciphertexts = {}
-            for slot, blob in value.items():
-                try:
-                    share = tpke.EncryptedShare.from_bytes(blob, self.host)
-                except (ValueError, AssertionError):
-                    self._plaintexts[slot] = None
-                    continue
-                self._ciphertexts[slot] = share
-                dec = self._priv.tpke_priv.decrypt_share(share, backend=self.host)
-                bad = tpke.PartiallyDecryptedShare(
-                    bls.g1_mul(dec.ui, 1337), dec.decryptor_id, dec.share_id)
-                self.broadcaster.broadcast(
-                    M.DecryptedMessage(hb=self.id, share_id=slot, payload=bad.to_bytes()))
 
     class MaliciousRouter(EraRouter):
         def _create(self, pid):
             if isinstance(pid, M.HoneyBadgerId):
-                return MaliciousHoneyBadger(pid, self, self.public_keys, self.private_keys)
+                return malicious_honey_badger(pid, self)
             return super()._create(pid)
 
     return MaliciousRouter
@@ -2681,11 +2713,13 @@ def check_root_blocks(label: str, net, blocks, live, proposals, signer, pub, n: 
 
 
 def root_seconds(net, producers) -> dict:
-    """The header round's summed sign / verify seconds over the routers, and
-    the block recovery's (the producers' warm_sender_caches)."""
+    """The header round's summed sign / verify seconds over the routers (a
+    native router's RootHost or a Python router's RootProtocol), and the
+    block recovery's (the producers' warm_sender_caches)."""
     from lachain_tpu_torch.consensus import messages as M
 
-    roots = [r.protocol(M.RootProtocolId(era=0)) for r in net.routers]
+    roots = [r.native_root(0) if hasattr(r, "native_root")
+             else r.protocol(M.RootProtocolId(era=0)) for r in net.routers]
     return dict(sign_s=sum(p.sign_s for p in roots if p is not None),
                 verify_s=sum(p.verify_s for p in roots if p is not None),
                 recover_s=sum(p.recover_s for p in producers))
@@ -2700,7 +2734,7 @@ def batcher_lines(label: str, net) -> None:
         f"deduped, {rb.memo_hits} memo hits; summed phases: {phase_line(net.rbc_phase_s)}")
 
 
-def run_root_era_path(seed: int, dev):
+def run_root_era_path(seed: int, dev, ref=None):
     """The N=64, f=21 root era through SimulatedNetwork on the card
     (TAKE_FIRST, both batchers): every validator's RootProtocol proposes
     its 16 signed transfers into HoneyBadger, signs the header, and makes
@@ -2708,7 +2742,9 @@ def run_root_era_path(seed: int, dev):
     traced whole by torch.profiler: the wall, the messages, each batcher's
     flushes and summed phases, the coins' host seconds, the header round's
     sign / verify seconds, the block recovery's phases, and the card's
-    busy share of the wall (the trace's device time)."""
+    busy share of the wall (the trace's device time). `ref`, a dict, gets
+    the block's header hash and the delivered_count, which the native
+    engine's era must equal."""
     import torch
 
     from lachain_tpu_torch.consensus.keys import trusted_key_gen
@@ -2761,7 +2797,170 @@ def run_root_era_path(seed: int, dev):
         + ("" if traced == counted else " (the trace lost launches)"))
     log(f"{label} by kernel (torch.profiler, ms, launches): {by_kernel}; busy "
         f"{busy:.3f} ms of the {wall * 1e3:.1f} ms wall: busy share {busy / (wall * 1e3):.6f}")
+    if ref is not None:
+        ref.update(hash=blocks[0].header.hash(), delivered=net.delivered_count, wall=wall)
     return launches, [dict(wall_s=wall, **secs)]
+
+
+def native_root_net(pub, privs, proposals, device, parent: bytes, seed: int, mode):
+    """The root era on consensus/native_rt.NativeSimulatedNetwork (both
+    batchers) on `device`, every validator's RootProtocol hosted natively
+    through set_root_context over its RootProducer -> (net, producers)."""
+    from lachain_tpu_torch.consensus.native_rt import NativeSimulatedNetwork
+
+    producers = [RootProducer(txs, device, parent) for txs in proposals]
+    net = NativeSimulatedNetwork(pub, privs, seed=seed, mode=mode, use_rbc_batcher=True,
+                                 device=device)
+    for i, producer in enumerate(producers):
+        net.set_root_context(i, producer, privs[i].ecdsa_priv, pub.ecdsa_pub_keys)
+    return net, producers
+
+
+def check_native_crossings(label: str, net, n: int) -> None:
+    """The native era crossed into Python only through the batched ops: no
+    per-message opaque, ACS or coin-request callback; one ACS result and
+    one block a validator."""
+    c = net.crossings
+    check(c["opaque_message"] == c["acs_result"] == c["coin_request"] == 0,
+          f"{label}: per-message crossings {c}")
+    check(c["hb_acs"] == n and c["root_produce"] == n,
+          f"{label}: hb_acs / root_produce != {n}: {c}")
+    check(net.native_handled() > 0, f"{label}: the engine handled no message natively")
+
+
+def run_root_native_path(seed: int, dev, ref=None):
+    """root_era_64's era (same keys, proposals, parent and seed; N=64,
+    f=21, TAKE_FIRST, both batchers) through the native consensus engine
+    (consensus/native_rt.NativeSimulatedNetwork) on the card, RootProtocol
+    hosted natively at every validator (set_root_context), traced whole by
+    torch.profiler: the checks of root_era_64, the same block hash and
+    delivered_count as root_era_64 (`ref`; TAKE_FIRST runs one schedule on
+    both engines), no per-message crossing, traced launches equal to the
+    counted ones; printed: the wall, messages a second, the engine's
+    natively handled messages, the crossings, each batcher's flushes and
+    summed phases, the coins' seconds, the header round, the block
+    recovery and the busy share."""
+    import torch
+
+    from lachain_tpu_torch.consensus.keys import trusted_key_gen
+    from lachain_tpu_torch.consensus.simulator import DeliveryMode
+    from lachain_tpu_torch.crypto import ecdsa
+
+    label = f"native root era N={HB_N}"
+    pub, privs = trusted_key_gen(HB_N, HB_F, SeededRng(seed + 640))
+    rng = random.Random(seed + 641)
+    proposals, signer = root_transfers(HB_N, -(-BLOCK_TXS // HB_N), rng)
+    parent = rng.randbytes(32)
+    out = {}
+
+    def era():
+        clear_block_memos()
+        reset_counts()
+        net, producers = native_root_net(pub, privs, proposals, dev, parent, seed,
+                                          DeliveryMode.TAKE_FIRST)
+        out["wall"], out["blocks"] = root_run(net, range(HB_N))
+        out["launches"] = read_launches()
+        out["net"], out["producers"] = net, producers
+
+    def warm():
+        torch.arange(1 << 12, device=dev).sum().item()
+
+    for i in range(3):  # the trace may lose device activities (profile_launches)
+        by_kernel = profile_device(era, warm=warm)
+        launches = out["launches"]
+        counted = {k: v for k, v in launches.items() if v}
+        traced = {k: by_kernel.get(KERNEL_OF[k], [0, 0])[1] for k in counted}
+        if traced == counted:
+            break
+        log(f"{label}: the trace lost device activities (trace {i + 1} of 3): "
+            f"{traced} != {counted}")
+    net, wall, blocks = out["net"], out["wall"], out["blocks"]
+    check_no_escapes(label)
+    check_root_blocks(label, net, blocks, list(range(HB_N)), proposals, signer, pub,
+                      HB_N, HB_F)
+    check_native_crossings(label, net, HB_N)
+    check_traced(label, by_kernel, launches, counted)
+    h = blocks[0].header.hash()
+    if ref is not None:
+        check(h == ref["hash"] and net.delivered_count == ref["delivered"],
+              f"{label}: block {h.hex()[:16]} / {net.delivered_count} messages, the "
+              f"Python engine's {ref['hash'].hex()[:16]} / {ref['delivered']}")
+        log(f"{label}: the same block and messages as root_era_64's (its wall "
+            f"{ref['wall']:.3f} s)")
+    busy = sum(v[0] for v in by_kernel.values())
+    secs = root_seconds(net, out["producers"])
+    rec = ecdsa.batch_recoverer(dev).last_timings
+    log(f"{label}: every router made block {h.hex()[:16]} ({len(blocks[0].tx_hashes)} "
+        f"transfers, {len(blocks[0].multisig.signatures)} signatures); wall {wall:.3f} s, "
+        f"{net.delivered_count} messages ({net.delivered_count / wall:.0f} a second), "
+        f"{net.native_handled()} handled natively; coin combines {net.coin_s:.3f} s on "
+        f"the host")
+    log(f"{label}: crossings {net.crossings}")
+    log(f"{label}: header round sign {secs['sign_s']:.3f} s, verify {secs['verify_s']:.3f} s "
+        f"(summed over the routers); block recovery {secs['recover_s']:.3f} s, "
+        f"last_timings {rec}")
+    batcher_lines(label, net)
+    log(f"{label} by kernel (torch.profiler, ms, launches): {by_kernel}; busy "
+        f"{busy:.3f} ms of the {wall * 1e3:.1f} ms wall: busy share {busy / (wall * 1e3):.6f}")
+    net.close()
+    return launches, [dict(wall_s=wall, **secs)]
+
+
+def run_root_native_check_path(seed: int, dev):
+    """root_era_16_check's era (N=16, f=5, TAKE_RANDOM, both batchers,
+    ROOT_CHECK_TXS transfers a validator) through the native engine, router
+    0's HoneyBadger malicious through `_extra_factories` (which keeps its
+    HoneyBadger and its RootProtocol in Python, their messages crossing the
+    engine as opaque payloads), once on the card and once with device="cpu"
+    (the plain versions), each recovering its block's senders afresh: equal
+    blocks at every honest router, equal delivered_count, flush counts and
+    evidence (every honest router convicts exactly router 0, invalid_share,
+    "dec")."""
+    from lachain_tpu_torch.consensus import messages as M
+    from lachain_tpu_torch.consensus.keys import trusted_key_gen
+    from lachain_tpu_torch.consensus.simulator import DeliveryMode
+
+    label = f"native root era check N={HB_CHECK_N}"
+    n, f = HB_CHECK_N, HB_CHECK_F
+    pub, privs = trusted_key_gen(n, f, SeededRng(seed + 160))
+    rng = random.Random(seed + 161)
+    proposals, signer = root_transfers(n, ROOT_CHECK_TXS, rng)
+    parent = rng.randbytes(32)
+    outcomes, launches = [], None
+    live = list(range(1, n))
+    for device in (dev, "cpu"):
+        clear_block_memos()
+        reset_counts()
+        net, producers = native_root_net(pub, privs, proposals, device, parent, seed,
+                                         DeliveryMode.TAKE_RANDOM)
+        net.routers[0]._extra_factories = {M.HoneyBadgerId: malicious_honey_badger}
+        wall, blocks = root_run(net, live)
+        if launches is None:
+            launches = read_launches()
+            check_no_escapes(label)
+        check_root_blocks(f"{label} on {device}", net, blocks, live, proposals, signer,
+                          pub, n, f)
+        evidence = [net.routers[i].evidence.snapshot() for i in live]
+        want = {("invalid_share", 0, "dec")}
+        check(all({(r["kind"], r["offender"], r["proto"]) for r in ev} == want
+                  for ev in evidence),
+              f"{label} on {device}: evidence {evidence[0]} is not router 0's dec shares")
+        check(net.crossings["opaque_message"] > 0 and net.native_handled() > 0,
+              f"{label} on {device}: router 0's Python protocols sent nothing through "
+              f"the engine ({net.crossings})")
+        outcomes.append(([b.encode() for b in blocks], net.delivered_count,
+                         net.crypto_batcher.flushes, net.rbc_batcher.flushes, evidence))
+        secs = root_seconds(net, producers)
+        log(f"{label} on {device}: block of {len(blocks[0].tx_hashes)} transfers, wall "
+            f"{wall:.3f} s, {net.delivered_count} messages, {len(evidence[0])} evidence "
+            f"records at each honest router; block recovery {secs['recover_s']:.3f} s; "
+            f"crossings {net.crossings}")
+        batcher_lines(f"{label} on {device}", net)
+        net.close()
+    check(outcomes[0] == outcomes[1], f"{label}: the card's era differs from the plain one")
+    log(f"{label}: the card's era equals the plain versions' (blocks, messages, "
+        f"flushes, evidence)")
+    return launches, [{"wall_s": wall}]
 
 
 def run_root_check_path(seed: int, dev):
@@ -2872,8 +3071,11 @@ def main() -> int:
         args.seed, backend, dev, era, [card] * n, [card] * 4 if n == 8 else None))
         for n, m in zip(MESH_SIZES, ("1x1", "2x1", "4x2"))]
     runs.append(("rbc_flush_mesh", lambda: run_rbc_mesh_path(args.seed, dev, [card] * RBC_MESH)))
-    runs += [("root_era_64", lambda: run_root_era_path(args.seed, dev)),
-             ("root_era_16_check", lambda: run_root_check_path(args.seed, dev))]
+    root_ref = {}  # root_era_64's block hash and messages, which the native era must equal
+    runs += [("root_era_64", lambda: run_root_era_path(args.seed, dev, root_ref)),
+             ("root_era_16_check", lambda: run_root_check_path(args.seed, dev)),
+             ("root_era_native_64", lambda: run_root_native_path(args.seed, dev, root_ref)),
+             ("root_era_native_16_check", lambda: run_root_native_check_path(args.seed, dev))]
     if torch.cuda.device_count() > 1:  # a mesh over distinct cards
         cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         runs += [("mesh_era_cards", lambda: run_mesh_path(args.seed, backend, dev, era,
@@ -2899,6 +3101,8 @@ def main() -> int:
         **{f"mesh_era_{m}": g1_path for m in ("1x1", "2x1", "4x2", "cards")},
         "root_era_64": g1_path + ("rs_matmul8",) + secp_path,
         "root_era_16_check": g1_path + ("rs_matmul8",) + secp_path,
+        "root_era_native_64": g1_path + ("rs_matmul8",) + secp_path,
+        "root_era_native_16_check": g1_path + ("rs_matmul8",) + secp_path,
     }
     for path, (launches, warm) in paths.items():
         missing = [k for k in needs[path] if launches[k] == 0]

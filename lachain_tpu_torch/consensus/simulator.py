@@ -229,24 +229,32 @@ class SimulatedNetwork:
             self._flush_tpke()
 
     def _flush_tpke(self) -> None:
-        b = self.crypto_batcher
-        flushes = b.flushes
-        b.flush()
-        if b.flushes == flushes:
-            return  # no lazy submission had a slot ready
-        t = b.last_timings
-        acc = self.tpke_phase_s
-        for k in ("build_s", "dedupe_s", "era_s", "callbacks_s", "wall_s"):
-            acc[k] = acc.get(k, 0.0) + t[k]
-        for chunk in t["chunks"]:
-            for k in TPKE_CHUNK_PHASES:
-                acc[k] = acc.get(k, 0.0) + chunk.get(k, 0.0)
+        flush_tpke(self.crypto_batcher, self.tpke_phase_s)
 
     def _flush_rbc(self) -> None:
-        b = self.rbc_batcher
-        b.flush()
-        for k, v in b.last_timings.items():
-            self.rbc_phase_s[k] = self.rbc_phase_s.get(k, 0.0) + v
+        flush_rbc(self.rbc_batcher, self.rbc_phase_s)
 
     def results(self, pid) -> List[Any]:
         return [r.result_of(pid) for r in self.routers]
+
+
+def flush_tpke(b, acc: Dict[str, float]) -> None:
+    """Flush the TPKE batcher `b` and add its last_timings phases (the
+    chunks' summed) to `acc`, unless no lazy submission had a slot ready."""
+    flushes = b.flushes
+    b.flush()
+    if b.flushes == flushes:
+        return
+    t = b.last_timings
+    for k in ("build_s", "dedupe_s", "era_s", "callbacks_s", "wall_s"):
+        acc[k] = acc.get(k, 0.0) + t[k]
+    for chunk in t["chunks"]:
+        for k in TPKE_CHUNK_PHASES:
+            acc[k] = acc.get(k, 0.0) + chunk.get(k, 0.0)
+
+
+def flush_rbc(b, acc: Dict[str, float]) -> None:
+    """Flush the RBC batcher `b` and add its last_timings to `acc`."""
+    b.flush()
+    for k, v in b.last_timings.items():
+        acc[k] = acc.get(k, 0.0) + v

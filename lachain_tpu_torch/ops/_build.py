@@ -1,5 +1,6 @@
-"""Build and bind the port's native code: the CUDA kernels and the host
-pairing library (plain C interfaces + ctypes).
+"""Build and bind the port's native code: the CUDA kernels, the host
+pairing library and the native consensus engine (plain C interfaces +
+ctypes).
 
 `library()` compiles `csrc/g1.cu`, `csrc/g2.cu` (both include
 `csrc/fp.cuh` and, for their group-field kernels, `csrc/coop.cuh` over
@@ -26,6 +27,14 @@ never loads code built for the other. One process builds at a time (a
 file lock), others wait and load its result. Without g++, or on a failed
 build, it raises. This module imports no torch: the host backend that
 loads the library (`crypto/native_backend.py`) serves torch-free callers.
+
+`consensus_library()` builds the native consensus engine
+(`consensus/native/consensus_rt.cpp`, the port's copy of the JAX
+package's) the same way: g++ with the reference Makefile's flags, a name
+keyed by the source, the flags, `g++ --version` and `-march=native`, a
+file lock of its own, the same directory. There is no prebuilt library and
+no override: the engine always comes from the checkout's source. Without
+g++, or on a failed build, it raises.
 
 Each lazy build runs under a lock of its own, so that two threads of one
 process (the node-start warmup of `crypto/warmup.py` and its caller) build
@@ -60,10 +69,18 @@ HOST_SOURCES = ("bls381.cpp", "secp256k1.cpp")
 HOST_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-fPIC", "-shared",
               "-std=c++17", "-pthread")
 
+CONSENSUS_SRC = _PKG / "consensus" / "native"
+CONSENSUS_SOURCES = ("consensus_rt.cpp",)
+# the flags of lachain_tpu/consensus/native/Makefile, warnings aside
+CONSENSUS_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-fPIC",
+                   "-shared", "-std=c++17")
+
 _LIB = None
 _HOST_LIB = None
+_CONSENSUS_LIB = None
 _LIB_LOCK = threading.Lock()
 _HOST_LIB_LOCK = threading.Lock()
+_CONSENSUS_LIB_LOCK = threading.Lock()
 # wall seconds of this process's nvcc run (None when the library came from
 # an earlier build)
 build_seconds = None
@@ -202,22 +219,42 @@ def _gxx() -> str:
     path = shutil.which("g++")
     if path is None:
         raise RuntimeError(
-            "g++ not found: the host pairing library builds only where a C++ "
+            "g++ not found: the host libraries build only where a C++ "
             "compiler is installed"
         )
     return path
 
 
-def _host_target(gxx: str) -> Path:
+def _gxx_target(gxx: str, prefix: str, src: Path, sources, flags) -> Path:
+    """BUILD_DIR / f"{prefix}_<hash>.so", the hash over the sources, the
+    flags, `g++ --version` and what `-march=native` resolves to."""
     h = hashlib.sha256()
-    for name in HOST_SOURCES:
+    for name in sources:
         h.update(name.encode())
-        h.update((HOST_SRC / name).read_bytes())
-    h.update(" ".join(HOST_FLAGS).encode())
+        h.update((src / name).read_bytes())
+    h.update(" ".join(flags).encode())
     for args in (["--version"], ["-march=native", "-Q", "--help=target"]):
         h.update(subprocess.run([gxx, *args], capture_output=True,
                                 check=True).stdout)
-    return BUILD_DIR / f"libhost_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{prefix}_{h.hexdigest()[:16]}.so"
+
+
+def _gxx_load(gxx: str, target: Path, lock_name: str, src: Path, sources,
+              flags):
+    """Build `target` from `sources` under a file lock unless it exists,
+    and load it."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / lock_name, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not target.exists():
+            _publish(target, lambda work: _run_all([[
+                gxx, *flags, "-o", str(work / "lib.so"),
+                *(str(src / s) for s in sources)]]))
+    return ctypes.CDLL(str(target))
+
+
+def _host_target(gxx: str) -> Path:
+    return _gxx_target(gxx, "libhost", HOST_SRC, HOST_SOURCES, HOST_FLAGS)
 
 
 def host_library():
@@ -226,16 +263,24 @@ def host_library():
     with _HOST_LIB_LOCK:
         if _HOST_LIB is None:
             gxx = _gxx()
-            target = _host_target(gxx)
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            with open(BUILD_DIR / "host.lock", "w") as lock:
-                fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-                if not target.exists():
-                    _publish(target, lambda work: _run_all([[
-                        gxx, *HOST_FLAGS, "-o", str(work / "lib.so"),
-                        *(str(HOST_SRC / s) for s in HOST_SOURCES)]]))
-            _HOST_LIB = ctypes.CDLL(str(target))
+            _HOST_LIB = _gxx_load(gxx, _host_target(gxx), "host.lock",
+                                  HOST_SRC, HOST_SOURCES, HOST_FLAGS)
     return _HOST_LIB
+
+
+def consensus_library():
+    """The loaded native consensus engine, built first if needed (its
+    binding: `consensus/native_rt.load_rt`)."""
+    global _CONSENSUS_LIB
+    with _CONSENSUS_LIB_LOCK:
+        if _CONSENSUS_LIB is None:
+            gxx = _gxx()
+            target = _gxx_target(gxx, "libconsensus", CONSENSUS_SRC,
+                                 CONSENSUS_SOURCES, CONSENSUS_FLAGS)
+            _CONSENSUS_LIB = _gxx_load(gxx, target, "consensus.lock",
+                                       CONSENSUS_SRC, CONSENSUS_SOURCES,
+                                       CONSENSUS_FLAGS)
+    return _CONSENSUS_LIB
 
 
 ATTR_KEYS = ("regs", "local_bytes", "threads_per_lane", "block")

@@ -1504,3 +1504,45 @@ def test_honey_badger_era_on_card_equals_plain_versions(card):
                    "secp_sqrt", "secp_table", "secp_msm_scan", "secp_add", "secp_mont"):
         assert launches[kernel] >= 1, launches
     assert not any(verify.ESCAPES.values())
+
+
+def test_native_honey_badger_era_on_card_equals_plain_versions(card):
+    """A HoneyBadger era at (7, 2) through the native consensus engine
+    (consensus/native_rt.NativeSimulatedNetwork, TAKE_RANDOM with
+    duplicates, both batchers) on the card and with device="cpu" (the
+    kernels' plain versions): equal results and delivered_count, every
+    slot its proposer's input, no per-message crossing; the card's run
+    launches the G1 era kernels and rs_matmul8."""
+    from lachain_tpu_torch.consensus import messages as M
+    from lachain_tpu_torch.consensus.keys import trusted_key_gen
+    from lachain_tpu_torch.consensus.native_rt import NativeSimulatedNetwork
+    from lachain_tpu_torch.consensus.simulator import DeliveryMode
+    from lachain_tpu_torch.consensus.simulator import SeededRng as NetRng
+
+    pub, privs = trusted_key_gen(7, 2, NetRng(0x7002))
+    inputs = [b"native|%d|" % i + bytes(48) for i in range(7)]
+    pid = M.HoneyBadgerId(era=0)
+    outs = []
+    verify.reset_escapes()
+    for device in (card, "cpu"):
+        g1.reset_launches()
+        rs_batch.reset_launches()
+        net = NativeSimulatedNetwork(pub, privs, seed=19, mode=DeliveryMode.TAKE_RANDOM,
+                                     repeat_probability=0.05, use_rbc_batcher=True,
+                                     device=device)
+        for i, value in enumerate(inputs):
+            net.post_request(i, pid, value)
+        assert net.run(lambda: all(r.result_of(pid) is not None for r in net.routers))
+        results = net.results(pid)
+        assert all(pt == inputs[j] for j, pt in results[0].items()) and len(results[0]) >= 5
+        c = net.crossings
+        assert c["opaque_message"] == c["acs_result"] == c["coin_request"] == 0
+        if device is card:
+            for kernel in ("g1_table", "g1_msm_scan", "g1_add", "g1_mont"):
+                assert g1.LAUNCHES[kernel] >= 1, g1.LAUNCHES
+            assert rs_batch.LAUNCHES["rs_matmul8"] >= 1
+        outs.append((results, net.delivered_count, net.crypto_batcher.flushes,
+                     net.rbc_batcher.flushes))
+        net.close()
+    assert outs[0] == outs[1]
+    assert not any(verify.ESCAPES.values())

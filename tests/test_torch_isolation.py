@@ -18,6 +18,10 @@
   `hashes.keccak256_batch`, `hashes.keccak256_host` and the native ECDSA
   entries (`ecdsa.sign_hash`, `verify_hash`, `recover_hash`,
   `public_key_bytes`), which have no pure-Python fallback.
+* The native consensus engine is the port's own build too: it loads from
+  `lachain_tpu_torch/_build/`, without g++ or on a failed build
+  `consensus_library()` raises, and `NativeSimulatedNetwork()` built for
+  the card (the default) raises without one; `root_profile` exits 2.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 
 from lachain_tpu_torch.consensus.era import EraRouter
 from lachain_tpu_torch.consensus.keys import trusted_key_gen
+from lachain_tpu_torch.consensus.native_rt import NativeSimulatedNetwork
 from lachain_tpu_torch.consensus.rbc_batcher import RbcEraBatcher
 from lachain_tpu_torch.consensus.simulator import SeededRng, SimulatedNetwork
 from lachain_tpu_torch.crypto import ecdsa, hashes
@@ -67,7 +72,8 @@ new = {"lachain_tpu_torch.consensus.rbc_batcher", "lachain_tpu_torch.ops.rs",
 new |= {f"lachain_tpu_torch.consensus.{m}" for m in (
     "messages", "protocol", "keys", "binary_broadcast", "binary_agreement",
     "common_coin", "common_subset", "reliable_broadcast", "honey_badger",
-    "evidence", "journal", "era", "simulator", "root_protocol")}
+    "evidence", "journal", "era", "simulator", "root_protocol", "native_rt",
+    "native_hosts")}
 new |= {"lachain_tpu_torch.crypto.vrf", "lachain_tpu_torch.crypto._aes_fallback",
         "lachain_tpu_torch.core", "lachain_tpu_torch.core.types",
         "lachain_tpu_torch.core.block_producer"}
@@ -82,7 +88,7 @@ def test_port_imports_nothing_of_jax():
         text=True, check=True, timeout=120,
     ).stdout.split("\n")[0]
     count, bad = out.split(" ", 1)
-    assert int(count) >= 50  # every module of the package was imported
+    assert int(count) >= 52  # every module of the package was imported
     assert bad == "[]"
 
 
@@ -96,6 +102,7 @@ import lachain_tpu_torch.crypto.vrf
 import lachain_tpu_torch.core.types
 import lachain_tpu_torch.core.block_producer
 import lachain_tpu_torch.consensus.root_protocol
+import lachain_tpu_torch.consensus.native_hosts
 print(sorted(m for m in sys.modules if m == "torch"
              or m.startswith("lachain_tpu_torch.ops")))
 """
@@ -186,6 +193,10 @@ def test_consensus_on_the_card_without_card_raises():
         SimulatedNetwork(pub, privs, device="cuda", use_rbc_batcher=True)
     with pytest.raises(RuntimeError):
         EraRouter(0, 0, pub, privs[0], lambda _t, _p: None, SeededRng(2))
+    with pytest.raises(RuntimeError):
+        NativeSimulatedNetwork(pub, privs)
+    with pytest.raises(RuntimeError):
+        NativeSimulatedNetwork(pub, privs, device="cuda", use_rbc_batcher=True)
     net = SimulatedNetwork(pub, privs, device="cpu")  # the plain versions
     assert net.backend.device.type == "cpu"
 
@@ -277,4 +288,65 @@ def test_host_build_failure_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="build failed"):
         _build.host_library()
     assert _build._HOST_LIB is None
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+_ENGINE_ONLY = """
+import sys
+from lachain_tpu_torch.consensus.native_rt import load_rt
+lib = load_rt()
+print(sorted(m for m in sys.modules if m == "torch" or m.startswith("torch.")
+             or m == "jax" or m == "lachain_tpu" or m.startswith("lachain_tpu.")))
+print(lib._name)
+"""
+
+
+def test_consensus_engine_is_the_ports_own_build():
+    """The native consensus engine loads from the port's build directory
+    (never the JAX package's libconsensus_rt.so), and neither it nor its
+    binding imports torch, JAX or the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _ENGINE_ONLY], cwd=_ROOT, capture_output=True,
+        text=True, check=True, timeout=300,
+    ).stdout.split("\n")
+    assert out[0] == "[]"
+    path = os.path.realpath(out[1])
+    build_dir = os.path.realpath(os.path.join(_ROOT, "lachain_tpu_torch", "_build"))
+    assert os.path.dirname(path) == build_dir
+    assert os.path.basename(path).startswith("libconsensus_")
+
+
+def test_root_profile_without_card_exits_2():
+    """The native era's profiling tool measures on the card only: without
+    one it exits 2 and profiles nothing."""
+    _require_no_card()
+    run = subprocess.run(
+        [sys.executable, "-m", "lachain_tpu_torch.root_profile"], cwd=_ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert run.returncode == 2 and "no CUDA device" in run.stderr
+    assert "profiled era" not in run.stdout
+
+
+def test_consensus_build_without_gxx_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "_CONSENSUS_LIB", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        _build.consensus_library()
+    assert not list(tmp_path.iterdir())  # nothing was built
+
+
+def test_consensus_build_failure_raises(monkeypatch, tmp_path):
+    """A compiler that fails raises with its output; nothing is loaded."""
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in _build.CONSENSUS_SOURCES:
+        (src / name).write_text("this is not C++\n")
+    monkeypatch.setattr(_build, "_CONSENSUS_LIB", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "CONSENSUS_SRC", src)
+    with pytest.raises(RuntimeError, match="build failed"):
+        _build.consensus_library()
+    assert _build._CONSENSUS_LIB is None
     assert not list((tmp_path / "build").glob("*.so"))
