@@ -61,7 +61,7 @@ Phases, each of which must pass (any failure exits non-zero):
              backend)) is started and joined: the fully masked TPKE era
              at each slot tier, largest first, and one coin era, on a
              GpuBackend of its own; it must end with no error;
-  4. main    fifteen paths (seventeen where more than one card is visible),
+  4. main    nineteen paths (twenty-one where more than one card is visible),
              each with the kernel launch counts set to 0 just before its
              counted calls and read just after; the paths before the mesh
              paths run on one card however many are visible:
@@ -186,7 +186,33 @@ Phases, each of which must pass (any failure exits non-zero):
              its RootProtocol) kept in Python and malicious through
              `_extra_factories`, card against device="cpu", with the same
              checks (its CPU run is ~2.5 min: one flush of 31 distinct
-             slots on the plain kernels).
+             slots on the plain kernels);
+             the same eras under faults and malicious validators
+             (network/faults.py, consensus/adversary.py):
+             root_era_adversary_native_64, root_era_native_64's era with
+             f = 21 equivocating validators (1, 4, ..., 61; installed
+             before the first request, their coin, HoneyBadger and Root in
+             Python), traced whole: one block at every honest router
+             (root_era_64's checks), every honest router convicting
+             exactly the 21 of equivocation ("dec" for each, only "dec"
+             and "coin" slots, no invalid_share), hb_acs and root_produce
+             43, opaque crossings > 0, traced launches equal to the
+             counted ones; root_era_adversary_64, the same era and plan on
+             the Python engine: the native era's block hash and record
+             sets; chaos_era_16_check, the N=16 era (TAKE_FIRST) under
+             FaultPlan(seed=7, drop 0.10, duplicate 0.05, delay 0.05,
+             reorder 0.05, router 3 down over CHAOS_CRASH, {0,1,2,3} |
+             {12,...,15} over CHAOS_PARTITION) on the Python engine, on
+             the card and with device="cpu" (the era on the host
+             pipeline): every router's block, every fault fired, outbox
+             replay rounds > 0, both legs equal (blocks, messages, fault
+             tally, recovery rounds, flushes, no evidence); and
+             chaos_era_native_16_check, the native engine under what it
+             can express (duplicate 0.05, reorder 0.5 -> TAKE_RANDOM,
+             router 15 crashed for good -> muted) with validators 1 and 2
+             spamming 2,600 junk coin slots each: every live router's
+             block, no evidence, both legs equal, and a plan with drops
+             refused by name.
              Around each counted call and the MSMs, no result may have been
              recomputed on the host (ops/verify.ESCAPES), and each path
              must launch its kernels;
@@ -214,7 +240,9 @@ Without a CUDA device it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import logging
 import random
 import re
 import subprocess
@@ -2510,6 +2538,12 @@ ROOT_STATE_HASH = b"\x5a" * 32
 # transfers a validator at the N=16 check: its plain run recovers the
 # block's senders on the host's plain kernels, ~70 ms a signature
 ROOT_CHECK_TXS = 8
+# the N=16 chaos era's schedule, in delivered messages: the unfaulted era
+# (TAKE_FIRST, ROOT_CHECK_TXS transfers a validator) delivers 45,743, so
+# router 3 is down from ~10% to ~40% of it and {0,1,2,3} | {12,...,15}
+# split from ~5% to ~30%
+CHAOS_CRASH = (4_500, 18_000)
+CHAOS_PARTITION = (2_300, 13_700)
 
 
 def root_transfers(n: int, per: int, rng: random.Random):
@@ -2802,15 +2836,38 @@ def run_root_era_path(seed: int, dev, ref=None):
     return launches, [dict(wall_s=wall, **secs)]
 
 
-def native_root_net(pub, privs, proposals, device, parent: bytes, seed: int, mode):
+def trace_era(label: str, era, out: dict, dev, tries: int = 3):
+    """profile_device(era), traced whole after two tiny warm-up steps, and
+    again (at most `tries` traces) while the trace lost device activities;
+    era() leaves its counted launches in out["launches"] -> (by_kernel,
+    the counted launches)."""
+    import torch
+
+    def warm():
+        torch.arange(1 << 12, device=dev).sum().item()
+
+    for i in range(tries):
+        by_kernel = profile_device(era, warm=warm)
+        counted = {k: v for k, v in out["launches"].items() if v}
+        traced = {k: by_kernel.get(KERNEL_OF[k], [0, 0])[1] for k in counted}
+        if traced == counted:
+            break
+        log(f"{label}: the trace lost device activities (trace {i + 1} of {tries}): "
+            f"{traced} != {counted}")
+    return by_kernel, counted
+
+
+def native_root_net(pub, privs, proposals, device, parent: bytes, seed: int, mode,
+                    **kw):
     """The root era on consensus/native_rt.NativeSimulatedNetwork (both
-    batchers) on `device`, every validator's RootProtocol hosted natively
-    through set_root_context over its RootProducer -> (net, producers)."""
+    batchers; `kw` its other arguments) on `device`, every validator's
+    RootProtocol hosted natively through set_root_context over its
+    RootProducer -> (net, producers)."""
     from lachain_tpu_torch.consensus.native_rt import NativeSimulatedNetwork
 
     producers = [RootProducer(txs, device, parent) for txs in proposals]
     net = NativeSimulatedNetwork(pub, privs, seed=seed, mode=mode, use_rbc_batcher=True,
-                                 device=device)
+                                 device=device, **kw)
     for i, producer in enumerate(producers):
         net.set_root_context(i, producer, privs[i].ecdsa_priv, pub.ecdsa_pub_keys)
     return net, producers
@@ -2840,8 +2897,6 @@ def run_root_native_path(seed: int, dev, ref=None):
     natively handled messages, the crossings, each batcher's flushes and
     summed phases, the coins' seconds, the header round, the block
     recovery and the busy share."""
-    import torch
-
     from lachain_tpu_torch.consensus.keys import trusted_key_gen
     from lachain_tpu_torch.consensus.simulator import DeliveryMode
     from lachain_tpu_torch.crypto import ecdsa
@@ -2862,19 +2917,8 @@ def run_root_native_path(seed: int, dev, ref=None):
         out["launches"] = read_launches()
         out["net"], out["producers"] = net, producers
 
-    def warm():
-        torch.arange(1 << 12, device=dev).sum().item()
-
-    for i in range(3):  # the trace may lose device activities (profile_launches)
-        by_kernel = profile_device(era, warm=warm)
-        launches = out["launches"]
-        counted = {k: v for k, v in launches.items() if v}
-        traced = {k: by_kernel.get(KERNEL_OF[k], [0, 0])[1] for k in counted}
-        if traced == counted:
-            break
-        log(f"{label}: the trace lost device activities (trace {i + 1} of 3): "
-            f"{traced} != {counted}")
-    net, wall, blocks = out["net"], out["wall"], out["blocks"]
+    by_kernel, counted = trace_era(label, era, out, dev)
+    net, wall, blocks, launches = out["net"], out["wall"], out["blocks"], out["launches"]
     check_no_escapes(label)
     check_root_blocks(label, net, blocks, list(range(HB_N)), proposals, signer, pub,
                       HB_N, HB_F)
@@ -2936,7 +2980,7 @@ def run_root_native_check_path(seed: int, dev):
         net.routers[0]._extra_factories = {M.HoneyBadgerId: malicious_honey_badger}
         wall, blocks = root_run(net, live)
         if launches is None:
-            launches = read_launches()
+            launches, card_wall = read_launches(), wall
             check_no_escapes(label)
         check_root_blocks(f"{label} on {device}", net, blocks, live, proposals, signer,
                           pub, n, f)
@@ -2960,7 +3004,7 @@ def run_root_native_check_path(seed: int, dev):
     check(outcomes[0] == outcomes[1], f"{label}: the card's era differs from the plain one")
     log(f"{label}: the card's era equals the plain versions' (blocks, messages, "
         f"flushes, evidence)")
-    return launches, [{"wall_s": wall}]
+    return launches, [{"wall_s": card_wall}]
 
 
 def run_root_check_path(seed: int, dev):
@@ -2993,7 +3037,7 @@ def run_root_check_path(seed: int, dev):
                                          router_cls=bad_router)
         wall, blocks = root_run(net, live)
         if launches is None:
-            launches = read_launches()
+            launches, card_wall = read_launches(), wall
             check_no_escapes(label)
         check_root_blocks(f"{label} on {device}", net, blocks, live, proposals, signer,
                           pub, n, f)
@@ -3012,7 +3056,316 @@ def run_root_check_path(seed: int, dev):
     check(outcomes[0] == outcomes[1], f"{label}: the card's era differs from the plain one")
     log(f"{label}: the card's era equals the plain versions' (blocks, messages, "
         f"flushes, evidence)")
-    return launches, [{"wall_s": wall}]
+    return launches, [{"wall_s": card_wall}]
+
+
+def adversary_era_inputs(seed: int):
+    """root_era_64's keys, proposals and parent, and f = 21 equivocating
+    validators (every third from 1) -> (pub, privs, proposals, signer,
+    parent, plan, honest)."""
+    from lachain_tpu_torch.consensus.adversary import AdversaryPlan
+    from lachain_tpu_torch.consensus.keys import trusted_key_gen
+
+    pub, privs = trusted_key_gen(HB_N, HB_F, SeededRng(seed + 640))
+    rng = random.Random(seed + 641)
+    proposals, signer = root_transfers(HB_N, -(-BLOCK_TXS // HB_N), rng)
+    parent = rng.randbytes(32)
+    plan = AdversaryPlan("equivocate", traitors=tuple(range(1, HB_N, 3)), seed=seed)
+    honest = [i for i in range(HB_N) if i not in plan.traitors]
+    return pub, privs, proposals, signer, parent, plan, honest
+
+
+def check_equivocation_verdict(label: str, net, honest, traitors) -> list:
+    """Every honest router convicts exactly the traitors, of equivocation
+    only, each traitor in "dec", in no slot but "dec" and "coin"; no
+    invalid_share (the variants were latched away before any combine) ->
+    the honest routers' record sets."""
+    evidence = [net.routers[i].evidence.record_set() for i in honest]
+    for i, recs in zip(honest, evidence):
+        check({r.offender for r in recs} == set(traitors)
+              and {r.kind for r in recs} == {"equivocation"}
+              and {r.proto for r in recs} <= {"dec", "coin"}
+              and {r.offender for r in recs if r.proto == "dec"} == set(traitors),
+              f"{label}: router {i}'s evidence is not the traitors' equivocations: "
+              f"{net.routers[i].evidence.counts()}, offenders "
+              f"{sorted({r.offender for r in recs})}, protos {sorted({r.proto for r in recs})}")
+    return evidence
+
+
+@contextlib.contextmanager
+def quiet_era_log():
+    """The era router logs a warning a detected equivocation (~60k in the
+    N=64 adversary era); those are dropped and their evidence counts
+    printed instead. Every other record of the era's logger still shows."""
+    logger = logging.getLogger("lachain_tpu_torch.consensus.era")
+
+    def keep(record) -> bool:
+        return not str(record.msg).startswith("equivocation from")
+
+    logger.addFilter(keep)
+    try:
+        yield
+    finally:
+        logger.removeFilter(keep)
+
+
+def evidence_line(net, honest) -> str:
+    counts = [net.routers[i].evidence.counts() for i in honest]
+    protos: dict = {}
+    for i in honest:
+        for r in net.routers[i].evidence.records():
+            protos[r.proto] = protos.get(r.proto, 0) + 1
+    return (f"{sum(c['equivocation'] for c in counts)} equivocation and "
+            f"{sum(c['invalid_share'] for c in counts)} invalid_share records over the "
+            f"{len(honest)} honest routers ({len(net.routers[honest[0]].evidence)} at each; "
+            f"by slot {protos})")
+
+
+def run_root_adversary_native_path(seed: int, dev, ref=None):
+    """root_era_64's era (keys, proposals, parent and seed; N=64, f=21,
+    TAKE_FIRST, both batchers) through the native engine on the card with
+    f = 21 equivocating validators (consensus/adversary.py, installed after
+    the network is built and before the first request: the traitors'
+    coin, HoneyBadger and Root run in Python, their messages crossing the
+    engine as opaque payloads), RootProtocol native at the 43 honest
+    validators (set_root_context at all 64), traced whole by torch.profiler:
+    every honest router makes one block (root_era_64's checks); every
+    honest router convicts exactly the 21 traitors of equivocation ("dec"
+    for each, no slot but "dec" and "coin", no invalid_share); hb_acs and
+    root_produce equal the 43 honest routers, opaque crossings > 0; traced
+    launches equal to the counted ones. `ref`, a dict, gets the block
+    hash, the messages and the honest routers' record sets, which the
+    Python engine's era must equal. Printed: wall, messages a second,
+    natively handled messages, crossings, the batchers, coins, the header
+    round, the evidence counts, the busy share."""
+    from lachain_tpu_torch.consensus import adversary
+    from lachain_tpu_torch.consensus.simulator import DeliveryMode
+
+    label = f"adversary native root era N={HB_N}"
+    pub, privs, proposals, signer, parent, plan, honest = adversary_era_inputs(seed)
+    check(len(plan.traitors) == HB_F, f"{label}: {len(plan.traitors)} traitors, not f")
+    out = {}
+
+    def era():
+        clear_block_memos()
+        reset_counts()
+        net, producers = native_root_net(pub, privs, proposals, dev, parent, seed,
+                                         DeliveryMode.TAKE_FIRST)
+        adversary.install(plan, net)
+        with quiet_era_log():
+            out["wall"], out["blocks"] = root_run(net, honest)
+        out["launches"] = read_launches()
+        out["net"], out["producers"] = net, producers
+
+    by_kernel, counted = trace_era(label, era, out, dev)
+    net, wall, blocks, launches = out["net"], out["wall"], out["blocks"], out["launches"]
+    check_no_escapes(label)
+    check_root_blocks(label, net, blocks, honest, proposals, signer, pub, HB_N, HB_F)
+    evidence = check_equivocation_verdict(label, net, honest, plan.traitors)
+    c = net.crossings
+    check(c["hb_acs"] == c["root_produce"] == len(honest) and c["opaque_message"] > 0,
+          f"{label}: hb_acs / root_produce != {len(honest)} or no opaque crossing: {c}")
+    check(net.native_handled() > 0, f"{label}: the engine handled no message natively")
+    check_traced(label, by_kernel, launches, counted)
+    h = blocks[0].header.hash()
+    if ref is not None:
+        ref.update(hash=h, delivered=net.delivered_count, evidence=evidence, wall=wall)
+    busy = sum(v[0] for v in by_kernel.values())
+    secs = root_seconds(net, out["producers"])
+    log(f"{label}: every honest router made block {h.hex()[:16]} "
+        f"({len(blocks[0].tx_hashes)} transfers, {len(blocks[0].multisig.signatures)} "
+        f"signatures); wall {wall:.3f} s, {net.delivered_count} messages "
+        f"({net.delivered_count / wall:.0f} a second), {net.native_handled()} handled "
+        f"natively; coin combines {net.coin_s:.3f} s on the host")
+    log(f"{label}: crossings {c}")
+    log(f"{label}: evidence {evidence_line(net, honest)}")
+    log(f"{label}: header round sign {secs['sign_s']:.3f} s, verify {secs['verify_s']:.3f} s "
+        f"(summed over the native routers); block recovery {secs['recover_s']:.3f} s")
+    batcher_lines(label, net)
+    log(f"{label} by kernel (torch.profiler, ms, launches): {by_kernel}; busy "
+        f"{busy:.3f} ms of the {wall * 1e3:.1f} ms wall: busy share {busy / (wall * 1e3):.6f}")
+    net.close()
+    return launches, [dict(wall_s=wall, **secs)]
+
+
+def run_root_adversary_path(seed: int, dev, ref):
+    """root_era_adversary_native_64's era and plan on the Python engine
+    (consensus/simulator.SimulatedNetwork, RootProtocol through
+    extra_factories): root_era_64's checks at every honest router, the same
+    verdict, and the native era's block hash and record sets (`ref`); its
+    delivered_count is printed beside the native one's."""
+    from lachain_tpu_torch.consensus import adversary
+    from lachain_tpu_torch.consensus.simulator import DeliveryMode, SimulatedNetwork
+
+    label = f"adversary root era N={HB_N}"
+    pub, privs, proposals, signer, parent, plan, honest = adversary_era_inputs(seed)
+    clear_block_memos()
+    reset_counts()
+    factories, producers = root_factories(pub, privs, proposals, dev, parent)
+    net = SimulatedNetwork(pub, privs, seed=seed, mode=DeliveryMode.TAKE_FIRST,
+                           use_rbc_batcher=True, device=dev, extra_factories=factories)
+    adversary.install(plan, net)
+    with quiet_era_log():
+        wall, blocks = root_run(net, honest)
+    launches = read_launches()
+    check_no_escapes(label)
+    check_root_blocks(label, net, blocks, honest, proposals, signer, pub, HB_N, HB_F)
+    evidence = check_equivocation_verdict(label, net, honest, plan.traitors)
+    h = blocks[0].header.hash()
+    check(h == ref["hash"], f"{label}: block {h.hex()[:16]}, the native engine's "
+          f"{ref['hash'].hex()[:16]}")
+    check(evidence == ref["evidence"], f"{label}: the honest routers' evidence differs "
+          f"from the native engine's")
+    secs = root_seconds(net, producers)
+    log(f"{label}: every honest router made the native era's block {h.hex()[:16]} with its "
+        f"evidence; wall {wall:.3f} s (native {ref['wall']:.3f}), {net.delivered_count} "
+        f"messages (native {ref['delivered']}; {net.delivered_count / wall:.0f} a second); "
+        f"coin combines {net.coin_s:.3f} s")
+    log(f"{label}: evidence {evidence_line(net, honest)}; latch sheds "
+        f"{sum(net.routers[i].shed['latch_cap'] for i in honest)}")
+    batcher_lines(label, net)
+    return launches, [dict(wall_s=wall, **secs)]
+
+
+def chaos_backend(device):
+    """The backend of a chaos check's leg: the card's default, or on the
+    CPU the era on the host pipeline over the native host library (the
+    kernels' plain versions are held in phase 2 already)."""
+    if device == "cpu":
+        from lachain_tpu_torch.crypto.gpu_backend import GpuBackend
+        from lachain_tpu_torch.crypto.native_backend import NativeBackend
+        from lachain_tpu_torch.ops.verify import HostEraPipeline
+
+        host = NativeBackend()
+        return GpuBackend(device="cpu", host_backend=host, pipeline=HostEraPipeline(host))
+    return None
+
+
+def chaos_era_inputs(seed: int):
+    """The N=16 chaos eras' keys, proposals and parent -> (pub, privs,
+    proposals, signer, parent)."""
+    from lachain_tpu_torch.consensus.keys import trusted_key_gen
+
+    pub, privs = trusted_key_gen(HB_CHECK_N, HB_CHECK_F, SeededRng(seed + 170))
+    rng = random.Random(seed + 171)
+    proposals, signer = root_transfers(HB_CHECK_N, ROOT_CHECK_TXS, rng)
+    return pub, privs, proposals, signer, rng.randbytes(32)
+
+
+def run_chaos_check_path(seed: int, dev):
+    """The N=16, f=5 root era (TAKE_FIRST, both batchers, ROOT_CHECK_TXS
+    transfers a validator) on the Python engine under the full fault plan:
+    10% drops, 5% duplicates, 5% delays, 5% reorders, router 3 down over
+    CHAOS_CRASH and {0,1,2,3} | {12,...,15} split over CHAOS_PARTITION;
+    once on the card and once with device="cpu" (the era on the host
+    pipeline, the block's senders on the plain kernels), each recovering
+    its senders afresh: every router, router 3 included, makes the same
+    block; every fault fired; outbox replay recovered the era; card and
+    CPU equal in blocks, messages, fault tally, recovery rounds, flushes
+    and evidence (none)."""
+    from lachain_tpu_torch.consensus.simulator import DeliveryMode, SimulatedNetwork
+    from lachain_tpu_torch.network.faults import Crash, FaultPlan, Partition
+
+    label = f"chaos era check N={HB_CHECK_N}"
+    n, f = HB_CHECK_N, HB_CHECK_F
+    pub, privs, proposals, signer, parent = chaos_era_inputs(seed)
+    plan = FaultPlan(seed=7, drop=0.10, duplicate=0.05, delay=0.05, reorder=0.05,
+                     crashes=(Crash(3, *CHAOS_CRASH),),
+                     partitions=(Partition(frozenset(range(4)), frozenset(range(12, 16)),
+                                           *CHAOS_PARTITION),))
+    outcomes, launches = [], None
+    for device in (dev, "cpu"):
+        clear_block_memos()
+        reset_counts()
+        factories, producers = root_factories(pub, privs, proposals, device, parent)
+        net = SimulatedNetwork(pub, privs, seed=seed, mode=DeliveryMode.TAKE_FIRST,
+                               use_rbc_batcher=True, device=device,
+                               backend=chaos_backend(device), extra_factories=factories,
+                               fault_plan=plan)
+        wall, blocks = root_run(net, list(range(n)))
+        if launches is None:
+            launches, card_wall = read_launches(), wall
+            check_no_escapes(label)
+        check_root_blocks(f"{label} on {device}", net, blocks, list(range(n)), proposals,
+                          signer, pub, n, f)
+        stats = dict(net.faults.stats)
+        check(all(stats[k] > 0 for k in ("dropped", "duplicated", "delayed", "reordered",
+                                         "blocked")),
+              f"{label} on {device}: a fault never fired: {stats}")
+        check(net.recovery_rounds > 0, f"{label} on {device}: no recovery round")
+        evidence = [net.routers[i].evidence.snapshot() for i in range(n)]
+        check(not any(evidence), f"{label} on {device}: evidence {evidence}")
+        outcomes.append(([b.encode() for b in blocks], net.delivered_count, stats,
+                         net.recovery_rounds, net.crypto_batcher.flushes,
+                         net.rbc_batcher.flushes, evidence))
+        log(f"{label} on {device}: block of {len(blocks[0].tx_hashes)} transfers at all "
+            f"{n} routers, wall {wall:.3f} s, {net.delivered_count} messages, "
+            f"{net.recovery_rounds} recovery rounds, faults {stats}; block recovery "
+            f"{root_seconds(net, producers)['recover_s']:.3f} s")
+        batcher_lines(f"{label} on {device}", net)
+    check(outcomes[0] == outcomes[1], f"{label}: the card's era differs from the CPU's")
+    log(f"{label}: the card's era equals the CPU's (blocks, messages, faults, recovery "
+        f"rounds, flushes, evidence)")
+    return launches, [{"wall_s": card_wall}]
+
+
+def run_chaos_native_check_path(seed: int, dev):
+    """The N=16 chaos era's keys and proposals through the native engine
+    under what it can express, FaultPlan(seed=3, duplicate=0.05,
+    reorder=0.5, crashes=(Crash(15, 0),)) (TAKE_RANDOM, router 15 muted,
+    the engine seeded with seed ^ 6), with validators 1 and 2 spamming
+    2,600 junk coin slots each (3 faulty validators, within f = 5); once
+    on the card and once with device="cpu" (as run_chaos_check_path):
+    every live router makes one block, no evidence, card and CPU equal in
+    blocks, messages and evidence; a plan with drops is refused by
+    name."""
+    from lachain_tpu_torch.consensus import adversary
+    from lachain_tpu_torch.consensus.native_rt import NativeSimulatedNetwork
+    from lachain_tpu_torch.consensus.simulator import DeliveryMode
+    from lachain_tpu_torch.network.faults import Crash, FaultPlan
+
+    label = f"chaos native era check N={HB_CHECK_N}"
+    n, f = HB_CHECK_N, HB_CHECK_F
+    pub, privs, proposals, signer, parent = chaos_era_inputs(seed)
+    plan = FaultPlan(seed=3, duplicate=0.05, reorder=0.5, crashes=(Crash(15, 0),))
+    spam = adversary.AdversaryPlan("spam", traitors=(1, 2), seed=seed)
+    live = list(range(n - 1))
+    honest = [i for i in live if i not in spam.traitors]
+    outcomes, launches = [], None
+    for device in (dev, "cpu"):
+        clear_block_memos()
+        reset_counts()
+        net, producers = native_root_net(pub, privs, proposals, device, parent, seed,
+                                         DeliveryMode.TAKE_FIRST,
+                                         backend=chaos_backend(device), fault_plan=plan)
+        check(net.mode is DeliveryMode.TAKE_RANDOM and net.muted == {15},
+              f"{label}: the plan mapped to {net.mode}, muted {net.muted}")
+        adversary.install(spam, net)
+        wall, blocks = root_run(net, live)
+        if launches is None:
+            launches, card_wall = read_launches(), wall
+            check_no_escapes(label)
+        check_root_blocks(f"{label} on {device}", net, blocks, live, proposals, signer,
+                          pub, n, f)
+        evidence = [net.routers[i].evidence.snapshot() for i in honest]
+        check(not any(evidence), f"{label} on {device}: evidence {evidence}")
+        outcomes.append(([b.encode() for b in blocks], net.delivered_count, evidence))
+        log(f"{label} on {device}: block of {len(blocks[0].tx_hashes)} transfers at the "
+            f"{len(live)} live routers ({len(honest)} honest), wall {wall:.3f} s, "
+            f"{net.delivered_count} messages, {net.native_handled()} handled natively; "
+            f"crossings {net.crossings}; block recovery "
+            f"{root_seconds(net, producers)['recover_s']:.3f} s")
+        batcher_lines(f"{label} on {device}", net)
+        net.close()
+    check(outcomes[0] == outcomes[1], f"{label}: the card's era differs from the CPU's")
+    try:
+        NativeSimulatedNetwork(pub, privs, device=dev, fault_plan=FaultPlan(drop=0.1))
+        check(False, f"{label}: a plan with drops was not refused")
+    except ValueError as exc:
+        check("drop" in str(exc), f"{label}: the refusal does not name drop: {exc}")
+    log(f"{label}: the card's era equals the CPU's (blocks, messages, evidence); a plan "
+        f"with drops is refused")
+    return launches, [{"wall_s": card_wall}]
 
 
 def main() -> int:
@@ -3076,6 +3429,13 @@ def main() -> int:
              ("root_era_16_check", lambda: run_root_check_path(args.seed, dev)),
              ("root_era_native_64", lambda: run_root_native_path(args.seed, dev, root_ref)),
              ("root_era_native_16_check", lambda: run_root_native_check_path(args.seed, dev))]
+    adversary_ref = {}  # the native adversary era's block and evidence, which the Python one's must equal
+    runs += [("root_era_adversary_native_64",
+              lambda: run_root_adversary_native_path(args.seed, dev, adversary_ref)),
+             ("root_era_adversary_64", lambda: run_root_adversary_path(args.seed, dev,
+                                                                       adversary_ref)),
+             ("chaos_era_16_check", lambda: run_chaos_check_path(args.seed, dev)),
+             ("chaos_era_native_16_check", lambda: run_chaos_native_check_path(args.seed, dev))]
     if torch.cuda.device_count() > 1:  # a mesh over distinct cards
         cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         runs += [("mesh_era_cards", lambda: run_mesh_path(args.seed, backend, dev, era,
@@ -3103,6 +3463,9 @@ def main() -> int:
         "root_era_16_check": g1_path + ("rs_matmul8",) + secp_path,
         "root_era_native_64": g1_path + ("rs_matmul8",) + secp_path,
         "root_era_native_16_check": g1_path + ("rs_matmul8",) + secp_path,
+        **{p: g1_path + ("rs_matmul8",) + secp_path for p in (
+            "root_era_adversary_native_64", "root_era_adversary_64", "chaos_era_16_check",
+            "chaos_era_native_16_check")},
     }
     for path, (launches, warm) in paths.items():
         missing = [k for k in needs[path] if launches[k] == 0]

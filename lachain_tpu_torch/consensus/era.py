@@ -24,9 +24,11 @@ its protocols use (a GpuBackend on `device` unless one is given: on the
 card by default, and without a card that raises), its random generator
 `rng` (the TPKE encryption and the host RLC weights) and `memo`
 (provider.CryptoMemo, shared by the simulator's routers); the coin's
-combine seconds add up in `coin_s`. Not ported: the durable send journal
-(`_durable_send`, `rearm_sent`), the pipelined-era window (`open_era`,
-`commit_era_gc`), the native engine, metrics and tracing.
+combine seconds add up in `coin_s`, and the messages the per-sender caps
+shed in the plain attribute `shed` (`latch_cap`, `postponed_cap`: what the
+reference counts under `consensus_msgs_shed_total`). Not ported: the
+durable send journal (`_durable_send`, `rearm_sent`), the pipelined-era
+window (`open_era`, `commit_era_gc`), metrics and tracing.
 """
 from __future__ import annotations
 
@@ -83,6 +85,8 @@ class EraRouter(Broadcaster):
         self.crypto_batcher = None
         self.rbc_batcher = None
         self.coin_s = 0.0
+        # messages dropped by the per-sender caps, by cap
+        self.shed = {"latch_cap": 0, "postponed_cap": 0}
         self._protocols: Dict[Any, Protocol] = {}
         self._extra_factories = extra_factories or {}
         self.terminated = False
@@ -193,6 +197,10 @@ class EraRouter(Broadcaster):
                 if cnt < self._postponed_sender_cap:
                     self._postponed_per_sender[sender] = cnt + 1
                     self._postponed.append((sender, payload))
+                else:
+                    # the sender's buffer is full: its traffic sheds, the
+                    # other senders' buffers are unaffected
+                    self.shed["postponed_cap"] += 1
             return
         if not self._validate_id(pid):
             logger.warning("invalid protocol id %s from %d", pid, sender)
@@ -216,6 +224,7 @@ class EraRouter(Broadcaster):
         if prev is None:
             cnt = self._first_seen_per_sender.get(sender, 0)
             if cnt >= self.first_seen_sender_cap:
+                self.shed["latch_cap"] += 1
                 return False
             self._first_seen_per_sender[sender] = cnt + 1
             self._first_seen[key] = payload

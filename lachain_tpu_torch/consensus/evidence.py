@@ -9,13 +9,14 @@ detection families feed it:
     at a combine: TPKE decryption shares (honey_badger.py) and coin
     signature shares (common_coin.py, ThresholdSigner.pruned).
 Records are deduplicated, so re-detection cannot grow the store, which is
-bounded by `cap`. The reference's KV persistence, metrics and per-era
-counters are not carried over.
+bounded by `cap`. The reference's KV persistence waits for the journal
+and storage (ROADMAP A item 10); its metrics and the module-level per-era
+counters (`era_counts`) wait for the node's metrics (item 13).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 EQUIVOCATION = "equivocation"
 INVALID_SHARE = "invalid_share"
@@ -112,11 +113,25 @@ class EvidenceStore:
         )
 
     # -- queries --------------------------------------------------------------
+    def __len__(self) -> int:
+        return len(self._ordered)
+
     def records(self, era: Optional[int] = None) -> List[EvidenceRecord]:
         if era is None:
             return list(self._ordered)
         return [r for r in self._ordered if r.era == era]
 
+    def record_set(self, era: Optional[int] = None) -> frozenset:
+        """The records as a set: what the engines' verdicts are compared by."""
+        return frozenset(self.records(era))
+
     def snapshot(self, era: Optional[int] = None) -> List[dict]:
         """The records as plain dicts, sorted: what the packages compare."""
         return [r.to_dict() for r in sorted(self.records(era))]
+
+    def counts(self, era: Optional[int] = None) -> Dict[str, int]:
+        """Records by kind."""
+        out = {EQUIVOCATION: 0, INVALID_SHARE: 0}
+        for r in self.records(era):
+            out[r.kind] += 1
+        return out

@@ -36,7 +36,18 @@ crossing op, `XO_NAMES`' names plus the per-message "opaque_message",
 `coin_s`. The flight recorder (`rt_trace_*`) stays in the engine,
 unbound. `__del__` only frees the engine's handle.
 
-Not in this slice (ROADMAP A): `fault_plan` (item 9); the send journal
+A `fault_plan` (network/faults.FaultPlan) maps onto the engine's own
+knobs as in the reference: duplication raises the repeat probability,
+reordering turns TAKE_FIRST into TAKE_RANDOM, a crash that never restarts
+mutes its player, and the engine's seed becomes `seed ^ (plan.seed << 1)`;
+what the engine cannot express (drop, delay, partitions, a restart, a link
+shaper) raises one ValueError that names every such feature. The port's
+own rngs (each router's `SeededRng(("router", seed, i))`, the TPKE
+batcher's `SeededRng(("rlc", seed))`) keep the caller's `seed`, on the
+card and with device="cpu" alike. `_send_opaque` is the adversary's
+unicast transport (consensus/adversary.py): any sender, any target.
+
+Not in this slice (ROADMAP A): the send journal
 (`journals`, the journal half of `_native_send`: the router records its
 outbox only) (item 10); `pipeline_window`, the per-era engines,
 `run_front` / `run_tail` and the deferred sign (item 11);
@@ -145,6 +156,7 @@ _SIGNATURES = {
     "rt_post_acs_input": (None, [_P, _I, ctypes.c_char_p, _SZ]),
     "rt_post_coin_result": (None, [_P, _I, _I, _I, _I]),
     "rt_broadcast_opaque": (None, [_P, _I, _I, _I, _I, ctypes.c_char_p, _SZ]),
+    "rt_send_opaque": (None, [_P, _I, _I, _I, _I, _I, ctypes.c_char_p, _SZ]),
     "rt_run": (_SZ, [_P, _SZ]),
     "rt_request_stop": (None, [_P]),
     "rt_opaque_pending": (_U64, [_P, _I]),
@@ -580,17 +592,44 @@ class NativeSimulatedNetwork:
         use_rbc_batcher: bool = False,
         device="cuda",
         backend=None,
+        fault_plan=None,
     ):
         self._h = None
+        self.n = public_keys.n
+        self.seed = seed
+        self.muted = set(muted or ())
+        self.fault_plan = fault_plan
+        engine_seed = seed
+        if fault_plan is not None:
+            # a chaos run that looks as if it injected loss but did not
+            # would certify a recovery path never exercised: refused
+            unsupported = [
+                name for name, on in (
+                    ("drop", fault_plan.drop > 0),
+                    ("delay", fault_plan.delay > 0),
+                    ("partitions", bool(fault_plan.partitions)),
+                    ("crash restart",
+                     any(c.restart is not None for c in fault_plan.crashes)),
+                    ("link shaper", fault_plan.shaper is not None),
+                ) if on
+            ]
+            if unsupported:
+                raise ValueError(
+                    "native engine cannot express FaultPlan feature(s): "
+                    + ", ".join(unsupported)
+                    + " — use the Python simulator for full fault injection"
+                )
+            if fault_plan.reorder > 0 and mode is DeliveryMode.TAKE_FIRST:
+                mode = DeliveryMode.TAKE_RANDOM
+            repeat_probability = max(repeat_probability, fault_plan.duplicate)
+            engine_seed = seed ^ (fault_plan.seed << 1)
+            self.muted |= {c.node for c in fault_plan.crashes}
+        self.mode = mode
         if backend is None:
             from ..crypto.gpu_backend import GpuBackend
 
             backend = GpuBackend(device)
-        self.n = public_keys.n
-        self.seed = seed
         self.backend = backend
-        self.mode = mode
-        self.muted = set(muted or ())
         self._lib = load_rt()
         mode_i = {
             DeliveryMode.TAKE_FIRST: 0,
@@ -602,7 +641,7 @@ class NativeSimulatedNetwork:
             public_keys.f,
             mode_i,
             int(repeat_probability * 1_000_000),
-            seed & ((1 << 64) - 1),
+            engine_seed & ((1 << 64) - 1),
             era,
         )
         if not self._h:
@@ -710,6 +749,16 @@ class NativeSimulatedNetwork:
     ) -> None:
         self._lib.rt_broadcast_opaque(
             self._h, vid, kind, agreement, epoch, data, len(data)
+        )
+
+    def _send_opaque(
+        self, vid: int, target: int, kind: int, agreement: int, epoch: int, data: bytes
+    ) -> None:
+        """Unicast opaque injection, the adversary's transport: the caller
+        chooses `vid`, so a spoofed sender or a replay is expressible; the
+        message takes the sender's era in the engine."""
+        self._lib.rt_send_opaque(
+            self._h, vid, target, kind, agreement, epoch, data, len(data)
         )
 
     def _rt_request(self, vid: int, kind: int, a: int, b: int) -> None:

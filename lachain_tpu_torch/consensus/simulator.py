@@ -7,6 +7,13 @@ C# reference's consensus test harness (DeliveryService, BroadcastSimulator):
     TAKE_FIRST / TAKE_LAST / TAKE_RANDOM order with seeded duplicate
     injection (`repeat_probability`);
   * muted ("crashed") validators: no outbound and no inbound traffic;
+  * a seeded `FaultPlan` (network/faults.py): drop, delay, duplicate and
+    reorder faults on every link, crash / restart windows and healing
+    partitions, clocked by the delivered-message count (`_vtime`); lost
+    messages are repaired as a node repairs them, by replaying each
+    router's outbox for the era (`_recover`, the in-process model of the
+    message_request exchange), at quiescence after both flushes, at most
+    `max_recovery_rounds` times;
   * the era's two flush batchers shared by every router: the TPKE flush
     (consensus/crypto_batcher.TpkeEraBatcher, on by default) runs once
     every queued DecryptedMessage has been delivered (`_maybe_flush`) and
@@ -25,13 +32,15 @@ reference draws from `secrets`, and the TPKE batcher's RLC weights from
 `SeededRng(("rlc", seed))`. A failed flush raises out of `run`. What a
 chip run reads is kept as plain attributes (`delivered_count`, the
 batchers' counters, `tpke_phase_s` / `rbc_phase_s`: each batcher's
-`last_timings` phases summed over the era's flushes, `coin_s`) in place of
-the reference's metrics and tracing. Not ported: fault plans and the
-outbox recovery they drive (`fault_plan`, `_recover`).
+`last_timings` phases summed over the era's flushes, `coin_s`, the fault
+session's `stats`, `recovery_rounds`) in place of the reference's metrics
+and tracing: the queue-depth gauge and the `tracing.wait` span around the
+recovery are not carried.
 """
 from __future__ import annotations
 
 import enum
+import heapq
 import random
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
@@ -79,6 +88,8 @@ class SimulatedNetwork:
         use_rbc_batcher: bool = False,
         device="cuda",
         backend=None,
+        fault_plan=None,
+        max_recovery_rounds: int = 16,
     ):
         if backend is None:
             from ..crypto.gpu_backend import GpuBackend
@@ -91,10 +102,27 @@ class SimulatedNetwork:
         self.mode = mode
         self.repeat_probability = repeat_probability
         self.muted = muted or set()
+        # the seeded fault schedule, clocked by the delivered-message count
+        # so that two runs of one seed replay one fault sequence
+        self.fault_plan = fault_plan
+        self._vtime = 0.0
+        self.faults = (
+            fault_plan.session(clock=lambda: self._vtime)
+            if fault_plan is not None
+            else None
+        )
+        self.recovery_rounds = 0
+        self.max_recovery_rounds = max_recovery_rounds
         # (sender, target, payload). A deque for FIFO/LIFO, a plain list for
         # RANDOM (indexed swap-with-last + pop from the end), so every pop
         # is O(1) at the 2.6M messages of an N=64 era
         self._queue = [] if mode is DeliveryMode.TAKE_RANDOM else deque()
+        # time-armed copies (fault delays, shaped latency): a heap of
+        # (ready_at, seq, sender, target, payload), surfaced once the virtual
+        # clock reaches ready_at; seq keeps the pops deterministic and the
+        # payloads out of the comparisons
+        self._delayed: List[Tuple[float, int, int, int, Any]] = []
+        self._delay_seq = 0
         self.memo = CryptoMemo()
         self.delivered_count = 0
         self._decrypted_in_queue = 0
@@ -145,14 +173,17 @@ class SimulatedNetwork:
         def send(target: Optional[int], payload) -> None:
             if sender in self.muted:
                 return  # crashed player: no outbound traffic
+            if self.faults is not None and self.faults.crashed(sender):
+                return  # a scheduled crash window: no outbound traffic
             self.inject(sender, target, payload)
 
         return send
 
     def inject(self, sender: int, target: Optional[int], payload) -> None:
-        """Enqueue a payload as if `sender` sent it, bypassing its router.
-        target None = broadcast. Keeps the DecryptedMessage count that
-        triggers the TPKE flush."""
+        """Enqueue a payload as if `sender` sent it, bypassing its router
+        (and its crash window: the adversary's transport). target None =
+        broadcast. Keeps the DecryptedMessage count that triggers the TPKE
+        flush."""
         if type(payload) is M.DecryptedMessage:
             self._decrypted_in_queue += self.n if target is None else 1
         if target is None:
@@ -180,6 +211,11 @@ class SimulatedNetwork:
             if type(item[2]) is M.DecryptedMessage:
                 self._decrypted_in_queue += 1
             self._queue.append(item)  # duplicate injection
+        if self.faults is not None and self._queue and self.faults.reorder_hit():
+            # the fault plan's reordering: swap the picked message with a
+            # random queued one (composes with any DeliveryMode)
+            idx = self.faults.rng.randrange(len(self._queue))
+            item, self._queue[idx] = self._queue[idx], item
         return item
 
     # -- execution ------------------------------------------------------------
@@ -197,7 +233,28 @@ class SimulatedNetwork:
         """Deliver until `done()` or quiescence; True iff done() held. More
         than `max_messages` deliveries raise (a livelock)."""
         while not done():
+            if self._delayed and self._delayed[0][0] <= self._vtime:
+                # a time-armed copy's moment has come: delivered directly,
+                # its link decision was made when it was armed
+                if self.delivered_count >= max_messages:
+                    raise RuntimeError(
+                        f"message cap {max_messages} exceeded — livelock?"
+                    )
+                _, _, sender, target, payload = heapq.heappop(self._delayed)
+                self.delivered_count += 1
+                self._vtime += 1.0
+                if type(payload) is M.DecryptedMessage:
+                    self._decrypted_in_queue -= 1
+                if target not in self.muted and not self.faults.crashed(target):
+                    self.routers[target].dispatch_external(sender, payload)
+                self._maybe_flush()
+                continue
             if not self._queue:
+                if self._delayed:
+                    # everything undelivered is in flight on a delayed link:
+                    # the clock jumps to the earliest arrival
+                    self._vtime = max(self._vtime, self._delayed[0][0])
+                    continue
                 # RBC before TPKE: interpolation verdicts unblock the READY
                 # and delivery traffic that feeds the ACS, whose completions
                 # grow the decryption-share batches
@@ -207,6 +264,8 @@ class SimulatedNetwork:
                 if self.crypto_batcher is not None and self.crypto_batcher.pending:
                     self._flush_tpke()
                     continue
+                if self.faults is not None and self._recover():
+                    continue
                 return done()
             if self.delivered_count >= max_messages:
                 raise RuntimeError(
@@ -214,9 +273,29 @@ class SimulatedNetwork:
                 )
             sender, target, payload = self._pop()
             self.delivered_count += 1
+            self._vtime += 1.0
             if type(payload) is M.DecryptedMessage:
                 self._decrypted_in_queue -= 1
-            if target not in self.muted:
+            deliver = True
+            if self.faults is not None and sender != target:
+                # self-delivery never crosses the network: only link
+                # traffic is lost, duplicated, delayed or partitioned
+                delays = self.faults.decide(sender, target)
+                deliver = bool(delays) and delays[0] <= 0
+                for d in delays[1:] if deliver else delays:
+                    if type(payload) is M.DecryptedMessage:
+                        self._decrypted_in_queue += 1
+                    if d <= 0:
+                        # a duplicate: a second traversal of the link, its
+                        # fate rolled again like any fresh send
+                        self._queue.append((sender, target, payload))
+                    else:
+                        self._delay_seq += 1
+                        heapq.heappush(self._delayed, (
+                            self._vtime + d, self._delay_seq, sender, target, payload))
+            elif self.faults is not None and self.faults.crashed(target):
+                deliver = False  # crashed: not even self-delivery
+            if deliver and target not in self.muted:
                 self.routers[target].dispatch_external(sender, payload)
             self._maybe_flush()
         return True
@@ -233,6 +312,37 @@ class SimulatedNetwork:
 
     def _flush_rbc(self) -> None:
         flush_rbc(self.rbc_batcher, self.rbc_phase_s)
+
+    def _recover(self) -> bool:
+        """Quiescent but not done under a fault plan: jump the virtual
+        clock to the next schedule boundary (partitions heal and crashed
+        nodes restart only as time passes), then replay every live router's
+        outbox for its era to every live requester across the links open
+        now. True when a message was queued again; after
+        `max_recovery_rounds` rounds False, so that an unrecoverable plan
+        (f + 1 permanent crashes, a partition that never heals) ends."""
+        f = self.faults
+        if self.recovery_rounds >= self.max_recovery_rounds:
+            return False
+        boundary = f.next_boundary(self._vtime)
+        if boundary is not None:
+            self._vtime = max(self._vtime, boundary)
+        self.recovery_rounds += 1
+        requeued = 0
+        for requester in range(self.n):
+            if requester in self.muted or f.crashed(requester):
+                continue
+            for responder in range(self.n):
+                if (
+                    responder == requester
+                    or responder in self.muted
+                    or f.crashed(responder)
+                    or f.partitioned(responder, requester)
+                ):
+                    continue
+                router = self.routers[responder]
+                requeued += router.replay_outbox(router.era, requester)
+        return requeued > 0
 
     def results(self, pid) -> List[Any]:
         return [r.result_of(pid) for r in self.routers]

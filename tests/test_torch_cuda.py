@@ -6,7 +6,9 @@ and of flags; the era pipelines, the backend and its MSM routes, and the
 batched ECDSA recovery on the card against the host oracles; the
 Reed-Solomon product (rs_matmul8, rs_matmul16) bit for bit against
 ops/rs_ref.py and an RBC flush's launch count; an N=16 HoneyBadger era
-with a malicious router on the card against the plain versions. CUDA
+with a malicious router, and a (7, 2) era with two equivocating
+validators on both consensus engines, on the card against the plain
+versions. CUDA
 kernels have no CPU mode:
 on a machine without a card these tests skip, and `python3 chip_smoke.py`
 runs the same checks at the N=64 era's shapes on the card.
@@ -1544,5 +1546,54 @@ def test_native_honey_badger_era_on_card_equals_plain_versions(card):
         outs.append((results, net.delivered_count, net.crypto_batcher.flushes,
                      net.rbc_batcher.flushes))
         net.close()
+    assert outs[0] == outs[1]
+    assert not any(verify.ESCAPES.values())
+
+
+@pytest.mark.parametrize("engine", ["python", "native"])
+def test_equivocating_era_on_card_equals_plain_versions(card, engine):
+    """A HoneyBadger era at (7, 2), TAKE_FIRST, both batchers, with
+    validators 1 and 3 equivocating (consensus/adversary.py, installed
+    before the first request), on the Python or the native engine, on the
+    card and with device="cpu" (the kernels' plain versions): equal
+    results, delivered_count, flush counts and evidence; every honest
+    router convicts exactly 1 and 3 of equivocation; the card's run
+    launches the G1 era kernels and rs_matmul8."""
+    from lachain_tpu_torch.consensus import adversary
+    from lachain_tpu_torch.consensus import messages as M
+    from lachain_tpu_torch.consensus.keys import trusted_key_gen
+    from lachain_tpu_torch.consensus.native_rt import NativeSimulatedNetwork
+    from lachain_tpu_torch.consensus.simulator import SeededRng as NetRng
+    from lachain_tpu_torch.consensus.simulator import SimulatedNetwork
+
+    pub, privs = trusted_key_gen(7, 2, NetRng(0x7003))
+    inputs = [b"equivocate|%d|" % i + bytes(40) for i in range(7)]
+    pid = M.HoneyBadgerId(era=0)
+    honest = (0, 2, 4, 5, 6)
+    cls = NativeSimulatedNetwork if engine == "native" else SimulatedNetwork
+    outs = []
+    verify.reset_escapes()
+    for device in (card, "cpu"):
+        g1.reset_launches()
+        rs_batch.reset_launches()
+        net = cls(pub, privs, seed=23, use_rbc_batcher=True, device=device)
+        adversary.install(adversary.AdversaryPlan("equivocate", (1, 3), seed=5), net)
+        for i, value in enumerate(inputs):
+            net.post_request(i, pid, value)
+        assert net.run(lambda: all(r.result_of(pid) is not None for r in net.routers))
+        results = net.results(pid)
+        assert all(pt == inputs[j] for j, pt in results[0].items()) and len(results[0]) >= 5
+        evidence = [net.routers[i].evidence.record_set() for i in honest]
+        assert all({(r.kind, r.offender) for r in ev} == {("equivocation", 1),
+                                                          ("equivocation", 3)}
+                   for ev in evidence)
+        if device is card:
+            for kernel in ("g1_table", "g1_msm_scan", "g1_add", "g1_mont"):
+                assert g1.LAUNCHES[kernel] >= 1, g1.LAUNCHES
+            assert rs_batch.LAUNCHES["rs_matmul8"] >= 1
+        outs.append((results, net.delivered_count, net.crypto_batcher.flushes,
+                     net.rbc_batcher.flushes, evidence))
+        if engine == "native":
+            net.close()
     assert outs[0] == outs[1]
     assert not any(verify.ESCAPES.values())
