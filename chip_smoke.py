@@ -61,7 +61,8 @@ Phases, each of which must pass (any failure exits non-zero):
              backend)) is started and joined: the fully masked TPKE era
              at each slot tier, largest first, and one coin era, on a
              GpuBackend of its own; it must end with no error;
-  4. main    nineteen paths (twenty-one where more than one card is visible),
+  4. main    twenty-one paths (twenty-three where more than one card is
+             visible),
              each with the kernel launch counts set to 0 just before its
              counted calls and read just after; the paths before the mesh
              paths run on one card however many are visible:
@@ -165,8 +166,11 @@ Phases, each of which must pass (any failure exits non-zero):
              card's busy share (traced device time / wall); and
              root_era_16_check, N=16, f=5, TAKE_RANDOM, 8 transfers a
              validator, router 0's decryption shares corrupted, once on the
-             card and once with device="cpu" (the plain versions, the
-             senders recovered afresh in each): equal blocks, messages,
+             card and once with device="cpu" (the era on the host
+             pipeline, the RBC flush and the block's sender recovery on
+             the plain versions, the senders recovered afresh in each;
+             the plain era kernels are held in phase 2 at full width):
+             equal blocks, messages,
              flush counts and evidence (every honest router convicts
              exactly router 0, invalid_share, "dec");
              the same two eras through the native consensus engine
@@ -184,9 +188,8 @@ Phases, each of which must pass (any failure exits non-zero):
              recovery and the busy share; and root_era_native_16_check,
              root_era_16_check's era with router 0's HoneyBadger (and so
              its RootProtocol) kept in Python and malicious through
-             `_extra_factories`, card against device="cpu", with the same
-             checks (its CPU run is ~2.5 min: one flush of 31 distinct
-             slots on the plain kernels);
+             `_extra_factories`, card against device="cpu" (as
+             root_era_16_check's), with the same checks;
              the same eras under faults and malicious validators
              (network/faults.py, consensus/adversary.py):
              root_era_adversary_native_64, root_era_native_64's era with
@@ -212,7 +215,30 @@ Phases, each of which must pass (any failure exits non-zero):
              router 15 crashed for good -> muted) with validators 1 and 2
              spamming 2,600 junk coin slots each: every live router's
              block, no evidence, both legs equal, and a plan with drops
-             refused by name.
+             refused by name;
+             crash recovery (consensus/journal.ConsensusJournal, one a
+             validator, storage/kv.py): root_era_journal_native_64,
+             root_era_native_64's era journaled on MemoryKV and traced
+             whole (run A: root_era_64's block and messages, every
+             router's journal holding "coin", "dec" and "hdr" records and
+             no slot twice), then journaled on a SqliteKV file a validator
+             and stopped at CRASH_AT messages (run B: the network and every
+             file closed, the crash), then restarted from the reopened
+             files on a fresh network of the same seed, every router
+             re-armed from its journal (rearm_sent) before its first
+             request, traced whole: run A's block at all 64 routers, sends
+             replayed from the journals (replayed_sends > 0, no more than
+             run B journaled), every file's rows equal to run A's journal
+             (each slot once, the sequences continued), at router 0 every
+             journaled coin and decryption share re-derived with zeroed
+             bytes handed back as recorded; walls, messages, records a
+             router, journal bytes, the SqliteKV write_batch seconds,
+             replayed sends, flushes, traced device time and busy shares;
+             and root_era_journal_64, the same crash at CRASH_AT_PY and
+             restart on the Python engine, every protocol's sends
+             journaled on MemoryKV through the routers' factory:
+             root_era_64's block, each slot journaled once, replayed
+             sends, journals covering every latchable kind.
              Around each counted call and the MSMs, no result may have been
              recomputed on the host (ops/verify.ESCAPES), and each path
              must launch its kernels;
@@ -250,6 +276,7 @@ import sys
 import time
 
 from lachain_tpu_torch.consensus.honey_badger import HoneyBadger
+from lachain_tpu_torch.storage.kv import SqliteKV
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and float32
 # outside the tensor cores, 67 TFLOP/s = 33.5 T fused multiply-adds/s. The
@@ -1171,10 +1198,12 @@ def sqrt_entry(rng: random.Random, dev, m: int, layout: str) -> dict:
 
 def make_era(n: int, seed: int):
     """Trusted dealer, one 32-byte message per slot, n x n decryption shares
-    and the slots' EraSlotJobs (host oracle only; no kernel involved)."""
+    (U^{x_i}, on the native host library as a validator computes them) and
+    the slots' EraSlotJobs (host only; no kernel involved)."""
     from lachain_tpu_torch.crypto import bls12381 as bls
     from lachain_tpu_torch.crypto import tpke
     from lachain_tpu_torch.crypto.gpu_backend import EraSlotJob
+    from lachain_tpu_torch.crypto.native_backend import NativeBackend
 
     f = (n - 1) // 3
     dealer = tpke.TpkeTrustedKeyGen(n, f, SeededRng(seed))
@@ -1183,14 +1212,13 @@ def make_era(n: int, seed: int):
     lag = [0] * n
     for i, c in zip(chosen, bls.fr_lagrange_coeffs([i + 1 for i in chosen], at=0)):
         lag[i] = c
-    cts, msgs, jobs = [], [], []
-    for s in range(n):
-        msg = bytes([(s * 7 + i) % 256 for i in range(32)])
-        ct = dealer.pub.encrypt(msg, s, SeededRng(seed * 1000 + s))
-        row = [p.decrypt_share(ct, check=False).ui for p in privs]
-        jobs.append(EraSlotJob(row, list(lag), tpke._hash_uv_to_g2(ct.u, ct.v), ct.w))
-        cts.append(ct)
-        msgs.append(msg)
+    msgs = [bytes([(s * 7 + i) % 256 for i in range(32)]) for s in range(n)]
+    cts = [dealer.pub.encrypt(msg, s, SeededRng(seed * 1000 + s))
+           for s, msg in enumerate(msgs)]
+    native = NativeBackend()
+    shares = [tpke.decrypt_shares_batch(p, cts, native) for p in privs]
+    jobs = [EraSlotJob([shares[i][s].ui for i in range(n)], list(lag),
+                       tpke._hash_uv_to_g2(ct.u, ct.v), ct.w) for s, ct in enumerate(cts)]
     return dealer, cts, msgs, jobs
 
 
@@ -1922,13 +1950,14 @@ def run_mesh_path(seed: int, backend, dev, era, devices, msm_devices=None):
 
 def make_coins(n: int, seed: int):
     """Trusted TS dealer and n coins, each holding the shares of the t+1
-    lowest-id signers (the ones the combine reads) plus two more."""
+    lowest-id signers (the ones the combine reads) plus two more, signed on
+    the native host library as a validator signs them."""
     from lachain_tpu_torch.crypto import threshold_sig
-    from lachain_tpu_torch.crypto.host import HostBackend
+    from lachain_tpu_torch.crypto.native_backend import NativeBackend
 
     f = (n - 1) // 3
     dealer = threshold_sig.TsTrustedKeyGen(n, f, SeededRng(seed))
-    host = HostBackend()
+    host = NativeBackend()
     privs = [dealer.private_key_share(i) for i in range(f + 3)]
     coins = []
     for c in range(n):
@@ -2544,6 +2573,14 @@ ROOT_CHECK_TXS = 8
 # split from ~5% to ~30%
 CHAOS_CRASH = (4_500, 18_000)
 CHAOS_PARTITION = (2_300, 13_700)
+# the crash of the journal phases, in delivered messages: about half of
+# root_era_native_64's and root_era_64's 2,894,527 (both engines run one
+# schedule); the native engine stops at the first chunk boundary past it
+CRASH_AT = 1_450_000
+CRASH_AT_PY = 1_450_000
+# the kinds of send slot (consensus/journal.send_slot) the Python engine's
+# root era journals
+LATCHED_KINDS = {"val", "echo", "ready", "bval", "aux", "conf", "coin", "dec", "hdr"}
 
 
 def root_transfers(n: int, per: int, rng: random.Random):
@@ -2633,6 +2670,18 @@ def root_factories(pub, privs, proposals, device, parent: bytes):
         return RootProtocol(pid, router, producer=producers[i],
                             ecdsa_priv=privs[i].ecdsa_priv, ecdsa_pubs=pub.ecdsa_pub_keys)
     return {M.RootProtocolId: make}, producers
+
+
+def root_era_inputs(seed: int):
+    """The N=64 root eras' keys, proposals (BLOCK_TXS / HB_N signed
+    transfers a validator) and parent -> (pub, privs, proposals, signer,
+    parent)."""
+    from lachain_tpu_torch.consensus.keys import trusted_key_gen
+
+    pub, privs = trusted_key_gen(HB_N, HB_F, SeededRng(seed + 640))
+    rng = random.Random(seed + 641)
+    proposals, signer = root_transfers(HB_N, -(-BLOCK_TXS // HB_N), rng)
+    return pub, privs, proposals, signer, rng.randbytes(32)
 
 
 def clear_block_memos() -> None:
@@ -2781,16 +2830,12 @@ def run_root_era_path(seed: int, dev, ref=None):
     engine's era must equal."""
     import torch
 
-    from lachain_tpu_torch.consensus.keys import trusted_key_gen
     from lachain_tpu_torch.consensus.simulator import DeliveryMode, SimulatedNetwork
     from lachain_tpu_torch.crypto import ecdsa
 
     label = f"root era N={HB_N}"
     t0 = time.perf_counter()
-    pub, privs = trusted_key_gen(HB_N, HB_F, SeededRng(seed + 640))
-    rng = random.Random(seed + 641)
-    proposals, signer = root_transfers(HB_N, -(-BLOCK_TXS // HB_N), rng)
-    parent = rng.randbytes(32)
+    pub, privs, proposals, signer, parent = root_era_inputs(seed)
     log(f"{label}: host setup (dealer, {HB_N} proposals of {len(proposals[0])} signed "
         f"transfers, {len(signer)} signatures): {time.perf_counter() - t0:.1f} s")
     out = {}
@@ -2813,7 +2858,6 @@ def run_root_era_path(seed: int, dev, ref=None):
     check_no_escapes(label)
     check_root_blocks(label, net, blocks, list(range(HB_N)), proposals, signer, pub,
                       HB_N, HB_F)
-    busy = sum(v[0] for v in by_kernel.values())
     traced = {k: by_kernel.get(KERNEL_OF[k], [0, 0])[1] for k in launches if launches[k]}
     counted = {k: v for k, v in launches.items() if v}
     secs = root_seconds(net, out["producers"])
@@ -2829,8 +2873,7 @@ def run_root_era_path(seed: int, dev, ref=None):
     batcher_lines(label, net)
     log(f"{label}: launches {counted}, traced {traced}"
         + ("" if traced == counted else " (the trace lost launches)"))
-    log(f"{label} by kernel (torch.profiler, ms, launches): {by_kernel}; busy "
-        f"{busy:.3f} ms of the {wall * 1e3:.1f} ms wall: busy share {busy / (wall * 1e3):.6f}")
+    busy_line(label, by_kernel, wall)
     if ref is not None:
         ref.update(hash=blocks[0].header.hash(), delivered=net.delivered_count, wall=wall)
     return launches, [dict(wall_s=wall, **secs)]
@@ -2897,15 +2940,11 @@ def run_root_native_path(seed: int, dev, ref=None):
     natively handled messages, the crossings, each batcher's flushes and
     summed phases, the coins' seconds, the header round, the block
     recovery and the busy share."""
-    from lachain_tpu_torch.consensus.keys import trusted_key_gen
     from lachain_tpu_torch.consensus.simulator import DeliveryMode
     from lachain_tpu_torch.crypto import ecdsa
 
     label = f"native root era N={HB_N}"
-    pub, privs = trusted_key_gen(HB_N, HB_F, SeededRng(seed + 640))
-    rng = random.Random(seed + 641)
-    proposals, signer = root_transfers(HB_N, -(-BLOCK_TXS // HB_N), rng)
-    parent = rng.randbytes(32)
+    pub, privs, proposals, signer, parent = root_era_inputs(seed)
     out = {}
 
     def era():
@@ -2931,7 +2970,6 @@ def run_root_native_path(seed: int, dev, ref=None):
               f"Python engine's {ref['hash'].hex()[:16]} / {ref['delivered']}")
         log(f"{label}: the same block and messages as root_era_64's (its wall "
             f"{ref['wall']:.3f} s)")
-    busy = sum(v[0] for v in by_kernel.values())
     secs = root_seconds(net, out["producers"])
     rec = ecdsa.batch_recoverer(dev).last_timings
     log(f"{label}: every router made block {h.hex()[:16]} ({len(blocks[0].tx_hashes)} "
@@ -2944,10 +2982,25 @@ def run_root_native_path(seed: int, dev, ref=None):
         f"(summed over the routers); block recovery {secs['recover_s']:.3f} s, "
         f"last_timings {rec}")
     batcher_lines(label, net)
-    log(f"{label} by kernel (torch.profiler, ms, launches): {by_kernel}; busy "
-        f"{busy:.3f} ms of the {wall * 1e3:.1f} ms wall: busy share {busy / (wall * 1e3):.6f}")
+    busy_line(label, by_kernel, wall)
     net.close()
     return launches, [dict(wall_s=wall, **secs)]
+
+
+def check_backend(device):
+    """The backend of an N=16 check's leg: the card's default, or on the
+    CPU the era on the host pipeline over the native host library (the
+    kernels' plain versions are held in phase 2 already, at full width).
+    The leg's RBC batcher and block recovery run on `device` all the same,
+    the plain versions on the CPU."""
+    if device == "cpu":
+        from lachain_tpu_torch.crypto.gpu_backend import GpuBackend
+        from lachain_tpu_torch.crypto.native_backend import NativeBackend
+        from lachain_tpu_torch.ops.verify import HostEraPipeline
+
+        host = NativeBackend()
+        return GpuBackend(device="cpu", host_backend=host, pipeline=HostEraPipeline(host))
+    return None
 
 
 def run_root_native_check_path(seed: int, dev):
@@ -2956,7 +3009,9 @@ def run_root_native_check_path(seed: int, dev):
     0's HoneyBadger malicious through `_extra_factories` (which keeps its
     HoneyBadger and its RootProtocol in Python, their messages crossing the
     engine as opaque payloads), once on the card and once with device="cpu"
-    (the plain versions), each recovering its block's senders afresh: equal
+    (the era on the host pipeline, check_backend; the RBC batcher and the
+    block's sender recovery on the plain versions), each recovering its
+    block's senders afresh: equal
     blocks at every honest router, equal delivered_count, flush counts and
     evidence (every honest router convicts exactly router 0, invalid_share,
     "dec")."""
@@ -2976,7 +3031,8 @@ def run_root_native_check_path(seed: int, dev):
         clear_block_memos()
         reset_counts()
         net, producers = native_root_net(pub, privs, proposals, device, parent, seed,
-                                         DeliveryMode.TAKE_RANDOM)
+                                         DeliveryMode.TAKE_RANDOM,
+                                         backend=check_backend(device))
         net.routers[0]._extra_factories = {M.HoneyBadgerId: malicious_honey_badger}
         wall, blocks = root_run(net, live)
         if launches is None:
@@ -3010,8 +3066,9 @@ def run_root_native_check_path(seed: int, dev):
 def run_root_check_path(seed: int, dev):
     """The N=16, f=5 root era in TAKE_RANDOM with router 0 malicious
     (corrupted decryption shares), once on the card and once with
-    device="cpu" (both batchers and the block's sender recovery on the
-    plain versions), each recovering its block's senders afresh: equal
+    device="cpu" (the era on the host pipeline, check_backend; the RBC
+    batcher and the block's sender recovery on the plain versions), each
+    recovering its block's senders afresh: equal
     blocks at every honest router, equal delivered_count, equal flush
     counts, and equal evidence: every honest router convicts exactly
     router 0, kind invalid_share, proto "dec"."""
@@ -3032,7 +3089,8 @@ def run_root_check_path(seed: int, dev):
         reset_counts()
         factories, producers = root_factories(pub, privs, proposals, device, parent)
         net = SimulatedNetwork(pub, privs, seed=seed, mode=DeliveryMode.TAKE_RANDOM,
-                               use_rbc_batcher=True, device=device, extra_factories=factories)
+                               use_rbc_batcher=True, device=device,
+                               backend=check_backend(device), extra_factories=factories)
         net.routers[0] = net.make_router(0, 0, pub, privs[0], extra_factories=factories,
                                          router_cls=bad_router)
         wall, blocks = root_run(net, live)
@@ -3064,12 +3122,8 @@ def adversary_era_inputs(seed: int):
     validators (every third from 1) -> (pub, privs, proposals, signer,
     parent, plan, honest)."""
     from lachain_tpu_torch.consensus.adversary import AdversaryPlan
-    from lachain_tpu_torch.consensus.keys import trusted_key_gen
 
-    pub, privs = trusted_key_gen(HB_N, HB_F, SeededRng(seed + 640))
-    rng = random.Random(seed + 641)
-    proposals, signer = root_transfers(HB_N, -(-BLOCK_TXS // HB_N), rng)
-    parent = rng.randbytes(32)
+    pub, privs, proposals, signer, parent = root_era_inputs(seed)
     plan = AdversaryPlan("equivocate", traitors=tuple(range(1, HB_N, 3)), seed=seed)
     honest = [i for i in range(HB_N) if i not in plan.traitors]
     return pub, privs, proposals, signer, parent, plan, honest
@@ -3170,7 +3224,6 @@ def run_root_adversary_native_path(seed: int, dev, ref=None):
     h = blocks[0].header.hash()
     if ref is not None:
         ref.update(hash=h, delivered=net.delivered_count, evidence=evidence, wall=wall)
-    busy = sum(v[0] for v in by_kernel.values())
     secs = root_seconds(net, out["producers"])
     log(f"{label}: every honest router made block {h.hex()[:16]} "
         f"({len(blocks[0].tx_hashes)} transfers, {len(blocks[0].multisig.signatures)} "
@@ -3182,8 +3235,7 @@ def run_root_adversary_native_path(seed: int, dev, ref=None):
     log(f"{label}: header round sign {secs['sign_s']:.3f} s, verify {secs['verify_s']:.3f} s "
         f"(summed over the native routers); block recovery {secs['recover_s']:.3f} s")
     batcher_lines(label, net)
-    log(f"{label} by kernel (torch.profiler, ms, launches): {by_kernel}; busy "
-        f"{busy:.3f} ms of the {wall * 1e3:.1f} ms wall: busy share {busy / (wall * 1e3):.6f}")
+    busy_line(label, by_kernel, wall)
     net.close()
     return launches, [dict(wall_s=wall, **secs)]
 
@@ -3227,20 +3279,6 @@ def run_root_adversary_path(seed: int, dev, ref):
     return launches, [dict(wall_s=wall, **secs)]
 
 
-def chaos_backend(device):
-    """The backend of a chaos check's leg: the card's default, or on the
-    CPU the era on the host pipeline over the native host library (the
-    kernels' plain versions are held in phase 2 already)."""
-    if device == "cpu":
-        from lachain_tpu_torch.crypto.gpu_backend import GpuBackend
-        from lachain_tpu_torch.crypto.native_backend import NativeBackend
-        from lachain_tpu_torch.ops.verify import HostEraPipeline
-
-        host = NativeBackend()
-        return GpuBackend(device="cpu", host_backend=host, pipeline=HostEraPipeline(host))
-    return None
-
-
 def chaos_era_inputs(seed: int):
     """The N=16 chaos eras' keys, proposals and parent -> (pub, privs,
     proposals, signer, parent)."""
@@ -3280,7 +3318,7 @@ def run_chaos_check_path(seed: int, dev):
         factories, producers = root_factories(pub, privs, proposals, device, parent)
         net = SimulatedNetwork(pub, privs, seed=seed, mode=DeliveryMode.TAKE_FIRST,
                                use_rbc_batcher=True, device=device,
-                               backend=chaos_backend(device), extra_factories=factories,
+                               backend=check_backend(device), extra_factories=factories,
                                fault_plan=plan)
         wall, blocks = root_run(net, list(range(n)))
         if launches is None:
@@ -3337,7 +3375,7 @@ def run_chaos_native_check_path(seed: int, dev):
         reset_counts()
         net, producers = native_root_net(pub, privs, proposals, device, parent, seed,
                                          DeliveryMode.TAKE_FIRST,
-                                         backend=chaos_backend(device), fault_plan=plan)
+                                         backend=check_backend(device), fault_plan=plan)
         check(net.mode is DeliveryMode.TAKE_RANDOM and net.muted == {15},
               f"{label}: the plan mapped to {net.mode}, muted {net.muted}")
         adversary.install(spam, net)
@@ -3366,6 +3404,360 @@ def run_chaos_native_check_path(seed: int, dev):
     log(f"{label}: the card's era equals the CPU's (blocks, messages, evidence); a plan "
         f"with drops is refused")
     return launches, [{"wall_s": card_wall}]
+
+
+class TimedSqliteKV(SqliteKV):
+    """SqliteKV that appends the seconds of each write_batch (a journal
+    record's fsynced commit) to the list `times`."""
+
+    def __init__(self, path: str, times: list):
+        super().__init__(path)
+        self.times = times
+
+    def write_batch(self, puts, deletes=()) -> None:
+        t0 = time.perf_counter()
+        super().write_batch(puts, deletes)
+        self.times.append(time.perf_counter() - t0)
+
+
+def journal_slots(label: str, journal) -> dict:
+    """{(era, send slot): wire bytes} of a journal; fails if a slot was
+    journaled twice."""
+    from lachain_tpu_torch.consensus.journal import send_slot
+    from lachain_tpu_torch.network import wire
+
+    out = {}
+    for era, _seq, _target, data in journal.entries():
+        key = (era, send_slot(wire.decode_payload(data)))
+        check(key[1] is not None and key not in out, f"{label}: slot {key} journaled twice")
+        out[key] = data
+    return out
+
+
+def journaled_native_net(pub, privs, proposals, device, parent, seed, kvs):
+    """native_root_net's TAKE_FIRST era with a ConsensusJournal over each
+    of `kvs` -> (net, journals)."""
+    from lachain_tpu_torch.consensus.journal import ConsensusJournal
+    from lachain_tpu_torch.consensus.simulator import DeliveryMode
+
+    journals = [ConsensusJournal(kv) for kv in kvs]
+    net, _producers = native_root_net(pub, privs, proposals, device, parent, seed,
+                                      DeliveryMode.TAKE_FIRST, journals=journals)
+    return net, journals
+
+
+def rearm(net, journals) -> None:
+    """The restart: every router re-armed from its journal (its sent
+    latches and outbox) before its first request."""
+    for router, journal in zip(net.routers, journals):
+        for era, _seq, target, data in journal.entries():
+            router.rearm_sent(era, target, data)
+
+
+def crash_run(net, crash_at: int) -> float:
+    """Every validator starts its RootProtocol; the network runs until
+    `crash_at` messages are delivered, before any block -> wall seconds."""
+    from lachain_tpu_torch.consensus import messages as M
+
+    pid = M.RootProtocolId(era=0)
+    t0 = time.perf_counter()
+    for i in range(net.n):
+        net.post_request(i, pid, None)
+    net.run(lambda: net.delivered_count >= crash_at, max_messages=HB_MAX_MESSAGES)
+    check(net.delivered_count >= crash_at
+          and all(r.result_of(pid) is None for r in net.routers),
+          f"the era ended before the crash at {crash_at} messages ({net.delivered_count})")
+    return time.perf_counter() - t0
+
+
+def kv_rows(kv) -> list:
+    return list(kv.scan_prefix(b""))
+
+
+def spread(xs) -> str:
+    """min / median / max of a list of counts."""
+    xs = sorted(xs)
+    return f"min {xs[0]}, median {xs[len(xs) // 2]}, max {xs[-1]}"
+
+
+def busy_line(label: str, by_kernel: dict, wall: float) -> None:
+    """Log a traced run's device time by kernel and its busy share of the
+    wall."""
+    busy = sum(v[0] for v in by_kernel.values())
+    log(f"{label} by kernel (torch.profiler, ms, launches): {by_kernel}; busy "
+        f"{busy:.3f} ms of the {wall * 1e3:.1f} ms wall: busy share {busy / (wall * 1e3):.6f}")
+
+
+def summed_launches(*runs) -> dict:
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def run_root_journal_native_path(seed: int, dev, ref):
+    """Crash recovery on the native engine at full width: root_era_native_64's
+    era (keys, proposals, parent, seed; TAKE_FIRST, both batchers, Root
+    native at every validator) with a ConsensusJournal a validator.
+    Run A, journaled on MemoryKV and traced whole: root_era_64's block and
+    delivered_count (`ref`: journaling adds no draw), every router's
+    journal with "coin", "dec" and "hdr" records and no slot twice. Run B,
+    journaled on one SqliteKV file a validator (TimedSqliteKV) in a
+    temporary directory, stopped at CRASH_AT messages; then the network
+    and every file are closed (the crash). The restart, traced whole:
+    the files reopened (copies, so that a re-trace restarts from the same
+    state) under fresh journals and a fresh network of the same seed,
+    every router re-armed from its journal before its first request, run
+    to the block: run A's block at all 64 routers and its messages, sends
+    replayed from the journals (replayed_sends > 0, no more at a router
+    than run B journaled), every file's rows equal to run A's journal (so
+    each slot once, its bytes, the sequences continued), each journal
+    recording exactly what run B had not. Then at router 0 every journaled
+    coin and decryption share, re-derived with zeroed bytes through
+    _native_send, comes back as the recorded bytes. Every run: no host
+    recompute, traced launches equal to the counted ones."""
+    import os
+    import shutil
+    import tempfile
+
+    from lachain_tpu_torch.consensus import messages as M
+    from lachain_tpu_torch.network import wire
+    from lachain_tpu_torch.storage.kv import MemoryKV
+
+    label = f"journal native root era N={HB_N}"
+    pub, privs, proposals, signer, parent = root_era_inputs(seed)
+    out = {}
+
+    def run_a():
+        clear_block_memos()
+        reset_counts()
+        kvs = [MemoryKV() for _ in range(HB_N)]
+        net, journals = journaled_native_net(pub, privs, proposals, dev, parent, seed, kvs)
+        out["wall"], out["blocks"] = root_run(net, range(HB_N))
+        out["launches"] = read_launches()
+        out.update(net=net, kvs=kvs, journals=journals)
+
+    by_a, counted = trace_era(f"{label} run A", run_a, out, dev)
+    a = dict(out)
+    net, blocks = a["net"], a["blocks"]
+    check_no_escapes(f"{label} run A")
+    check_root_blocks(f"{label} run A", net, blocks, list(range(HB_N)), proposals, signer,
+                      pub, HB_N, HB_F)
+    check_native_crossings(f"{label} run A", net, HB_N)
+    check_traced(f"{label} run A", by_a, a["launches"], counted)
+    h = blocks[0].header.hash()
+    check(h == ref["hash"] and net.delivered_count == ref["delivered"],
+          f"{label} run A: block {h.hex()[:16]} / {net.delivered_count} messages, "
+          f"root_era_64's {ref['hash'].hex()[:16]} / {ref['delivered']}")
+    a_slots = [journal_slots(f"{label} run A", j) for j in a["journals"]]
+    kinds = [{slot[0] for _era, slot in m} for m in a_slots]
+    check(all(k >= {"coin", "dec", "hdr"} for k in kinds),
+          f"{label} run A: a journal lacks coin, dec or hdr records: {kinds}")
+    a_rows = [kv_rows(kv) for kv in a["kvs"]]
+    a_delivered = net.delivered_count
+    net.close()
+    log(f"{label} run A: root_era_64's block {h.hex()[:16]} and {a_delivered} messages; "
+        f"wall {a['wall']:.3f} s ({a_delivered / a['wall']:.0f} messages a second); journal "
+        f"records a router {spread([len(r) for r in a_rows])}, "
+        f"{sum(len(k) + len(v) for rows in a_rows for k, v in rows)} bytes in all, kinds "
+        f"{sorted(set().union(*kinds))}")
+    batcher_lines(f"{label} run A", net)
+    busy_line(f"{label} run A", by_a, a["wall"])
+
+    times = []
+    with tempfile.TemporaryDirectory(prefix="lachain_journal_") as tmp:
+        def fresh_dir() -> str:
+            d = os.path.join(tmp, str(len(os.listdir(tmp))))
+            os.mkdir(d)
+            return d
+
+        def run_b():
+            clear_block_memos()
+            reset_counts()
+            times.clear()
+            d = fresh_dir()
+            kvs = [TimedSqliteKV(os.path.join(d, f"{i}.db"), times) for i in range(HB_N)]
+            net, journals = journaled_native_net(pub, privs, proposals, dev, parent, seed, kvs)
+            out["wall"] = crash_run(net, CRASH_AT)
+            out["launches"] = read_launches()
+            # the crash: the network and every file closed mid-era
+            net.close()
+            for kv in kvs:
+                kv.close()
+            out.update(dir=d, delivered=net.delivered_count, times=list(times),
+                       records=[j.records for j in journals],
+                       flushes=(net.crypto_batcher.flushes, net.rbc_batcher.flushes))
+
+        by_b, counted = trace_era(f"{label} run B", run_b, out, dev)
+        b = dict(out)
+        check_no_escapes(f"{label} run B")
+        check_traced(f"{label} run B", by_b, b["launches"], counted)
+        check(sum(b["records"]) > 0, f"{label} run B: nothing journaled before the crash")
+        log(f"{label} run B: crashed at {b['delivered']} messages (CRASH_AT {CRASH_AT}) "
+            f"after {b['wall']:.3f} s ({b['delivered'] / b['wall']:.0f} a second); journal "
+            f"records a router {spread(b['records'])}; SqliteKV write_batch "
+            f"{sum(b['times']):.3f} s over {len(b['times'])} records, median "
+            f"{sorted(b['times'])[len(b['times']) // 2] * 1e3:.3f} ms; flushes (tpke, rbc) "
+            f"{b['flushes']}")
+        busy_line(f"{label} run B", by_b, b["wall"])
+
+        def restart():
+            clear_block_memos()
+            reset_counts()
+            times.clear()
+            d = fresh_dir()
+            for name in os.listdir(b["dir"]):
+                shutil.copy(os.path.join(b["dir"], name), d)
+            kvs = [TimedSqliteKV(os.path.join(d, f"{i}.db"), times) for i in range(HB_N)]
+            net, journals = journaled_native_net(pub, privs, proposals, dev, parent, seed, kvs)
+            t0 = time.perf_counter()
+            rearm(net, journals)
+            out["rearm_s"] = time.perf_counter() - t0
+            out["wall"], out["blocks"] = root_run(net, range(HB_N))
+            out["launches"] = read_launches()
+            out.update(net=net, kvs=kvs, journals=journals, times=list(times))
+
+        by_r, counted = trace_era(f"{label} restart", restart, out, dev)
+        r = dict(out)
+        net, blocks = r["net"], r["blocks"]
+        check_no_escapes(f"{label} restart")
+        check_root_blocks(f"{label} restart", net, blocks, list(range(HB_N)), proposals,
+                          signer, pub, HB_N, HB_F)
+        check_native_crossings(f"{label} restart", net, HB_N)
+        check_traced(f"{label} restart", by_r, r["launches"], counted)
+        check(blocks[0].header.hash() == h and net.delivered_count == a_delivered,
+              f"{label} restart: block {blocks[0].header.hash().hex()[:16]} / "
+              f"{net.delivered_count} messages, run A's {h.hex()[:16]} / {a_delivered}")
+        replayed = [router.replayed_sends for router in net.routers]
+        check(sum(replayed) > 0 and all(x <= y for x, y in zip(replayed, b["records"])),
+              f"{label} restart: replayed sends {replayed}, run B journaled {b['records']}")
+        for i, (kv, journal) in enumerate(zip(r["kvs"], r["journals"])):
+            check(journal_slots(f"{label} restart", journal) == a_slots[i]
+                  and kv_rows(kv) == a_rows[i],
+                  f"{label} restart: router {i}'s journal differs from run A's")
+            check(journal.records == len(a_rows[i]) - b["records"][i],
+                  f"{label} restart: router {i} journaled {journal.records} records, "
+                  f"run A {len(a_rows[i])}, run B {b['records'][i]}")
+        # re-derivation at router 0: fresh payloads for its journaled coin and
+        # decryption-share slots, with zeroed bytes, come back as recorded
+        r0, checked = net.routers[0], 0
+        records = r0._journal.records
+        for (_era, slot), data in a_slots[0].items():
+            stale = wire.decode_payload(data)
+            if slot[0] == "coin":
+                fresh = M.CoinMessage(coin=stale.coin, share=bytes(len(stale.share)))
+            elif slot[0] == "dec":
+                fresh = M.DecryptedMessage(hb=stale.hb, share_id=stale.share_id,
+                                           payload=bytes(len(stale.payload)))
+            else:
+                continue
+            check(wire.encode_payload(r0._native_send(fresh)) == data,
+                  f"{label}: router 0 re-sent other bytes for {slot[0]} {slot[1:]}")
+            checked += 1
+        check(checked > 0 and r0._journal.records == records,
+              f"{label}: the re-derivation checked nothing or journaled again")
+        net.close()
+        for kv in r["kvs"]:
+            kv.close()
+    fsync_s = sum(b["times"]) + sum(r["times"])
+    log(f"{label} restart: run A's block at all {HB_N} routers, {net.delivered_count} "
+        f"messages; rearm {r['rearm_s']:.3f} s, wall {r['wall']:.3f} s "
+        f"({net.delivered_count / r['wall']:.0f} messages a second); replayed sends "
+        f"{sum(replayed)} ({spread(replayed)} a router); new journal records "
+        f"{spread([j.records for j in r['journals']])} a router; SqliteKV write_batch "
+        f"{sum(r['times']):.3f} s over {len(r['times'])} records, median "
+        f"{sorted(r['times'])[len(r['times']) // 2] * 1e3:.3f} ms; every file equals run "
+        f"A's journal; router 0 re-sent {checked} re-derived shares as recorded")
+    log(f"{label}: the era's journal on SqliteKV (runs B and restart): {fsync_s:.3f} s of "
+        f"write_batch over {len(b['times']) + len(r['times'])} records, a validator's "
+        f"{fsync_s / HB_N:.3f} s = {fsync_s / HB_N / a['wall']:.4f} of run A's wall")
+    batcher_lines(f"{label} restart", net)
+    busy_line(f"{label} restart", by_r, r["wall"])
+    launches = summed_launches(a["launches"], b["launches"], r["launches"])
+    return launches, [dict(wall_s=a["wall"]), dict(wall_s=r["wall"])]
+
+
+def run_root_journal_path(seed: int, dev, ref):
+    """Crash recovery on the Python engine at full width: root_era_64's
+    era (keys, proposals, parent, seed; TAKE_FIRST, both batchers) with a
+    ConsensusJournal on MemoryKV a validator through the routers' factory,
+    where every protocol's sends are journaled: stopped at CRASH_AT_PY
+    messages, then restarted on a fresh network of the same seed over the
+    same stores, every router re-armed from its journal before its first
+    request, run to the block: root_era_64's block and messages (`ref`),
+    each slot journaled once, every latchable kind journaled, sends
+    replayed from the journals, no host recompute. Each run is traced
+    whole; printed: walls, records a router, replayed sends, busy
+    shares."""
+    import torch
+
+    from lachain_tpu_torch.consensus.era import EraRouter
+    from lachain_tpu_torch.consensus.journal import ConsensusJournal
+    from lachain_tpu_torch.consensus.simulator import DeliveryMode, SimulatedNetwork
+    from lachain_tpu_torch.storage.kv import MemoryKV
+
+    label = f"journal root era N={HB_N}"
+    pub, privs, proposals, signer, parent = root_era_inputs(seed)
+    kvs = [MemoryKV() for _ in range(HB_N)]
+    out = {}
+
+    def journaled_net():
+        journals = [ConsensusJournal(kv) for kv in kvs]
+        factories, _producers = root_factories(pub, privs, proposals, dev, parent)
+        net = SimulatedNetwork(
+            pub, privs, seed=seed, mode=DeliveryMode.TAKE_FIRST, use_rbc_batcher=True,
+            device=dev, extra_factories=factories,
+            router_cls=lambda **kw: EraRouter(journal=journals[kw["my_id"]], **kw))
+        return net, journals
+
+    def crash():
+        clear_block_memos()
+        reset_counts()
+        net, journals = journaled_net()
+        out["wall_b"] = crash_run(net, CRASH_AT_PY)
+        out["launches_b"] = read_launches()
+        out.update(delivered_b=net.delivered_count, records_b=[j.records for j in journals])
+
+    def restart():
+        clear_block_memos()
+        reset_counts()
+        net, journals = journaled_net()
+        rearm(net, journals)
+        out["wall"], out["blocks"] = root_run(net, range(HB_N))
+        out["launches"] = read_launches()
+        out.update(net=net, journals=journals)
+
+    def warm():
+        torch.arange(1 << 12, device=dev).sum().item()
+
+    by_b = profile_device(crash, warm=warm)
+    check_no_escapes(f"{label} crash")
+    by_r = profile_device(restart, warm=warm)
+    check_no_escapes(f"{label} restart")
+    net, blocks = out["net"], out["blocks"]
+    check_root_blocks(label, net, blocks, list(range(HB_N)), proposals, signer, pub, HB_N,
+                      HB_F)
+    h = blocks[0].header.hash()
+    check(h == ref["hash"] and net.delivered_count == ref["delivered"],
+          f"{label}: block {h.hex()[:16]} / {net.delivered_count} messages, root_era_64's "
+          f"{ref['hash'].hex()[:16]} / {ref['delivered']}")
+    slots = [journal_slots(label, j) for j in out["journals"]]
+    kinds = [{slot[0] for _era, slot in m} for m in slots]
+    check(all(k == LATCHED_KINDS for k in kinds),
+          f"{label}: journals miss kinds: {[sorted(LATCHED_KINDS - k) for k in kinds]}")
+    replayed = [router.replayed_sends for router in net.routers]
+    check(sum(replayed) > 0 and all(x <= y for x, y in zip(replayed, out["records_b"])),
+          f"{label}: replayed sends {replayed}, journaled before the crash "
+          f"{out['records_b']}")
+    log(f"{label}: crashed at {out['delivered_b']} messages (CRASH_AT_PY {CRASH_AT_PY}) "
+        f"after {out['wall_b']:.3f} s, restarted: root_era_64's block {h.hex()[:16]} at all "
+        f"{HB_N} routers and its {net.delivered_count} messages in {out['wall']:.3f} s "
+        f"(root_era_64 {ref['wall']:.3f} s); journal records a router "
+        f"{spread([len(m) for m in slots])} ({sum(len(m) for m in slots)} in all), before "
+        f"the crash {spread(out['records_b'])}; replayed sends {sum(replayed)} "
+        f"({spread(replayed)} a router)")
+    batcher_lines(f"{label} restart", net)
+    busy_line(f"{label} crash", by_b, out["wall_b"])
+    busy_line(f"{label} restart", by_r, out["wall"])
+    return (summed_launches(out["launches_b"], out["launches"]),
+            [dict(wall_s=out["wall"])])
 
 
 def main() -> int:
@@ -3435,7 +3827,10 @@ def main() -> int:
              ("root_era_adversary_64", lambda: run_root_adversary_path(args.seed, dev,
                                                                        adversary_ref)),
              ("chaos_era_16_check", lambda: run_chaos_check_path(args.seed, dev)),
-             ("chaos_era_native_16_check", lambda: run_chaos_native_check_path(args.seed, dev))]
+             ("chaos_era_native_16_check", lambda: run_chaos_native_check_path(args.seed, dev)),
+             ("root_era_journal_native_64",
+              lambda: run_root_journal_native_path(args.seed, dev, root_ref)),
+             ("root_era_journal_64", lambda: run_root_journal_path(args.seed, dev, root_ref))]
     if torch.cuda.device_count() > 1:  # a mesh over distinct cards
         cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         runs += [("mesh_era_cards", lambda: run_mesh_path(args.seed, backend, dev, era,
@@ -3465,7 +3860,7 @@ def main() -> int:
         "root_era_native_16_check": g1_path + ("rs_matmul8",) + secp_path,
         **{p: g1_path + ("rs_matmul8",) + secp_path for p in (
             "root_era_adversary_native_64", "root_era_adversary_64", "chaos_era_16_check",
-            "chaos_era_native_16_check")},
+            "chaos_era_native_16_check", "root_era_journal_native_64", "root_era_journal_64")},
     }
     for path, (launches, warm) in paths.items():
         missing = [k for k in needs[path] if launches[k] == 0]

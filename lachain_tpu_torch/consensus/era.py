@@ -11,8 +11,8 @@ reference's EraBroadcaster:
     different payload for a slot is equivocation, recorded as evidence
     and dropped
   * the retransmission outbox per era, `advance_era` (drops the protocols,
-    outboxes and latches of finished eras) and the postponed-message
-    window for future eras, bounded per sender.
+    outboxes, latches and journal entries of finished eras) and the
+    postponed-message window for future eras, bounded per sender.
 
 The router is synchronous and deterministic: the delivery layer
 (simulator.py) decides when `dispatch_external` runs, the router only
@@ -26,15 +26,25 @@ card by default, and without a card that raises), its random generator
 (provider.CryptoMemo, shared by the simulator's routers); the coin's
 combine seconds add up in `coin_s`, and the messages the per-sender caps
 shed in the plain attribute `shed` (`latch_cap`, `postponed_cap`: what the
-reference counts under `consensus_msgs_shed_total`). Not ported: the
-durable send journal (`_durable_send`, `rearm_sent`), the pipelined-era
-window (`open_era`, `commit_era_gc`), metrics and tracing.
+reference counts under `consensus_msgs_shed_total`); the sends the journal
+substituted count in `replayed_sends` (the reference's
+`consensus_journal_replayed_sends_total`).
+
+Durable sends: given a `journal` (journal.ConsensusJournal), every
+outbound payload is recorded before it is transmitted, and a payload for a
+slot already sent (in this run, or before a crash and re-armed from the
+journal by `rearm_sent`) is replaced by the recorded bytes, so that a
+restarted validator cannot contradict its pre-crash self. A journal write
+that fails raises out of the send, and the payload is not transmitted.
+
+Not ported: the pipelined-era window (`window_floor`, `pipeline_window`,
+`open_era`, `commit_era_gc`: ROADMAP A item 11), metrics and tracing.
 """
 from __future__ import annotations
 
 import logging
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from . import messages as M
 from .binary_agreement import BinaryAgreement
@@ -48,6 +58,7 @@ from .keys import PrivateConsensusKeys, PublicConsensusKeys
 from .protocol import Broadcaster, Protocol
 from .reliable_broadcast import ReliableBroadcast
 from ..crypto.provider import CryptoMemo
+from ..network import wire
 
 logger = logging.getLogger("lachain_tpu_torch.consensus.era")
 
@@ -64,6 +75,7 @@ class EraRouter(Broadcaster):
         device="cuda",
         backend=None,
         extra_factories: Optional[Dict[type, Callable]] = None,
+        journal=None,
         evidence: Optional[EvidenceStore] = None,
         memo: Optional[CryptoMemo] = None,
     ):
@@ -106,6 +118,13 @@ class EraRouter(Broadcaster):
         # for an era is answered from here
         self._outbox: Dict[int, deque] = {}
         self.outbox_cap = 4096  # entries per era; oldest evicted first
+        # durable-send latches: (era, slot) -> recorded wire bytes. A slot
+        # here was already sent (in this run, or before a crash and re-armed
+        # by rearm_sent); a later send for it re-uses the recorded bytes.
+        # Pruned with the protocol GC.
+        self._journal = journal
+        self._sent_slots: Dict[Tuple[int, tuple], bytes] = {}
+        self.replayed_sends = 0
 
     # -- Broadcaster interface ----------------------------------------------
     @property
@@ -121,10 +140,12 @@ class EraRouter(Broadcaster):
         return self.public_keys.f
 
     def broadcast(self, payload) -> None:
+        payload = self._durable_send(None, payload)
         self._record_outbox(None, payload)
         self._send(None, payload)
 
     def send_to(self, validator: int, payload) -> None:
+        payload = self._durable_send(validator, payload)
         self._record_outbox(validator, payload)
         self._send(validator, payload)
 
@@ -133,6 +154,47 @@ class EraRouter(Broadcaster):
             return getattr(M.payload_protocol_id(payload), "era", self.era)
         except TypeError:
             return self.era
+
+    # -- durable sends (the crash-recovery journal) ----------------------------
+    def _durable_send(self, target: Optional[int], payload):
+        """Persist-before-transmit -> the payload to send. The substitution
+        happens before the outbox record and before the transport's
+        self-delivery, so the validator's own protocol state is rebuilt
+        from exactly the bytes its peers saw before the crash."""
+        if self._journal is None:
+            return payload
+        slot = send_slot(payload)
+        era = self._payload_era(payload)
+        if slot is not None:
+            recorded = self._sent_slots.get((era, slot))
+            if recorded is not None:
+                # the slot was durably sent: the recorded bytes again, never
+                # the re-derived value, and no second record
+                self.replayed_sends += 1
+                return wire.decode_payload(recorded)
+        data = wire.encode_payload(payload)
+        self._journal.record(era, target, data)
+        if slot is not None:
+            self._sent_slots[(era, slot)] = data
+        return payload
+
+    def rearm_sent(self, era: int, target: Optional[int], data: bytes) -> None:
+        """Recovery: re-arm the sent latch and re-seed the outbox from one
+        journaled record. It is durable already: not journaled again, and
+        not transmitted here (peers pull retransmissions)."""
+        try:
+            payload = wire.decode_payload(data)
+        except ValueError:
+            logger.warning("undecodable journal entry for era %d", era)
+            return
+        slot = send_slot(payload)
+        if slot is not None and (era, slot) not in self._sent_slots:
+            self._sent_slots[(era, slot)] = data
+        q = self._outbox.get(era)
+        if q is None:
+            q = self._outbox[era] = deque()
+        if len(q) < self.outbox_cap:
+            q.append((target, payload))
 
     # -- retransmission outbox ------------------------------------------------
     def _record_outbox(self, target: Optional[int], payload) -> None:
@@ -245,8 +307,8 @@ class EraRouter(Broadcaster):
         """Move forward to a new era and replay the buffered future-era
         messages. Eras never regress: a stale call is a no-op. The
         protocols of eras before the last active one are dropped, with
-        their outboxes and latches; the last active era stays for late
-        result_of queries."""
+        their outboxes, latches and journal entries; the last active era
+        stays for late result_of queries."""
         if new_era <= self.era:
             return
         cutoff = min(new_era - 1, self.era)
@@ -259,6 +321,8 @@ class EraRouter(Broadcaster):
             del self._protocols[pid]
         for e in [e for e in self._outbox if e < cutoff]:
             del self._outbox[e]
+        for key in [k for k in self._sent_slots if k[0] < cutoff]:
+            del self._sent_slots[key]
         # slot[1] is the protocol id; its era keys the latch entry
         for key in [
             k for k in self._first_seen if getattr(k[1][1], "era", cutoff) < cutoff
@@ -270,6 +334,8 @@ class EraRouter(Broadcaster):
             else:
                 self._first_seen_per_sender.pop(sender, None)
             del self._first_seen[key]
+        if self._journal is not None:
+            self._journal.prune_below(cutoff)
 
     def _replay_postponed(self) -> None:
         pending, self._postponed = self._postponed, []

@@ -9,17 +9,29 @@ detection families feed it:
     at a combine: TPKE decryption shares (honey_badger.py) and coin
     signature shares (common_coin.py, ThresholdSigner.pruned).
 Records are deduplicated, so re-detection cannot grow the store, which is
-bounded by `cap`. The reference's KV persistence waits for the journal
-and storage (ROADMAP A item 10); its metrics and the module-level per-era
-counters (`era_counts`) wait for the node's metrics (item 13).
+bounded by `cap` (a record past it is dropped and counted in `dropped`,
+the reference's `consensus_evidence_dropped_total`). Given a KV store
+(storage/kv.py), a record is persisted under `EntryPrefix.EVIDENCE`
+through the KV's fsynced `write_batch` before it is counted, and a store
+over the same KV reloads it after a restart: an accusation survives a
+crash. `EvidenceRecord.encode` gives the JAX package's bytes. The
+reference's metrics and the module-level per-era counters (`era_counts`)
+wait for the node's metrics (ROADMAP A item 13).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+from ..storage.kv import EntryPrefix, prefixed
+from ..utils.serialization import Reader, write_bytes, write_u64
+
 EQUIVOCATION = "equivocation"
 INVALID_SHARE = "invalid_share"
+
+_KIND_CODES = {EQUIVOCATION: 1, INVALID_SHARE: 2}
+_KIND_NAMES = {v: k for k, v in _KIND_CODES.items()}
+_PREFIX = prefixed(EntryPrefix.EVIDENCE)
 
 
 @dataclass(frozen=True, order=True)
@@ -41,6 +53,31 @@ class EvidenceRecord:
             "proto": self.proto,
             "index": list(self.index),
         }
+
+    def encode(self) -> bytes:
+        out = write_u64(self.era)
+        out += bytes([_KIND_CODES[self.kind]])
+        out += write_u64(self.offender)
+        out += write_bytes(self.proto.encode("ascii"))
+        out += write_u64(len(self.index))
+        for i in self.index:
+            # index coordinates are small non-negatives; biased by 1 so that
+            # agreement -1 (the nonce coin) round-trips
+            out += write_u64(i + 1)
+        return out
+
+    @classmethod
+    def decode(cls, data: bytes) -> "EvidenceRecord":
+        r = Reader(data)
+        era = r.u64()
+        kind = _KIND_NAMES[r.raw(1)[0]]
+        offender = r.u64()
+        proto = r.bytes_().decode("ascii")
+        count = r.u64()
+        index = tuple(r.u64() - 1 for _ in range(count))
+        return cls(
+            era=era, kind=kind, offender=offender, proto=proto, index=index
+        )
 
 
 def describe_slot(slot: tuple) -> Tuple[str, Tuple[int, ...]]:
@@ -66,22 +103,51 @@ def describe_slot(slot: tuple) -> Tuple[str, Tuple[int, ...]]:
 
 
 class EvidenceStore:
-    """Deduplicated in-memory store of EvidenceRecords, one per validator
-    (owned by its EraRouter). A record past `cap` is dropped and counted
-    in `dropped`."""
+    """Deduplicated store of EvidenceRecords, one per validator (owned by
+    its EraRouter), persisted on `kv` when one is given. A record past
+    `cap` is dropped and counted in `dropped`."""
 
-    def __init__(self, cap: int = 4096):
+    def __init__(self, kv=None, cap: int = 4096):
+        self._kv = kv
         self.cap = cap
         self.dropped = 0
         self._records: set = set()
         self._ordered: List[EvidenceRecord] = []
+        self._next_seq = 0
+        if kv is not None:
+            self._load()
 
+    # -- persistence ----------------------------------------------------------
+    def _load(self) -> None:
+        for key, value in self._kv.scan_prefix(_PREFIX):
+            tail = key[len(_PREFIX):]
+            if len(tail) != 8:
+                continue
+            try:
+                rec = EvidenceRecord.decode(value)
+            except (ValueError, KeyError):
+                continue  # an undecodable record is skipped
+            self._next_seq = max(self._next_seq, int.from_bytes(tail, "big") + 1)
+            if rec not in self._records:
+                self._records.add(rec)
+                self._ordered.append(rec)
+
+    def _persist(self, rec: EvidenceRecord) -> None:
+        if self._kv is None:
+            return
+        key = _PREFIX + write_u64(self._next_seq)
+        self._next_seq += 1
+        self._kv.write_batch([(key, rec.encode())])
+
+    # -- recording ------------------------------------------------------------
     def _record(self, rec: EvidenceRecord) -> bool:
         if rec in self._records:
             return False
         if len(self._ordered) >= self.cap:
             self.dropped += 1
             return False
+        # durable before it is observable
+        self._persist(rec)
         self._records.add(rec)
         self._ordered.append(rec)
         return True

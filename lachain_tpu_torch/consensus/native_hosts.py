@@ -491,8 +491,8 @@ class RootHost:
         wire = self.router._native_send(payload)
         self._signatures[self.router.my_id] = sig
         # two segments: the fresh bytes drive header matching (the oracle
-        # compares with self._header.encode()), the wire bytes are what
-        # broadcasts (equal here: the port has no send journal yet)
+        # compares with self._header.encode()), the wire bytes (the
+        # journal's recorded ones after a restart) are what broadcasts
         own = (
             len(payload.header_bytes).to_bytes(4, "big")
             + payload.header_bytes

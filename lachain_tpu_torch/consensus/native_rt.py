@@ -47,9 +47,16 @@ batcher's `SeededRng(("rlc", seed))`) keep the caller's `seed`, on the
 card and with device="cpu" alike. `_send_opaque` is the adversary's
 unicast transport (consensus/adversary.py): any sender, any target.
 
-Not in this slice (ROADMAP A): the send journal
-(`journals`, the journal half of `_native_send`: the router records its
-outbox only) (item 10); `pipeline_window`, the per-era engines,
+`journals`, one consensus/journal.ConsensusJournal a validator, makes
+every router's sends durable as in EraRouter: the engine's own protocols
+(BB, BA, RBC, ACS) send from C++ and are not journaled, but every send of
+a host shim (the coin shares, the decryption shares, the signed header)
+and of a protocol kept in Python goes through `_native_send`, which
+records it before the engine transmits it and hands back the recorded
+bytes for a slot sent before (`rearm_sent`, inherited, re-arms a router
+from its journal before its first request).
+
+Not in this slice (ROADMAP A): `pipeline_window`, the per-era engines,
 `run_front` / `run_tail` and the deferred sign (item 11);
 `decode_consensus_trace` and the tracer registration (item 13).
 """
@@ -227,6 +234,7 @@ class NativeEraRouter(EraRouter):
         backend,
         extra_factories=None,
         memo: Optional[CryptoMemo] = None,
+        journal=None,
     ):
         def _no_send(target, payload):  # pragma: no cover
             raise RuntimeError("a native router transports through the engine")
@@ -240,6 +248,7 @@ class NativeEraRouter(EraRouter):
             rng=rng,
             backend=backend,
             extra_factories=extra_factories,
+            journal=journal,
             memo=memo,
         )
         self._net = net
@@ -314,10 +323,11 @@ class NativeEraRouter(EraRouter):
 
     def _native_send(self, payload):
         """The emission half of broadcast for a payload whose message state
-        machine lives in the engine: the outbox record without the
-        transport; the caller hands the returned payload to the engine,
-        which delivers it. (The reference also records it in the send
-        journal, which the port does not have yet.)"""
+        machine lives in the engine: the durable record (which may hand
+        back the recorded bytes of a slot sent before) and the outbox
+        record, without the transport; the caller hands the returned
+        payload to the engine, which delivers it."""
+        payload = self._durable_send(None, payload)
         self._record_outbox(None, payload)
         return payload
 
@@ -593,6 +603,7 @@ class NativeSimulatedNetwork:
         device="cuda",
         backend=None,
         fault_plan=None,
+        journals: Optional[List] = None,
     ):
         self._h = None
         self.n = public_keys.n
@@ -687,6 +698,7 @@ class NativeSimulatedNetwork:
                 backend=backend,
                 extra_factories=extra_factories,
                 memo=self.memo,
+                journal=journals[i] if journals is not None else None,
             )
             router.crypto_batcher = self.crypto_batcher
             router.rbc_batcher = self.rbc_batcher

@@ -20,7 +20,10 @@ C# reference's consensus test harness (DeliveryService, BroadcastSimulator):
     at quiescence; the RBC flush (consensus/rbc_batcher.RbcEraBatcher, off
     by default so that the seeded schedules stay the reference's) runs at
     quiescence, before the TPKE flush.
-Delivery is a single seeded loop: one seed replays one execution.
+Delivery is a single seeded loop: one seed replays one execution. Send
+journals (consensus/journal.py) reach the routers through `router_cls`,
+as in the reference: `router_cls=lambda **kw: EraRouter(journal=
+journals[kw["my_id"]], **kw)`.
 
 Differences, by the port's rules: the crypto runs on `backend`, a
 GpuBackend on `device` unless one is given ("cuda" by default: without a

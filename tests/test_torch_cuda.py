@@ -6,9 +6,10 @@ and of flags; the era pipelines, the backend and its MSM routes, and the
 batched ECDSA recovery on the card against the host oracles; the
 Reed-Solomon product (rs_matmul8, rs_matmul16) bit for bit against
 ops/rs_ref.py and an RBC flush's launch count; an N=16 HoneyBadger era
-with a malicious router, and a (7, 2) era with two equivocating
-validators on both consensus engines, on the card against the plain
-versions. CUDA
+with a malicious router, a (7, 2) era with two equivocating
+validators on both consensus engines, and a (7, 2) native root era
+crashed in the middle and restarted from its send journals, on the card
+against the plain versions. CUDA
 kernels have no CPU mode:
 on a machine without a card these tests skip, and `python3 chip_smoke.py`
 runs the same checks at the N=64 era's shapes on the card.
@@ -1494,7 +1495,8 @@ def test_honey_badger_era_on_card_equals_plain_versions(card):
     """chip_smoke.py's root_era_16_check: the N=16, f=5 era (HoneyBadger
     under RootProtocol, 8 signed transfers a validator) in TAKE_RANDOM with
     router 0's decryption shares corrupted, both batchers on, on the card
-    and with device="cpu" (the kernels' plain versions): equal blocks at
+    and with device="cpu" (the era on the host pipeline, the RBC flush and
+    the block recovery on the kernels' plain versions): equal blocks at
     every honest router, equal delivered_count and flush counts, and the
     same evidence (exactly router 0, invalid_share, "dec"); the card's run
     launches the G1 era kernels, rs_matmul8 and the block recovery's secp
@@ -1595,5 +1597,57 @@ def test_equivocating_era_on_card_equals_plain_versions(card, engine):
                      net.rbc_batcher.flushes, evidence))
         if engine == "native":
             net.close()
+    assert outs[0] == outs[1]
+    assert not any(verify.ESCAPES.values())
+
+
+def test_native_crash_restart_on_card_equals_plain_versions(card):
+    """A (7, 2) root era on the native engine (chip_smoke.py's root eras:
+    TAKE_FIRST, both batchers, Root native over RootProducer, 2 signed
+    transfers a validator) with a ConsensusJournal on MemoryKV a
+    validator, stopped at 1,500 of its ~3,900 messages, then restarted on a
+    fresh network of the same seed over the same stores, every router
+    re-armed from its journal before its first request, run to the block;
+    on the card and with device="cpu" (the kernels' plain versions), the
+    engine in chunks of 256 messages: equal blocks, messages, crash points,
+    replayed sends and journals, sends replayed at every router."""
+    import chip_smoke
+    from lachain_tpu_torch.consensus import messages as M
+    from lachain_tpu_torch.consensus.keys import trusted_key_gen
+    from lachain_tpu_torch.consensus.simulator import SeededRng as NetRng
+    from lachain_tpu_torch.storage.kv import MemoryKV
+
+    n, f, seed, chunk = 7, 2, 29, 256
+    pub, privs = trusted_key_gen(n, f, NetRng(0x7004))
+    rng = random.Random(0x7004)
+    proposals, _signer = chip_smoke.root_transfers(n, 2, rng)
+    parent = rng.randbytes(32)
+    pid = M.RootProtocolId(era=0)
+    outs = []
+    verify.reset_escapes()
+    for device in (card, "cpu"):
+        chip_smoke.clear_block_memos()
+        kvs = [MemoryKV() for _ in range(n)]
+        net, _ = chip_smoke.journaled_native_net(pub, privs, proposals, device, parent,
+                                                 seed, kvs)
+        for i in range(n):
+            net.post_request(i, pid, None)
+        net.run(lambda: net.delivered_count >= 1500, chunk=chunk)
+        assert all(r.result_of(pid) is None for r in net.routers)
+        crashed = net.delivered_count
+        net.close()
+        chip_smoke.clear_block_memos()
+        net, journals = chip_smoke.journaled_native_net(pub, privs, proposals, device,
+                                                        parent, seed, kvs)
+        chip_smoke.rearm(net, journals)
+        for i in range(n):
+            net.post_request(i, pid, None)
+        assert net.run(lambda: all(r.result_of(pid) is not None for r in net.routers),
+                       chunk=chunk)
+        replayed = [r.replayed_sends for r in net.routers]
+        assert all(replayed)
+        outs.append(([r.result_of(pid).encode() for r in net.routers], net.delivered_count,
+                     crashed, replayed, [list(kv.scan_prefix(b"")) for kv in kvs]))
+        net.close()
     assert outs[0] == outs[1]
     assert not any(verify.ESCAPES.values())

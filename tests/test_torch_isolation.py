@@ -1,6 +1,7 @@
 """The port stands alone and never hides a missing card.
 
 * In a fresh interpreter, importing every module of `lachain_tpu_torch`
+  (the storage, crash points, payload codec and send journal among them)
   must bring in neither JAX nor any module of the JAX package.
 * Asking for the card where there is none raises: `GpuBackend()` (and so
   its `tpke_era_verify_combine` and `ts_era_verify_combine`, and with a
@@ -79,6 +80,9 @@ new |= {"lachain_tpu_torch.crypto.vrf", "lachain_tpu_torch.crypto._aes_fallback"
         "lachain_tpu_torch.core.block_producer"}
 new |= {"lachain_tpu_torch.network", "lachain_tpu_torch.network.faults",
         "lachain_tpu_torch.consensus.adversary"}
+new |= {"lachain_tpu_torch.storage", "lachain_tpu_torch.storage.kv",
+        "lachain_tpu_torch.storage.crashpoints", "lachain_tpu_torch.network.wire",
+        "lachain_tpu_torch.consensus.journal"}
 assert new <= set(names), new - set(names)
 print(len(names), bad)
 """
@@ -105,6 +109,10 @@ import lachain_tpu_torch.core.types
 import lachain_tpu_torch.core.block_producer
 import lachain_tpu_torch.consensus.root_protocol
 import lachain_tpu_torch.consensus.native_hosts
+import lachain_tpu_torch.consensus.journal
+import lachain_tpu_torch.network.wire
+import lachain_tpu_torch.storage.crashpoints
+import lachain_tpu_torch.storage.kv
 print(sorted(m for m in sys.modules if m == "torch"
              or m.startswith("lachain_tpu_torch.ops")))
 """
