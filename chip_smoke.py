@@ -61,7 +61,7 @@ Phases, each of which must pass (any failure exits non-zero):
              backend)) is started and joined: the fully masked TPKE era
              at each slot tier, largest first, and one coin era, on a
              GpuBackend of its own; it must end with no error;
-  4. main    twenty-one paths (twenty-three where more than one card is
+  4. main    twenty-two paths (twenty-four where more than one card is
              visible),
              each with the kernel launch counts set to 0 just before its
              counted calls and read just after; the paths before the mesh
@@ -238,7 +238,19 @@ Phases, each of which must pass (any failure exits non-zero):
              restart on the Python engine, every protocol's sends
              journaled on MemoryKV through the routers' factory:
              root_era_64's block, each slot journaled once, replayed
-             sends, journals covering every latchable kind.
+             sends, journals covering every latchable kind;
+             the DKG (consensus/keygen.py, dkg_64): one validator's whole
+             keygen at N=64, f=21 on one_card_backend, its row checks
+             one g1_msm_batch each (22 groups of 32 lanes), its value
+             checks one g1_msm each over the 143 distinct coefficients
+             (256 lanes), its keyring one batch of 65 groups; the other 63 dealers the harness's (a real ECIES row
+             and real values for validator 0, seeded fillers for the
+             others), two byzantine senders, the state snapshotted and
+             resumed after dealer 31's round: every dealer finished, the
+             confirm at dealer 21's 43rd sender and at the 43rd vote, the
+             keyring equal to the polynomials', TS and TPKE round trips,
+             exactly the counted G1 launches (dkg_launches), one value
+             round traced by kernel.
              Around each counted call and the MSMs, no result may have been
              recomputed on the host (ops/verify.ESCAPES), and each path
              must launch its kernels;
@@ -3760,6 +3772,276 @@ def run_root_journal_path(seed: int, dev, ref):
             [dict(wall_s=out["wall"])])
 
 
+# the DKG phase: one validator's whole keygen at BASELINE config 4's
+# validator set (N=64, f=21); dealer by dealer, its state snapshotted and
+# resumed after dealer DKG_RESUME's round; senders DKG_N - 2 and DKG_N - 1
+# byzantine (random bytes, and the true value + 1); DKG_TRACED's value round
+# traced by kernel
+DKG_N, DKG_F = 64, 21
+DKG_RESUME = 31
+DKG_TRACED = 40
+# an ECIES ciphertext: ephemeral key (33) + nonce (12) + plaintext + tag (16)
+ECIES_OVERHEAD = 33 + 12 + 16
+
+
+class Tally:
+    """Summed seconds and calls of wrapped functions, by key."""
+
+    def __init__(self):
+        self.s: dict = {}
+        self.n: dict = {}
+
+    def wrap(self, key: str, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.s[key] = self.s.get(key, 0.0) + time.perf_counter() - t0
+                self.n[key] = self.n.get(key, 0) + 1
+        return timed
+
+    def line(self) -> str:
+        return ", ".join(f"{k} {self.s[k]:.3f} s ({self.n[k]} calls)" for k in sorted(self.s))
+
+
+def dkg_launches(n: int, f: int, commits: int, values: int) -> dict:
+    """G1 launches of the DKG's card MSMs: a row check is one batch of f+1
+    groups padded to k = 2^ceil(log2(f+1)) lanes, a value check one MSM
+    over the distinct coefficients its (f+1)^2 terms reach (143 at f = 21)
+    padded to a power of two, the keyring f+1 row batches at 0 and one
+    batch of n+1 groups of k; each one table build, one scan, log2(k) tree
+    adds and 2 g1_mont (the pack, the fetch)."""
+    from lachain_tpu_torch.consensus.keygen import _tri_index
+
+    k_row = 1 << f.bit_length()  # the least power of two >= f + 1
+    distinct = len({_tri_index(i, j) for i in range(f + 1) for j in range(f + 1)})
+    k_val = 1 << (distinct - 1).bit_length()
+    rows = commits + f + 2
+    calls = rows + values
+    adds = rows * (k_row.bit_length() - 1) + values * (k_val.bit_length() - 1)
+    return {"g1_table": calls, "g1_msm_scan": calls, "g1_add": adds, "g1_mont": 2 * calls,
+            "g1_dbl": 0, "fp_mul": 0}
+
+
+def run_dkg_path(seed: int, dev):
+    """One validator's whole DKG at N=64, f=21 (consensus/keygen.py), its
+    MSMs on the card through the normal entry points: validator 0 is a
+    TrustlessKeygen on one_card_backend(dev) with a seeded rng; the other
+    63 dealers are the harness's. This is the cut: each draws a
+    BiVarSymmetricPolynomial (the 63 commitments made on the host in one
+    g1_mul_batch) and sends validator 0 a real ECIES row, its other 63
+    rows seeded filler of the real length (33 + 12 + 22 * 32 + 16 = 765
+    bytes; validator 0 never opens them); each sender s >= 1 sends, per
+    dealer d, a ValueMessage whose entry for validator 0 is a real ECIES
+    F_d(s+1, 1) and whose other 63 entries are 93-byte fillers. In the
+    chain's order, dealer by dealer: validator 0's handle_commit (its own
+    real ValueMessage of 64 values), then the values of senders 0..63
+    (sender 0's its own). Sender 62's entry is random bytes, sender 63's
+    F_d(64, 1) + 1: both acked, neither valid. After dealer 31's round the
+    state is snapshotted (to_bytes), resumed (from_bytes, ==) and the
+    resumed object runs on. Then try_get_keys and N - f confirmations.
+    Checks: every dealer finished in order; handle_send_value True once,
+    at dealer 21's 43rd sender; the confirm at the 43rd vote; the keyring
+    equal to what the first 22 dealers' polynomials give (x_0, and g1 *
+    sum_d F_d(0, j) for j = 0..64 against the TPKE key, the verification
+    keys and the TS keys); a TS signature combined from 22 shares (validator
+    0's and 21 the harness derives) verifying under the keyring's set; a
+    TPKE ciphertext decrypted from 22 shares, each verified; exactly the
+    counted G1 launches (dkg_launches); no host recompute. Printed: the
+    walls, the summed seconds of ECIES, host g1_mul and the card's MSM calls,
+    and dealer 40's value round traced by kernel with its busy share."""
+    from lachain_tpu_torch.consensus import keygen as kg
+    from lachain_tpu_torch.crypto import bls12381 as bls
+    from lachain_tpu_torch.crypto import ecdsa
+    from lachain_tpu_torch.crypto import threshold_sig as ts
+    from lachain_tpu_torch.crypto import tpke
+
+    import torch
+
+    n, f = DKG_N, DKG_F
+    label = f"dkg N={n}"
+    bad_bytes, bad_value = n - 2, n - 1
+    walls = {}
+    t0 = time.perf_counter()
+    rng = SeededRng(seed * 1_000_003 + 64)
+    privs = [ecdsa.generate_private_key(rng) for _ in range(n)]
+    pubs = [ecdsa.public_key_bytes(p) for p in privs]
+    backend = one_card_backend(dev)
+    host = backend.host
+    enc, dec = ecdsa.ecies_encrypt, ecdsa.ecies_decrypt
+    filler = random.Random(seed * 1_000_003 + 65)
+    row_len = ECIES_OVERHEAD + (f + 1) * bls.FR_BYTES
+    val_len = ECIES_OVERHEAD + bls.FR_BYTES
+    # the harness's dealers 1..n-1: polynomials, commitments in one call
+    polys = [None] + [kg.BiVarSymmetricPolynomial.random(f, SeededRng(seed * 1_000_003 + d))
+                      for d in range(1, n)]
+    m = len(polys[1].coeffs)
+    flat = host.g1_mul_batch([bls.G1_GEN] * (m * (n - 1)),
+                             [c for p in polys[1:] for c in p.coeffs])
+    commits = [None] + [
+        kg.CommitMessage(kg.Commitment(flat[(d - 1) * m:d * m]),
+                         [enc(pubs[0], b"".join(bls.fr_to_bytes(c)
+                                                for c in polys[d].evaluate_row(1)), rng)]
+                         + [filler.randbytes(row_len) for _ in range(n - 1)])
+        for d in range(1, n)]
+
+    def values_for(d: int, at_one) -> list:
+        """The harness senders' ValueMessages for dealer d: at_one[s] is
+        F_d(s+1, 1)."""
+        out = [None]
+        for s in range(1, n):
+            if s == bad_bytes:
+                mine = filler.randbytes(val_len)
+            else:
+                v = (at_one[s] + (s == bad_value)) % bls.R
+                mine = enc(pubs[0], bls.fr_to_bytes(v), rng)
+            out.append(kg.ValueMessage(d, [mine] + [filler.randbytes(val_len)
+                                                    for _ in range(n - 1)]))
+        return out
+
+    # F_d(s+1, 1) = F_d(1, s+1): the row at x = 1 evaluated at s + 1
+    harness_values = [None] + [values_for(d, [bls.fr_eval_poly(polys[d].evaluate_row(1),
+                                                                 s + 1) for s in range(n)])
+                               for d in range(1, n)]
+    walls["setup"] = time.perf_counter() - t0
+
+    # validator 0's calls timed: its ECIES, host products and card MSMs
+    tally = Tally()
+    ecdsa.ecies_encrypt = tally.wrap("ecies_encrypt", enc)
+    ecdsa.ecies_decrypt = tally.wrap("ecies_decrypt", dec)
+    timed = [(backend, "g1_mul", "host g1_mul"), (host, "g1_mul_batch", "host g1_mul_batch"),
+             (backend, "g1_msm", "card g1_msm"), (backend, "g1_msm_batch", "card g1_msm_batch")]
+    for obj, name, key in timed:
+        setattr(obj, name, tally.wrap(key, getattr(obj, name)))
+    v0_seed = seed * 1_000_003 + 66
+    try:
+        reset_counts()
+        v0 = kg.TrustlessKeygen(privs[0], pubs, f, 0, SeededRng(v0_seed), backend)
+        t0 = time.perf_counter()
+        commits[0] = v0.start_keygen()
+        walls["start_keygen"] = time.perf_counter() - t0
+        # the harness's senders open their rows of validator 0's commit, as
+        # a chain's would; a replay of its seeded draw is its polynomial
+        t0 = time.perf_counter()
+        rows = [[bls.fr_from_bytes(raw[o:o + bls.FR_BYTES])
+                 for o in range(0, len(raw), bls.FR_BYTES)]
+                for raw in (dec(privs[s], commits[0].encrypted_rows[s]) for s in range(n))]
+        polys[0] = kg.BiVarSymmetricPolynomial.random(f, SeededRng(v0_seed))
+        check(rows == [polys[0].evaluate_row(s + 1) for s in range(n)],
+              f"{label}: validator 0's rows are not its seeded polynomial's")
+        harness_values[0] = values_for(0, [bls.fr_eval_poly(r, 1) for r in rows])
+        walls["setup"] += time.perf_counter() - t0
+
+        fired = []
+        walls.update(commits=0.0, values=0.0)
+        traced = {}
+
+        def value_round(d, own):
+            t = time.perf_counter()
+            for s in range(n):
+                if v0.handle_send_value(s, own if s == 0 else harness_values[d][s]):
+                    fired.append((d, s))
+            traced["wall"] = time.perf_counter() - t
+            walls["values"] += traced["wall"]
+
+        def warm():
+            torch.arange(1 << 12, device=dev).sum().item()
+
+        for d in range(n):
+            t = time.perf_counter()
+            own = v0.handle_commit(d, commits[d])
+            walls["commits"] += time.perf_counter() - t
+            check(len(own.encrypted_values) == n, f"{label}: dealer {d}: a short ValueMessage")
+            if d == DKG_TRACED:
+                before = read_launches()
+                traced["by_kernel"] = profile_device(lambda: value_round(d, own), warm=warm)
+                traced["counted"] = {k: read_launches()[k] - before[k] for k in before}
+            else:
+                value_round(d, own)
+            if d == DKG_RESUME:
+                t = time.perf_counter()
+                snapshot = v0.to_bytes()
+                resumed = kg.TrustlessKeygen.from_bytes(snapshot, privs[0],
+                                                        SeededRng(v0_seed + 1), backend)
+                check(resumed == v0 and resumed.to_bytes() == snapshot,
+                      f"{label}: the resumed state differs from the snapshot's")
+                walls["resume"] = time.perf_counter() - t
+                walls["snapshot_bytes"] = len(snapshot)
+                v0 = resumed
+        t = time.perf_counter()
+        ring = v0.try_get_keys()
+        walls["try_get_keys"] = time.perf_counter() - t
+        check(ring is not None, f"{label}: no keyring")
+        votes = [v0.handle_confirm(ring.public_key_hash) for _ in range(n - f)]
+        launches = read_launches()
+        check_no_escapes(label)
+    finally:
+        ecdsa.ecies_encrypt, ecdsa.ecies_decrypt = enc, dec
+        for obj, name, _key in timed:
+            delattr(obj, name)  # the class's method again
+
+    check(v0.finished_dealers == list(range(n)),
+          f"{label}: finished dealers {v0.finished_dealers}")
+    check(fired == [(f, 2 * f)], f"{label}: confirm ready at {fired}, not at dealer {f}'s "
+          f"sender {2 * f}")
+    check(votes == [False] * (n - f - 1) + [True], f"{label}: the confirm fired at {votes}")
+    st = v0.states[0]
+    check(st.acks == [True] * n and st.valid == [True] * (n - 2) + [False, False],
+          f"{label}: dealer 0's acks / valid {st.acks} / {st.valid}")
+    # every value but sender 62's (undecryptable) reaches its MSM
+    want = dkg_launches(n, f, n, n * (n - 1))
+    check({k: launches[k] for k in want} == want,
+          f"{label}: launches {launches}, want {want}")
+    # the keyring against the first f+1 dealers' polynomials
+    t0 = time.perf_counter()
+    at_zero = [polys[d].evaluate_row(0) for d in range(f + 1)]
+    shares = [sum(bls.fr_eval_poly(r, j) for r in at_zero) % bls.R for j in range(n + 1)]
+    check(ring.tpke_priv.x_i == shares[1] == ring.ts_share.x_i and ring.tpke_priv.my_id == 0,
+          f"{label}: x_0 differs from the polynomials'")
+    keys = host.g1_mul_batch([bls.G1_GEN] * (n + 1), shares)
+    check(bls.g1_eq(ring.tpke_pub.y, keys[0]) and ring.tpke_pub.t == f,
+          f"{label}: the TPKE key differs from the polynomials'")
+    check(all(bls.g1_eq(vk.y_i, y) for vk, y in zip(ring.tpke_verification_keys, keys[1:]))
+          and all(bls.g1_eq(k.y, y) for k, y in zip(ring.ts_key_set.keys, keys[1:]))
+          and len(ring.ts_key_set.keys) == n,
+          f"{label}: the verification or TS keys differ from the polynomials'")
+    msg = b"dkg %d coin" % seed
+    sig_shares = [ring.ts_share.sign(msg, host)] + [
+        ts.TsPrivateKeyShare(shares[i + 1], i).sign(msg, host) for i in range(1, f + 1)]
+    key_set = ring.ts_key_set
+    check(all(key_set.verify_share(msg, s, host) for s in sig_shares),
+          f"{label}: a TS share does not verify")
+    check(key_set.shared.verify(msg, key_set.combine(sig_shares, host), host),
+          f"{label}: the combined TS signature does not verify")
+    plain = bytes(range(32))
+    ct = ring.tpke_pub.encrypt(plain, 5, rng, host)
+    dshares = [ring.tpke_priv.decrypt_share(ct, backend=host)] + [
+        tpke.TpkePrivateKey(shares[i + 1], i).decrypt_share(ct, backend=host)
+        for i in range(1, f + 1)]
+    vks = [ring.tpke_verification_keys[d.decryptor_id] for d in dshares]
+    check(ring.tpke_pub.batch_verify_shares(vks, dshares, ct, rng, host) == [True] * (f + 1),
+          f"{label}: a TPKE decryption share does not verify")
+    check(ring.tpke_pub.full_decrypt(ct, dshares, host) == plain,
+          f"{label}: the TPKE round trip failed")
+    walls["checks"] = time.perf_counter() - t0
+    wall = sum(walls[k] for k in ("setup", "start_keygen", "commits", "values", "resume",
+                                  "try_get_keys"))
+    log(f"{label}: every dealer finished, the confirm at dealer {f}'s sender {2 * f} and "
+        f"vote {n - f}, the keyring equal to the first {f + 1} dealers' polynomials, TS "
+        f"and TPKE round trips of {f + 1} shares, no host recompute; launches {want}")
+    log(f"{label} walls: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in walls.items() if k != "snapshot_bytes")
+        + f"; snapshot {walls['snapshot_bytes']} bytes; phase {wall:.3f} s")
+    log(f"{label} summed: {tally.line()}")
+    by_kernel = traced["by_kernel"]
+    log(f"{label} dealer {DKG_TRACED}'s value round: counted launches "
+        f"{ {k: v for k, v in traced['counted'].items() if v} }, traced "
+        f"{ {k: by_kernel.get(KERNEL_OF[k], [0, 0])[1] for k in want if want[k]} }")
+    busy_line(f"{label} dealer {DKG_TRACED}'s value round", by_kernel, traced["wall"])
+    return launches, [dict(wall_s=wall)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -3830,7 +4112,8 @@ def main() -> int:
              ("chaos_era_native_16_check", lambda: run_chaos_native_check_path(args.seed, dev)),
              ("root_era_journal_native_64",
               lambda: run_root_journal_native_path(args.seed, dev, root_ref)),
-             ("root_era_journal_64", lambda: run_root_journal_path(args.seed, dev, root_ref))]
+             ("root_era_journal_64", lambda: run_root_journal_path(args.seed, dev, root_ref)),
+             ("dkg_64", lambda: run_dkg_path(args.seed, dev))]
     if torch.cuda.device_count() > 1:  # a mesh over distinct cards
         cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         runs += [("mesh_era_cards", lambda: run_mesh_path(args.seed, backend, dev, era,
@@ -3861,6 +4144,7 @@ def main() -> int:
         **{p: g1_path + ("rs_matmul8",) + secp_path for p in (
             "root_era_adversary_native_64", "root_era_adversary_64", "chaos_era_16_check",
             "chaos_era_native_16_check", "root_era_journal_native_64", "root_era_journal_64")},
+        "dkg_64": ("g1_mont", "g1_table", "g1_msm_scan", "g1_add"),
     }
     for path, (launches, warm) in paths.items():
         missing = [k for k in needs[path] if launches[k] == 0]

@@ -15,7 +15,10 @@ over `ops.rs_batch` and the Reed-Solomon kernel of csrc/rs.cu. The
 consensus (`consensus/`) runs an era from the proposals to its block
 (`consensus.root_protocol.RootProtocol`), whose senders
 `core.types.warm_sender_caches` recovers on the same secp256k1 kernels;
-its host ECDSA runs in the native host library (`crypto.ecdsa`). The
+its host ECDSA runs in the native host library (`crypto.ecdsa`). A
+validator's trustless keygen (`consensus.keygen.TrustlessKeygen`) runs its
+commitment checks as G1 MSMs on the same G1 kernels
+(`GpuBackend.g1_msm_batch`, `g1_msm`). The
 package imports torch and numpy and nothing of JAX or of lachain_tpu. Its
 entry points run on the card unless the caller passes device="cpu".
 """

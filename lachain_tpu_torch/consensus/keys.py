@@ -1,12 +1,13 @@
 """Era key sets for consensus.
 
 The port of `lachain_tpu/consensus/keys.py`: `PublicConsensusKeys` (the
-validators' TPKE, threshold-signature and ECDSA public keys),
-`PrivateConsensusKeys` (one validator's secrets) and the trusted dealer
-`trusted_key_gen` (:85-121). Every protocol reads them through its router.
-The wire form (`encode` / `decode`) is not ported: the port's key sets
-come from its dealer or from the JAX package's through
-`convert.consensus_keys_from_numpy`.
+validators' TPKE, threshold-signature and ECDSA public keys) with its wire
+form (`encode` / `decode`, :34-70: the JAX package's bytes, the blob a
+DKG's keyring installs), `PrivateConsensusKeys` (one validator's secrets;
+`observer`) and the trusted dealer `trusted_key_gen` (:85-121). Every
+protocol reads them through its router. Key sets come from the dealer,
+from a DKG (`consensus/keygen.py`), from `decode`, or from the JAX
+package's arrays through `convert.consensus_keys_from_numpy`.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import List, Optional
 from ..crypto import ecdsa
 from ..crypto import threshold_sig as ts
 from ..crypto import tpke
+from ..utils.serialization import Reader, write_bytes, write_bytes_list, write_u32
 
 
 @dataclass
@@ -33,6 +35,34 @@ class PublicConsensusKeys:
         if len(self.tpke_verification_keys) != self.n or self.ts_keys.n != self.n:
             raise ValueError("one TPKE and one threshold-signature key per validator")
 
+    def encode(self) -> bytes:
+        """The wire form: n, f, the TPKE key, its verification keys, the
+        threshold-signature key set and the ECDSA keys, length-prefixed."""
+        return (
+            write_u32(self.n)
+            + write_u32(self.f)
+            + write_bytes(self.tpke_pub.to_bytes())
+            + write_bytes_list([k.to_bytes() for k in self.tpke_verification_keys])
+            + write_bytes(self.ts_keys.to_bytes())
+            + write_bytes_list(list(self.ecdsa_pub_keys))
+        )
+
+    @classmethod
+    def decode(cls, data: bytes, backend=None) -> "PublicConsensusKeys":
+        """`encode`'s bytes -> the keys, each point checked by `backend`'s
+        deserializer (the pure-Python host's where none is given);
+        ValueError on a bad point or record."""
+        r = Reader(data)
+        n = r.u32()
+        f = r.u32()
+        tpke_pub = tpke.TpkePublicKey.from_bytes(r.bytes_(), backend)
+        vks = [tpke.TpkeVerificationKey.from_bytes(b, backend) for b in r.bytes_list()]
+        ts_keys = ts.TsPublicKeySet.from_bytes(r.bytes_(), backend)
+        ecdsa_pubs = r.bytes_list()
+        r.assert_eof()
+        return cls(n=n, f=f, tpke_pub=tpke_pub, tpke_verification_keys=vks,
+                   ts_keys=ts_keys, ecdsa_pub_keys=ecdsa_pubs)
+
 
 @dataclass
 class PrivateConsensusKeys:
@@ -41,6 +71,10 @@ class PrivateConsensusKeys:
     tpke_priv: Optional[tpke.TpkePrivateKey] = None
     ts_share: Optional[ts.TsPrivateKeyShare] = None
     ecdsa_priv: Optional[bytes] = None
+
+    @classmethod
+    def observer(cls, ecdsa_priv: bytes) -> "PrivateConsensusKeys":
+        return cls(ecdsa_priv=ecdsa_priv)
 
 
 def trusted_key_gen(n: int, f: int, rng):

@@ -11,7 +11,10 @@ the port's objects, with the same on-curve and subgroup checks.
 threshold-signature and ECDSA keys) into the port's consensus key sets.
 `signed_transactions_from_bytes` carries the JAX package's signed
 transactions (`core/types.SignedTransaction.encode()`) into the port's
-`SignedTransaction`s.
+`SignedTransaction`s. `bivar_polynomial_from_numpy` carries a DKG
+dealer's polynomial; a DKG node's state crosses as the JAX package's
+`TrustlessKeygen.to_bytes()`, which the port's
+`consensus.keygen.TrustlessKeygen.from_bytes` reads as it is.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import List, Sequence
 
 import numpy as np
 
+from .consensus.keygen import BiVarSymmetricPolynomial
 from .consensus.keys import PrivateConsensusKeys, PublicConsensusKeys
 from .core.types import SignedTransaction
 from .crypto import bls12381 as bls
@@ -154,3 +158,12 @@ def signed_transactions_from_bytes(blobs: Sequence[bytes]) -> List[SignedTransac
     `SignedTransaction.encode()`) -> the port's `SignedTransaction`s, with
     the same hashes and senders. A malformed encoding raises ValueError."""
     return [SignedTransaction.decode(bytes(b)) for b in blobs]
+
+
+def bivar_polynomial_from_numpy(coeffs, degree: int) -> BiVarSymmetricPolynomial:
+    """A DKG dealer's symmetric bivariate polynomial: coeffs uint8
+    ((degree + 1)(degree + 2) / 2, 32), each row one Fr coefficient big
+    endian (the JAX package's `fr_to_bytes`), in its packed triangular
+    order; degree: f. ValueError for a coefficient >= r or a wrong count."""
+    return BiVarSymmetricPolynomial(
+        degree, [bls.fr_from_bytes(b) for b in _rows(coeffs, bls.FR_BYTES)])

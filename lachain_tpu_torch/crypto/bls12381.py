@@ -784,6 +784,12 @@ def _lagrange_cached(xs: tuple, at: int) -> tuple:
     return tuple(coeffs)
 
 
+def fr_interpolate(xs: Sequence[int], ys: Sequence[int], at: int = 0) -> int:
+    """Scalar Lagrange interpolation at `at` (a DKG share, F_d(0, i+1))."""
+    cs = fr_lagrange_coeffs(xs, at)
+    return sum(c * y for c, y in zip(cs, ys)) % R
+
+
 def g1_interpolate(xs: Sequence[int], pts: Sequence[tuple], at: int = 0):
     """Interpolate G1 points at `at` (the shared key of a TS key set)."""
     cs = fr_lagrange_coeffs(xs, at)

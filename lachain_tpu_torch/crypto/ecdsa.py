@@ -8,18 +8,21 @@ affine curve law (:26-64), `generate_private_key` (:69), `public_key_point`
 `verify_hash` (:224), `ecdh_shared_secret` (:252), AES-GCM (:263-289),
 ECIES (:291-307), `recover_hash` (:309) and `recover_hash_batch` (:357).
 
-`public_key_bytes`, `sign_hash`, `verify_hash` and `recover_hash` (and
-the keccak of `address_from_public_key`) run in the port's native host
-library (its copy of the reference's
-`crypto/native/secp256k1.cpp`, built by `ops/_build.host_library()`,
+`public_key_bytes`, `sign_hash`, `verify_hash`, `recover_hash` and
+`ecdh_shared_secret`'s shared point (and the keccak of
+`address_from_public_key`) run in the port's native host library (its
+copy of the reference's `crypto/native/secp256k1.cpp` with the port's
+`lt_ec_ecdh` added, built by `ops/_build.host_library()`,
 typed by `native_backend.load_lib`); a missing compiler or a failed build
 raises, there is no pure-Python fallback. Where the library returns an
 error code, each answers as the reference's function does: `sign_hash`
 signs in Python (`_sign_hash_py`), `public_key_bytes` derives in Python,
 `recover_hash` returns None; `verify_hash` and `recover_hash` take the
 pure-Python forms (`_verify_hash_py`, `_recover_hash_py`) for a key or a
-hash of irregular length, as the reference does. The pure-Python forms are
-the plain versions the tests hold the library to.
+hash of irregular length, as the reference does; `ecdh_shared_secret`
+raises ValueError wherever the reference's pure-Python form does. The
+pure-Python forms (`_ecdh_shared_secret_py` too) are the plain versions
+the tests hold the library to.
 
 AES-GCM always runs `_aes_fallback` (the port's copy of the reference's
 pure-Python GCM): the port imports no optional package. The random
@@ -261,7 +264,24 @@ def _verify_hash_py(pub: bytes, msg_hash: bytes, sig: bytes) -> bool:
 
 
 def ecdh_shared_secret(priv: bytes, pub: bytes) -> bytes:
-    """32-byte shared secret: sha256 of the compressed shared point."""
+    """32-byte shared secret: sha256 of the compressed shared point
+    priv * pub, made by the native library's `lt_ec_ecdh`. ValueError for a
+    key that does not decompress (a bad length or prefix, x >= p, x off
+    the curve) and for a degenerate product (priv = 0 mod n), as
+    `_ecdh_shared_secret_py`."""
+    k = (int.from_bytes(priv, "big") % N).to_bytes(32, "big")
+    out = ctypes.create_string_buffer(33)
+    rc = _lib().lt_ec_ecdh(k, pub, len(pub), out)
+    if rc == 2:
+        raise ValueError("pubkey invalid: not 33 bytes, bad prefix, x out of range "
+                         "or not on curve")
+    if rc != 0:
+        raise ValueError("degenerate ECDH result")
+    return hashlib.sha256(out.raw).digest()
+
+
+def _ecdh_shared_secret_py(priv: bytes, pub: bytes) -> bytes:
+    """`ecdh_shared_secret` in pure Python (the reference's form)."""
     pt = _mul(decompress_public_key(pub), int.from_bytes(priv, "big"))
     if pt is None:
         raise ValueError("degenerate ECDH result")

@@ -18,7 +18,8 @@ check for that subset.
 `era_calls`, `era_slots_total` and `ts_era_calls` count the era calls run
 to their end, as the reference's counters do.
 `g1_msm` / `g2_msm` run on the card through `g1.msm_reduce` /
-`g2.msm2_reduce` (tpu_backend.py:207-267).
+`g2.msm2_reduce` (tpu_backend.py:207-267); `g1_msm_batch` runs many G1
+MSMs (a DKG's row checks and key derivation) in one such call.
 
 Every batch runs on the pipeline's device; there is no lane threshold that
 routes work elsewhere. Pairings, hash-to-curve and single scalar
@@ -160,48 +161,60 @@ class GpuBackend:
 
     # -- MSMs on the card ----------------------------------------------------
     def g1_msm(self, points, scalars) -> tuple:
-        return self._device_msm(points, scalars, group2=False)
+        return self._device_msm([points], [scalars], group2=False)[0]
 
     def g2_msm(self, points, scalars) -> tuple:
-        return self._device_msm(points, scalars, group2=True)
+        return self._device_msm([points], [scalars], group2=True)[0]
 
-    def _device_msm(self, points, scalars, group2: bool) -> tuple:
-        """sum s_i P_i as one windowed MSM (64 windows of the scalar mod r)
-        and one tree reduce over n padded to a power of two with infinity.
+    def g1_msm_batch(self, point_lists, scalar_lists) -> list:
+        """[sum_i s_gi P_gi for each group g] in one MSM call: a DKG row
+        check's f+1 row MSMs, a keyring's N+1 key MSMs."""
+        return self._device_msm(point_lists, scalar_lists, group2=False)
+
+    def _device_msm(self, point_lists, scalar_lists, group2: bool) -> list:
+        """[sum_i s_gi P_gi for each group g] as ONE windowed MSM (64 windows
+        of the scalar mod r) and one tree reduce: every group padded with
+        infinity to one power of two k, one `msm_reduce` / `msm2_reduce`
+        over groups of k lanes and one fetch.
 
         An infinity input gets scalar 0: its packed form (0, 1, 0) is no
-        group element the incomplete formulas can add. A sum that comes back
-        as infinity while a lane is live is recomputed by the host MSM and
-        counted in `ESCAPES`: equal partial sums (a repeated input) collide
-        in the incomplete add and give Z = 0, like the era pipelines'
-        combine lanes. The JAX route (tpu_backend.py:231-267) returns that
-        infinity as it is."""
+        group element the incomplete formulas can add. A group's sum that
+        comes back as infinity while a lane of it is live is recomputed by
+        the host MSM and counted in `ESCAPES`: equal partial sums (a
+        repeated input) collide in the incomplete add and give Z = 0, like
+        the era pipelines' combine lanes. The JAX route
+        (tpu_backend.py:231-267) returns that infinity as it is."""
         inf, is_inf = (
             (bls.G2_INF, bls.g2_is_inf) if group2 else (bls.G1_INF, bls.g1_is_inf)
         )
-        n = len(points)
-        if len(scalars) != n:
+        if len(scalar_lists) != len(point_lists):
+            raise ValueError("one scalar list per point list")
+        if any(len(p) != len(s) for p, s in zip(point_lists, scalar_lists)):
             raise ValueError("one scalar per point")
-        n_pad = _pow2_at_least(n)
-        pts = list(points) + [inf] * (n_pad - n)
-        ss = [0 if is_inf(p) else s % bls.R for p, s in zip(points, scalars)]
-        ss += [0] * (n_pad - n)
+        if not point_lists:
+            return []
+        k = _pow2_at_least(max(len(p) for p in point_lists))
+        lanes, ss = [], []
+        for pts, scs in zip(point_lists, scalar_lists):
+            pad = k - len(pts)
+            lanes += list(pts) + [inf] * pad
+            ss += [0 if is_inf(p) else s % bls.R for p, s in zip(pts, scs)]
+            ss += [0] * pad
         dev = self.device
         digits = g1.digits_col(ss, W256, dev)
         cpu = dev.type == "cpu"
         if group2:
-            fused = g2.msm2_reduce(g2.g2_pack(pts, dev), digits, n_pad)
-            rows, flags = g1.fetch(fused)
-            out = g2.g2_unpack_host(rows, flags, cpu)[0]
+            rows, flags = g1.fetch(g2.msm2_reduce(g2.g2_pack(lanes, dev), digits, k))
+            outs = g2.g2_unpack_host(rows, flags, cpu)
         else:
-            fused = g1.msm_reduce(g1.g1_pack(pts, dev), digits, n_pad)
-            rows, flags = g1.fetch(fused)
-            out = g1.g1_unpack_host(rows, flags, cpu)[0]
-        if is_inf(out) and any(ss):
-            name = "g2_msm" if group2 else "g1_msm"
-            ESCAPES[name] += 1
-            out = getattr(self._host, name)(points, scalars)
-        return out
+            rows, flags = g1.fetch(g1.msm_reduce(g1.g1_pack(lanes, dev), digits, k))
+            outs = g1.g1_unpack_host(rows, flags, cpu)
+        name = "g2_msm" if group2 else "g1_msm"
+        for g, out in enumerate(outs):
+            if is_inf(out) and any(ss[g * k:(g + 1) * k]):
+                ESCAPES[name] += 1
+                outs[g] = getattr(self._host, name)(point_lists[g], scalar_lists[g])
+        return outs
 
     # -- the era-tick batch ops ----------------------------------------------
     def _stable_y_points(self, vks, attr: str) -> list:

@@ -25,6 +25,12 @@ class HostBackend:
             acc = bls.g1_add(acc, bls.g1_mul(pt, s))
         return acc
 
+    def g1_msm_batch(self, point_lists, scalar_lists) -> list:
+        """`g1_msm` of each group (GpuBackend's batch, one call a group)."""
+        if len(point_lists) != len(scalar_lists):
+            raise ValueError("one scalar list per point list")
+        return [self.g1_msm(p, s) for p, s in zip(point_lists, scalar_lists)]
+
     def g2_msm(self, points: Sequence[tuple], scalars: Sequence[int]) -> tuple:
         acc = bls.G2_INF
         for pt, s in zip(points, scalars):

@@ -1,7 +1,8 @@
-// secp256k1 ECDSA: sign / verify / recover — native backend.
+// secp256k1 ECDSA: sign / verify / recover, and ECDH — native backend.
 //
-// The port's copy of lachain_tpu/crypto/native/secp256k1.cpp (only this
-// header differs), in the role of Secp256k1.Native in the upstream Lachain
+// The port's copy of lachain_tpu/crypto/native/secp256k1.cpp: this header
+// differs, and the port adds lt_ec_ecdh (the shared point of ECIES, which
+// the reference computes in pure Python), in the role of Secp256k1.Native in the upstream Lachain
 // (src/Lachain.Crypto/Lachain.Crypto.csproj:21-22, DefaultCrypto.cs:79-195). The pure-Python implementation in
 // lachain_tpu/crypto/ecdsa.py is the semantic oracle — this file reproduces
 // its exact wire behavior (RFC 6979 nonce chain incl. the retry tweak,
@@ -652,6 +653,25 @@ int lt_ec_pubkey(const u8 priv[32], u8 out[33]) {
   pt_mul(q, g, d);
   u64 ax[4], ay[4];
   if (!pt_affine(ax, ay, q)) return 1;
+  out[0] = 0x02 | (u8)(ay[0] & 1);
+  store_be(out + 1, ax);
+  return 0;
+}
+
+// ECDH: out = the compressed point priv * pub (33 bytes). priv is a 32-byte
+// big-endian scalar below n. Returns 0 ok, 1 for priv = 0 (a degenerate
+// product), 2 for a pub that does not decompress (a length other than 33,
+// a bad prefix, x >= p, or x off the curve).
+int lt_ec_ecdh(const u8 priv[32], const u8* pub, size_t pub_len, u8 out[33]) {
+  Pt q;
+  if (pub_len != 33 || !pt_decompress(q, pub)) return 2;
+  u64 d[4];
+  load_be(d, priv);
+  if (is_zero4(d)) return 1;
+  Pt r;
+  pt_mul_win(r, q, d);
+  u64 ax[4], ay[4];
+  if (!pt_affine(ax, ay, r)) return 1;
   out[0] = 0x02 | (u8)(ay[0] & 1);
   store_be(out + 1, ax);
   return 0;

@@ -9,6 +9,9 @@ needs, with the same algebra, the same hash domain and the same coin bit:
   verify  : e(g1, sigma_i) == e(Y_i, H_G2(msg)).
   combine : sigma = Lagrange_0({(i+1, sigma_i)}) in G2; verify against Y.
   parity  : the low bit of keccak256 of the serialized combined signature.
+The keys' wire form (`TsPublicKey`, `TsPublicKeySet`, `TsPrivateKeyShare`
+`to_bytes` / `from_bytes`, reference :97-135, :303-309) is the JAX
+package's bytes; a parse checks each point with `backend`'s deserializer.
 
 The port has no global provider: every operation that does group work
 takes its `backend` (a `host.HostBackend`, or a `gpu_backend.GpuBackend`
@@ -32,7 +35,7 @@ from typing import Dict, List, Optional, Sequence
 from . import bls12381 as bls
 from .hashes import keccak256
 from .host import HostBackend, batch_bisect_verify, select_distinct
-from ..utils.serialization import Reader, write_u32
+from ..utils.serialization import Reader, write_bytes_list, write_u32
 
 _SIG_DOMAIN = b"LTPU-TSIG"
 
@@ -93,6 +96,15 @@ class TsPublicKey:
     def __init__(self, y: tuple):
         self.y = y
 
+    def to_bytes(self) -> bytes:
+        return bls.g1_to_bytes(self.y)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, backend=None) -> "TsPublicKey":
+        """Parse with `backend`'s checked G1 deserializer (ValueError on a
+        bad point)."""
+        return cls((backend or _HOST).g1_deserialize(data))
+
     def verify(self, msg: bytes, sig: Signature, backend) -> bool:
         """e(g1, sigma) == e(Y, H_G2(msg))."""
         h = _hash_to_sig_point(msg, backend)
@@ -116,6 +128,17 @@ class TsPublicKeySet:
     @property
     def n(self) -> int:
         return len(self.keys)
+
+    def to_bytes(self) -> bytes:
+        return write_u32(self.t) + write_bytes_list([k.to_bytes() for k in self.keys])
+
+    @classmethod
+    def from_bytes(cls, data: bytes, backend=None) -> "TsPublicKeySet":
+        r = Reader(data)
+        t = r.u32()
+        keys = [TsPublicKey.from_bytes(b, backend) for b in r.bytes_list()]
+        r.assert_eof()
+        return cls(keys, t)
 
     def verify_share(self, msg: bytes, ps: PartialSignature, backend) -> bool:
         """e(g1, sigma_i) == e(Y_i, H(msg))."""
@@ -230,6 +253,17 @@ class TsPrivateKeyShare:
     def __init__(self, x_i: int, my_id: int):
         self.x_i = x_i % bls.R
         self.my_id = my_id
+
+    def to_bytes(self) -> bytes:
+        return bls.fr_to_bytes(self.x_i) + write_u32(self.my_id)
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "TsPrivateKeyShare":
+        x = bls.fr_from_bytes(data[: bls.FR_BYTES])
+        r = Reader(data[bls.FR_BYTES :])
+        my_id = r.u32()
+        r.assert_eof()
+        return cls(x, my_id)
 
     def sign(self, msg: bytes, backend) -> PartialSignature:
         """sigma_i = H_G2(msg)^{x_i}."""

@@ -14,7 +14,8 @@ Every random draw takes an explicit `rng` with a `randbelow` method
 
 HoneyBadger's host side (reference :65-343, :523): the wire
 records (`EncryptedShare` / `PartiallyDecryptedShare` `to_bytes` /
-`from_bytes`, the wire format of the JAX package), `ciphertext_h`,
+`from_bytes`, the wire format of the JAX package; the keys' too, :191-197,
+:473-494, which the DKG's confirm vote hashes), `ciphertext_h`,
 `decode_encrypted_shares_batch`, `verify_ciphertext`,
 `batch_verify_ciphertexts`, the per-slot `batch_verify_shares` (RLC +
 bisection) and `full_decrypt`, `peek_decrypted_share_ids` and
@@ -179,6 +180,19 @@ class TpkePublicKey:
         self.y = y  # G1
         self.t = t  # polynomial degree: t+1 shares reconstruct
 
+    def to_bytes(self) -> bytes:
+        return bls.g1_to_bytes(self.y) + write_u32(self.t)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, backend=None) -> "TpkePublicKey":
+        """Parse with `backend`'s checked G1 deserializer (ValueError on a
+        bad point)."""
+        y = (backend or _HOST).g1_deserialize(data[: bls.G1_BYTES])
+        r = Reader(data[bls.G1_BYTES :])
+        t = r.u32()
+        r.assert_eof()
+        return cls(y, t)
+
     def encrypt(self, msg: bytes, share_id: int, rng, backend=None) -> EncryptedShare:
         backend = backend or _HOST
         r = rng.randbelow(bls.R - 1) + 1
@@ -285,6 +299,13 @@ class TpkeVerificationKey:
 
     y_i: tuple
 
+    def to_bytes(self) -> bytes:
+        return bls.g1_to_bytes(self.y_i)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, backend=None) -> "TpkeVerificationKey":
+        return cls((backend or _HOST).g1_deserialize(data))
+
 
 class TpkePrivateKey:
     """Validator key share x_i."""
@@ -292,6 +313,17 @@ class TpkePrivateKey:
     def __init__(self, x_i: int, my_id: int):
         self.x_i = x_i % bls.R
         self.my_id = my_id
+
+    def to_bytes(self) -> bytes:
+        return bls.fr_to_bytes(self.x_i) + write_u32(self.my_id)
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "TpkePrivateKey":
+        x = bls.fr_from_bytes(data[: bls.FR_BYTES])
+        r = Reader(data[bls.FR_BYTES :])
+        my_id = r.u32()
+        r.assert_eof()
+        return cls(x, my_id)
 
     def decrypt_share(
         self, share: EncryptedShare, check: bool = True, backend=None

@@ -9,7 +9,8 @@ ops/rs_ref.py and an RBC flush's launch count; an N=16 HoneyBadger era
 with a malicious router, a (7, 2) era with two equivocating
 validators on both consensus engines, and a (7, 2) native root era
 crashed in the middle and restarted from its send journals, on the card
-against the plain versions. CUDA
+against the plain versions; `g1_msm_batch` at the DKG's shapes and a
+(7, 2) DKG fleet against the native host. CUDA
 kernels have no CPU mode:
 on a machine without a card these tests skip, and `python3 chip_smoke.py`
 runs the same checks at the N=64 era's shapes on the card.
@@ -1650,4 +1651,80 @@ def test_native_crash_restart_on_card_equals_plain_versions(card):
                      crashed, replayed, [list(kv.scan_prefix(b"")) for kv in kvs]))
         net.close()
     assert outs[0] == outs[1]
+    assert not any(verify.ESCAPES.values())
+
+
+@pytest.mark.parametrize("groups,size", [(22, 22), (1, 143), (3, 5)])
+def test_g1_msm_batch_on_card_equals_plain_version(card, groups, size):
+    """GpuBackend.g1_msm_batch at the DKG phase's shapes (a row check's 22
+    groups padded to 32 lanes, a value check's 143 distinct coefficients
+    padded to 256) and a small ragged one, against the plain
+    versions (device="cpu") and the native host group by group: one table
+    build, one scan, log2(k) tree adds and 2 g1_mont, no escape. A few
+    groups carry an infinity input and zero scalars."""
+    from lachain_tpu_torch.crypto.native_backend import NativeBackend
+
+    rng = random.Random(0xD6 + groups)
+    native = NativeBackend()
+    pts = native.g1_mul_batch([bls.G1_GEN] * size, [rng.randrange(1, bls.R)
+                                                    for _ in range(size)])
+    point_lists, scalar_lists = [], []
+    for g in range(groups):
+        lst = pts[g % size:] + pts[:g % size]
+        ss = [rng.randrange(bls.R) for _ in range(size)]
+        if g % 7 == 1:
+            lst = [bls.G1_INF] + lst[1:]
+            ss = [ss[0], 0, 0] + ss[3:]
+        if g == 2:
+            lst = lst[:3]
+            ss = ss[:3]
+        point_lists.append(lst)
+        scalar_lists.append(ss)
+    k = 1 << (max(len(p) for p in point_lists) - 1).bit_length()
+    verify.reset_escapes()
+    g1.reset_launches()
+    got = GpuBackend(device=card).g1_msm_batch(point_lists, scalar_lists)
+    want = dict(g1_table=1, g1_msm_scan=1, g1_add=k.bit_length() - 1, g1_mont=2,
+                g1_dbl=0, fp_mul=0)
+    assert {name: g1.LAUNCHES[name] for name in want} == want
+    plain = GpuBackend(device="cpu").g1_msm_batch(point_lists, scalar_lists)
+    host = native.g1_msm_batch(point_lists, scalar_lists)
+    assert len(got) == groups
+    assert all(bls.g1_eq(a, b) and bls.g1_eq(a, c) for a, b, c in zip(got, plain, host))
+    assert not any(verify.ESCAPES.values())
+
+
+def test_dkg_fleet_on_card_equals_native_fleet(card):
+    """A (7, 2) DKG fleet (consensus/keygen.py) on one GpuBackend on the
+    card against the same seeds on NativeBackend: every node's snapshot
+    after every dealer's round and every keyring equal, the G1 kernels
+    launched, no escape."""
+    from lachain_tpu_torch.consensus import keygen as kg
+    from lachain_tpu_torch.crypto.native_backend import NativeBackend
+
+    n, f, seed = 7, 2, 42
+    rng = SeededRng(seed)
+    privs = [ecdsa.generate_private_key(rng) for _ in range(n)]
+    pubs = [ecdsa.public_key_bytes(p) for p in privs]
+    outs = []
+    verify.reset_escapes()
+    g1.reset_launches()
+    for backend in (GpuBackend(device=card, pipeline=GpuEraPipeline(device=card)),
+                    NativeBackend()):
+        nodes = [kg.TrustlessKeygen(privs[i], pubs, f, 0, SeededRng(seed + i), backend)
+                 for i in range(n)]
+        commits = [node.start_keygen() for node in nodes]
+        snaps = []
+        for dealer, commit in enumerate(commits):
+            values = [(i, node.handle_commit(dealer, commit)) for i, node in enumerate(nodes)]
+            for sender, vmsg in values:
+                for node in nodes:
+                    node.handle_send_value(sender, vmsg)
+            snaps.append([node.to_bytes() for node in nodes])
+        rings = [node.try_get_keys() for node in nodes]
+        outs.append((snaps, [(r.public_key_hash, r.tpke_priv.to_bytes()) for r in rings]))
+        if isinstance(backend, GpuBackend):
+            launched = dict(g1.LAUNCHES)
+    assert outs[0] == outs[1]
+    assert all(launched[k] for k in ("g1_table", "g1_msm_scan", "g1_add", "g1_mont"))
     assert not any(verify.ESCAPES.values())

@@ -1,7 +1,7 @@
 """The port stands alone and never hides a missing card.
 
 * In a fresh interpreter, importing every module of `lachain_tpu_torch`
-  (the storage, crash points, payload codec and send journal among them)
+  (the storage, crash points, payload codec, send journal and DKG among them)
   must bring in neither JAX nor any module of the JAX package.
 * Asking for the card where there is none raises: `GpuBackend()` (and so
   its `tpke_era_verify_combine` and `ts_era_verify_combine`, and with a
@@ -18,7 +18,8 @@
   binding loads no torch, and without g++ the build raises; so does
   `hashes.keccak256_batch`, `hashes.keccak256_host` and the native ECDSA
   entries (`ecdsa.sign_hash`, `verify_hash`, `recover_hash`,
-  `public_key_bytes`), which have no pure-Python fallback.
+  `public_key_bytes`, `ecdh_shared_secret`), which have no pure-Python
+  fallback.
 * The native consensus engine is the port's own build too: it loads from
   `lachain_tpu_torch/_build/`, without g++ or on a failed build
   `consensus_library()` raises, and `NativeSimulatedNetwork()` built for
@@ -74,7 +75,7 @@ new |= {f"lachain_tpu_torch.consensus.{m}" for m in (
     "messages", "protocol", "keys", "binary_broadcast", "binary_agreement",
     "common_coin", "common_subset", "reliable_broadcast", "honey_badger",
     "evidence", "journal", "era", "simulator", "root_protocol", "native_rt",
-    "native_hosts")}
+    "native_hosts", "keygen")}
 new |= {"lachain_tpu_torch.crypto.vrf", "lachain_tpu_torch.crypto._aes_fallback",
         "lachain_tpu_torch.core", "lachain_tpu_torch.core.types",
         "lachain_tpu_torch.core.block_producer"}
@@ -94,7 +95,7 @@ def test_port_imports_nothing_of_jax():
         text=True, check=True, timeout=120,
     ).stdout.split("\n")[0]
     count, bad = out.split(" ", 1)
-    assert int(count) >= 55  # every module of the package was imported
+    assert int(count) >= 56  # every module of the package was imported
     assert bad == "[]"
 
 
@@ -110,6 +111,7 @@ import lachain_tpu_torch.core.block_producer
 import lachain_tpu_torch.consensus.root_protocol
 import lachain_tpu_torch.consensus.native_hosts
 import lachain_tpu_torch.consensus.journal
+import lachain_tpu_torch.consensus.keygen
 import lachain_tpu_torch.network.wire
 import lachain_tpu_torch.storage.crashpoints
 import lachain_tpu_torch.storage.kv
@@ -255,8 +257,9 @@ def test_host_build_without_gxx_raises(monkeypatch, tmp_path):
 
 
 def test_native_ecdsa_without_host_library_raises(monkeypatch, tmp_path):
-    """sign_hash, verify_hash, recover_hash and public_key_bytes run in the
-    host library or raise: no pure-Python fallback when the build fails."""
+    """sign_hash, verify_hash, recover_hash, public_key_bytes and
+    ecdh_shared_secret run in the host library or raise: no pure-Python
+    fallback when the build fails."""
     monkeypatch.setattr(ecdsa, "_LIB", [])
     monkeypatch.setattr(ecdsa, "_PUB_CACHE", {})
     monkeypatch.setattr(_build, "_HOST_LIB", None)
@@ -266,7 +269,8 @@ def test_native_ecdsa_without_host_library_raises(monkeypatch, tmp_path):
     sig = ecdsa._sign_hash_py(priv, h)
     pub = ecdsa._recover_hash_py(h, sig)
     for call in (lambda: ecdsa.sign_hash(priv, h), lambda: ecdsa.verify_hash(pub, h, sig),
-                 lambda: ecdsa.recover_hash(h, sig), lambda: ecdsa.public_key_bytes(priv)):
+                 lambda: ecdsa.recover_hash(h, sig), lambda: ecdsa.public_key_bytes(priv),
+                 lambda: ecdsa.ecdh_shared_secret(priv, pub)):
         with pytest.raises(RuntimeError, match="g\\+\\+"):
             call()
     assert not list(tmp_path.iterdir())  # nothing was built
