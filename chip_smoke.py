@@ -61,7 +61,7 @@ Phases, each of which must pass (any failure exits non-zero):
              backend)) is started and joined: the fully masked TPKE era
              at each slot tier, largest first, and one coin era, on a
              GpuBackend of its own; it must end with no error;
-  4. main    twenty-two paths (twenty-four where more than one card is
+  4. main    twenty-three paths (twenty-five where more than one card is
              visible),
              each with the kernel launch counts set to 0 just before its
              counted calls and read just after; the paths before the mesh
@@ -221,18 +221,22 @@ Phases, each of which must pass (any failure exits non-zero):
              root_era_native_64's era journaled on MemoryKV and traced
              whole (run A: root_era_64's block and messages, every
              router's journal holding "coin", "dec" and "hdr" records and
-             no slot twice), then journaled on a SqliteKV file a validator
-             and stopped at CRASH_AT messages (run B: the network and every
-             file closed, the crash), then restarted from the reopened
-             files on a fresh network of the same seed, every router
+             no slot twice), then, once on a SqliteKV file a validator and
+             once on an LsmKV directory a validator (storage/lsm.py),
+             journaled and stopped at CRASH_AT messages (run B: the network
+             and every store closed, the crash; each crashed LsmKV store
+             passes fsck with no fatal issue), then restarted from the
+             reopened stores on a fresh network of the same seed, every router
              re-armed from its journal (rearm_sent) before its first
              request, traced whole: run A's block at all 64 routers, sends
              replayed from the journals (replayed_sends > 0, no more than
-             run B journaled), every file's rows equal to run A's journal
-             (each slot once, the sequences continued), at router 0 every
+             run B journaled), every store's rows equal to run A's journal
+             (each slot once, the sequences continued), every LsmKV store
+             clean under fsck, at router 0 every
              journaled coin and decryption share re-derived with zeroed
              bytes handed back as recorded; walls, messages, records a
-             router, journal bytes, the SqliteKV write_batch seconds,
+             router, journal bytes, each engine's write_batch seconds and
+             a validator's share of run A's wall,
              replayed sends, flushes, traced device time and busy shares;
              and root_era_journal_64, the same crash at CRASH_AT_PY and
              restart on the Python engine, every protocol's sends
@@ -250,7 +254,24 @@ Phases, each of which must pass (any failure exits non-zero):
              confirm at dealer 21's 43rd sender and at the 43rd vote, the
              keyring equal to the polynomials', TS and TPKE round trips,
              exactly the counted G1 launches (dkg_launches), one value
-             round traced by kernel.
+             round traced by kernel;
+             the storage (storage/trie.py, state.py, lsm.py, fsck.py,
+             shrink.py; state_commit_1m): one validator's state on LsmKV,
+             a genesis of 1,000,000 accounts (1,024 seeded senders, the
+             rest keccak256(i)[:20], seeded 32-byte balances), then two
+             blocks of 10,000 natively signed transfers whose senders
+             core/types.warm_sender_caches recovers on the card (exactly
+             recover_launches(10,000) a block, each sender the signing
+             key's address); each block's transaction and balance rows and
+             its block rows (written by the harness: execution is not
+             ported yet) committed through StateManager.freeze_and_commit
+             (streamed, subtrie-sharded), a quick fsck after every commit
+             clean; the last block's writes frozen again serially give the
+             same roots; the store reopened gives the height, every
+             height's roots and 1,000 sampled balances; DbShrink
+             (retain_depth 1) sweeps the genesis-only nodes and a deep
+             fsck is then clean; walls, commit_stats, merkle_stats, the
+             engine's stats, nodes and bytes on disk, the state hash.
              Around each counted call and the MSMs, no result may have been
              recomputed on the host (ops/verify.ESCAPES), and each path
              must launch its kernels;
@@ -289,6 +310,7 @@ import time
 
 from lachain_tpu_torch.consensus.honey_badger import HoneyBadger
 from lachain_tpu_torch.storage.kv import SqliteKV
+from lachain_tpu_torch.storage.lsm import LsmKV
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and float32
 # outside the tensor cores, 67 TFLOP/s = 33.5 T fused multiply-adds/s. The
@@ -2163,6 +2185,19 @@ def degenerate_signature():
             rp[0].to_bytes(32, "big") + s.to_bytes(32, "big") + bytes([rp[1] & 1]))
 
 
+def recover_launches(n: int) -> dict:
+    """The launches of one recover_hash_batch whose n signatures reach the
+    scans: one square root, and per 4096-signature chunk 1 table build, 1
+    scan, 1 pair add and 2 conversions."""
+    from lachain_tpu_torch.ops.secp import GpuEcdsaRecover
+
+    chunks = -(-n // GpuEcdsaRecover.CHUNK)
+    want = dict.fromkeys(read_launches(), 0)
+    want.update(secp_sqrt=1, secp_table=chunks, secp_add=chunks, secp_msm_scan=chunks,
+                secp_mont=2 * chunks)
+    return want
+
+
 def run_ecdsa_path(seed: int, dev):
     from lachain_tpu_torch.crypto import ecdsa
     from lachain_tpu_torch.ops import secp, verify
@@ -2191,9 +2226,7 @@ def run_ecdsa_path(seed: int, dev):
           f"{m} x values reach the square root, not {RECOVER_SQRT_LANES}")
     n_jobs = sum(1 for i in range(n) if bad.get(i, "flip_s") in ("flip_s", "z_zero"))
     chunks = -(-n_jobs // GpuEcdsaRecover.CHUNK)
-    want_launches = dict.fromkeys(read_launches(), 0)
-    want_launches.update(secp_sqrt=1, secp_table=chunks, secp_add=chunks,
-                         secp_msm_scan=chunks, secp_mont=2 * chunks)
+    want_launches = recover_launches(n_jobs)
 
     # the main-path run whose launches are counted
     reset_counts()
@@ -3418,9 +3451,9 @@ def run_chaos_native_check_path(seed: int, dev):
     return launches, [{"wall_s": card_wall}]
 
 
-class TimedSqliteKV(SqliteKV):
-    """SqliteKV that appends the seconds of each write_batch (a journal
-    record's fsynced commit) to the list `times`."""
+class TimedWrites:
+    """A KV store mixin that appends the seconds of each write_batch (a
+    journal record's fsynced commit) to the list `times`."""
 
     def __init__(self, path: str, times: list):
         super().__init__(path)
@@ -3430,6 +3463,14 @@ class TimedSqliteKV(SqliteKV):
         t0 = time.perf_counter()
         super().write_batch(puts, deletes)
         self.times.append(time.perf_counter() - t0)
+
+
+class TimedSqliteKV(TimedWrites, SqliteKV):
+    """SqliteKV with TimedWrites: one file a validator."""
+
+
+class TimedLsmKV(TimedWrites, LsmKV):
+    """LsmKV with TimedWrites: one directory a validator."""
 
 
 def journal_slots(label: str, journal) -> dict:
@@ -3510,16 +3551,19 @@ def run_root_journal_native_path(seed: int, dev, ref):
     native at every validator) with a ConsensusJournal a validator.
     Run A, journaled on MemoryKV and traced whole: root_era_64's block and
     delivered_count (`ref`: journaling adds no draw), every router's
-    journal with "coin", "dec" and "hdr" records and no slot twice. Run B,
-    journaled on one SqliteKV file a validator (TimedSqliteKV) in a
-    temporary directory, stopped at CRASH_AT messages; then the network
-    and every file are closed (the crash). The restart, traced whole:
-    the files reopened (copies, so that a re-trace restarts from the same
+    journal with "coin", "dec" and "hdr" records and no slot twice. Then
+    twice, once on SqliteKV (one file a validator, TimedSqliteKV) and once
+    on LsmKV (one engine directory a validator, TimedLsmKV), in a temporary
+    directory: run B, stopped at CRASH_AT messages, then the network and
+    every store closed (the crash); on LsmKV every crashed store then
+    passes fsck(kv) with no fatal issue, and after the restart every
+    store is clean under it. The restart, traced whole: the
+    stores reopened (copies, so that a re-trace restarts from the same
     state) under fresh journals and a fresh network of the same seed,
     every router re-armed from its journal before its first request, run
     to the block: run A's block at all 64 routers and its messages, sends
     replayed from the journals (replayed_sends > 0, no more at a router
-    than run B journaled), every file's rows equal to run A's journal (so
+    than run B journaled), every store's rows equal to run A's journal (so
     each slot once, its bytes, the sequences continued), each journal
     recording exactly what run B had not. Then at router 0 every journaled
     coin and decryption share, re-derived with zeroed bytes through
@@ -3531,6 +3575,7 @@ def run_root_journal_native_path(seed: int, dev, ref):
 
     from lachain_tpu_torch.consensus import messages as M
     from lachain_tpu_torch.network import wire
+    from lachain_tpu_torch.storage.fsck import fsck
     from lachain_tpu_torch.storage.kv import MemoryKV
 
     label = f"journal native root era N={HB_N}"
@@ -3572,118 +3617,146 @@ def run_root_journal_native_path(seed: int, dev, ref):
         f"{sorted(set().union(*kinds))}")
     batcher_lines(f"{label} run A", net)
     busy_line(f"{label} run A", by_a, a["wall"])
+    launches, walls = [a["launches"]], [dict(wall_s=a["wall"])]
 
     times = []
+    legs = {}  # the engine's name -> its write_batch seconds and records
     with tempfile.TemporaryDirectory(prefix="lachain_journal_") as tmp:
         def fresh_dir() -> str:
             d = os.path.join(tmp, str(len(os.listdir(tmp))))
             os.mkdir(d)
             return d
 
-        def run_b():
-            clear_block_memos()
-            reset_counts()
-            times.clear()
-            d = fresh_dir()
-            kvs = [TimedSqliteKV(os.path.join(d, f"{i}.db"), times) for i in range(HB_N)]
-            net, journals = journaled_native_net(pub, privs, proposals, dev, parent, seed, kvs)
-            out["wall"] = crash_run(net, CRASH_AT)
-            out["launches"] = read_launches()
-            # the crash: the network and every file closed mid-era
+        for engine, store in (("SqliteKV", TimedSqliteKV), ("LsmKV", TimedLsmKV)):
+            def stores(d):
+                return [store(os.path.join(d, str(i)), times) for i in range(HB_N)]
+
+            def run_b():
+                clear_block_memos()
+                reset_counts()
+                times.clear()
+                d = fresh_dir()
+                kvs = stores(d)
+                net, journals = journaled_native_net(pub, privs, proposals, dev, parent, seed,
+                                                     kvs)
+                out["wall"] = crash_run(net, CRASH_AT)
+                out["launches"] = read_launches()
+                # the crash: the network and every store closed mid-era
+                net.close()
+                for kv in kvs:
+                    kv.close()
+                out.update(dir=d, delivered=net.delivered_count, times=list(times),
+                           records=[j.records for j in journals],
+                           flushes=(net.crypto_batcher.flushes, net.rbc_batcher.flushes))
+
+            lab = f"{label} on {engine}"
+            by_b, counted = trace_era(f"{lab} run B", run_b, out, dev)
+            b = dict(out)
+            check_no_escapes(f"{lab} run B")
+            check_traced(f"{lab} run B", by_b, b["launches"], counted)
+            check(sum(b["records"]) > 0, f"{lab} run B: nothing journaled before the crash")
+            log(f"{lab} run B: crashed at {b['delivered']} messages (CRASH_AT {CRASH_AT}) "
+                f"after {b['wall']:.3f} s ({b['delivered'] / b['wall']:.0f} a second); journal "
+                f"records a router {spread(b['records'])}; {engine} write_batch "
+                f"{sum(b['times']):.3f} s over {len(b['times'])} records, median "
+                f"{sorted(b['times'])[len(b['times']) // 2] * 1e3:.3f} ms; flushes (tpke, rbc) "
+                f"{b['flushes']}")
+            busy_line(f"{lab} run B", by_b, b["wall"])
+            if engine == "LsmKV":
+                # what a node does on open: fsck every crashed store
+                t0 = time.perf_counter()
+                for kv in stores(b["dir"]):
+                    report = fsck(kv)
+                    check(not report.fatal, f"{lab}: fsck after the crash: {report.to_dict()}")
+                    kv.close()
+                log(f"{lab}: fsck of the {HB_N} crashed stores: no fatal issue "
+                    f"({time.perf_counter() - t0:.3f} s)")
+
+            def restart():
+                clear_block_memos()
+                reset_counts()
+                times.clear()
+                d = fresh_dir()
+                for name in os.listdir(b["dir"]):
+                    src = os.path.join(b["dir"], name)
+                    (shutil.copytree if os.path.isdir(src) else shutil.copy)(
+                        src, os.path.join(d, name))
+                kvs = stores(d)
+                net, journals = journaled_native_net(pub, privs, proposals, dev, parent, seed,
+                                                     kvs)
+                t0 = time.perf_counter()
+                rearm(net, journals)
+                out["rearm_s"] = time.perf_counter() - t0
+                out["wall"], out["blocks"] = root_run(net, range(HB_N))
+                out["launches"] = read_launches()
+                out.update(net=net, kvs=kvs, journals=journals, times=list(times))
+
+            by_r, counted = trace_era(f"{lab} restart", restart, out, dev)
+            r = dict(out)
+            net, blocks = r["net"], r["blocks"]
+            check_no_escapes(f"{lab} restart")
+            check_root_blocks(f"{lab} restart", net, blocks, list(range(HB_N)), proposals,
+                              signer, pub, HB_N, HB_F)
+            check_native_crossings(f"{lab} restart", net, HB_N)
+            check_traced(f"{lab} restart", by_r, r["launches"], counted)
+            check(blocks[0].header.hash() == h and net.delivered_count == a_delivered,
+                  f"{lab} restart: block {blocks[0].header.hash().hex()[:16]} / "
+                  f"{net.delivered_count} messages, run A's {h.hex()[:16]} / {a_delivered}")
+            replayed = [router.replayed_sends for router in net.routers]
+            check(sum(replayed) > 0 and all(x <= y for x, y in zip(replayed, b["records"])),
+                  f"{lab} restart: replayed sends {replayed}, run B journaled {b['records']}")
+            for i, (kv, journal) in enumerate(zip(r["kvs"], r["journals"])):
+                check(journal_slots(f"{lab} restart", journal) == a_slots[i]
+                      and kv_rows(kv) == a_rows[i],
+                      f"{lab} restart: router {i}'s journal differs from run A's")
+                check(journal.records == len(a_rows[i]) - b["records"][i],
+                      f"{lab} restart: router {i} journaled {journal.records} records, "
+                      f"run A {len(a_rows[i])}, run B {b['records'][i]}")
+            # re-derivation at router 0: fresh payloads for its journaled coin and
+            # decryption-share slots, with zeroed bytes, come back as recorded
+            r0, checked = net.routers[0], 0
+            records = r0._journal.records
+            for (_era, slot), data in a_slots[0].items():
+                stale = wire.decode_payload(data)
+                if slot[0] == "coin":
+                    fresh = M.CoinMessage(coin=stale.coin, share=bytes(len(stale.share)))
+                elif slot[0] == "dec":
+                    fresh = M.DecryptedMessage(hb=stale.hb, share_id=stale.share_id,
+                                               payload=bytes(len(stale.payload)))
+                else:
+                    continue
+                check(wire.encode_payload(r0._native_send(fresh)) == data,
+                      f"{lab}: router 0 re-sent other bytes for {slot[0]} {slot[1:]}")
+                checked += 1
+            check(checked > 0 and r0._journal.records == records,
+                  f"{lab}: the re-derivation checked nothing or journaled again")
             net.close()
-            for kv in kvs:
+            if engine == "LsmKV":
+                for kv in r["kvs"]:
+                    report = fsck(kv)
+                    check(report.clean, f"{lab}: fsck after the restart: {report.to_dict()}")
+            for kv in r["kvs"]:
                 kv.close()
-            out.update(dir=d, delivered=net.delivered_count, times=list(times),
-                       records=[j.records for j in journals],
-                       flushes=(net.crypto_batcher.flushes, net.rbc_batcher.flushes))
-
-        by_b, counted = trace_era(f"{label} run B", run_b, out, dev)
-        b = dict(out)
-        check_no_escapes(f"{label} run B")
-        check_traced(f"{label} run B", by_b, b["launches"], counted)
-        check(sum(b["records"]) > 0, f"{label} run B: nothing journaled before the crash")
-        log(f"{label} run B: crashed at {b['delivered']} messages (CRASH_AT {CRASH_AT}) "
-            f"after {b['wall']:.3f} s ({b['delivered'] / b['wall']:.0f} a second); journal "
-            f"records a router {spread(b['records'])}; SqliteKV write_batch "
-            f"{sum(b['times']):.3f} s over {len(b['times'])} records, median "
-            f"{sorted(b['times'])[len(b['times']) // 2] * 1e3:.3f} ms; flushes (tpke, rbc) "
-            f"{b['flushes']}")
-        busy_line(f"{label} run B", by_b, b["wall"])
-
-        def restart():
-            clear_block_memos()
-            reset_counts()
-            times.clear()
-            d = fresh_dir()
-            for name in os.listdir(b["dir"]):
-                shutil.copy(os.path.join(b["dir"], name), d)
-            kvs = [TimedSqliteKV(os.path.join(d, f"{i}.db"), times) for i in range(HB_N)]
-            net, journals = journaled_native_net(pub, privs, proposals, dev, parent, seed, kvs)
-            t0 = time.perf_counter()
-            rearm(net, journals)
-            out["rearm_s"] = time.perf_counter() - t0
-            out["wall"], out["blocks"] = root_run(net, range(HB_N))
-            out["launches"] = read_launches()
-            out.update(net=net, kvs=kvs, journals=journals, times=list(times))
-
-        by_r, counted = trace_era(f"{label} restart", restart, out, dev)
-        r = dict(out)
-        net, blocks = r["net"], r["blocks"]
-        check_no_escapes(f"{label} restart")
-        check_root_blocks(f"{label} restart", net, blocks, list(range(HB_N)), proposals,
-                          signer, pub, HB_N, HB_F)
-        check_native_crossings(f"{label} restart", net, HB_N)
-        check_traced(f"{label} restart", by_r, r["launches"], counted)
-        check(blocks[0].header.hash() == h and net.delivered_count == a_delivered,
-              f"{label} restart: block {blocks[0].header.hash().hex()[:16]} / "
-              f"{net.delivered_count} messages, run A's {h.hex()[:16]} / {a_delivered}")
-        replayed = [router.replayed_sends for router in net.routers]
-        check(sum(replayed) > 0 and all(x <= y for x, y in zip(replayed, b["records"])),
-              f"{label} restart: replayed sends {replayed}, run B journaled {b['records']}")
-        for i, (kv, journal) in enumerate(zip(r["kvs"], r["journals"])):
-            check(journal_slots(f"{label} restart", journal) == a_slots[i]
-                  and kv_rows(kv) == a_rows[i],
-                  f"{label} restart: router {i}'s journal differs from run A's")
-            check(journal.records == len(a_rows[i]) - b["records"][i],
-                  f"{label} restart: router {i} journaled {journal.records} records, "
-                  f"run A {len(a_rows[i])}, run B {b['records'][i]}")
-        # re-derivation at router 0: fresh payloads for its journaled coin and
-        # decryption-share slots, with zeroed bytes, come back as recorded
-        r0, checked = net.routers[0], 0
-        records = r0._journal.records
-        for (_era, slot), data in a_slots[0].items():
-            stale = wire.decode_payload(data)
-            if slot[0] == "coin":
-                fresh = M.CoinMessage(coin=stale.coin, share=bytes(len(stale.share)))
-            elif slot[0] == "dec":
-                fresh = M.DecryptedMessage(hb=stale.hb, share_id=stale.share_id,
-                                           payload=bytes(len(stale.payload)))
-            else:
-                continue
-            check(wire.encode_payload(r0._native_send(fresh)) == data,
-                  f"{label}: router 0 re-sent other bytes for {slot[0]} {slot[1:]}")
-            checked += 1
-        check(checked > 0 and r0._journal.records == records,
-              f"{label}: the re-derivation checked nothing or journaled again")
-        net.close()
-        for kv in r["kvs"]:
-            kv.close()
-    fsync_s = sum(b["times"]) + sum(r["times"])
-    log(f"{label} restart: run A's block at all {HB_N} routers, {net.delivered_count} "
-        f"messages; rearm {r['rearm_s']:.3f} s, wall {r['wall']:.3f} s "
-        f"({net.delivered_count / r['wall']:.0f} messages a second); replayed sends "
-        f"{sum(replayed)} ({spread(replayed)} a router); new journal records "
-        f"{spread([j.records for j in r['journals']])} a router; SqliteKV write_batch "
-        f"{sum(r['times']):.3f} s over {len(r['times'])} records, median "
-        f"{sorted(r['times'])[len(r['times']) // 2] * 1e3:.3f} ms; every file equals run "
-        f"A's journal; router 0 re-sent {checked} re-derived shares as recorded")
-    log(f"{label}: the era's journal on SqliteKV (runs B and restart): {fsync_s:.3f} s of "
-        f"write_batch over {len(b['times']) + len(r['times'])} records, a validator's "
-        f"{fsync_s / HB_N:.3f} s = {fsync_s / HB_N / a['wall']:.4f} of run A's wall")
-    batcher_lines(f"{label} restart", net)
-    busy_line(f"{label} restart", by_r, r["wall"])
-    launches = summed_launches(a["launches"], b["launches"], r["launches"])
-    return launches, [dict(wall_s=a["wall"]), dict(wall_s=r["wall"])]
+            legs[engine] = (sum(b["times"]) + sum(r["times"]), len(b["times"]) + len(r["times"]))
+            log(f"{lab} restart: run A's block at all {HB_N} routers, {net.delivered_count} "
+                f"messages; rearm {r['rearm_s']:.3f} s, wall {r['wall']:.3f} s "
+                f"({net.delivered_count / r['wall']:.0f} messages a second); replayed sends "
+                f"{sum(replayed)} ({spread(replayed)} a router); new journal records "
+                f"{spread([j.records for j in r['journals']])} a router; {engine} write_batch "
+                f"{sum(r['times']):.3f} s over {len(r['times'])} records, median "
+                f"{sorted(r['times'])[len(r['times']) // 2] * 1e3:.3f} ms; every store equals "
+                f"run A's journal{'; every store clean under fsck' if engine == 'LsmKV' else ''}; "
+                f"router 0 re-sent {checked} re-derived shares as recorded")
+            batcher_lines(f"{lab} restart", net)
+            busy_line(f"{lab} restart", by_r, r["wall"])
+            launches.append(b["launches"])
+            launches.append(r["launches"])
+            walls.append(dict(wall_s=r["wall"]))
+    for engine, (fsync_s, n_records) in legs.items():
+        log(f"{label}: the era's journal on {engine} (runs B and restart): {fsync_s:.3f} s of "
+            f"write_batch over {n_records} records, a validator's {fsync_s / HB_N:.3f} s = "
+            f"{fsync_s / HB_N / a['wall']:.4f} of run A's wall")
+    return summed_launches(*launches), walls
 
 
 def run_root_journal_path(seed: int, dev, ref):
@@ -4042,6 +4115,301 @@ def run_dkg_path(seed: int, dev):
     return launches, [dict(wall_s=wall)]
 
 
+# ---------------------------------------------------------------------------
+# the storage: one validator's state on LsmKV
+# ---------------------------------------------------------------------------
+
+# state_commit_1m: a genesis of a million accounts, then two blocks of
+# 10,000 signed transfers each (BASELINE.json's "10k-tx blocks")
+STATE_ACCOUNTS = 1_000_000
+STATE_SENDERS = 1_024
+STATE_BLOCKS = 2
+STATE_TXS = 10_000
+STATE_SAMPLES = 1_000  # balances read back after the reopen
+STATE_RETAIN = 1  # DbShrink's retain_depth
+TRANSFER_GAS = 21_000  # the base transfer's gas (lachain_tpu/core/execution.py:26)
+BALANCE_ROW = b"b:"  # a balance's key in `balances` (lachain_tpu/core/execution.py:28)
+
+
+def state_inputs(seed: int, accounts: int, senders: int, blocks: int, txs: int) -> dict:
+    """A genesis and its transfer blocks: `senders` seeded keys' addresses,
+    then keccak256(i)[:20] for the other accounts, each with a seeded
+    32-byte balance; `blocks` lists of `txs` transfers on ROOT_CHAIN_ID,
+    signed natively, transfer t by sender t % senders with nonce t //
+    senders, to a seeded genesis account -> {"keys", "addrs" (the senders'),
+    "accounts", "balances" {address: int}, "blocks" [[stx]], "sign_s"}."""
+    from lachain_tpu_torch.core import types
+    from lachain_tpu_torch.crypto import ecdsa
+    from lachain_tpu_torch.crypto.hashes import keccak256_batch
+
+    rng = random.Random(seed + 2300)
+    keys = [rng.randrange(1, ecdsa.N).to_bytes(32, "big") for _ in range(senders)]
+    addrs = [ecdsa.address_from_public_key(ecdsa.public_key_bytes(k)) for k in keys]
+    others = keccak256_batch([i.to_bytes(8, "big") for i in range(accounts - senders)])
+    accts = addrs + [h[:20] for h in others]
+    balances = {a: int.from_bytes(rng.randbytes(32), "big") for a in accts}
+    check(len(balances) == accounts, "two genesis accounts share an address")
+    t0 = time.perf_counter()
+    out = []
+    for b in range(blocks):
+        batch = []
+        for j in range(txs):
+            t = b * txs + j
+            tx = types.Transaction(to=accts[rng.randrange(accounts)],
+                                   value=rng.randrange(1, 10**9), nonce=t // senders,
+                                   gas_price=rng.randrange(1, 100), gas_limit=TRANSFER_GAS)
+            batch.append(types.sign_transaction(tx, keys[t % senders], ROOT_CHAIN_ID))
+        out.append(batch)
+    return dict(keys=keys, addrs=addrs, accounts=accts, balances=balances, blocks=out,
+                sign_s=time.perf_counter() - t0)
+
+
+def genesis_writes(balances: dict) -> dict:
+    """The genesis snapshot's writes: every account's balance row."""
+    return {"balances": {BALANCE_ROW + a: v.to_bytes(32, "big") for a, v in balances.items()}}
+
+
+def transfer_writes(balances: dict, stxs) -> dict:
+    """The state rows a block of transfers writes, as execution would
+    (item 13.2 ports it): `transactions` tx hash -> the signed transfer,
+    `balances` the sender's (less value and fee) and the recipient's new
+    balance; `balances` is updated in place. Every sender must be
+    recovered already (its sender cache warm)."""
+    touched = set()
+    txs = {}
+    for stx in stxs:
+        sender = stx.sender(ROOT_CHAIN_ID)
+        tx = stx.tx
+        cost = tx.value + TRANSFER_GAS * tx.gas_price
+        check(sender is not None and balances[sender] >= cost,
+              "a transfer has no sender or overdraws its sender")
+        balances[sender] -= cost
+        balances[tx.to] += tx.value
+        touched.update((sender, tx.to))
+        txs[stx.hash()] = stx.encode()
+    return {"transactions": txs,
+            "balances": {BALANCE_ROW + a: balances[a].to_bytes(32, "big") for a in touched}}
+
+
+def commit_block(state, kv, height: int, parent: bytes, stxs, writes: dict):
+    """Snapshot `writes` over the committed state, commit it as `height`
+    through state.freeze_and_commit (streamed over an engine with async
+    batches when the writes reach its threshold), then write the block's
+    rows as the reference's BlockManager._persist does (BLOCK_BY_HASH with
+    Block.encode(), BLOCK_HASH_BY_HEIGHT; lachain_tpu/core/block_manager.py:
+    208-225): after the commit here, since the header carries the state
+    hash the commit computes -> (block, roots). `state` and `kv` may be
+    either package's: the rows are the same bytes."""
+    from lachain_tpu_torch.core import types
+    from lachain_tpu_torch.storage.kv import EntryPrefix, prefixed
+    from lachain_tpu_torch.utils.serialization import write_u64
+
+    snap = state.new_snapshot()
+    for tree, rows in writes.items():
+        for k, v in rows.items():
+            snap.put(tree, k, v)
+    roots = state.freeze_and_commit(height, snap)
+    hashes = [stx.hash() for stx in stxs]
+    header = types.BlockHeader(index=height, prev_block_hash=parent,
+                               merkle_root=types.tx_merkle_root(hashes) if hashes
+                               else types.ZERO_HASH,
+                               state_hash=roots.state_hash(), nonce=height)
+    block = types.Block(header=header, tx_hashes=tuple(hashes), multisig=types.MultiSig(()))
+    h = block.hash()
+    kv.write_batch([(prefixed(EntryPrefix.BLOCK_BY_HASH, h), block.encode()),
+                    (prefixed(EntryPrefix.BLOCK_HASH_BY_HEIGHT, write_u64(height)), h)])
+    return block, roots
+
+
+def dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def put_latency_us(path: str, n: int = 1_000) -> float:
+    """The median microseconds of n single puts (one fsynced WAL record
+    each) into a fresh LsmKV at `path`: what the disk charges a durable
+    write."""
+    from lachain_tpu_torch.storage.lsm import LsmKV
+
+    kv = LsmKV(path)
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        kv.put(i.to_bytes(8, "big"), b"\x01")
+        times.append(time.perf_counter() - t0)
+    kv.close()
+    return sorted(times)[n // 2] * 1e6
+
+
+def trie_rows(kv) -> int:
+    from lachain_tpu_torch.storage.kv import EntryPrefix, prefixed
+
+    return sum(1 for _ in kv.scan_prefix(prefixed(EntryPrefix.TRIE_NODE)))
+
+
+def run_state_path(seed: int, dev):
+    """One validator's state on LsmKV in a temporary directory, at full
+    size: a genesis of STATE_ACCOUNTS accounts, then STATE_BLOCKS blocks of
+    STATE_TXS signed transfers (state_inputs), each block's senders
+    recovered on `dev` by core/types.warm_sender_caches (as BlockManager
+    does before it executes) and held equal to the signing keys'
+    addresses, its rows (transfer_writes, commit_block) committed through
+    StateManager.freeze_and_commit (streamed) and a quick fsck after every
+    commit, which must be clean. Then the last block's writes frozen again
+    from the block before's roots with one merkle worker on a fresh
+    StateManager and discarded: the sharded commit's roots. The store
+    closed and reopened: committed_height, roots_at every height and
+    STATE_SAMPLES sampled balances as written. DbShrink(retain_depth=
+    STATE_RETAIN) sweeps the genesis-only nodes; a deep fsck over the
+    retained snapshots is then clean. The recoveries' launches are counted
+    (exactly recover_launches(STATE_TXS) a block on the card). First, the
+    median latency of a single put in the same directory (put_latency_us)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from lachain_tpu_torch.core import types
+    from lachain_tpu_torch.crypto import ecdsa
+    from lachain_tpu_torch.storage import trie as trie_mod
+    from lachain_tpu_torch.storage.fsck import fsck
+    from lachain_tpu_torch.storage.lsm import LsmKV
+    from lachain_tpu_torch.storage.shrink import DbShrink
+    from lachain_tpu_torch.storage.state import StateManager
+
+    label = f"state_commit N={STATE_ACCOUNTS}"
+    t0 = time.perf_counter()
+    inp = state_inputs(seed, STATE_ACCOUNTS, STATE_SENDERS, STATE_BLOCKS, STATE_TXS)
+    balances = inp["balances"]
+    log(f"{label} host setup ({STATE_SENDERS} keys, {STATE_ACCOUNTS} balances, "
+        f"{STATE_BLOCKS} x {STATE_TXS} transfers signed natively in {inp['sign_s']:.1f} s): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def clean(what: str, kv) -> float:
+        t = time.perf_counter()
+        report = fsck(kv, repair=False)
+        check(report.clean, f"{label}: quick fsck after {what}: {report.to_dict()}")
+        return time.perf_counter() - t
+
+    def commit_line(what: str, state, kv, wall: float, fsck_s: float) -> None:
+        log(f"{label} {what}: commit wall {wall:.3f} s, quick fsck {fsck_s:.3f} s clean; "
+            f"commit_stats {state.commit_stats}; merkle_stats {state.trie.merkle_stats}; "
+            f"LsmKV {kv.stats()}")
+
+    warm, roots, blocks = [], [], []
+    with tempfile.TemporaryDirectory(prefix="lachain_state_") as tmp:
+        log(f"{label}: a single LsmKV put (one fsynced WAL record) in the temporary "
+            f"directory: median {put_latency_us(os.path.join(tmp, 'probe')):.1f} us of 1,000")
+        store = os.path.join(tmp, "state")
+        kv = LsmKV(store)
+        state = StateManager(kv)
+        t0 = time.perf_counter()
+        writes = genesis_writes(balances)
+        state.trie.reset_merkle_stats()
+        block, r = commit_block(state, kv, 0, types.ZERO_HASH, [], writes)
+        wall = time.perf_counter() - t0
+        commit_line(f"genesis ({STATE_ACCOUNTS} balances)", state, kv, wall, clean("genesis", kv))
+        warm.append(dict(wal_fsync_s=state.commit_stats["wal_fsync_s"], wall_s=wall))
+        roots.append(r)
+        blocks.append(block)
+
+        reset_counts()
+        recover_ms = []
+        for height, stxs in enumerate(inp["blocks"], start=1):
+            types._SENDER_MEMO.clear()
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            types.warm_sender_caches(stxs, ROOT_CHAIN_ID, device=dev)
+            rec_s = time.perf_counter() - t0
+            recover_ms.append(rec_s * 1e3)
+            senders = [stx.sender(ROOT_CHAIN_ID) for stx in stxs]
+            want = [inp["addrs"][(t + (height - 1) * STATE_TXS) % STATE_SENDERS]
+                    for t in range(len(stxs))]
+            check(senders == want, f"{label} block {height}: a recovered sender differs")
+            log(f"{label} block {height}: {len(stxs)} senders recovered on {dev} in "
+                f"{rec_s * 1e3:.3f} ms (wall), phases "
+                f"{phase_line(ecdsa.batch_recoverer(dev).last_timings) if torch.device(dev).type == 'cuda' else 'cpu'}; "
+                f"each equals its signing key's address")
+            t0 = time.perf_counter()
+            writes = transfer_writes(balances, stxs)
+            state.trie.reset_merkle_stats()
+            block, r = commit_block(state, kv, height, blocks[-1].hash(), stxs, writes)
+            wall = time.perf_counter() - t0
+            rows = sum(len(w) for w in writes.values())
+            check(rows < state.stream_threshold or state.commit_stats["streamed_batches"] > 0,
+                  f"{label} block {height}: {rows} rows, the commit did not stream")
+            check(rows < trie_mod.MIN_SHARD_OPS or (os.cpu_count() or 1) == 1
+                  or state.trie.merkle_stats["workers"] > 1,
+                  f"{label} block {height}: not sharded: {state.trie.merkle_stats}")
+            commit_line(f"block {height} ({rows} rows)", state, kv, wall,
+                        clean(f"block {height}", kv))
+            warm.append(dict(recover_s=rec_s, wal_fsync_s=state.commit_stats["wal_fsync_s"],
+                             wall_s=wall))
+            roots.append(r)
+            blocks.append(block)
+        launches = read_launches()
+        check_no_escapes(label)
+        if torch.device(dev).type == "cuda":
+            want = {k: STATE_BLOCKS * v for k, v in recover_launches(STATE_TXS).items()}
+            check(launches == want, f"{label}: launches {launches} != expected {want}")
+
+        # the last block's writes again, serially, from the block before's roots
+        t0 = time.perf_counter()
+        serial = StateManager(kv)
+        snap = serial.new_snapshot(serial.roots_at(STATE_BLOCKS - 1))
+        for tree, rows in writes.items():
+            for k, v in rows.items():
+                snap.put(tree, k, v)
+        again = snap.freeze(workers=1)
+        snap.discard()
+        check(again == roots[-1], f"{label}: the serial freeze's roots differ from the commit's")
+        log(f"{label}: block {STATE_BLOCKS}'s writes frozen again serially "
+            f"({serial.trie.merkle_stats}) in {time.perf_counter() - t0:.3f} s give the "
+            f"sharded commit's roots")
+        del serial
+
+        kv.close()
+        t0 = time.perf_counter()
+        kv = LsmKV(store)
+        state = StateManager(kv)
+        check(state.committed_height() == STATE_BLOCKS
+              and [state.roots_at(h) for h in range(STATE_BLOCKS + 1)] == roots,
+              f"{label}: the reopened store's height or roots differ")
+        rng = random.Random(seed + 2301)
+        snap = state.new_snapshot()
+        for a in rng.sample(inp["accounts"], STATE_SAMPLES):
+            check(snap.get("balances", BALANCE_ROW + a) == balances[a].to_bytes(32, "big"),
+                  f"{label}: balance of {a.hex()} read back wrong")
+        log(f"{label}: reopened in {time.perf_counter() - t0:.3f} s: height "
+            f"{STATE_BLOCKS}, the roots of every height and {STATE_SAMPLES} sampled "
+            f"balances as written; LsmKV {kv.stats()}")
+
+        before, disk = trie_rows(kv), dir_bytes(store)
+        t0 = time.perf_counter()
+        stats = DbShrink(state, kv).shrink(retain_depth=STATE_RETAIN)
+        shrink_s = time.perf_counter() - t0
+        after = trie_rows(kv)
+        check(stats["swept"] > 0 and after == before - stats["swept"]
+              and state.roots_at(0) is None and state.roots_at(STATE_BLOCKS) == roots[-1],
+              f"{label}: shrink {stats}, trie nodes {before} -> {after}")
+        t0 = time.perf_counter()
+        report = fsck(kv, repair=False, deep=True)
+        deep_s = time.perf_counter() - t0
+        check(report.clean, f"{label}: deep fsck after shrink: {report.to_dict()}")
+        kv.flush()
+        log(f"{label}: shrink(retain_depth={STATE_RETAIN}) {stats} in {shrink_s:.3f} s, "
+            f"trie nodes {before} -> {after}; deep fsck of heights "
+            f"{STATE_BLOCKS - STATE_RETAIN}..{STATE_BLOCKS} clean in {deep_s:.3f} s; bytes "
+            f"on disk {disk} before the shrink, {dir_bytes(store)} after; LsmKV {kv.stats()}")
+        kv.close()
+    log(f"{label}: state hash {roots[-1].state_hash().hex()} at height {STATE_BLOCKS}; "
+        f"recoveries {', '.join(f'{m:.3f}' for m in recover_ms)} ms")
+    return launches, warm
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -4113,7 +4481,8 @@ def main() -> int:
              ("root_era_journal_native_64",
               lambda: run_root_journal_native_path(args.seed, dev, root_ref)),
              ("root_era_journal_64", lambda: run_root_journal_path(args.seed, dev, root_ref)),
-             ("dkg_64", lambda: run_dkg_path(args.seed, dev))]
+             ("dkg_64", lambda: run_dkg_path(args.seed, dev)),
+             ("state_commit_1m", lambda: run_state_path(args.seed, dev))]
     if torch.cuda.device_count() > 1:  # a mesh over distinct cards
         cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         runs += [("mesh_era_cards", lambda: run_mesh_path(args.seed, backend, dev, era,
@@ -4145,6 +4514,7 @@ def main() -> int:
             "root_era_adversary_native_64", "root_era_adversary_64", "chaos_era_16_check",
             "chaos_era_native_16_check", "root_era_journal_native_64", "root_era_journal_64")},
         "dkg_64": ("g1_mont", "g1_table", "g1_msm_scan", "g1_add"),
+        "state_commit_1m": secp_path,
     }
     for path, (launches, warm) in paths.items():
         missing = [k for k in needs[path] if launches[k] == 0]

@@ -36,6 +36,14 @@ file lock of its own, the same directory. There is no prebuilt library and
 no override: the engine always comes from the checkout's source. Without
 g++, or on a failed build, it raises.
 
+`lsm_library()` builds the native LSM storage engine
+(`storage/native/lsm.cpp`, the port's copy of the JAX package's, format
+v2) with the reference Makefile's flags, `-O2 -g -fPIC -shared -std=c++17
+-Wall -Wextra`, the same way again: a name keyed by the source, the flags
+and the compiler, a file lock of its own, the same directory; never a
+`make` in the source tree, no prebuilt library and no override. Without
+g++, or on a failed build, it raises.
+
 Each lazy build runs under a lock of its own, so that two threads of one
 process (the node-start warmup of `crypto/warmup.py` and its caller) build
 and load each library once.
@@ -75,12 +83,20 @@ CONSENSUS_SOURCES = ("consensus_rt.cpp",)
 CONSENSUS_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-fPIC",
                    "-shared", "-std=c++17")
 
+LSM_SRC = _PKG / "storage" / "native"
+LSM_SOURCES = ("lsm.cpp",)
+# the flags of lachain_tpu/storage/native/Makefile
+LSM_FLAGS = ("-O2", "-g", "-fPIC", "-shared", "-std=c++17", "-Wall",
+             "-Wextra")
+
 _LIB = None
 _HOST_LIB = None
 _CONSENSUS_LIB = None
+_LSM_LIB = None
 _LIB_LOCK = threading.Lock()
 _HOST_LIB_LOCK = threading.Lock()
 _CONSENSUS_LIB_LOCK = threading.Lock()
+_LSM_LIB_LOCK = threading.Lock()
 # wall seconds of this process's nvcc run (None when the library came from
 # an earlier build)
 build_seconds = None
@@ -281,6 +297,20 @@ def consensus_library():
                                        CONSENSUS_SRC, CONSENSUS_SOURCES,
                                        CONSENSUS_FLAGS)
     return _CONSENSUS_LIB
+
+
+def lsm_library():
+    """The loaded native LSM engine, built first if needed (its binding:
+    `storage/lsm._load_lib`)."""
+    global _LSM_LIB
+    with _LSM_LIB_LOCK:
+        if _LSM_LIB is None:
+            gxx = _gxx()
+            target = _gxx_target(gxx, "liblsm", LSM_SRC, LSM_SOURCES,
+                                 LSM_FLAGS)
+            _LSM_LIB = _gxx_load(gxx, target, "lsm.lock", LSM_SRC,
+                                 LSM_SOURCES, LSM_FLAGS)
+    return _LSM_LIB
 
 
 ATTR_KEYS = ("regs", "local_bytes", "threads_per_lane", "block")

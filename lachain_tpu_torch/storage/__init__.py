@@ -1,3 +1,5 @@
-"""The storage layer of the port: so far the key-value seam (`kv.py`) that
-the consensus journal and the evidence store write through, and the crash
-points (`crashpoints.py`) its atomic batch is instrumented with."""
+"""The storage layer of the port: the key-value seam (`kv.py`: MemoryKV,
+SqliteKV) and the native LSM engine behind it (`lsm.py`), the
+content-addressed trie (`trie.py`) and the state snapshots over it
+(`state.py`), the on-open invariant scanner (`fsck.py`), the staged
+shrink (`shrink.py`) and the crash points (`crashpoints.py`)."""

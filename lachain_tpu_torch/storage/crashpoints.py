@@ -29,9 +29,30 @@ Instrumented point names in the port:
 
   kv.write_batch.pre / .mid / .post   SqliteKV's atomic batch (mid: the
                                       writes made, the fsynced commit not)
+                                      and LsmKV's (pre and post only)
+  shrink.mark.height                  shrink.DbShrink: after each height's
+                                      mark checkpoint
+  shrink.sweep.pre / shrink.clean.pre the stage transitions of a shrink
+  lsm.wal.encoded                     LsmKV only: the batch's WAL record
+                                      partly written (a torn tail), never
+                                      fsynced or applied; replay drops it
+  lsm.wal.fsynced                     LsmKV only: the record durable but
+                                      never acked or applied; replay
+                                      applies it
+  lsm.compact.mid                     LsmKV only: the merged SST renamed
+                                      into place, the manifest swap lost;
+                                      open() sweeps the orphan
+  trie.merkle.subtree_streamed        state.StateManager's streamed commit:
+                                      after an async node batch is queued
+                                      on the WAL writer, before the root
+                                      rows; leaves durable orphan nodes
+                                      with no root, which fsck passes and
+                                      a replay commits again
 
-The reference's block, shrink, pool, LSM and trie sites wait for those
-modules (ROADMAP A item 13).
+The lsm.* sites leave real torn engine state (lsm.py calls the engine's
+partial-execution debug entries before dying): the same bytes on disk in
+both modes. The reference's block.persist.* and pool.save.mid sites wait
+for the execution layer (ROADMAP A item 13.2).
 """
 from __future__ import annotations
 

@@ -7,11 +7,15 @@ the shape of the C# reference's RocksDB context.
 Backends:
   * MemoryKV  dict-backed, for tests and in-process networks;
   * SqliteKV  a durable single file over the standard library's sqlite3
-    (WAL mode), whose `write_batch` is fsynced before it returns.
+    (WAL mode), whose `write_batch` is fsynced before it returns;
+  * LsmKV     the native LSM engine (`storage/lsm.py`), whose
+    `write_batch` is fsynced before it returns too, and whose
+    `write_batch_async` overlaps a batch's fsync with the caller's work.
 
-Differences, by the port's rules: the reference's `fsync` wait span is not
-carried (the port has no tracing). `LsmKV` and the rest of the reference's
-`storage/` (state, trie, fsck) wait for the node (ROADMAP A item 13).
+Every backend writes the JAX package's rows: a MemoryKV's rows, a SQLite
+file and an LSM directory open in either package. Differences, by the
+port's rules: the reference's `fsync` wait span is not carried (the port
+has no tracing).
 """
 from __future__ import annotations
 

@@ -10,7 +10,8 @@ with a malicious router, a (7, 2) era with two equivocating
 validators on both consensus engines, and a (7, 2) native root era
 crashed in the middle and restarted from its send journals, on the card
 against the plain versions; `g1_msm_batch` at the DKG's shapes and a
-(7, 2) DKG fleet against the native host. CUDA
+(7, 2) DKG fleet against the native host; the storage's transfer blocks
+with their senders recovered on the card. CUDA
 kernels have no CPU mode:
 on a machine without a card these tests skip, and `python3 chip_smoke.py`
 runs the same checks at the N=64 era's shapes on the card.
@@ -1728,3 +1729,48 @@ def test_dkg_fleet_on_card_equals_native_fleet(card):
     assert outs[0] == outs[1]
     assert all(launched[k] for k in ("g1_table", "g1_msm_scan", "g1_add", "g1_mont"))
     assert not any(verify.ESCAPES.values())
+
+
+def test_state_commit_senders_on_card(card, tmp_path):
+    """chip_smoke.py's state_commit harness at 3,000 accounts and two
+    blocks of 1,000 transfers: each block's senders recovered on the card
+    (exactly recover_launches(1,000) a block, no escape) are the signing
+    keys' addresses, and the commits on LsmKV give the roots of the same
+    blocks committed on MemoryKV with the senders the host library
+    recovers; a quick fsck is clean after each."""
+    import chip_smoke
+    from lachain_tpu_torch.core import types
+    from lachain_tpu_torch.storage.fsck import fsck
+    from lachain_tpu_torch.storage.kv import MemoryKV
+    from lachain_tpu_torch.storage.lsm import LsmKV
+    from lachain_tpu_torch.storage.state import StateManager
+
+    inp = chip_smoke.state_inputs(3, 3000, 64, 2, 1000)
+    kv, ref = LsmKV(str(tmp_path / "db")), MemoryKV()
+    sm, ref_sm = StateManager(kv), StateManager(ref)
+    sm.stream_threshold = 512
+    balances, ref_balances = dict(inp["balances"]), dict(inp["balances"])
+    block, _ = chip_smoke.commit_block(sm, kv, 0, types.ZERO_HASH, [],
+                                       chip_smoke.genesis_writes(balances))
+    chip_smoke.commit_block(ref_sm, ref, 0, types.ZERO_HASH, [],
+                            chip_smoke.genesis_writes(ref_balances))
+    chain = chip_smoke.ROOT_CHAIN_ID
+    for height, stxs in enumerate(inp["blocks"], start=1):
+        types._SENDER_MEMO.clear()
+        secp.reset_launches()
+        verify.reset_escapes()
+        types.warm_sender_caches(stxs, chain, device=card)
+        want = {k: v for k, v in chip_smoke.recover_launches(1000).items() if k in secp.LAUNCHES}
+        assert dict(secp.LAUNCHES) == want and not any(verify.ESCAPES.values())
+        senders = [stx.sender(chain) for stx in stxs]
+        assert senders == [inp["addrs"][(t + (height - 1) * 1000) % 64] for t in range(1000)]
+        plain = [types.SignedTransaction.decode(stx.encode()) for stx in stxs]
+        types._SENDER_MEMO.clear()
+        parent = block.hash()
+        block, roots = chip_smoke.commit_block(sm, kv, height, parent, stxs,
+                                               chip_smoke.transfer_writes(balances, stxs))
+        _, ref_roots = chip_smoke.commit_block(ref_sm, ref, height, parent, plain,
+                                               chip_smoke.transfer_writes(ref_balances, plain))
+        assert roots == ref_roots and sm.commit_stats["streamed_batches"] > 0
+        assert fsck(kv, repair=False).clean
+    kv.close()

@@ -24,6 +24,11 @@
   `lachain_tpu_torch/_build/`, without g++ or on a failed build
   `consensus_library()` raises, and `NativeSimulatedNetwork()` built for
   the card (the default) raises without one; `root_profile` exits 2.
+* The storage (`storage/trie.py`, `state.py`, `lsm.py`, `fsck.py`,
+  `shrink.py`) loads neither torch, JAX nor the JAX package, even while it
+  commits, scans and shrinks a store; its LSM engine is the port's own
+  build, loaded from `lachain_tpu_torch/_build/`, and without g++ or on a
+  failed build `lsm_library()` (and so `LsmKV()`) raises.
 """
 from __future__ import annotations
 
@@ -84,6 +89,7 @@ new |= {"lachain_tpu_torch.network", "lachain_tpu_torch.network.faults",
 new |= {"lachain_tpu_torch.storage", "lachain_tpu_torch.storage.kv",
         "lachain_tpu_torch.storage.crashpoints", "lachain_tpu_torch.network.wire",
         "lachain_tpu_torch.consensus.journal"}
+new |= {f"lachain_tpu_torch.storage.{m}" for m in ("trie", "state", "lsm", "fsck", "shrink")}
 assert new <= set(names), new - set(names)
 print(len(names), bad)
 """
@@ -95,7 +101,7 @@ def test_port_imports_nothing_of_jax():
         text=True, check=True, timeout=120,
     ).stdout.split("\n")[0]
     count, bad = out.split(" ", 1)
-    assert int(count) >= 56  # every module of the package was imported
+    assert int(count) >= 61  # every module of the package was imported
     assert bad == "[]"
 
 
@@ -363,4 +369,74 @@ def test_consensus_build_failure_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="build failed"):
         _build.consensus_library()
     assert _build._CONSENSUS_LIB is None
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+_STORAGE_ONLY = """
+import sys, tempfile
+from lachain_tpu_torch.storage.fsck import fsck
+from lachain_tpu_torch.storage.lsm import LsmKV
+from lachain_tpu_torch.storage.shrink import DbShrink
+from lachain_tpu_torch.storage.state import StateManager
+d = tempfile.mkdtemp()
+kv = LsmKV(d)
+sm = StateManager(kv)
+for height in range(3):
+    snap = sm.new_snapshot()
+    for i in range(50):
+        snap.put("balances", bytes([height, i]), bytes(32))
+    sm.freeze_and_commit(height, snap)
+DbShrink(sm, kv).shrink(1)
+report = fsck(kv, repair=False, deep=True)
+assert [i.code for i in report.issues] == ["tip-block"], report.to_dict()
+kv.close()
+print(sorted(m for m in sys.modules if m == "torch" or m.startswith("torch.")
+             or m == "jax" or m == "lachain_tpu" or m.startswith("lachain_tpu.")
+             or m.startswith("lachain_tpu_torch.ops.") and m != "lachain_tpu_torch.ops._build"))
+from lachain_tpu_torch.ops import _build
+print(_build.lsm_library()._name)
+"""
+
+
+def test_storage_loads_no_torch_and_its_own_engine():
+    """Committing, shrinking and fsck over LsmKV load neither torch, JAX,
+    the JAX package nor a kernel module; the engine loads from the port's
+    build directory (never the JAX package's libllsm.so)."""
+    out = subprocess.run(
+        [sys.executable, "-c", _STORAGE_ONLY], cwd=_ROOT, capture_output=True,
+        text=True, check=True, timeout=300,
+    ).stdout.split("\n")
+    assert out[0] == "[]"
+    path = os.path.realpath(out[1])
+    build_dir = os.path.realpath(os.path.join(_ROOT, "lachain_tpu_torch", "_build"))
+    assert os.path.dirname(path) == build_dir
+    assert os.path.basename(path).startswith("liblsm_")
+
+
+def test_lsm_build_without_gxx_raises(monkeypatch, tmp_path):
+    from lachain_tpu_torch.storage import lsm
+
+    monkeypatch.setattr(_build, "_LSM_LIB", None)
+    monkeypatch.setattr(lsm, "_LIB", [])
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        _build.lsm_library()
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        lsm.LsmKV(str(tmp_path / "db"))
+    assert not list(tmp_path.iterdir())  # nothing was built or opened
+
+
+def test_lsm_build_failure_raises(monkeypatch, tmp_path):
+    """A compiler that fails raises with its output; nothing is loaded."""
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in _build.LSM_SOURCES:
+        (src / name).write_text("this is not C++\n")
+    monkeypatch.setattr(_build, "_LSM_LIB", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "LSM_SRC", src)
+    with pytest.raises(RuntimeError, match="build failed"):
+        _build.lsm_library()
+    assert _build._LSM_LIB is None
     assert not list((tmp_path / "build").glob("*.so"))
