@@ -238,11 +238,13 @@ Phases, each of which must pass (any failure exits non-zero):
              router, journal bytes, each engine's write_batch seconds and
              a validator's share of run A's wall,
              replayed sends, flushes, traced device time and busy shares;
-             and root_era_journal_64, the same crash at CRASH_AT_PY and
-             restart on the Python engine, every protocol's sends
-             journaled on MemoryKV through the routers' factory:
-             root_era_64's block, each slot journaled once, replayed
-             sends, journals covering every latchable kind;
+             and root_era_journal_16, the crash and restart on the Python
+             engine at N=16, f=5 (16 transfers a validator), every
+             protocol's sends journaled on MemoryKV through the routers'
+             factory: an uncrashed run A, then a crash at half of its
+             messages and the restart: run A's block and messages, each
+             slot journaled once, replayed sends, journals covering every
+             latchable kind;
              the DKG (consensus/keygen.py, dkg_64): one validator's whole
              keygen at N=64, f=21 on one_card_backend, its row checks
              one g1_msm_batch each (22 groups of 32 lanes), its value
@@ -263,15 +265,39 @@ Phases, each of which must pass (any failure exits non-zero):
              core/types.warm_sender_caches recovers on the card (exactly
              recover_launches(10,000) a block, each sender the signing
              key's address); each block's transaction and balance rows and
-             its block rows (written by the harness: execution is not
-             ported yet) committed through StateManager.freeze_and_commit
+             its block rows (written by the harness, as execution would)
+             committed through StateManager.freeze_and_commit
              (streamed, subtrie-sharded), a quick fsck after every commit
              clean; the last block's writes frozen again serially give the
              same roots; the store reopened gives the height, every
              height's roots and 1,000 sampled balances; DbShrink
              (retain_depth 1) sweeps the genesis-only nodes and a deep
              fsck is then clean; walls, commit_stats, merkle_stats, the
-             engine's stats, nodes and bytes on disk, the state hash.
+             engine's stats, nodes and bytes on disk, the state hash; its
+             temporary directory kept for
+             execution (core/block_manager.py, tx_pool.py,
+             block_producer.py, execution.py, system_contracts.py,
+             parallel_exec.py and the WASM VM of vm/; block_exec_1m,
+             run_exec_path): on that store at height 2, one validator's
+             BlockManager (device the card), pool and BlockProducer
+             produce blocks 3-6 as a node does: 10,000 transfers from the
+             1,024 senders at 3 and at 4 (16 of them overdrawn: status 0),
+             17 deploys (16 counters and a proxy assembled by vm/builder.py),
+             64 native_token transfers and 32 validators' becomeStaker +
+             submitVrf at 5, 2,048 counter calls (512 through the proxy,
+             one out of gas, one bad selector) at 6; each block's
+             senders recovered at its ingest on the card (exactly
+             recover_launches(n), each its signing key's address), none
+             in production, every receipt's status the harness's, each
+             header's state hash checked; blocks 4 and 6 emulated again
+             serially and with 8 lanes over their parents' roots (the
+             committed state hash and receipts); the store reopened: height
+             6, the roots, blocks, blooms, 100 receipts and transactions,
+             a sender's address index, a clean quick fsck, and each
+             counter's get() through VirtualMachine equal to its
+             successful inc() calls; per block the ingest, proposal,
+             create_header and produce_block walls and transactions a
+             second, the WASM calls' gas, the lanes' walls.
              Around each counted call and the MSMs, no result may have been
              recomputed on the host (ops/verify.ESCAPES), and each path
              must launch its kernels;
@@ -304,6 +330,7 @@ import json
 import logging
 import random
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2618,11 +2645,11 @@ ROOT_CHECK_TXS = 8
 # split from ~5% to ~30%
 CHAOS_CRASH = (4_500, 18_000)
 CHAOS_PARTITION = (2_300, 13_700)
-# the crash of the journal phases, in delivered messages: about half of
-# root_era_native_64's and root_era_64's 2,894,527 (both engines run one
-# schedule); the native engine stops at the first chunk boundary past it
+# the crash of the native journal phase, in delivered messages: about half
+# of root_era_native_64's 2,894,527; the native engine stops at the first
+# chunk boundary past it (the N=16 Python journal era crashes at half of
+# its own run A's messages)
 CRASH_AT = 1_450_000
-CRASH_AT_PY = 1_450_000
 # the kinds of send slot (consensus/journal.send_slot) the Python engine's
 # root era journals
 LATCHED_KINDS = {"val", "echo", "ready", "bval", "aux", "conf", "coin", "dec", "hdr"}
@@ -3759,18 +3786,31 @@ def run_root_journal_native_path(seed: int, dev, ref):
     return summed_launches(*launches), walls
 
 
-def run_root_journal_path(seed: int, dev, ref):
-    """Crash recovery on the Python engine at full width: root_era_64's
-    era (keys, proposals, parent, seed; TAKE_FIRST, both batchers) with a
-    ConsensusJournal on MemoryKV a validator through the routers' factory,
-    where every protocol's sends are journaled: stopped at CRASH_AT_PY
-    messages, then restarted on a fresh network of the same seed over the
-    same stores, every router re-armed from its journal before its first
-    request, run to the block: root_era_64's block and messages (`ref`),
-    each slot journaled once, every latchable kind journaled, sends
-    replayed from the journals, no host recompute. Each run is traced
-    whole; printed: walls, records a router, replayed sends, busy
-    shares."""
+def root_journal_inputs(seed: int):
+    """The N=16 journal era's keys, proposals (BLOCK_TXS / HB_N signed
+    transfers a validator, as at N=64) and parent -> (pub, privs,
+    proposals, signer, parent)."""
+    from lachain_tpu_torch.consensus.keys import trusted_key_gen
+
+    pub, privs = trusted_key_gen(HB_CHECK_N, HB_CHECK_F, SeededRng(seed + 1640))
+    rng = random.Random(seed + 1641)
+    proposals, signer = root_transfers(HB_CHECK_N, -(-BLOCK_TXS // HB_N), rng)
+    return pub, privs, proposals, signer, rng.randbytes(32)
+
+
+def run_root_journal_path(seed: int, dev):
+    """Crash recovery on the Python engine at N=16, f=5 (TAKE_FIRST, both
+    batchers) with a ConsensusJournal on MemoryKV a validator through the
+    routers' factory, where every protocol's sends are journaled. Run A,
+    uncrashed on stores of its own: the block and delivered_count the
+    restart must equal. Run B stopped at half of run A's messages, then
+    restarted on a fresh network of the same seed over the same stores,
+    every router re-armed from its journal before its first request, run
+    to the block: run A's block and messages, each slot journaled once,
+    every latchable kind journaled, sends replayed from the journals, no
+    host recompute. Each run is traced whole; printed: walls, records a
+    router, replayed sends, busy shares. (The N=64 journal semantics run
+    at full width in root_era_journal_native_64.)"""
     import torch
 
     from lachain_tpu_torch.consensus.era import EraRouter
@@ -3778,13 +3818,14 @@ def run_root_journal_path(seed: int, dev, ref):
     from lachain_tpu_torch.consensus.simulator import DeliveryMode, SimulatedNetwork
     from lachain_tpu_torch.storage.kv import MemoryKV
 
-    label = f"journal root era N={HB_N}"
-    pub, privs, proposals, signer, parent = root_era_inputs(seed)
-    kvs = [MemoryKV() for _ in range(HB_N)]
+    n, f = HB_CHECK_N, HB_CHECK_F
+    label = f"journal root era N={n}"
+    pub, privs, proposals, signer, parent = root_journal_inputs(seed)
+    kvs = [MemoryKV() for _ in range(n)]
     out = {}
 
-    def journaled_net():
-        journals = [ConsensusJournal(kv) for kv in kvs]
+    def journaled_net(stores):
+        journals = [ConsensusJournal(kv) for kv in stores]
         factories, _producers = root_factories(pub, privs, proposals, dev, parent)
         net = SimulatedNetwork(
             pub, privs, seed=seed, mode=DeliveryMode.TAKE_FIRST, use_rbc_batcher=True,
@@ -3792,37 +3833,49 @@ def run_root_journal_path(seed: int, dev, ref):
             router_cls=lambda **kw: EraRouter(journal=journals[kw["my_id"]], **kw))
         return net, journals
 
+    def run_a():
+        clear_block_memos()
+        reset_counts()
+        net, _journals = journaled_net([MemoryKV() for _ in range(n)])
+        out["wall_a"], blocks = root_run(net, range(n))
+        out["launches_a"] = read_launches()
+        check_root_blocks(f"{label} run A", net, blocks, list(range(n)), proposals, signer,
+                          pub, n, f)
+        out.update(hash_a=blocks[0].header.hash(), delivered_a=net.delivered_count)
+
     def crash():
         clear_block_memos()
         reset_counts()
-        net, journals = journaled_net()
-        out["wall_b"] = crash_run(net, CRASH_AT_PY)
+        net, journals = journaled_net(kvs)
+        out["crash_at"] = out["delivered_a"] // 2
+        out["wall_b"] = crash_run(net, out["crash_at"])
         out["launches_b"] = read_launches()
         out.update(delivered_b=net.delivered_count, records_b=[j.records for j in journals])
 
     def restart():
         clear_block_memos()
         reset_counts()
-        net, journals = journaled_net()
+        net, journals = journaled_net(kvs)
         rearm(net, journals)
-        out["wall"], out["blocks"] = root_run(net, range(HB_N))
+        out["wall"], out["blocks"] = root_run(net, range(n))
         out["launches"] = read_launches()
         out.update(net=net, journals=journals)
 
     def warm():
         torch.arange(1 << 12, device=dev).sum().item()
 
+    by_a = profile_device(run_a, warm=warm)
+    check_no_escapes(f"{label} run A")
     by_b = profile_device(crash, warm=warm)
     check_no_escapes(f"{label} crash")
     by_r = profile_device(restart, warm=warm)
     check_no_escapes(f"{label} restart")
     net, blocks = out["net"], out["blocks"]
-    check_root_blocks(label, net, blocks, list(range(HB_N)), proposals, signer, pub, HB_N,
-                      HB_F)
+    check_root_blocks(label, net, blocks, list(range(n)), proposals, signer, pub, n, f)
     h = blocks[0].header.hash()
-    check(h == ref["hash"] and net.delivered_count == ref["delivered"],
-          f"{label}: block {h.hex()[:16]} / {net.delivered_count} messages, root_era_64's "
-          f"{ref['hash'].hex()[:16]} / {ref['delivered']}")
+    check(h == out["hash_a"] and net.delivered_count == out["delivered_a"],
+          f"{label}: block {h.hex()[:16]} / {net.delivered_count} messages, run A's "
+          f"{out['hash_a'].hex()[:16]} / {out['delivered_a']}")
     slots = [journal_slots(label, j) for j in out["journals"]]
     kinds = [{slot[0] for _era, slot in m} for m in slots]
     check(all(k == LATCHED_KINDS for k in kinds),
@@ -3831,17 +3884,18 @@ def run_root_journal_path(seed: int, dev, ref):
     check(sum(replayed) > 0 and all(x <= y for x, y in zip(replayed, out["records_b"])),
           f"{label}: replayed sends {replayed}, journaled before the crash "
           f"{out['records_b']}")
-    log(f"{label}: crashed at {out['delivered_b']} messages (CRASH_AT_PY {CRASH_AT_PY}) "
-        f"after {out['wall_b']:.3f} s, restarted: root_era_64's block {h.hex()[:16]} at all "
-        f"{HB_N} routers and its {net.delivered_count} messages in {out['wall']:.3f} s "
-        f"(root_era_64 {ref['wall']:.3f} s); journal records a router "
-        f"{spread([len(m) for m in slots])} ({sum(len(m) for m in slots)} in all), before "
-        f"the crash {spread(out['records_b'])}; replayed sends {sum(replayed)} "
-        f"({spread(replayed)} a router)")
+    log(f"{label}: run A's block {out['hash_a'].hex()[:16]} and {out['delivered_a']} "
+        f"messages in {out['wall_a']:.3f} s; crashed at {out['delivered_b']} messages (half "
+        f"of run A's, {out['crash_at']}) after {out['wall_b']:.3f} s, restarted: run A's "
+        f"block at all {n} routers and its {net.delivered_count} messages in "
+        f"{out['wall']:.3f} s; journal records a router {spread([len(m) for m in slots])} "
+        f"({sum(len(m) for m in slots)} in all), before the crash {spread(out['records_b'])}; "
+        f"replayed sends {sum(replayed)} ({spread(replayed)} a router)")
     batcher_lines(f"{label} restart", net)
+    busy_line(f"{label} run A", by_a, out["wall_a"])
     busy_line(f"{label} crash", by_b, out["wall_b"])
     busy_line(f"{label} restart", by_r, out["wall"])
-    return (summed_launches(out["launches_b"], out["launches"]),
+    return (summed_launches(out["launches_a"], out["launches_b"], out["launches"]),
             [dict(wall_s=out["wall"])])
 
 
@@ -4249,7 +4303,7 @@ def trie_rows(kv) -> int:
     return sum(1 for _ in kv.scan_prefix(prefixed(EntryPrefix.TRIE_NODE)))
 
 
-def run_state_path(seed: int, dev):
+def run_state_path(seed: int, dev, keep: dict):
     """One validator's state on LsmKV in a temporary directory, at full
     size: a genesis of STATE_ACCOUNTS accounts, then STATE_BLOCKS blocks of
     STATE_TXS signed transfers (state_inputs), each block's senders
@@ -4265,7 +4319,10 @@ def run_state_path(seed: int, dev):
     STATE_RETAIN) sweeps the genesis-only nodes; a deep fsck over the
     retained snapshots is then clean. The recoveries' launches are counted
     (exactly recover_launches(STATE_TXS) a block on the card). First, the
-    median latency of a single put in the same directory (put_latency_us)."""
+    median latency of a single put in the same directory (put_latency_us).
+    The temporary directory stays for block_exec_1m, which continues on
+    its store: `keep` gets its path ("dir", "store"), the senders' keys and
+    addresses, the accounts and the height's block; main removes it."""
     import os
     import tempfile
 
@@ -4299,115 +4356,524 @@ def run_state_path(seed: int, dev):
             f"LsmKV {kv.stats()}")
 
     warm, roots, blocks = [], [], []
-    with tempfile.TemporaryDirectory(prefix="lachain_state_") as tmp:
-        log(f"{label}: a single LsmKV put (one fsynced WAL record) in the temporary "
-            f"directory: median {put_latency_us(os.path.join(tmp, 'probe')):.1f} us of 1,000")
-        store = os.path.join(tmp, "state")
-        kv = LsmKV(store)
-        state = StateManager(kv)
+    tmp = tempfile.mkdtemp(prefix="lachain_state_")
+    keep["dir"] = tmp
+    log(f"{label}: a single LsmKV put (one fsynced WAL record) in the temporary "
+        f"directory: median {put_latency_us(os.path.join(tmp, 'probe')):.1f} us of 1,000")
+    store = os.path.join(tmp, "state")
+    kv = LsmKV(store)
+    state = StateManager(kv)
+    t0 = time.perf_counter()
+    writes = genesis_writes(balances)
+    state.trie.reset_merkle_stats()
+    block, r = commit_block(state, kv, 0, types.ZERO_HASH, [], writes)
+    wall = time.perf_counter() - t0
+    commit_line(f"genesis ({STATE_ACCOUNTS} balances)", state, kv, wall, clean("genesis", kv))
+    warm.append(dict(wal_fsync_s=state.commit_stats["wal_fsync_s"], wall_s=wall))
+    roots.append(r)
+    blocks.append(block)
+
+    reset_counts()
+    recover_ms = []
+    for height, stxs in enumerate(inp["blocks"], start=1):
+        types._SENDER_MEMO.clear()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
-        writes = genesis_writes(balances)
+        types.warm_sender_caches(stxs, ROOT_CHAIN_ID, device=dev)
+        rec_s = time.perf_counter() - t0
+        recover_ms.append(rec_s * 1e3)
+        senders = [stx.sender(ROOT_CHAIN_ID) for stx in stxs]
+        want = [inp["addrs"][(t + (height - 1) * STATE_TXS) % STATE_SENDERS]
+                for t in range(len(stxs))]
+        check(senders == want, f"{label} block {height}: a recovered sender differs")
+        log(f"{label} block {height}: {len(stxs)} senders recovered on {dev} in "
+            f"{rec_s * 1e3:.3f} ms (wall), phases "
+            f"{phase_line(ecdsa.batch_recoverer(dev).last_timings) if torch.device(dev).type == 'cuda' else 'cpu'}; "
+            f"each equals its signing key's address")
+        t0 = time.perf_counter()
+        writes = transfer_writes(balances, stxs)
         state.trie.reset_merkle_stats()
-        block, r = commit_block(state, kv, 0, types.ZERO_HASH, [], writes)
+        block, r = commit_block(state, kv, height, blocks[-1].hash(), stxs, writes)
         wall = time.perf_counter() - t0
-        commit_line(f"genesis ({STATE_ACCOUNTS} balances)", state, kv, wall, clean("genesis", kv))
-        warm.append(dict(wal_fsync_s=state.commit_stats["wal_fsync_s"], wall_s=wall))
+        rows = sum(len(w) for w in writes.values())
+        check(rows < state.stream_threshold or state.commit_stats["streamed_batches"] > 0,
+              f"{label} block {height}: {rows} rows, the commit did not stream")
+        check(rows < trie_mod.MIN_SHARD_OPS or (os.cpu_count() or 1) == 1
+              or state.trie.merkle_stats["workers"] > 1,
+              f"{label} block {height}: not sharded: {state.trie.merkle_stats}")
+        commit_line(f"block {height} ({rows} rows)", state, kv, wall,
+                    clean(f"block {height}", kv))
+        warm.append(dict(recover_s=rec_s, wal_fsync_s=state.commit_stats["wal_fsync_s"],
+                         wall_s=wall))
         roots.append(r)
         blocks.append(block)
+    launches = read_launches()
+    check_no_escapes(label)
+    if torch.device(dev).type == "cuda":
+        want = {k: STATE_BLOCKS * v for k, v in recover_launches(STATE_TXS).items()}
+        check(launches == want, f"{label}: launches {launches} != expected {want}")
 
-        reset_counts()
-        recover_ms = []
-        for height, stxs in enumerate(inp["blocks"], start=1):
-            types._SENDER_MEMO.clear()
-            if torch.device(dev).type == "cuda":
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            types.warm_sender_caches(stxs, ROOT_CHAIN_ID, device=dev)
-            rec_s = time.perf_counter() - t0
-            recover_ms.append(rec_s * 1e3)
-            senders = [stx.sender(ROOT_CHAIN_ID) for stx in stxs]
-            want = [inp["addrs"][(t + (height - 1) * STATE_TXS) % STATE_SENDERS]
-                    for t in range(len(stxs))]
-            check(senders == want, f"{label} block {height}: a recovered sender differs")
-            log(f"{label} block {height}: {len(stxs)} senders recovered on {dev} in "
-                f"{rec_s * 1e3:.3f} ms (wall), phases "
-                f"{phase_line(ecdsa.batch_recoverer(dev).last_timings) if torch.device(dev).type == 'cuda' else 'cpu'}; "
-                f"each equals its signing key's address")
-            t0 = time.perf_counter()
-            writes = transfer_writes(balances, stxs)
-            state.trie.reset_merkle_stats()
-            block, r = commit_block(state, kv, height, blocks[-1].hash(), stxs, writes)
-            wall = time.perf_counter() - t0
-            rows = sum(len(w) for w in writes.values())
-            check(rows < state.stream_threshold or state.commit_stats["streamed_batches"] > 0,
-                  f"{label} block {height}: {rows} rows, the commit did not stream")
-            check(rows < trie_mod.MIN_SHARD_OPS or (os.cpu_count() or 1) == 1
-                  or state.trie.merkle_stats["workers"] > 1,
-                  f"{label} block {height}: not sharded: {state.trie.merkle_stats}")
-            commit_line(f"block {height} ({rows} rows)", state, kv, wall,
-                        clean(f"block {height}", kv))
-            warm.append(dict(recover_s=rec_s, wal_fsync_s=state.commit_stats["wal_fsync_s"],
-                             wall_s=wall))
-            roots.append(r)
-            blocks.append(block)
-        launches = read_launches()
-        check_no_escapes(label)
-        if torch.device(dev).type == "cuda":
-            want = {k: STATE_BLOCKS * v for k, v in recover_launches(STATE_TXS).items()}
-            check(launches == want, f"{label}: launches {launches} != expected {want}")
+    # the last block's writes again, serially, from the block before's roots
+    t0 = time.perf_counter()
+    serial = StateManager(kv)
+    snap = serial.new_snapshot(serial.roots_at(STATE_BLOCKS - 1))
+    for tree, rows in writes.items():
+        for k, v in rows.items():
+            snap.put(tree, k, v)
+    again = snap.freeze(workers=1)
+    snap.discard()
+    check(again == roots[-1], f"{label}: the serial freeze's roots differ from the commit's")
+    log(f"{label}: block {STATE_BLOCKS}'s writes frozen again serially "
+        f"({serial.trie.merkle_stats}) in {time.perf_counter() - t0:.3f} s give the "
+        f"sharded commit's roots")
+    del serial
 
-        # the last block's writes again, serially, from the block before's roots
-        t0 = time.perf_counter()
-        serial = StateManager(kv)
-        snap = serial.new_snapshot(serial.roots_at(STATE_BLOCKS - 1))
-        for tree, rows in writes.items():
-            for k, v in rows.items():
-                snap.put(tree, k, v)
-        again = snap.freeze(workers=1)
-        snap.discard()
-        check(again == roots[-1], f"{label}: the serial freeze's roots differ from the commit's")
-        log(f"{label}: block {STATE_BLOCKS}'s writes frozen again serially "
-            f"({serial.trie.merkle_stats}) in {time.perf_counter() - t0:.3f} s give the "
-            f"sharded commit's roots")
-        del serial
+    kv.close()
+    t0 = time.perf_counter()
+    kv = LsmKV(store)
+    state = StateManager(kv)
+    check(state.committed_height() == STATE_BLOCKS
+          and [state.roots_at(h) for h in range(STATE_BLOCKS + 1)] == roots,
+          f"{label}: the reopened store's height or roots differ")
+    rng = random.Random(seed + 2301)
+    snap = state.new_snapshot()
+    for a in rng.sample(inp["accounts"], STATE_SAMPLES):
+        check(snap.get("balances", BALANCE_ROW + a) == balances[a].to_bytes(32, "big"),
+              f"{label}: balance of {a.hex()} read back wrong")
+    log(f"{label}: reopened in {time.perf_counter() - t0:.3f} s: height "
+        f"{STATE_BLOCKS}, the roots of every height and {STATE_SAMPLES} sampled "
+        f"balances as written; LsmKV {kv.stats()}")
 
-        kv.close()
-        t0 = time.perf_counter()
-        kv = LsmKV(store)
-        state = StateManager(kv)
-        check(state.committed_height() == STATE_BLOCKS
-              and [state.roots_at(h) for h in range(STATE_BLOCKS + 1)] == roots,
-              f"{label}: the reopened store's height or roots differ")
-        rng = random.Random(seed + 2301)
-        snap = state.new_snapshot()
-        for a in rng.sample(inp["accounts"], STATE_SAMPLES):
-            check(snap.get("balances", BALANCE_ROW + a) == balances[a].to_bytes(32, "big"),
-                  f"{label}: balance of {a.hex()} read back wrong")
-        log(f"{label}: reopened in {time.perf_counter() - t0:.3f} s: height "
-            f"{STATE_BLOCKS}, the roots of every height and {STATE_SAMPLES} sampled "
-            f"balances as written; LsmKV {kv.stats()}")
-
-        before, disk = trie_rows(kv), dir_bytes(store)
-        t0 = time.perf_counter()
-        stats = DbShrink(state, kv).shrink(retain_depth=STATE_RETAIN)
-        shrink_s = time.perf_counter() - t0
-        after = trie_rows(kv)
-        check(stats["swept"] > 0 and after == before - stats["swept"]
-              and state.roots_at(0) is None and state.roots_at(STATE_BLOCKS) == roots[-1],
-              f"{label}: shrink {stats}, trie nodes {before} -> {after}")
-        t0 = time.perf_counter()
-        report = fsck(kv, repair=False, deep=True)
-        deep_s = time.perf_counter() - t0
-        check(report.clean, f"{label}: deep fsck after shrink: {report.to_dict()}")
-        kv.flush()
-        log(f"{label}: shrink(retain_depth={STATE_RETAIN}) {stats} in {shrink_s:.3f} s, "
-            f"trie nodes {before} -> {after}; deep fsck of heights "
-            f"{STATE_BLOCKS - STATE_RETAIN}..{STATE_BLOCKS} clean in {deep_s:.3f} s; bytes "
-            f"on disk {disk} before the shrink, {dir_bytes(store)} after; LsmKV {kv.stats()}")
-        kv.close()
+    before, disk = trie_rows(kv), dir_bytes(store)
+    t0 = time.perf_counter()
+    stats = DbShrink(state, kv).shrink(retain_depth=STATE_RETAIN)
+    shrink_s = time.perf_counter() - t0
+    after = trie_rows(kv)
+    check(stats["swept"] > 0 and after == before - stats["swept"]
+          and state.roots_at(0) is None and state.roots_at(STATE_BLOCKS) == roots[-1],
+          f"{label}: shrink {stats}, trie nodes {before} -> {after}")
+    t0 = time.perf_counter()
+    report = fsck(kv, repair=False, deep=True)
+    deep_s = time.perf_counter() - t0
+    check(report.clean, f"{label}: deep fsck after shrink: {report.to_dict()}")
+    kv.flush()
+    log(f"{label}: shrink(retain_depth={STATE_RETAIN}) {stats} in {shrink_s:.3f} s, "
+        f"trie nodes {before} -> {after}; deep fsck of heights "
+        f"{STATE_BLOCKS - STATE_RETAIN}..{STATE_BLOCKS} clean in {deep_s:.3f} s; bytes "
+        f"on disk {disk} before the shrink, {dir_bytes(store)} after; LsmKV {kv.stats()}")
+    kv.close()
     log(f"{label}: state hash {roots[-1].state_hash().hex()} at height {STATE_BLOCKS}; "
         f"recoveries {', '.join(f'{m:.3f}' for m in recover_ms)} ms")
+    keep.update(store=store, keys=inp["keys"], addrs=inp["addrs"], accounts=inp["accounts"],
+                roots=roots[-1], block=blocks[-1])
     return launches, warm
+
+
+# the execution phase (block_exec_1m): blocks 3-6 executed by the node's own
+# code (core/block_manager, tx_pool, block_producer, system contracts, the
+# WASM VM) on state_commit_1m's store
+EXEC_TXS = STATE_TXS  # signed transfers a block at heights 3 and 4
+EXEC_OVERDRAWN = 16  # of them asking for more than their sender holds
+EXEC_COUNTERS = 16  # counter contracts deployed at height 5, and one proxy
+EXEC_TOKEN_CALLS = 64  # native_token transfer calls at height 5
+EXEC_VALIDATORS = 32  # senders that stake and submit a VRF proof at height 5
+EXEC_STAKE = 10**21
+EXEC_CALLS = 2  # counter calls a sender at height 6
+EXEC_PROXIED = 512  # of them through the proxy
+EXEC_CALL_GAS = 10**9
+EXEC_LANES = 8
+EXEC_SAMPLES = 100  # receipts read back after the reopen
+OUT_OF_GAS = TRANSFER_GAS + 50_000  # an inc() call's gas limit that its storage write exceeds
+MAX_U256 = (1 << 256) - 1
+
+
+def counter_contract(builder, abi) -> bytes:
+    """The counter of the JAX package's tests/test_vm.py:269, assembled by
+    `builder` (either package's vm/builder.py): storage key 32 zero bytes
+    holds an i64 (LE); inc() adds one and returns it, get() returns it,
+    any other selector traps."""
+    Op, I32 = builder.Op, builder.I32
+    b = builder.ModuleBuilder()
+    copy_call = b.add_import("env", "copy_call_value", [I32, I32, I32], [])
+    load_st = b.add_import("env", "load_storage", [I32, I32], [])
+    save_st = b.add_import("env", "save_storage", [I32, I32], [])
+    set_ret = b.add_import("env", "set_return", [I32, I32], [])
+    b.add_memory(1)
+    sel_inc = int.from_bytes(abi.method_selector("inc()"), "little")
+    sel_get = int.from_bytes(abi.method_selector("get()"), "little")
+    body = [
+        Op.i32_const(0), Op.i32_const(4), Op.i32_const(0), Op.call(copy_call),
+        Op.i32_const(64), Op.i32_const(96), Op.call(load_st),
+        Op.i32_const(0), Op.i32_load(), Op.i32_const(sel_inc), Op.i32_eq,
+        Op.if_(),
+        Op.i32_const(96),
+        Op.i32_const(96), Op.i64_load(), Op.i64_const(1), Op.i64_add,
+        Op.i64_store(),
+        Op.i32_const(64), Op.i32_const(96), Op.call(save_st),
+        Op.i32_const(96), Op.i32_const(8), Op.call(set_ret),
+        Op.return_,
+        Op.end,
+        Op.i32_const(0), Op.i32_load(), Op.i32_const(sel_get), Op.i32_eq,
+        Op.if_(),
+        Op.i32_const(96), Op.i32_const(8), Op.call(set_ret),
+        Op.return_,
+        Op.end,
+        Op.unreachable,
+    ]
+    b.add_function([], [], [], body, export="start")
+    return b.build()
+
+
+def proxy_contract(builder) -> bytes:
+    """The proxy of the JAX package's tests/test_vm.py:309: forwards
+    calldata[20:] to the contract at calldata[0:20] with all its gas and
+    returns the child's return value; a failed child traps it."""
+    Op, I32, I64 = builder.Op, builder.I32, builder.I64
+    b = builder.ModuleBuilder()
+    copy_call = b.add_import("env", "copy_call_value", [I32, I32, I32], [])
+    call_size = b.add_import("env", "get_call_size", [], [I32])
+    invoke = b.add_import("env", "invoke_contract", [I32, I32, I32, I32, I64], [I32])
+    ret_size = b.add_import("env", "get_return_size", [], [I32])
+    copy_ret = b.add_import("env", "copy_return_value", [I32, I32, I32], [])
+    set_ret = b.add_import("env", "set_return", [I32, I32], [])
+    b.add_memory(1)
+    body = [
+        Op.i32_const(0), Op.i32_const(20), Op.i32_const(0), Op.call(copy_call),
+        Op.i32_const(20), Op.call(call_size), Op.i32_const(32), Op.call(copy_call),
+        Op.i32_const(0), Op.i32_const(32),
+        Op.call(call_size), Op.i32_const(20), Op.i32_sub,
+        Op.i32_const(512), Op.i64_const(0),
+        Op.call(invoke),
+        Op.i32_eqz, Op.if_(), Op.unreachable, Op.end,
+        Op.i32_const(1024), Op.i32_const(0), Op.call(ret_size), Op.call(copy_ret),
+        Op.i32_const(1024), Op.call(ret_size), Op.call(set_ret),
+    ]
+    b.add_function([], [], [], body, export="start")
+    return b.build()
+
+
+def run_exec_path(seed: int, dev, keep: dict):
+    """Execution at full width on state_commit_1m's store (`keep`: the
+    1,000,000-account state on LsmKV at height 2): one validator's
+    BlockManager(lanes=1, device=dev) with the system contracts'
+    executer, a TransactionPool over the same store and a
+    BlockProducer(n_validators=1, txs_per_block=EXEC_TXS). Four seeded
+    blocks, nonces read from the committed state: heights 3 and 4 of
+    EXEC_TXS transfers from the 1,024 senders to genesis accounts,
+    EXEC_OVERDRAWN of them asking for more than their sender holds (the
+    last of their sender's chain); height 5: EXEC_COUNTERS counters and a
+    proxy deployed through DEPLOY_ADDRESS, EXEC_TOKEN_CALLS native_token
+    transfers, EXEC_VALIDATORS senders' becomeStaker then submitVrf;
+    height 6: EXEC_CALLS inc() calls a sender on the counters,
+    EXEC_PROXIED of them through the proxy, one out of gas and one with a
+    bad selector. Each block enters the pool as a node's bulk ingest
+    enters it (precheck, one warm_sender_caches on `dev`: exactly
+    recover_launches(n), each sender its signing key's address; then
+    add), and is produced as a node produces it
+    (get_transactions_to_propose, create_header, produce_block with the
+    state hash checked): no kernel launched there, every receipt's status
+    the harness's. Then blocks 4 and 6 emulated again over their parents'
+    roots on fresh StateManagers, the emulate memo cleared, serially and
+    with EXEC_LANES lanes (whose parallel path must run): the committed
+    state hashes and receipts. The store closed and reopened: height 6,
+    the roots of heights 2-6, the blocks, EXEC_SAMPLES receipts and
+    transactions, the blooms, one sender's address index, a clean quick
+    fsck, and each counter's get() through VirtualMachine on height 6's
+    snapshot equal to its successful inc() calls."""
+    import torch
+
+    from lachain_tpu_torch.core import block_manager as bm_mod
+    from lachain_tpu_torch.core import execution, types
+    from lachain_tpu_torch.core import system_contracts as sc
+    from lachain_tpu_torch.core.block_manager import BlockManager
+    from lachain_tpu_torch.core.block_producer import BlockProducer
+    from lachain_tpu_torch.core.tx_pool import TransactionPool
+    from lachain_tpu_torch.crypto import ecdsa, vrf
+    from lachain_tpu_torch.storage.fsck import fsck
+    from lachain_tpu_torch.storage.state import StateManager
+    from lachain_tpu_torch.utils import bloom
+    from lachain_tpu_torch.utils.serialization import write_bytes, write_u64, write_u256
+    from lachain_tpu_torch.vm import abi, builder
+    from lachain_tpu_torch.vm import vm as wasm_vm
+
+    label = f"block_exec N={STATE_ACCOUNTS}"
+    t_path = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    keys, addrs, accts = keep["keys"], keep["addrs"], keep["accounts"]
+    senders = len(keys)
+    kv = LsmKV(keep["store"])
+    state = StateManager(kv)
+    bm = BlockManager(kv, state, sc.make_executer(ROOT_CHAIN_ID), lanes=1, device=dev)
+    check(bm.current_height() == STATE_BLOCKS and state.committed == keep["roots"],
+          f"{label}: state_commit_1m's store is not at height {STATE_BLOCKS}")
+    pool = TransactionPool(kv, ROOT_CHAIN_ID,
+                           account_nonce=lambda a: execution.get_nonce(state.new_snapshot(), a))
+    producer = BlockProducer(bm, pool, n_validators=1, txs_per_block=EXEC_TXS)
+    rng = random.Random(seed + 2400)
+    signer, stxs_by_hash, expect = {}, {}, {}
+    sel_inc, sel_get = abi.method_selector("inc()"), abi.method_selector("get()")
+
+    def sign(k, to, value, nonce, status, gas_price=1, gas_limit=TRANSFER_GAS,
+             invocation=b""):
+        tx = types.Transaction(to=to, value=value, nonce=nonce, gas_price=gas_price,
+                               gas_limit=gas_limit, invocation=invocation)
+        stx = types.sign_transaction(tx, keys[k], ROOT_CHAIN_ID)
+        signer[stx.hash()] = addrs[k]
+        stxs_by_hash[stx.hash()] = stx
+        expect[stx.hash()] = status
+        return stx
+
+    def nonces():
+        snap = state.new_snapshot()
+        return [execution.get_nonce(snap, a) for a in addrs]
+
+    def transfers():
+        n = nonces()
+        over = set(rng.sample(range(senders), EXEC_OVERDRAWN))
+        count = [EXEC_TXS // senders + (k < EXEC_TXS % senders) for k in range(senders)]
+        out = []
+        for t in range(EXEC_TXS):
+            k, j = t % senders, t // senders
+            bad = k in over and j == count[k] - 1
+            out.append(sign(k, accts[rng.randrange(len(accts))],
+                            MAX_U256 if bad else rng.randrange(1, 10**9), n[k] + j,
+                            0 if bad else 1, gas_price=rng.randrange(1, 100)))
+        return out
+
+    counter_code = counter_contract(builder, abi)
+    counters = []  # the counters' addresses, then the proxy's
+    incs = {}  # counter -> its successful inc() calls
+
+    def deploys_and_system_calls():
+        n = nonces()
+        counters.extend(wasm_vm.contract_address(addrs[0], n[0] + i)
+                        for i in range(EXEC_COUNTERS + 1))
+        out = [sign(0, sc.DEPLOY_ADDRESS, 0, n[0] + i, 1,
+                    invocation=sc.SEL_DEPLOY + write_bytes(
+                        counter_code if i < EXEC_COUNTERS else proxy_contract(builder)))
+               for i in range(EXEC_COUNTERS + 1)]
+        for k in range(1, 1 + EXEC_TOKEN_CALLS):
+            out.append(sign(k, sc.NATIVE_TOKEN_ADDRESS, 0, n[k], 1, invocation=(
+                sc.SEL_TRANSFER + accts[rng.randrange(len(accts))]
+                + write_u256(rng.randrange(1, 10**6)))))
+        vals = list(range(1 + EXEC_TOKEN_CALLS, 1 + EXEC_TOKEN_CALLS + EXEC_VALIDATORS))
+        snap = state.new_snapshot()
+        alpha = (snap.get("storage", sc.STAKING_ADDRESS + b"seed") or b"genesis-seed") \
+            + write_u64((STATE_BLOCKS + 3) // sc.CYCLE_DURATION)
+        # the block runs sender by sender: a validator's submitVrf sees the
+        # stakes of the validators ordered before it and its own
+        for rank, k in enumerate(sorted(vals, key=lambda k: addrs[k])):
+            pub = ecdsa.public_key_bytes(keys[k])
+            proof, beta = vrf.evaluate(keys[k], alpha)
+            wins = vrf.is_winner(beta, EXEC_STAKE, EXEC_STAKE * (rank + 1), 7)
+            out.append(sign(k, sc.STAKING_ADDRESS, 0, n[k], 1, invocation=(
+                sc.SEL_BECOME_STAKER + write_bytes(pub) + write_u256(EXEC_STAKE))))
+            out.append(sign(k, sc.STAKING_ADDRESS, 0, n[k] + 1, int(wins), invocation=(
+                sc.SEL_SUBMIT_VRF + write_bytes(pub) + write_bytes(proof))))
+        return out
+
+    def contract_calls():
+        n = nonces()
+        proxy = counters[-1]
+        proxied = set(rng.sample(range(2, senders * EXEC_CALLS), EXEC_PROXIED))
+        out = []
+        for k in range(senders):
+            for j in range(EXEC_CALLS):
+                c = k * EXEC_CALLS + j
+                target = counters[rng.randrange(EXEC_COUNTERS)]
+                if c == 0:  # out of gas: its storage write alone costs more
+                    out.append(sign(k, target, 0, n[k] + j, 0, gas_limit=OUT_OF_GAS,
+                                    invocation=sel_inc))
+                elif c == 1:  # a selector the counter does not know: it traps
+                    out.append(sign(k, target, 0, n[k] + j, 0, gas_limit=EXEC_CALL_GAS,
+                                    invocation=b"\xde\xad\xbe\xef"))
+                else:
+                    via = c in proxied
+                    out.append(sign(k, proxy if via else target, 0, n[k] + j, 1,
+                                    gas_limit=EXEC_CALL_GAS,
+                                    invocation=(target + sel_inc) if via else sel_inc))
+                    incs[target] = incs.get(target, 0) + 1
+        return out
+
+    recover_ms, walls, receipts, blocks, roots = [], [], {}, {}, {}
+    roots[STATE_BLOCKS] = state.committed
+    total = dict.fromkeys(read_launches(), 0)
+    wasm = {}
+
+    def produce(height: int, txs) -> None:
+        # the node's bulk ingest: precheck, one batch recovery, then add
+        types._SENDER_MEMO.clear()
+        fresh = [stx for stx in txs if pool.precheck(stx)]
+        check(len(fresh) == len(txs), f"{label} block {height}: precheck refused a transaction")
+        if on_card:
+            torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        types.warm_sender_caches(fresh, ROOT_CHAIN_ID, device=dev)
+        rec_s = time.perf_counter() - t0
+        ingest = read_launches()
+        check_no_escapes(f"{label} block {height} ingest")
+        if on_card:
+            want = recover_launches(len(fresh))
+            check(ingest == want, f"{label} block {height}: ingest launches {ingest} != {want}")
+        check([stx.sender(ROOT_CHAIN_ID) for stx in fresh] == [signer[stx.hash()] for stx in fresh],
+              f"{label} block {height}: a recovered sender differs from its signing key's")
+        for k in total:
+            total[k] += ingest[k]
+        t0 = time.perf_counter()
+        added = sum(pool.add(stx) for stx in fresh)
+        add_s = time.perf_counter() - t0
+        check(added == len(fresh), f"{label} block {height}: the pool admitted {added}")
+        # the node's production: proposal, header (order, emulate), block
+        reset_counts()
+        t0 = time.perf_counter()
+        proposal = producer.get_transactions_to_propose()
+        propose_s = time.perf_counter() - t0
+        check(sorted(t.hash() for t in proposal) == sorted(t.hash() for t in txs),
+              f"{label} block {height}: the proposal is not the block's {len(txs)} transactions")
+        t0 = time.perf_counter()
+        header = producer.create_header(height, proposal, nonce=height)
+        header_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        block = producer.produce_block(header, proposal, types.MultiSig(()))
+        produce_s = time.perf_counter() - t0
+        launched = {k: v for k, v in read_launches().items() if v}
+        check(not launched, f"{label} block {height}: production launched {launched} (the "
+              f"ingest warmed every sender)")
+        check(bm.current_height() == height and state.committed.state_hash()
+              == header.state_hash and len(pool) == 0,
+              f"{label} block {height}: height, state hash or pool after the commit")
+        t0 = time.perf_counter()
+        recs = [bm.receipt_by_hash(h) for h in block.tx_hashes]
+        read_s = time.perf_counter() - t0
+        got = [types.TransactionReceipt.decode(r) for r in recs]
+        bad = [r.tx_hash.hex()[:16] for r in got if r.status != expect[r.tx_hash]]
+        check(not bad and len(got) == len(txs),
+              f"{label} block {height}: receipts {bad[:4]} differ from the expected statuses")
+        receipts[height] = dict(zip(block.tx_hashes, recs))
+        blocks[height], roots[height] = block, state.committed
+        ok = sum(r.status for r in got)
+        if height == STATE_BLOCKS + 4:
+            wasm.update(gas=sum(r.gas_used - TRANSFER_GAS for r in got), s=header_s)
+        recover_ms.append(rec_s * 1e3)
+        log(f"{label} block {height}: {len(txs)} transactions; ingest: {len(fresh)} senders "
+            f"recovered on {dev} in {rec_s * 1e3:.3f} ms (wall), phases "
+            f"{phase_line(ecdsa.batch_recoverer(dev).last_timings) if on_card else 'cpu'}, "
+            f"pool.add {add_s:.3f} s; proposal {propose_s:.3f} s, create_header "
+            f"{header_s:.3f} s, produce_block {produce_s:.3f} s: "
+            f"{len(txs) / (header_s + produce_s):.0f} transactions a second; receipts "
+            f"{ok} ok / {len(got) - ok} failed (read back in {read_s:.3f} s); state hash "
+            f"{header.state_hash.hex()[:16]}")
+        walls.append(dict(recover_s=rec_s, add_s=add_s, create_header_s=header_s,
+                          produce_block_s=produce_s, wall_s=rec_s + add_s + header_s + produce_s))
+
+    t0 = time.perf_counter()
+    txs3 = transfers()
+    sign3 = time.perf_counter() - t0
+    log(f"{label}: block {STATE_BLOCKS + 1}'s {len(txs3)} transfers signed natively in "
+        f"{sign3:.3f} s")
+    produce(STATE_BLOCKS + 1, txs3)
+    produce(STATE_BLOCKS + 2, transfers())
+    t0 = time.perf_counter()
+    txs5 = deploys_and_system_calls()
+    log(f"{label}: block {STATE_BLOCKS + 3}'s {len(txs5)} deploys and system calls signed "
+        f"({EXEC_VALIDATORS} VRF proofs) in {time.perf_counter() - t0:.3f} s; "
+        f"{sum(expect[t.hash()] for t in txs5[-2 * EXEC_VALIDATORS + 1::2])} of "
+        f"{EXEC_VALIDATORS} VRF proofs win")
+    produce(STATE_BLOCKS + 3, txs5)
+    snap = state.new_snapshot()
+    check(all(wasm_vm.get_code(snap, c) is not None for c in counters),
+          f"{label}: a deployed contract has no code")
+    produce(STATE_BLOCKS + 4, contract_calls())
+    log(f"{label}: the WASM calls of block {STATE_BLOCKS + 4}: {wasm['gas']} gas above the "
+        f"base transfer's, emulated in {wasm['s']:.3f} s (create_header)")
+
+    # the lanes: blocks 4 and 6 again over their parents' roots, memo cleared
+    reset_counts()
+    for height in (STATE_BLOCKS + 2, STATE_BLOCKS + 4):
+        block = blocks[height]
+        ordered = [stxs_by_hash[h] for h in block.tx_hashes]
+        ems, secs = {}, {}
+        for lanes in (1, EXEC_LANES):
+            bm_mod._EMULATE_MEMO.clear()
+            other = BlockManager(kv, StateManager(kv), sc.make_executer(ROOT_CHAIN_ID),
+                                 lanes=lanes, device=dev)
+            t0 = time.perf_counter()
+            ems[lanes] = other.emulate(ordered, height, base=roots[height - 1])
+            secs[lanes] = time.perf_counter() - t0
+            stats = other.last_parallel_stats
+            del other
+        bm_mod._EMULATE_MEMO.clear()
+        # the planner may coalesce a block into one lane (every call of
+        # block 6 meets the others at the proxy or a counter); the lane
+        # pipeline runs all the same
+        check(stats is not None and stats.txs == len(ordered),
+              f"{label} block {height}: the lanes' parallel path did not run")
+        want = [receipts[height][h] for h in block.tx_hashes]
+        for lanes, em in ems.items():
+            check(em.state_hash == block.header.state_hash
+                  and [r.encode() for r in em.receipts] == want,
+                  f"{label} block {height}: lanes={lanes} differs from the serial commit")
+        log(f"{label} block {height} lanes check: serial emulate {secs[1]:.3f} s, "
+            f"{EXEC_LANES} lanes {secs[EXEC_LANES]:.3f} s ({stats.lanes} lanes, the largest "
+            f"{max(stats.lane_sizes)} transactions, {stats.validated} validated, "
+            f"{stats.stragglers} stragglers): both equal the committed state hash and receipts")
+    launched = {k: v for k, v in read_launches().items() if v}
+    check(not launched, f"{label}: the lanes check launched {launched}")
+
+    # the reopened store
+    blooms = {h: bm.bloom_by_height(h) for h in blocks}
+    kv.close()
+    t0 = time.perf_counter()
+    kv = LsmKV(keep["store"])
+    state = StateManager(kv)
+    bm = BlockManager(kv, state, sc.make_executer(ROOT_CHAIN_ID), device=dev)
+    last = STATE_BLOCKS + 4
+    check(bm.current_height() == last
+          and all(state.roots_at(h) == roots[h] for h in range(STATE_BLOCKS, last + 1)),
+          f"{label}: the reopened store's height or roots differ")
+    for h, block in blocks.items():
+        check(bm.block_by_height(h).encode() == block.encode()
+              and bm.bloom_by_height(h) == blooms[h],
+              f"{label}: block {h} or its bloom read back wrong")
+    check(all(blooms[h] == bytes(bloom.BLOOM_BYTES) for h in (last - 3, last - 2, last))
+          and all(bloom.contains(blooms[last - 1], a) for a in (
+              sc.DEPLOY_ADDRESS, sc.NATIVE_TOKEN_ADDRESS, sc.STAKING_ADDRESS)),
+          f"{label}: the blooms' addresses")
+    sample = random.Random(seed + 2401).sample(sorted(stxs_by_hash), EXEC_SAMPLES)
+    by_height = {th: h for h, b in blocks.items() for th in b.tx_hashes}
+    check(all(bm.receipt_by_hash(th) == receipts[by_height[th]][th]
+              and bm.transaction_by_hash(th).encode() == stxs_by_hash[th].encode()
+              for th in sample), f"{label}: a sampled receipt or transaction read back wrong")
+    who = addrs[senders // 2]
+    want = {(by_height[th], th) for th, stx in stxs_by_hash.items()
+            if signer[th] == who or stx.tx.to == who}
+    got = bm.transactions_by_address(who, limit=10 * len(want) + 10)
+    check(set(got) == want and got == sorted(got, reverse=True),
+          f"{label}: the address index of {who.hex()} has {len(got)} entries, want {len(want)}")
+    t1 = time.perf_counter()
+    report = fsck(kv, repair=False)
+    fsck_s = time.perf_counter() - t1
+    check(report.clean, f"{label}: quick fsck after the reopen: {report.to_dict()}")
+    snap = state.new_snapshot(state.roots_at(last))
+    for c in counters[:-1]:
+        machine = wasm_vm.VirtualMachine(snap, block_index=last + 1, origin=addrs[0],
+                                         gas_price=1, chain_id=ROOT_CHAIN_ID)
+        res = machine.invoke_contract(contract=c, sender=addrs[0], value=0, input=sel_get,
+                                      gas_limit=EXEC_CALL_GAS)
+        check(res.status == 1 and int.from_bytes(res.return_data, "little") == incs.get(c, 0),
+              f"{label}: counter {c.hex()} reads {res.return_data.hex()}, "
+              f"{incs.get(c, 0)} inc() calls succeeded")
+    log(f"{label}: reopened in {time.perf_counter() - t0:.3f} s: height {last}, the roots of "
+        f"heights {STATE_BLOCKS}-{last}, every block and bloom, {EXEC_SAMPLES} sampled "
+        f"receipts and transactions, {len(want)} entries of {who.hex()[:8]}'s address index, "
+        f"quick fsck clean in {fsck_s:.3f} s, {EXEC_COUNTERS} counters' get() equal to their "
+        f"{sum(incs.values())} successful inc() calls; LsmKV {kv.stats()}")
+    kv.close()
+    log(f"{label}: path wall {time.perf_counter() - t_path:.3f} s; recoveries "
+        f"{', '.join(f'{m:.3f}' for m in recover_ms)} ms")
+    return total, walls
 
 
 def main() -> int:
@@ -4472,6 +4938,7 @@ def main() -> int:
              ("root_era_native_64", lambda: run_root_native_path(args.seed, dev, root_ref)),
              ("root_era_native_16_check", lambda: run_root_native_check_path(args.seed, dev))]
     adversary_ref = {}  # the native adversary era's block and evidence, which the Python one's must equal
+    state_ref = {}  # state_commit_1m's store and senders, which block_exec_1m continues on
     runs += [("root_era_adversary_native_64",
               lambda: run_root_adversary_native_path(args.seed, dev, adversary_ref)),
              ("root_era_adversary_64", lambda: run_root_adversary_path(args.seed, dev,
@@ -4480,19 +4947,24 @@ def main() -> int:
              ("chaos_era_native_16_check", lambda: run_chaos_native_check_path(args.seed, dev)),
              ("root_era_journal_native_64",
               lambda: run_root_journal_native_path(args.seed, dev, root_ref)),
-             ("root_era_journal_64", lambda: run_root_journal_path(args.seed, dev, root_ref)),
+             ("root_era_journal_16", lambda: run_root_journal_path(args.seed, dev)),
              ("dkg_64", lambda: run_dkg_path(args.seed, dev)),
-             ("state_commit_1m", lambda: run_state_path(args.seed, dev))]
+             ("state_commit_1m", lambda: run_state_path(args.seed, dev, state_ref)),
+             ("block_exec_1m", lambda: run_exec_path(args.seed, dev, state_ref))]
     if torch.cuda.device_count() > 1:  # a mesh over distinct cards
         cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         runs += [("mesh_era_cards", lambda: run_mesh_path(args.seed, backend, dev, era,
                                                           cards, cards)),
                  ("rbc_flush_cards", lambda: run_rbc_mesh_path(args.seed, dev, cards))]
     paths = {}
-    for path, run in runs:
-        t0 = time.perf_counter()
-        paths[path] = run()
-        log(f"path {path}: {time.perf_counter() - t0:.1f} s")
+    try:
+        for path, run in runs:
+            t0 = time.perf_counter()
+            paths[path] = run()
+            log(f"path {path}: {time.perf_counter() - t0:.1f} s")
+    finally:  # state_commit_1m's store, which block_exec_1m continues on
+        if "dir" in state_ref:
+            shutil.rmtree(state_ref["dir"], ignore_errors=True)
     g1_path = tuple(k for k in G1_KERNELS if k not in NO_PATH + GLV_ONLY)
     secp_path = tuple(k for k in SECP_KERNELS if k not in NO_PATH)
     needs = {
@@ -4512,9 +4984,10 @@ def main() -> int:
         "root_era_native_16_check": g1_path + ("rs_matmul8",) + secp_path,
         **{p: g1_path + ("rs_matmul8",) + secp_path for p in (
             "root_era_adversary_native_64", "root_era_adversary_64", "chaos_era_16_check",
-            "chaos_era_native_16_check", "root_era_journal_native_64", "root_era_journal_64")},
+            "chaos_era_native_16_check", "root_era_journal_native_64", "root_era_journal_16")},
         "dkg_64": ("g1_mont", "g1_table", "g1_msm_scan", "g1_add"),
         "state_commit_1m": secp_path,
+        "block_exec_1m": secp_path,
     }
     for path, (launches, warm) in paths.items():
         missing = [k for k in needs[path] if launches[k] == 0]

@@ -18,7 +18,9 @@ consensus (`consensus/`) runs an era from the proposals to its block
 its host ECDSA runs in the native host library (`crypto.ecdsa`). A
 validator's trustless keygen (`consensus.keygen.TrustlessKeygen`) runs its
 commitment checks as G1 MSMs on the same G1 kernels
-(`GpuBackend.g1_msm_batch`, `g1_msm`). The
-package imports torch and numpy and nothing of JAX or of lachain_tpu. Its
+(`GpuBackend.g1_msm_batch`, `g1_msm`). Blocks execute on the host
+(`core.block_manager.BlockManager` over `core.execution`, the system
+contracts and the WASM VM of `vm/`), their senders recovered on the card
+first. The package imports torch and numpy and nothing of JAX or of lachain_tpu. Its
 entry points run on the card unless the caller passes device="cpu".
 """

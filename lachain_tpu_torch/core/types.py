@@ -1,9 +1,10 @@
-"""Chain data types: transactions, block headers, multisigs, blocks.
+"""Chain data types: transactions, receipts, block headers, multisigs, blocks.
 
 The port's copy of `lachain_tpu/core/types.py` (:31-309), bytes for bytes:
 `Transaction`, `SignedTransaction` (its encoding memo, `hash`, and
 `sender` with the process-wide `_SENDER_MEMO`), `warm_sender_caches`,
-`sign_transaction`, `BlockHeader`, `MultiSig`, `Block` and
+`sign_transaction`, `TransactionReceipt` (the row execution writes under
+the transaction's hash), `BlockHeader`, `MultiSig`, `Block` and
 `tx_merkle_root`. The wire format is the fixed-width codec of
 `utils/serialization.py`; hashes are keccak256 over the canonical
 encoding, in one call of the host library each (`hashes.keccak256_host`,
@@ -13,8 +14,7 @@ the signing hash (EIP-155 shape).
 Differences, by the port's rules: `warm_sender_caches` takes `device` and
 sends every pending transaction to `ecdsa.recover_hash_batch` there (the
 card by default); a single `sender` recovers in the native host library
-(`ecdsa.recover_hash`). `TransactionReceipt` is not ported yet: it belongs
-to execution. Imports no torch.
+(`ecdsa.recover_hash`). Imports no torch.
 """
 from __future__ import annotations
 
@@ -175,6 +175,47 @@ def sign_transaction(
     return SignedTransaction(
         tx=tx, signature=ecdsa.sign_hash(priv, tx.signing_hash(chain_id))
     )
+
+
+@dataclass(frozen=True)
+class TransactionReceipt:
+    """Execution result (reference: TransactionReceipt in transaction.proto +
+    event.proto logs)."""
+
+    tx_hash: bytes
+    block_index: int
+    index_in_block: int
+    gas_used: int
+    status: int  # 1 success, 0 failed
+    sender: bytes = ZERO_ADDRESS
+    return_data: bytes = b""
+
+    def encode(self) -> bytes:
+        return (
+            self.tx_hash
+            + write_u64(self.block_index)
+            + write_u32(self.index_in_block)
+            + write_u64(self.gas_used)
+            + write_u32(self.status)
+            + self.sender
+            + write_bytes(self.return_data)
+        )
+
+    @classmethod
+    def decode(cls, data: bytes) -> "TransactionReceipt":
+        r = Reader(data)
+        tx_hash = r.raw(32)
+        block_index = r.u64()
+        index_in_block = r.u32()
+        gas_used = r.u64()
+        status = r.u32()
+        sender = r.raw(ADDRESS_BYTES)
+        return_data = r.bytes_()
+        r.assert_eof()
+        return cls(
+            tx_hash, block_index, index_in_block, gas_used, status,
+            sender, return_data,
+        )
 
 
 @dataclass(frozen=True)

@@ -30,9 +30,15 @@ Instrumented point names in the port:
   kv.write_batch.pre / .mid / .post   SqliteKV's atomic batch (mid: the
                                       writes made, the fsynced commit not)
                                       and LsmKV's (pre and post only)
+  block.persist.pre / .mid / .post    core/block_manager._persist (mid:
+                                      the block batch durable, the state
+                                      commit not: the torn block fsck
+                                      repairs)
   shrink.mark.height                  shrink.DbShrink: after each height's
                                       mark checkpoint
   shrink.sweep.pre / shrink.clean.pre the stage transitions of a shrink
+  pool.save.mid                       core/tx_pool.TransactionPool.add:
+                                      admitted, not yet persisted
   lsm.wal.encoded                     LsmKV only: the batch's WAL record
                                       partly written (a torn tail), never
                                       fsynced or applied; replay drops it
@@ -51,8 +57,8 @@ Instrumented point names in the port:
 
 The lsm.* sites leave real torn engine state (lsm.py calls the engine's
 partial-execution debug entries before dying): the same bytes on disk in
-both modes. The reference's block.persist.* and pool.save.mid sites wait
-for the execution layer (ROADMAP A item 13.2).
+both modes. `storage/crash_workload.py` drives these sites through a
+deterministic workload.
 """
 from __future__ import annotations
 

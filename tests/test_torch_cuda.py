@@ -11,7 +11,8 @@ validators on both consensus engines, and a (7, 2) native root era
 crashed in the middle and restarted from its send journals, on the card
 against the plain versions; `g1_msm_batch` at the DKG's shapes and a
 (7, 2) DKG fleet against the native host; the storage's transfer blocks
-with their senders recovered on the card. CUDA
+with their senders recovered on the card, and blocks executed by the
+port's BlockManager on them with each ingest's senders recovered there. CUDA
 kernels have no CPU mode:
 on a machine without a card these tests skip, and `python3 chip_smoke.py`
 runs the same checks at the N=64 era's shapes on the card.
@@ -1774,3 +1775,33 @@ def test_state_commit_senders_on_card(card, tmp_path):
         assert roots == ref_roots and sm.commit_stats["streamed_batches"] > 0
         assert fsck(kv, repair=False).clean
     kv.close()
+
+
+def test_block_exec_senders_on_card(card, monkeypatch):
+    """chip_smoke.py's state_commit_1m and block_exec_1m at 3,000 accounts:
+    blocks 3-6 (200 transfers, deploys and system calls, contract calls)
+    produced by the port's BlockProducer over a BlockManager on the card:
+    every ingest recovers its block's senders on the card in exactly
+    recover_launches(n) launches, production launches nothing (the
+    path's own checks), and the path's launches are the ingests' sums."""
+    import chip_smoke
+    from lachain_tpu_torch.storage.state import StateManager
+
+    for name, value in dict(STATE_ACCOUNTS=3000, STATE_SENDERS=64, STATE_TXS=200,
+                            STATE_SAMPLES=100, EXEC_TXS=200, EXEC_OVERDRAWN=4,
+                            EXEC_TOKEN_CALLS=8, EXEC_VALIDATORS=4, EXEC_COUNTERS=4,
+                            EXEC_PROXIED=16, EXEC_SAMPLES=20).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(StateManager, "stream_threshold", 64)
+    keep = {}
+    try:
+        chip_smoke.run_state_path(4, card, keep)
+        launches, walls = chip_smoke.run_exec_path(4, card, keep)
+    finally:
+        import shutil
+
+        shutil.rmtree(keep["dir"], ignore_errors=True)
+    sizes = [200, 200, 4 + 1 + 8 + 2 * 4, 64 * 2]
+    want = {k: sum(chip_smoke.recover_launches(n)[k] for n in sizes) for k in launches}
+    assert launches == want
+    assert len(walls) == 4 and not any(verify.ESCAPES.values())

@@ -24,6 +24,11 @@
   `lachain_tpu_torch/_build/`, without g++ or on a failed build
   `consensus_library()` raises, and `NativeSimulatedNetwork()` built for
   the card (the default) raises without one; `root_profile` exits 2.
+* Execution (`vm/`, `core/execution.py`, `system_contracts.py`,
+  `parallel_exec.py`, `block_manager.py`, `tx_pool.py`, `block_producer.py`,
+  `storage/crash_workload.py`) loads neither torch, JAX, the JAX package
+  nor a kernel module at import; a `BlockManager` built for the card (the
+  default) raises without one.
 * The storage (`storage/trie.py`, `state.py`, `lsm.py`, `fsck.py`,
   `shrink.py`) loads neither torch, JAX nor the JAX package, even while it
   commits, scans and shrinks a store; its LSM engine is the port's own
@@ -90,6 +95,12 @@ new |= {"lachain_tpu_torch.storage", "lachain_tpu_torch.storage.kv",
         "lachain_tpu_torch.storage.crashpoints", "lachain_tpu_torch.network.wire",
         "lachain_tpu_torch.consensus.journal"}
 new |= {f"lachain_tpu_torch.storage.{m}" for m in ("trie", "state", "lsm", "fsck", "shrink")}
+new |= {"lachain_tpu_torch.vm", "lachain_tpu_torch.utils.bloom",
+        "lachain_tpu_torch.storage.crash_workload"}
+new |= {f"lachain_tpu_torch.vm.{m}" for m in (
+    "gas", "wasm", "interpreter", "translate", "builder", "abi", "external", "vm")}
+new |= {f"lachain_tpu_torch.core.{m}" for m in (
+    "hardforks", "execution", "system_contracts", "parallel_exec", "block_manager", "tx_pool")}
 assert new <= set(names), new - set(names)
 print(len(names), bad)
 """
@@ -101,7 +112,7 @@ def test_port_imports_nothing_of_jax():
         text=True, check=True, timeout=120,
     ).stdout.split("\n")[0]
     count, bad = out.split(" ", 1)
-    assert int(count) >= 61  # every module of the package was imported
+    assert int(count) >= 78  # every module of the package was imported
     assert bad == "[]"
 
 
@@ -440,3 +451,45 @@ def test_lsm_build_failure_raises(monkeypatch, tmp_path):
         _build.lsm_library()
     assert _build._LSM_LIB is None
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_block_manager_on_the_card_without_card_raises():
+    _require_no_card()
+    from lachain_tpu_torch.core import execution
+    from lachain_tpu_torch.core.block_manager import BlockManager
+    from lachain_tpu_torch.storage.kv import MemoryKV
+    from lachain_tpu_torch.storage.state import StateManager
+
+    kv = MemoryKV()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BlockManager(kv, StateManager(kv), execution.TransactionExecuter(225))
+    BlockManager(kv, StateManager(kv), execution.TransactionExecuter(225), device="cpu")
+
+
+_EXEC_ONLY = """
+import sys, tempfile, os
+import lachain_tpu_torch.vm
+from lachain_tpu_torch.core import block_producer, hardforks, system_contracts
+from lachain_tpu_torch.storage import crash_workload
+import lachain_tpu_torch.utils.bloom
+print(sorted(m for m in sys.modules if m == "torch" or m.startswith("torch.")
+             or m == "jax" or m == "lachain_tpu" or m.startswith("lachain_tpu.")
+             or m.startswith("lachain_tpu_torch.ops.") and m != "lachain_tpu_torch.ops._build"))
+d = tempfile.mkdtemp()
+kv = crash_workload.open_kv(os.path.join(d, "db"), "sqlite")
+print(crash_workload.run_workload(kv, blocks=2, shrink=False)["height"])
+kv.close()
+print(sorted(m for m in sys.modules if m == "jax" or m.startswith("lachain_tpu.")))
+"""
+
+
+def test_execution_loads_no_torch_at_import():
+    """The VM, the executer, the system contracts, the pool, the block
+    manager and the producer load neither torch, JAX, the JAX package nor
+    a kernel module at import (a BlockManager resolves its device only
+    when it is built); the host workload then runs a chain."""
+    out = subprocess.run(
+        [sys.executable, "-c", _EXEC_ONLY], cwd=_ROOT, capture_output=True,
+        text=True, check=True, timeout=300,
+    ).stdout.split("\n")
+    assert out[:3] == ["[]", "2", "[]"]
