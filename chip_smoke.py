@@ -61,7 +61,7 @@ Phases, each of which must pass (any failure exits non-zero):
              backend)) is started and joined: the fully masked TPKE era
              at each slot tier, largest first, and one coin era, on a
              GpuBackend of its own; it must end with no error;
-  4. main    twenty-three paths (twenty-five where more than one card is
+  4. main    twenty-four paths (twenty-six where more than one card is
              visible),
              each with the kernel launch counts set to 0 just before its
              counted calls and read just after; the paths before the mesh
@@ -200,9 +200,12 @@ Phases, each of which must pass (any failure exits non-zero):
              exactly the 21 of equivocation ("dec" for each, only "dec"
              and "coin" slots, no invalid_share), hb_acs and root_produce
              43, opaque crossings > 0, traced launches equal to the
-             counted ones; root_era_adversary_64, the same era and plan on
-             the Python engine: the native era's block hash and record
-             sets; chaos_era_16_check, the N=16 era (TAKE_FIRST) under
+             counted ones; root_era_adversary_16, the same attack at
+             N=16, f=5 (cut from the Python engine's N=64 era to pay
+             for rotation_64):
+             the native engine's era with the same checks, then the same
+             era and plan on the Python engine, held to the native era's
+             block hash and record sets; chaos_era_16_check, the N=16 era (TAKE_FIRST) under
              FaultPlan(seed=7, drop 0.10, duplicate 0.05, delay 0.05,
              reorder 0.05, router 3 down over CHAOS_CRASH, {0,1,2,3} |
              {12,...,15} over CHAOS_PARTITION) on the Python engine, on
@@ -245,18 +248,19 @@ Phases, each of which must pass (any failure exits non-zero):
              messages and the restart: run A's block and messages, each
              slot journaled once, replayed sends, journals covering every
              latchable kind;
-             the DKG (consensus/keygen.py, dkg_64): one validator's whole
-             keygen at N=64, f=21 on one_card_backend, its row checks
-             one g1_msm_batch each (22 groups of 32 lanes), its value
-             checks one g1_msm each over the 143 distinct coefficients
-             (256 lanes), its keyring one batch of 65 groups; the other 63 dealers the harness's (a real ECIES row
-             and real values for validator 0, seeded fillers for the
-             others), two byzantine senders, the state snapshotted and
-             resumed after dealer 31's round: every dealer finished, the
-             confirm at dealer 21's 43rd sender and at the 43rd vote, the
-             keyring equal to the polynomials', TS and TPKE round trips,
-             exactly the counted G1 launches (dkg_launches), one value
-             round traced by kernel;
+             the DKG (consensus/keygen.py, dkg_16): one validator's whole
+             keygen at N=16, f=5 on one_card_backend (cut from N=64; the
+             N=64 keygen runs whole inside rotation_64), its row
+             checks one g1_msm_batch each, its value checks one g1_msm
+             each over the distinct coefficients, its keyring one batch
+             of 17 groups; the other 15 dealers the harness's (a real
+             ECIES row and real values for validator 0, seeded fillers
+             for the others), two byzantine senders, the state
+             snapshotted and resumed after dealer 7's round: every dealer
+             finished, the confirm at dealer 5's 11th sender and at the
+             11th vote, the keyring equal to the polynomials', TS and TPKE
+             round trips, exactly the counted G1 launches (dkg_launches),
+             one value round traced by kernel;
              the storage (storage/trie.py, state.py, lsm.py, fsck.py,
              shrink.py; state_commit_1m): one validator's state on LsmKV,
              a genesis of 1,000,000 accounts (1,024 seeded senders, the
@@ -297,7 +301,34 @@ Phases, each of which must pass (any failure exits non-zero):
              counter's get() through VirtualMachine equal to its
              successful inc() calls; per block the ingest, proposal,
              create_header and produce_block walls and transactions a
-             second, the WASM calls' gas, the lanes' walls.
+             second, the WASM calls' gas, the lanes' walls; shrink and the
+             deep fsck read the nodes and marks by prefix scans,
+             and the path prints its peak RSS;
+             validator rotation (core/validator_status.py,
+             keygen_manager.py, validator_manager.py, vault.py,
+             consensus/attendance.py; rotation_64, run_rotation_path): one
+             cycle (set_cycle_params(20, 10, 5)) of an N=64 chain on a
+             fresh LsmKV store, each block's senders recovered at its
+             ingest on the card (exactly recover_launches(n)), blocks
+             through TransactionPool, BlockProducer and a BlockManager on
+             the card, every header co-signed by the era's set but 2
+             seeded absentees: 64 stakes, 64 VRF proofs, the lottery's
+             close; validator 0's KeyGenManager on the card, persisting
+             into the chain's store and rebuilt from it halfway through
+             the value round, against the harness's 63 dealers (dkg_16's
+             cut: real ECIES only for validator 0's entries, two
+             byzantine senders); the confirm quorum at the 43rd vote, the
+             keys installed into a wallet file (saved, reloaded),
+             FinishCycle at block 19; ValidatorManager's eras 19 and 20;
+             era 20's N=64 TPKE and coin eras under the DKG's keys
+             (validator 0's shares from the wallet); block 20 co-signed by
+             the new set and validator 0's attendance report, which block
+             21 checks in: the winners, every keygen check, the confirmed
+             set the polynomials', the resumed state the saved one, every
+             slot and coin, the attendance counts the signatures';
+             exactly dkg_launches(64, 21, 64, 64 * 63) in the manager,
+             recover_launches(n) an ingest, TPKE_LAUNCHES and
+             COIN_LAUNCHES in the eras.
              Around each counted call and the MSMs, no result may have been
              recomputed on the host (ops/verify.ESCAPES), and each path
              must launch its kernels;
@@ -3189,15 +3220,23 @@ def run_root_check_path(seed: int, dev):
     return launches, [{"wall_s": card_wall}]
 
 
-def adversary_era_inputs(seed: int):
-    """root_era_64's keys, proposals and parent, and f = 21 equivocating
-    validators (every third from 1) -> (pub, privs, proposals, signer,
-    parent, plan, honest)."""
+def adversary_era_inputs(seed: int, n: int = HB_N, f: int = HB_F):
+    """The adversary eras' keys, proposals and parent (at N=64 root_era_64's;
+    at N=16 seeded apart, BLOCK_TXS / HB_N transfers a validator, as at
+    N=64) and f equivocating validators (every third from 1) -> (pub,
+    privs, proposals, signer, parent, plan, honest)."""
     from lachain_tpu_torch.consensus.adversary import AdversaryPlan
+    from lachain_tpu_torch.consensus.keys import trusted_key_gen
 
-    pub, privs, proposals, signer, parent = root_era_inputs(seed)
-    plan = AdversaryPlan("equivocate", traitors=tuple(range(1, HB_N, 3)), seed=seed)
-    honest = [i for i in range(HB_N) if i not in plan.traitors]
+    if n == HB_N:
+        pub, privs, proposals, signer, parent = root_era_inputs(seed)
+    else:
+        pub, privs = trusted_key_gen(n, f, SeededRng(seed + 2640))
+        rng = random.Random(seed + 2641)
+        proposals, signer = root_transfers(n, -(-BLOCK_TXS // HB_N), rng)
+        parent = rng.randbytes(32)
+    plan = AdversaryPlan("equivocate", traitors=tuple(range(1, n, 3)), seed=seed)
+    honest = [i for i in range(n) if i not in plan.traitors]
     return pub, privs, proposals, signer, parent, plan, honest
 
 
@@ -3247,10 +3286,12 @@ def evidence_line(net, honest) -> str:
             f"by slot {protos})")
 
 
-def run_root_adversary_native_path(seed: int, dev, ref=None):
+def run_root_adversary_native_path(seed: int, dev, ref=None, n: int = HB_N, f: int = HB_F,
+                                   traced: bool = True):
     """root_era_64's era (keys, proposals, parent and seed; N=64, f=21,
-    TAKE_FIRST, both batchers) through the native engine on the card with
-    f = 21 equivocating validators (consensus/adversary.py, installed after
+    TAKE_FIRST, both batchers; at n = 16 adversary_era_inputs' N=16 era)
+    through the native engine on the card with f = 21 equivocating
+    validators (consensus/adversary.py, installed after
     the network is built and before the first request: the traitors'
     coin, HoneyBadger and Root run in Python, their messages crossing the
     engine as opaque payloads), RootProtocol native at the 43 honest
@@ -3259,17 +3300,19 @@ def run_root_adversary_native_path(seed: int, dev, ref=None):
     honest router convicts exactly the 21 traitors of equivocation ("dec"
     for each, no slot but "dec" and "coin", no invalid_share); hb_acs and
     root_produce equal the 43 honest routers, opaque crossings > 0; traced
-    launches equal to the counted ones. `ref`, a dict, gets the block
-    hash, the messages and the honest routers' record sets, which the
-    Python engine's era must equal. Printed: wall, messages a second,
+    launches equal to the counted ones (`traced`; the N=16 era, 0.7-1.0 s,
+    runs untraced: in one call of three its trace lost the flushes'
+    launches three times in a row). `ref`, a dict, gets the block hash,
+    the messages and the honest routers' record sets, which the Python
+    engine's era must equal. Printed: wall, messages a second,
     natively handled messages, crossings, the batchers, coins, the header
     round, the evidence counts, the busy share."""
     from lachain_tpu_torch.consensus import adversary
     from lachain_tpu_torch.consensus.simulator import DeliveryMode
 
-    label = f"adversary native root era N={HB_N}"
-    pub, privs, proposals, signer, parent, plan, honest = adversary_era_inputs(seed)
-    check(len(plan.traitors) == HB_F, f"{label}: {len(plan.traitors)} traitors, not f")
+    label = f"adversary native root era N={n}"
+    pub, privs, proposals, signer, parent, plan, honest = adversary_era_inputs(seed, n, f)
+    check(len(plan.traitors) == f, f"{label}: {len(plan.traitors)} traitors, not f")
     out = {}
 
     def era():
@@ -3283,16 +3326,20 @@ def run_root_adversary_native_path(seed: int, dev, ref=None):
         out["launches"] = read_launches()
         out["net"], out["producers"] = net, producers
 
-    by_kernel, counted = trace_era(label, era, out, dev)
+    if traced:
+        by_kernel, counted = trace_era(label, era, out, dev)
+    else:
+        era()
     net, wall, blocks, launches = out["net"], out["wall"], out["blocks"], out["launches"]
     check_no_escapes(label)
-    check_root_blocks(label, net, blocks, honest, proposals, signer, pub, HB_N, HB_F)
+    check_root_blocks(label, net, blocks, honest, proposals, signer, pub, n, f)
     evidence = check_equivocation_verdict(label, net, honest, plan.traitors)
     c = net.crossings
     check(c["hb_acs"] == c["root_produce"] == len(honest) and c["opaque_message"] > 0,
           f"{label}: hb_acs / root_produce != {len(honest)} or no opaque crossing: {c}")
     check(net.native_handled() > 0, f"{label}: the engine handled no message natively")
-    check_traced(label, by_kernel, launches, counted)
+    if traced:
+        check_traced(label, by_kernel, launches, counted)
     h = blocks[0].header.hash()
     if ref is not None:
         ref.update(hash=h, delivered=net.delivered_count, evidence=evidence, wall=wall)
@@ -3307,22 +3354,23 @@ def run_root_adversary_native_path(seed: int, dev, ref=None):
     log(f"{label}: header round sign {secs['sign_s']:.3f} s, verify {secs['verify_s']:.3f} s "
         f"(summed over the native routers); block recovery {secs['recover_s']:.3f} s")
     batcher_lines(label, net)
-    busy_line(label, by_kernel, wall)
+    if traced:
+        busy_line(label, by_kernel, wall)
     net.close()
     return launches, [dict(wall_s=wall, **secs)]
 
 
-def run_root_adversary_path(seed: int, dev, ref):
-    """root_era_adversary_native_64's era and plan on the Python engine
-    (consensus/simulator.SimulatedNetwork, RootProtocol through
-    extra_factories): root_era_64's checks at every honest router, the same
-    verdict, and the native era's block hash and record sets (`ref`); its
-    delivered_count is printed beside the native one's."""
+def run_root_adversary_path(seed: int, dev, ref, n: int = HB_N, f: int = HB_F):
+    """The native adversary era's era and plan (its `n`, `f`) on the
+    Python engine (consensus/simulator.SimulatedNetwork, RootProtocol
+    through extra_factories): root_era_64's checks at every honest router,
+    the same verdict, and the native era's block hash and record sets
+    (`ref`); its delivered_count is printed beside the native one's."""
     from lachain_tpu_torch.consensus import adversary
     from lachain_tpu_torch.consensus.simulator import DeliveryMode, SimulatedNetwork
 
-    label = f"adversary root era N={HB_N}"
-    pub, privs, proposals, signer, parent, plan, honest = adversary_era_inputs(seed)
+    label = f"adversary root era N={n}"
+    pub, privs, proposals, signer, parent, plan, honest = adversary_era_inputs(seed, n, f)
     clear_block_memos()
     reset_counts()
     factories, producers = root_factories(pub, privs, proposals, dev, parent)
@@ -3333,7 +3381,7 @@ def run_root_adversary_path(seed: int, dev, ref):
         wall, blocks = root_run(net, honest)
     launches = read_launches()
     check_no_escapes(label)
-    check_root_blocks(label, net, blocks, honest, proposals, signer, pub, HB_N, HB_F)
+    check_root_blocks(label, net, blocks, honest, proposals, signer, pub, n, f)
     evidence = check_equivocation_verdict(label, net, honest, plan.traitors)
     h = blocks[0].header.hash()
     check(h == ref["hash"], f"{label}: block {h.hex()[:16]}, the native engine's "
@@ -3349,6 +3397,20 @@ def run_root_adversary_path(seed: int, dev, ref):
         f"{sum(net.routers[i].shed['latch_cap'] for i in honest)}")
     batcher_lines(label, net)
     return launches, [dict(wall_s=wall, **secs)]
+
+
+def run_root_adversary_16_path(seed: int, dev):
+    """The adversary era at N=16, f=5 (5 equivocating validators; cut
+    from the Python engine's N=64 era, whose attack stays at full width
+    in root_era_adversary_native_64): the native engine's era
+    (run_root_adversary_native_path, untraced), then the Python engine's
+    (run_root_adversary_path) held to its block hash and record sets ->
+    both runs' launches summed."""
+    ref = {}
+    native, warm_native = run_root_adversary_native_path(seed, dev, ref, HB_CHECK_N,
+                                                         HB_CHECK_F, traced=False)
+    python, warm_python = run_root_adversary_path(seed, dev, ref, HB_CHECK_N, HB_CHECK_F)
+    return summed_launches(native, python), warm_native + warm_python
 
 
 def chaos_era_inputs(seed: int):
@@ -3899,14 +3961,15 @@ def run_root_journal_path(seed: int, dev):
             [dict(wall_s=out["wall"])])
 
 
-# the DKG phase: one validator's whole keygen at BASELINE config 4's
-# validator set (N=64, f=21); dealer by dealer, its state snapshotted and
-# resumed after dealer DKG_RESUME's round; senders DKG_N - 2 and DKG_N - 1
-# byzantine (random bytes, and the true value + 1); DKG_TRACED's value round
-# traced by kernel
-DKG_N, DKG_F = 64, 21
-DKG_RESUME = 31
-DKG_TRACED = 40
+# the DKG phase: one validator's whole keygen at N=16, f=5 (cut from
+# BASELINE config 4's N=64, f=21, whose keygen now runs at full width
+# inside rotation_64); dealer by dealer, its state snapshotted and resumed
+# after dealer DKG_RESUME's round; senders DKG_N - 2 and DKG_N - 1
+# byzantine (random bytes, and the true value + 1); DKG_TRACED's value
+# round traced by kernel
+DKG_N, DKG_F = 16, 5
+DKG_RESUME = 7
+DKG_TRACED = 10
 # an ECIES ciphertext: ephemeral key (33) + nonce (12) + plaintext + tag (16)
 ECIES_OVERHEAD = 33 + 12 + 16
 
@@ -3952,32 +4015,35 @@ def dkg_launches(n: int, f: int, commits: int, values: int) -> dict:
 
 
 def run_dkg_path(seed: int, dev):
-    """One validator's whole DKG at N=64, f=21 (consensus/keygen.py), its
-    MSMs on the card through the normal entry points: validator 0 is a
+    """One validator's whole DKG at N = DKG_N, f = DKG_F
+    (consensus/keygen.py; 16 and 5, the N=64 keygen runs in rotation_64),
+    its MSMs on the card through the normal entry points: validator 0 is a
     TrustlessKeygen on one_card_backend(dev) with a seeded rng; the other
-    63 dealers are the harness's. This is the cut: each draws a
-    BiVarSymmetricPolynomial (the 63 commitments made on the host in one
-    g1_mul_batch) and sends validator 0 a real ECIES row, its other 63
-    rows seeded filler of the real length (33 + 12 + 22 * 32 + 16 = 765
-    bytes; validator 0 never opens them); each sender s >= 1 sends, per
-    dealer d, a ValueMessage whose entry for validator 0 is a real ECIES
-    F_d(s+1, 1) and whose other 63 entries are 93-byte fillers. In the
-    chain's order, dealer by dealer: validator 0's handle_commit (its own
-    real ValueMessage of 64 values), then the values of senders 0..63
-    (sender 0's its own). Sender 62's entry is random bytes, sender 63's
-    F_d(64, 1) + 1: both acked, neither valid. After dealer 31's round the
-    state is snapshotted (to_bytes), resumed (from_bytes, ==) and the
-    resumed object runs on. Then try_get_keys and N - f confirmations.
-    Checks: every dealer finished in order; handle_send_value True once,
-    at dealer 21's 43rd sender; the confirm at the 43rd vote; the keyring
-    equal to what the first 22 dealers' polynomials give (x_0, and g1 *
-    sum_d F_d(0, j) for j = 0..64 against the TPKE key, the verification
-    keys and the TS keys); a TS signature combined from 22 shares (validator
-    0's and 21 the harness derives) verifying under the keyring's set; a
-    TPKE ciphertext decrypted from 22 shares, each verified; exactly the
-    counted G1 launches (dkg_launches); no host recompute. Printed: the
-    walls, the summed seconds of ECIES, host g1_mul and the card's MSM calls,
-    and dealer 40's value round traced by kernel with its busy share."""
+    N - 1 dealers are the harness's. This is the cut: each draws a
+    BiVarSymmetricPolynomial (their commitments made on the host in one
+    g1_mul_batch) and sends validator 0 a real ECIES row, its other rows
+    seeded filler of the real length (33 + 12 + (f + 1) * 32 + 16 bytes;
+    validator 0 never opens them); each sender s >= 1 sends, per dealer d,
+    a ValueMessage whose entry for validator 0 is a real ECIES F_d(s+1, 1)
+    and whose other entries are 93-byte fillers. In the chain's order,
+    dealer by dealer: validator 0's handle_commit (its own real
+    ValueMessage of N values), then the values of senders 0..N-1 (sender
+    0's its own). Sender N-2's entry is random bytes, sender N-1's
+    F_d(N, 1) + 1: both acked, neither valid. After dealer DKG_RESUME's
+    round the state is snapshotted (to_bytes), resumed (from_bytes, ==)
+    and the resumed object runs on. Then try_get_keys and N - f
+    confirmations. Checks: every dealer finished in order;
+    handle_send_value True once, at dealer f's (2f+1)-th sender; the
+    confirm at the (N-f)-th vote; the keyring equal to what the first f+1
+    dealers' polynomials give (x_0, and g1 * sum_d F_d(0, j) for j = 0..N
+    against the TPKE key, the verification keys and the TS keys); a TS
+    signature combined from f+1 shares (validator 0's and f the harness
+    derives) verifying under the keyring's set; a TPKE ciphertext
+    decrypted from f+1 shares, each verified; exactly the counted G1
+    launches (dkg_launches); no host recompute. Printed: the walls, the
+    summed seconds of ECIES, host g1_mul and the card's MSM calls, and
+    dealer DKG_TRACED's value round traced by kernel with its busy
+    share."""
     from lachain_tpu_torch.consensus import keygen as kg
     from lachain_tpu_torch.crypto import bls12381 as bls
     from lachain_tpu_torch.crypto import ecdsa
@@ -4297,6 +4363,13 @@ def put_latency_us(path: str, n: int = 1_000) -> float:
     return sorted(times)[n // 2] * 1e6
 
 
+def peak_rss_mib() -> float:
+    """This process's peak resident set so far (getrusage; Linux: KiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
 def trie_rows(kv) -> int:
     from lachain_tpu_torch.storage.kv import EntryPrefix, prefixed
 
@@ -4460,8 +4533,9 @@ def run_state_path(seed: int, dev, keep: dict):
     kv.flush()
     log(f"{label}: shrink(retain_depth={STATE_RETAIN}) {stats} in {shrink_s:.3f} s, "
         f"trie nodes {before} -> {after}; deep fsck of heights "
-        f"{STATE_BLOCKS - STATE_RETAIN}..{STATE_BLOCKS} clean in {deep_s:.3f} s; bytes "
-        f"on disk {disk} before the shrink, {dir_bytes(store)} after; LsmKV {kv.stats()}")
+        f"{STATE_BLOCKS - STATE_RETAIN}..{STATE_BLOCKS} clean in {deep_s:.3f} s (both by "
+        f"prefix scans); bytes on disk {disk} before the shrink, {dir_bytes(store)} after; "
+        f"the process's peak RSS {peak_rss_mib():.0f} MiB; LsmKV {kv.stats()}")
     kv.close()
     log(f"{label}: state hash {roots[-1].state_hash().hex()} at height {STATE_BLOCKS}; "
         f"recoveries {', '.join(f'{m:.3f}' for m in recover_ms)} ms")
@@ -4876,6 +4950,711 @@ def run_exec_path(seed: int, dev, keep: dict):
     return total, walls
 
 
+# ---------------------------------------------------------------------------
+# validator rotation: the stake, the VRF lottery, the on-chain DKG, the wallet
+# and the key switch at the cycle boundary
+# ---------------------------------------------------------------------------
+
+# rotation_64: BASELINE config 4's validator set (N=64, f=21) rotated to its
+# own DKG's keys over one cycle of the reference tests' parameters
+# (set_cycle_params(20, 10, 5), lachain_tpu/tests/test_attendance_onchain.py:29-31)
+ROT_N = 64
+ROT_CYCLE, ROT_VRF_PHASE, ROT_ATTENDANCE = 20, 10, 5
+ROT_ABSENT = 2  # seeded absentees a block among the era's co-signers
+ROT_STAKE = 1  # each validator's stake: with validators_count = N every roll wins
+ROT_GAS = 100_000  # a system transaction's gas limit (ref core/node.py:940)
+ROT_BALANCE = 10**24
+ROT_TXS = 10_000  # the producer's block size: room for half a value round (2,048)
+ROT_PASSWORD = "rotation"
+
+
+def port_modules():
+    """The port's modules that RotationChain drives, under the names the
+    tests give the JAX package's."""
+    from types import SimpleNamespace
+
+    from lachain_tpu_torch.consensus import attendance
+    from lachain_tpu_torch.core import (block_manager, block_producer, execution,
+                                        system_contracts, tx_pool, types, validator_manager)
+    from lachain_tpu_torch.crypto import ecdsa
+    from lachain_tpu_torch.storage import kv, state
+
+    return SimpleNamespace(attendance=attendance, block_manager=block_manager,
+                           block_producer=block_producer, execution=execution,
+                           system_contracts=system_contracts, tx_pool=tx_pool, types=types,
+                           validator_manager=validator_manager, ecdsa=ecdsa, kv=kv, state=state)
+
+
+class RotationChain:
+    """One validator's chain for the rotation path, in either package
+    (`pkg`: its modules, `port_modules()`'s names), with the node's glue
+    that ref core/node.py:930-1075 holds and the port does not have yet:
+    genesis funds the validators (`ecdsa_privs`, the genesis set's keys),
+    registers them as the attendance electorate and writes the staking
+    row `validators_count` = `count`, which the reference reads
+    (system_contracts.py:398) but never writes; `send_tx_for(priv)` is a
+    validator's `_send_system_tx` (the node's gas limit and price, nonces
+    counted here); `produce(absent)` ingests the pending transactions into
+    the pool (precheck, `ingest` recovers the senders, add), proposes,
+    makes the header, has it co-signed by the era's set
+    (ValidatorManager.keys_for_era) but the indices in `absent`, and
+    produces the block; `after_block(block, services)` hands the block to
+    the services on one snapshot, then records and persists the
+    attendance from the block's signatures (ref node.py:979-1001)."""
+
+    def __init__(self, pkg, kv, genesis, ecdsa_privs, chain_id: int, *, count: int,
+                 device=None, ingest=None):
+        self.pkg, self.kv, self.chain_id = pkg, kv, chain_id
+        self.state = pkg.state.StateManager(kv)
+        kw = {} if device is None else {"device": device}
+        self.bm = pkg.block_manager.BlockManager(
+            kv, self.state, pkg.system_contracts.make_executer(chain_id), **kw)
+        self.pool = pkg.tx_pool.TransactionPool(
+            kv, chain_id,
+            account_nonce=lambda a: pkg.execution.get_nonce(self.state.new_snapshot(), a))
+        self.producer = pkg.block_producer.BlockProducer(self.bm, self.pool, n_validators=1,
+                                                         txs_per_block=ROT_TXS)
+        self.priv_of = {pkg.ecdsa.public_key_bytes(p): p for p in ecdsa_privs}
+        self.ingest = ingest or self.warm_on_host
+        self.pending, self.nonces, self.signer = [], {}, {}
+        sc = pkg.system_contracts
+        register = sc.register_genesis_validators
+
+        def with_count(snap, pubkeys):
+            register(snap, pubkeys)
+            snap.put("storage", sc.STAKING_ADDRESS + b"validators_count",
+                     count.to_bytes(4, "big"))
+
+        sc.register_genesis_validators = with_count
+        try:
+            self.bm.build_genesis({self.address(p): ROT_BALANCE for p in ecdsa_privs}, chain_id,
+                                  validator_pubs=list(genesis.ecdsa_pub_keys))
+        finally:
+            sc.register_genesis_validators = register
+        self.vm = pkg.validator_manager.ValidatorManager(self.state, genesis)
+        self.attendance = pkg.attendance.ValidatorAttendance(0)
+
+    def address(self, priv: bytes) -> bytes:
+        e = self.pkg.ecdsa
+        return e.address_from_public_key(e.public_key_bytes(priv))
+
+    def send_tx_for(self, priv: bytes):
+        addr = self.address(priv)
+
+        def send(to: bytes, invocation: bytes) -> None:
+            nonce = self.nonces.get(addr, 0)
+            self.nonces[addr] = nonce + 1
+            tx = self.pkg.types.Transaction(to=to, value=0, nonce=nonce, gas_price=1,
+                                            gas_limit=ROT_GAS, invocation=invocation)
+            stx = self.pkg.types.sign_transaction(tx, priv, self.chain_id)
+            self.signer[stx.hash()] = addr
+            self.pending.append(stx)
+
+        return send
+
+    def warm_on_host(self, txs) -> None:
+        for stx in txs:
+            stx.sender(self.chain_id)
+
+    def produce(self, absent=()):
+        txs, self.pending = self.pending, []
+        height = self.bm.current_height() + 1
+        fresh = [stx for stx in txs if self.pool.precheck(stx)]
+        check(len(fresh) == len(txs), f"rotation block {height}: precheck refused a transaction")
+        self.ingest(fresh)
+        check(all(stx.sender(self.chain_id) == self.signer[stx.hash()] for stx in fresh),
+              f"rotation block {height}: a recovered sender differs from its signing key's")
+        added = sum(self.pool.add(stx) for stx in fresh)
+        check(added == len(fresh), f"rotation block {height}: the pool admitted {added} of "
+              f"{len(fresh)}")
+        proposal = self.producer.get_transactions_to_propose()
+        check(sorted(t.hash() for t in proposal) == sorted(t.hash() for t in txs),
+              f"rotation block {height}: the proposal is not the block's {len(txs)} transactions")
+        header = self.producer.create_header(height, proposal, nonce=height)
+        keys = self.vm.keys_for_era(height)
+        h = header.hash()
+        multisig = self.pkg.types.MultiSig(tuple(
+            (i, self.pkg.ecdsa.sign_hash(self.priv_of[pk], h))
+            for i, pk in enumerate(keys.ecdsa_pub_keys) if i not in absent))
+        block = self.producer.produce_block(header, proposal, multisig)
+        check(self.bm.current_height() == height and len(self.pool) == 0,
+              f"rotation block {height}: the height or the pool after the commit")
+        return block
+
+    def after_block(self, block, services) -> None:
+        snap = self.state.new_snapshot()
+        for s in services:
+            s.on_block_persisted(block, snap)
+        self.record_attendance(block)
+
+    def record_attendance(self, block) -> None:
+        keys = self.vm.keys_for_era(block.header.index)
+        cycle = block.header.index // self.pkg.system_contracts.CYCLE_DURATION
+        if cycle > self.attendance.next_cycle:
+            self.attendance = self.pkg.attendance.ValidatorAttendance.from_bytes(
+                self.attendance.to_bytes(), cycle, current_as_next=False)
+        for idx, _sig in block.multisig.signatures:
+            if 0 <= idx < len(keys.ecdsa_pub_keys):
+                self.attendance.increment(keys.ecdsa_pub_keys[idx], cycle)
+        kv = self.pkg.kv
+        self.kv.put(kv.prefixed(kv.EntryPrefix.VALIDATOR_ATTENDANCE), self.attendance.to_bytes())
+
+    def events(self, tx_hash: bytes) -> list:
+        """The events a transaction emitted (contract || payload)."""
+        snap, out = self.state.new_snapshot(), []
+        while (raw := snap.get("events", tx_hash + len(out).to_bytes(4, "big"))) is not None:
+            out.append(raw)
+        return out
+
+    def storage(self, contract: bytes, key: bytes):
+        return self.state.new_snapshot().get("storage", contract + key)
+
+
+def private_keys_matching(wallet, genesis_private, keys, my_index: int, era: int, host):
+    """The private shares whose TPKE verification key is slot `my_index`'s
+    of the era's public set: the wallet's for the era, else the genesis
+    ones (ref core/node.py:1048-1075), or None."""
+    from lachain_tpu_torch.crypto import bls12381 as bls
+
+    want = keys.tpke_verification_keys[my_index].y_i
+    candidates = [c for c in (wallet.consensus_keys_for_era(era), genesis_private) if c]
+    for cand in candidates:
+        if cand.tpke_priv is None or cand.tpke_priv.my_id != my_index:
+            continue
+        if bls.g1_eq(host.g1_mul(bls.G1_GEN, cand.tpke_priv.x_i), want):
+            return cand
+    return None
+
+
+def rotation_era(keys, tprivs, seed: int, host):
+    """The TPKE era of one block under `keys` (N slots, N decryption shares
+    each, `tprivs` the validators' TPKE shares, the first f+1 combined) ->
+    (ciphertexts, plaintexts, EraSlotJobs); host work on `host`."""
+    from lachain_tpu_torch.crypto import bls12381 as bls
+    from lachain_tpu_torch.crypto import tpke
+    from lachain_tpu_torch.crypto.gpu_backend import EraSlotJob
+
+    n, f = keys.n, keys.f
+    lag = [0] * n
+    for i, c in zip(range(f + 1), bls.fr_lagrange_coeffs([i + 1 for i in range(f + 1)], at=0)):
+        lag[i] = c
+    msgs = [bytes([(s * 11 + i) % 256 for i in range(32)]) for s in range(n)]
+    cts = [keys.tpke_pub.encrypt(m, s, SeededRng(seed * 1000 + s), host)
+           for s, m in enumerate(msgs)]
+    shares = [tpke.decrypt_shares_batch(p, cts, host) for p in tprivs]
+    jobs = [EraSlotJob([shares[i][s].ui for i in range(n)], list(lag),
+                       tpke._hash_uv_to_g2(ct.u, ct.v, host), ct.w) for s, ct in enumerate(cts)]
+    return cts, msgs, jobs
+
+
+def value_schedule(pairs, n: int, f: int):
+    """Walk the value round's (dealer, sender) pairs in chain order as every
+    validator's DKG acks them -> (acks a dealer, the dealers in the order
+    they reached 2f+1 acks, the (dealer, sender) at which f+1 dealers had:
+    where handle_send_value first returns True, or None)."""
+    acks, finished, fired = [0] * n, [], None
+    for d, s in pairs:
+        acks[d] += 1
+        if acks[d] == 2 * f + 1:
+            finished.append(d)
+            if len(finished) == f + 1:
+                fired = (d, s)
+    return acks, finished, fired
+
+
+def run_rotation_path(seed: int, dev):
+    """One cycle of validator rotation at N = ROT_N (64, f = 21), the
+    chain on a fresh LsmKV store, driven as one validator's node drives it
+    (RotationChain: transactions through TransactionPool, each block's
+    senders recovered at its ingest on `dev`, blocks through BlockProducer
+    and BlockManager(device=dev), headers co-signed by the era's set but
+    ROT_ABSENT seeded absentees, attendance recorded from the signatures).
+    set_cycle_params(20, 10, 5). Genesis: the N validators of a trusted
+    key set, funded, registered as the electorate, validators_count = N
+    (the cut: each stakes ROT_STAKE, so is_winner's seats >= total elects
+    all N). Validators' services: N ValidatorStatusManagers (validator
+    0's with the chain's attendance) through block 19, then validator 0's;
+    validator 0's KeyGenManager on one_card_backend(dev) with a seeded rng,
+    persisting into the chain's store, with an on_keys that installs the
+    shares into a PrivateWallet file. The other N-1 dealers, senders and
+    confirmers are the harness's, with dkg_16's cut (run_dkg_path): a
+    seeded polynomial each, real ECIES only for the entries validator 0
+    opens, seeded filler of the real length for the others, the last two
+    senders other than validator 0 byzantine (random bytes; the true value
+    + 1). Blocks: 1 stakes; 2 the N VRF proofs; 11 the lottery's close
+    (every status manager offers it; one lands); 12 the N commits; 13 the
+    values of N/2 senders (validator 0's among them), after which validator
+    0's manager is rebuilt from the store's KEYGEN_STATE row; 14 one
+    sender's N values, whose handling is traced by kernel; 15 the other
+    values; 16 validator 0's confirm and N-f-1 matching ones from
+    the harness (the quorum, validators_changed, on_keys(20, ...): the
+    wallet saves, reloads, has keys for era 20, not 19); 19 FinishCycle,
+    which validator 0's manager sends after block 18. Then the keys of
+    eras 20 and 19 (ValidatorManager), era 20's TPKE and coin eras on the
+    manager's backend under the rotated set (validator 0's shares from the
+    wallet, matched to its slot, the others from the harness's
+    polynomials), block 20 co-signed by the new set, and validator 0's
+    attendance detection for cycle 0, which block 21 executes. Checks:
+    the N winners in address order, every keygen check, handle_send_value
+    True once at the schedule's message, the quorum at the (N-f)-th
+    confirm, the confirmed set the polynomials', the resumed state the
+    saved one, every slot and coin, the attendance counts the harness's
+    signatures and the check-in; exact launches: dkg_launches(N, f, N,
+    N(N-1)) in the manager's calls, recover_launches(n) at each ingest,
+    TPKE_LAUNCHES and COIN_LAUNCHES for the eras; no escape."""
+    import os
+    import tempfile
+
+    import torch
+
+    from lachain_tpu_torch.consensus import keygen as kg
+    from lachain_tpu_torch.consensus.keys import PublicConsensusKeys, trusted_key_gen
+    from lachain_tpu_torch.core import system_contracts as sc
+    from lachain_tpu_torch.core import types
+    from lachain_tpu_torch.core.keygen_manager import KeyGenManager
+    from lachain_tpu_torch.core.validator_status import ValidatorStatusManager
+    from lachain_tpu_torch.core.vault import PrivateWallet
+    from lachain_tpu_torch.crypto import bls12381 as bls
+    from lachain_tpu_torch.crypto import ecdsa
+    from lachain_tpu_torch.crypto import threshold_sig as ts
+    from lachain_tpu_torch.crypto import tpke
+    from lachain_tpu_torch.storage.kv import EntryPrefix, prefixed
+    from lachain_tpu_torch.utils.serialization import Reader, write_bytes, write_u64, write_u256
+
+    n, f = ROT_N, (ROT_N - 1) // 3
+    label = f"rotation N={n}"
+    on_card = torch.device(dev).type == "cuda"
+    old = (sc.CYCLE_DURATION, sc.VRF_SUBMISSION_PHASE, sc.ATTENDANCE_DETECTION_DURATION)
+    sc.set_cycle_params(ROT_CYCLE, ROT_VRF_PHASE, ROT_ATTENDANCE)
+    tmp = tempfile.mkdtemp(prefix="lachain_rotation_")
+    walls: dict = {}
+    t_path = time.perf_counter()
+
+    def timed(key: str, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            walls[key] = walls.get(key, 0.0) + time.perf_counter() - t0
+
+    total = dict.fromkeys(read_launches(), 0)
+    manager_launches = dict.fromkeys(total, 0)
+
+    def counted(into: dict, fn, *args):
+        """fn(*args) with its launches counted into `into` and `total`."""
+        if on_card:
+            torch.cuda.synchronize()
+        reset_counts()
+        out = fn(*args)
+        got = read_launches()
+        check_no_escapes(label)
+        for k in total:
+            into[k] += got[k]
+            if into is not total:
+                total[k] += got[k]
+        return out, got
+
+    ingests = []
+
+    def ingest(fresh) -> None:
+        types._SENDER_MEMO.clear()
+        t0 = time.perf_counter()
+        _, got = counted(total, types.warm_sender_caches, fresh, ROOT_CHAIN_ID, dev)
+        ingests.append((len(fresh), time.perf_counter() - t0))
+        want = recover_launches(len(fresh)) if fresh else dict.fromkeys(got, 0)
+        if on_card:
+            check(got == want, f"{label}: an ingest of {len(fresh)} launched {got}, want {want}")
+
+    try:
+        t0 = time.perf_counter()
+        genesis, gprivs = trusted_key_gen(n, f, SeededRng(seed + 2500))
+        privs = [p.ecdsa_priv for p in gprivs]
+        pubs = list(genesis.ecdsa_pub_keys)
+        pub0 = pubs[0]
+        store = os.path.join(tmp, "chain")
+        kv = LsmKV(store)
+        chain = RotationChain(port_modules(), kv, genesis, privs, ROOT_CHAIN_ID, count=n,
+                              device=dev, ingest=ingest)
+        backend = one_card_backend(dev)
+        host = backend.host
+        absent_rng = random.Random(seed + 2501)
+        signed: dict = {}  # cycle 0's co-signatures a public key, the harness's tally
+
+        def produce(key: str):
+            keys = chain.vm.keys_for_era(chain.bm.current_height() + 1)
+            absent = set(absent_rng.sample(range(keys.n), ROT_ABSENT))
+            block = timed(key, chain.produce, absent)
+            if block.header.index < ROT_CYCLE:
+                for i, _sig in block.multisig.signatures:
+                    signed[keys.ecdsa_pub_keys[i]] = signed.get(keys.ecdsa_pub_keys[i], 0) + 1
+            return block
+
+        # validator 0's node: wallet, status manager, keygen manager
+        wallet_path = os.path.join(tmp, "node0.wallet")
+        wallet = PrivateWallet(wallet_path, ROT_PASSWORD, rng=SeededRng(seed + 2502),
+                               ecdsa_priv=privs[0])
+        installed = []
+
+        def on_keys(first_era, keyring, participants):
+            installed.append((first_era, keyring, list(participants)))
+            wallet.add_threshold_keys(first_era, keyring.tpke_priv, keyring.ts_share)
+
+        persist = Tally()
+        put_bytes = []
+
+        class PutTally:
+            """The chain store as the manager sees it, its puts' bytes kept."""
+
+            def get(self, key):
+                return kv.get(key)
+
+            def put(self, key, value):
+                put_bytes.append(len(value))
+                kv.put(key, value)
+
+        v0_seed = seed * 1_000_003 + 2503
+
+        def make_manager(rng_seed):
+            m = KeyGenManager(privs[0], chain.send_tx_for(privs[0]), rng=SeededRng(rng_seed),
+                              backend=backend, on_keys=on_keys, kv=PutTally())
+            m._persist_state = persist.wrap("persist", m._persist_state)
+            return m
+
+        manager = make_manager(v0_seed)
+        statuses = [ValidatorStatusManager(
+            p, chain.send_tx_for(p),
+            attendance_reader=(lambda c: chain.attendance.counts_for(c)) if i == 0 else None)
+            for i, p in enumerate(privs)]
+        fired = []
+
+        def watch(keygen):
+            """handle_send_value's True returns, by (dealer, sender)."""
+            inner = keygen.handle_send_value
+
+            def handle(sender, msg):
+                out = inner(sender, msg)
+                if out:
+                    fired.append((msg.proposer, sender))
+                return out
+
+            keygen.handle_send_value = handle
+
+        def after(block, key: str, services=None):
+            services = statuses if services is None else services
+            snap = chain.state.new_snapshot()
+            timed("status managers", lambda: [s.on_block_persisted(block, snap)
+                                              for s in services])
+            timed(key, counted, manager_launches, manager.on_block_persisted, block, snap)
+            chain.record_attendance(block)
+
+        walls["setup"] = time.perf_counter() - t0
+
+        # cycle 0: stakes, VRF proofs, the lottery
+        for s in statuses:
+            s.become_staker(ROT_STAKE)
+        after(produce("stake block"), "manager")
+        check(len(chain.pending) == n, f"{label}: {len(chain.pending)} VRF submissions, not {n}")
+        after(produce("vrf block"), "manager")
+        winners = Reader(chain.storage(sc.STAKING_ADDRESS, b"winners:" + write_u64(0))).bytes_list()
+        want_winners = sorted(chain.address(p) for p in privs)
+        check(winners == want_winners, f"{label}: the winners are not the {n} validators in "
+              f"address order")
+        while chain.bm.current_height() < ROT_VRF_PHASE:
+            after(produce("empty blocks"), "manager")
+        check(len(chain.pending) == n and all(
+            stx.tx.invocation == sc.SEL_FINISH_LOTTERY for stx in chain.pending),
+            f"{label}: the status managers did not each offer the lottery's close")
+        lottery = produce("lottery block")
+        statuses_ok = [types.TransactionReceipt.decode(chain.bm.receipt_by_hash(h)).status
+                       for h in lottery.tx_hashes]
+        check(sorted(statuses_ok) == [0] * (n - 1) + [1], f"{label}: lottery closes {statuses_ok}")
+        after(lottery, "manager lottery")
+        check(manager.keygen is not None, f"{label}: validator 0's DKG did not start")
+        participants = Reader(chain.storage(sc.STAKING_ADDRESS, b"next_validators")).bytes_list()
+        check(participants == sorted(pubs, key=ecdsa.address_from_public_key),
+              f"{label}: next_validators is not the winners' keys in order")
+        p0 = participants.index(pub0)
+        addr_index = {ecdsa.address_from_public_key(pk): i for i, pk in enumerate(participants)}
+        priv_at = [chain.priv_of[pk] for pk in participants]
+        others = [i for i in range(n) if i != p0]
+        bad_bytes, bad_value = others[-2], others[-1]
+        watch(manager.keygen)
+
+        # the harness's dealers: polynomials, commitments in one host call,
+        # validator 0's row real, the others filler of the real length
+        t0 = time.perf_counter()
+        enc = ecdsa.ecies_encrypt
+        hrng = SeededRng(seed * 1_000_003 + 2504)
+        filler = random.Random(seed * 1_000_003 + 2505)
+        row_len = ECIES_OVERHEAD + (f + 1) * bls.FR_BYTES
+        val_len = ECIES_OVERHEAD + bls.FR_BYTES
+        polys = {d: kg.BiVarSymmetricPolynomial.random(f, SeededRng(seed * 1_000_003 + 2600 + d))
+                 for d in others}
+        m = len(polys[others[0]].coeffs)
+        flat = host.g1_mul_batch([bls.G1_GEN] * (m * len(others)),
+                                 [c for d in others for c in polys[d].coeffs])
+        for k, d in enumerate(others):
+            row = b"".join(bls.fr_to_bytes(c) for c in polys[d].evaluate_row(p0 + 1))
+            msg = kg.CommitMessage(kg.Commitment(flat[k * m:(k + 1) * m]), [
+                enc(participants[p0], row, hrng) if i == p0 else filler.randbytes(row_len)
+                for i in range(n)])
+            chain.send_tx_for(priv_at[d])(sc.GOVERNANCE_ADDRESS,
+                                          sc.SEL_KEYGEN_COMMIT + write_bytes(msg.to_bytes()))
+        walls["harness"] = time.perf_counter() - t0
+
+        commits = produce("commit block")
+        check([addr_index[chain.signer[h]] for h in commits.tx_hashes] == list(range(n)),
+              f"{label}: the commits did not execute in participant order")
+        after(commits, "manager commits")
+        check(len(chain.pending) == n, f"{label}: validator 0 sent {len(chain.pending)} values")
+        # validator 0's polynomial: its rows, opened by the harness's
+        # validators as a chain's would, and a replay of its seeded draw
+        t0 = time.perf_counter()
+        own = kg.CommitMessage.from_bytes(Reader(chain.bm.transaction_by_hash(
+            commits.tx_hashes[p0]).tx.invocation[4:]).bytes_(), host)
+        rows = {s: [bls.fr_from_bytes(raw[o:o + bls.FR_BYTES])
+                    for o in range(0, len(raw), bls.FR_BYTES)]
+                for s, raw in ((s, ecdsa.ecies_decrypt(priv_at[s], own.encrypted_rows[s]))
+                               for s in others)}
+        polys[p0] = kg.BiVarSymmetricPolynomial.random(f, SeededRng(v0_seed))
+        check(all(rows[s] == polys[p0].evaluate_row(s + 1) for s in others),
+              f"{label}: validator 0's rows are not its seeded polynomial's")
+
+        at_p0 = [polys[d].evaluate_row(p0 + 1) for d in range(n)]  # F_d(p0+1, .)
+
+        def values_from(s: int) -> None:
+            """Sender s's keygenSendValue for every dealer, in commit order."""
+            send = chain.send_tx_for(priv_at[s])
+            for d in range(n):
+                if s == bad_bytes:
+                    mine = filler.randbytes(val_len)
+                else:
+                    v = (bls.fr_eval_poly(at_p0[d], s + 1) + (s == bad_value)) % bls.R
+                    mine = enc(participants[p0], bls.fr_to_bytes(v), hrng)
+                msg = kg.ValueMessage(d, [mine if i == p0 else filler.randbytes(val_len)
+                                          for i in range(n)])
+                send(sc.GOVERNANCE_ADDRESS, sc.SEL_KEYGEN_SEND_VALUE + write_u256(d)
+                     + write_bytes(msg.to_bytes()))
+
+        first = sorted(sorted(range(n), key=lambda i: (i != p0, i))[:n // 2])
+        rest = [s for s in range(n) if s not in first]
+        # the traced sender's round ends no dealer (at N=64: 33 of 43 acks)
+        traced_sender = rest[0] if len(first) + 1 < 2 * f + 1 else None
+        second = [s for s in rest if s != traced_sender]
+        for s in first:
+            if s != p0:
+                values_from(s)
+        walls["harness"] += time.perf_counter() - t0
+        values_a = produce("value blocks")
+        after(values_a, "manager values")
+        # a restart: validator 0's manager rebuilt from the store's row
+        t0 = time.perf_counter()
+        row = kv.get(prefixed(EntryPrefix.KEYGEN_STATE))
+        check(row == manager.state_bytes(), f"{label}: the stored KEYGEN_STATE is not the state")
+        old_keygen = manager.keygen
+        manager, _ = counted(manager_launches, make_manager, v0_seed + 1)
+        check(manager.keygen == old_keygen and manager.state_bytes() == row,
+              f"{label}: the resumed state differs from the saved one")
+        watch(manager.keygen)
+        walls["resume"] = time.perf_counter() - t0
+        # one sender's value round (its N values) in a block of its own,
+        # its handling traced by kernel; then the other senders'
+        values_t, traced = None, {}
+        if traced_sender is not None:
+            t0 = time.perf_counter()
+            values_from(traced_sender)
+            walls["harness"] += time.perf_counter() - t0
+            values_t = produce("value blocks")
+            before = dict(manager_launches)
+
+            def value_round():
+                t = time.perf_counter()
+                after(values_t, "manager values")
+                traced["wall"] = time.perf_counter() - t
+
+            t0 = time.perf_counter()
+            if on_card:
+                traced["by_kernel"] = profile_device(
+                    value_round, warm=lambda: torch.arange(1 << 12, device=dev).sum().item())
+            else:
+                value_round()
+            walls["trace"] = time.perf_counter() - t0 - traced["wall"]  # the profiler's own
+            traced["counted"] = {k: manager_launches[k] - before[k] for k in before}
+        t0 = time.perf_counter()
+        for s in second:
+            values_from(s)
+        walls["harness"] += time.perf_counter() - t0
+        values_b = produce("value blocks")
+
+        def value_pairs(block) -> list:
+            out = []
+            for h in block.tx_hashes:
+                inv = chain.bm.transaction_by_hash(h).tx.invocation
+                if inv.startswith(sc.SEL_KEYGEN_SEND_VALUE):
+                    out.append((int.from_bytes(inv[4:36], "big"), addr_index[chain.signer[h]]))
+            return out
+
+        acks, order, when = timed("schedule", lambda: value_schedule(
+            [p for b in (values_a, values_t, values_b) if b for p in value_pairs(b)], n, f))
+        after(values_b, "manager values")
+        check(acks == [n] * n and manager.keygen.finished_dealers == order,
+              f"{label}: acks {acks}, finished dealers {manager.keygen.finished_dealers}")
+        check(fired == [when], f"{label}: handle_send_value True at {fired}, the schedule's "
+              f"{when}")
+        st = manager.keygen.states[p0]
+        check(st.acks == [True] * n and [not v for v in st.valid] == [
+            i in (bad_bytes, bad_value) for i in range(n)],
+            f"{label}: the own dealer's acks / valid {st.acks} / {st.valid}")
+
+        # the confirm: the set the first f+1 finished dealers' polynomials give
+        t0 = time.perf_counter()
+        at_zero = [polys[d].evaluate_row(0) for d in order[:f + 1]]
+        shares = [sum(bls.fr_eval_poly(r, j) for r in at_zero) % bls.R for j in range(n + 1)]
+        points = host.g1_mul_batch([bls.G1_GEN] * (n + 1), shares)
+        want_keys = PublicConsensusKeys(
+            n=n, f=f, tpke_pub=tpke.TpkePublicKey(points[0], t=f),
+            tpke_verification_keys=[tpke.TpkeVerificationKey(y) for y in points[1:]],
+            ts_keys=ts.TsPublicKeySet([ts.TsPublicKey(y) for y in points[1:]], t=f),
+            ecdsa_pub_keys=participants).encode()
+        check(len(chain.pending) == 1 and chain.pending[0].tx.invocation
+              == sc.SEL_KEYGEN_CONFIRM + write_bytes(want_keys),
+              f"{label}: validator 0's confirm is not the polynomials' key set")
+        for s in others[:n - f - 1]:
+            chain.send_tx_for(priv_at[s])(sc.GOVERNANCE_ADDRESS,
+                                          sc.SEL_KEYGEN_CONFIRM + write_bytes(want_keys))
+        walls["harness"] += time.perf_counter() - t0
+        confirms = produce("confirm block")
+        changed = [i for i, h in enumerate(confirms.tx_hashes)
+                   if any(e.startswith(sc.GOVERNANCE_ADDRESS + b"validators_changed")
+                          for e in chain.events(h))]
+        check(changed == [n - f - 1], f"{label}: validators_changed at confirms {changed}, "
+              f"not at the {n - f}th")
+        after(confirms, "manager confirm")
+        check(len(installed) == 1 and installed[0][0] == ROT_CYCLE
+              and installed[0][2] == participants,
+              f"{label}: on_keys {[(e, len(p)) for e, _, p in installed]}")
+        t0 = time.perf_counter()
+        reloaded = PrivateWallet.load(wallet_path, ROT_PASSWORD, rng=SeededRng(seed + 2506))
+        check(reloaded.has_keys_for_era(ROT_CYCLE) and not reloaded.has_keys_for_era(ROT_CYCLE - 1)
+              and reloaded.threshold_keys_for_era(ROT_CYCLE)[0].to_bytes()
+              == installed[0][1].tpke_priv.to_bytes(),
+              f"{label}: the reloaded wallet's keys for eras {ROT_CYCLE - 1} / {ROT_CYCLE}")
+        walls["wallet"] = time.perf_counter() - t0
+        while chain.bm.current_height() < ROT_CYCLE - 2:
+            after(produce("empty blocks"), "manager")
+        check(len(chain.pending) == 1 and chain.pending[0].tx.invocation == sc.SEL_FINISH_CYCLE,
+              f"{label}: validator 0 did not offer FinishCycle after block {ROT_CYCLE - 2}")
+        finish = produce("finish block")
+        check([types.TransactionReceipt.decode(chain.bm.receipt_by_hash(h)).status
+               for h in finish.tx_hashes] == [1], f"{label}: FinishCycle failed")
+        after(finish, "manager")
+
+        # cycle 1: the rotated set, validator 0's shares from the wallet
+        t0 = time.perf_counter()
+        keys20 = chain.vm.keys_for_era(ROT_CYCLE)
+        check(keys20.encode() == want_keys and chain.vm.keys_for_era(ROT_CYCLE - 1) is genesis,
+              f"{label}: keys_for_era({ROT_CYCLE}) is not the DKG's set or "
+              f"keys_for_era({ROT_CYCLE - 1}) not the genesis set")
+        my = keys20.ecdsa_pub_keys.index(pub0)
+        mine = private_keys_matching(reloaded, gprivs[0], keys20, my, ROT_CYCLE, host)
+        check(mine is not None and mine.tpke_priv.x_i == shares[my + 1],
+              f"{label}: no private shares of the wallet match slot {my} of era {ROT_CYCLE}")
+        tprivs = [mine.tpke_priv if i == my else tpke.TpkePrivateKey(shares[i + 1], i)
+                  for i in range(n)]
+        tsprivs = [mine.ts_share if i == my else ts.TsPrivateKeyShare(shares[i + 1], i)
+                   for i in range(n)]
+        cts, msgs, jobs = rotation_era(keys20, tprivs, seed + 2507, host)
+        signers = [my] + [i for i in range(n) if i != my][:f + 2]
+        coins = []
+        for c in range(n):
+            cmsg = b"coin|era=%d|id=%d" % (ROT_CYCLE, c)
+            coins.append((cmsg, {i: tsprivs[i].sign(cmsg, host) for i in signers}))
+        walls["era setup"] = time.perf_counter() - t0
+        era_launches = dict.fromkeys(total, 0)
+        t0 = time.perf_counter()
+        res, got = counted(era_launches, backend.tpke_era_verify_combine, jobs,
+                           keys20.tpke_verification_keys, SeededRng(seed + 2508))
+        walls["tpke era"] = time.perf_counter() - t0
+        check(all(ok and tpke.decrypt_with_combined(ct, comb) == msg
+                  for (ok, comb), ct, msg in zip(res, cts, msgs)),
+              f"{label}: a slot of era {ROT_CYCLE} failed under the rotated keys")
+        if on_card:
+            check({k: got[k] for k in TPKE_LAUNCHES} == TPKE_LAUNCHES,
+                  f"{label}: TPKE era launches {got}")
+        t0 = time.perf_counter()
+        sigs, got = counted(era_launches, ts.era_verify_combine, keys20.ts_keys, coins,
+                            SeededRng(seed + 2509), backend)
+        walls["coin era"] = time.perf_counter() - t0
+        check(all(sig is not None and keys20.ts_keys.shared.verify(cmsg, sig, host)
+                  for (cmsg, _), sig in zip(coins, sigs)),
+              f"{label}: a coin of era {ROT_CYCLE} failed under the rotated keys")
+        if on_card:
+            check({k: got[k] for k in COIN_LAUNCHES} == COIN_LAUNCHES,
+                  f"{label}: coin era launches {got}")
+
+        # block 20 under the new set; validator 0 reports cycle 0's attendance
+        first_new = produce("cycle 1 blocks")
+        check(len(first_new.multisig.signatures) == n - ROT_ABSENT
+              and all(ecdsa.verify_hash(keys20.ecdsa_pub_keys[i], first_new.header.hash(), sig)
+                      for i, sig in first_new.multisig.signatures),
+              f"{label}: block {ROT_CYCLE} is not co-signed by the new set")
+        after(first_new, "manager", statuses[:1])
+        counts = chain.attendance.counts_for(0)
+        row = kv.get(prefixed(EntryPrefix.VALIDATOR_ATTENDANCE))
+        check(counts == signed and row == chain.attendance.to_bytes(),
+              f"{label}: the recorded attendance differs from the harness's signatures")
+        prev = Reader(chain.storage(sc.STAKING_ADDRESS, b"prev_pubs")).bytes_list()
+        want_report = sc.SEL_SUBMIT_ATTENDANCE + len(prev).to_bytes(4, "big") + b"".join(
+            write_bytes(pk + min(signed.get(pk, 0), ROT_CYCLE).to_bytes(4, "big")) for pk in prev)
+        reports = [stx for stx in chain.pending
+                   if stx.tx.invocation.startswith(sc.SEL_SUBMIT_ATTENDANCE)]
+        check(prev == pubs and len(reports) == 1 and reports[0].tx.invocation == want_report,
+              f"{label}: validator 0's attendance report is not the harness's counts over "
+              f"the genesis electorate")
+        report = produce("cycle 1 blocks")
+        checkin = chain.storage(sc.STAKING_ADDRESS, b"att_checkin:" + write_u64(1))
+        check(checkin is not None and Reader(checkin).bytes_list() == [pub0],
+              f"{label}: the contract did not check validator 0 in for cycle 1")
+        after(report, "manager", statuses[:1])
+        t0 = time.perf_counter()
+        kv.flush()
+        disk = dir_bytes(store)
+        kv.close()
+        walls["close"] = time.perf_counter() - t0
+    finally:
+        sc.set_cycle_params(*old)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    want = dkg_launches(n, f, n, n * (n - 1))
+    if on_card:
+        check({k: manager_launches[k] for k in want} == want,
+              f"{label}: validator 0's manager launched {manager_launches}, want {want}")
+    wall = time.perf_counter() - t_path
+    walls["untimed"] = wall - sum(walls.values())
+    recovered = sum(k for k, _ in ingests)
+    log(f"{label}: the {n} winners in address order; validator 0's DKG resumed from the "
+        f"store after the first half of the values, its confirm at dealer {when[0]}'s value "
+        f"from sender {when[1]} and the quorum at confirm {n - f}; the key set of the first {f + 1} dealers' polynomials "
+        f"installed from era {ROT_CYCLE} (wallet saved and reloaded) and read back by "
+        f"keys_for_era; era {ROT_CYCLE}'s {n} slots and {n} coins under it; attendance "
+        f"{sum(signed.values())} co-signatures, validator 0 checked in for cycle 1; no host "
+        f"recompute; manager launches {want}")
+    log(f"{label} walls: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+        + f"; path {wall:.3f} s")
+    log(f"{label} persist: {persist.n.get('persist', 0)} KEYGEN_STATE rows, "
+        f"{persist.s.get('persist', 0.0):.3f} s, {sum(put_bytes)} bytes (the last "
+        f"{put_bytes[-1]}); ingests of {recovered} senders in {len(ingests)} blocks "
+        f"{sum(s for _, s in ingests):.3f} s; store on disk {disk} bytes")
+    log(f"{label}: era {ROT_CYCLE} launches {era_launches}")
+    if "by_kernel" in traced:
+        by_kernel = traced["by_kernel"]
+        log(f"{label} sender {traced_sender}'s value round: counted launches "
+            f"{ {k: v for k, v in traced['counted'].items() if v} }, traced "
+            f"{ {k: by_kernel.get(KERNEL_OF[k], [0, 0])[1] for k in want if want[k]} }")
+        busy_line(f"{label} sender {traced_sender}'s value round", by_kernel, traced["wall"])
+    return total, [dict(wall_s=wall)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -4937,20 +5716,19 @@ def main() -> int:
              ("root_era_16_check", lambda: run_root_check_path(args.seed, dev)),
              ("root_era_native_64", lambda: run_root_native_path(args.seed, dev, root_ref)),
              ("root_era_native_16_check", lambda: run_root_native_check_path(args.seed, dev))]
-    adversary_ref = {}  # the native adversary era's block and evidence, which the Python one's must equal
     state_ref = {}  # state_commit_1m's store and senders, which block_exec_1m continues on
     runs += [("root_era_adversary_native_64",
-              lambda: run_root_adversary_native_path(args.seed, dev, adversary_ref)),
-             ("root_era_adversary_64", lambda: run_root_adversary_path(args.seed, dev,
-                                                                       adversary_ref)),
+              lambda: run_root_adversary_native_path(args.seed, dev)),
+             ("root_era_adversary_16", lambda: run_root_adversary_16_path(args.seed, dev)),
              ("chaos_era_16_check", lambda: run_chaos_check_path(args.seed, dev)),
              ("chaos_era_native_16_check", lambda: run_chaos_native_check_path(args.seed, dev)),
              ("root_era_journal_native_64",
               lambda: run_root_journal_native_path(args.seed, dev, root_ref)),
              ("root_era_journal_16", lambda: run_root_journal_path(args.seed, dev)),
-             ("dkg_64", lambda: run_dkg_path(args.seed, dev)),
+             ("dkg_16", lambda: run_dkg_path(args.seed, dev)),
              ("state_commit_1m", lambda: run_state_path(args.seed, dev, state_ref)),
-             ("block_exec_1m", lambda: run_exec_path(args.seed, dev, state_ref))]
+             ("block_exec_1m", lambda: run_exec_path(args.seed, dev, state_ref)),
+             ("rotation_64", lambda: run_rotation_path(args.seed, dev))]
     if torch.cuda.device_count() > 1:  # a mesh over distinct cards
         cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         runs += [("mesh_era_cards", lambda: run_mesh_path(args.seed, backend, dev, era,
@@ -4983,11 +5761,12 @@ def main() -> int:
         "root_era_native_64": g1_path + ("rs_matmul8",) + secp_path,
         "root_era_native_16_check": g1_path + ("rs_matmul8",) + secp_path,
         **{p: g1_path + ("rs_matmul8",) + secp_path for p in (
-            "root_era_adversary_native_64", "root_era_adversary_64", "chaos_era_16_check",
+            "root_era_adversary_native_64", "root_era_adversary_16", "chaos_era_16_check",
             "chaos_era_native_16_check", "root_era_journal_native_64", "root_era_journal_16")},
-        "dkg_64": ("g1_mont", "g1_table", "g1_msm_scan", "g1_add"),
+        "dkg_16": ("g1_mont", "g1_table", "g1_msm_scan", "g1_add"),
         "state_commit_1m": secp_path,
         "block_exec_1m": secp_path,
+        "rotation_64": g1_path + ("g2_add", "g2_table", "g2_msm_scan") + secp_path,
     }
     for path, (launches, warm) in paths.items():
         missing = [k for k in needs[path] if launches[k] == 0]

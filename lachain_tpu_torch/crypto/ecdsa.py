@@ -44,6 +44,7 @@ in the reference: devnet grade; recovery takes only public inputs.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import hmac
 from typing import List, Optional, Sequence, Tuple
@@ -163,7 +164,16 @@ def decompress_public_key(pub: bytes) -> Tuple[int, int]:
 
 
 def address_from_public_key(pub: bytes) -> bytes:
-    """20-byte Ethereum-style address: keccak256(uncompressed_xy)[12:]."""
+    """20-byte Ethereum-style address: keccak256(uncompressed_xy)[12:].
+    Memoized: a compressed key's decompression is a pure-Python square
+    root (~0.2 ms), and a chain derives the same validators' and senders'
+    addresses again and again (the governance contract's sender check
+    walks the elected set's keys on every keygen transaction)."""
+    return _address(bytes(pub))
+
+
+@functools.lru_cache(maxsize=1 << 16)
+def _address(pub: bytes) -> bytes:
     x, y = decompress_public_key(pub) if len(pub) == 33 else (
         int.from_bytes(pub[1:33], "big"),
         int.from_bytes(pub[33:], "big"),

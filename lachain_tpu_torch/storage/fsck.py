@@ -473,9 +473,13 @@ def verify_imported_state(
 def _deep_trie_check(kv: KVStore, heights) -> list:
     """Full DFS from every retained snapshot root; returns
     [(missing_hash_hex, height), ...]. Marks visited hashes so shared
-    subtrees cost one walk."""
+    subtrees cost one walk. The node rows are read by one prefix scan
+    into memory at the first root (the reference reads one `get` a node:
+    ~1.4M reads at a million accounts); the walk and its report are the
+    same."""
     missing = []
     seen = set()
+    nodes = None
     for height in heights:
         enc = kv.get(
             prefixed(EntryPrefix.SNAPSHOT_INDEX, write_u64(height))
@@ -488,12 +492,14 @@ def _deep_trie_check(kv: KVStore, heights) -> list:
             missing.append(("<roots-undecodable>", height))
             continue
         stack = [r for r in roots.all_roots() if r != EMPTY_ROOT]
+        if stack and nodes is None:
+            nodes = trie_node_rows(kv)
         while stack:
             h = stack.pop()
             if h in seen:
                 continue
             seen.add(h)
-            node_enc = kv.get(prefixed(EntryPrefix.TRIE_NODE, h))
+            node_enc = nodes.get(h)
             if node_enc is None:
                 missing.append((h.hex(), height))
                 continue
@@ -505,3 +511,10 @@ def _deep_trie_check(kv: KVStore, heights) -> list:
             if isinstance(node, InternalNode):
                 stack.extend(c for c in node.children if c != EMPTY_ROOT)
     return missing
+
+
+def trie_node_rows(kv: KVStore) -> dict:
+    """Every trie node row, hash -> encoding, from one prefix scan."""
+    prefix = prefixed(EntryPrefix.TRIE_NODE)
+    cut = len(prefix)
+    return {key[cut:]: enc for key, enc in kv.scan_prefix(prefix)}

@@ -24,7 +24,12 @@ at every checkpoint (the `shrink.*` crash points) are the reference's,
 and a crash inside a height now leaves none of its marks, where the
 reference's could leave a node marked before its children (which a
 resumed walk would then never mark). Over LsmKV at a million accounts the
-reference's writes would take ~2.9M fsyncs.
+reference's writes would take ~2.9M fsyncs. Its reads, one `get` a node
+for its mark and one for its row in the mark stage and one a node for its
+mark in the sweep, are prefix scans here: the mark stage reads the
+existing marks and the node rows once (a row missing from the scan is
+read through the trie, which raises on a missing node as the reference
+does), the sweep reads the marks once.
 """
 from __future__ import annotations
 
@@ -34,13 +39,15 @@ from typing import List, Optional
 
 from .crashpoints import crash_point
 from .kv import EntryPrefix, KVStore, prefixed
+from .fsck import trie_node_rows
 from .state import StateManager, StateRoots
-from .trie import EMPTY_ROOT, InternalNode
+from .trie import EMPTY_ROOT, InternalNode, _decode
 
 logger = logging.getLogger(__name__)
 
 _STATE_KEY = prefixed(EntryPrefix.SHRINK_STATE)
 _MARK = EntryPrefix.SHRINK_MARK
+_MARK_PREFIX = prefixed(_MARK)
 BATCH = 4096  # deletes a write_batch in the sweep and clean stages
 
 
@@ -104,14 +111,21 @@ class DbShrink:
         tip = progress["tip"]
 
         if progress["stage"] == "mark":
+            nodes = marked = None  # read by one scan each at the first roots
             while True:
                 for height in range(progress["next_height"], tip + 1):
                     roots = self.state.roots_at(height)
-                    marks = [] if roots is None else self._mark_roots(roots)
+                    marks = []
+                    if roots is not None:
+                        if nodes is None:
+                            nodes, marked = trie_node_rows(self.kv), self._marked()
+                        marks = self._mark_roots(roots, nodes, marked)
                     progress["marked"] += len(marks)
                     progress["next_height"] = height + 1
                     # per-height resume point, durable with its marks
                     self._save_progress(progress, marks)
+                    if marked is not None:
+                        marked.update(k[len(_MARK_PREFIX):] for k in marks)
                     crash_point("shrink.mark.height")
                 # Re-check the tip before committing to sweep: marking takes
                 # real time, and a block committed meanwhile (threaded caller,
@@ -160,22 +174,27 @@ class DbShrink:
 
     # -- stages --------------------------------------------------------------
 
-    def _mark_roots(self, roots: StateRoots) -> List[bytes]:
+    def _marked(self) -> set:
+        """The hashes of the mark rows, from one prefix scan."""
+        return {key[len(_MARK_PREFIX):] for key, _ in self.kv.scan_prefix(_MARK_PREFIX)}
+
+    def _mark_roots(self, roots: StateRoots, nodes: dict, marked: set) -> List[bytes]:
         """DFS from every tree root of a snapshot -> the mark keys of the
         nodes not marked yet, for the caller's batch (a node already
-        marked, in the KV or in this walk, prunes the whole subtree walk:
-        structural sharing makes repeated roots cheap)."""
+        marked, in `marked` or in this walk, prunes the whole subtree walk:
+        structural sharing makes repeated roots cheap). `nodes` holds the
+        node rows by hash; a node it lacks is loaded through the trie."""
         marks: List[bytes] = []
         seen = set()
         stack = [r for r in roots.all_roots() if r != EMPTY_ROOT]
         while stack:
             h = stack.pop()
-            mark_key = prefixed(_MARK, h)
-            if mark_key in seen or self.kv.get(mark_key) is not None:
+            if h in seen or h in marked:
                 continue
-            seen.add(mark_key)
-            marks.append(mark_key)
-            node = self.state.trie._load(h)
+            seen.add(h)
+            marks.append(prefixed(_MARK, h))
+            enc = nodes.get(h)
+            node = self.state.trie._load(h) if enc is None else _decode(enc)
             if isinstance(node, InternalNode):
                 stack.extend(
                     c for c in node.children if c != EMPTY_ROOT
@@ -184,11 +203,9 @@ class DbShrink:
 
     def _sweep(self, progress: dict) -> int:
         node_prefix = prefixed(EntryPrefix.TRIE_NODE)
-        doomed = []
-        for key, _ in self.kv.scan_prefix(node_prefix):
-            h = key[len(node_prefix):]
-            if self.kv.get(prefixed(_MARK, h)) is None:
-                doomed.append(key)
+        marked = self._marked()
+        doomed = [key for key, _ in self.kv.scan_prefix(node_prefix)
+                  if key[len(node_prefix):] not in marked]
         # the scan takes real time too: a block committed during it (threaded
         # caller) has unmarked nodes sitting in `doomed`. Mark the tip delta
         # now and drop the newly marked keys before deleting. A commit landing
@@ -201,15 +218,13 @@ class DbShrink:
             for height in range(progress["tip"] + 1, new_tip + 1):
                 roots = self.state.roots_at(height)
                 if roots is not None:
-                    marks = self._mark_roots(roots)
+                    marks = self._mark_roots(roots, {}, marked)
                     self.kv.write_batch([(k, b"\x01") for k in marks])
+                    marked.update(k[len(_MARK_PREFIX):] for k in marks)
                     progress["marked"] += len(marks)
             progress["tip"] = new_tip
             self._save_progress(progress)
-            doomed = [
-                k for k in doomed
-                if self.kv.get(prefixed(_MARK, k[len(node_prefix):])) is None
-            ]
+            doomed = [k for k in doomed if k[len(node_prefix):] not in marked]
         self._delete(doomed)
         # pruned nodes may still sit in the trie's LRU cache; a fresh run
         # only ever reads retained roots, but drop the cache for hygiene
@@ -217,4 +232,4 @@ class DbShrink:
         return len(doomed)
 
     def _clean_marks(self) -> None:
-        self._delete([key for key, _ in self.kv.scan_prefix(prefixed(_MARK))])
+        self._delete([key for key, _ in self.kv.scan_prefix(_MARK_PREFIX)])

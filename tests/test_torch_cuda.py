@@ -1805,3 +1805,53 @@ def test_block_exec_senders_on_card(card, monkeypatch):
     want = {k: sum(chip_smoke.recover_launches(n)[k] for n in sizes) for k in launches}
     assert launches == want
     assert len(walls) == 4 and not any(verify.ESCAPES.values())
+
+
+def test_rotation_on_card_equals_cpu(card):
+    """tests/test_torch_rotation.py's (4, 1) validator rotation twice in
+    lockstep, the port against itself: once on the card (each block's
+    senders recovered there at its ingest, validator 0's keygen on a
+    GpuBackend of the card) and once with device="cpu" (the plain
+    versions): equal blocks, state roots, KEYGEN_STATE rows, system
+    transactions, attendance and installed key sets, both validators 0
+    resumed from each other's row; the card's G1 launches are exactly
+    validator 0's keygen's (dkg_launches(4, 1, 4, 16)), with no host
+    recompute."""
+    import chip_smoke
+    import torch_rotation_common as rot
+    from lachain_tpu_torch.core import block_manager, system_contracts, types
+    from lachain_tpu_torch.crypto.native_backend import NativeBackend
+    from lachain_tpu_torch.ops import g1, secp
+
+    pkg = rot.package("lachain_tpu_torch")
+
+    def manager(backend_of):
+        def make(i, priv, send, on_keys, rng, kv):
+            backend = backend_of() if i == 0 else NativeBackend()
+            return pkg.keygen_manager.KeyGenManager(priv, send, rng=rng, backend=backend,
+                                                    on_keys=on_keys, kv=kv)
+        return make
+
+    old = (system_contracts.CYCLE_DURATION, system_contracts.VRF_SUBMISSION_PHASE,
+           system_contracts.ATTENDANCE_DETECTION_DURATION)
+    system_contracts.set_cycle_params(chip_smoke.ROT_CYCLE, chip_smoke.ROT_VRF_PHASE,
+                                      chip_smoke.ROT_ATTENDANCE)
+    block_manager._EMULATE_MEMO.clear()
+    try:
+        on_card = rot.Side("card", pkg, manager(lambda: chip_smoke.one_card_backend(card)),
+                           device=card, ingest=lambda fresh: types.warm_sender_caches(
+                               fresh, rot.CHAIN, device=card))
+        on_cpu = rot.Side("cpu", pkg, manager(lambda: GpuBackend(device="cpu")), device="cpu")
+        g1.reset_launches()
+        secp.reset_launches()
+        verify.reset_escapes()
+        rot.drive([on_card, on_cpu])
+    finally:
+        system_contracts.set_cycle_params(*old)
+        block_manager._EMULATE_MEMO.clear()
+    assert on_card.records == on_cpu.records and on_card.restored == on_cpu.restored
+    assert {i: (e, k.public_keys(rot.F, p).encode()) for i, (e, k, p) in on_card.installed.items()} \
+        == {i: (e, k.public_keys(rot.F, p).encode()) for i, (e, k, p) in on_cpu.installed.items()}
+    want = chip_smoke.dkg_launches(rot.N, rot.F, rot.N, rot.N * rot.N)
+    assert {k: g1.LAUNCHES[k] for k in want} == want
+    assert secp.LAUNCHES["secp_msm_scan"] > 0 and not any(verify.ESCAPES.values())

@@ -38,6 +38,7 @@
 from __future__ import annotations
 
 import os
+import random
 import subprocess
 import sys
 
@@ -101,6 +102,8 @@ new |= {f"lachain_tpu_torch.vm.{m}" for m in (
     "gas", "wasm", "interpreter", "translate", "builder", "abi", "external", "vm")}
 new |= {f"lachain_tpu_torch.core.{m}" for m in (
     "hardforks", "execution", "system_contracts", "parallel_exec", "block_manager", "tx_pool")}
+new |= {"lachain_tpu_torch.consensus.attendance"} | {f"lachain_tpu_torch.core.{m}" for m in (
+    "vault", "validator_manager", "validator_status", "keygen_manager")}
 assert new <= set(names), new - set(names)
 print(len(names), bad)
 """
@@ -112,7 +115,7 @@ def test_port_imports_nothing_of_jax():
         text=True, check=True, timeout=120,
     ).stdout.split("\n")[0]
     count, bad = out.split(" ", 1)
-    assert int(count) >= 78  # every module of the package was imported
+    assert int(count) >= 83  # every module of the package was imported
     assert bad == "[]"
 
 
@@ -129,6 +132,7 @@ import lachain_tpu_torch.consensus.root_protocol
 import lachain_tpu_torch.consensus.native_hosts
 import lachain_tpu_torch.consensus.journal
 import lachain_tpu_torch.consensus.keygen
+import lachain_tpu_torch.consensus.attendance
 import lachain_tpu_torch.network.wire
 import lachain_tpu_torch.storage.crashpoints
 import lachain_tpu_torch.storage.kv
@@ -188,6 +192,17 @@ def test_ecdsa_path_without_card_raises():
         ecdsa.recover_hash_batch([h], [sig])
     with pytest.raises(RuntimeError):
         ecdsa.recover_hash_batch([], [])
+
+
+def test_keygen_manager_without_card_raises():
+    from lachain_tpu_torch.core.keygen_manager import KeyGenManager
+
+    _require_no_card()
+    priv = (7).to_bytes(32, "big")
+    with pytest.raises(RuntimeError):
+        KeyGenManager(priv, lambda to, inv: None, rng=random.Random(1))
+    with pytest.raises(RuntimeError):
+        KeyGenManager(priv, lambda to, inv: None, rng=random.Random(1), device="cuda")
 
 
 def test_rbc_path_without_card_raises():
