@@ -61,7 +61,7 @@ Phases, each of which must pass (any failure exits non-zero):
              backend)) is started and joined: the fully masked TPKE era
              at each slot tier, largest first, and one coin era, on a
              GpuBackend of its own; it must end with no error;
-  4. main    twenty-four paths (twenty-six where more than one card is
+  4. main    twenty-five paths (twenty-seven where more than one card is
              visible),
              each with the kernel launch counts set to 0 just before its
              counted calls and read just after; the paths before the mesh
@@ -185,7 +185,20 @@ Phases, each of which must pass (any failure exits non-zero):
              counted ones; printed its wall, messages a second, the
              engine's natively handled messages, the crossings, the
              batchers' phases, the coins' seconds, the header round, the
-             recovery and the busy share; and root_era_native_16_check,
+             recovery and the busy share; root_era_64 and
+             root_era_native_64 each run inside an "era" span
+             (utils/tracing.py, the rings sized TRACE_CAPACITY) and print
+             their era report (tracing.era_report_table: the phases, the
+             named waits, the unattributed idle) and their critical path's
+             longest segments (the whole path in chiprun_out/), checked:
+             no event dropped, phases + waits + unattributed equal to the
+             wall within 10%, tpke_decrypt and rbc_device time, the
+             native era's cross:* events equal to its `crossings` op for
+             op, consensus_messages_processed >= delivered_count on the
+             Python engine and 0 on the native one (check_era_report);
+             root_era_native_64_untraced, the native era again with the
+             engine's recorder at capacity 0: root_era_64's block hash and
+             delivered_count; and root_era_native_16_check,
              root_era_16_check's era with router 0's HoneyBadger (and so
              its RootProtocol) kept in Python and malicious through
              `_extra_factories`, card against device="cpu" (as
@@ -277,7 +290,10 @@ Phases, each of which must pass (any failure exits non-zero):
              height's roots and 1,000 sampled balances; DbShrink
              (retain_depth 1) sweeps the genesis-only nodes and a deep
              fsck is then clean; walls, commit_stats, merkle_stats, the
-             engine's stats, nodes and bytes on disk, the state hash; its
+             engine's stats, nodes and bytes on disk, the state hash, and
+             what the LSM engine's flight recorder, drained after every
+             commit, fed lsm_wal_fsync_seconds and
+             lsm_wal_group_commit_records over the commits; its
              temporary directory kept for
              execution (core/block_manager.py, tx_pool.py,
              block_producer.py, execution.py, system_contracts.py,
@@ -301,7 +317,10 @@ Phases, each of which must pass (any failure exits non-zero):
              counter's get() through VirtualMachine equal to its
              successful inc() calls; per block the ingest, proposal,
              create_header and produce_block walls and transactions a
-             second, the WASM calls' gas, the lanes' walls; shrink and the
+             second, the WASM calls' gas, the lanes' walls; the txtrace
+             timelines of the sampled transactions (utils/txtrace.py), each
+             pool -> propose -> exec -> commit and its stages summing to its
+             end-to-end span, their count and median stage seconds; shrink and the
              deep fsck read the nodes and marks by prefix scans,
              and the path prints its peak RSS;
              validator rotation (core/validator_status.py,
@@ -2663,6 +2682,9 @@ def run_rbc_mesh_path(seed: int, dev, devices):
 HB_N, HB_F = 64, 21
 HB_CHECK_N, HB_CHECK_F = 16, 5
 HB_MAX_MESSAGES = 6_000_000
+# the rings of a traced root era (utils/tracing.py's merged rings, the
+# native engine's): large enough that an N=64 era drops no event
+TRACE_CAPACITY = 1 << 20
 TRANSFER_BYTES = 177  # a signed transfer (lachain_tpu/core/types.py:80)
 ROOT_CHAIN_ID = 225
 # the producer's fixed state hash (tests/test_torch_root_protocol.py's)
@@ -2920,6 +2942,95 @@ def batcher_lines(label: str, net) -> None:
         f"deduped, {rb.memo_hits} memo hits; summed phases: {phase_line(net.rbc_phase_s)}")
 
 
+def begin_traced_era() -> dict:
+    """Start a traced root era afresh: the merged tracer and the per-era
+    evidence counts emptied (an earlier path's or an earlier trace's)
+    and the tracer's rings TRACE_CAPACITY -> the counters the era's checks
+    take deltas of. check_era_report empties them again at its end, back
+    to the default rings, so that later paths keep no N=64 trace alive."""
+    from lachain_tpu_torch.consensus import evidence
+    from lachain_tpu_torch.utils import metrics, tracing
+
+    tracing.reset_for_tests()
+    tracing.set_capacity(TRACE_CAPACITY)
+    evidence.reset_era_counts()
+    return dict(processed=messages_processed(), native_dropped=metrics.counter_value(
+        "trace_events_dropped_total", labels={"source": "consensus"}))
+
+
+def messages_processed() -> float:
+    """consensus_messages_processed with its hot-path cell folded in."""
+    from lachain_tpu_torch.utils import metrics
+
+    return metrics.MESSAGES_PROCESSED[0] + metrics.counter_value("consensus_messages_processed")
+
+
+def check_era_report(label: str, net, before: dict, native: bool) -> dict:
+    """The era report of a traced root era (utils/tracing.era_report over
+    the era span the harness opened, era 0): printed as its table and its
+    critical path (the 5 longest segments; every segment in
+    chiprun_out/critical_path_<label>.txt); checked: one era, no event
+    dropped by either ring, phases + named waits + idle_unattributed equal
+    to the era wall within 10% (the reference's acceptance tolerance;
+    `coverage` is the report's own sum over the wall), the TPKE flush's
+    decryptions and the RS launches in tpke_decrypt and rbc_device time,
+    and consensus_messages_processed against delivered_count: on the
+    Python engine every delivery reaches one protocol instance, whose
+    internal requests and results add to it (>=), on the native engine no
+    message reaches a Python protocol (0, no opaque crossing); on the
+    native engine the drained cross:* events count each crossing op as
+    `net.crossings` does -> the era's entry."""
+    import collections
+    import os
+
+    from lachain_tpu_torch.consensus.native_hosts import XO_NAMES
+    from lachain_tpu_torch.utils import metrics, tracing
+
+    report = tracing.era_report()
+    check([e["era"] for e in report["eras"]] == [0],
+          f"{label}: the report's eras {[e['era'] for e in report['eras']]} != [0]")
+    ent = report["eras"][0]
+    for line in tracing.era_report_table(report).splitlines():
+        log(f"{label} era report: {line}")
+    cp = ent["critical_path"]
+    log(f"{label} critical path: {cp['total_s']:.3f} s of the {ent['wall_s']:.3f} s wall in "
+        f"{len(cp['segments'])} segments; longest {cp['top']}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", f"critical_path_{label.replace(' ', '_')}.txt"),
+              "w") as fh:
+        fh.write(tracing.critical_path_table(report) + "\n")
+    py_dropped = tracing.dropped_total()
+    native_dropped = metrics.counter_value(
+        "trace_events_dropped_total", labels={"source": "consensus"}) - before["native_dropped"]
+    check(py_dropped == 0 and native_dropped == 0,
+          f"{label}: the rings dropped {py_dropped} spans and {native_dropped} native events")
+    waits = sum(ent["waits_s"].values())
+    total = sum(ent["phases_s"].values()) + waits + ent["idle_unattributed_s"]
+    check(abs(total - ent["wall_s"]) <= 0.10 * ent["wall_s"],
+          f"{label}: phases + waits + unattributed {total:.6f} s, the wall {ent['wall_s']:.6f} s")
+    check(ent["phases_s"]["tpke_decrypt"] > 0 and ent["phases_s"]["rbc_device"] > 0,
+          f"{label}: no tpke_decrypt or rbc_device time: {ent['phases_s']}")
+    processed = messages_processed() - before["processed"]
+    spans = tracing.snapshot()
+    if native:
+        crossed = collections.Counter(
+            e["args"]["op"] for e in tracing.native_snapshot() if e["cat"] == "native.cross")
+        want = {op: net.crossings[op] for op in XO_NAMES.values() if net.crossings[op]}
+        check(dict(crossed) == want, f"{label}: cross events {dict(crossed)} != {want}")
+        check(processed == 0 and net.crossings["opaque_message"] == 0,
+              f"{label}: {processed} messages reached a Python protocol")
+    else:
+        check(processed >= net.delivered_count,
+              f"{label}: {processed} messages processed < {net.delivered_count} delivered")
+    log(f"{label} era report: coverage {ent['coverage']}, phases + waits + unattributed "
+        f"{total:.6f} s of the {ent['wall_s']:.6f} s wall; {len(spans)} spans, "
+        f"{len(tracing.native_snapshot())} native events, 0 dropped; "
+        f"consensus_messages_processed {processed:.0f}, delivered_count "
+        f"{net.delivered_count}" + (f", cross events {dict(crossed)}" if native else ""))
+    tracing.reset_for_tests()
+    return ent
+
+
 def run_root_era_path(seed: int, dev, ref=None):
     """The N=64, f=21 root era through SimulatedNetwork on the card
     (TAKE_FIRST, both batchers): every validator's RootProtocol proposes
@@ -2935,6 +3046,7 @@ def run_root_era_path(seed: int, dev, ref=None):
 
     from lachain_tpu_torch.consensus.simulator import DeliveryMode, SimulatedNetwork
     from lachain_tpu_torch.crypto import ecdsa
+    from lachain_tpu_torch.utils import tracing
 
     label = f"root era N={HB_N}"
     t0 = time.perf_counter()
@@ -2946,10 +3058,12 @@ def run_root_era_path(seed: int, dev, ref=None):
     def era():
         clear_block_memos()
         reset_counts()
+        out["before"] = begin_traced_era()
         factories, producers = root_factories(pub, privs, proposals, dev, parent)
         net = SimulatedNetwork(pub, privs, seed=seed, mode=DeliveryMode.TAKE_FIRST,
                                use_rbc_batcher=True, device=dev, extra_factories=factories)
-        out["wall"], out["blocks"] = root_run(net, range(HB_N))
+        with tracing.span("era", era=0):
+            out["wall"], out["blocks"] = root_run(net, range(HB_N))
         out["launches"] = read_launches()
         out["net"], out["producers"] = net, producers
 
@@ -2977,6 +3091,7 @@ def run_root_era_path(seed: int, dev, ref=None):
     log(f"{label}: launches {counted}, traced {traced}"
         + ("" if traced == counted else " (the trace lost launches)"))
     busy_line(label, by_kernel, wall)
+    check_era_report("root_era_64", net, out["before"], native=False)
     if ref is not None:
         ref.update(hash=blocks[0].header.hash(), delivered=net.delivered_count, wall=wall)
     return launches, [dict(wall_s=wall, **secs)]
@@ -3045,6 +3160,7 @@ def run_root_native_path(seed: int, dev, ref=None):
     recovery and the busy share."""
     from lachain_tpu_torch.consensus.simulator import DeliveryMode
     from lachain_tpu_torch.crypto import ecdsa
+    from lachain_tpu_torch.utils import tracing
 
     label = f"native root era N={HB_N}"
     pub, privs, proposals, signer, parent = root_era_inputs(seed)
@@ -3053,9 +3169,12 @@ def run_root_native_path(seed: int, dev, ref=None):
     def era():
         clear_block_memos()
         reset_counts()
+        out["before"] = begin_traced_era()
         net, producers = native_root_net(pub, privs, proposals, dev, parent, seed,
                                           DeliveryMode.TAKE_FIRST)
-        out["wall"], out["blocks"] = root_run(net, range(HB_N))
+        net.trace_configure(TRACE_CAPACITY)
+        with tracing.span("era", era=0):
+            out["wall"], out["blocks"] = root_run(net, range(HB_N))
         out["launches"] = read_launches()
         out["net"], out["producers"] = net, producers
 
@@ -3086,8 +3205,42 @@ def run_root_native_path(seed: int, dev, ref=None):
         f"last_timings {rec}")
     batcher_lines(label, net)
     busy_line(label, by_kernel, wall)
+    check_era_report("root_era_native_64", net, out["before"], native=True)
     net.close()
+    if ref is not None:
+        ref["native_wall"] = wall
     return launches, [dict(wall_s=wall, **secs)]
+
+
+def run_root_native_untraced_path(seed: int, dev, ref):
+    """root_era_native_64's era once more with the engine's flight
+    recorder at capacity 0 (no record, no clock read on its hot path): the
+    same block hash and delivered_count as root_era_64 (`ref`), so a traced
+    era equals an untraced one; its wall beside root_era_native_64's."""
+    from lachain_tpu_torch.consensus.simulator import DeliveryMode
+
+    label = f"native root era N={HB_N} untraced"
+    pub, privs, proposals, signer, parent = root_era_inputs(seed)
+    clear_block_memos()
+    reset_counts()
+    net, _producers = native_root_net(pub, privs, proposals, dev, parent, seed,
+                                      DeliveryMode.TAKE_FIRST)
+    net.trace_configure(0)
+    wall, blocks = root_run(net, range(HB_N))
+    launches = read_launches()
+    check_no_escapes(label)
+    check_root_blocks(label, net, blocks, list(range(HB_N)), proposals, signer, pub,
+                      HB_N, HB_F)
+    h = blocks[0].header.hash()
+    check(h == ref["hash"] and net.delivered_count == ref["delivered"],
+          f"{label}: block {h.hex()[:16]} / {net.delivered_count} messages, root_era_64's "
+          f"{ref['hash'].hex()[:16]} / {ref['delivered']}")
+    check(net.trace_dropped() == 0, f"{label}: the recorder at capacity 0 dropped records")
+    log(f"{label}: recorder off: block {h.hex()[:16]} and {net.delivered_count} messages, "
+        f"root_era_64's; wall {wall:.3f} s (root_era_native_64, recorder on and traced by "
+        f"torch.profiler: {ref['native_wall']:.3f} s)")
+    net.close()
+    return launches, [dict(wall_s=wall)]
 
 
 def check_backend(device):
@@ -4376,6 +4529,38 @@ def trie_rows(kv) -> int:
     return sum(1 for _ in kv.scan_prefix(prefixed(EntryPrefix.TRIE_NODE)))
 
 
+LSM_HISTOGRAMS = ("lsm_wal_fsync_seconds", "lsm_wal_group_commit_records")
+
+
+def lsm_histograms() -> dict:
+    """The LSM recorder's two histograms as they stand: {name: snapshot}."""
+    from lachain_tpu_torch.utils import metrics
+
+    return {n: metrics.histogram_snapshot(n) or {"count": 0, "sum": 0.0, "buckets": []}
+            for n in LSM_HISTOGRAMS}
+
+
+def lsm_line(label: str, what: str, before: dict) -> None:
+    """Log what the drained LSM recorder fed the WAL's fsync-latency and
+    group-commit histograms since `before` (lsm_histograms()): count, sum,
+    mean and the cumulative buckets; check that the ring dropped nothing."""
+    from lachain_tpu_torch.utils import metrics
+
+    now = lsm_histograms()
+    parts = []
+    for name in LSM_HISTOGRAMS:
+        a, b = before[name], now[name]
+        n, total = b["count"] - a["count"], b["sum"] - a["sum"]
+        old = dict(a["buckets"])
+        cum = [(le, c - old.get(le, 0)) for le, c in b["buckets"]]
+        check(n > 0, f"{label}: the LSM recorder fed no {name} sample over {what}")
+        parts.append(f"{name} count {n} sum {total:.6f} mean {total / n:.6g} "
+                     f"buckets (le, cumulative) {cum}")
+    dropped = metrics.counter_value("trace_events_dropped_total", labels={"source": "lsm"})
+    log(f"{label}: the LSM flight recorder over {what}: " + "; ".join(parts)
+        + f"; trace_events_dropped_total{{source=lsm}} {dropped:.0f}")
+
+
 def run_state_path(seed: int, dev, keep: dict):
     """One validator's state on LsmKV in a temporary directory, at full
     size: a genesis of STATE_ACCOUNTS accounts, then STATE_BLOCKS blocks of
@@ -4408,6 +4593,7 @@ def run_state_path(seed: int, dev, keep: dict):
     from lachain_tpu_torch.storage.lsm import LsmKV
     from lachain_tpu_torch.storage.shrink import DbShrink
     from lachain_tpu_torch.storage.state import StateManager
+    from lachain_tpu_torch.utils import tracing
 
     label = f"state_commit N={STATE_ACCOUNTS}"
     t0 = time.perf_counter()
@@ -4434,7 +4620,9 @@ def run_state_path(seed: int, dev, keep: dict):
     log(f"{label}: a single LsmKV put (one fsynced WAL record) in the temporary "
         f"directory: median {put_latency_us(os.path.join(tmp, 'probe')):.1f} us of 1,000")
     store = os.path.join(tmp, "state")
+    lsm_before = lsm_histograms()
     kv = LsmKV(store)
+    kv.trace_configure(TRACE_CAPACITY)
     state = StateManager(kv)
     t0 = time.perf_counter()
     writes = genesis_writes(balances)
@@ -4442,6 +4630,7 @@ def run_state_path(seed: int, dev, keep: dict):
     block, r = commit_block(state, kv, 0, types.ZERO_HASH, [], writes)
     wall = time.perf_counter() - t0
     commit_line(f"genesis ({STATE_ACCOUNTS} balances)", state, kv, wall, clean("genesis", kv))
+    tracing.drain_native()  # the LSM recorder's events, its histograms fed
     warm.append(dict(wal_fsync_s=state.commit_stats["wal_fsync_s"], wall_s=wall))
     roots.append(r)
     blocks.append(block)
@@ -4477,6 +4666,7 @@ def run_state_path(seed: int, dev, keep: dict):
               f"{label} block {height}: not sharded: {state.trie.merkle_stats}")
         commit_line(f"block {height} ({rows} rows)", state, kv, wall,
                     clean(f"block {height}", kv))
+        tracing.drain_native()
         warm.append(dict(recover_s=rec_s, wal_fsync_s=state.commit_stats["wal_fsync_s"],
                          wall_s=wall))
         roots.append(r)
@@ -4503,6 +4693,7 @@ def run_state_path(seed: int, dev, keep: dict):
     del serial
 
     kv.close()
+    lsm_line(label, "the commits", lsm_before)
     t0 = time.perf_counter()
     kv = LsmKV(store)
     state = StateManager(kv)
@@ -4625,6 +4816,35 @@ def proxy_contract(builder) -> bytes:
     ]
     b.add_function([], [], [], body, export="start")
     return b.build()
+
+
+def tx_timelines(label: str, hashes) -> None:
+    """The txtrace timelines of the sampled transactions among `hashes`
+    (utils/txtrace.py, 1 in 2^sample_shift by hash prefix): every sampled
+    one has a timeline that runs pool -> propose -> exec -> commit in order,
+    its stages summing to its end-to-end span; printed: their count and
+    the median of each stage's seconds and of the end-to-end span."""
+    import statistics
+
+    from lachain_tpu_torch.utils import txtrace
+
+    sampled = [h for h in hashes if txtrace.sampled(h)]
+    tls = [txtrace.timeline(h) for h in sampled]
+    check(sampled and all(tl is not None for tl in tls),
+          f"{label}: {len(sampled)} sampled transactions, a timeline missing")
+    order = ["pool", "propose", "exec", "commit"]
+    for tl in tls:
+        check([st["stage"] for st in tl["stages"]] == order,
+              f"{label}: timeline {tl['traceId']} runs {[st['stage'] for st in tl['stages']]}")
+        check(abs(sum(st["dur_s"] for st in tl["stages"]) - tl["e2e_s"]) <= 1e-5,
+              f"{label}: timeline {tl['traceId']}'s stages do not sum to its e2e")
+    med = {st: statistics.median(tl["stages"][i]["dur_s"] for tl in tls)
+           for i, st in enumerate(order)}
+    log(f"{label}: txtrace timelines of {len(tls)} sampled transfers (1 in "
+        f"{1 << txtrace.sample_shift()} of {len(hashes)}), each pool -> propose -> exec -> "
+        f"commit, stages summing to e2e; median seconds "
+        + ", ".join(f"{k} {v:.6f}" for k, v in med.items())
+        + f", e2e {statistics.median(tl['e2e_s'] for tl in tls):.6f}")
 
 
 def run_exec_path(seed: int, dev, keep: dict):
@@ -4862,6 +5082,7 @@ def run_exec_path(seed: int, dev, keep: dict):
     produce(STATE_BLOCKS + 4, contract_calls())
     log(f"{label}: the WASM calls of block {STATE_BLOCKS + 4}: {wasm['gas']} gas above the "
         f"base transfer's, emulated in {wasm['s']:.3f} s (create_header)")
+    tx_timelines(label, [h for height in sorted(blocks) for h in blocks[height].tx_hashes])
 
     # the lanes: blocks 4 and 6 again over their parents' roots, memo cleared
     reset_counts()
@@ -5715,6 +5936,8 @@ def main() -> int:
     runs += [("root_era_64", lambda: run_root_era_path(args.seed, dev, root_ref)),
              ("root_era_16_check", lambda: run_root_check_path(args.seed, dev)),
              ("root_era_native_64", lambda: run_root_native_path(args.seed, dev, root_ref)),
+             ("root_era_native_64_untraced",
+              lambda: run_root_native_untraced_path(args.seed, dev, root_ref)),
              ("root_era_native_16_check", lambda: run_root_native_check_path(args.seed, dev))]
     state_ref = {}  # state_commit_1m's store and senders, which block_exec_1m continues on
     runs += [("root_era_adversary_native_64",
@@ -5759,6 +5982,7 @@ def main() -> int:
         "root_era_64": g1_path + ("rs_matmul8",) + secp_path,
         "root_era_16_check": g1_path + ("rs_matmul8",) + secp_path,
         "root_era_native_64": g1_path + ("rs_matmul8",) + secp_path,
+        "root_era_native_64_untraced": g1_path + ("rs_matmul8",) + secp_path,
         "root_era_native_16_check": g1_path + ("rs_matmul8",) + secp_path,
         **{p: g1_path + ("rs_matmul8",) + secp_path for p in (
             "root_era_adversary_native_64", "root_era_adversary_16", "chaos_era_16_check",

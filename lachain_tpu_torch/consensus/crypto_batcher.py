@@ -29,10 +29,14 @@ passed in (the reference reads `get_backend()` and draws from `secrets`);
 a failed flush raises out of `flush`, after finishing the chunks still in
 flight so that the pipeline's staging is free for the next flush, and the
 submissions it took are dropped (the reference hands every callback None
-and lets each submitter fall back to its host path); the reference's
-metrics and tracing calls are not carried over: `last_timings` holds the
-phases of the last flush, and `deduped_slots` and `chunks` count what the
-reference's metrics counted.
+and lets each submitter fall back to its host path). The reference's
+metrics and spans are kept under its names: the whole flush is a
+`tracing.wait("crypto_flush")`, the era calls a `tpke.flush` span (cat
+"crypto": `slots`, `slots_submitted`, `slots_padded`, `pad_waste`), the
+histograms `tpke_flush_slots` and `tpke_flush_pad_waste`, the counter
+`tpke_flush_deduped_slots_total` and the gauge `tpke_batcher_queue_depth`;
+`last_timings` holds the phases of the last flush, and `deduped_slots` and
+`chunks` count beside them what chip_smoke.py and the tests read.
 """
 from __future__ import annotations
 
@@ -40,7 +44,18 @@ import logging
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
+from ..utils import metrics, tracing
+
 logger = logging.getLogger(__name__)
+
+# per-flush slot counts are small powers of two in practice; the buckets
+# track the padded slot shapes the era's kernels run
+_SLOT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+_WASTE_BUCKETS = (0.0, 0.1, 0.2, 0.3, 0.4, 0.5)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
 def _job_fingerprint(job) -> Optional[tuple]:
@@ -114,6 +129,7 @@ class TpkeEraBatcher:
         per-job (ok, combined) list, in submission order."""
         if jobs:
             self._pending.append((jobs, verification_keys, callback, era))
+            metrics.set_gauge("tpke_batcher_queue_depth", self.pending)
 
     def submit_lazy(self, build, era: Optional[int] = None) -> None:
         """Queue a job BUILDER resolved at flush time: `build()` returns
@@ -121,6 +137,7 @@ class TpkeEraBatcher:
         prepares its slots once per flush, covering everything that became
         ready in the meantime."""
         self._lazy.append((build, era))
+        metrics.set_gauge("tpke_batcher_queue_depth", self.pending)
 
     def flush(self, era: Optional[int] = None) -> int:
         """Run pending jobs through the backend's era calls; returns the
@@ -130,6 +147,14 @@ class TpkeEraBatcher:
         NEXT flush). A failure raises; the submissions taken are dropped."""
         if not self._pending and not self._lazy:
             return 0
+        # for the delivery loop the whole flush (job build, era calls,
+        # callbacks) is one stall on the crypto: the era report's
+        # crypto_flush wait. Protocol spans its callbacks open outrank it
+        # in the report's sweep, so no time counts twice
+        with tracing.wait("crypto_flush", pending=self.pending):
+            return self._flush(era)
+
+    def _flush(self, era: Optional[int]) -> int:
         t0 = time.perf_counter()
         if era is None:
             taken, self._pending = self._pending, []
@@ -170,13 +195,39 @@ class TpkeEraBatcher:
                     if fp is not None:
                         seen[(id(vks), fp)] = idx
                 alias.append(idx)
+        if len(owners) > len(flat_jobs):
+            metrics.inc(
+                "tpke_flush_deduped_slots_total", len(owners) - len(flat_jobs)
+            )
         t2 = time.perf_counter()
-        results, chunk_timings = self._run_chunks(flat_jobs, key_of)
+        sid = tracing.begin("tpke.flush", cat="crypto", submissions=len(batch))
+        try:
+            results, chunk_timings, padded = self._run_chunks(flat_jobs, key_of)
+        except BaseException:
+            tracing.end(sid, outcome="exception")
+            raise
         t3 = time.perf_counter()
+        # each chunk's slot axis is padded to a power of two: the share of
+        # padded lanes burnt on dummy slots tunes max_slots_per_call
+        waste = 1.0 - len(flat_jobs) / padded if padded else 0.0
+        tracing.end(
+            sid,
+            slots=len(flat_jobs),
+            slots_submitted=len(owners),
+            slots_padded=padded,
+            pad_waste=round(waste, 4),
+        )
+        metrics.observe_hist(  # lint-allow: metric-name dimensionless slot-count distribution
+            "tpke_flush_slots", len(flat_jobs), buckets=_SLOT_BUCKETS
+        )
+        metrics.observe_hist(  # lint-allow: metric-name dimensionless waste-fraction distribution
+            "tpke_flush_pad_waste", waste, buckets=_WASTE_BUCKETS
+        )
         self.flushes += 1
         self.slots_flushed += len(flat_jobs)
         self.deduped_slots += len(owners) - len(flat_jobs)
         self.chunks += len(chunk_timings)
+        metrics.set_gauge("tpke_batcher_queue_depth", self.pending)
         per_sub: List[List] = [[None] * len(jobs) for (jobs, _vks, _cb) in batch]
         for (si, ji), ai in zip(owners, alias):
             per_sub[si][ji] = results[ai]
@@ -191,11 +242,13 @@ class TpkeEraBatcher:
 
     def _run_chunks(self, flat_jobs, key_of):
         """Every distinct job's (ok, combined), chunk by chunk, with `depth`
-        chunks in flight; and each chunk's backend timings."""
+        chunks in flight; each chunk's backend timings; and the slots of
+        every chunk padded to a power of two, summed."""
         backend = self.backend
         results: List = [None] * len(flat_jobs)
         timings: List[dict] = []
         inflight: List[Tuple[int, Callable]] = []
+        padded = 0
 
         def finish_oldest() -> None:
             off, fin = inflight.pop(0)
@@ -214,6 +267,7 @@ class TpkeEraBatcher:
                     and key_of[end] is vks
                 ):
                     end += 1
+                padded += _pow2_at_least(end - off)
                 inflight.append((off, backend.tpke_era_verify_combine_async(
                     flat_jobs[off:end], vks, self.rng)))
                 if len(inflight) >= self.depth:
@@ -229,4 +283,4 @@ class TpkeEraBatcher:
                     fin()
                 except Exception:
                     logger.exception("an in-flight era chunk failed too")
-        return results, timings
+        return results, timings, padded

@@ -23,12 +23,14 @@ Differences, by the port's rules: the router carries the crypto `backend`
 its protocols use (a GpuBackend on `device` unless one is given: on the
 card by default, and without a card that raises), its random generator
 `rng` (the TPKE encryption and the host RLC weights) and `memo`
-(provider.CryptoMemo, shared by the simulator's routers); the coin's
-combine seconds add up in `coin_s`, and the messages the per-sender caps
-shed in the plain attribute `shed` (`latch_cap`, `postponed_cap`: what the
-reference counts under `consensus_msgs_shed_total`); the sends the journal
-substituted count in `replayed_sends` (the reference's
-`consensus_journal_replayed_sends_total`).
+(provider.CryptoMemo, shared by the simulator's routers). The reference's
+metrics are minted under the same names: `consensus_msgs_shed_total{reason}`
+(mirrored by the plain attribute `shed`, which chip_smoke.py and the tests
+read), `consensus_journal_replayed_sends_total` (mirrored by
+`replayed_sends`), `consensus_outbox_evicted_total` and
+`consensus_outbox_replayed_total`; the GC closes the lifetime spans of the
+protocols it drops (outcome "era_gc"). The coin's combine seconds add up
+in `coin_s`.
 
 Durable sends: given a `journal` (journal.ConsensusJournal), every
 outbound payload is recorded before it is transmitted, and a payload for a
@@ -38,7 +40,7 @@ restarted validator cannot contradict its pre-crash self. A journal write
 that fails raises out of the send, and the payload is not transmitted.
 
 Not ported: the pipelined-era window (`window_floor`, `pipeline_window`,
-`open_era`, `commit_era_gc`: ROADMAP A item 11), metrics and tracing.
+`open_era`, `commit_era_gc`: ROADMAP A item 11).
 """
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ from .protocol import Broadcaster, Protocol
 from .reliable_broadcast import ReliableBroadcast
 from ..crypto.provider import CryptoMemo
 from ..network import wire
+from ..utils import metrics
 
 logger = logging.getLogger("lachain_tpu_torch.consensus.era")
 
@@ -171,6 +174,7 @@ class EraRouter(Broadcaster):
                 # the slot was durably sent: the recorded bytes again, never
                 # the re-derived value, and no second record
                 self.replayed_sends += 1
+                metrics.inc("consensus_journal_replayed_sends_total")
                 return wire.decode_payload(recorded)
         data = wire.encode_payload(payload)
         self._journal.record(era, target, data)
@@ -204,6 +208,7 @@ class EraRouter(Broadcaster):
             q = self._outbox[era] = deque()
         if len(q) >= self.outbox_cap:
             q.popleft()
+            metrics.inc("consensus_outbox_evicted_total")
         q.append((target, payload))
 
     def outbox_payloads(self, era: int, requester: int) -> List[Any]:
@@ -226,6 +231,8 @@ class EraRouter(Broadcaster):
             payloads = payloads[:limit]
         for payload in payloads:
             self._send(requester, payload)
+        if payloads:
+            metrics.inc("consensus_outbox_replayed_total", len(payloads))
         return len(payloads)
 
     def internal_request(self, req: M.Request) -> None:
@@ -263,6 +270,10 @@ class EraRouter(Broadcaster):
                     # the sender's buffer is full: its traffic sheds, the
                     # other senders' buffers are unaffected
                     self.shed["postponed_cap"] += 1
+                    metrics.inc(
+                        "consensus_msgs_shed_total",
+                        labels={"reason": "postponed_cap"},
+                    )
             return
         if not self._validate_id(pid):
             logger.warning("invalid protocol id %s from %d", pid, sender)
@@ -287,6 +298,10 @@ class EraRouter(Broadcaster):
             cnt = self._first_seen_per_sender.get(sender, 0)
             if cnt >= self.first_seen_sender_cap:
                 self.shed["latch_cap"] += 1
+                metrics.inc(
+                    "consensus_msgs_shed_total",
+                    labels={"reason": "latch_cap"},
+                )
                 return False
             self._first_seen_per_sender[sender] = cnt + 1
             self._first_seen[key] = payload
@@ -318,7 +333,9 @@ class EraRouter(Broadcaster):
 
     def _gc_below(self, cutoff: int) -> None:
         for pid in [p for p in self._protocols if getattr(p, "era", cutoff) < cutoff]:
-            del self._protocols[pid]
+            # laggards the era's outcome never needed: their lifetime spans
+            # close here, so that no trace reports them stuck open
+            self._protocols.pop(pid).close_span(outcome="era_gc")
         for e in [e for e in self._outbox if e < cutoff]:
             del self._outbox[e]
         for key in [k for k in self._sent_slots if k[0] < cutoff]:

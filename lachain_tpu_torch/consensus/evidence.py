@@ -9,14 +9,16 @@ detection families feed it:
     at a combine: TPKE decryption shares (honey_badger.py) and coin
     signature shares (common_coin.py, ThresholdSigner.pruned).
 Records are deduplicated, so re-detection cannot grow the store, which is
-bounded by `cap` (a record past it is dropped and counted in `dropped`,
-the reference's `consensus_evidence_dropped_total`). Given a KV store
-(storage/kv.py), a record is persisted under `EntryPrefix.EVIDENCE`
-through the KV's fsynced `write_batch` before it is counted, and a store
-over the same KV reloads it after a restart: an accusation survives a
-crash. `EvidenceRecord.encode` gives the JAX package's bytes. The
-reference's metrics and the module-level per-era counters (`era_counts`)
-wait for the node's metrics (ROADMAP A item 13).
+bounded by `cap` (a record past it is dropped and counted in
+`consensus_evidence_dropped_total`, and in the plain attribute `dropped`
+that the tests read). Given a KV store (storage/kv.py), a record is
+persisted under `EntryPrefix.EVIDENCE` through the KV's fsynced
+`write_batch` before it is counted, and a store over the same KV reloads
+it after a restart: an accusation survives a crash. The counters
+`consensus_equivocations_total{proto}` / `consensus_invalid_shares_total
+{proto}` and the process-wide per-era counts (`era_counts`, which
+`tracing.era_report` shows) move only after the record is persisted.
+`EvidenceRecord.encode` gives the JAX package's bytes.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 from ..storage.kv import EntryPrefix, prefixed
+from ..utils import metrics
 from ..utils.serialization import Reader, write_bytes, write_u64
 
 EQUIVOCATION = "equivocation"
@@ -32,6 +35,10 @@ INVALID_SHARE = "invalid_share"
 _KIND_CODES = {EQUIVOCATION: 1, INVALID_SHARE: 2}
 _KIND_NAMES = {v: k for k, v in _KIND_CODES.items()}
 _PREFIX = prefixed(EntryPrefix.EVIDENCE)
+_KIND_METRICS = {
+    EQUIVOCATION: "consensus_equivocations_total",
+    INVALID_SHARE: "consensus_invalid_shares_total",
+}
 
 
 @dataclass(frozen=True, order=True)
@@ -102,6 +109,28 @@ def describe_slot(slot: tuple) -> Tuple[str, Tuple[int, ...]]:
     return tag, ()
 
 
+# -- per-era pressure counters (the era report's byzantine columns) ----------
+# process-wide, so that tracing.era_report shows the pressure per era
+# without a store threaded through it; reset with the trace
+_era_counts: Dict[int, Dict[str, int]] = {}
+
+
+def _bump_era(era: int, kind: str) -> None:
+    per = _era_counts.setdefault(int(era), {})
+    per[kind] = per.get(kind, 0) + 1
+
+
+def era_counts(era: Optional[int] = None) -> Dict:
+    """Per-era evidence counts: {era: {kind: n}} (or one era's {kind: n})."""
+    if era is not None:
+        return dict(_era_counts.get(int(era), {}))
+    return {e: dict(kinds) for e, kinds in _era_counts.items()}
+
+
+def reset_era_counts() -> None:
+    _era_counts.clear()
+
+
 class EvidenceStore:
     """Deduplicated store of EvidenceRecords, one per validator (owned by
     its EraRouter), persisted on `kv` when one is given. A record past
@@ -145,11 +174,15 @@ class EvidenceStore:
             return False
         if len(self._ordered) >= self.cap:
             self.dropped += 1
+            metrics.inc("consensus_evidence_dropped_total")
             return False
-        # durable before it is observable
+        # durable before it is observable: the record is on the fsynced KV
+        # path before any counter moves (rule E of tools/check_invariants.py)
         self._persist(rec)
         self._records.add(rec)
         self._ordered.append(rec)
+        metrics.inc(_KIND_METRICS[rec.kind], labels={"proto": rec.proto})
+        _bump_era(rec.era, rec.kind)
         return True
 
     def record_equivocation(

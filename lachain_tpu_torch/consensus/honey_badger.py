@@ -23,7 +23,10 @@ Differences, by the port's rules: the ciphertext's randomness and every
 RLC weight come from the router's `rng`; the host ops run on the
 router's host backend (`Protocol.host`) and parse through its `memo`;
 an era call that fails raises (the reference logs and falls back to the
-host per slot); no tracing.
+host per slot). The reference's spans are kept: the `hb.queue_decrypt`
+instant at a batcher submission, `hb.era_decrypt` around an era call
+made without a batcher and `hb.apply_era_results` around the decryption
+of an era's results (the era report's `tpke_decrypt` phase).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from ..crypto.provider import deserialize_batch_g1
 from . import messages as M
 from .keys import PrivateConsensusKeys, PublicConsensusKeys
 from .protocol import Broadcaster, Protocol
+from ..utils import tracing
 
 
 class HoneyBadger(Protocol):
@@ -197,12 +201,19 @@ class HoneyBadger(Protocol):
             if not self._batcher_queued and self._ready_slots():
                 self._batcher_queued = True
                 batcher.submit_lazy(self._build_era_jobs_lazy)
+                tracing.instant(
+                    "hb.queue_decrypt", cat="crypto", era=self.id.era
+                )
             return
         built = self._build_era_jobs()
         if built is None:
             return
         jobs, vks, cb = built
-        cb(era_fn(jobs, vks, self.broadcaster.rng))
+        with tracing.span(
+            "hb.era_decrypt", cat="crypto", era=self.id.era, slots=len(jobs)
+        ):
+            results = era_fn(jobs, vks, self.broadcaster.rng)
+        cb(results)
 
     def _build_era_jobs_lazy(self):
         """Batcher flush hook: build jobs for everything ready RIGHT NOW."""
@@ -280,6 +291,15 @@ class HoneyBadger(Protocol):
         self._try_complete()
 
     def _apply_era_results(self, ready, results) -> None:
+        with tracing.span(
+            "hb.apply_era_results",
+            cat="crypto",
+            era=self.id.era,
+            slots=len(ready),
+        ):
+            self._apply_era_results_inner(ready, results)
+
+    def _apply_era_results_inner(self, ready, results) -> None:
         for slot, (ok, combined) in zip(ready, results):
             if ok:
                 self._plaintexts[slot] = tpke.decrypt_with_combined(

@@ -20,9 +20,10 @@ Entries are pruned with the protocol GC (`EraRouter.advance_era`).
 Key layout: ``CONSENSUS_STATE | era u64 | seq u64`` ->
 ``i64(target, -1 = broadcast) | bytes(payload wire bytes)``.
 
-Differences, by the port's rules: the reference's journal counters are the
-plain attributes `records` (records written) and `pruned` (records
-dropped by prune_below) of each journal.
+The reference's counters are minted under its names,
+`consensus_journal_records_total` and `consensus_journal_pruned_total`;
+each journal's plain attributes `records` (records written) and `pruned`
+(records dropped by prune_below), which the tests read, count beside them.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Dict, Iterator, Optional, Tuple
 
 from . import messages as M
 from ..storage.kv import EntryPrefix, KVStore, prefixed
+from ..utils import metrics
 from ..utils.serialization import Reader, write_bytes, write_i64, write_u64
 
 _PREFIX = prefixed(EntryPrefix.CONSENSUS_STATE)
@@ -95,6 +97,7 @@ class ConsensusJournal:
         self._kv.write_batch([(key, value)])
         self._next_seq[era] = seq + 1
         self.records += 1
+        metrics.inc("consensus_journal_records_total")
 
     def entries(self) -> Iterator[Tuple[int, int, Optional[int], bytes]]:
         """Yield (era, seq, target, payload_bytes) in (era, seq) order;
@@ -133,4 +136,5 @@ class ConsensusJournal:
             for era in [e for e in self._next_seq if e < era_cutoff]:
                 del self._next_seq[era]
             self.pruned += len(doomed)
+            metrics.inc("consensus_journal_pruned_total", len(doomed))
         return len(doomed)

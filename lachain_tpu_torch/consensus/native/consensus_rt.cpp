@@ -7,7 +7,7 @@
 // reference's, so that one seed gives the same execution in both packages
 // (tests/test_torch_native_rt.py). Built by lachain_tpu_torch/ops/_build.py
 // consensus_library() and bound by lachain_tpu_torch/consensus/native_rt.py,
-// which leaves the flight recorder (rt_trace_*) unbound.
+// which drains the flight recorder (rt_trace_*) into utils/tracing.py.
 //
 // Role: the C# reference runs one OS thread + one queue per protocol
 // instance (src/Lachain.Consensus/AbstractProtocol.cs:11-168) and a central

@@ -23,8 +23,10 @@ network's `TpkeEraBatcher` (the era's kernels on the card) and the RBC
 codec to its `RbcEraBatcher` (`rs_matmul` on the card); a node's
 decryption shares U^{x_i} are one `g1_mul_batch` of the host backend. The
 seconds a coin spends combining add up in the router's `coin_s`, and a
-RootHost keeps `sign_s` / `verify_s` as RootProtocol does. Not ported: the
-reference's tracing spans and instants and its txtrace stamps.
+RootHost keeps `sign_s` / `verify_s` as RootProtocol does. The
+reference's spans, instants and stamps are kept: the `hb.queue_decrypt`
+instant at a batcher submission, the `hb.apply_era_results` span around
+an era's decryptions, and the "decide" txtrace stamp of a RootHost.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from ..crypto import ecdsa, hashes, tpke
 from ..crypto import threshold_sig as ts
 from ..crypto.provider import deserialize_batch_g1, deserialize_batch_g2
 from . import messages as M
+from ..utils import tracing, txtrace
 
 # --- shared contract with consensus_rt.cpp (enums CrossOp/PostOp/ReqKind) ---
 
@@ -267,6 +270,7 @@ class HoneyBadgerHost:
         self.router.crypto_batcher.submit_lazy(
             self._build_era_jobs_lazy
         )
+        tracing.instant("hb.queue_decrypt", cat="crypto", era=self.id.era)
 
     def _refresh_cands(self) -> List[int]:
         """Pull the engine's ready slots and candidate shares; returns the
@@ -349,14 +353,20 @@ class HoneyBadgerHost:
             self._post(PO_HB_CLEAR_INFLIGHT, a=slot)
         if self.done:
             return
-        for slot, (ok, combined) in zip(ready, results):
-            if ok:
-                self._resolve(
-                    slot,
-                    tpke.decrypt_with_combined(self._ciphertexts[slot], combined),
-                )
-            else:
-                self._try_decrypt(slot)
+        with tracing.span(
+            "hb.apply_era_results",
+            cat="crypto",
+            era=self.id.era,
+            slots=len(ready),
+        ):
+            for slot, (ok, combined) in zip(ready, results):
+                if ok:
+                    self._resolve(
+                        slot,
+                        tpke.decrypt_with_combined(self._ciphertexts[slot], combined),
+                    )
+                else:
+                    self._try_decrypt(slot)
         self._post(PO_HB_REQUEUE_CHECK)
 
     def _resolve(self, slot: int, plaintext: Optional[bytes]) -> None:
@@ -480,6 +490,11 @@ class RootHost:
                     seen.add(h)
                     txs.append(stx)
         self._txs = txs
+        # tx lifecycle: consensus agreed on the era's tx union (the decide
+        # point: every honest node derives the same set here)
+        txtrace.stamp_many(
+            (stx.hash() for stx in txs), "decide", era=self.id.era
+        )
         self._header = self._producer.create_header(self.id.era, txs, nonce)
         self._header_hash = self._header.hash()
         t0 = time.perf_counter()

@@ -29,12 +29,27 @@ port's `SimulatedNetwork` (`device="cuda"`; `backend` None builds a
 `RbcEraBatcher(backend.device)`, each router's `SeededRng(("router", seed,
 i))` and one shared `CryptoMemo`). The engine is always the checkout's own
 build, with the version-7 RBC host: no prebuilt library, no override, no
-version probe. What a chip run reads is kept as plain attributes in place
-of the reference's metrics: `delivered_count`, `crossings` (a count per
-crossing op, `XO_NAMES`' names plus the per-message "opaque_message",
-"acs_result" and "coin_request"), `tpke_phase_s`, `rbc_phase_s` and
-`coin_s`. The flight recorder (`rt_trace_*`) stays in the engine,
-unbound. `__del__` only frees the engine's handle.
+version probe. The reference's metrics are minted under its names: every
+crossing counts in `consensus_callback_crossings_total{op}`
+(`CROSSINGS_METRIC`; the plain dict `crossings`, a count per crossing op,
+`XO_NAMES`' names plus the per-message "opaque_message", "acs_result" and
+"coin_request", mirrors it for chip_smoke.py), `run` sets the gauges
+`consensus_dispatch_queue_depth` and `consensus_native_handled_messages`.
+`delivered_count`, `tpke_phase_s`, `rbc_phase_s` and `coin_s` stay plain
+attributes that a chip run reads.
+
+The flight recorder is bound as in the reference (native_rt.py:240-252,
+:967-1110): the network sizes the engine's ring (`trace_configure`, by
+default `tracing.DEFAULT_CAPACITY` records; 0 switches recording and its
+clock reads off), aligns its clock with `time.monotonic` once
+(`tracing.clock_offset` over `rt_monotonic_ns`) and registers the ring
+with the merged tracer; `decode_consensus_trace` turns a drained buffer
+into the tracer's events (crossings, posts, stages, era advances, the
+dispatch-phase totals and the starved-loop waits), which
+`tracing.era_report` reads. Ring overwrites count in
+`trace_events_dropped_total{source="consensus"}` (`trace_dropped()`).
+`close()` drains the ring and unregisters it; `__del__` only frees the
+engine's handle (it takes no lock, the tracer's included).
 
 A `fault_plan` (network/faults.FaultPlan) maps onto the engine's own
 knobs as in the reference: duplication raises the repeat probability,
@@ -57,12 +72,13 @@ bytes for a slot sent before (`rearm_sent`, inherited, re-arms a router
 from its journal before its first request).
 
 Not in this slice (ROADMAP A): `pipeline_window`, the per-era engines,
-`run_front` / `run_tail` and the deferred sign (item 11);
-`decode_consensus_trace` and the tracer registration (item 13).
+`run_front` / `run_tail` and the deferred sign (item 11).
 """
 from __future__ import annotations
 
 import ctypes
+import struct
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Set
 
@@ -94,6 +110,10 @@ from .native_hosts import (
 )
 from .simulator import DeliveryMode, SeededRng, flush_rbc, flush_tpke
 from ..crypto.provider import CryptoMemo
+from ..utils import metrics, tracing
+
+# every crossing into Python, by op: the plain `crossings` dict's twin
+CROSSINGS_METRIC = "consensus_callback_crossings_total"
 
 # opaque payload kinds (shared contract with consensus_rt.cpp MT_OPAQUE)
 KIND_DECRYPTED = 0
@@ -168,6 +188,10 @@ _SIGNATURES = {
     "rt_request_stop": (None, [_P]),
     "rt_opaque_pending": (_U64, [_P, _I]),
     "rt_queue_len": (_SZ, [_P]),
+    "rt_monotonic_ns": (_U64, []),
+    "rt_trace_configure": (None, [_P, _SZ]),
+    "rt_trace_dropped": (_U64, [_P]),
+    "rt_trace_drain": (_SZ, [_P, ctypes.POINTER(ctypes.c_uint8), _SZ]),
 }
 
 _RT: List[Any] = []
@@ -186,6 +210,84 @@ def load_rt():
             fn.argtypes = argtypes
         _RT.append(lib)
     return _RT[0]
+
+
+# -- flight recorder ---------------------------------------------------------
+
+# consensus_rt.cpp's trace records: 32 bytes big-endian (u64 ts_ns, u64
+# dur_ns, u32 kind, u32 tid, u32 a, u32 b)
+_TRACE_RECORD = struct.Struct(">QQIIII")
+TK_ERA_ADVANCE, TK_CROSS, TK_POST, TK_STAGE, TK_PHASE, TK_WAIT = 1, 2, 3, 4, 5, 6
+# TP_* dispatch-phase buckets -> era-report phase keys (tracing._DISPATCH_PHASE)
+TP_NAMES = {1: "rbc", 2: "ba", 3: "coin", 4: "tpke", 5: "commit", 6: "other"}
+# WR_* wait resources (TK_WAIT.a) -> era-report wait buckets (tracing.WAIT_RESOURCES)
+WR_NAMES = {1: "net", 2: "crypto_flush", 3: "device", 4: "fsync", 5: "sched"}
+# the coarse PO_* ops the engine records (per-slot ops are not recorded)
+_PO_TRACE_NAMES = {2: "coin_result", 3: "hb_acs_input", 5: "hb_acs_done",
+                   12: "root_header"}
+_TS_NAMES = {1: "acs_result"}
+TRACE_PID_CONSENSUS = 2  # Chrome-export process lane (the Python host is 1)
+
+
+def decode_consensus_trace(
+    raw: bytes, offset: float, source: str = "consensus"
+) -> List[dict]:
+    """A drained buffer -> the merged tracer's event dicts
+    (tracing.register_native_source gives the schema); `offset` is the
+    seconds that put the engine's clock on time.monotonic's. A wait record
+    also feeds `wait_seconds{resource}`."""
+    evs: List[dict] = []
+    for i in range(0, len(raw) - (len(raw) % 32), 32):
+        ts, dur, kind, tid, a, b = _TRACE_RECORD.unpack_from(raw, i)
+        common = dict(
+            start=ts / 1e9 + offset,
+            end=(ts + dur) / 1e9 + offset,
+            pid=TRACE_PID_CONSENSUS,
+            pname="native-consensus",
+        )
+        if kind == TK_CROSS:
+            op = XO_NAMES.get(a, str(a))
+            evs.append(dict(
+                common, name=f"cross:{op}", cat="native.cross", tid=tid,
+                tname=f"validator-{tid}", args={"op": op, "era": b, "vid": tid},
+            ))
+        elif kind == TK_PHASE:
+            phase = TP_NAMES.get(a, str(a))
+            evs.append(dict(
+                common, name=f"dispatch:{phase}", cat="native.phase", tid=0,
+                tname="dispatch",
+                # cumulative per-(era, phase) totals: the latest wins
+                replace_key=(source, b, a),
+                args={"phase": phase, "era": b, "dur_ns": dur},
+            ))
+        elif kind == TK_ERA_ADVANCE:
+            evs.append(dict(
+                common, name="era_advance", cat="native.consensus", tid=tid,
+                tname=f"validator-{tid}",
+                args={"vid": tid, "new_era": a, "old_era": b},
+            ))
+        elif kind == TK_POST:
+            op = _PO_TRACE_NAMES.get(a, str(a))
+            evs.append(dict(
+                common, name=f"post:{op}", cat="native.consensus", tid=tid,
+                tname=f"validator-{tid}", args={"op": op, "era": b, "vid": tid},
+            ))
+        elif kind == TK_STAGE:
+            evs.append(dict(
+                common, name=f"stage:{_TS_NAMES.get(a, str(a))}",
+                cat="native.consensus", tid=tid, tname=f"validator-{tid}",
+                args={"stage": a, "era": b, "vid": tid},
+            ))
+        elif kind == TK_WAIT:
+            res = WR_NAMES.get(a, str(a))
+            evs.append(dict(
+                common, name=f"wait:{res}", cat="native.wait", tid=0,
+                tname="dispatch", args={"resource": res, "era": b},
+            ))
+            metrics.observe_hist(
+                "wait_seconds", dur / 1e9, labels={"resource": res}
+            )
+    return evs
 
 
 @dataclass(frozen=True)
@@ -716,6 +818,64 @@ class NativeSimulatedNetwork:
         self._lib.rt_set_callbacks(self._h, *self._cbs)
         self._own_masks = [-1] * self.n  # the engine's masks (-1: unset)
         self._sync_ownership()
+        # the flight recorder: size the ring, put its clock on
+        # time.monotonic's, register it with the merged tracer (through a
+        # weak reference: the registry must not keep a dropped network)
+        self._trace_offset = tracing.clock_offset(self._lib.rt_monotonic_ns)
+        self._trace_dropped_seen = 0
+        self._trace_source = f"consensus-{id(self):x}"
+        self.trace_configure(tracing.DEFAULT_CAPACITY)
+        ref = weakref.ref(self)
+        source = self._trace_source
+
+        def drain() -> List[dict]:
+            net = ref()
+            if net is None:
+                tracing.unregister_native_source(source)
+                return []
+            return net._drain_trace()
+
+        tracing.register_native_source(source, drain)
+
+    # -- flight recorder -------------------------------------------------------
+    def trace_configure(self, capacity: int) -> None:
+        """Resize the engine's trace ring (records); 0 switches recording,
+        and its clock reads on the hot path, off. Buffered records go."""
+        self._lib.rt_trace_configure(self._h, max(int(capacity), 0))
+
+    def trace_dropped(self) -> int:
+        """Records the ring overwrote before they were drained."""
+        return int(self._lib.rt_trace_dropped(self._h)) if self._h is not None else 0
+
+    def _drain_trace(self) -> List[dict]:
+        """Consume the engine's ring -> the merged tracer's events, and
+        publish the growth of its drop count in
+        trace_events_dropped_total{source="consensus"}."""
+        if self._h is None:
+            return []
+        evs: List[dict] = []
+        # a size query, then the copying call, which consumes the ring; the
+        # slack covers records appended in between, and a ring that still
+        # outgrew the buffer (got > len: nothing copied) is asked again
+        for _ in range(4):
+            need = self._lib.rt_trace_drain(self._h, None, 0)
+            if need == 0:
+                break
+            buf = (ctypes.c_uint8 * (need + 4096))()
+            got = self._lib.rt_trace_drain(self._h, buf, len(buf))
+            if got <= len(buf):
+                evs = decode_consensus_trace(
+                    bytes(buf[:got]), self._trace_offset, self._trace_source)
+                break
+        dropped = self.trace_dropped()
+        if dropped > self._trace_dropped_seen:
+            metrics.inc(
+                "trace_events_dropped_total",
+                dropped - self._trace_dropped_seen,
+                labels={"source": "consensus"},
+            )
+            self._trace_dropped_seen = dropped
+        return evs
 
     @property
     def coin_s(self) -> float:
@@ -723,13 +883,20 @@ class NativeSimulatedNetwork:
         return sum(r.coin_s for r in self.routers)
 
     def close(self) -> None:
-        """Free the engine (idempotent)."""
+        """Drain the engine's ring into the merged tracer, unregister it
+        and free the engine (idempotent)."""
         if self._h is not None:
+            tracing.drain_native()
+            tracing.unregister_native_source(self._trace_source)
             self._lib.rt_free(self._h)
             self._h = None
 
     def __del__(self):  # pragma: no cover
-        self.close()
+        # no lock here (a collection can run inside the tracer's): the
+        # weakly held drain unregisters itself once this object is gone
+        if self._h is not None:
+            self._lib.rt_free(self._h)
+            self._h = None
 
     # -- native ownership ------------------------------------------------------
     def _sync_owner(self, vid: int) -> None:
@@ -824,6 +991,7 @@ class NativeSimulatedNetwork:
             return
         try:
             self.crossings["opaque_message"] += 1
+            metrics.inc(CROSSINGS_METRIC, labels={"op": "opaque_message"})
             blob = ctypes.string_at(data, length) if length else b""
             self.routers[target]._on_opaque(sender, era, kind, agreement, epoch, blob)
             if (
@@ -843,6 +1011,7 @@ class NativeSimulatedNetwork:
             return
         try:
             self.crossings["acs_result"] += 1
+            metrics.inc(CROSSINGS_METRIC, labels={"op": "acs_result"})
             result = {
                 int(slots[i]): (
                     ctypes.string_at(datas[i], lens[i]) if lens[i] else b""
@@ -858,6 +1027,7 @@ class NativeSimulatedNetwork:
             return
         try:
             self.crossings["coin_request"] += 1
+            metrics.inc(CROSSINGS_METRIC, labels={"op": "coin_request"})
             self.routers[target]._on_coin_request(era, agreement, epoch)
         except BaseException as exc:  # noqa: BLE001 - re-raised from run()
             self._cb_errors.append(exc)
@@ -868,6 +1038,7 @@ class NativeSimulatedNetwork:
         try:
             name = XO_NAMES.get(op, f"op{op}")
             self.crossings[name] = self.crossings.get(name, 0) + 1
+            metrics.inc(CROSSINGS_METRIC, labels={"op": name})
             blob = ctypes.string_at(data, length) if length else b""
             self.routers[target]._on_cross(era, op, a, b, blob)
         except BaseException as exc:  # noqa: BLE001 - re-raised from run()
@@ -875,11 +1046,15 @@ class NativeSimulatedNetwork:
 
     # -- execution (SimulatedNetwork.run's contract) ---------------------------
     def post_request(self, validator: int, pid, value) -> None:
-        """Inject a top-level request into one validator."""
+        """Inject a top-level request into one validator. The injection
+        runs the proposal's encryption and RS encode before the first
+        dispatch chunk, outside the engine's phase accumulators: it is the
+        era report's `propose` phase (a `consensus.propose` span)."""
         self._sync_ownership()
-        self.routers[validator].internal_request(
-            M.Request(from_id=None, to_id=pid, input=value)
-        )
+        with tracing.span("consensus.propose", era=getattr(pid, "era", None)):
+            self.routers[validator].internal_request(
+                M.Request(from_id=None, to_id=pid, input=value)
+            )
 
     def run(
         self,
@@ -891,11 +1066,21 @@ class NativeSimulatedNetwork:
         quiescence; True iff done() held. A callback's failure, and a failed
         flush, raise; more than `max_messages` deliveries with traffic left
         raise (a livelock)."""
+        try:
+            return self._run(done, max_messages, chunk)
+        finally:
+            if self._h is not None:
+                metrics.set_gauge(
+                    "consensus_native_handled_messages", self.native_handled()
+                )
+
+    def _run(self, done, max_messages: int, chunk: int) -> bool:
         lib, h = self._lib, self._h
         while not done():
             processed = lib.rt_run(h, chunk)
             self.delivered_count += processed
             self._raise_cb_error()
+            metrics.set_gauge("consensus_dispatch_queue_depth", lib.rt_queue_len(h))
             # RBC first: interpolations unblock READY / delivery and so the
             # ACS, and draining them before the TPKE flush keeps its batch as
             # large as it can get

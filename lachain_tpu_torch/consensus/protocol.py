@@ -12,9 +12,14 @@ the router drops further traffic to it. Work that runs outside `receive`
 Differences, by the port's rules: the broadcaster carries the crypto
 `backend` (its `host` property the host ops: pairings, hash-to-curve,
 point checks and the small MSMs) and the router's random generator `rng`,
-where the reference reads a global provider and draws from `secrets`; the
-reference's metrics, tracing spans and watchdog breadcrumbs are not
-carried over.
+where the reference reads a global provider and draws from `secrets`.
+
+Observability, as in the reference: every instance opens a lifetime span
+(`tracing`, cat "protocol", closed by `emit_result`, an exception or the
+era GC), records its duration in
+`consensus_protocol_duration_seconds{protocol}` when it completes, and
+counts each envelope in `metrics.MESSAGES_PROCESSED`; `last_message`,
+`last_activity` and `stall_count` are the stall watchdog's breadcrumbs.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import logging
 from typing import Any, Optional
 
 from . import messages as M
+from ..utils import metrics, tracing
 
 logger = logging.getLogger("lachain_tpu_torch.consensus")
 
@@ -67,6 +73,27 @@ class Protocol:
         self.result: Any = None
         self._result_emitted = False
         self._parent: Optional[Any] = None
+        # the stall watchdog's breadcrumbs: interned type names only (an
+        # f-string a message would cost more than most handlers at N=64)
+        self.started_at = metrics.monotonic()
+        self.last_activity = self.started_at
+        self._last_kind: Optional[tuple] = None
+        # consecutive watchdog strikes with no progress; reset on receive()
+        self.stall_count = 0
+        # lifetime span: closed on emit_result / exception termination, or
+        # by the era GC for instances an era's outcome never needed
+        self._span_id = tracing.begin(
+            type(self).__name__,
+            cat="protocol",
+            era=getattr(pid, "era", None),
+            pid=str(pid),
+        )
+
+    def record_stall(self) -> int:
+        """Watchdog strike: bump and return the consecutive-stall count;
+        any received message resets it."""
+        self.stall_count += 1
+        return self.stall_count
 
     # -- runtime ------------------------------------------------------------
     def receive(self, envelope) -> None:
@@ -74,6 +101,15 @@ class Protocol:
         protocol."""
         if self.terminated:
             return
+        metrics.MESSAGES_PROCESSED[0] += 1
+        self.last_activity = metrics.monotonic()
+        self.stall_count = 0
+        self._last_kind = (
+            type(envelope).__name__,
+            type(envelope.payload).__name__
+            if isinstance(envelope, M.External)
+            else None,
+        )
         try:
             if isinstance(envelope, M.External):
                 self.handle_external(envelope.sender, envelope.payload)
@@ -98,6 +134,18 @@ class Protocol:
         except Exception:
             logger.exception("protocol %s terminated by exception", self.id)
             self.terminated = True
+            self.close_span(outcome="exception")
+
+    def close_span(self, outcome: str = "done") -> None:
+        """Close this instance's lifetime span (idempotent) and record its
+        duration in the per-protocol-type histogram."""
+        tracing.end(self._span_id, outcome=outcome)
+        if outcome == "done":
+            metrics.observe_hist(
+                "consensus_protocol_duration_seconds",
+                metrics.monotonic() - self.started_at,
+                labels={"protocol": type(self).__name__},
+            )
 
     def emit_result(self, value) -> None:
         """Report the protocol's output to the parent, once."""
@@ -105,6 +153,7 @@ class Protocol:
             return
         self._result_emitted = True
         self.result = value
+        self.close_span()
         self.broadcaster.internal_response(
             M.Result(from_id=self.id, to_id=self._parent, value=value)
         )
@@ -118,6 +167,14 @@ class Protocol:
 
     def handle_child_result(self, child_id, value) -> None:
         pass
+
+    @property
+    def last_message(self) -> str:
+        """Watchdog breadcrumb, rendered on demand."""
+        if self._last_kind is None:
+            return "<created>"
+        kind, payload = self._last_kind
+        return kind if payload is None else f"{kind}:{payload}"
 
     # -- helpers ------------------------------------------------------------
     @property

@@ -14,8 +14,13 @@ than era - 2 are dropped at the next flush.
 
 Nothing falls back: where the reference replays the scalar sequence after
 any batch-path failure (rbc_batcher.py:179-181, :215-221), a failure here
-raises out of `flush`. The reference's metrics and tracing calls are not
-carried over (the port has no `utils` yet). `scalar_verdict` is the host
+raises out of `flush`. The reference's metrics and spans are kept under its
+names: an `rbc.flush` span an era's flush (the era report's `rbc` phase;
+the RS products inside it are `rs.device` spans, ops/rs_batch.py, the
+`rbc_device` phase), `rbc_flush_total`, `rbc_flush_memo_hits_total`,
+`rbc_flush_deduped_total`, the histogram `rbc_batch_size` and the gauge
+`rbc_batcher_queue_depth`; the plain counters `memo_hits`, `deduped`,
+`items` stay beside them for chip_smoke.py. `scalar_verdict` is the host
 oracle that the tests and `chip_smoke.py` hold the batcher to.
 
 Callback contract: `cb(payload_or_None)` for interpolations (None = bad
@@ -34,8 +39,10 @@ from ..crypto import hashes
 from ..ops import rs, rs_batch
 from ..parallel import mesh_by_default
 from ..parallel.mesh import cards_from, make_mesh
+from ..utils import metrics, tracing
 
 PHASES = ("inverse_s", "pack_s", "device_s", "fetch_s", "recheck_s")
+_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
 
 def scalar_verdict(shards, k: int, root: bytes) -> Optional[bytes]:
@@ -96,6 +103,7 @@ class RbcEraBatcher:
     ) -> None:
         """Queue a sender-side encode; `cb(shards)` at the next flush."""
         self._enc.setdefault(era, []).append((value, k, n, cb))
+        metrics.set_gauge("rbc_batcher_queue_depth", self.pending)
 
     def submit_interpolate(
         self,
@@ -113,9 +121,11 @@ class RbcEraBatcher:
         memo = self._memo.get(era)
         if memo is not None and key in memo:
             self.memo_hits += 1
+            metrics.inc("rbc_flush_memo_hits_total")
             cb(memo[key])
             return
         self._interp.setdefault(era, []).append((key, shards, k, root, cb))
+        metrics.set_gauge("rbc_batcher_queue_depth", self.pending)
 
     def flush(self, era: Optional[int] = None) -> int:
         """Flush one era's submissions (None = every era with a backlog).
@@ -127,6 +137,8 @@ class RbcEraBatcher:
         done = 0
         for e in eras:
             done += self._flush_era(e)
+        if done:
+            metrics.set_gauge("rbc_batcher_queue_depth", self.pending)
         return done
 
     def _flush_era(self, era: int) -> int:
@@ -150,10 +162,24 @@ class RbcEraBatcher:
                 uniq[key] = (shards, k, root)
                 order.append(key)
             waiters.setdefault(key, []).append(cb)
-        self.deduped += len(interps) - len(uniq)
+        deduped = len(interps) - len(uniq)
+        if deduped:
+            metrics.inc("rbc_flush_deduped_total", deduped)
+        self.deduped += deduped
         self.items += len(encs) + len(interps)
-        enc_out = self._run_encodes(encs, timings)
-        verdicts = self._run_interps(uniq, order, timings)
+        with tracing.span(
+            "rbc.flush",
+            era=era,
+            encodes=len(encs),
+            interpolates=len(uniq),
+            interpolates_submitted=len(interps),
+        ):
+            enc_out = self._run_encodes(era, encs, timings)
+            verdicts = self._run_interps(era, uniq, order, timings)
+        metrics.inc("rbc_flush_total")
+        metrics.observe_hist(  # lint-allow: metric-name dimensionless batch-size distribution
+            "rbc_batch_size", len(encs) + len(uniq), buckets=_BATCH_BUCKETS
+        )
         self.flushes += 1
         self.last_timings = dict(timings, wall_s=time.perf_counter() - t0)
         for (_v, _k, _n, cb), shards in zip(encs, enc_out):
@@ -164,29 +190,30 @@ class RbcEraBatcher:
                 cb(verdicts[key])
         return len(encs) + len(interps)
 
-    def _run_encodes(self, encs: List[tuple], timings: dict) -> List[List[bytes]]:
+    def _run_encodes(self, era: int, encs: List[tuple],
+                     timings: dict) -> List[List[bytes]]:
         if not encs:
             return []
         return rs_batch.encode_batch(
             [(v, k, n) for (v, k, n, _cb) in encs], device=self.device,
-            timings=timings, mesh=self.mesh)
+            timings=timings, mesh=self.mesh, era=era)
 
     def _run_interps(
-        self, uniq: Dict[tuple, tuple], order: List[tuple], timings: dict
+        self, era: int, uniq: Dict[tuple, tuple], order: List[tuple], timings: dict
     ) -> Dict[tuple, Optional[bytes]]:
         verdicts: Dict[tuple, Optional[bytes]] = {}
         if not order:
             return verdicts
         payloads = rs_batch.decode_batch(
             [(uniq[key][0], uniq[key][1]) for key in order],
-            device=self.device, timings=timings, mesh=self.mesh)
+            device=self.device, timings=timings, mesh=self.mesh, era=era)
         # re-encode the successful reconstructions in one batch, then
         # recheck every Merkle commitment with ONE fused keccak call
         payload_of = dict(zip(order, payloads))
         ok_keys = [key for key, p in zip(order, payloads) if p is not None]
         reenc = rs_batch.encode_batch(
             [(payload_of[key], key[1], key[2]) for key in ok_keys],
-            device=self.device, timings=timings, mesh=self.mesh)
+            device=self.device, timings=timings, mesh=self.mesh, era=era)
         t = time.perf_counter()
         flat_leaves = hashes.keccak256_batch([s for shards in reenc for s in shards])
         trees, off = [], 0

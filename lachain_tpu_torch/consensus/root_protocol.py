@@ -20,10 +20,10 @@ event for event:
 The producer is a seam (`get_transactions_to_propose`, `create_header`,
 `produce_block`: the shape of the reference's BlockProducer), filled by a
 node, a test or `chip_smoke.py`; the router creates the protocol through
-its `extra_factories`. Not ported: the reference's `txtrace` stamps and
-its ECDSA timers; the seconds spent signing and verifying headers add up
-in the plain attributes `sign_s` and `verify_s`, which a chip run reads.
-Imports no torch.
+its `extra_factories`. The era's transactions are stamped "decide"
+(utils/txtrace.py) as in the reference; the seconds spent signing and
+verifying headers add up in the plain attributes `sign_s` and `verify_s`,
+which a chip run reads. Imports no torch.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Set
 from ..crypto import ecdsa
 from . import messages as M
 from .protocol import Broadcaster, Protocol
+from ..utils import txtrace
 
 NONCE_AGREEMENT = -1  # dedicated coin slot for the block nonce
 
@@ -103,6 +104,11 @@ class RootProtocol(Protocol):
                     seen.add(h)
                     txs.append(stx)
         self._txs = txs
+        # tx lifecycle: consensus agreed on the era's tx union (the decide
+        # point: every honest node derives the same set here)
+        txtrace.stamp_many(
+            (stx.hash() for stx in txs), "decide", era=self.id.era
+        )
         self._header = self._producer.create_header(
             self.id.era, txs, self._nonce
         )

@@ -32,13 +32,13 @@ random generators are explicit: the delivery order draws from
 random.Random(seed) as in the reference, each router's TPKE encryption
 and host RLC weights from `SeededRng(("router", seed, i))` where the
 reference draws from `secrets`, and the TPKE batcher's RLC weights from
-`SeededRng(("rlc", seed))`. A failed flush raises out of `run`. What a
-chip run reads is kept as plain attributes (`delivered_count`, the
-batchers' counters, `tpke_phase_s` / `rbc_phase_s`: each batcher's
-`last_timings` phases summed over the era's flushes, `coin_s`, the fault
-session's `stats`, `recovery_rounds`) in place of the reference's metrics
-and tracing: the queue-depth gauge and the `tracing.wait` span around the
-recovery are not carried.
+`SeededRng(("rlc", seed))`. A failed flush raises out of `run`. Besides
+the reference's metrics and spans (the `consensus_dispatch_queue_depth`
+gauge, 0 at quiescence, and the `tracing.wait("net")` span around the
+recovery), what a chip run reads stays as plain attributes
+(`delivered_count`, the batchers' counters, `tpke_phase_s` /
+`rbc_phase_s`: each batcher's `last_timings` phases summed over the era's
+flushes, `coin_s`, the fault session's `stats`, `recovery_rounds`).
 """
 from __future__ import annotations
 
@@ -49,6 +49,7 @@ from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 from . import messages as M
+from ..utils import metrics, tracing
 from .era import EraRouter
 from .keys import PrivateConsensusKeys, PublicConsensusKeys
 from ..crypto.provider import CryptoMemo
@@ -258,6 +259,7 @@ class SimulatedNetwork:
                     # the clock jumps to the earliest arrival
                     self._vtime = max(self._vtime, self._delayed[0][0])
                     continue
+                metrics.set_gauge("consensus_dispatch_queue_depth", 0)
                 # RBC before TPKE: interpolation verdicts unblock the READY
                 # and delivery traffic that feeds the ACS, whose completions
                 # grow the decryption-share batches
@@ -267,8 +269,13 @@ class SimulatedNetwork:
                 if self.crypto_batcher is not None and self.crypto_batcher.pending:
                     self._flush_tpke()
                     continue
-                if self.faults is not None and self._recover():
-                    continue
+                if self.faults is not None:
+                    # the outbox replay stands in for the message_request
+                    # exchange: waiting on it is a network receive wait
+                    with tracing.wait("net", kind="recover"):
+                        recovered = self._recover()
+                    if recovered:
+                        continue
                 return done()
             if self.delivered_count >= max_messages:
                 raise RuntimeError(

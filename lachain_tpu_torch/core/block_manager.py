@@ -23,11 +23,14 @@ exactly what executing the block produces.
 Differences, by the port's rules: `BlockManager(device="cuda")` is where a
 block's senders are recovered (`types.warm_sender_caches`, one batch of the
 card's secp256k1 kernels; asking for the card where there is none raises
-at construction); everything else runs on the host. The JAX package's
-spans (`exec.block`, `merkle.freeze`), its `block_execute` metric, chain
-gauges and the transaction-trace stamps are not carried over; no result
-depends on them. `last_parallel_stats` keeps the `ParallelStats` of the
-last emulation that ran the lanes (None after a serial one).
+at construction); everything else runs on the host. The reference's
+observability is kept: the spans `exec.block` and, inside it,
+`merkle.freeze` (the era report's `exec` and `merkle` phases, tagged with
+the block index as their era), the `block_execute` timer, the gauge
+`chain_height`, the counter `chain_txs_total` and the transactions'
+"exec" and "commit" stamps (utils/txtrace.py); no result depends on them.
+`last_parallel_stats` keeps the `ParallelStats` of the last emulation
+that ran the lanes (None after a serial one), which chip_smoke.py reads.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from ..storage.kv import EntryPrefix, KVStore, prefixed
 from ..storage.state import StateManager, StateRoots
 from ..storage.crashpoints import crash_point
-from ..utils import bloom
+from ..utils import bloom, metrics, tracing, txtrace
 from ..utils.serialization import write_u32, write_u64
 from .execution import TransactionExecuter, set_balance
 from .parallel_exec import (
@@ -152,26 +155,30 @@ class BlockManager:
             return em
         lanes = resolve_lanes(self.lanes)
         self.last_parallel_stats = None
-        if lanes > 1 and len(txs) >= MIN_PARALLEL_TXS:
-            snap, receipts, self.last_parallel_stats = execute_block_parallel(
-                self.executer,
-                self.state,
-                txs,
-                block_index,
-                base_roots,
-                lanes,
-                device=self.device,
+        with tracing.span("exec.block", cat="exec", era=block_index):
+            if lanes > 1 and len(txs) >= MIN_PARALLEL_TXS:
+                snap, receipts, self.last_parallel_stats = execute_block_parallel(
+                    self.executer,
+                    self.state,
+                    txs,
+                    block_index,
+                    base_roots,
+                    lanes,
+                    device=self.device,
+                )
+            else:
+                snap = self.state.new_snapshot(base_roots)
+                receipts = []
+                for i, stx in enumerate(txs):
+                    res = self.executer.execute(snap, stx, block_index, i)
+                    receipts.append(res.receipt)
+            event_addrs = tuple(
+                v[:20] for v in snap._writes["events"].values() if v
             )
-        else:
-            snap = self.state.new_snapshot(base_roots)
-            receipts = []
-            for i, stx in enumerate(txs):
-                res = self.executer.execute(snap, stx, block_index, i)
-                receipts.append(res.receipt)
-        event_addrs = tuple(
-            v[:20] for v in snap._writes["events"].values() if v
-        )
-        roots = snap.freeze()
+            # merkle nests inside exec.block and outranks it in the era
+            # report: the hashing's share splits from the execution's
+            with tracing.span("merkle.freeze", cat="merkle", era=block_index):
+                roots = snap.freeze()
         em = EmulationResult(
             roots=roots,
             state_hash=roots.state_hash(),
@@ -192,25 +199,34 @@ class BlockManager:
         multisig: MultiSig,
         check_state_hash: bool = True,
     ) -> Block:
-        # recover every sender up front in one batch on the device;
-        # ordering + execution then hit warm caches only (a block whose
-        # senders the ingest already recovered launches nothing here)
-        warm_sender_caches(txs, self.executer.chain_id, device=self.device)
-        txs = self.order_transactions(txs, self.executer.chain_id)
-        em = self.emulate(txs, header.index)
-        if check_state_hash and em.state_hash != header.state_hash:
-            raise ValueError(
-                f"state hash mismatch at block {header.index}: "
-                f"{em.state_hash.hex()} != {header.state_hash.hex()}"
+        with metrics.measure("block_execute"):
+            # recover every sender up front in one batch on the device;
+            # ordering + execution then hit warm caches only (a block whose
+            # senders the ingest already recovered launches nothing here)
+            warm_sender_caches(txs, self.executer.chain_id, device=self.device)
+            txs = self.order_transactions(txs, self.executer.chain_id)
+            # tx lifecycle: execution reached this block (stamped before
+            # emulate, so that a memo hit still marks when THIS node's
+            # execute touched it)
+            txtrace.stamp_many(
+                (stx.hash() for stx in txs), "exec", era=header.index
             )
-        if tx_merkle_root([t.hash() for t in txs]) != header.merkle_root:
-            raise ValueError("tx merkle root mismatch")
-        block = Block(
-            header=header,
-            tx_hashes=tuple(t.hash() for t in txs),
-            multisig=multisig,
-        )
-        self._persist(block, txs, em)
+            em = self.emulate(txs, header.index)
+            if check_state_hash and em.state_hash != header.state_hash:
+                raise ValueError(
+                    f"state hash mismatch at block {header.index}: "
+                    f"{em.state_hash.hex()} != {header.state_hash.hex()}"
+                )
+            if tx_merkle_root([t.hash() for t in txs]) != header.merkle_root:
+                raise ValueError("tx merkle root mismatch")
+            block = Block(
+                header=header,
+                tx_hashes=tuple(t.hash() for t in txs),
+                multisig=multisig,
+            )
+            self._persist(block, txs, em)
+        metrics.set_gauge("chain_height", block.header.index)
+        metrics.inc("chain_txs_total", len(txs))
         return block
 
     def _persist(self, block: Block, txs, em: EmulationResult) -> None:
@@ -273,6 +289,9 @@ class BlockManager:
         crash_point("block.persist.mid")
         self.state.commit(block.header.index, em.roots)
         crash_point("block.persist.post")
+        # the transactions' last stamp: the block holding them is durable
+        # (it closes tx_e2e_seconds of the sampled ones)
+        txtrace.stamp_many(block.tx_hashes, "commit", era=block.header.index)
         for cb in list(self.on_block_persisted):
             cb(block)
 

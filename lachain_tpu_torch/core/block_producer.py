@@ -15,14 +15,16 @@ The port of `lachain_tpu/core/block_producer.py`, bytes for bytes:
     pipelined-proposal overlay (`pipeline_overlay_push` / `clear`).
 
 This object is handed to `consensus/root_protocol.RootProtocol`, which
-keeps the consensus layer free of chain-state knowledge. The JAX
-package's transaction-trace stamps are not carried over. Imports no torch.
+keeps the consensus layer free of chain-state knowledge. A proposal's
+transactions are stamped "propose" (utils/txtrace.py), as in the
+reference. Imports no torch.
 """
 from __future__ import annotations
 
 import random
 from typing import List, Optional, Sequence
 
+from ..utils import txtrace
 from ..utils.serialization import Reader, write_bytes_list
 from .block_manager import BlockManager
 from .tx_pool import TransactionPool
@@ -125,6 +127,11 @@ class BlockProducer:
             window_txs=2 * self.txs_per_block,
             exclude=self._ov_exclude if self._ov_exclude else None,
             nonce_override=self._ov_nonces if self._ov_nonces else None,
+        )
+        # these transactions ride OUR proposal for era height + 1 (sampled
+        # only; the first stamp wins across repeated proposals)
+        txtrace.stamp_many(
+            (stx.hash() for stx in txs), "propose", era=height + 1
         )
         return txs
 

@@ -33,10 +33,11 @@ Each tx re-executes at most once, so a forced-100%-conflict workload
 degrades to one serial pass plus the (wasted) lane pass.
 
 Differences, by the port's rules: `execute_block_parallel` takes the
-`device` its senders are recovered on (`types.warm_sender_caches`); the
-JAX package's metrics (lanes, conflict rate, validated and straggler
-counts) are not carried over: the same numbers are in the returned
-`ParallelStats`.
+`device` its senders are recovered on (`types.warm_sender_caches`). The
+reference's metrics are minted under its names (the gauges `exec_lanes`
+and `exec_conflict_rate`, the counters `exec_txs_validated_total`,
+`exec_txs_straggler_total` and `exec_blocks_parallel_total`); the same
+numbers are in the returned `ParallelStats`.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..storage.state import Snapshot, StateManager, StateRoots
+from ..utils import metrics
 from .execution import TransactionExecuter
 from .types import SignedTransaction, TransactionReceipt, warm_sender_caches
 
@@ -304,4 +306,9 @@ def execute_block_parallel(
         stragglers=stragglers,
         lane_sizes=[len(l) for l in lanes],
     )
+    metrics.set_gauge("exec_lanes", stats.lanes)
+    metrics.set_gauge("exec_conflict_rate", stats.conflict_rate)
+    metrics.inc("exec_txs_validated_total", stats.validated)
+    metrics.inc("exec_txs_straggler_total", stats.stragglers)
+    metrics.inc("exec_blocks_parallel_total")
     return merged, receipts, stats

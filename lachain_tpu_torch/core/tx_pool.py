@@ -20,19 +20,26 @@ Lock ordering: shard lock -> `_nonce_lock` (state-trie nonce reads; the
 trie's LRU cache is not thread-safe). No path acquires two shard locks
 at once, so there is no cross-shard ordering to get wrong.
 
-Not carried over: the JAX package's `txpool_admit_lock_wait_seconds`
-histogram and the transaction-trace stamps; no result depends on them.
+As in the reference, the wait for a shard's lock is the histogram
+`txpool_admit_lock_wait_seconds`, and an admitted transaction is stamped
+"pool" (utils/txtrace.py) after the lock is released; no result depends
+on them.
 """
 from __future__ import annotations
 
 import heapq
 import random
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from ..storage.crashpoints import crash_point
 from ..storage.kv import EntryPrefix, KVStore, prefixed
 from .types import SignedTransaction
+from ..utils import metrics, txtrace
+
+# a shard lock's wait: uncontended ~1 us, contended up to a batch's work
+_LOCK_WAIT_BUCKETS = (1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 1e-1)
 
 _N_SHARDS = 16
 
@@ -101,7 +108,13 @@ class TransactionPool:
         if sender is None:
             return False
         shard = self._shard(sender)
+        t0 = time.perf_counter()
         with shard.lock:
+            metrics.observe_hist(
+                "txpool_admit_lock_wait_seconds",
+                time.perf_counter() - t0,
+                buckets=_LOCK_WAIT_BUCKETS,
+            )
             if h in shard.txs:
                 return False
             current = self._account_nonce(sender)
@@ -122,6 +135,9 @@ class TransactionPool:
             # restart (best-effort by design; gossip re-fills)
             crash_point("pool.save.mid")
             self._kv.put(prefixed(EntryPrefix.POOL_TX, h), stx.encode())
+        # outside the shard lock: sampled transactions only, and the first
+        # stamp wins across re-admissions
+        txtrace.stamp(h, "pool")
         return True
 
     # -- proposal --------------------------------------------------------------

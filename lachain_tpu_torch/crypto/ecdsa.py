@@ -50,6 +50,7 @@ import hmac
 from typing import List, Optional, Sequence, Tuple
 
 from .hashes import keccak256_host, sha256
+from ..utils import metrics
 
 # secp256k1 domain parameters
 P = 2**256 - 2**32 - 977
@@ -215,6 +216,7 @@ def _signature(d: int, z: int, k: int, pt: Tuple[int, int]) -> Optional[bytes]:
     return r.to_bytes(32, "big") + s.to_bytes(32, "big") + bytes([v])
 
 
+@metrics.timed("crypto_ec_sign")
 def sign_hash(priv: bytes, msg_hash: bytes) -> bytes:
     """65-byte recoverable signature r(32) || s(32) || v(1), low-s
     enforced, RFC 6979 nonce: the native library's, or `_sign_hash_py`'s
@@ -244,6 +246,7 @@ def _sign_hash_py(priv: bytes, msg_hash: bytes) -> bytes:
         extra += b"\x00"
 
 
+@metrics.timed("crypto_ec_verify")
 def verify_hash(pub: bytes, msg_hash: bytes, sig: bytes) -> bool:
     """Whether `sig` signs `msg_hash` under the compressed key `pub`: in
     the native library; a key or hash of irregular length takes
@@ -332,6 +335,7 @@ def ecies_decrypt(priv: bytes, data: bytes) -> bytes:
     return aes_gcm_decrypt(key, data[33:])
 
 
+@metrics.timed("crypto_ec_recover")
 def recover_hash(msg_hash: bytes, sig: bytes) -> Optional[bytes]:
     """Recover the compressed public key from a 65-byte signature, or None:
     in the native library; a hash of irregular length takes
@@ -385,6 +389,7 @@ def batch_recoverer(device="cuda"):
     return _RECOVERERS.setdefault(str(rec.device), rec)
 
 
+@metrics.timed("crypto_ec_recover_batch")
 def recover_hash_batch(
     hashes: Sequence[bytes], sigs: Sequence[bytes], device="cuda"
 ) -> List[Optional[bytes]]:
@@ -400,6 +405,7 @@ def recover_hash_batch(
     regular = [i for i in range(n) if len(hashes[i]) == 32 and len(sigs[i]) == 65]
     out: List[Optional[bytes]] = [None] * n
     got = rec.recover_batch([hashes[i] for i in regular], [sigs[i] for i in regular])
+    metrics.inc("crypto_tpu_ecdsa_recover_batches_total")
     for pos, i in enumerate(regular):
         out[i] = got[pos]
     regular_set = set(regular)

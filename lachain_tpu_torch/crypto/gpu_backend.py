@@ -16,7 +16,16 @@ check for that subset.
   * `ts_era_verify_combine`: common-coin signature shares (G2),
     TsGpuEraPipeline, synchronous (the reference has no async coin op).
 `era_calls`, `era_slots_total` and `ts_era_calls` count the era calls run
-to their end, as the reference's counters do.
+to their end, as the reference's counters do; its metrics are minted
+under its names (tpu_backend.py:238-524), always with `path="device"`
+since the port has no host route: the timers
+`crypto_tpu_era_verify_combine` / `crypto_tpu_ts_era_verify_combine`, the
+counters `crypto_tpu_era_kernel_calls_total`,
+`crypto_tpu_ts_era_kernel_calls_total`, `crypto_tpu_era_route_total`,
+`crypto_tpu_era_slots_padded_total`, `crypto_tpu_device_msm_calls_total`,
+and the histograms `crypto_tpu_era_batch_slots`,
+`crypto_tpu_era_pad_waste`, `crypto_tpu_era_pipeline_seconds` and
+`crypto_tpu_device_msm_seconds{group}`.
 `g1_msm` / `g2_msm` run on the card through `g1.msm_reduce` /
 `g2.msm2_reduce` (tpu_backend.py:207-267); `g1_msm_batch` runs many G1
 MSMs (a DKG's row checks and key derivation) in one such call.
@@ -50,6 +59,10 @@ from ..ops.verify import (
 )
 from ..parallel import mesh_by_default
 from ..parallel.mesh import MeshEraPipeline, canonical_device, cards_from
+from ..utils import metrics
+
+_SLOT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+_WASTE_BUCKETS = (0.0, 0.1, 0.2, 0.3, 0.4, 0.5)
 
 
 @dataclass
@@ -193,6 +206,7 @@ class GpuBackend:
             raise ValueError("one scalar per point")
         if not point_lists:
             return []
+        t0 = metrics.monotonic()
         k = _pow2_at_least(max(len(p) for p in point_lists))
         lanes, ss = [], []
         for pts, scs in zip(point_lists, scalar_lists):
@@ -214,6 +228,12 @@ class GpuBackend:
             if is_inf(out) and any(ss[g * k:(g + 1) * k]):
                 ESCAPES[name] += 1
                 outs[g] = getattr(self._host, name)(point_lists[g], scalar_lists[g])
+        metrics.inc("crypto_tpu_device_msm_calls_total")
+        metrics.observe_hist(
+            "crypto_tpu_device_msm_seconds",
+            metrics.monotonic() - t0,
+            labels={"group": "g2" if group2 else "g1"},
+        )
         return outs
 
     # -- the era-tick batch ops ----------------------------------------------
@@ -249,9 +269,20 @@ class GpuBackend:
             slots.append(
                 ([p if p is not None else inf_point for p in row], list(lag))
             )
-        for _ in range(_pow2_at_least(s) - s):
+        s_pad = _pow2_at_least(s)
+        for _ in range(s_pad - s):
             slots.append(([inf_point] * k, [0] * k))
             masks.append([False] * k)
+        # pad waste: the share of the padded slot axis burnt on dummy slots
+        metrics.inc("crypto_tpu_era_route_total", labels={"path": "device"})
+        metrics.inc("crypto_tpu_era_slots_padded_total", s_pad - s)
+        metrics.observe_hist(  # lint-allow: metric-name dimensionless slot-count distribution
+            "crypto_tpu_era_batch_slots", s, buckets=_SLOT_BUCKETS
+        )
+        metrics.observe_hist(  # lint-allow: metric-name dimensionless waste-fraction distribution
+            "crypto_tpu_era_pad_waste", 1.0 - s / s_pad, buckets=_WASTE_BUCKETS
+        )
+        t_dispatch = metrics.monotonic()
         dispatch = getattr(pipeline, "dispatch_era", None)
         if dispatch is not None:
             pipeline_fin = dispatch(slots, y_points, rng, masks=masks)
@@ -262,6 +293,11 @@ class GpuBackend:
         def finish() -> List[Tuple[bool, Optional[tuple]]]:
             aggs, _rlc = pipeline_fin()
             timings = dict(pipeline.last_timings)  # this era's, just finished
+            metrics.observe_hist(
+                "crypto_tpu_era_pipeline_seconds",
+                metrics.monotonic() - t_dispatch,
+                labels={"path": "device"},
+            )
 
             def group_ok(idx: List[int]) -> bool:
                 pairs = []
@@ -284,9 +320,21 @@ class GpuBackend:
         """The two-phase tpke_era_verify_combine: draws the RLC
         coefficients, packs the era and launches its kernels now, and
         returns a finish() giving the same per-job results. Eras dispatched
-        in order draw from `rng` as the same synchronous calls would."""
+        in order draw from `rng` as the same synchronous calls would. The
+        dispatch and the finish are each one `crypto_tpu_era_verify_combine`
+        timing, as in the reference."""
         if not jobs:
             return lambda: []
+        with metrics.measure("crypto_tpu_era_verify_combine"):
+            fin = self._tpke_dispatch(jobs, verification_keys, rng)
+
+        def finish() -> List[Tuple[bool, Optional[tuple]]]:
+            with metrics.measure("crypto_tpu_era_verify_combine"):
+                return fin()
+
+        return finish
+
+    def _tpke_dispatch(self, jobs, verification_keys, rng):
         fin = self._dispatch_era_batch(
             jobs,
             [j.u_by_validator for j in jobs],
@@ -302,6 +350,7 @@ class GpuBackend:
             results = fin()
             self.era_calls += 1
             self.era_slots_total += len(jobs)
+            metrics.inc("crypto_tpu_era_kernel_calls_total")
             return results
 
         return finish
@@ -316,7 +365,10 @@ class GpuBackend:
         whose shares fail the grand check is isolated by bisection and
         reports (False, None). The check per slot is
         e(u_agg, H) == e(y_agg, W)."""
-        return self.tpke_era_verify_combine_async(jobs, verification_keys, rng)()
+        if not jobs:
+            return []
+        with metrics.measure("crypto_tpu_era_verify_combine"):
+            return self._tpke_dispatch(jobs, verification_keys, rng)()
 
     def ts_era_verify_combine(
         self, jobs: Sequence[CoinJob], ts_public_keys, rng
@@ -329,15 +381,17 @@ class GpuBackend:
         check per coin is e(g1, sig_agg) == e(y_agg, H(coin id))."""
         if not jobs:
             return []
-        results = self._dispatch_era_batch(
-            jobs,
-            [j.sigma_by_signer for j in jobs],
-            [j.lagrange_row for j in jobs],
-            self._stable_y_points(ts_public_keys, "y"),
-            bls.G2_INF,
-            self._ts_pipeline,
-            lambda job, agg: [(bls.G1_GEN, agg[0]), (bls.g1_neg(agg[1]), job.h)],
-            rng,
-        )()
+        with metrics.measure("crypto_tpu_ts_era_verify_combine"):
+            results = self._dispatch_era_batch(
+                jobs,
+                [j.sigma_by_signer for j in jobs],
+                [j.lagrange_row for j in jobs],
+                self._stable_y_points(ts_public_keys, "y"),
+                bls.G2_INF,
+                self._ts_pipeline,
+                lambda job, agg: [(bls.G1_GEN, agg[0]), (bls.g1_neg(agg[1]), job.h)],
+                rng,
+            )()
         self.ts_era_calls += 1
+        metrics.inc("crypto_tpu_ts_era_kernel_calls_total")
         return results

@@ -36,6 +36,7 @@ from . import bls12381 as bls
 from .hashes import keccak256
 from .host import HostBackend, batch_bisect_verify, select_distinct
 from ..utils.serialization import Reader, write_bytes_list, write_u32
+from ..utils import metrics
 
 _SIG_DOMAIN = b"LTPU-TSIG"
 
@@ -105,6 +106,7 @@ class TsPublicKey:
         bad point)."""
         return cls((backend or _HOST).g1_deserialize(data))
 
+    @metrics.timed("crypto_ts_verify")
     def verify(self, msg: bytes, sig: Signature, backend) -> bool:
         """e(g1, sigma) == e(Y, H_G2(msg))."""
         h = _hash_to_sig_point(msg, backend)
@@ -140,6 +142,7 @@ class TsPublicKeySet:
         r.assert_eof()
         return cls(keys, t)
 
+    @metrics.timed("crypto_ts_verify_share")
     def verify_share(self, msg: bytes, ps: PartialSignature, backend) -> bool:
         """e(g1, sigma_i) == e(Y_i, H(msg))."""
         if not (0 <= ps.signer_id < len(self.keys)):
@@ -181,6 +184,7 @@ class TsPublicKeySet:
             results[i] = live_results[pos]
         return results
 
+    @metrics.timed("crypto_ts_combine")
     def combine(self, shares: Sequence[PartialSignature], backend) -> Signature:
         """Lagrange-assemble t+1 partial signatures in G2."""
         chosen = select_distinct(
@@ -265,6 +269,7 @@ class TsPrivateKeyShare:
         r.assert_eof()
         return cls(x, my_id)
 
+    @metrics.timed("crypto_ts_sign")
     def sign(self, msg: bytes, backend) -> PartialSignature:
         """sigma_i = H_G2(msg)^{x_i}."""
         h = _hash_to_sig_point(msg, backend)

@@ -36,6 +36,7 @@ from .hashes import xof
 from .host import HostBackend, batch_bisect_verify, select_distinct
 from .provider import deserialize_batch_g1, deserialize_batch_g2
 from ..utils.serialization import Reader, write_bytes, write_u32
+from ..utils import metrics
 
 _ENC_DOMAIN = b"LTPU-TPKE-PAD"
 _HW_DOMAIN = b"LTPU-TPKE-W"
@@ -193,6 +194,7 @@ class TpkePublicKey:
         r.assert_eof()
         return cls(y, t)
 
+    @metrics.timed("crypto_tpke_encrypt")
     def encrypt(self, msg: bytes, share_id: int, rng, backend=None) -> EncryptedShare:
         backend = backend or _HOST
         r = rng.randbelow(bls.R - 1) + 1
@@ -210,6 +212,7 @@ class TpkePublicKey:
             [(bls.G1_GEN, share.w), (bls.g1_neg(share.u), h)]
         )
 
+    @metrics.timed("crypto_tpke_verify_shares")
     def batch_verify_shares(
         self,
         vks: Sequence["TpkeVerificationKey"],
@@ -238,6 +241,7 @@ class TpkePublicKey:
 
         return batch_bisect_verify(group_ok, len(decs))
 
+    @metrics.timed("crypto_tpke_full_decrypt")
     def full_decrypt(
         self,
         share: EncryptedShare,
@@ -325,6 +329,7 @@ class TpkePrivateKey:
         r.assert_eof()
         return cls(x, my_id)
 
+    @metrics.timed("crypto_tpke_part_decrypt")
     def decrypt_share(
         self, share: EncryptedShare, check: bool = True, backend=None
     ) -> PartiallyDecryptedShare:
@@ -344,6 +349,7 @@ class TpkePrivateKey:
         )
 
 
+@metrics.timed("crypto_tpke_part_decrypt_batch")
 def decrypt_shares_batch(
     priv: TpkePrivateKey, shares: List[EncryptedShare], backend
 ) -> List[PartiallyDecryptedShare]:

@@ -25,9 +25,9 @@ link a base latency, jitter (with seeded burst windows) and a bandwidth
 cap enforced by a per-link pacer; shaped latency comes out of `decide()`
 as delays, so the simulator carries it without extra plumbing.
 
-Differences, by the port's rules: `FaultSession.stats` is the record (the
-reference's `fault_injected_total` metric is not carried: the port has no
-metrics yet). The reference's hub frame filters (`TcpFrameFilter`,
+Every injected fault counts in `fault_injected_total{action}`, as in the
+reference; `FaultSession.stats`, which the tests and chip_smoke.py read,
+counts beside it. The reference's hub frame filters (`TcpFrameFilter`,
 `AdversarialRelayFilter`, `KillSwitch`) wait for the port's TCP hub.
 """
 from __future__ import annotations
@@ -36,6 +36,8 @@ import random
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, FrozenSet, List, Mapping, Optional, Tuple
+
+from ..utils import metrics
 
 
 @dataclass(frozen=True)
@@ -350,24 +352,29 @@ class FaultSession:
         p = self.plan
         if self.link_blocked(src, dst):
             self.stats["blocked"] += 1
+            metrics.inc("fault_injected_total", labels={"action": "blocked"})
             return []
         if p.drop > 0 and self.rng.random() < p.drop:
             self.stats["dropped"] += 1
+            metrics.inc("fault_injected_total", labels={"action": "drop"})
             return []
         delays = [0.0]
         if p.delay > 0 and self.rng.random() < p.delay:
             lo, hi = p.delay_span
             delays[0] = lo + self.rng.random() * (hi - lo)
             self.stats["delayed"] += 1
+            metrics.inc("fault_injected_total", labels={"action": "delay"})
         if p.duplicate > 0 and self.rng.random() < p.duplicate:
             delays.append(0.0)
             self.stats["duplicated"] += 1
+            metrics.inc("fault_injected_total", labels={"action": "dup"})
         shaped = self._shape(src, dst, size)
         if shaped > 0:
             # every copy crosses the same link: shifting them all keeps the
             # duplicate's spacing
             delays = [d + shaped for d in delays]
             self.stats["shaped"] += 1
+            metrics.inc("fault_injected_total", labels={"action": "shape"})
         self.stats["delivered"] += 1
         return delays
 
@@ -401,4 +408,5 @@ class FaultSession:
         if self.plan.reorder <= 0 or self.rng.random() >= self.plan.reorder:
             return False
         self.stats["reordered"] += 1
+        metrics.inc("fault_injected_total", labels={"action": "reorder"})
         return True

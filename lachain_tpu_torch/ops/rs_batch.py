@@ -28,7 +28,10 @@ to the card once, in the kernels' forms (`operand`: GF(2^8) nibble tables,
 GF(2^16) log(A)), made on the host with numpy and keyed like the host
 caches; GF(2^16)'s exp and log tables go once per device.
 
-`LAUNCHES` counts the kernel launches of `rs_matmul` (CUDA only).
+`LAUNCHES` counts the kernel launches of `rs_matmul` (CUDA only). On a
+torch device the launches of a call and their wait are an `rs.device`
+span tagged with the caller's `era` (utils/tracing.py: the era report's
+`rbc_device` phase), as the reference spans its device product.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import torch
 from . import _build, rs_ref
 from .g1 import _on_cpu, _run
 from .verify import resolve_device
+from ..utils import tracing
 
 
 class GF:
@@ -443,7 +447,7 @@ def _add(timings: Optional[dict], key: str, t0: float) -> float:
 
 
 def _products(field: GF, groups, devs: Optional[list],
-              timings: Optional[dict]) -> List[np.ndarray]:
+              timings: Optional[dict], era: Optional[int] = None) -> List[np.ndarray]:
     """groups: [(matrix key, A (rows_g, k_g), [blocks (k_g, w) of B])] of
     one field -> each group's A @ [blocks] as big-endian wire symbols
     (field.be_dtype), (rows_g, sum of w). Over the devices `devs` (one, or
@@ -493,9 +497,18 @@ def _products(field: GF, groups, devs: Optional[list],
     for dev in used:
         torch.cuda.synchronize(dev)
     t = _add(timings, "pack_s", t)
-    outs = [rs_matmul(field.bits, mats, b, ws) for _cuts, ws, mats, b in shards]
-    for dev in used:
-        torch.cuda.synchronize(dev)
+    with tracing.span(
+        "rs.device",
+        era=era,
+        bits=field.bits,
+        rows=sum(a.shape[0] for _key, a, _b in groups),
+        cols=sum(widths),
+        cols_padded=sum(widths),
+        devices=n,
+    ):
+        outs = [rs_matmul(field.bits, mats, b, ws) for _cuts, ws, mats, b in shards]
+        for dev in used:
+            torch.cuda.synchronize(dev)
     t = _add(timings, "device_s", t)
     pieces: List[list] = [[] for _ in groups]  # a group's blocks in column order
     for (cuts, _ws, _mats, _b), out in zip(shards, outs):
@@ -546,7 +559,7 @@ def _devices(device, mesh) -> Optional[list]:
 
 def encode_batch(
     items: Sequence[Tuple[bytes, int, int]], device="cuda",
-    timings: Optional[dict] = None, mesh=None,
+    timings: Optional[dict] = None, mesh=None, era: Optional[int] = None,
 ) -> List[List[bytes]]:
     """Encode many (data, k, n) payloads; one matrix product per (field,
     k, n) group and one launch per field (a launch per device and field
@@ -555,7 +568,7 @@ def encode_batch(
     rs_batch.py:260-305, without its power-of-two padding). Returns
     per-item n-shard lists, ops/rs.py-bit-identical for n <= 255 and
     GF(2^16)-coded past that. `timings`, when given, accumulates the
-    phases' seconds."""
+    phases' seconds; `era` tags the call's `rs.device` span."""
     devs = _devices(device, mesh)
     results: List[Optional[List[bytes]]] = [None] * len(items)
     by_field: Dict[int, Dict[Tuple[int, int], List[int]]] = {}
@@ -569,7 +582,7 @@ def encode_batch(
                  [_coeff_matrix(field, items[i][0], k) for i in members])
                 for (k, n), members in groups.items()]
         _add(timings, "pack_s", t)
-        outs = _products(field, work, devs, timings)
+        outs = _products(field, work, devs, timings, era)
         t = time.perf_counter()
         for (_key, _v, blocks), members, out in zip(work, groups.values(), outs):
             off = 0
@@ -583,7 +596,7 @@ def encode_batch(
 
 def decode_batch(
     items: Sequence[Tuple[Sequence[Optional[bytes]], int]], device="cuda",
-    timings: Optional[dict] = None, mesh=None,
+    timings: Optional[dict] = None, mesh=None, era: Optional[int] = None,
 ) -> List[Optional[bytes]]:
     """Decode many (shards, k) items; shards is the full n-length list with
     None for missing entries. One matrix product per (field, k, erasure
@@ -591,7 +604,7 @@ def decode_batch(
     scalar path's failure conditions (short, mixed-size, odd GF(2^16) size,
     bad length prefix). The first k present shards are the ones used, and
     only their sizes are checked, as in the reference. `timings` and `mesh`
-    as in encode_batch, the host inverses apart ("inverse_s")."""
+    and `era` as in encode_batch, the host inverses apart ("inverse_s")."""
     devs = _devices(device, mesh)
     results: List[Optional[bytes]] = [None] * len(items)
     groups: Dict[Tuple[int, int, Tuple[int, ...]], List[int]] = {}
@@ -629,7 +642,7 @@ def decode_batch(
             for key, inv, members in work
         ]
         _add(timings, "pack_s", t)
-        outs = _products(field, prepared, devs, timings)
+        outs = _products(field, prepared, devs, timings, era)
         t = time.perf_counter()
         for (_key, _inv, blocks), (_k, _i, members), out in zip(prepared, work, outs):
             off = 0

@@ -40,6 +40,7 @@ from ..crypto.host import HostBackend
 from ..crypto.native_backend import NativeBackend
 from . import curve, g1, g2, glv, msm
 from .glv import W64, W128, W256
+from ..utils import tracing
 
 ESCAPES = {"tpke_combine": 0, "ts_combine": 0, "g1_msm": 0, "g2_msm": 0,
            "ecdsa_recover": 0, "tpke_verifier": 0}
@@ -257,6 +258,7 @@ class _EraDispatch:
 
     def __init__(self, pipeline, slots, rlc, timings, fused=None, stream=None,
                  spans=(), result=None):
+        self.span = None  # the era's `mesh.device` span (tracing), ended here
         self._pipeline = pipeline
         self._slots = slots
         self._rlc = rlc
@@ -278,8 +280,9 @@ class _EraDispatch:
             if self.done is not None:
                 t = self.timings
                 t0 = time.perf_counter()
-                for _start, last in self._spans:
-                    last.synchronize()
+                with tracing.wait("device", devices=len(self._spans)):
+                    for _start, last in self._spans:
+                        last.synchronize()
                 t1 = time.perf_counter()
                 t["wait_s"] = t1 - t0
                 t["device_s"] = max(a.elapsed_time(b) for a, b in self._spans) / 1e3
@@ -289,6 +292,8 @@ class _EraDispatch:
                 self._result = (out, self._rlc)
         finally:
             self._fused = None
+            if self.span is not None:
+                tracing.end(self.span)
             self._pipeline._release(self)
         return self._result
 
@@ -435,10 +440,23 @@ class _G1EraPipeline:
         rlc = era_rlc(slots, k, rng, masks)  # every lane's, before any cut
         s_pad, k_pad = self.padded_shape(s, k)
         self.pad_waste = 1.0 - s * k / (s_pad * k_pad)
-        stage = self._stage(s_pad, k_pad)
-        self._fill(stage, slots, rlc, s, k)
+        with tracing.span("mesh.marshal", cat="crypto", s=s, k=k, s_pad=s_pad,
+                          k_pad=k_pad):
+            stage = self._stage(s_pad, k_pad)
+            self._fill(stage, slots, rlc, s, k)
         run = self._dispatch_cpu if self._streams is None else self._dispatch_card
-        dispatch = run(stage, slots, y_points, rlc, s_pad, k_pad, t0)
+        # the device's busy window, dispatch to the finish's return: the era
+        # report's per-era device utilization (as the reference's mesh spans)
+        gathered = getattr(self, "gather_mb", 0.0)
+        sid = tracing.begin("mesh.device", cat="crypto", devices=int(self._grid.size),
+                            s_pad=s_pad, k_pad=k_pad)
+        try:
+            dispatch = run(stage, slots, y_points, rlc, s_pad, k_pad, t0)
+        except BaseException:
+            tracing.end(sid, outcome="exception")
+            raise
+        tracing.annotate(sid, allgather_mb=round(getattr(self, "gather_mb", 0.0) - gathered, 3))
+        dispatch.span = sid
         self.calls += 1
         self._inflight += 1
         return dispatch

@@ -40,6 +40,7 @@ import torch
 
 from ..ops import curve, g1, g2, msm
 from ..ops.verify import GpuEraPipeline, resolve_device, tpke_era_slots_step
+from ..utils import metrics
 
 
 class Mesh:
@@ -317,9 +318,11 @@ class MeshEraPipeline(GpuEraPipeline):
     `calls`, `n_devices`, `pad_waste` (of the last dispatch),
     `device_busy_s` (the finished eras' device phases summed) and
     `gather_mb` (the partials that crossed shards, summed: see `_join`)
-    take the place of the reference's gauges and spans (mesh.py:391-449);
-    `last_timings` holds the phases of the era finished last in
-    _EraDispatch's keys."""
+    count beside the reference's gauges `mesh_devices` and
+    `mesh_pad_waste_fraction`, set at each dispatch; the reference's spans
+    (`mesh.marshal`, `mesh.device`, `wait("device")`, mesh.py:401-467) are
+    the shared dispatch's (ops/verify._G1EraPipeline). `last_timings` holds
+    the phases of the era finished last in _EraDispatch's keys."""
 
     def __init__(self, backend=None, devices=None):
         self.mesh = make_era_mesh(devices)
@@ -327,6 +330,12 @@ class MeshEraPipeline(GpuEraPipeline):
         self.n_devices = int(self.mesh.devices.size)
         self.device_busy_s = 0.0
         self.gather_mb = 0.0
+
+    def _dispatch(self, slots, y_points, rng, masks=None):
+        dispatch = super()._dispatch(slots, y_points, rng, masks)
+        metrics.set_gauge("mesh_devices", self.n_devices)
+        metrics.set_gauge("mesh_pad_waste_fraction", round(self.pad_waste, 4))
+        return dispatch
 
     def padded_shape(self, s: int, k: int) -> tuple:
         """(s_pad, k_pad) the mesh runs for a live (s, k) era grid; the

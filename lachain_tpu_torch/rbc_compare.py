@@ -1,8 +1,8 @@
-"""Warm RBC flushes or TPKE eras of this tree beside earlier checkouts, on
-one card.
+"""Warm RBC flushes, TPKE eras or root eras of this tree beside earlier
+checkouts, on one card.
 
     python3 -m lachain_tpu_torch.rbc_compare --baseline DIR [--baseline DIR]
-        [--path rbc|tpke] [--eras 64 256] [--flushes 20] [--seed 1]
+        [--path rbc|tpke|root] [--eras 64 256] [--flushes 20] [--seed 1]
         [--out FILE]
 
 With `--path rbc` (the default) each tree runs `chip_smoke.py`'s own RBC
@@ -16,7 +16,16 @@ in ms. With `--path tpke` each tree runs `chip_smoke.py`'s TPKE era
 `tpke_era_verify_combine`: one cold era and 4 more that warm both of the
 pipeline's streams, then `--flushes` warm eras whose phases
 (`GpuBackend.last_timings`: pack, launch, device, wait, fetch, pairing)
-and wall are kept in ms; every slot must verify. The trees take turns,
+and wall are kept in ms; every slot must verify. With `--path root` each
+tree runs `chip_smoke.py`'s N=64 root era (`root_era_inputs`, TAKE_FIRST,
+both batchers; give `--eras 64`, whose value is not read) on the native
+engine once to warm, then on the Python engine and on the native engine
+`--flushes` times each, outside torch.profiler: `python_wall` and
+`native_wall` in ms (`root_run`'s wall), every run's block hash and
+delivered_count the same; a tree with `lachain_tpu_torch/utils/tracing.py`
+runs each era in an "era" span with chip_smoke's TRACE_CAPACITY rings, as
+chip_smoke.py's root eras run, and adds `python_report` and
+`native_report`, the era report's ms. The trees take turns,
 the baselines, this tree, this tree and the baselines again, so that a
 drift of the card or its host shows as a gap between a tree's two runs.
 A DIR is an unpacked earlier checkout (`git archive <commit>
@@ -77,7 +86,60 @@ for i in range(5 + eras):
 print(json.dumps(phases))
 """
 
-_CHILDREN = {"rbc": _CHILD, "tpke": _TPKE_CHILD}
+_ROOT_CHILD = r"""
+import contextlib, json, sys, time
+root, _n, runs, seed = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+sys.path.insert(0, root)
+import chip_smoke
+from lachain_tpu_torch.consensus.simulator import DeliveryMode, SimulatedNetwork
+from lachain_tpu_torch.ops import verify
+assert verify.__file__.startswith(root), verify.__file__
+try:
+    from lachain_tpu_torch.utils import tracing
+except ImportError:  # a tree before the tracer
+    tracing = None
+pub, privs, proposals, _signer, parent = chip_smoke.root_era_inputs(seed)
+phases, seen = {}, set()
+
+
+def era(engine):
+    chip_smoke.clear_block_memos()
+    if tracing is not None:
+        tracing.reset_for_tests()
+        tracing.set_capacity(chip_smoke.TRACE_CAPACITY)
+    if engine == "native":
+        net, _p = chip_smoke.native_root_net(pub, privs, proposals, "cuda", parent, seed,
+                                             DeliveryMode.TAKE_FIRST)
+        if tracing is not None:
+            net.trace_configure(chip_smoke.TRACE_CAPACITY)
+    else:
+        factories, _p = chip_smoke.root_factories(pub, privs, proposals, "cuda", parent)
+        net = SimulatedNetwork(pub, privs, seed=seed, mode=DeliveryMode.TAKE_FIRST,
+                               use_rbc_batcher=True, device="cuda", extra_factories=factories)
+    span = tracing.span("era", era=0) if tracing is not None else contextlib.nullcontext()
+    with span:
+        wall, blocks = chip_smoke.root_run(net, range(chip_smoke.HB_N))
+    seen.add((blocks[0].header.hash().hex(), net.delivered_count))
+    out = {f"{engine}_wall": wall * 1e3}
+    if tracing is not None:
+        t0 = time.perf_counter()
+        tracing.era_report()
+        out[f"{engine}_report"] = (time.perf_counter() - t0) * 1e3
+    if engine == "native":
+        net.close()
+    return out
+
+
+era("native")
+for _ in range(runs):
+    for engine in ("python", "native"):
+        for k, v in era(engine).items():
+            phases.setdefault(k, []).append(v)
+assert len(seen) == 1, seen
+print(json.dumps(phases))
+"""
+
+_CHILDREN = {"rbc": _CHILD, "tpke": _TPKE_CHILD, "root": _ROOT_CHILD}
 
 
 def run_tree(root: Path, n: int, flushes: int, seed: int, path: str = "rbc") -> dict:

@@ -13,9 +13,8 @@ Backends:
     `write_batch_async` overlaps a batch's fsync with the caller's work.
 
 Every backend writes the JAX package's rows: a MemoryKV's rows, a SQLite
-file and an LSM directory open in either package. Differences, by the
-port's rules: the reference's `fsync` wait span is not carried (the port
-has no tracing).
+file and an LSM directory open in either package. SqliteKV's fsynced
+commit is a `tracing.wait("fsync")` span, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ import threading
 from typing import Dict, Iterator, List, Optional, Tuple
 
 from .crashpoints import crash_point
+from ..utils import tracing
 
 
 class EntryPrefix(enum.IntEnum):
@@ -207,7 +207,8 @@ class SqliteKV(KVStore):
                 # after the writes, before the fsynced commit: the window
                 # a kill -9 must roll back entirely
                 crash_point("kv.write_batch.mid")
-                self._conn.commit()
+                with tracing.wait("fsync"):
+                    self._conn.commit()
             except BaseException:
                 # a half-written batch must not linger in the open implicit
                 # transaction, or the next put() would commit it

@@ -27,25 +27,42 @@ durable but never acked or applied) and lsm.compact.mid (the merged SST
 renamed into place, the manifest swap lost). The bytes on disk are the
 same in raise and SIGKILL modes.
 
-Differences, by the port's rules: `stats()` returns the engine's
-counters and publishes no metrics gauges, and the engine's flight
-recorder is switched off at open and never drained (the port has no
-metrics or tracing module yet); there is no `LACHAIN_LSM_LIB` override
+The flight recorder is on from open, sized `tracing.DEFAULT_CAPACITY`
+records (`trace_configure` resizes it; 0 switches it off), and registered
+with the merged tracer (utils/tracing.py) under a process lane of its own,
+its engine threads (caller, wal-writer, flusher, compactor) as rows. A
+drain (`_drain_trace`) copies the ring's raw bytes under `_lock`, releases
+it, and only then decodes them and feeds the metrics: the WAL fsync
+latency `lsm_wal_fsync_seconds`, the group-commit size
+`lsm_wal_group_commit_records`, `wait_seconds{resource="fsync"}` of a
+caller's durability stall, and the ring's overwrites in
+`trace_events_dropped_total{source="lsm"}`. (The reference decodes under
+the lock, so a metrics call that re-entered the store would deadlock.)
+`stats()` returns the engine's counters and sets the read-path gauges
+(`lsm_bloom_hits`, `lsm_cache_hit_ratio`, `lsm_compaction_backlog`, ...).
+
+Differences, by the port's rules: there is no `LACHAIN_LSM_LIB` override
 (the reference's sanitizer gate is not ported). No lock is taken on a
-path that can run inside another locked section: `close` takes `_lock`
-only to retire the handle, and there is no finalizer.
+path that can run inside another locked section: `close` drains and
+unregisters before it takes `_lock` to retire the handle, and there is no
+finalizer (the weakly held drain unregisters itself once the store is
+gone).
 """
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
 import signal
+import struct
 import threading
+import weakref
 from typing import Dict, Iterator, List, Optional, Tuple
 
 from . import crashpoints
 from .crashpoints import MODE_SIGKILL, InjectedCrash, crash_point
 from .kv import KVStore
+from ..utils import metrics, tracing
 
 ENGINE_VERSION = 6  # lsm_version() of the engine this binding speaks
 
@@ -62,8 +79,25 @@ _STAT_FIELDS = (
     "memtable_bytes",
     "imm_memtables",
     "compact_backlog",  # tables beyond the compaction trigger point
-    "trace_dropped",    # flight-recorder ring evictions (0: it is off)
+    "trace_dropped",    # flight-recorder ring evictions
 )
+
+# lsm.cpp's trace records: 32 bytes big-endian, the consensus engine's frame
+# (u64 ts_ns, u64 dur_ns, u32 kind, u32 tid, u32 a, u32 b)
+_TRACE_RECORD = struct.Struct(">QQIIII")
+_LK_NAMES = {
+    20: "wal_encode",  # a = payload bytes
+    21: "wal_fsync",   # a = group-commit records, b = bytes written
+    22: "memtable_seal",  # a = bytes, b = new WAL segment
+    23: "memtable_flush",  # a = bytes, b = sst seq
+    24: "compaction",  # a = input tables, b = output seq
+    25: "wait:fsync",  # caller blocked on durability; a = wait resource
+}
+_LK_WAL_FSYNC, _LK_WAIT = 21, 25
+_LT_NAMES = {0: "caller", 1: "wal-writer", 2: "flusher", 3: "compactor"}
+# record counts of a group commit are small integers
+_GROUP_COMMIT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+_next_trace_pid = itertools.count(3)  # pid 1 = python, 2 = consensus
 
 _P = ctypes.c_void_p
 _BUF = ctypes.POINTER(ctypes.c_ubyte)
@@ -96,6 +130,9 @@ _SIGNATURES = {
     "lsm_table_count": (_U64, [_P]),
     "lsm_version": (ctypes.c_int, []),
     "lsm_trace_configure": (None, [_P, _U64]),
+    "lsm_trace_dropped": (_U64, [_P]),
+    "lsm_trace_drain": (_U64, [_P, _BUF, _U64]),
+    "lsm_monotonic_ns": (_U64, []),
 }
 _LIB: list = []
 _LIB_LOCK = threading.Lock()
@@ -181,8 +218,93 @@ class LsmKV(KVStore):
         )
         if not self._h:
             raise IOError(f"cannot open LSM store at {path!r}")
-        # nothing in the port drains the flight recorder: switch it off
-        self._lib.lsm_trace_configure(self._h, 0)
+        # the flight recorder: size the ring, put its clock on
+        # time.monotonic's, register it with the merged tracer (a process
+        # lane of its own; the engine's threads are its rows)
+        self._trace_offset = tracing.clock_offset(self._lib.lsm_monotonic_ns)
+        self._trace_dropped_seen = 0
+        self._trace_pid = next(_next_trace_pid)
+        self._trace_source = f"lsm-{os.path.basename(path) or path}-{id(self):x}"
+        self._lib.lsm_trace_configure(self._h, tracing.DEFAULT_CAPACITY)
+        ref = weakref.ref(self)
+        source = self._trace_source
+
+        def drain() -> List[dict]:
+            store = ref()
+            if store is None:
+                tracing.unregister_native_source(source)
+                return []
+            return store._drain_trace()
+
+        tracing.register_native_source(source, drain)
+
+    # -- flight recorder -------------------------------------------------------
+    def trace_configure(self, capacity: int) -> None:
+        """Resize the engine's trace ring (records); 0 switches it off."""
+        with self._lock:
+            if self._h:
+                self._lib.lsm_trace_configure(self._h, max(int(capacity), 0))
+
+    def _decode_trace(self, raw: bytes) -> List[dict]:
+        """Raw ring bytes -> the merged tracer's events; feeds the WAL's
+        fsync and group-commit histograms and the fsync waits. Called with
+        `_lock` released."""
+        evs: List[dict] = []
+        pname = self._trace_source.rsplit("-", 1)[0]
+        for i in range(0, len(raw) - (len(raw) % 32), 32):
+            ts, dur, kind, tid, a, b = _TRACE_RECORD.unpack_from(raw, i)
+            is_wait = kind == _LK_WAIT  # a caller's durability stall
+            evs.append({
+                "name": _LK_NAMES.get(kind, str(kind)),
+                "cat": "native.wait" if is_wait else "native.lsm",
+                "start": ts / 1e9 + self._trace_offset,
+                "end": (ts + dur) / 1e9 + self._trace_offset,
+                "pid": self._trace_pid,
+                "pname": pname,
+                "tid": tid,
+                "tname": _LT_NAMES.get(tid, str(tid)),
+                "args": {"resource": "fsync"} if is_wait else {"a": a, "b": b},
+            })
+            if is_wait:
+                metrics.observe_hist(
+                    "wait_seconds", dur / 1e9, labels={"resource": "fsync"}
+                )
+            if kind == _LK_WAL_FSYNC:
+                metrics.observe_hist("lsm_wal_fsync_seconds", dur / 1e9)
+                metrics.observe_hist(  # lint-allow: metric-name dimensionless record-count distribution
+                    "lsm_wal_group_commit_records", a,
+                    buckets=_GROUP_COMMIT_BUCKETS,
+                )
+        return evs
+
+    def _drain_trace(self) -> List[dict]:
+        """Consume the engine's ring -> the merged tracer's events. The raw
+        bytes and the drop count are copied under `_lock`; the decode, the
+        histograms and the drop counter run after it is released, so that
+        no metrics call runs inside the store's lock."""
+        raw = b""
+        with self._lock:
+            if not self._h:
+                return []
+            for _ in range(4):
+                need = self._lib.lsm_trace_drain(self._h, None, 0)
+                if need == 0:
+                    break
+                buf = (ctypes.c_ubyte * (need + 4096))()
+                got = self._lib.lsm_trace_drain(self._h, buf, len(buf))
+                if got <= len(buf):
+                    raw = bytes(buf[:got])
+                    break
+            dropped = int(self._lib.lsm_trace_dropped(self._h))
+        evs = self._decode_trace(raw)
+        if dropped > self._trace_dropped_seen:
+            metrics.inc(
+                "trace_events_dropped_total",
+                dropped - self._trace_dropped_seen,
+                labels={"source": "lsm"},
+            )
+            self._trace_dropped_seen = dropped
+        return evs
 
     def get(self, key: bytes) -> Optional[bytes]:
         val = ctypes.POINTER(ctypes.c_ubyte)()
@@ -361,12 +483,36 @@ class LsmKV(KVStore):
 
     def stats(self) -> Dict[str, int]:
         """The engine's counters (bloom and block-cache hits, WAL fsyncs
-        and records, compactions, tables, memtable bytes, backlog)."""
+        and records, compactions, tables, memtable bytes, backlog, ring
+        overwrites); sets the read-path gauges as a side effect."""
         arr = (ctypes.c_uint64 * len(_STAT_FIELDS))()
         self._lib.lsm_stats(self._h, arr, len(_STAT_FIELDS))
-        return dict(zip(_STAT_FIELDS, (int(v) for v in arr)))
+        out = dict(zip(_STAT_FIELDS, (int(v) for v in arr)))
+        self._publish_metrics(out)
+        return out
+
+    @staticmethod
+    def _publish_metrics(stats: Dict[str, int]) -> None:
+        metrics.set_gauge("lsm_bloom_hits", stats["bloom_hits"])
+        metrics.set_gauge("lsm_bloom_misses", stats["bloom_misses"])
+        lookups = stats["cache_hits"] + stats["cache_misses"]
+        metrics.set_gauge(
+            "lsm_cache_hit_ratio",
+            stats["cache_hits"] / lookups if lookups else 0.0,
+        )
+        metrics.set_gauge("lsm_table_count", stats["table_count"])
+        metrics.set_gauge("lsm_compactions_total", stats["compactions"])
+        metrics.set_gauge("lsm_wal_fsyncs_total", stats["wal_fsyncs"])
+        metrics.set_gauge("lsm_wal_records_total", stats["wal_records"])
+        # a backlog that stays with compactions flat: a starved compactor
+        metrics.set_gauge("lsm_compaction_backlog", stats["compact_backlog"])
 
     def close(self) -> None:
+        """Drain the ring into the merged tracer (its histogram samples
+        included), unregister it, and close the engine (idempotent)."""
+        if self._h:
+            tracing.drain_native()
+            tracing.unregister_native_source(self._trace_source)
         with self._lock:
             if self._h:
                 self._lib.lsm_close(self._h)

@@ -13,10 +13,11 @@ Hashing goes through the port's host library: a single key or node in one
 level of deferred nodes) in one `hashes.keccak256_batch` call, threaded in
 C++. Without the library they raise; there is no per-item fallback.
 
-Differences, by the port's rules: the two metrics histograms the
-reference's `_resolve_deferred` and `_set_merkle_stats` feed are not
-carried (the port has no metrics module yet); `merkle_stats`, the plain
-attribute, is.
+The reference's metrics are minted under its names: the histogram
+`trie_keccak_batch_size` (each level's batch), the counter
+`trie_nodes_hashed_total` and the gauge `trie_merkle_workers`; the plain
+attribute `merkle_stats`, which chip_smoke.py reads, accumulates beside
+them.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 from ..crypto.hashes import keccak256_batch, keccak256_host as keccak256
+from ..utils import metrics
 from ..utils.serialization import Reader, write_bytes, write_u16
 from .kv import EntryPrefix, KVStore, prefixed
 
@@ -38,6 +40,8 @@ _NIBBLES = 64  # keccak256 -> 64 nibbles
 # bookkeeping costs more than the per-node keccak dispatch it saves
 MIN_DEFER_OPS = 32    # deferred level-batched hashing
 MIN_SHARD_OPS = 512   # subtrie-sharded workers
+# the sizes of the keccak batches a level of deferred nodes makes
+_KECCAK_BATCH_BUCKETS = (16, 64, 256, 1024, 4096, 16384, 65536)
 
 
 def resolve_merkle_workers(n: int) -> int:
@@ -532,6 +536,11 @@ class Trie:
             h0 = time.perf_counter()
             hashes = keccak256_batch(encs, nthreads)
             hash_s += time.perf_counter() - h0
+            metrics.observe_hist(  # lint-allow: metric-name dimensionless batch-size distribution
+                "trie_keccak_batch_size",
+                len(encs),
+                buckets=_KECCAK_BATCH_BUCKETS,
+            )
             # bulk C-level stores instead of a per-node interpreted loop
             keys = [trie_node + h for h in hashes]
             pairs = list(zip(keys, encs))
@@ -564,6 +573,8 @@ class Trie:
         st["assemble_s"] = st.get("assemble_s", 0.0) + max(wall - hash_s, 0.0)
         st["nodes"] = int(st.get("nodes", 0)) + nodes
         st["workers"] = max(int(st.get("workers", 0)), workers)
+        metrics.inc("trie_nodes_hashed_total", nodes)
+        metrics.set_gauge("trie_merkle_workers", workers)
 
     def _bulk(self, node_hash: bytes, ops, depth: int) -> bytes:
         if not ops:
